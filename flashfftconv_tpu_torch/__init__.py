@@ -1,0 +1,28 @@
+"""flashfftconv_tpu_torch: the PyTorch and CUDA port of flashfftconv_tpu.
+
+Long depthwise FFT convolutions y = iFFT(FFT(u) * FFT(k)) as hand-written
+CUDA kernels for Hopper (sm_90a), a short depthwise conv kernel, and the
+Hyena language model on top of them. Public API parity with the JAX
+package for what this port covers; entry points run on CUDA unless the
+caller passes ``device="cpu"``.
+"""
+
+from flashfftconv_tpu_torch.module import FlashDepthWiseConv1d, FlashFFTConv
+from flashfftconv_tpu_torch.ops.depthwise import depthwise_conv1d
+from flashfftconv_tpu_torch.ops.dispatch import fft_conv
+from flashfftconv_tpu_torch.ops.monarch import fft_conv_plain, fft_conv_reference
+from flashfftconv_tpu_torch.ops.plan import FftPlan, default_factors, make_plan
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "FlashFFTConv",
+    "FlashDepthWiseConv1d",
+    "FftPlan",
+    "make_plan",
+    "default_factors",
+    "fft_conv",
+    "fft_conv_plain",
+    "fft_conv_reference",
+    "depthwise_conv1d",
+]

@@ -1,0 +1,171 @@
+"""Plain PyTorch Monarch FFT convolution: the CPU path and the kernels' oracle.
+
+Every function here repeats, with dense per-stage matmuls on the plan's
+tables, the arithmetic that the CUDA kernels in ``monarch_cuda`` do with
+in-register line DFTs:
+
+  * the real input (length N, zero-padded) is packed as a complex signal of
+    length M = N/2 (even samples real, odd samples imaginary);
+  * ``monarch_dft`` takes its M-point complex DFT into Monarch layout;
+  * ``_split`` turns that into the half spectrum X[0..M] of the real input;
+  * the product with the kernel's half spectrum is unsplit (``_unsplit``)
+    and ``monarch_idft`` brings it back to time, where real and imaginary
+    parts are the even and odd output samples.
+
+All math is complex64 (f32 real and imaginary parts). ``fft_conv_reference``
+is the ``torch.fft`` oracle and serves the tests only.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flashfftconv_tpu_torch.ops.plan import FftPlan, kf_permute, kf_unpermute
+
+
+def _along(x: torch.Tensor, axis: int, mat: torch.Tensor) -> torch.Tensor:
+    """Apply ``mat`` (f, f) along ``axis`` of x: out[..k..] = sum_n mat[k, n] x[..n..]."""
+    return torch.movedim(torch.movedim(x, axis, -1) @ mat.T, -1, axis)
+
+
+def _twiddle_shape(plan: FftPlan, j: int, w: torch.Tensor) -> torch.Tensor:
+    return w.reshape(plan.factors[j:])
+
+
+def monarch_dft(plan: FftPlan, z: torch.Tensor) -> torch.Tensor:
+    """Forward Monarch DFT: complex (..., M) natural -> (..., f1, ..., fm).
+
+    Output layout: X[..., k1, ..., km] = FFT_M(z)[k1 + f1*k2 + f1*f2*k3 + ...].
+    """
+    factors = plan.factors
+    m = len(factors)
+    batch = z.shape[:-1]
+    x = z.reshape(*batch, *factors)
+    nb = len(batch)
+    for j in range(m):
+        x = _along(x, nb + j, plan.dft[j])
+        if j < m - 1:
+            x = x * _twiddle_shape(plan, j, plan.tw[j])
+    return x
+
+
+def monarch_idft(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse Monarch DFT: (..., f1, ..., fm) -> complex (..., M), with 1/M
+    (folded into the stage-0 inverse matrix)."""
+    factors = plan.factors
+    m = len(factors)
+    nb = x.ndim - m
+    for j in range(m - 1, -1, -1):
+        if j < m - 1:
+            x = x * _twiddle_shape(plan, j, plan.tw[j]).conj()
+        x = _along(x, nb + j, plan.idft[j])
+    return x.reshape(*x.shape[:nb], math.prod(factors))
+
+
+def _pack(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Real (..., L <= n) -> complex (..., n/2): zero-pad to n, even samples
+    real, odd samples imaginary."""
+    x = x.float()
+    if x.shape[-1] < n:
+        x = torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    return torch.complex(x[..., 0::2], x[..., 1::2])
+
+
+def _unpack(z: torch.Tensor) -> torch.Tensor:
+    """Complex (..., M) -> real (..., 2M) interleaving real and imaginary parts."""
+    return torch.stack((z.real, z.imag), dim=-1).flatten(-2)
+
+
+def _split(plan: FftPlan, z_f: torch.Tensor) -> torch.Tensor:
+    """Natural-order M-point spectrum Z of the packed signal -> half
+    spectrum X[0..M] of the real signal: X[k] = Xe[k] + W^k Xo[k] with
+    Xe = (Z[k] + conj Z[M-k]) / 2, Xo = (Z[k] - conj Z[M-k]) / 2i."""
+    ze = torch.cat((z_f, z_f[..., :1]), dim=-1)  # Z[M] = Z[0]
+    zr = ze.flip(-1).conj()  # conj Z[M-k]
+    return 0.5 * (ze + zr) + plan.split_tw * (0.5 * (ze - zr) / 1j)
+
+
+def _unsplit(plan: FftPlan, y: torch.Tensor) -> torch.Tensor:
+    """Half spectrum Y[0..M] of a real signal -> natural-order M-point
+    spectrum of its packed form: Ye + i*Yo with Ye = (Y[k] + conj Y[M-k]) / 2,
+    Yo = (Y[k] - conj Y[M-k]) conj(W^k) / 2."""
+    yr = y.flip(-1).conj()
+    ye = 0.5 * (y + yr)
+    yo = 0.5 * (y - yr) * plan.split_tw.conj()
+    return (ye + 1j * yo)[..., :-1]
+
+
+def rfft_plain(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
+    """Real (..., L <= N) -> complex64 half spectrum (..., M+1) of the
+    zero-padded signal, natural order (== torch.fft.rfft(x, n=N))."""
+    z_f = kf_unpermute(monarch_dft(plan, _pack(x, plan.seqlen)), plan.factors)
+    return _split(plan, z_f)
+
+
+def irfft_plain(plan: FftPlan, y: torch.Tensor) -> torch.Tensor:
+    """Half spectrum (..., M+1) -> real f32 signal (..., N)
+    (== torch.fft.irfft(y, n=N))."""
+    z = monarch_idft(plan, kf_permute(_unsplit(plan, y), plan.factors))
+    return _unpack(z)
+
+
+def kernel_spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
+    """Half spectrum of the real conv kernel k (..., k_len <= N), computed in
+    f32: complex64 (..., M+1), natural order."""
+    return rfft_plain(plan, k)
+
+
+def conv_with_spectrum(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None = None,
+    postgate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``postgate * irfft(rfft(pre*u) * k_f)[..., :L]`` for k_f (H, M+1),
+    the plain version of the ``monarch_conv`` kernel. The pregate product
+    rounds to u's dtype, as the kernels and the JAX package do."""
+    length = u.shape[-1]
+    if length > plan.seqlen:
+        raise ValueError(f"input length {length} > plan seqlen {plan.seqlen}")
+    ug = u if pregate is None else u * pregate
+    y = irfft_plain(plan, rfft_plain(plan, ug) * k_f)[..., :length]
+    if postgate is not None:
+        y = y * postgate.float()
+    return y.to(u.dtype)
+
+
+def fft_conv_plain(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k: torch.Tensor,
+    pregate: torch.Tensor | None = None,
+    postgate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Monarch FFT convolution in plain PyTorch (same semantics as the JAX
+    package's ``fft_conv_xla``): u (..., H, L <= N), k (H, k_len <= N),
+    optional (..., H, L) gates; output at u's dtype."""
+    if k.shape[-1] > plan.seqlen:
+        raise ValueError(f"kernel length {k.shape[-1]} > plan seqlen {plan.seqlen}")
+    return conv_with_spectrum(plan, u, kernel_spectrum(plan, k), pregate, postgate)
+
+
+def fft_conv_reference(
+    seqlen: int,
+    u: torch.Tensor,
+    k: torch.Tensor,
+    pregate: torch.Tensor | None = None,
+    postgate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """f32 ``torch.fft`` oracle (the JAX package's ``fft_conv_reference``)."""
+    length = u.shape[-1]
+    if pregate is not None:
+        u = u * pregate
+    u_f = torch.fft.fft(u.float(), n=seqlen, dim=-1)
+    k_f = torch.fft.fft(k.float(), n=seqlen, dim=-1)
+    out = torch.fft.ifft(u_f * k_f, n=seqlen, dim=-1).real[..., :length]
+    if postgate is not None:
+        out = out * postgate.float()
+    return out.to(u.dtype)

@@ -1,0 +1,252 @@
+"""FFT plans for the CUDA port: exact DFT and twiddle tables and the factorization.
+
+A length-``N`` causal FFT convolution of a real signal is computed through a
+complex FFT of length ``M = N/2``: the even samples go to the real part and
+the odd samples to the imaginary part, and an O(M) split step turns the
+complex spectrum ``Z`` into the half spectrum ``X[0..M]`` of the real signal
+(and back). The length-``M`` complex FFT is Monarch-decomposed: pick factors
+``M = f_1 * ... * f_m``, view the signal as ``(f_1, ..., f_m)`` and apply,
+for each stage ``j``, a DFT of size ``f_j`` along axis ``j`` followed by an
+elementwise twiddle multiply. The Monarch output ``X[k1, ..., km]`` holds
+frequency ``k1 + f1*k2 + f1*f2*k3 + ...``.
+
+The factorization is chosen for Hopper, not for the TPU: one thread block
+holds one row of ``M`` complex f32 values in shared memory (128 KB at
+N = 32768), and each thread owns one line of a stage in registers, so the
+factors are at most 32 and as even as possible. The Monarch layout stays
+inside the kernels; the spectrum that leaves them is in natural order.
+
+All DFT and twiddle phases are computed with exact integer arithmetic mod n
+in float64 before the final exp, then stored as complex64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+MIN_SEQLEN = 256
+MAX_SEQLEN = 32768
+MAX_FACTOR = 32
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; a CUDA device needs a card. The port's entry
+    points default to CUDA and never carry on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain versions"
+        )
+    return device
+
+
+def is_supported_seqlen(seqlen: int) -> bool:
+    return MIN_SEQLEN <= seqlen <= MAX_SEQLEN and (seqlen & (seqlen - 1)) == 0
+
+
+def default_factors(seqlen: int) -> tuple[int, ...]:
+    """Factors of the inner complex FFT length ``M = seqlen // 2``.
+
+    The fewest stages whose factors are all <= MAX_FACTOR, with the bits of
+    M spread as evenly as possible (larger factors first): 32768 -> (32, 32,
+    16), 16384 -> (32, 16, 16), 2048 -> (32, 32), 256 -> (16, 8).
+    """
+    if not is_supported_seqlen(seqlen):
+        raise ValueError(
+            f"seqlen {seqlen} not supported: must be a power of two in "
+            f"[{MIN_SEQLEN}, {MAX_SEQLEN}]"
+        )
+    bits = (seqlen // 2).bit_length() - 1
+    max_bits = MAX_FACTOR.bit_length() - 1
+    stages = -(-bits // max_bits)
+    per, extra = divmod(bits, stages)
+    return tuple(1 << (per + (1 if j < extra else 0)) for j in range(stages))
+
+
+def _dft_matrix(n: int, sign: int) -> np.ndarray:
+    """n x n (I)DFT matrix, complex128. sign=-1 forward, +1 inverse (unnormalized)."""
+    idx = np.arange(n, dtype=np.int64)
+    phase = (idx[:, None] * idx[None, :]) % n
+    return np.exp(sign * 2j * np.pi * phase.astype(np.float64) / n)
+
+
+def _twiddle(f: int, r: int, sign: int) -> np.ndarray:
+    """(f, r) twiddle table w[k, t] = exp(sign * 2*pi*i * k * t / (f*r))."""
+    n = f * r
+    k = np.arange(f, dtype=np.int64)[:, None]
+    t = np.arange(r, dtype=np.int64)[None, :]
+    phase = (k * t) % n
+    return np.exp(sign * 2j * np.pi * phase.astype(np.float64) / n)
+
+
+def _roots(n: int) -> np.ndarray:
+    """(n,) roots of unity exp(-2*pi*i * k / n), k = 0..n-1."""
+    k = np.arange(n, dtype=np.int64)
+    return np.exp(-2j * np.pi * k.astype(np.float64) / n)
+
+
+@dataclasses.dataclass(frozen=True)
+class FftPlan:
+    """Tables for a length-``seqlen`` real FFT convolution on one device.
+
+    ``factors`` factor the inner complex length ``M = seqlen // 2``.
+    All tables are complex64:
+
+      dft[j], idft[j]: (f_j, f_j) forward / inverse DFT matrices; the
+                       stage-0 inverse carries the 1/M normalization.
+      tw[j]:           (f_j, R_j) forward twiddles of stage j < m-1,
+                       R_j = prod(factors[j+1:]); the inverse uses conj.
+      tw_flat:         every tw[j] flattened and concatenated (the kernels
+                       read stage j at offset sum_{i<j} f_i * R_i).
+      split_tw:        (M+1,) exp(-2*pi*i*k/N), the split-step twiddle.
+      roots:           (MAX_FACTOR,) exp(-2*pi*i*k/MAX_FACTOR), from which
+                       the kernels build every in-register line DFT.
+
+    ``dtype`` is the activation dtype the plan was built for. The port
+    computes in f32 whatever it is, and keeps the kernel spectrum in f32.
+    """
+
+    seqlen: int
+    factors: tuple[int, ...]
+    dtype: torch.dtype
+    dft: tuple[torch.Tensor, ...]
+    idft: tuple[torch.Tensor, ...]
+    tw: tuple[torch.Tensor, ...]
+    tw_flat: torch.Tensor
+    split_tw: torch.Tensor
+    roots: torch.Tensor
+
+    @property
+    def inner(self) -> int:
+        return self.seqlen // 2
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.factors)
+
+    @property
+    def device(self) -> torch.device:
+        return self.split_tw.device
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """Every table by a flat name (for registering them as buffers)."""
+        out = {"tw_flat": self.tw_flat, "split_tw": self.split_tw, "roots": self.roots}
+        for j in range(self.n_stages):
+            out[f"dft_{j}"] = self.dft[j]
+            out[f"idft_{j}"] = self.idft[j]
+        return out
+
+    def with_tensors(self, tensors: dict[str, torch.Tensor]) -> "FftPlan":
+        """The same plan over the given tables (as ``tensors()`` names them)."""
+        m = self.n_stages
+        tw_flat = tensors["tw_flat"]
+        return dataclasses.replace(
+            self,
+            dft=tuple(tensors[f"dft_{j}"] for j in range(m)),
+            idft=tuple(tensors[f"idft_{j}"] for j in range(m)),
+            tw=_split_twiddles(tw_flat, self.factors),
+            tw_flat=tw_flat,
+            split_tw=tensors["split_tw"],
+            roots=tensors["roots"],
+        )
+
+
+def _split_twiddles(tw_flat: torch.Tensor, factors) -> tuple[torch.Tensor, ...]:
+    out, off, r = [], 0, math.prod(factors)
+    for f in factors[:-1]:
+        r //= f
+        out.append(tw_flat[off : off + f * r].view(f, r))
+        off += f * r
+    return tuple(out)
+
+
+def make_plan(
+    seqlen: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cuda",
+    factors: tuple[int, ...] | None = None,
+) -> FftPlan:
+    """Build an FftPlan on ``device``; ``factors`` (of seqlen // 2) default
+    to default_factors."""
+    if dtype == torch.float16:
+        dtype = torch.bfloat16
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"plan dtype must be bfloat16 or float32, got {dtype}")
+    if not is_supported_seqlen(seqlen):
+        raise ValueError(
+            f"seqlen {seqlen} not supported: must be a power of two in "
+            f"[{MIN_SEQLEN}, {MAX_SEQLEN}]"
+        )
+    m = seqlen // 2
+    factors = default_factors(seqlen) if factors is None else tuple(int(f) for f in factors)
+    if math.prod(factors) != m:
+        raise ValueError(f"factors {factors} do not multiply to {m}")
+    if any(f < 2 or f > MAX_FACTOR or f & (f - 1) for f in factors):
+        raise ValueError(f"factors {factors} must be powers of two in [2, {MAX_FACTOR}]")
+    device = resolve_device(device)
+
+    def c64(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a.astype(np.complex64))).to(device)
+
+    dft, idft, tw = [], [], []
+    r = m
+    for j, f in enumerate(factors):
+        r //= f
+        inv = _dft_matrix(f, +1)
+        if j == 0:
+            inv = inv / m  # fold the 1/M normalization into one matrix
+        dft.append(c64(_dft_matrix(f, -1)))
+        idft.append(c64(inv))
+        if j < len(factors) - 1:
+            tw.append(_twiddle(f, r, -1).reshape(-1))
+    tw_flat = c64(np.concatenate(tw) if tw else np.zeros(1, np.complex128))
+    k = np.arange(m + 1, dtype=np.int64)
+    split_tw = c64(np.exp(-2j * np.pi * k.astype(np.float64) / seqlen))
+    return FftPlan(
+        seqlen=seqlen,
+        factors=factors,
+        dtype=dtype,
+        dft=tuple(dft),
+        idft=tuple(idft),
+        tw=_split_twiddles(tw_flat, factors),
+        tw_flat=tw_flat,
+        split_tw=split_tw,
+        roots=c64(_roots(MAX_FACTOR)),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(seqlen: int, dtype: torch.dtype, device: str) -> FftPlan:
+    return make_plan(seqlen, dtype=dtype, device=device)
+
+
+def get_plan(seqlen: int, dtype: torch.dtype = torch.bfloat16, device="cuda") -> FftPlan:
+    """Cached plan lookup: every layer of a model on one device shares one plan."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _cached_plan(seqlen, dtype, str(device))
+
+
+def kf_permute(x: torch.Tensor, factors: tuple[int, ...]) -> torch.Tensor:
+    """Natural order (..., n) -> Monarch layout (..., f1, ..., fm), where
+    element [k1, ..., km] holds index k1 + f1*k2 + f1*f2*k3 + ..."""
+    batch = x.shape[:-1]
+    nb = len(batch)
+    y = x.reshape(*batch, *factors[::-1])
+    perm = tuple(range(nb)) + tuple(nb + len(factors) - 1 - i for i in range(len(factors)))
+    return y.permute(perm)
+
+
+def kf_unpermute(x: torch.Tensor, factors: tuple[int, ...]) -> torch.Tensor:
+    """Inverse of kf_permute: Monarch layout (..., f1, ..., fm) -> natural (..., n)."""
+    batch = x.shape[: -len(factors)]
+    nb = len(batch)
+    perm = tuple(range(nb)) + tuple(nb + len(factors) - 1 - i for i in range(len(factors)))
+    return x.permute(perm).reshape(*batch, math.prod(factors))

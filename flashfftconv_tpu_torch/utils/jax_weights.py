@@ -1,0 +1,77 @@
+"""Carry a flax parameter tree over to the port's modules.
+
+``from_jax_params`` maps the params of the JAX package's ``ConvLMHeadModel``
+(hyena mixer), given as a nested dict with numpy leaves, onto the state dict
+of ``flashfftconv_tpu_torch.models.lm.ConvLMHeadModel``;
+``hyena_operator_state_dict`` does the same for one ``HyenaOperator``. Flax
+``Dense`` kernels are (in, out) and are transposed to ``nn.Linear``'s
+(out, in); ``in_proj`` is already (out, in); LayerNorm ``scale`` becomes
+``weight``. The result loads with ``load_state_dict(..., strict=True)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(tree, prefix: str) -> dict[str, torch.Tensor]:
+    out = {f"{prefix}.weight": _t(tree["kernel"]).T.contiguous()}
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _t(tree["bias"])
+    return out
+
+
+def _norm(tree, prefix: str) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(tree["scale"]), f"{prefix}.bias": _t(tree["bias"])}
+
+
+def hyena_filter_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax HyenaFilter params -> port HyenaFilter state dict."""
+    out = {f"{prefix}bias": _t(tree["bias"])}
+    for name, sub in tree.items():
+        if name.startswith("layers_"):
+            i = int(name.split("_")[1])
+            if "freq" in sub:
+                out[f"{prefix}layers.{i}.freq"] = _t(sub["freq"])
+            else:
+                out.update(_dense(sub, f"{prefix}layers.{i}"))
+        elif name == "mixer":  # linear_mixer=True: the one Dense, unnamed in the port
+            out.update(_dense(sub, f"{prefix}layers.0"))
+        elif name == "modulation":
+            out[f"{prefix}modulation.deltas"] = _t(sub["deltas"])
+    return out
+
+
+def hyena_operator_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax HyenaOperator params -> port HyenaOperator state dict."""
+    out = {f"{prefix}in_proj": _t(tree["in_proj"])}
+    if "in_proj_b" in tree:
+        out[f"{prefix}in_proj_b"] = _t(tree["in_proj_b"])
+    sf = tree["short_filter"]
+    out[f"{prefix}short_filter.weights"] = _t(sf["weights"])
+    out[f"{prefix}short_filter.bias"] = _t(sf["bias"])
+    out.update(hyena_filter_state_dict(tree["filter"], f"{prefix}filter."))
+    out.update(_dense(tree["out_proj"], f"{prefix}out_proj"))
+    return out
+
+
+def from_jax_params(params) -> dict[str, torch.Tensor]:
+    """flax ConvLMHeadModel params (hyena mixer, tied head) -> port state dict."""
+    out = {"embeddings.weight": _t(params["embeddings"]["embedding"])}
+    backbone = params["backbone"]
+    out.update(_norm(backbone["ln_f"], "backbone.ln_f"))
+    for name, block in backbone.items():
+        if not name.startswith("block_"):
+            continue
+        p = f"backbone.blocks.{int(name.split('_')[1])}."
+        out.update(_norm(block["norm1"], p + "norm1"))
+        out.update(_norm(block["norm2"], p + "norm2"))
+        out.update(hyena_operator_state_dict(block["mixer"], p + "mixer."))
+        out.update(_dense(block["mlp"]["fc1"], p + "mlp.fc1"))
+        out.update(_dense(block["mlp"]["fc2"], p + "mlp.fc2"))
+    return out

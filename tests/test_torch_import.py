@@ -1,0 +1,61 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and chip_smoke.py refuses to run without a GPU or away from the package."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "flashfftconv_tpu_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, flashfftconv_tpu_torch, flashfftconv_tpu_torch.models.lm, "
+        "flashfftconv_tpu_torch.utils.generation, flashfftconv_tpu_torch.utils.jax_weights\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+        "'flashfftconv_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, env=_env(), cwd=ROOT, timeout=120)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_no_jax_import_statement(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "flashfftconv_tpu"), (
+                f"{path} imports {name}"
+            )
+
+
+def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for cwd in (ROOT, tmp_path):
+        script = ROOT / "chip_smoke.py"
+        if cwd == tmp_path:
+            script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+        proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                              cwd=cwd, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -1,0 +1,331 @@
+"""Parity of the PyTorch port's ops (flashfftconv_tpu_torch) with the JAX package.
+
+The same inputs, made from a seed with numpy, go through the JAX function
+(its Pallas kernels in interpret mode, as the JAX tests run them on the CPU,
+or its oracle) and through the port on the CPU, where each kernel wrapper
+runs its plain version. Tolerances: f32 paths at atol 1e-4 on outputs of
+order 1 to 10 (both sides are f32 FFT chains; the measured gap is ~3e-6);
+bf16 paths at the repo's 1e-2, with the kernel scaled so that |y| <= 0.5
+(the JAX kernels round their matmul operands to bf16 at every stage and
+land one or two bf16 ulps, <= 4e-3 each at |y| <= 0.5, from the f32 result
+that the port rounds once).
+The CUDA kernels are held against their plain versions on the card in
+test_torch_gpu.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flashfftconv_tpu as jff
+import flashfftconv_tpu_torch as tff
+from flashfftconv_tpu.ops import depthwise as jdw
+from flashfftconv_tpu.ops import monarch_pallas
+from flashfftconv_tpu.ops import plan as jplan
+from flashfftconv_tpu_torch.ops import depthwise as tdw
+from flashfftconv_tpu_torch.ops import dispatch, monarch, monarch_cuda
+from flashfftconv_tpu_torch.ops import plan as tplan
+
+CPU = "cpu"
+
+
+def _np(x):
+    return np.array(x, np.float32)
+
+
+def _conv_data(rng, b, h, length, k_len, gated, y_max=None):
+    """Unit-normal inputs and gates, a kernel 0.1 * N(0, 1) * exp(-t/50);
+    with y_max the kernel is rescaled so that the largest |output| is y_max."""
+    u = rng.standard_normal((b, h, length)).astype(np.float32)
+    k = (rng.standard_normal((h, k_len)) * 0.1 * np.exp(-np.arange(k_len) / 50)).astype(
+        np.float32
+    )
+    gates = [rng.standard_normal((b, h, length)).astype(np.float32)
+             for _ in range(2 if gated else 0)]
+    if y_max is not None:
+        y = jff.fft_conv_reference(2 * max(length, k_len), *(jnp.asarray(a) for a in (u, k, *gates)))
+        k = (k * (y_max / float(jnp.abs(y).max()))).astype(np.float32)
+    return u, k, gates
+
+
+# --- plan -----------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192, 16384, 32768])
+def test_default_factors_cover_sizes(n):
+    f = tplan.default_factors(n)
+    assert int(np.prod(f)) == n // 2
+    assert all(2 <= x <= tplan.MAX_FACTOR and x & (x - 1) == 0 for x in f)
+
+
+@pytest.mark.parametrize("n", [128, 1000, 65536])
+def test_unsupported_seqlen_raises(n):
+    with pytest.raises(ValueError):
+        tplan.make_plan(n, device=CPU)
+
+
+def test_tables_are_exact_dft():
+    p = tplan.make_plan(4096, torch.float32, device=CPU)
+    for j, f in enumerate(p.factors):
+        np.testing.assert_allclose(p.dft[j].numpy(), np.fft.fft(np.eye(f), axis=0), atol=1e-6)
+        inv = np.fft.ifft(np.eye(f), axis=0) * f / (p.inner if j == 0 else 1)
+        np.testing.assert_allclose(p.idft[j].numpy(), inv, atol=1e-6)
+    k = np.arange(p.inner + 1)
+    np.testing.assert_allclose(p.split_tw.numpy(), np.exp(-2j * np.pi * k / 4096), atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [256, 2048, 32768])
+def test_monarch_dft_matches_fft(n):
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    rng = np.random.default_rng(n)
+    z = torch.from_numpy((rng.standard_normal((3, n // 2)) + 1j * rng.standard_normal(
+        (3, n // 2))).astype(np.complex64))
+    got = tplan.kf_unpermute(monarch.monarch_dft(p, z), p.factors)
+    ref = torch.fft.fft(z)
+    assert float((got - ref).abs().max()) < 1e-5 * float(ref.abs().max())
+    back = monarch.monarch_idft(p, monarch.monarch_dft(p, z))
+    assert float((back - z).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+def test_rfft_irfft_plain_match_torch_fft(n):
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 5, n - 7)).astype(np.float32))
+    ref = torch.fft.rfft(x, n=n)
+    assert float((monarch.rfft_plain(p, x) - ref).abs().max()) < 1e-5 * float(ref.abs().max())
+    y = torch.fft.irfft(ref, n=n)
+    assert float((monarch.irfft_plain(p, ref.to(torch.complex64)) - y).abs().max()) < 1e-5
+
+
+def test_kf_permute_roundtrip_matches_jax():
+    x = np.arange(2 * 4096, dtype=np.float32).reshape(2, 4096)
+    for factors in [(32, 128), (16, 16, 16)]:
+        got = tplan.kf_permute(torch.from_numpy(x), factors).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jplan.kf_permute(jnp.asarray(x), factors)))
+        np.testing.assert_array_equal(tplan.kf_unpermute(torch.from_numpy(got), factors).numpy(), x)
+
+
+# --- spectrum (kernel: _spectrum_tiles) -----------------------------------
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_spectrum_matches_jax_spectrum_tiles(n):
+    """The port's spectrum wrapper (plain on the CPU) against the JAX kernel
+    _spectrum_tiles, called directly so it runs in interpret mode; compared
+    in natural order through the plan's unpermute."""
+    h, k_len = 8, n // 2
+    rng = np.random.default_rng(n)
+    k = (rng.standard_normal((h, k_len)) * np.exp(-np.arange(k_len) / 200)).astype(np.float32)
+    jp = jff.make_plan(n, compute_dtype=jnp.float32)
+    n1, n2 = jp.factors
+    k4 = jnp.pad(jnp.asarray(k), ((0, 0), (0, n - k_len))).reshape(h, n1, n2)
+    re, im = monarch_pallas._spectrum_tiles(
+        k4, jp.dft_re[0], jp.dft_im[0], jp.tw_re[0], jp.tw_im[0], jp.dft_re[1], jp.dft_im[1],
+        plan_factors=jp.factors, compute_dtype="float32", out_dtype="float32",
+    )
+    full = tplan.kf_unpermute(torch.complex(torch.from_numpy(_np(re)), torch.from_numpy(_np(im))),
+                              jp.factors)
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    got = monarch_cuda.spectrum(p, torch.from_numpy(k))
+    assert got.shape == (h, n // 2 + 1) and got.dtype == torch.complex64
+    np.testing.assert_allclose(got.numpy(), full[:, : n // 2 + 1].numpy(), atol=1e-4)
+
+
+# --- monarch_conv (kernel: _conv_fused_io_tiles) --------------------------
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("case", ["ungated", "gated", "padded", "gated_padded"])
+def test_conv_matches_jax_pallas_f32(n, case):
+    """f32: the port's wrappers (spectrum + monarch_conv, plain on the CPU)
+    against fft_conv(impl='pallas') (the fused Pallas kernels in interpret
+    mode) and the JAX fft oracle, at atol 1e-4."""
+    gated = "gated" in case
+    length = n // 2 if "padded" in case else n
+    u, k, gates = _conv_data(np.random.default_rng(n), 2, 16, length, length, gated)
+    jp = jff.make_plan(n, compute_dtype=jnp.float32)
+    jargs = [jnp.asarray(a) for a in (u, k, *gates)]
+    y_pallas = _np(jff.fft_conv(jp, *jargs, impl="pallas"))
+    y_ref = _np(jff.fft_conv_reference(n, *jargs))
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    tu, tk, *tg = (torch.from_numpy(a) for a in (u, k, *gates))
+    got = monarch_cuda.monarch_conv(p, tu, monarch_cuda.spectrum(p, tk), *tg).numpy()
+    np.testing.assert_allclose(got, y_pallas, atol=1e-4)
+    np.testing.assert_allclose(got, y_ref, atol=1e-4)
+    np.testing.assert_allclose(tff.fft_conv(p, tu, tk, *tg).numpy(), y_ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+@pytest.mark.parametrize("gated", [False, True])
+def test_conv_matches_jax_pallas_bf16(n, gated):
+    """bf16 I/O at the repo's 1e-2 (module docstring)."""
+    u, k, gates = _conv_data(np.random.default_rng(n + 1), 2, 16, n // 2, n // 2, gated,
+                             y_max=0.5)
+    jp = jff.make_plan(n, compute_dtype=jnp.bfloat16)
+    jargs = [jnp.asarray(a, jnp.bfloat16) if i != 1 else jnp.asarray(a)
+             for i, a in enumerate((u, k, *gates))]
+    y_pallas = _np(jff.fft_conv(jp, *jargs, impl="pallas").astype(jnp.float32))
+    p = tplan.make_plan(n, torch.bfloat16, device=CPU)
+    targs = [torch.from_numpy(_np(a.astype(jnp.float32))) for a in jargs]
+    targs = [t.to(torch.bfloat16) if i != 1 else t for i, t in enumerate(targs)]
+    got = dispatch.fft_conv(p, *targs)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), y_pallas, atol=1e-2)
+
+
+@pytest.mark.parametrize("b,h,length,k_len", [(3, 5, 301, 77), (1, 1, 1024, 1024), (5, 3, 1, 4)])
+def test_conv_any_shape(b, h, length, k_len):
+    """Odd B, ragged H and any L <= N, which the JAX fused kernel sends to
+    its fallback: the port's path against the JAX fft oracle."""
+    n = 1024
+    u, k, gates = _conv_data(np.random.default_rng(7), b, h, length, k_len, True)
+    y_ref = _np(jff.fft_conv_reference(n, *(jnp.asarray(a) for a in (u, k, *gates))))
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    got = tff.fft_conv(p, *(torch.from_numpy(a) for a in (u, k, *gates)))
+    np.testing.assert_allclose(got.numpy(), y_ref, atol=1e-4)
+
+
+def test_conv_reference_matches_jax_reference():
+    u, k, gates = _conv_data(np.random.default_rng(3), 2, 4, 700, 300, True)
+    y_ref = _np(jff.fft_conv_reference(2048, *(jnp.asarray(a) for a in (u, k, *gates))))
+    got = tff.fft_conv_reference(2048, *(torch.from_numpy(a) for a in (u, k, *gates)))
+    np.testing.assert_allclose(got.numpy(), y_ref, atol=1e-6)
+
+
+def test_module_matches_jax_module():
+    u, k, gates = _conv_data(np.random.default_rng(4), 2, 6, 1000, 1000, True)
+    jconv = jff.FlashFFTConv(2048, dtype=jnp.float32)
+    tconv = tff.FlashFFTConv(2048, dtype=torch.float32, device=CPU)
+    for args in [(u, k), (u, k, *gates)]:
+        ref = _np(jconv(*(jnp.asarray(a) for a in args)))
+        got = tconv(*(torch.from_numpy(a) for a in args)).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+    assert sorted(dict(tconv.named_buffers())) == sorted(tconv.plan.tensors())
+    with pytest.raises(ValueError):
+        tconv(torch.from_numpy(u), torch.from_numpy(k), torch.from_numpy(gates[0]))
+
+
+def test_plain_path_is_differentiable_on_cpu():
+    p = tplan.make_plan(512, torch.float32, device=CPU)
+    g = torch.Generator().manual_seed(0)
+    u = (torch.randn(2, 3, 256, generator=g) * 0.1).requires_grad_()
+    k = (torch.randn(3, 256, generator=g) * 0.1).requires_grad_()
+    loss = tff.fft_conv(p, u, k).square().sum()
+    loss.backward()
+    u2, k2 = u.detach().requires_grad_(), k.detach().requires_grad_()
+    tff.fft_conv_reference(512, u2, k2).square().sum().backward()
+    torch.testing.assert_close(u.grad, u2.grad, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(k.grad, k2.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_dispatch_routes_and_errors():
+    p = tplan.make_plan(512, torch.float32, device=CPU)
+    u, k = torch.randn(1, 2, 256), torch.randn(2, 256)
+    assert dispatch.resolve_impl(u, "auto") == "plain"
+    before = (monarch_cuda.spectrum.launches, monarch_cuda.monarch_conv.launches)
+    for impl in ("auto", "plain", "fft"):
+        torch.testing.assert_close(dispatch.fft_conv(p, u, k, impl=impl),
+                                   tff.fft_conv_reference(512, u, k), atol=1e-5, rtol=0)
+    assert (monarch_cuda.spectrum.launches, monarch_cuda.monarch_conv.launches) == before
+    with pytest.raises(ValueError, match="cuda"):
+        dispatch.fft_conv(p, u, k, impl="cuda")
+    with pytest.raises(ValueError):
+        dispatch.fft_conv(p, u, k, impl="pallas")
+    with pytest.raises(ValueError, match="together|both"):
+        dispatch.fft_conv(p, u, k, pregate=u)
+    with pytest.raises(ValueError):
+        dispatch.fft_conv(p, torch.randn(1, 2, 513), k)
+
+
+def test_entry_points_default_to_cuda():
+    """Without a card, every entry point that defaults to CUDA raises; it
+    never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+
+    for make in (
+        lambda: tplan.make_plan(1024),
+        lambda: tff.FlashFFTConv(1024),
+        lambda: tff.FlashDepthWiseConv1d(8, 3, 1),
+        lambda: ConvLMHeadModel(d_model=8, n_layer=1, d_inner=16, vocab_size=16, l_max=128),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+# --- depthwise (kernel: _pallas_depthwise) --------------------------------
+
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("k,pad", [(3, (2, 0)), (3, 1), (5, (4, 0)), (5, 2)])
+def test_depthwise_matches_jax_pallas(is_bhl, k, pad):
+    """The depthwise wrapper (plain on the CPU) against the JAX Pallas
+    kernel in interpret mode, f32 at atol 1e-4."""
+    rng = np.random.default_rng(k)
+    b, d, length = 2, 128, 256
+    x = rng.standard_normal((b, d, length) if is_bhl else (b, length, d)).astype(np.float32)
+    w = rng.standard_normal((d, k) if is_bhl else (k, d)).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
+    ref = _np(jdw.depthwise_conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                   padding=pad, is_bhl=is_bhl, impl="pallas"))
+    got = tdw.depthwise(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                        pad, is_bhl)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("is_bhl", [True, False])
+def test_depthwise_bf16_matches_jax_pallas(is_bhl):
+    rng = np.random.default_rng(11)
+    b, d, length = 2, 256, 512
+    x = rng.standard_normal((b, d, length) if is_bhl else (b, length, d)).astype(np.float32)
+    w = (rng.standard_normal((d, 3) if is_bhl else (3, d)) * 0.3).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    ref = _np(jdw.depthwise_conv1d(xj, jnp.asarray(w), None, padding=(2, 0), is_bhl=is_bhl,
+                                   impl="pallas").astype(jnp.float32))
+    xt = torch.from_numpy(_np(xj.astype(jnp.float32))).to(torch.bfloat16)
+    got = tff.depthwise_conv1d(xt, torch.from_numpy(w), None, padding=(2, 0), is_bhl=is_bhl)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2)
+
+
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("shape,k,pad", [((3, 37, 101), 3, (2, 0)), ((1, 5, 9), 7, (6, 3)),
+                                         ((2, 130, 4), 3, 0)])
+def test_depthwise_any_shape(is_bhl, shape, k, pad):
+    """Shapes the JAX kernel does not take (D % 128, ragged L, wide pads)
+    against the JAX shift form."""
+    b, d, length = shape
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((b, d, length) if is_bhl else (b, length, d)).astype(np.float32)
+    w = rng.standard_normal((d, k) if is_bhl else (k, d)).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
+    ref = _np(jdw.depthwise_conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                   padding=pad, is_bhl=is_bhl, impl="shifts"))
+    got = tff.depthwise_conv1d(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                               padding=pad, is_bhl=is_bhl)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+def test_depthwise_errors():
+    x, w = torch.randn(1, 4, 16), torch.randn(4, 2)
+    w3 = torch.randn(4, 3)
+    torch.testing.assert_close(tff.depthwise_conv1d(x, w3, padding=1, impl="plain"),
+                               tff.depthwise_conv1d(x, w3, padding=1), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="odd"):
+        tff.depthwise_conv1d(x, w, padding=1)
+    with pytest.raises(ValueError):
+        tff.depthwise_conv1d(x, torch.randn(4, 3), impl="pallas")
+    with pytest.raises(ValueError, match="cuda"):
+        tff.depthwise_conv1d(x, torch.randn(4, 3), impl="cuda")
+
+
+def test_depthwise_module_matches_jax_module():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 16, 40)).astype(np.float32)
+    w = rng.standard_normal((16, 3)).astype(np.float32)
+    bias = rng.standard_normal(16).astype(np.float32)
+    ref = _np(jff.FlashDepthWiseConv1d(16, 3, 1, jnp.asarray(w), jnp.asarray(bias))(
+        jnp.asarray(x)))
+    mod = tff.FlashDepthWiseConv1d(16, 3, 1, torch.from_numpy(w), torch.from_numpy(bias),
+                                   device=CPU)
+    assert isinstance(mod.weights, torch.nn.Parameter) and mod.weights.shape == (16, 3)
+    np.testing.assert_allclose(mod(torch.from_numpy(x)).detach().numpy(), ref, atol=1e-4)
