@@ -4,31 +4,43 @@
 Run from the root of a checkout on a machine with an H100:
 
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
-                          [--phases build,identity,kernels,serve,parity,timing[,profile]]
+                          [--phases build,identity,kernels,serve,train,parity,grad_parity,
+                                    timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
   identity  prints the card's name and power limit;
-  kernels   holds each kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at gated, padded, odd-batch and
-            ragged-channel shapes, with the tolerance printed;
+  kernels   holds each kernel, forward and backward, against its plain
+            PyTorch version on the card, at the main paths' shapes and at
+            gated, padded, odd-batch and ragged-channel shapes, with the
+            tolerance printed;
   serve     builds Hyena-125M (12 layers, d_model 768, l_max 8192, vocab
             50257, bf16, random weights from --seed) and answers 4 requests
             (prompts of 512..4096 tokens, 8 new tokens each, greedy) through
             utils.generation.generate, after one scoring forward; checks the
             logits are finite and that every kernel launched 12 times a forward;
+  train     trains the same model (B=4, L=8192, bf16 activations, f32 master
+            weights, dropout on, torch seeded from --seed) on the byte ids of
+            the repo's Python sources: 2 warm-up and 5 timed steps of the
+            examples/lm recipe (AdamW lr 3e-4 with 2 warm-up steps, weight
+            decay 0.1, clip 1.0); checks finite, falling loss and each
+            kernel's launches a step; prints step time, tokens/s and peak memory;
   parity    a 2-layer, d_model 128, l_max 1024 Hyena LM in f32 with the same
             weights on the card (kernels) and on the CPU (plain versions):
             logits agree within 2e-3;
-  timing    times each kernel, its plain version and a one-call PyTorch
-            yardstick with CUDA events at the main path's shapes;
+  grad_parity  the same LM's grads on the card (backward kernels) and on the
+            CPU (plain backward) agree within 1e-3 of each parameter's
+            largest |grad|, and so do the losses after one AdamW step (1e-4);
+  timing    times each kernel, its plain version and a PyTorch yardstick
+            with CUDA events at the main paths' shapes;
   profile   (only when named in --phases) traces one Hyena-125M forward
-            with torch.profiler: device time by kernel and by kind, and the
-            device's busy share of the forward's wall time.
+            and one train step with torch.profiler: device time by kernel
+            and by kind, and the device's busy share of the wall time.
 
-Prints the card's name and power limit (nvidia-smi) and one JSON line of
-kernels, then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
+Prints one JSON line of kernels (launches counted in the train phase), the
+card's name and power limit (nvidia-smi), then, as the last line,
+{"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
 With --out-dir DIR a copy of all numbers goes to DIR/chip_smoke.json.
 """
@@ -45,7 +57,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PHASES = ("build", "identity", "kernels", "serve", "parity", "timing")
+PHASES = ("build", "identity", "kernels", "serve", "train", "parity", "grad_parity", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -58,6 +70,7 @@ B, D_MODEL, N_LAYER, L_MAX, VOCAB = 4, 768, 12, 8192, 50257
 N_FFT = 2 * L_MAX
 PROMPTS = (512, 1024, 2048, 4096)
 NEW_TOKENS = 8
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 KERNELS = {
     "spectrum": dict(
@@ -72,7 +85,25 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/depthwise.cu",
         replaces="flashfftconv_tpu/ops/depthwise.py:143",
     ),
+    "monarch_conv_bwd": dict(
+        source="flashfftconv_tpu_torch/csrc/monarch_conv_bwd.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:1281",
+    ),
+    # dk_finish is the card's counterpart of _finish_dk, an XLA Monarch IDFT
+    # (not a Pallas kernel) that finishes _bwd_fused_io_tiles's dk.
+    "dk_finish": dict(
+        source="flashfftconv_tpu_torch/csrc/monarch_conv_bwd.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:2953",
+    ),
+    "depthwise_bwd": dict(
+        source="flashfftconv_tpu_torch/csrc/depthwise_bwd.cu",
+        replaces="flashfftconv_tpu/ops/depthwise.py:360",
+    ),
 }
+# Launches of each kernel in one Hyena-125M train step: the backward
+# recomputes every long conv's kernel spectrum.
+TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
+                  "dk_finish": N_LAYER, "depthwise": N_LAYER, "depthwise_bwd": N_LAYER}
 
 
 def log(msg: str) -> None:
@@ -89,6 +120,13 @@ def lowp_tol(ref) -> float:
     """Kernel and plain round the same f32 result to bf16: they may differ by
     one bf16 ulp, at most 2^-7 of the largest |output|."""
     return 2.0**-7 * float(ref.abs().max()) + 1e-6
+
+
+def sum_tol(abs_sum) -> float:
+    """An f32 sum of many products, added in another order: its rounding is
+    below 1e-5 of the sum of the terms' magnitudes (chains of < 100
+    additions at 6e-8 each)."""
+    return 1e-5 * float(abs_sum.abs().max()) + 1e-7
 
 
 def compare(name, got, ref, tol) -> float:
@@ -186,27 +224,232 @@ def phase_kernels(torch, g):
     compare("depthwise BLH B=2 L=1000 D=300 K=5 padding=(3, 1) f32",
             dw.depthwise(xb, wb, bb, (3, 1), False), ref, f32_tol(ref))
     torch.cuda.synchronize()
+
+    log(f"monarch_conv_bwd + dk_finish: B={B} H={D_MODEL} L={L_MAX} N={N_FFT} bf16 ungated")
+    dout = (torch.randn(B, D_MODEL, L_MAX, generator=g) * 0.02).to(dev, torch.bfloat16)
+    errs["monarch_conv_bwd"], errs["dk_finish"] = _check_conv_bwd(
+        torch, plan, "main path", u, k_f, None, None, dout, L_MAX)
+    for n in (256, 1024, 4096, 32768):
+        p = make_plan(n, torch.float32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, h, length, gated in ((3, 7, n // 2 + 3, True), (2, 5, n, False)):
+                k_len = n // 2 - 1
+                kf = monarch_cuda.spectrum(p, torch.randn(h, k_len, generator=g).to(dev) * 0.1)
+                uu, pre, post, dd = (torch.randn(b, h, length, generator=g).to(dev, dtype)
+                                     for _ in "abcd")
+                gates = (pre, post) if gated else (None, None)
+                what = (f"{'gated' if gated else 'ungated'} N={n} B={b} H={h} L={length} "
+                        f"k_len={k_len} {dtype}")
+                _check_conv_bwd(torch, p, what, uu, kf, *gates, dd, k_len)
+        torch.cuda.synchronize()
+
+    log(f"depthwise_bwd: B={B} D={3 * D_MODEL} L={L_MAX} K=3 padding=(2, 0) bf16 BHL")
+    dy = torch.randn(x.shape, generator=g).to(dev, torch.bfloat16)
+    errs["depthwise_bwd"] = _check_dw_bwd(torch, "main path", x, w, dy, (2, 0), True)
+    for (b, d, length), k, pad, is_bhl, dtype in (
+        ((2, 300, 1000), 5, (3, 1), False, torch.float32),
+        ((2, 300, 1000), 5, (3, 1), False, torch.bfloat16),
+        ((3, 37, 1031), 5, (1, 3), True, torch.float16),
+        ((3, 37, 1031), 7, (0, 9), False, torch.float32),
+        ((2, 64, 2048), 3, (2, 0), True, torch.float32),
+    ):
+        xs = (b, d, length) if is_bhl else (b, length, d)
+        xx = torch.randn(xs, generator=g).to(dev, dtype)
+        ww = (torch.randn((d, k) if is_bhl else (k, d), generator=g) * 0.3).to(dev)
+        out_len = length + sum(pad) - k + 1
+        dd = torch.randn((b, d, out_len) if is_bhl else (b, out_len, d), generator=g).to(dev, dtype)
+        _check_dw_bwd(torch, f"{'BHL' if is_bhl else 'BLH'} B={b} D={d} L={length} K={k} "
+                      f"padding={pad} {dtype}", xx, ww, dd, pad, is_bhl)
+    torch.cuda.synchronize()
     return errs
 
 
-def _counters():
+def _check_conv_bwd(torch, plan, what, u, k_f, pre, post, dout, k_len):
+    """monarch_conv_bwd and dk_finish against conv_bwd_plain and
+    dk_finish_plain; returns (du error, dk error)."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+
+    got = monarch_cuda.monarch_conv_bwd(plan, u, k_f, pre, post, dout)
+    ref = monarch.conv_bwd_plain(plan, u, k_f, pre, post, dout)
+    low = u.dtype != torch.float32
+    errs = []
+    for name, a, r in zip(("du", "dpre", "dpost"), got[:3], ref[:3]):
+        if r is not None:
+            errs.append(compare(f"monarch_conv_bwd {what}: {name}", a, r,
+                                lowp_tol(r) if low else f32_tol(r)))
+    pr = torch.view_as_real(ref[3])
+    compare(f"monarch_conv_bwd {what}: partials", torch.view_as_real(got[3]), pr, f32_tol(pr))
+    dk_ref = monarch.dk_finish_plain(plan, ref[3], k_len)
+    dk_err = compare(f"dk_finish {what}: dk", monarch_cuda.dk_finish(plan, got[3], k_len),
+                     dk_ref, f32_tol(dk_ref))
+    torch.cuda.synchronize()
+    return errs[0], dk_err
+
+
+def _check_dw_bwd(torch, what, x, w, dout, pad, is_bhl):
+    """depthwise_bwd against depthwise_bwd_plain; dk and dbias are sums over
+    B*L and are held to sum_tol of the terms' magnitudes. Returns du's error."""
+    from flashfftconv_tpu_torch.ops import depthwise as dw
+
+    du, dk, db = dw.depthwise_bwd(x, w, dout, pad, is_bhl)
+    rdu, rdk, rdb = dw.depthwise_bwd_plain(x, w, dout, pad, is_bhl)
+    _, adk, adb = dw.depthwise_bwd_plain(x.abs(), w, dout.abs(), pad, is_bhl)
+    err = compare(f"depthwise_bwd {what}: du", du, rdu,
+                  f32_tol(rdu) if x.dtype == torch.float32 else lowp_tol(rdu))
+    compare(f"depthwise_bwd {what}: dk", dk, rdk, sum_tol(adk))
+    compare(f"depthwise_bwd {what}: dbias", db, rdb, sum_tol(adb))
+    torch.cuda.synchronize()
+    return err
+
+
+def _counters(names=("spectrum", "monarch_conv", "depthwise")):
+    """The kernel wrappers of the given names, each with its launches count."""
     from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops import monarch_cuda
 
-    return {"spectrum": monarch_cuda.spectrum, "monarch_conv": monarch_cuda.monarch_conv,
-            "depthwise": dw.depthwise}
+    wrappers = {"spectrum": monarch_cuda.spectrum, "monarch_conv": monarch_cuda.monarch_conv,
+                "monarch_conv_bwd": monarch_cuda.monarch_conv_bwd,
+                "dk_finish": monarch_cuda.dk_finish, "depthwise": dw.depthwise,
+                "depthwise_bwd": dw.depthwise_bwd}
+    return {name: wrappers[name] for name in names}
+
+
+def _hyena_125m(torch, seed, dev):
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+
+    return ConvLMHeadModel(
+        d_model=D_MODEL, n_layer=N_LAYER, d_inner=4 * D_MODEL, vocab_size=VOCAB, l_max=L_MAX,
+        dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(seed),
+    )
+
+
+def _corpus(np):
+    """Byte ids of the repo's own Python sources, as examples/lm/train.py
+    reads by default (ids < 256; the head stays sized at the GPT-2 vocab)."""
+    paths = sorted(HERE.glob("flashfftconv_tpu*/**/*.py"))
+    data = np.concatenate([np.frombuffer(p.read_bytes(), np.uint8) for p in paths])
+    if data.size < B * (L_MAX + 1):
+        raise AssertionError(f"corpus of {data.size} bytes is too small")
+    return data.astype(np.int64)
+
+
+def phase_train(torch, seed, np):
+    """Hyena-125M (12 layers, d_model 768, l_max 8192, B=4, bf16 activations,
+    f32 master weights, dropout on) takes TRAIN_WARMUP + TRAIN_TIMED steps of
+    the examples/lm recipe on byte data."""
+    from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    torch.manual_seed(seed)  # the dropout masks repeat from run to run
+    model = _hyena_125m(torch, seed, dev).train()
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=n_steps)
+    step = make_train_step(model, opt, sched, clip=1.0)
+    tokens = _corpus(np)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(n_steps):
+        offs = rng.integers(0, tokens.size - L_MAX - 1, B)
+        xy = torch.from_numpy(np.stack([tokens[o : o + L_MAX + 1] for o in offs])).to(dev)
+        batches.append((xy[:, :-1].contiguous(), xy[:, 1:].contiguous()))
+    counters = _counters(TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, per_step = [], [], []
+    try:
+        for x, y in batches:
+            before = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(x, y)
+            loss = float(out["loss"])  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(f"Hyena-125M train step ran out of memory: peak "
+                             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB") from e
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {TRAIN_LAUNCHES}")
+    timed = step_ms[TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    res = {
+        "steps": n_steps,
+        "losses": losses,
+        "step_ms": step_ms,
+        "step_ms_median": med,
+        "step_ms_max": max(timed),
+        "tokens_per_s": B * L_MAX / (med / 1e3),
+        "launches": launches,
+        "peak_memory_bytes": peak,
+    }
+    log(f"train: Hyena-125M B={B} L={L_MAX} bf16, {n_steps} steps (lr 3e-4, wd 0.1, clip 1.0, "
+        f"warmup 2), losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"train: step median {med:.2f} ms max {max(timed):.2f} ms over {TRAIN_TIMED} timed "
+        f"steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {per_step[-1]}")
+    return res
+
+
+def phase_grad_parity(torch, seed):
+    """The 2-layer f32 LM of phase_parity with the same weights on the card
+    (backward kernels) and on the CPU (plain backward): every parameter's
+    grad, and the loss after one AdamW step."""
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    kw = dict(d_model=128, n_layer=2, d_inner=512, vocab_size=256, l_max=1024,
+              mixer_kwargs={"conv_dtype": torch.float32}, dtype=torch.float32)
+    ids = torch.randint(0, 256, (2, 1025), generator=torch.Generator().manual_seed(seed + 2))
+    grads, losses = {}, {}
+    bwd0 = _counters(("monarch_conv_bwd", "depthwise_bwd"))
+    before = {name: fn.launches for name, fn in bwd0.items()}
+    for dev in ("cpu", "cuda"):
+        model = ConvLMHeadModel(**kw, device=dev,
+                                generator=torch.Generator().manual_seed(seed)).eval()
+        x, y = ids[:, :-1].to(dev), ids[:, 1:].to(dev)
+        loss = cross_entropy(model(x), y)
+        loss.backward()
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.1)
+        opt.step()
+        with torch.no_grad():
+            losses[dev] = (float(loss), float(cross_entropy(model(x), y)))
+    for name, fn in bwd0.items():
+        if fn.launches - before[name] != 2:
+            raise AssertionError(f"{name} launched {fn.launches - before[name]} times, expected 2")
+    worst = max(((g - grads["cpu"][n]).abs().max() / grads["cpu"][n].abs().max().clamp(min=1e-12),
+                 n) for n, g in grads["cuda"].items())
+    ratio, worst_name = float(worst[0]), worst[1]
+    step_err = abs(losses["cuda"][1] - losses["cpu"][1]) / abs(losses["cpu"][1])
+    log(f"grad_parity: 2-layer f32 LM, card (kernels) vs CPU (plain) over {len(grads['cpu'])} "
+        f"params: max |dgrad| / max |grad| = {ratio:.3e} ({worst_name}), tol 1e-3; losses "
+        f"{losses['cuda']} vs {losses['cpu']}, after one AdamW step rel err {step_err:.3e}, "
+        f"tol 1e-4")
+    if not ratio <= 1e-3:
+        raise AssertionError(f"card and CPU grads disagree: {worst_name} at {ratio}")
+    if not step_err <= 1e-4:
+        raise AssertionError(f"card and CPU losses after one step disagree: {losses}")
+    return {"grad_max_rel_err": ratio, "grad_worst_param": worst_name, "losses": losses,
+            "loss_after_step_rel_err": step_err}
 
 
 def phase_serve(torch, seed, np):
-    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
     from flashfftconv_tpu_torch.utils.generation import generate
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    model = ConvLMHeadModel(
-        d_model=D_MODEL, n_layer=N_LAYER, d_inner=4 * D_MODEL, vocab_size=VOCAB, l_max=L_MAX,
-        dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(seed),
-    ).eval()
+    model = _hyena_125m(torch, seed, dev).eval()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"Hyena-125M: {n_params / 1e6:.2f}M params, built in {time.perf_counter() - t0:.1f} s")
 
@@ -306,37 +549,33 @@ def phase_parity(torch, seed):
 
 def _kind(name: str) -> str:
     for kind, keys in (
+        ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
+        ("dk_finish", ("dk_finish_kernel",)),
         ("monarch_conv", ("monarch_conv_kernel",)),
         ("spectrum", ("spectrum_kernel",)),
+        ("depthwise_bwd", ("depthwise_bwd_",)),
         ("depthwise", ("depthwise_",)),
         ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")),
         ("copy or cast", ("copy_kernel",)),
+        ("optimizer (foreach)", ("multi_tensor_apply",)),
     ):
         if any(k in name for k in keys):
             return kind
     return "other"
 
 
-def phase_profile(torch, seed):
-    """Device time by kernel over one Hyena-125M serving forward."""
+def _trace(torch, what, fn):
+    """Device time by kernel and by kind over one call of fn (after a warm-up
+    call), with torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
-
-    model = ConvLMHeadModel(
-        d_model=D_MODEL, n_layer=N_LAYER, d_inner=4 * D_MODEL, vocab_size=VOCAB, l_max=L_MAX,
-        dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(seed),
-    ).eval()
-    ids = torch.randint(0, VOCAB, (B, L_MAX), generator=torch.Generator().manual_seed(seed))
-    ids = ids.cuda()
-    with torch.inference_mode():
-        model(ids)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(ids)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -352,7 +591,7 @@ def phase_profile(torch, seed):
         kind = by_kind.setdefault(_kind(name), [0.0, 0])
         kind[0] += t
         kind[1] += n
-    log(f"profile: one forward, wall {wall_ms:.2f} ms (profiler on), device busy {busy:.2f} ms "
+    log(f"profile: {what}, wall {wall_ms:.2f} ms (profiler on), device busy {busy:.2f} ms "
         f"({busy / wall_ms:.1%})")
     for kind, (t, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         log(f"  {kind}: {t:.3f} ms in {n} launches ({t / busy:.1%} of device time)")
@@ -361,7 +600,26 @@ def phase_profile(torch, seed):
         log(f"    {t:8.3f} ms {n:4d}x {name[:110]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "by_kind_ms": {k: v[0] for k, v in by_kind.items()},
+            "by_kind_launches": {k: v[1] for k, v in by_kind.items()},
             "top": [(name, t, n) for name, (t, n) in top]}
+
+
+def phase_profile(torch, seed):
+    """Device time by kernel over one Hyena-125M serving forward and one
+    train step (dropout on, the examples/lm optimizer)."""
+    from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
+
+    model = _hyena_125m(torch, seed, "cuda")
+    ids = torch.randint(0, 256, (B, L_MAX + 1), generator=torch.Generator().manual_seed(seed))
+    ids = ids.cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    res = {}
+    with torch.inference_mode():
+        res["forward"] = _trace(torch, "one serving forward", lambda: model.eval()(x))
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
+    step = make_train_step(model.train(), opt, sched, clip=1.0)
+    res["train_step"] = _trace(torch, "one train step", lambda: step(x, y))
+    return res
 
 
 def _time_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -432,9 +690,71 @@ def phase_timing(torch, g):
                 x, wb, bias.to(x.dtype), padding=2, groups=x.shape[1])[..., :L_MAX]),
             bound=_bound(nbytes, flops),
         )
+        # monarch_conv_bwd (ungated, as on the main path): the function reads
+        # u, dout and k_f and writes du and one (H, M+1) dk spectrum, summed
+        # over B as the TPU kernel does on chip; three FFTs a row, about 60
+        # operations a frequency pair, 4 a sample and the batch sum besides.
+        # The (B, H, M+1) partials this design writes instead, and dk_finish
+        # reads back, are the design's own traffic: reported as overhead_ms,
+        # not counted in either bound.
+        dout = (torch.randn(u.shape, generator=g) * 0.02).to(dev, u.dtype)
+        parts = monarch_cuda.monarch_conv_bwd(plan, u, k_f, None, None, dout)[3]
+        spec_bytes = k_f.numel() * 8
+        overhead_ms = (parts.numel() * 8 - spec_bytes) / HBM_BYTES_PER_S * 1e3
+        nbytes = u.numel() * 2 * 3 + k_f.numel() * 8 + spec_bytes
+        flops = B * D_MODEL * (3 * _fft_flops(m, ns) + 60 * (m // 2) + 4 * L_MAX + 2 * (m + 1))
+
+        def fft_bwd():
+            g_f, u_f = torch.fft.rfft(dout.float(), n=N_FFT), torch.fft.rfft(u.float(), n=N_FFT)
+            du = torch.fft.irfft(g_f * k_f.conj(), n=N_FFT)[..., :L_MAX].to(u.dtype)
+            return du, g_f * u_f.conj()
+
+        res["monarch_conv_bwd"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv_bwd(plan, u, k_f, None, None,
+                                                                      dout)),
+            plain_ms=_time_ms(torch, lambda: monarch.conv_bwd_plain(plan, u, k_f, None, None,
+                                                                    dout), iters=5),
+            library_ms=_time_ms(torch, fft_bwd),
+            bound=_bound(nbytes, flops),
+            overhead_ms=overhead_ms,
+        )
+        # dk_finish: the function reads one (H, M+1) dk spectrum and writes
+        # dk; the unsplit (20 a pair) and one inverse FFT a channel
+        nbytes = spec_bytes + D_MODEL * L_MAX * 4
+        flops = D_MODEL * (_fft_flops(m, ns) + 20 * (m // 2))
+        res["dk_finish"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.dk_finish(plan, parts, L_MAX)),
+            plain_ms=_time_ms(torch, lambda: monarch.dk_finish_plain(plan, parts, L_MAX),
+                              iters=5),
+            library_ms=_time_ms(torch, lambda: torch.fft.irfft(parts.sum(0), n=N_FFT)[
+                ..., :L_MAX]),
+            bound=_bound(nbytes, flops),
+            overhead_ms=overhead_ms,
+        )
+        # depthwise_bwd: read x and dout, write du; 2K operations a position
+        # for du, 2K for dk and 1 for dbias
+        dy = torch.randn(x.shape, generator=g).to(dev, x.dtype)
+        nbytes = x.numel() * 2 * 3
+        flops = x.numel() * (4 * 3 + 1)
+        dy_full = F.pad(dy, (0, 2))  # the grouped conv with padding 2 outputs L + 2
+
+        def conv_bwd():
+            return torch.ops.aten.convolution_backward(
+                dy_full, x, wb, [x.shape[1]], [1], [2], [1], False, [0], x.shape[1],
+                [True, True, True])
+
+        res["depthwise_bwd"] = dict(
+            ms=_time_ms(torch, lambda: dw.depthwise_bwd(x, w, dy, (2, 0), True)),
+            plain_ms=_time_ms(torch, lambda: dw.depthwise_bwd_plain(x, w, dy, (2, 0), True),
+                              iters=5),
+            library_ms=_time_ms(torch, conv_bwd),
+            bound=_bound(nbytes, flops),
+        )
     for name, r in res.items():
+        extra = (f", partials traffic beyond the bound {r['overhead_ms']:.4f} ms"
+                 if "overhead_ms" in r else "")
         log(f"timing {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
     return res
 
 
@@ -478,8 +798,12 @@ def main() -> int:
         results["kernels"] = phase_kernels(torch, g)
     if "serve" in phases:
         results["serve"] = phase_serve(torch, args.seed, np)
+    if "train" in phases:
+        results["train"] = phase_train(torch, args.seed, np)
     if "parity" in phases:
         results["parity"] = phase_parity(torch, args.seed)
+    if "grad_parity" in phases:
+        results["grad_parity"] = phase_grad_parity(torch, args.seed)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:
@@ -492,13 +816,13 @@ def main() -> int:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
 
-    if {"kernels", "serve", "timing"} <= set(phases):
+    if {"kernels", "train", "timing"} <= set(phases):
         rows = []
         for name, meta in KERNELS.items():
             t = results["timing"][name]
             rows.append({
                 "name": name, "route": "cuda", **meta,
-                "launches": results["serve"]["launches"][name],
+                "launches": results["train"]["launches"][name],
                 "max_abs_err": results["kernels"][name],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

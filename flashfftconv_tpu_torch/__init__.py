@@ -1,17 +1,22 @@
 """flashfftconv_tpu_torch: the PyTorch and CUDA port of flashfftconv_tpu.
 
 Long depthwise FFT convolutions y = iFFT(FFT(u) * FFT(k)) as hand-written
-CUDA kernels for Hopper (sm_90a), a short depthwise conv kernel, and the
-Hyena language model on top of them. Public API parity with the JAX
+CUDA kernels for Hopper (sm_90a), forward and backward, a short depthwise
+conv kernel and its backward, and the Hyena language model on top of them,
+with the train step of the JAX package's ``examples/lm`` recipe. Public API parity with the JAX
 package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """
 
 from flashfftconv_tpu_torch.module import FlashDepthWiseConv1d, FlashFFTConv
-from flashfftconv_tpu_torch.ops.depthwise import depthwise_conv1d
+from flashfftconv_tpu_torch.ops.depthwise import DepthwiseFunction, depthwise_conv1d
 from flashfftconv_tpu_torch.ops.dispatch import fft_conv
 from flashfftconv_tpu_torch.ops.monarch import fft_conv_plain, fft_conv_reference
+from flashfftconv_tpu_torch.ops.monarch_cuda import FftConvFunction
 from flashfftconv_tpu_torch.ops.plan import FftPlan, default_factors, make_plan
+from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+from flashfftconv_tpu_torch.utils.optim import make_optimizer
+from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_eval_step, make_train_step
 
 __version__ = "0.1.0"
 
@@ -25,4 +30,11 @@ __all__ = [
     "fft_conv_plain",
     "fft_conv_reference",
     "depthwise_conv1d",
+    "FftConvFunction",
+    "DepthwiseFunction",
+    "cross_entropy",
+    "make_optimizer",
+    "lm_optimizer",
+    "make_train_step",
+    "make_eval_step",
 ]

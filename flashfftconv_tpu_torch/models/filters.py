@@ -91,6 +91,7 @@ class HyenaFilter(nn.Module):
         device = resolve_device(device)
         self.modulate = modulate
         self.normalized = normalized
+        self.linear_mixer = linear_mixer
         z, t = positional_embedding(emb_dim, seq_len, device)
         self.register_buffer("z", z, persistent=False)
         self.register_buffer("t", t, persistent=False)

@@ -8,7 +8,9 @@ layers; it holds the plan's DFT and twiddle tables as buffers.
     y = conv(u, k, pregate, postgate)   # gated variant
 
 Any L <= N and any H are accepted. Both modules run on the card unless they
-are built with ``device="cpu"``, where they run the plain versions.
+are built with ``device="cpu"``, where they run the plain versions. Both
+are differentiable: their backward runs the backward kernels on the card
+and the plain backward on the CPU.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ class FlashFFTConv(nn.Module):
       impl: 'auto' | 'cuda' | 'plain' | 'fft'.
       use_32_butterfly: accepted for API parity with the reference
         constructor; the factorization comes from ``plan.default_factors``.
-      remat: recompute-in-backward; the port has no backward yet, so only
-        False is accepted.
+      remat: accepted for API parity with the JAX module (default True).
+        The port's autograd Function always recomputes: it saves only (u,
+        k, pregate, postgate) and recomputes k's spectrum in its backward.
     """
 
     def __init__(
@@ -44,12 +47,10 @@ class FlashFFTConv(nn.Module):
         device="cuda",
         impl: str = "auto",
         use_32_butterfly: bool = True,
-        remat: bool = False,
+        remat: bool = True,
     ):
         super().__init__()
-        del use_32_butterfly
-        if remat:
-            raise NotImplementedError("remat (recompute in backward) is not ported yet")
+        del use_32_butterfly, remat
         self.seqlen = seqlen
         self.dtype = dtype
         self.impl = impl

@@ -7,7 +7,8 @@ sources in this checkout only; the library's file name carries a hash of its
 sources and flags, so an edited source is rebuilt. ``build_all`` starts one
 ``nvcc`` per source at once. A failed build raises with the compiler's
 output; ``nvcc -Xptxas -v``'s register and shared-memory report is kept in
-``_build/<lib>.log``.
+``_build/<lib>.log``. ``load`` declares the C signature of every function a
+library exports (``SIGNATURES``), so that ctypes passes 64-bit pointers.
 """
 
 from __future__ import annotations
@@ -23,7 +24,19 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("spectrum", "monarch_conv", "depthwise")
+SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# {library: {function: argtypes}}; every function returns a CUDA error code
+# (an int). Pointers first, then the int sizes, then the stream.
+SIGNATURES = {
+    "spectrum": {"ffc_spectrum": [_P] * 5 + [_I] * 7 + [_P]},
+    "monarch_conv": {"ffc_monarch_conv": [_P] * 8 + [_I] * 9 + [_P]},
+    "monarch_conv_bwd": {"ffc_monarch_conv_bwd": [_P] * 12 + [_I] * 9 + [_P],
+                         "ffc_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
+    "depthwise": {"ffc_depthwise": [_P] * 4 + [_I] * 8 + [_P]},
+    "depthwise_bwd": {"ffc_depthwise_bwd": [_P] * 7 + [_I] * 8 + [_P],
+                      "ffc_depthwise_bwd_tiles": [_I] * 3},
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -98,6 +111,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.ffc_error_string.argtypes = [ctypes.c_int]
         lib.ffc_error_string.restype = ctypes.c_char_p
+        for fname, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

@@ -9,31 +9,23 @@ Depthwise conv1d with stride 1, dilation 1, odd kernel size, symmetric or
 Multiply-adds run in f32 and the output takes the activation dtype. On a
 CUDA tensor the ``depthwise`` wrapper launches csrc/depthwise.cu, which
 replaces the TPU kernel ``_pallas_depthwise`` (flashfftconv_tpu/ops/
-depthwise.py); on a CPU tensor it runs the plain version, the shift form of
-the JAX package's ``_xla_depthwise``.
+depthwise.py), and ``depthwise_bwd`` launches csrc/depthwise_bwd.cu, which
+replaces ``_pallas_depthwise_bwd``; on a CPU tensor each runs its plain
+version (``depthwise_plain``, the shift form of the JAX package's
+``_xla_depthwise``, and ``depthwise_bwd_plain``). ``DepthwiseFunction``
+joins the two as an autograd Function.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from flashfftconv_tpu_torch.ops import _build
-from flashfftconv_tpu_torch.ops.monarch_cuda import check_no_grad, on_cpu
+from flashfftconv_tpu_torch.ops.monarch_cuda import on_cpu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _IMPLS = ("auto", "cuda", "plain")
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("depthwise")
-    fn = lib.ffc_depthwise
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def _pads(padding) -> tuple[int, int]:
@@ -67,13 +59,8 @@ def depthwise_plain(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def depthwise(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
-    """The depthwise kernel's wrapper: csrc/depthwise.cu on CUDA tensors,
-    ``depthwise_plain`` on CPU tensors. x contiguous f32/bf16/f16; weights
-    and bias are read as f32."""
-    if on_cpu(x, weights, bias):
-        return depthwise_plain(x, weights, bias, padding, is_bhl)
-    check_no_grad(x, weights, bias)
+def _shape_args(x, weights, padding, is_bhl: bool) -> tuple[int, ...]:
+    """Check a CUDA call's x and weights; return (B, D, L, K, left, out_len)."""
     left, right = _pads(padding)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x dtype {x.dtype} not in {sorted(map(str, _DTYPE_CODES))}")
@@ -89,22 +76,36 @@ def depthwise(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
         k = weights.shape[0]
     if weights.shape != ((d, k) if is_bhl else (k, d)):
         raise ValueError(f"weights shape {tuple(weights.shape)} does not match x {tuple(x.shape)}")
+    if weights.device != x.device:
+        raise ValueError(f"weights are on {weights.device}, x on {x.device}")
     out_len = length + left + right - k + 1
     if out_len < 1:
         raise ValueError(f"output length {out_len} < 1")
+    return b, d, length, k, left, out_len
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def depthwise(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
+    """The depthwise kernel's wrapper: csrc/depthwise.cu on CUDA tensors,
+    ``depthwise_plain`` on CPU tensors. x contiguous f32/bf16/f16; weights
+    and bias are read as f32."""
+    if on_cpu(x, weights, bias):
+        return depthwise_plain(x, weights, bias, padding, is_bhl)
+    b, d, length, k, left, out_len = _shape_args(x, weights, padding, is_bhl)
     w = weights.float().contiguous()
     bf = None if bias is None else bias.float().contiguous()
-    for name, t in (("weights", w), ("bias", bf)):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if bf is not None and bf.device != x.device:
+        raise ValueError(f"bias is on {bf.device}, x on {x.device}")
     out = torch.empty((b, d, out_len) if is_bhl else (b, out_len, d), dtype=x.dtype, device=x.device)
     if b * d == 0:
         return out
-    lib = _lib()
+    lib = _build.load("depthwise")
     rc = lib.ffc_depthwise(
         x.data_ptr(), w.data_ptr(), None if bf is None else bf.data_ptr(), out.data_ptr(),
-        b, d, length, k, left, out_len, int(is_bhl), _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        b, d, length, k, left, out_len, int(is_bhl), _DTYPE_CODES[x.dtype], _stream(x),
     )
     _build.check(lib, rc, "depthwise kernel")
     depthwise.launches += 1
@@ -112,6 +113,87 @@ def depthwise(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
 
 
 depthwise.launches = 0
+
+
+def depthwise_bwd_plain(x, weights, dout, padding, is_bhl: bool):
+    """The backward of ``depthwise_plain`` in f32 (the plain version of the
+    depthwise_bwd kernel), with x zero outside [0, L) and dout (the
+    output's layout and length):
+
+      du[i] = sum_t w[t] dout[i - t + left],  dk[t] = sum_{b,l} x[l + t - left] dout[l],
+      dbias = sum_{b,l} dout[l].
+
+    Returns (du at x's dtype, dk f32 in weights' layout, dbias f32 (D,))."""
+    left, right = _pads(padding)
+    w_dk = (weights if is_bhl else weights.T).float()
+    xb = (x if is_bhl else x.transpose(1, 2)).float()
+    db = (dout if is_bhl else dout.transpose(1, 2)).float()
+    length, l_out = xb.shape[-1], db.shape[-1]
+    xp = F.pad(xb, (left, right))
+    dup = torch.zeros_like(xp)
+    taps = []
+    for tap in range(w_dk.shape[1]):
+        dup[..., tap : tap + l_out] += db * w_dk[None, :, tap, None]
+        taps.append((xp[..., tap : tap + l_out] * db).sum((0, 2)))
+    du = dup[..., left : left + length]
+    dk = torch.stack(taps, dim=1)
+    if not is_bhl:
+        du, dk = du.transpose(1, 2), dk.T
+    return du.to(x.dtype), dk, db.sum((0, 2))
+
+
+def depthwise_bwd(x, weights, dout, padding, is_bhl: bool):
+    """The depthwise backward kernel's wrapper: csrc/depthwise_bwd.cu on CUDA
+    tensors, ``depthwise_bwd_plain`` on CPU tensors. x and dout contiguous,
+    of one dtype; returns (du at x's dtype, dk f32 in weights' layout,
+    dbias f32 (D,))."""
+    if on_cpu(x, weights, dout):
+        return depthwise_bwd_plain(x, weights, dout, padding, is_bhl)
+    b, d, length, k, left, out_len = _shape_args(x, weights, padding, is_bhl)
+    out_shape = (b, d, out_len) if is_bhl else (b, out_len, d)
+    if dout.shape != out_shape or dout.dtype != x.dtype or not dout.is_contiguous():
+        raise ValueError(f"dout must be a contiguous {x.dtype} tensor of shape {out_shape}, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
+    w = weights.float().contiguous()
+    du = torch.empty_like(x)
+    dk = torch.empty(weights.shape, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(d, dtype=torch.float32, device=x.device)
+    if b * d == 0:
+        return du, dk.zero_(), dbias.zero_()
+    lib = _build.load("depthwise_bwd")
+    tiles = lib.ffc_depthwise_bwd_tiles(length, out_len, int(is_bhl))
+    partials = torch.empty(b * tiles, d, k + 1, dtype=torch.float32, device=x.device)
+    rc = lib.ffc_depthwise_bwd(
+        x.data_ptr(), dout.data_ptr(), w.data_ptr(), du.data_ptr(), partials.data_ptr(),
+        dk.data_ptr(), dbias.data_ptr(), b, d, length, k, left, out_len, int(is_bhl),
+        _DTYPE_CODES[x.dtype], _stream(x),
+    )
+    _build.check(lib, rc, "depthwise_bwd kernel")
+    depthwise_bwd.launches += 1
+    return du, dk, dbias
+
+
+depthwise_bwd.launches = 0
+
+
+class DepthwiseFunction(torch.autograd.Function):
+    """``depthwise`` with ``depthwise_bwd`` as its backward: the kernels on
+    CUDA tensors, the plain versions on CPU tensors. Saves x, weights and
+    bias; grads come back at each input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weights, bias, padding, is_bhl):
+        ctx.padding, ctx.is_bhl = padding, is_bhl
+        ctx.save_for_backward(x, weights, bias)
+        return depthwise(x, weights, bias, padding, is_bhl)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weights, bias = ctx.saved_tensors
+        du, dk, dbias = depthwise_bwd(x, weights, dout.to(x.dtype).contiguous(), ctx.padding,
+                                      ctx.is_bhl)
+        dbias = None if bias is None else dbias.to(bias.dtype)
+        return du, dk.to(weights.dtype), dbias, None, None
 
 
 def _check(weights, bias, k):
@@ -138,8 +220,10 @@ def depthwise_conv1d(
       bias: (D,) or None.
       padding: zero padding, an int (symmetric) or (left, right); output
         length L + left + right - K + 1. Causal convs use (K-1, 0).
-      impl: 'auto' (the kernel on CUDA tensors, the plain version on CPU
-        tensors), 'cuda' (the kernel; CUDA tensors only) or 'plain'.
+      impl: 'auto' (``DepthwiseFunction``: the kernels on CUDA tensors, the
+        plain versions on CPU tensors),
+        'cuda' (the kernels; CUDA tensors only) or 'plain' (``depthwise_plain``
+        under torch's autograd).
     """
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
@@ -149,4 +233,4 @@ def depthwise_conv1d(
         return depthwise_plain(x, weights, bias, padding, is_bhl)
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA tensor, got {x.device}")
-    return depthwise(x.contiguous(), weights, bias, padding, is_bhl)
+    return DepthwiseFunction.apply(x.contiguous(), weights, bias, padding, is_bhl)

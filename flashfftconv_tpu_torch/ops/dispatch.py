@@ -1,11 +1,16 @@
 """Implementation dispatch for the FFT convolution.
 
 Routes a call to an implementation:
-  - 'cuda':  the hand-written kernels (``monarch_cuda``): ``spectrum`` of k,
-             then one fused ``monarch_conv``. CUDA tensors only.
-  - 'plain': the plain PyTorch Monarch path (``monarch.fft_conv_plain``).
+  - 'cuda':  the hand-written kernels through ``FftConvFunction``
+             (``monarch_cuda.fft_conv``): ``spectrum`` of k, then one fused
+             ``monarch_conv``; the backward runs ``spectrum``,
+             ``monarch_conv_bwd`` and ``dk_finish``. CUDA tensors only.
+  - 'plain': ``monarch.fft_conv_plain`` under torch's autograd, on any
+             device (an oracle of the Function's backward).
   - 'fft':   the ``torch.fft`` oracle (tests and debugging).
-'auto' picks 'cuda' for CUDA tensors and 'plain' for CPU tensors. Nothing
+'auto' resolves to 'cuda' for CUDA tensors and to 'cpu' for CPU tensors:
+the same ``FftConvFunction`` over the same wrappers, which run the kernels'
+plain versions there (``monarch.conv_bwd_plain`` is its backward). Nothing
 reroutes a CUDA tensor to the plain path behind the caller's back.
 """
 
@@ -29,7 +34,7 @@ def resolve_impl(u: torch.Tensor, impl: str = "auto") -> str:
     if u.device.type == "cuda":
         return "cuda"
     if u.device.type == "cpu":
-        return "plain"
+        return "cpu"
     raise ValueError(f"no FFT conv implementation for device {u.device}")
 
 
@@ -53,4 +58,4 @@ def fft_conv(
         return monarch.fft_conv_reference(plan.seqlen, u, k, pregate, postgate)
     if resolved == "plain":
         return monarch.fft_conv_plain(plan, u, k, pregate, postgate)
-    return monarch_cuda.fft_conv_cuda(plan, u, k, pregate, postgate)
+    return monarch_cuda.fft_conv(plan, u, k, pregate, postgate)

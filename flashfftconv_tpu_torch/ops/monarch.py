@@ -12,8 +12,10 @@ in-register line DFTs:
     and ``monarch_idft`` brings it back to time, where real and imaginary
     parts are the even and odd output samples.
 
-All math is complex64 (f32 real and imaginary parts). ``fft_conv_reference``
-is the ``torch.fft`` oracle and serves the tests only.
+All math is complex64 (f32 real and imaginary parts). ``conv_bwd_plain``
+and ``dk_finish_plain`` are the backward, the CPU path's and the backward
+kernels' oracle. ``fft_conv_reference`` is the ``torch.fft`` oracle and
+serves the tests only.
 """
 
 from __future__ import annotations
@@ -135,6 +137,48 @@ def conv_with_spectrum(
     if postgate is not None:
         y = y * postgate.float()
     return y.to(u.dtype)
+
+
+def conv_bwd_plain(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None,
+    postgate: torch.Tensor | None,
+    dout: torch.Tensor,
+):
+    """The backward of ``conv_with_spectrum``, the plain version of the
+    ``monarch_conv_bwd`` kernel (the formulas of the JAX package's
+    ``_bwd_fused_io_tiles`` and ``_gate_finish``, on the half spectrum):
+
+      g = dout * post (f32), ug = u * pre (rounded to u's dtype, as in the
+      forward), du_inner = irfft(G conj K)[:L], y_inner = irfft(U K)[:L];
+      du = du_inner * pre, dpre = du_inner * u, dpost = y_inner * dout.
+
+    Returns (du, dpre, dpost, partials): the first three at u's dtype
+    (dpre, dpost None when ungated) and the per-row dk spectrum partials
+    G conj(U), complex64 (..., H, M+1), which ``dk_finish_plain`` reduces.
+    """
+    length = u.shape[-1]
+    ug = u if pregate is None else u * pregate
+    g = dout.float() if postgate is None else dout.float() * postgate.float()
+    g_f = rfft_plain(plan, g)
+    u_f = rfft_plain(plan, ug)
+    du_inner = irfft_plain(plan, g_f * k_f.conj())[..., :length]
+    partials = g_f * u_f.conj()
+    if pregate is None:
+        return du_inner.to(u.dtype), None, None, partials
+    y_inner = irfft_plain(plan, u_f * k_f)[..., :length]
+    du = (du_inner * pregate.float()).to(u.dtype)
+    dpre = (du_inner * u.float()).to(u.dtype)
+    dpost = (y_inner * dout.float()).to(u.dtype)
+    return du, dpre, dpost, partials
+
+
+def dk_finish_plain(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
+    """dk (H, k_len) f32 from the (B, H, M+1) partials of ``conv_bwd_plain``:
+    ``irfft(sum_b partials)[:k_len]``, the plain version of ``dk_finish``."""
+    return irfft_plain(plan, partials.sum(0))[..., :k_len]
 
 
 def fft_conv_plain(

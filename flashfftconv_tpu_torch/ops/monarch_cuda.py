@@ -1,20 +1,23 @@
-"""Wrappers of the FFT-conv kernels: ``spectrum`` and ``monarch_conv``.
+"""Wrappers of the FFT-conv kernels and the autograd Function over them.
 
-``spectrum`` (csrc/spectrum.cu) replaces the TPU kernel ``_spectrum_tiles``
-and ``monarch_conv`` (csrc/monarch_conv.cu) replaces ``_conv_fused_io_tiles``
-(flashfftconv_tpu/ops/monarch_pallas.py). On a CUDA tensor each wrapper
-checks its inputs, allocates its output with ``torch.empty``, launches its
-kernel on the current stream, raises if the launch failed, and adds one to
-its ``launches`` count. On a CPU tensor it runs the plain version from
+``spectrum`` (csrc/spectrum.cu) replaces the TPU kernel ``_spectrum_tiles``,
+``monarch_conv`` (csrc/monarch_conv.cu) replaces ``_conv_fused_io_tiles``
+and ``monarch_conv_bwd`` (csrc/monarch_conv_bwd.cu) replaces
+``_bwd_fused_io_tiles`` (flashfftconv_tpu/ops/monarch_pallas.py);
+``dk_finish``, in the same source, is the card's counterpart of the JAX
+package's ``_finish_dk``. On a CUDA tensor each wrapper checks its inputs,
+allocates its outputs with ``torch.empty``, launches its kernel on the
+current stream, raises if the launch failed, and adds one to its
+``launches`` count. On a CPU tensor it runs the plain version from
 ``ops/monarch.py`` instead; on any other device it raises.
 
-The kernels have no backward yet: a wrapper called on a CUDA tensor that
-requires grad while grad mode is on raises NotImplementedError.
+``FftConvFunction`` runs ``spectrum`` and ``monarch_conv`` forward and, in
+its backward, recomputes the spectrum and runs ``monarch_conv_bwd`` and
+``dk_finish``; it saves only (u, k, pregate, postgate), as the JAX
+package's custom VJP does.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -22,22 +25,6 @@ from flashfftconv_tpu_torch.ops import _build, monarch
 from flashfftconv_tpu_torch.ops.plan import MAX_FACTOR, FftPlan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures (csrc/spectrum.cu, csrc/monarch_conv.cu): pointers, then the
-# sizes, n_stages and four factors, [dtype], then the stream.
-_ARGTYPES = {
-    "spectrum": [_P] * 5 + [_I] * 7 + [_P],
-    "monarch_conv": [_P] * 8 + [_I] * 9 + [_P],
-}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, f"ffc_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _I
-    return lib
 
 
 def on_cpu(*tensors: torch.Tensor | None) -> bool:
@@ -49,11 +36,6 @@ def on_cpu(*tensors: torch.Tensor | None) -> bool:
     if devs != {"cuda"}:
         raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {sorted(devs)}")
     return False
-
-
-def check_no_grad(*tensors: torch.Tensor | None) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError("backward kernels are slice 2")
 
 
 def _check_cuda(name: str, t: torch.Tensor, device: torch.device, dtypes, ndim: int) -> None:
@@ -81,7 +63,6 @@ def spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
     """Half spectrum (H, M+1) complex64 of real f32 taps k (H, k_len <= N)."""
     if on_cpu(k):
         return monarch.kernel_spectrum(plan, k)
-    check_no_grad(k)
     _check_cuda("k", k, plan.device, (torch.float32,), 2)
     h, k_len = k.shape
     if not 1 <= k_len <= plan.seqlen:
@@ -89,7 +70,7 @@ def spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty(h, plan.inner + 1, dtype=torch.complex64, device=k.device)
     if h == 0:
         return out
-    lib = _lib("spectrum")
+    lib = _build.load("spectrum")
     rc = lib.ffc_spectrum(
         k.data_ptr(), out.data_ptr(), plan.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
         plan.roots.data_ptr(), h, k_len, *_factor_args(plan), _stream(k.device),
@@ -100,6 +81,14 @@ def spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
 
 
 spectrum.launches = 0
+
+
+def _check_gates(plan: FftPlan, u: torch.Tensor, *gates: torch.Tensor | None) -> None:
+    for name, g in zip(("pregate", "postgate", "dout"), gates):
+        if g is not None:
+            _check_cuda(name, g, plan.device, (u.dtype,), 3)
+            if g.shape != u.shape:
+                raise ValueError(f"{name} shape {tuple(g.shape)} != u shape {tuple(u.shape)}")
 
 
 def monarch_conv(
@@ -116,23 +105,18 @@ def monarch_conv(
         raise ValueError("pregate and postgate must both be given or both be None")
     if on_cpu(u, k_f, pregate, postgate):
         return monarch.conv_with_spectrum(plan, u, k_f, pregate, postgate)
-    check_no_grad(u, k_f, pregate, postgate)
     _check_cuda("u", u, plan.device, tuple(_DTYPE_CODES), 3)
     b, h, length = u.shape
     _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
     if k_f.shape != (h, plan.inner + 1):
         raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(h, plan.inner + 1)}")
-    for name, g in (("pregate", pregate), ("postgate", postgate)):
-        if g is not None:
-            _check_cuda(name, g, plan.device, (u.dtype,), 3)
-            if g.shape != u.shape:
-                raise ValueError(f"{name} shape {tuple(g.shape)} != u shape {tuple(u.shape)}")
+    _check_gates(plan, u, pregate, postgate)
     if not 1 <= length <= plan.seqlen:
         raise ValueError(f"input length {length} not in [1, {plan.seqlen}]")
     out = torch.empty_like(u)
     if b * h == 0:
         return out
-    lib = _lib("monarch_conv")
+    lib = _build.load("monarch_conv")
     rc = lib.ffc_monarch_conv(
         u.data_ptr(),
         None if pregate is None else pregate.data_ptr(),
@@ -149,24 +133,132 @@ def monarch_conv(
 monarch_conv.launches = 0
 
 
-def fft_conv_cuda(
+def monarch_conv_bwd(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None,
+    postgate: torch.Tensor | None,
+    dout: torch.Tensor,
+):
+    """The backward of ``monarch_conv`` for u (B, H, L <= N) in f32 or bf16,
+    k_f (H, M+1) complex64, optional gates and dout (B, H, L) at u's dtype.
+    Returns (du, dpre, dpost, partials): du, dpre and dpost at u's dtype
+    (dpre, dpost None when ungated) and the dk spectrum partials
+    G conj(U), complex64 (B, H, M+1), for ``dk_finish``."""
+    if (pregate is None) != (postgate is None):
+        raise ValueError("pregate and postgate must both be given or both be None")
+    if on_cpu(u, k_f, pregate, postgate, dout):
+        return monarch.conv_bwd_plain(plan, u, k_f, pregate, postgate, dout)
+    _check_cuda("u", u, plan.device, tuple(_DTYPE_CODES), 3)
+    b, h, length = u.shape
+    _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
+    if k_f.shape != (h, plan.inner + 1):
+        raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(h, plan.inner + 1)}")
+    _check_gates(plan, u, pregate, postgate, dout)
+    if not 1 <= length <= plan.seqlen:
+        raise ValueError(f"input length {length} not in [1, {plan.seqlen}]")
+    gated = pregate is not None
+    du = torch.empty_like(u)
+    dpre = torch.empty_like(u) if gated else None
+    dpost = torch.empty_like(u) if gated else None
+    partials = torch.empty(b, h, plan.inner + 1, dtype=torch.complex64, device=u.device)
+    if b * h == 0:
+        return du, dpre, dpost, partials
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.load("monarch_conv_bwd")
+    rc = lib.ffc_monarch_conv_bwd(
+        u.data_ptr(), ptr(pregate), ptr(postgate), dout.data_ptr(), k_f.data_ptr(),
+        du.data_ptr(), ptr(dpre), ptr(dpost), partials.data_ptr(),
+        plan.tw_flat.data_ptr(), plan.split_tw.data_ptr(), plan.roots.data_ptr(),
+        b, h, length, *_factor_args(plan), _DTYPE_CODES[u.dtype], _stream(u.device),
+    )
+    _build.check(lib, rc, "monarch_conv_bwd kernel")
+    monarch_conv_bwd.launches += 1
+    return du, dpre, dpost, partials
+
+
+monarch_conv_bwd.launches = 0
+
+
+def dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
+    """dk (H, k_len) f32 = irfft(sum_b partials)[:k_len] for the (B, H, M+1)
+    complex64 partials of ``monarch_conv_bwd``, summed over B in order."""
+    if on_cpu(partials):
+        return monarch.dk_finish_plain(plan, partials, k_len)
+    _check_cuda("partials", partials, plan.device, (torch.complex64,), 3)
+    b, h, m1 = partials.shape
+    if m1 != plan.inner + 1:
+        raise ValueError(f"partials shape {tuple(partials.shape)} != (B, H, {plan.inner + 1})")
+    if not 1 <= k_len <= plan.seqlen:
+        raise ValueError(f"kernel length {k_len} not in [1, {plan.seqlen}]")
+    dk = torch.empty(h, k_len, dtype=torch.float32, device=partials.device)
+    if h == 0:
+        return dk
+    if b == 0:
+        return dk.zero_()
+    lib = _build.load("monarch_conv_bwd")
+    rc = lib.ffc_dk_finish(
+        partials.data_ptr(), dk.data_ptr(), plan.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
+        plan.roots.data_ptr(), b, h, k_len, *_factor_args(plan), _stream(partials.device),
+    )
+    _build.check(lib, rc, "dk_finish kernel")
+    dk_finish.launches += 1
+    return dk
+
+
+dk_finish.launches = 0
+
+
+def _io_dtype(u: torch.Tensor) -> torch.dtype:
+    """The kernels' I/O dtype: float16 runs as bfloat16 on the card (as the
+    JAX package's ``_io_dtype`` does); the CPU keeps u's dtype."""
+    return torch.bfloat16 if u.dtype == torch.float16 and u.device.type == "cuda" else u.dtype
+
+
+def _rows(t: torch.Tensor | None, shape, io: torch.dtype) -> torch.Tensor | None:
+    """t as contiguous (B, H, L) rows at the I/O dtype."""
+    return None if t is None else t.reshape(-1, *shape[-2:]).to(io).contiguous()
+
+
+class FftConvFunction(torch.autograd.Function):
+    """The FFT conv with the kernels' backward (the plain versions on CPU
+    tensors). Saves only (u, k, pregate, postgate); the backward recomputes
+    k's spectrum. Grads come back at each input's dtype (dk f32 like k)."""
+
+    @staticmethod
+    def forward(ctx, plan, u, k, pregate, postgate):
+        if k.shape[-1] > plan.seqlen:
+            raise ValueError(f"kernel length {k.shape[-1]} > plan seqlen {plan.seqlen}")
+        ctx.plan = plan
+        ctx.save_for_backward(u, k, pregate, postgate)
+        u3, pre3, post3 = (_rows(t, u.shape, _io_dtype(u)) for t in (u, pregate, postgate))
+        out = monarch_conv(plan, u3, spectrum(plan, k.float().contiguous()), pre3, post3)
+        return out.reshape(u.shape).to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        u, k, pregate, postgate = ctx.saved_tensors
+        plan, shape, io = ctx.plan, u.shape, _io_dtype(u)
+        u3, pre3, post3, dout3 = (_rows(t, shape, io) for t in (u, pregate, postgate, dout))
+        k_f = spectrum(plan, k.float().contiguous())
+        du, dpre, dpost, partials = monarch_conv_bwd(plan, u3, k_f, pre3, post3, dout3)
+        dk = dk_finish(plan, partials, k.shape[-1]) if ctx.needs_input_grad[2] else None
+        back = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
+        return (None, back(du, u), back(dk, k), back(dpre, pregate), back(dpost, postgate))
+
+
+def fft_conv(
     plan: FftPlan,
     u: torch.Tensor,
     k: torch.Tensor,
     pregate: torch.Tensor | None = None,
     postgate: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The forward of the JAX package's ``fft_conv_pallas`` on the card:
-    ``spectrum`` of k, then one ``monarch_conv``. u (..., H, L <= N), k
-    (H, k_len <= N); gates cast to u's I/O dtype, float16 runs as bfloat16
-    (as the JAX package's ``_io_dtype`` does); output at u's dtype."""
-    if u.device.type != "cuda":
-        raise ValueError(f"fft_conv_cuda needs CUDA tensors, got {u.device}")
-    io = torch.bfloat16 if u.dtype == torch.float16 else u.dtype
-    shape = u.shape
-    u3 = u.reshape(-1, *shape[-2:]).to(io).contiguous()
-    gates = [None if g is None else g.reshape(u3.shape).to(io).contiguous()
-             for g in (pregate, postgate)]
-    k_f = spectrum(plan, k.float().contiguous())
-    out = monarch_conv(plan, u3, k_f, *gates)
-    return out.reshape(shape).to(u.dtype)
+    """The JAX package's ``fft_conv_pallas`` through the wrappers: the
+    kernels on CUDA tensors, the plain versions on CPU tensors. u (..., H,
+    L <= N), k (H, k_len <= N); gates cast to u's I/O dtype (float16 runs as
+    bfloat16 on the card); output at u's dtype. Runs through
+    ``FftConvFunction``, which saves nothing and builds no graph when no
+    grad is needed."""
+    return FftConvFunction.apply(plan, u, k, pregate, postgate)

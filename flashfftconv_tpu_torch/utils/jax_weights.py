@@ -7,12 +7,21 @@ of ``flashfftconv_tpu_torch.models.lm.ConvLMHeadModel``;
 ``Dense`` kernels are (in, out) and are transposed to ``nn.Linear``'s
 (out, in); ``in_proj`` is already (out, in); LayerNorm ``scale`` becomes
 ``weight``. The result loads with ``load_state_dict(..., strict=True)``.
+
+The map takes any tree shaped like the params: ``from_jax_params`` of a
+``jax.grad`` tree gives each gradient under the port's parameter name,
+transposed as the weights are, to compare with the port's ``.grad``.
+``flax_paths`` is the map's inverse: the flax path of every parameter of a
+port model, from the modules' types (the optimizer's labels read it).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
+
+from flashfftconv_tpu_torch.models.layers import Dense, Embed, LayerNorm
 
 
 def _t(a) -> torch.Tensor:
@@ -74,4 +83,31 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
         out.update(hyena_operator_state_dict(block["mixer"], p + "mixer."))
         out.update(_dense(block["mlp"]["fc1"], p + "mlp.fc1"))
         out.update(_dense(block["mlp"]["fc2"], p + "mlp.fc2"))
+    return out
+
+
+def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """{port parameter name: flax path} for a port model (or any submodule
+    the maps above cover): ``blocks.i`` is ``block_i``, ``layers.j`` is
+    ``layers_j`` (``mixer`` in a linear-mixer filter), and a Dense, LayerNorm
+    or Embed ``weight`` is flax's ``kernel``, ``scale`` or ``embedding``."""
+    leaf_names = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding"}
+    modules = dict(model.named_modules())
+    out = {}
+    for name, _ in model.named_parameters():
+        *mods, leaf = name.split(".")
+        path: list[str] = []
+        for i, part in enumerate(mods):
+            if not part.isdigit():
+                path.append(part)
+            elif path[-1] == "blocks":
+                path[-1] = f"block_{part}"
+            elif getattr(modules[".".join(mods[: i - 1])], "linear_mixer", False):
+                path[-1] = "mixer"
+            else:
+                path[-1] = f"{path[-1]}_{part}"
+        owner = modules[".".join(mods)]
+        if leaf == "weight" and type(owner) in leaf_names:
+            leaf = leaf_names[type(owner)]
+        out[name] = (*path, leaf)
     return out

@@ -7,7 +7,9 @@ imports only torch and the port, so it runs where JAX is not installed:
 
 Tolerances: f32 outputs within 2e-5 of the largest |output| (FFT roundoff
 is ~1e-6 of it at N = 32768); bf16 and f16 outputs within one ulp of the
-largest |output| (kernel and plain round the same f32 value once).
+largest |output| (kernel and plain round the same f32 value once); sums
+over B*L (the depthwise dk and dbias) within 1e-5 of the sum of their
+terms' magnitudes.
 """
 
 import pytest
@@ -87,20 +89,110 @@ def test_cuda_hyena_operator_matches_cpu():
 
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_grad_and_bad_inputs():
+    """Bad inputs still raise; grads now flow through the kernels (the
+    wrappers no longer refuse them) and match the plain path's."""
     _needs_card()
     dev = torch.device("cuda")
     p = tplan.make_plan(1024, torch.float32, device=dev)
-    k = torch.randn(4, 512, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        monarch_cuda.spectrum(p, k)
-    with torch.no_grad():
-        k_f = monarch_cuda.spectrum(p, k)
-    u = torch.randn(2, 4, 512, device=dev)
+    g = torch.Generator().manual_seed(0)
+    k = (torch.randn(4, 512, generator=g) * 0.1).to(dev).requires_grad_()
+    k_f = monarch_cuda.spectrum(p, k)
+    assert k_f.grad_fn is None  # a wrapper is a plain kernel call, outside autograd
+    u = torch.randn(2, 4, 512, generator=g).to(dev)
     with pytest.raises(ValueError, match="contiguous"):
         monarch_cuda.monarch_conv(p, u.transpose(0, 1).contiguous().transpose(0, 1), k_f)
     with pytest.raises(TypeError):
         monarch_cuda.monarch_conv(p, u.half(), k_f)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdw.depthwise(u, torch.randn(4, 3, device=dev, requires_grad=True), None, 1, True)
-    y = tff.FlashFFTConv(1024, torch.float32)(u, k.detach())
-    _close(y, tff.fft_conv_reference(1024, u, k.detach()), torch.float32)
+    with pytest.raises(ValueError, match="dout"):
+        monarch_cuda.monarch_conv_bwd(p, u, k_f, None, None, u[:, :, :100].contiguous())
+    with pytest.raises(ValueError, match="partials"):
+        monarch_cuda.dk_finish(p, k_f, 512)
+    with pytest.raises(ValueError, match="dout"):
+        tdw.depthwise_bwd(u, torch.randn(4, 3, device=dev), u.bfloat16(), 1, True)
+    w = torch.randn(4, 3, generator=g).to(dev).requires_grad_()
+    uu = u.clone().requires_grad_()
+    n0 = (monarch_cuda.monarch_conv_bwd.launches, tdw.depthwise_bwd.launches)
+    y = tff.FlashFFTConv(1024, torch.float32)(tdw.depthwise_conv1d(uu, w, None, 1, True), k)
+    y.square().sum().backward()
+    assert (monarch_cuda.monarch_conv_bwd.launches, tdw.depthwise_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    uc, wc, kc = (t.detach().cpu().requires_grad_() for t in (u, w, k))
+    pc = tplan.make_plan(1024, torch.float32, device="cpu")
+    tff.fft_conv(pc, tdw.depthwise_conv1d(uc, wc, None, 1, True), kc).square().sum().backward()
+    for a, b in ((uu, uc), (w, wc), (k, kc)):
+        _close(a.grad.cpu(), b.grad, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 4096, 16384, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv_backward_kernels_match_plain(n, dtype):
+    """monarch_conv_bwd and dk_finish against conv_bwd_plain and
+    dk_finish_plain; dk and the partials are f32 at f32 tolerance."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, dtype, device=dev)
+    g = torch.Generator().manual_seed(n + 1)
+    for b, h, length, gated in [(4, 16, n // 2, False), (3, 7, n - 5, True)]:
+        u, d, *gates = (torch.randn(b, h, length, generator=g).to(dev, dtype)
+                        for _ in range(2 + 2 * gated))
+        k_f = monarch_cuda.spectrum(p, (torch.randn(h, length, generator=g) * 0.02).to(dev))
+        gates = gates or [None, None]
+        n0 = (monarch_cuda.monarch_conv_bwd.launches, monarch_cuda.dk_finish.launches)
+        got = monarch_cuda.monarch_conv_bwd(p, u, k_f, *gates, d)
+        dk = monarch_cuda.dk_finish(p, got[3], length)
+        torch.cuda.synchronize()
+        assert (monarch_cuda.monarch_conv_bwd.launches, monarch_cuda.dk_finish.launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        ref = monarch.conv_bwd_plain(p, u, k_f, *gates, d)
+        for a, r in zip(got[:3], ref[:3]):
+            if r is not None:
+                _close(a, r, dtype)
+        _close(torch.view_as_real(got[3]), torch.view_as_real(ref[3]), torch.float32)
+        _close(dk, monarch.dk_finish_plain(p, ref[3], length), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_depthwise_bwd_matches_plain(is_bhl, dtype):
+    """du within one output ulp; dk and dbias (sums over B*L in another
+    order) within 1e-5 of the sum of the terms' magnitudes."""
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    for (b, d, length), k, pad in [((2, 2304, 4096), 3, (2, 0)), ((3, 37, 1031), 5, (1, 3)),
+                                   ((2, 5, 300), 7, (0, 9))]:
+        x = torch.randn((b, d, length) if is_bhl else (b, length, d), generator=g).to(dev, dtype)
+        w = torch.randn((d, k) if is_bhl else (k, d), generator=g).to(dev) * 0.3
+        out_len = length + sum(pad) - k + 1
+        dy = torch.randn((b, d, out_len) if is_bhl else (b, out_len, d), generator=g).to(dev, dtype)
+        n0 = tdw.depthwise_bwd.launches
+        du, dk, db = tdw.depthwise_bwd(x, w, dy, pad, is_bhl)
+        assert tdw.depthwise_bwd.launches == n0 + 1
+        rdu, rdk, rdb = tdw.depthwise_bwd_plain(x, w, dy, pad, is_bhl)
+        _, adk, adb = tdw.depthwise_bwd_plain(x.abs(), w, dy.abs(), pad, is_bhl)
+        _close(du, rdu, dtype)
+        for a, r, mag in ((dk, rdk, adk), (db, rdb, adb)):
+            assert float((a - r).abs().max()) <= 1e-5 * float(mag.abs().max()) + 1e-7
+
+
+@pytest.mark.gpu
+def test_cuda_lm_grads_match_cpu():
+    """A tiny f32 LM with the same weights: every parameter's grad on the
+    card (backward kernels) within 1e-4 of its largest |grad| on the CPU."""
+    _needs_card()
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids = torch.randint(0, 64, (2, 257), generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        m = ConvLMHeadModel(d_model=32, n_layer=2, d_inner=64, vocab_size=64, l_max=256,
+                            mixer_kwargs={"conv_dtype": torch.float32}, dtype=torch.float32,
+                            device=dev, generator=torch.Generator().manual_seed(3)).eval()
+        cross_entropy(m(ids[:, :-1].to(dev)), ids[:, 1:].to(dev)).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters()}
+    for name, ref in grads["cpu"].items():
+        err = float((grads["cuda"][name] - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()) + 1e-8, (name, err)

@@ -24,7 +24,9 @@ def _env():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, flashfftconv_tpu_torch, flashfftconv_tpu_torch.models.lm, "
-        "flashfftconv_tpu_torch.utils.generation, flashfftconv_tpu_torch.utils.jax_weights\n"
+        "flashfftconv_tpu_torch.utils.generation, flashfftconv_tpu_torch.utils.jax_weights, "
+        "flashfftconv_tpu_torch.utils.metrics, flashfftconv_tpu_torch.utils.optim, "
+        "flashfftconv_tpu_torch.utils.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'flashfftconv_tpu'))\n"
         "assert not bad, bad\n"

@@ -9,6 +9,13 @@ bf16 paths at the repo's 1e-2, with the kernel scaled so that |y| <= 0.5
 (the JAX kernels round their matmul operands to bf16 at every stage and
 land one or two bf16 ulps, <= 4e-3 each at |y| <= 0.5, from the f32 result
 that the port rounds once).
+Grads: the port's ``FftConvFunction`` and ``DepthwiseFunction`` on the CPU
+(their plain backward) against ``jax.grad`` through the JAX package's
+backward kernels in interpret mode (``_bwd_fused_io_tiles``,
+``_pallas_depthwise_bwd``). f32 grads at atol 1e-4 on grads of order 1; dk
+sums B*L products and reaches a few hundred here, so each grad is held to
+1e-4 of max(1, its largest |value|) (measured: 4e-7 of it). bf16 grads at
+the repo's 1e-2 of the same scale, with outputs scaled to |y| <= 0.5.
 The CUDA kernels are held against their plain versions on the card in
 test_torch_gpu.py.
 """
@@ -218,13 +225,25 @@ def test_plain_path_is_differentiable_on_cpu():
 
 
 def test_dispatch_routes_and_errors():
+    """Every route gives the oracle's output within 2e-5 of its largest
+    |y| (f32 FFT roundoff, as chip_smoke.f32_tol), on seeded inputs. 'auto'
+    on the CPU runs FftConvFunction over the plain versions; 'plain' is
+    fft_conv_plain under torch's autograd, and both give the same grads."""
     p = tplan.make_plan(512, torch.float32, device=CPU)
-    u, k = torch.randn(1, 2, 256), torch.randn(2, 256)
-    assert dispatch.resolve_impl(u, "auto") == "plain"
+    g = torch.Generator().manual_seed(0)
+    u, k = torch.randn(1, 2, 256, generator=g), torch.randn(2, 256, generator=g)
+    assert dispatch.resolve_impl(u, "auto") == "cpu"
     before = (monarch_cuda.spectrum.launches, monarch_cuda.monarch_conv.launches)
+    ref = tff.fft_conv_reference(512, u, k)
+    grads = {}
     for impl in ("auto", "plain", "fft"):
-        torch.testing.assert_close(dispatch.fft_conv(p, u, k, impl=impl),
-                                   tff.fft_conv_reference(512, u, k), atol=1e-5, rtol=0)
+        uu = u.clone().requires_grad_()
+        y = dispatch.fft_conv(p, uu, k, impl=impl)
+        torch.testing.assert_close(y, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
+        assert (type(y.grad_fn).__name__ == "FftConvFunctionBackward") == (impl == "auto")
+        grads[impl] = torch.autograd.grad(y, uu, ref)[0]
+    torch.testing.assert_close(grads["auto"], grads["plain"],
+                               atol=2e-5 * float(grads["fft"].abs().max()), rtol=0)
     assert (monarch_cuda.spectrum.launches, monarch_cuda.monarch_conv.launches) == before
     with pytest.raises(ValueError, match="cuda"):
         dispatch.fft_conv(p, u, k, impl="cuda")
@@ -251,6 +270,152 @@ def test_entry_points_default_to_cuda():
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+# --- backward (kernels: _bwd_fused_io_tiles, _pallas_depthwise_bwd) ------
+
+def _assert_grads_close(got, ref, tol, names):
+    for name, a, r in zip(names, got, ref):
+        a, r = np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32), _np(r)
+        np.testing.assert_allclose(a, r, atol=tol * max(1.0, float(np.abs(r).max())),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("padded", [False, True])
+def test_conv_grads_match_jax_bwd_fused_f32(gated, padded):
+    """jax.grad of fft_conv_pallas, whose backward runs _bwd_fused_io_tiles
+    in interpret mode (H=64 fits its channel tile, L % n2 == 0), against the
+    port's FftConvFunction with the plain backward, f32."""
+    n = 2048
+    jp = jff.make_plan(n, compute_dtype=jnp.float32)
+    length = n - jp.factors[1] if padded else n
+    assert monarch_pallas._h_tile(*jp.factors, 64) is not None and length % jp.factors[1] == 0
+    rng = np.random.default_rng(20 + 2 * gated + padded)
+    u, k, gates = _conv_data(rng, 2, 64, length, length, gated)
+    dout = rng.standard_normal(u.shape).astype(np.float32)
+    args = [jnp.asarray(a) for a in (u, k, *gates)]
+    ref = jax.grad(lambda *a: jnp.sum(monarch_pallas.fft_conv_pallas(jp, *a) * dout),
+                   argnums=tuple(range(len(args))))(*args)
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (u, k, *gates)]
+    y = tff.fft_conv(p, *ts)
+    assert type(y.grad_fn).__name__ == "FftConvFunctionBackward"
+    got = torch.autograd.grad(y, ts, torch.from_numpy(dout))
+    _assert_grads_close(got, ref, 1e-4, "u k pre post".split())
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_conv_grads_match_jax_bwd_fused_bf16(gated):
+    """bf16 I/O: u, gates and dout in bf16, k and dk in f32 (module
+    docstring)."""
+    n = 2048
+    jp = jff.make_plan(n, compute_dtype=jnp.bfloat16)
+    length = n - jp.factors[1]
+    u, k, gates = _conv_data(np.random.default_rng(30 + gated), 2, 16, length, length, gated,
+                             y_max=0.5)
+    dout = np.random.default_rng(40).standard_normal(u.shape).astype(np.float32)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    args = [bf(u), jnp.asarray(k), *map(bf, gates)]
+    ref = jax.grad(lambda *a: jnp.sum((monarch_pallas.fft_conv_pallas(jp, *a) * bf(dout))
+                                      .astype(jnp.float32)),
+                   argnums=tuple(range(len(args))))(*args)
+    p = tplan.make_plan(n, torch.bfloat16, device=CPU)
+    ts = [torch.from_numpy(_np(a)) for a in args]
+    ts = [(t if i == 1 else t.to(torch.bfloat16)).requires_grad_() for i, t in enumerate(ts)]
+    got = torch.autograd.grad(tff.fft_conv(p, *ts), ts,
+                              torch.from_numpy(_np(bf(dout))).to(torch.bfloat16))
+    assert [a.dtype for a in got] == [t.dtype for t in ts]
+    _assert_grads_close(got, ref, 1e-2, "u k pre post".split())
+
+
+@pytest.mark.parametrize("b,h,length,k_len,gated", [
+    (3, 5, 301, 77, True), (1, 1, 1024, 1024, False), (5, 3, 1, 4, True), (2, 7, 515, 600, False),
+])
+def test_conv_plain_backward_matches_autograd(b, h, length, k_len, gated):
+    """conv_bwd_plain and dk_finish_plain (the Function's CPU backward and
+    the kernels' oracle) equal torch's autograd of fft_conv_plain on odd B,
+    ragged H and L, k_len both below and above L."""
+    n = 1024
+    u, k, gates = _conv_data(np.random.default_rng(b * h), b, h, length, k_len, gated)
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (u, k, *gates)]
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(u.shape).astype(np.float32))
+    ref = torch.autograd.grad(monarch.fft_conv_plain(p, *ts), ts, dout)
+    tu, tk, *tg = (t.detach() for t in ts)
+    du, dpre, dpost, parts = monarch.conv_bwd_plain(p, tu, monarch.kernel_spectrum(p, tk),
+                                                   *(tg or (None, None)), dout)
+    assert parts.shape == (b, h, n // 2 + 1) and parts.dtype == torch.complex64
+    got = [du, monarch.dk_finish_plain(p, parts, k_len), *([dpre, dpost] if gated else [])]
+    _assert_grads_close(got, ref, 1e-4, "u k pre post".split())
+
+
+def test_conv_backward_wrappers_on_cpu():
+    """On CPU tensors the backward wrappers run their plain versions and
+    count no launch; gates must come in pairs."""
+    p = tplan.make_plan(256, torch.float32, device=CPU)
+    g = torch.Generator().manual_seed(3)
+    u, d = torch.randn(2, 3, 100, generator=g), torch.randn(2, 3, 100, generator=g)
+    k_f = monarch_cuda.spectrum(p, torch.randn(3, 50, generator=g))
+    before = (monarch_cuda.monarch_conv_bwd.launches, monarch_cuda.dk_finish.launches)
+    du, dpre, dpost, parts = monarch_cuda.monarch_conv_bwd(p, u, k_f, None, None, d)
+    assert dpre is None and dpost is None
+    ref = monarch.conv_bwd_plain(p, u, k_f, None, None, d)
+    torch.testing.assert_close(du, ref[0], atol=0, rtol=0)
+    torch.testing.assert_close(monarch_cuda.dk_finish(p, parts, 50),
+                               monarch.dk_finish_plain(p, ref[3], 50), atol=0, rtol=0)
+    assert (monarch_cuda.monarch_conv_bwd.launches, monarch_cuda.dk_finish.launches) == before
+    with pytest.raises(ValueError, match="both"):
+        monarch_cuda.monarch_conv_bwd(p, u, k_f, u, None, d)
+
+
+def _dw_data(rng, is_bhl, b, d, length, k, pad):
+    out_len = length + sum(pad) - k + 1
+    x = rng.standard_normal((b, d, length) if is_bhl else (b, length, d)).astype(np.float32)
+    w = rng.standard_normal((d, k) if is_bhl else (k, d)).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
+    dout = rng.standard_normal((b, d, out_len) if is_bhl else (b, out_len, d)).astype(np.float32)
+    return x, w, bias, dout
+
+
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("k,pad", [(3, (2, 0)), (5, 2)])
+def test_depthwise_grads_match_jax_pallas_bwd(monkeypatch, is_bhl, k, pad):
+    """FLASHFFTCONV_DW_BWD=fused sends jax.grad through _pallas_depthwise_bwd
+    (interpret mode); the port's DepthwiseFunction with its plain backward
+    agrees at atol 1e-3 (tests/test_depthwise.py's tolerance)."""
+    monkeypatch.setenv("FLASHFFTCONV_DW_BWD", "fused")
+    pad = pad if isinstance(pad, tuple) else (pad, pad)
+    x, w, bias, dout = _dw_data(np.random.default_rng(k), is_bhl, 2, 128, 64, k, pad)
+    ref = jax.grad(lambda *a: jnp.sum(jdw.depthwise_conv1d(
+        *a, padding=pad, is_bhl=is_bhl, impl="pallas") * dout), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (x, w, bias)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, w, bias)]
+    y = tff.depthwise_conv1d(*ts, padding=pad, is_bhl=is_bhl)
+    assert type(y.grad_fn).__name__ == "DepthwiseFunctionBackward"
+    got = torch.autograd.grad(y, ts, torch.from_numpy(dout))
+    for name, a, r in zip(("x", "w", "bias"), got, ref):
+        np.testing.assert_allclose(a.numpy(), _np(r), atol=1e-3, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("shape,k,pad", [((3, 37, 101), 5, (1, 3)), ((2, 5, 9), 7, (6, 3)),
+                                         ((1, 4, 30), 3, (0, 7)), ((2, 6, 12), 3, 0)])
+def test_depthwise_backward_any_padding(is_bhl, shape, k, pad):
+    """Paddings the JAX kernel refuses (pl + pr != K - 1): the port's
+    backward against torch's autograd of depthwise_plain, f32 and bf16."""
+    pad = pad if isinstance(pad, tuple) else (pad, pad)
+    x, w, bias, dout = _dw_data(np.random.default_rng(sum(shape)), is_bhl, *shape, k, pad)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        xt = torch.from_numpy(x).to(dtype).requires_grad_()
+        wt, bt = (torch.from_numpy(a).requires_grad_() for a in (w, bias))
+        dt = torch.from_numpy(dout).to(dtype)
+        got = torch.autograd.grad(tff.depthwise_conv1d(xt, wt, bt, pad, is_bhl), (xt, wt, bt), dt)
+        ref = torch.autograd.grad(tdw.depthwise_plain(xt, wt, bt, pad, is_bhl), (xt, wt, bt), dt)
+        assert [a.dtype for a in got] == [dtype, torch.float32, torch.float32]
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a.float(), r.float(), atol=tol * max(1.0, float(
+                r.float().abs().max())), rtol=0)
 
 
 # --- depthwise (kernel: _pallas_depthwise) --------------------------------
@@ -306,16 +471,17 @@ def test_depthwise_any_shape(is_bhl, shape, k, pad):
 
 
 def test_depthwise_errors():
-    x, w = torch.randn(1, 4, 16), torch.randn(4, 2)
-    w3 = torch.randn(4, 3)
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn(1, 4, 16, generator=g), torch.randn(4, 2, generator=g)
+    w3 = torch.randn(4, 3, generator=g)
     torch.testing.assert_close(tff.depthwise_conv1d(x, w3, padding=1, impl="plain"),
                                tff.depthwise_conv1d(x, w3, padding=1), atol=0, rtol=0)
     with pytest.raises(ValueError, match="odd"):
         tff.depthwise_conv1d(x, w, padding=1)
     with pytest.raises(ValueError):
-        tff.depthwise_conv1d(x, torch.randn(4, 3), impl="pallas")
+        tff.depthwise_conv1d(x, w3, impl="pallas")
     with pytest.raises(ValueError, match="cuda"):
-        tff.depthwise_conv1d(x, torch.randn(4, 3), impl="cuda")
+        tff.depthwise_conv1d(x, w3, impl="cuda")
 
 
 def test_depthwise_module_matches_jax_module():
