@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with an H100:
 
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
                           [--phases build,identity,kernels,serve,train,parity,grad_parity,
-                                    timing[,profile]]
+                                    dna,long_parity,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -32,13 +32,25 @@ Phases, each of which fails the run by raising:
   grad_parity  the same LM's grads on the card (backward kernels) and on the
             CPU (plain backward) agree within 1e-3 of each parameter's
             largest |grad|, and so do the losses after one AdamW step (1e-4);
+  dna       builds HyenaDNA large-1m (8 layers, d_model 256, d_inner 1024,
+            l_max 1,048,576, FFT size 2,097,152, bf16, random weights from
+            --seed) and answers 4 scoring requests of 131,072 to 1,048,576
+            bases of the synthetic genome through models.dna.score, then 1
+            warm-up and 3 timed forwards at 1,048,576 bases; checks finite
+            logits and the exact launches a forward (8 long_spectrum, 8
+            long_conv, 24 butterfly, 8 depthwise, no one-block conv); prints
+            bits per base, forward time, tokens/ms and peak memory;
+  long_parity  a 2-layer, d_model 64, l_max 65536 HyenaDNA in f32 (FFT size
+            131072) with the same weights on the card (long kernels) and on
+            the CPU (plain versions): logits agree within 2e-3;
   timing    times each kernel, its plain version and a PyTorch yardstick
             with CUDA events at the main paths' shapes;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time.
 
-Prints one JSON line of kernels (launches counted in the train phase), the
+Prints one JSON line of kernels (launches counted in the train phase, those
+of the three long kernels in the dna phase), the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -57,7 +69,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PHASES = ("build", "identity", "kernels", "serve", "train", "parity", "grad_parity", "timing")
+PHASES = ("build", "identity", "kernels", "serve", "train", "parity", "grad_parity", "dna",
+          "long_parity", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -71,6 +84,15 @@ N_FFT = 2 * L_MAX
 PROMPTS = (512, 1024, 2048, 4096)
 NEW_TOKENS = 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+
+# HyenaDNA large-1m serving shapes (models/dna.py preset): one forward runs
+# one long conv a layer at FFT size 2 * l_max, whatever the request's length.
+DNA_MODEL = "large-1m"
+DNA_D_MODEL, DNA_N_LAYER, DNA_L_MAX = 256, 8, 1_048_576
+DNA_N_FFT = 2 * DNA_L_MAX
+DNA_REQUESTS = (131_072, 262_144, 524_288, 1_048_576)
+DNA_WARMUP, DNA_TIMED = 1, 3
+LONG_SIZES = (65536, 131072, 524288, 2097152, 4194304)
 
 KERNELS = {
     "spectrum": dict(
@@ -99,11 +121,31 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/depthwise_bwd.cu",
         replaces="flashfftconv_tpu/ops/depthwise.py:360",
     ),
+    "butterfly": dict(
+        source="flashfftconv_tpu_torch/csrc/butterfly.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:2074",
+    ),
+    # the band kernel of the long conv, counted on its wrapper long_conv_inner
+    "long_conv": dict(
+        source="flashfftconv_tpu_torch/csrc/long_conv.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:1928",
+    ),
+    "long_spectrum": dict(
+        source="flashfftconv_tpu_torch/csrc/long_spectrum.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:616",
+    ),
 }
+LONG_KERNELS = ("butterfly", "long_conv", "long_spectrum")
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
                   "dk_finish": N_LAYER, "depthwise": N_LAYER, "depthwise_bwd": N_LAYER}
+# Launches in one HyenaDNA forward: a layer runs long_spectrum (one forward
+# butterfly and its band kernel), long_conv (butterfly, band kernel, inverse
+# butterfly) and the short depthwise conv; the one-block kernels never run.
+DNA_LAUNCHES = {"long_spectrum": DNA_N_LAYER, "long_conv": DNA_N_LAYER,
+                "butterfly": 3 * DNA_N_LAYER, "depthwise": DNA_N_LAYER, "spectrum": 0,
+                "monarch_conv": 0}
 
 
 def log(msg: str) -> None:
@@ -261,6 +303,89 @@ def phase_kernels(torch, g):
         _check_dw_bwd(torch, f"{'BHL' if is_bhl else 'BLH'} B={b} D={d} L={length} K={k} "
                       f"padding={pad} {dtype}", xx, ww, dd, pad, is_bhl)
     torch.cuda.synchronize()
+    errs.update(_check_long_kernels(torch, g))
+    return errs
+
+
+def _long_inputs(torch, g, dev):
+    """Main-path-shaped inputs of the long kernels, made on the card: the
+    taps of one layer and one request of l_max bases' worth of activations."""
+    gd = torch.Generator(device=dev).manual_seed(g.initial_seed())
+    t = torch.arange(DNA_L_MAX, dtype=torch.float32, device=dev)
+    k = torch.randn(DNA_D_MODEL, DNA_L_MAX, generator=gd, device=dev) * 0.02 * torch.exp(-t / 1000)
+    u = (torch.randn(1, DNA_D_MODEL, DNA_L_MAX, generator=gd, device=dev) * 0.02).to(torch.bfloat16)
+    return k, u
+
+
+def _check_long(torch, plan, what, u, k, pre=None, post=None):
+    """butterfly (both directions), long_conv_inner and long_spectrum against
+    their plain versions on the same inputs, and the chain long_conv against
+    the torch.fft oracle. Returns {kernel: max abs err}."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+
+    real = torch.view_as_real
+    low = u.dtype != torch.float32
+    length = u.shape[-1]
+    k_f = monarch_cuda.long_spectrum(plan, k)
+    ref = real(monarch.long_spectrum_plain(plan, k))
+    errs = {"long_spectrum": compare(f"long_spectrum {what}", real(k_f), ref, f32_tol(ref))}
+    del ref
+    zr = monarch.butterfly_plain(plan, u, pre)
+    z = monarch_cuda.butterfly(plan, u, pre)
+    fwd = compare(f"butterfly forward {what}", real(z), real(zr), f32_tol(real(zr)))
+    del z
+    z2r = monarch.long_conv_inner_plain(plan, zr, k_f)
+    z2 = monarch_cuda.long_conv_inner(plan, zr, k_f)
+    errs["long_conv"] = compare(f"long_conv_inner {what}", real(z2), real(z2r), f32_tol(real(z2r)))
+    del z2, zr
+    yr = monarch.butterfly_inverse_plain(plan, z2r, length, post, u.dtype)
+    y = monarch_cuda.butterfly(plan, z2r, post, inverse=True, length=length, dtype=u.dtype)
+    inv = compare(f"butterfly inverse {what}", y, yr, lowp_tol(yr) if low else f32_tol(yr))
+    errs["butterfly"] = max(fwd, inv)
+    del y, yr, z2r
+    ref = monarch.fft_conv_reference(plan.seqlen, u, k, pre, post)
+    compare(f"long_conv vs torch.fft {what}", monarch_cuda.long_conv(plan, u, k_f, pre, post),
+            ref, lowp_tol(ref) if low else f32_tol(ref))
+    torch.cuda.synchronize()
+    return errs
+
+
+def _check_long_kernels(torch, g):
+    """The three long kernels at the dna path's shapes, then at every listed
+    FFT size in f32 and bf16: B = 1 ungated at L = N/2, B = 3 and 4 gated at
+    ragged lengths; and the short depthwise conv at 1,048,576 positions."""
+    from flashfftconv_tpu_torch.ops import depthwise as dw
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    plan = make_plan(DNA_N_FFT, torch.bfloat16, device=dev)
+    k, u = _long_inputs(torch, g, dev)
+    log(f"long kernels: B=1 H={DNA_D_MODEL} L={DNA_L_MAX} N={DNA_N_FFT} bf16 ungated, "
+        f"factors={plan.factors} (outer {plan.outer}, band {plan.band})")
+    errs = _check_long(torch, plan, "main path", u, k)
+    del k, u, plan
+    for n in LONG_SIZES:
+        p = make_plan(n, torch.float32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, h, length, gated in ((1, 3, n // 2, False), (3, 2, n // 2 + 3, True),
+                                        (4, 2, n - 5, True)):
+                uu, pre, post = (torch.randn(b, h, length, generator=g).to(dev, dtype)
+                                 for _ in "abc")
+                kk = (torch.randn(h, n // 2 - 1, generator=g) * 0.05).to(dev)
+                gates = (pre, post) if gated else (None, None)
+                _check_long(torch, p, f"N={n} B={b} H={h} L={length} "
+                            f"{'gated' if gated else 'ungated'} {dtype}", uu, kk, *gates)
+        del p
+    d = 3 * DNA_D_MODEL
+    log(f"depthwise: B=1 D={d} L={DNA_L_MAX} K=3 padding=(2, 0) bias bf16 BHL")
+    x = torch.randn(1, d, DNA_L_MAX, generator=g).to(dev, torch.bfloat16)
+    w = (torch.rand(d, 3, generator=g) * 2 / math.sqrt(d)).to(dev)
+    bias = (torch.randn(d, generator=g) * 0.1).to(dev)
+    ref = dw.depthwise_plain(x, w, bias, (2, 0), True)
+    compare("depthwise at the dna path's shape", dw.depthwise(x, w, bias, (2, 0), True), ref,
+            lowp_tol(ref))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -310,7 +435,9 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
     wrappers = {"spectrum": monarch_cuda.spectrum, "monarch_conv": monarch_cuda.monarch_conv,
                 "monarch_conv_bwd": monarch_cuda.monarch_conv_bwd,
                 "dk_finish": monarch_cuda.dk_finish, "depthwise": dw.depthwise,
-                "depthwise_bwd": dw.depthwise_bwd}
+                "depthwise_bwd": dw.depthwise_bwd, "butterfly": monarch_cuda.butterfly,
+                "long_conv": monarch_cuda.long_conv_inner,
+                "long_spectrum": monarch_cuda.long_spectrum}
     return {name: wrappers[name] for name in names}
 
 
@@ -547,8 +674,112 @@ def phase_parity(torch, seed):
     return {"logits_max_abs_err": err}
 
 
+def phase_dna(torch, seed, np):
+    """HyenaDNA large-1m at full width and depth answers DNA_REQUESTS scoring
+    requests (B=1 each, one plan at FFT size 2 * l_max) through
+    models.dna.score, then DNA_WARMUP + DNA_TIMED forwards at l_max bases."""
+    from flashfftconv_tpu_torch.models import dna
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dna.build_model(DNA_MODEL, dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator().manual_seed(seed)).eval()
+    cfg = dna.MODEL_CONFIGS[DNA_MODEL]
+    if (cfg["d_model"], cfg["n_layer"], cfg["l_max"]) != (DNA_D_MODEL, DNA_N_LAYER, DNA_L_MAX):
+        raise AssertionError(f"preset {DNA_MODEL} is {cfg}")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"HyenaDNA {DNA_MODEL}: {n_params / 1e6:.2f}M params, d_model {DNA_D_MODEL}, "
+        f"{DNA_N_LAYER} layers, l_max {DNA_L_MAX}, built in {time.perf_counter() - t0:.1f} s")
+    genome = dna.synthetic_genome(seed)
+    rng = np.random.default_rng(seed)
+    counters = _counters(DNA_LAUNCHES)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    requests = []
+    for length in DNA_REQUESTS:
+        off = int(rng.integers(0, genome.size - length))
+        ids = torch.from_numpy(genome[off : off + length].astype(np.int64))[None].to(dev)
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dna.score(model, ids)
+        bits, nxt = float(out["bits_per_base"][0]), int(out["next_base"][0])  # waits
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {name: fn.launches - before[name] for name, fn in counters.items()}
+        if not bool(out["finite"]) or not math.isfinite(bits):
+            raise AssertionError(f"request of {length} bases: non-finite logits or score {bits}")
+        if not 0 <= nxt < len(dna.DNA_VOCAB):
+            raise AssertionError(f"request of {length} bases: next base {nxt} out of range")
+        if counts != DNA_LAUNCHES:
+            raise AssertionError(f"request of {length} bases launched {counts}, expected "
+                                 f"{DNA_LAUNCHES}")
+        requests.append({"bases": length, "bits_per_base": bits, "next_base": "ACGTN"[nxt],
+                         "ms": ms})
+        log(f"dna: request of {length} bases: {bits:.4f} bits/base, next base "
+            f"{'ACGTN'[nxt]}, {ms:.1f} ms, launches {counts}")
+    fwd_ms = []
+    with torch.inference_mode():
+        for _ in range(DNA_WARMUP + DNA_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (1, DNA_L_MAX, model.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)} or non-finite values")
+        del logits
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_fwd = len(DNA_REQUESTS) + DNA_WARMUP + DNA_TIMED
+    if launches != {name: n * n_fwd for name, n in DNA_LAUNCHES.items()}:
+        raise AssertionError(f"{n_fwd} forwards launched {launches}, expected {DNA_LAUNCHES} each")
+    peak = torch.cuda.max_memory_allocated()
+    timed = fwd_ms[DNA_WARMUP:]
+    med = float(np.median(timed))
+    res = {"requests": requests, "forwards": n_fwd, "launches": launches, "forward_ms": fwd_ms,
+           "forward_ms_median": med, "forward_ms_max": max(timed),
+           "tokens_per_ms": DNA_L_MAX / med, "peak_memory_bytes": peak}
+    log(f"dna: forward at {DNA_L_MAX} bases (B=1, bf16): median {med:.2f} ms max "
+        f"{max(timed):.2f} ms over {DNA_TIMED} timed forwards, {res['tokens_per_ms']:.1f} "
+        f"tokens/ms, peak memory {peak / 2**30:.2f} GiB, launches a forward {DNA_LAUNCHES}")
+    return res
+
+
+def phase_long_parity(torch, seed, np):
+    """A 2-layer f32 HyenaDNA at l_max 65536 (FFT size 131072) with the same
+    weights on the card (long kernels) and on the CPU (plain versions)."""
+    from flashfftconv_tpu_torch.models import dna
+
+    l_max = 65536
+    models = {
+        dev: dna.build_model("tiny-1k", d_model=64, n_layer=2, l_max=l_max, dtype=torch.float32,
+                             mixer_kwargs={"conv_dtype": torch.float32}, device=dev,
+                             generator=torch.Generator().manual_seed(seed)).eval()
+        for dev in ("cpu", "cuda")
+    }
+    ids = torch.from_numpy(dna.synthetic_genome(seed + 1, n=l_max).astype(np.int64))[None]
+    n0 = _counters(("long_conv",))["long_conv"].launches
+    with torch.inference_mode():
+        ref = models["cpu"](ids)
+        got = models["cuda"](ids.cuda()).cpu()
+    if _counters(("long_conv",))["long_conv"].launches != n0 + 2:
+        raise AssertionError("the card's forward did not run the long conv once a layer")
+    err = float((got - ref).abs().max())
+    log(f"long_parity: 2-layer f32 HyenaDNA at {l_max} bases, card (long kernels) vs CPU "
+        f"(plain): max_abs_err={err:.3e} tol=2e-3, |logits| <= {float(ref.abs().max()):.2f}")
+    if not err <= 2e-3:
+        raise AssertionError(f"card and CPU logits disagree: {err}")
+    return {"logits_max_abs_err": err}
+
+
 def _kind(name: str) -> str:
     for kind, keys in (
+        ("butterfly", ("butterfly_fwd_kernel", "butterfly_inv_kernel")),
+        ("long_conv", ("long_conv_kernel",)),
+        ("long_spectrum", ("long_spectrum_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
         ("dk_finish", ("dk_finish_kernel",)),
         ("monarch_conv", ("monarch_conv_kernel",)),
@@ -619,6 +850,16 @@ def phase_profile(torch, seed):
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
     step = make_train_step(model.train(), opt, sched, clip=1.0)
     res["train_step"] = _trace(torch, "one train step", lambda: step(x, y))
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    from flashfftconv_tpu_torch.models import dna
+
+    dna_model = dna.build_model(DNA_MODEL, dtype=torch.bfloat16, device="cuda",
+                                generator=torch.Generator().manual_seed(seed)).eval()
+    bases = torch.from_numpy(dna.synthetic_genome(seed)[:DNA_L_MAX].astype("int64"))[None].cuda()
+    with torch.inference_mode():
+        res["dna_forward"] = _trace(torch, f"one HyenaDNA {DNA_MODEL} forward at {DNA_L_MAX} "
+                                    "bases", lambda: dna_model(bases))
     return res
 
 
@@ -750,11 +991,86 @@ def phase_timing(torch, g):
             library_ms=_time_ms(torch, conv_bwd),
             bound=_bound(nbytes, flops),
         )
+    del k, u, x, k_f, dout, parts, dy, dy_full
+    torch.cuda.empty_cache()
+    res.update(_time_long(torch, g))
     for name, r in res.items():
-        extra = (f", partials traffic beyond the bound {r['overhead_ms']:.4f} ms"
+        extra = (f", the design's own traffic beyond the bound {r['overhead_ms']:.4f} ms"
                  if "overhead_ms" in r else "")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"timing {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
+            f"{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
+    return res
+
+
+def _time_long(torch, g):
+    """The long kernels at the dna path's shapes (B=1, H=256, L=2^20, N=2^21,
+    bf16, ungated). Bounds count what each function needs: its inputs read
+    once and its outputs written once, against its f32 operations (radix-2
+    line DFTs at 5 n log2 n, 6 a point for each twiddle, 20 a point for the
+    split and unsplit, 6 for the product). The complex64 bands that only
+    this design moves through device memory are reported as overhead_ms."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    plan = make_plan(DNA_N_FFT, torch.bfloat16, device=dev)
+    k, u = _long_inputs(torch, g, dev)
+    m, h, length = plan.inner, DNA_D_MODEL, DNA_L_MAX
+    lf, lr = math.log2(plan.outer), math.log2(plan.band)
+    outer_flops = h * m * (5 * lf + 6 * plan.n_outer)  # outer DFT, its twiddles
+    band_flops = h * m * (5 * lr + 6 * (len(plan.sub.factors) - 1))  # one band FFT a point
+    bands_bytes = h * m * 8
+    res = {}
+    with torch.inference_mode():
+        k_f = monarch_cuda.long_spectrum(plan, k)
+        z = monarch_cuda.butterfly(plan, u)
+        fwd = lambda: monarch_cuda.butterfly(plan, u)
+        inv = lambda: monarch_cuda.butterfly(plan, z, inverse=True, length=length, dtype=u.dtype)
+        # butterfly, either direction: the reals on one side, the bands on the other
+        res["butterfly"] = dict(
+            ms=_time_ms(torch, fwd, iters=10),
+            inverse_ms=_time_ms(torch, inv, iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.butterfly_plain(plan, u), iters=2, warmup=1),
+            library_ms=None,
+            bound=_bound(u.numel() * 2 + bands_bytes, outer_flops),
+        )
+        # the band kernel: bands in and out, k_f in; two band FFTs a point
+        res["long_conv"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.long_conv_inner(plan, z, k_f), iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.long_conv_inner_plain(plan, z, k_f),
+                              iters=2, warmup=1),
+            library_ms=None,
+            bound=_bound(2 * bands_bytes + k_f.numel() * 8, 2 * band_flops + h * m * 26),
+        )
+        del z
+        # long_conv as a whole: u and k_f in, y out; the bands cross device
+        # memory four times (written and read on each side of the band kernel)
+        conv_flops = 2 * (outer_flops + band_flops) + h * m * 26
+
+        def fft_conv():
+            return torch.fft.irfft(torch.fft.rfft(u.float(), n=DNA_N_FFT) * k_f,
+                                   n=DNA_N_FFT)[..., :length].to(u.dtype)
+
+        res["long_conv_chain"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.long_conv(plan, u, k_f), iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.conv_with_spectrum(plan, u, k_f), iters=2,
+                              warmup=1),
+            library_ms=_time_ms(torch, fft_conv, iters=5),
+            bound=_bound(u.numel() * 2 * 2 + k_f.numel() * 8, conv_flops),
+            overhead_ms=4 * bands_bytes / HBM_BYTES_PER_S * 1e3,
+        )
+        # long_spectrum: f32 taps in, half spectrum out; the bands cross twice
+        res["long_spectrum"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.long_spectrum(plan, k), iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.long_spectrum_plain(plan, k), iters=2,
+                              warmup=1),
+            library_ms=_time_ms(torch, lambda: torch.fft.rfft(k, n=DNA_N_FFT), iters=5),
+            bound=_bound(k.numel() * 4 + k_f.numel() * 8, outer_flops + band_flops + h * m * 10),
+            overhead_ms=2 * bands_bytes / HBM_BYTES_PER_S * 1e3,
+        )
+    log(f"timing butterfly inverse: {res['butterfly']['inverse_ms']:.4f} ms (the row's ms is "
+        "the forward's)")
     return res
 
 
@@ -804,6 +1120,10 @@ def main() -> int:
         results["parity"] = phase_parity(torch, args.seed)
     if "grad_parity" in phases:
         results["grad_parity"] = phase_grad_parity(torch, args.seed)
+    if "dna" in phases:
+        results["dna"] = phase_dna(torch, args.seed, np)
+    if "long_parity" in phases:
+        results["long_parity"] = phase_long_parity(torch, args.seed, np)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:
@@ -816,13 +1136,14 @@ def main() -> int:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
 
-    if {"kernels", "train", "timing"} <= set(phases):
+    if {"kernels", "train", "dna", "timing"} <= set(phases):
         rows = []
         for name, meta in KERNELS.items():
             t = results["timing"][name]
+            path = "dna" if name in LONG_KERNELS else "train"
             rows.append({
                 "name": name, "route": "cuda", **meta,
-                "launches": results["train"]["launches"][name],
+                "launches": results[path]["launches"][name],
                 "max_abs_err": results["kernels"][name],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

@@ -3,8 +3,10 @@
 Long depthwise FFT convolutions y = iFFT(FFT(u) * FFT(k)) as hand-written
 CUDA kernels for Hopper (sm_90a), forward and backward, a short depthwise
 conv kernel and its backward, and the Hyena language model on top of them,
-with the train step of the JAX package's ``examples/lm`` recipe. Public API parity with the JAX
-package for what this port covers; entry points run on CUDA unless the
+with the train step of the JAX package's ``examples/lm`` recipe. From FFT
+size 65536 to 4194304 the forward runs through the butterfly, band-conv and
+long-spectrum kernels (``models.dna`` serves HyenaDNA on them). Public API
+parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """
 

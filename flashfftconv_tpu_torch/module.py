@@ -26,7 +26,10 @@ from flashfftconv_tpu_torch.ops.plan import FftPlan, make_plan, resolve_device
 
 
 class FlashFFTConv(nn.Module):
-    """Monarch FFT convolution of FFT size ``seqlen`` (power of two, 256..32768).
+    """Monarch FFT convolution of FFT size ``seqlen`` (power of two,
+    256..4194304). Up to 32768 one fused kernel runs a conv; from 65536 up
+    the chain butterfly -> band conv -> inverse butterfly does, forward only
+    on the card (the backward runs on the CPU).
 
     Args:
       seqlen: FFT size N.

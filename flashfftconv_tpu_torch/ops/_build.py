@@ -24,7 +24,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd")
+SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd",
+           "butterfly", "long_conv", "long_spectrum")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # {library: {function: argtypes}}; every function returns a CUDA error code
 # (an int). Pointers first, then the int sizes, then the stream.
@@ -36,6 +37,10 @@ SIGNATURES = {
     "depthwise": {"ffc_depthwise": [_P] * 4 + [_I] * 8 + [_P]},
     "depthwise_bwd": {"ffc_depthwise_bwd": [_P] * 7 + [_I] * 8 + [_P],
                       "ffc_depthwise_bwd_tiles": [_I] * 3},
+    "butterfly": {"ffc_butterfly_fwd": [_P] * 6 + [_I] * 6 + [_P],
+                  "ffc_butterfly_inv": [_P] * 6 + [_I] * 6 + [_P]},
+    "long_conv": {"ffc_long_conv": [_P] * 6 + [_I] * 8 + [_P]},
+    "long_spectrum": {"ffc_long_spectrum": [_P] * 5 + [_I] * 7 + [_P]},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -12,6 +12,15 @@ in-register line DFTs:
     and ``monarch_idft`` brings it back to time, where real and imaginary
     parts are the even and odd output samples.
 
+From N = 65536 up (``plan.n_outer > 0``) the M-point DFT is the chain of the
+long kernels, and each has its plain version here: ``butterfly_plain`` and
+``butterfly_inverse_plain`` (the outer F-point DFT across the (F, R) view and
+the outer twiddle; ``butterfly``), ``long_conv_inner_plain`` (per band the
+R-point FFT, the split, the product with k_f and the way back;
+``long_conv_inner``) and ``long_spectrum_plain`` (``long_spectrum``).
+``rfft_plain`` and ``irfft_plain`` take that chain for such a plan, so every
+function below them is valid at every size.
+
 All math is complex64 (f32 real and imaginary parts). ``conv_bwd_plain``
 and ``dk_finish_plain`` are the backward, the CPU path's and the backward
 kernels' oracle. ``fft_conv_reference`` is the ``torch.fft`` oracle and
@@ -99,9 +108,102 @@ def _unsplit(plan: FftPlan, y: torch.Tensor) -> torch.Tensor:
     return (ye + 1j * yo)[..., :-1]
 
 
+def _outer_twiddle(plan: FftPlan) -> torch.Tensor:
+    """(fa, fb) twiddle between the two outer stages: exp(-2 pi i ka nb / F)."""
+    fa, fb = plan.outer_factors
+    dev = plan.outer_roots.device
+    idx = torch.arange(fa, device=dev)[:, None] * torch.arange(fb, device=dev)[None, :]
+    return plan.outer_roots[idx % plan.outer]
+
+
+def _outer_dft(plan: FftPlan, z: torch.Tensor) -> torch.Tensor:
+    """Complex (..., M) natural -> (..., F, R): the F-point DFT down the
+    columns of the (F, R) view, in one or two stages, then the outer twiddle.
+    Row k0 is band k0: the R-point DFT along it gives frequencies k0 + F*k1."""
+    fs, batch = plan.outer_factors, z.shape[:-1]
+    nb = len(batch)
+    x = _along(z.reshape(*batch, *fs, plan.band), nb, plan.dft[0])
+    if len(fs) == 2:
+        x = x * _outer_twiddle(plan)[..., None]
+        x = _along(x, nb + 1, plan.dft[1]).transpose(nb, nb + 1)  # (kb, ka): k0 = ka + fa*kb
+    return x.reshape(*batch, plan.outer, plan.band) * plan.outer_tw
+
+
+def _outer_idft(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_outer_dft``: (..., F, R) -> complex (..., M), with the
+    1/F that the stage-0 inverse matrix carries."""
+    fs, batch = plan.outer_factors, x.shape[:-2]
+    nb = len(batch)
+    x = x * plan.outer_tw.conj()
+    if len(fs) == 2:
+        x = x.reshape(*batch, fs[1], fs[0], plan.band).transpose(nb, nb + 1)
+        x = _along(x, nb + 1, plan.idft[1]) * _outer_twiddle(plan).conj()[..., None]
+    else:
+        x = x.reshape(*batch, fs[0], plan.band)
+    return _along(x, nb, plan.idft[0]).reshape(*batch, plan.inner)
+
+
+def butterfly_plain(
+    plan: FftPlan, x: torch.Tensor, pregate: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The plain version of the forward ``butterfly`` kernel: real (..., L <=
+    N), zero-padded and packed (even samples real, odd imaginary), through the
+    outer DFT and twiddle to complex64 (..., F, R). The pregate product rounds
+    to x's dtype."""
+    ug = x if pregate is None else x * pregate
+    return _outer_dft(plan, _pack(ug, plan.seqlen)).contiguous()
+
+
+def butterfly_inverse_plain(
+    plan: FftPlan,
+    z: torch.Tensor,
+    length: int,
+    postgate: torch.Tensor | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The plain version of the inverse ``butterfly`` kernel: complex (..., F,
+    R) through the conjugate twiddle and the inverse outer DFT (with 1/F),
+    unpacked to the real samples [0, length), times the optional postgate,
+    at ``dtype``."""
+    y = _unpack(_outer_idft(plan, z))[..., :length]
+    if postgate is not None:
+        y = y * postgate.float()
+    return y.to(dtype)
+
+
+def _bands_to_natural(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
+    """(..., F, f1, ..., fm) bands in the band plan's Monarch layout ->
+    natural order (..., M): frequency k0 + F*k1 of band k0."""
+    x = kf_unpermute(x, plan.sub.factors)  # (..., F, R) indexed [k0, k1]
+    return x.transpose(-1, -2).reshape(*x.shape[:-2], plan.inner)
+
+
+def _natural_to_bands(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
+    x = x.reshape(*x.shape[:-1], plan.band, plan.outer).transpose(-1, -2)
+    return kf_permute(x, plan.sub.factors)
+
+
+def long_conv_inner_plain(plan: FftPlan, z: torch.Tensor, k_f: torch.Tensor) -> torch.Tensor:
+    """The plain version of the ``long_conv_inner`` kernel: for z (..., H, F,
+    R) from ``butterfly`` and k_f (H, M+1), the R-point DFT of every band,
+    the split to the half spectrum, the product with k_f, the unsplit and
+    the inverse R-point DFT (with 1/R); complex64 (..., H, F, R)."""
+    z_f = _bands_to_natural(plan, monarch_dft(plan.sub, z))
+    zc = _unsplit(plan, _split(plan, z_f) * k_f)
+    return monarch_idft(plan.sub, _natural_to_bands(plan, zc)).contiguous()
+
+
+def long_spectrum_plain(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
+    """The plain version of the ``long_spectrum`` kernel: the half spectrum
+    (..., M+1) of the real taps k (..., k_len <= N), natural order."""
+    return _split(plan, _bands_to_natural(plan, monarch_dft(plan.sub, butterfly_plain(plan, k))))
+
+
 def rfft_plain(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
     """Real (..., L <= N) -> complex64 half spectrum (..., M+1) of the
     zero-padded signal, natural order (== torch.fft.rfft(x, n=N))."""
+    if plan.n_outer:
+        return long_spectrum_plain(plan, x)
     z_f = kf_unpermute(monarch_dft(plan, _pack(x, plan.seqlen)), plan.factors)
     return _split(plan, z_f)
 
@@ -109,6 +211,9 @@ def rfft_plain(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
 def irfft_plain(plan: FftPlan, y: torch.Tensor) -> torch.Tensor:
     """Half spectrum (..., M+1) -> real f32 signal (..., N)
     (== torch.fft.irfft(y, n=N))."""
+    if plan.n_outer:
+        z = monarch_idft(plan.sub, _natural_to_bands(plan, _unsplit(plan, y)))
+        return butterfly_inverse_plain(plan, z, plan.seqlen)
     z = monarch_idft(plan, kf_permute(_unsplit(plan, y), plan.factors))
     return _unpack(z)
 

@@ -11,10 +11,21 @@ current stream, raises if the launch failed, and adds one to its
 ``launches`` count. On a CPU tensor it runs the plain version from
 ``ops/monarch.py`` instead; on any other device it raises.
 
-``FftConvFunction`` runs ``spectrum`` and ``monarch_conv`` forward and, in
-its backward, recomputes the spectrum and runs ``monarch_conv_bwd`` and
-``dk_finish``; it saves only (u, k, pregate, postgate), as the JAX
-package's custom VJP does.
+From FFT size 65536 up (a plan with an outer part) no block holds a row, and
+three more kernels take over: ``butterfly`` (csrc/butterfly.cu) replaces
+``_butterfly_tiles``, ``long_conv_inner`` (csrc/long_conv.cu) replaces
+``_long_tiles`` in its complex-I/O contract, and ``long_spectrum``
+(csrc/long_spectrum.cu) replaces ``_fwd_dft_tiles``. ``long_conv`` is
+``_long_tiles``' real-I/O contract as the chain forward butterfly -> band
+conv -> inverse butterfly over complex64 bands in device memory; it owns no
+kernel and no count of its own.
+
+``FftConvFunction`` runs ``spectrum`` and ``monarch_conv`` (``long_spectrum``
+and ``long_conv`` from 65536 up) forward and, in its backward, recomputes
+the spectrum and runs ``monarch_conv_bwd`` and ``dk_finish``; it saves only
+(u, k, pregate, postgate), as the JAX package's custom VJP does. The
+backward kernels stop at FFT size 32768: above it the backward runs on CPU
+tensors (the plain versions) and raises NotImplementedError on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from flashfftconv_tpu_torch.ops import _build, monarch
-from flashfftconv_tpu_torch.ops.plan import MAX_FACTOR, FftPlan
+from flashfftconv_tpu_torch.ops.plan import MAX_FACTOR, MAX_FUSED_SEQLEN, FftPlan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,9 +61,25 @@ def _check_cuda(name: str, t: torch.Tensor, device: torch.device, dtypes, ndim: 
 
 
 def _factor_args(plan: FftPlan) -> list[int]:
+    if plan.n_outer:
+        raise ValueError(
+            f"a plan of seqlen {plan.seqlen} has an outer part: the one-block kernels stop at "
+            f"{MAX_FUSED_SEQLEN}; use long_spectrum and long_conv"
+        )
     if any(f > MAX_FACTOR for f in plan.factors) or len(plan.factors) > 4:
         raise ValueError(f"plan factors {plan.factors} not supported by the kernels")
     return [len(plan.factors), *plan.factors, *([1] * (4 - len(plan.factors)))]
+
+
+def _outer_args(plan: FftPlan) -> list[int]:
+    """(fa, fb, band) of a long plan for the butterfly kernels."""
+    if not plan.n_outer:
+        raise ValueError(
+            f"a plan of seqlen {plan.seqlen} has no outer part: the long kernels start at "
+            f"{2 * MAX_FUSED_SEQLEN}; use spectrum and monarch_conv"
+        )
+    fs = plan.outer_factors
+    return [fs[0], fs[1] if len(fs) == 2 else 1, plan.band]
 
 
 def _stream(device: torch.device) -> int:
@@ -210,6 +237,157 @@ def dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor
 dk_finish.launches = 0
 
 
+def butterfly(
+    plan: FftPlan,
+    x: torch.Tensor,
+    gate: torch.Tensor | None = None,
+    inverse: bool = False,
+    length: int | None = None,
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """The outer stage of a long plan (seqlen >= 65536).
+
+    Forward: real x (B, H, L <= N) in f32 or bf16, zero-padded, times the
+    optional pregate ``gate`` (B, H, L), packed and taken through the outer
+    F-point DFT and twiddle: complex64 bands (B, H, F, R). Inverse: complex64
+    x (B, H, F, R) back through the conjugate twiddle and the inverse outer
+    DFT (with 1/F) to the real samples [0, ``length``), times the optional
+    postgate ``gate`` (B, H, length), at ``dtype`` (f32 or bf16)."""
+    fa, fb, band = _outer_args(plan)
+    if not inverse:
+        length = x.shape[-1]
+    if not 1 <= length <= plan.seqlen:
+        raise ValueError(f"input length {length} not in [1, {plan.seqlen}]")
+    if on_cpu(x, gate):
+        if inverse:
+            return monarch.butterfly_inverse_plain(plan, x, length, gate, dtype)
+        return monarch.butterfly_plain(plan, x, gate)
+    if inverse:
+        _check_cuda("z", x, plan.device, (torch.complex64,), 4)
+        b, h = x.shape[:2]
+        if x.shape[2:] != (plan.outer, band):
+            raise ValueError(f"z shape {tuple(x.shape)} != (B, H, {plan.outer}, {band})")
+        if dtype not in _DTYPE_CODES:
+            raise TypeError(f"output dtype {dtype} not in {sorted(map(str, _DTYPE_CODES))}")
+        out = torch.empty(b, h, length, dtype=dtype, device=x.device)
+        reals = out
+    else:
+        _check_cuda("u", x, plan.device, tuple(_DTYPE_CODES), 3)
+        b, h, _ = x.shape
+        out = torch.empty(b, h, plan.outer, band, dtype=torch.complex64, device=x.device)
+        reals = x
+    if gate is not None:
+        _check_cuda("gate", gate, plan.device, (reals.dtype,), 3)
+        if gate.shape != reals.shape:
+            raise ValueError(f"gate shape {tuple(gate.shape)} != {tuple(reals.shape)}")
+    if b * h == 0:
+        return out
+    lib = _build.load("butterfly")
+    fn = lib.ffc_butterfly_inv if inverse else lib.ffc_butterfly_fwd
+    rc = fn(
+        x.data_ptr(), None if gate is None else gate.data_ptr(), out.data_ptr(),
+        plan.outer_tw.data_ptr(), plan.outer_roots.data_ptr(), plan.roots.data_ptr(),
+        b * h, length, fa, fb, band, _DTYPE_CODES[reals.dtype], _stream(x.device),
+    )
+    _build.check(lib, rc, "butterfly kernel")
+    butterfly.launches += 1
+    return out
+
+
+butterfly.launches = 0
+
+
+def long_conv_inner(
+    plan: FftPlan, z: torch.Tensor, k_f: torch.Tensor, out: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The band stage of a long conv: for the bands z (B, H, F, R) complex64
+    of ``butterfly`` and k_f (H, M+1) complex64, per band the R-point FFT,
+    the split, the product with k_f, the unsplit and the inverse FFT (with
+    1/R). Returns complex64 (B, H, F, R), written into ``out`` when given;
+    ``out`` may be z itself."""
+    _outer_args(plan)
+    if on_cpu(z, k_f, out):
+        res = monarch.long_conv_inner_plain(plan, z, k_f)
+        return res if out is None else out.copy_(res)
+    _check_cuda("z", z, plan.device, (torch.complex64,), 4)
+    b, h = z.shape[:2]
+    if z.shape[2:] != (plan.outer, plan.band):
+        raise ValueError(f"z shape {tuple(z.shape)} != (B, H, {plan.outer}, {plan.band})")
+    _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
+    if k_f.shape != (h, plan.inner + 1):
+        raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(h, plan.inner + 1)}")
+    if out is None:
+        out = torch.empty_like(z)
+    else:
+        _check_cuda("out", out, plan.device, (torch.complex64,), 4)
+        if out.shape != z.shape:
+            raise ValueError(f"out shape {tuple(out.shape)} != z shape {tuple(z.shape)}")
+    if b * h == 0:
+        return out
+    sub = plan.sub
+    lib = _build.load("long_conv")
+    rc = lib.ffc_long_conv(
+        z.data_ptr(), out.data_ptr(), k_f.data_ptr(), sub.tw_flat.data_ptr(),
+        plan.split_tw.data_ptr(), sub.roots.data_ptr(), b, h, plan.outer, *_factor_args(sub),
+        _stream(z.device),
+    )
+    _build.check(lib, rc, "long_conv kernel")
+    long_conv_inner.launches += 1
+    return out
+
+
+long_conv_inner.launches = 0
+
+
+def long_conv(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None = None,
+    postgate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``monarch_conv`` for a long plan (seqlen >= 65536): u (B, H, L <= N)
+    in f32 or bf16, k_f (H, M+1) complex64 from ``long_spectrum``, optional
+    gates (B, H, L) at u's dtype; output (B, H, L) at u's dtype. Runs
+    ``butterfly``, ``long_conv_inner`` in place on the bands, and the inverse
+    ``butterfly``; the bands (8 bytes a complex point, 8*M a row) live in
+    device memory in between."""
+    if (pregate is None) != (postgate is None):
+        raise ValueError("pregate and postgate must both be given or both be None")
+    z = butterfly(plan, u, pregate)
+    z = long_conv_inner(plan, z, k_f, out=z)
+    return butterfly(plan, z, postgate, inverse=True, length=u.shape[-1], dtype=u.dtype)
+
+
+def long_spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
+    """``spectrum`` for a long plan (seqlen >= 65536): half spectrum (H, M+1)
+    complex64, natural order, of real f32 taps k (H, k_len <= N). Runs the
+    forward ``butterfly`` on the taps and then its own kernel over the bands."""
+    _outer_args(plan)
+    if on_cpu(k):
+        return monarch.long_spectrum_plain(plan, k)
+    _check_cuda("k", k, plan.device, (torch.float32,), 2)
+    h, k_len = k.shape
+    if not 1 <= k_len <= plan.seqlen:
+        raise ValueError(f"kernel length {k_len} not in [1, {plan.seqlen}]")
+    out = torch.empty(h, plan.inner + 1, dtype=torch.complex64, device=k.device)
+    if h == 0:
+        return out
+    z = butterfly(plan, k[None])
+    sub = plan.sub
+    lib = _build.load("long_spectrum")
+    rc = lib.ffc_long_spectrum(
+        z.data_ptr(), out.data_ptr(), sub.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
+        sub.roots.data_ptr(), h, plan.outer, *_factor_args(sub), _stream(k.device),
+    )
+    _build.check(lib, rc, "long_spectrum kernel")
+    long_spectrum.launches += 1
+    return out
+
+
+long_spectrum.launches = 0
+
+
 def _io_dtype(u: torch.Tensor) -> torch.dtype:
     """The kernels' I/O dtype: float16 runs as bfloat16 on the card (as the
     JAX package's ``_io_dtype`` does); the CPU keeps u's dtype."""
@@ -233,15 +411,24 @@ class FftConvFunction(torch.autograd.Function):
         ctx.plan = plan
         ctx.save_for_backward(u, k, pregate, postgate)
         u3, pre3, post3 = (_rows(t, u.shape, _io_dtype(u)) for t in (u, pregate, postgate))
-        out = monarch_conv(plan, u3, spectrum(plan, k.float().contiguous()), pre3, post3)
+        if plan.n_outer:
+            out = long_conv(plan, u3, long_spectrum(plan, k.float().contiguous()), pre3, post3)
+        else:
+            out = monarch_conv(plan, u3, spectrum(plan, k.float().contiguous()), pre3, post3)
         return out.reshape(u.shape).to(u.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         u, k, pregate, postgate = ctx.saved_tensors
         plan, shape, io = ctx.plan, u.shape, _io_dtype(u)
+        if plan.n_outer and not on_cpu(u, k, pregate, postgate, dout):
+            raise NotImplementedError(
+                f"the backward kernels stop at FFT size {MAX_FUSED_SEQLEN}: the backward of a "
+                f"conv of size {plan.seqlen} on the card waits for the ports of _long_bwd_tiles "
+                "and _inv_dft_tiles (ROADMAP.md, Queue B 6-7); it runs on CPU tensors"
+            )
         u3, pre3, post3, dout3 = (_rows(t, shape, io) for t in (u, pregate, postgate, dout))
-        k_f = spectrum(plan, k.float().contiguous())
+        k_f = (long_spectrum if plan.n_outer else spectrum)(plan, k.float().contiguous())
         du, dpre, dpost, partials = monarch_conv_bwd(plan, u3, k_f, pre3, post3, dout3)
         dk = dk_finish(plan, partials, k.shape[-1]) if ctx.needs_input_grad[2] else None
         back = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
@@ -256,8 +443,8 @@ def fft_conv(
     postgate: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The JAX package's ``fft_conv_pallas`` through the wrappers: the
-    kernels on CUDA tensors, the plain versions on CPU tensors. u (..., H,
-    L <= N), k (H, k_len <= N); gates cast to u's I/O dtype (float16 runs as
+    kernels on CUDA tensors, the plain versions on CPU tensors, at every plan
+    size from 256 to 4194304. u (..., H, L <= N), k (H, k_len <= N); gates cast to u's I/O dtype (float16 runs as
     bfloat16 on the card); output at u's dtype. Runs through
     ``FftConvFunction``, which saves nothing and builds no graph when no
     grad is needed."""

@@ -16,6 +16,16 @@ N = 32768), and each thread owns one line of a stage in registers, so the
 factors are at most 32 and as even as possible. The Monarch layout stays
 inside the kernels; the spectrum that leaves them is in natural order.
 
+From N = 65536 up a row no longer fits one block's shared memory, so the
+plan splits its factors into an outer part (``n_outer`` leading factors,
+product ``F = plan.outer``) and an inner part (product ``R = plan.band``,
+``LONG_BAND`` = 4096 by default): the signal is viewed as ``(F, R)``, the
+``butterfly`` kernel takes the F-point DFT down the columns and multiplies
+by ``outer_tw``, and band ``k0`` (one row of R points, frequencies
+``k0 + F*k1``) goes through an R-point FFT in shared memory. The inner
+tables are a plan of their own, ``plan.sub`` (a plan of seqlen 2R); plans
+up to N = 32768 have ``n_outer = 0`` and are unchanged.
+
 All DFT and twiddle phases are computed with exact integer arithmetic mod n
 in float64 before the final exp, then stored as complex64.
 """
@@ -30,8 +40,17 @@ import numpy as np
 import torch
 
 MIN_SEQLEN = 256
-MAX_SEQLEN = 32768
+MAX_SEQLEN = 4_194_304
 MAX_FACTOR = 32
+# One block's shared memory holds a whole row up to this FFT size.
+MAX_FUSED_SEQLEN = 32768
+# Longest band (inner complex FFT) of a long plan: the band kernels hold two
+# bands, k0 and F - k0, in one block's shared memory (2 x 64 KB at 8192).
+MAX_BAND = 8192
+LONG_BAND = 4096
+# Largest outer part: the butterfly kernel holds an (F, 32) tile of complex
+# f32 values in shared memory (128 KB at 512).
+MAX_OUTER = 512
 
 
 def resolve_device(device) -> torch.device:
@@ -50,23 +69,49 @@ def is_supported_seqlen(seqlen: int) -> bool:
     return MIN_SEQLEN <= seqlen <= MAX_SEQLEN and (seqlen & (seqlen - 1)) == 0
 
 
+def _even_factors(n: int) -> tuple[int, ...]:
+    """n (a power of two) as the fewest factors <= MAX_FACTOR, its bits
+    spread as evenly as possible, larger factors first."""
+    bits = n.bit_length() - 1
+    max_bits = MAX_FACTOR.bit_length() - 1
+    stages = -(-bits // max_bits)
+    per, extra = divmod(bits, stages)
+    return tuple(1 << (per + (1 if j < extra else 0)) for j in range(stages))
+
+
 def default_factors(seqlen: int) -> tuple[int, ...]:
     """Factors of the inner complex FFT length ``M = seqlen // 2``.
 
-    The fewest stages whose factors are all <= MAX_FACTOR, with the bits of
-    M spread as evenly as possible (larger factors first): 32768 -> (32, 32,
-    16), 16384 -> (32, 16, 16), 2048 -> (32, 32), 256 -> (16, 8).
+    Up to 32768: the fewest stages whose factors are all <= MAX_FACTOR, with
+    the bits of M spread as evenly as possible (larger factors first):
+    32768 -> (32, 32, 16), 16384 -> (32, 16, 16), 2048 -> (32, 32),
+    256 -> (16, 8). From 65536 up: the factors of the outer part
+    F = M / LONG_BAND followed by those of the band, each part split the
+    same way: 65536 -> (8, 16, 16, 16), 2097152 -> (16, 16, 16, 16, 16),
+    4194304 -> (32, 16, 16, 16, 16); ``default_n_outer`` says where the
+    outer part ends.
     """
     if not is_supported_seqlen(seqlen):
         raise ValueError(
             f"seqlen {seqlen} not supported: must be a power of two in "
             f"[{MIN_SEQLEN}, {MAX_SEQLEN}]"
         )
-    bits = (seqlen // 2).bit_length() - 1
-    max_bits = MAX_FACTOR.bit_length() - 1
-    stages = -(-bits // max_bits)
-    per, extra = divmod(bits, stages)
-    return tuple(1 << (per + (1 if j < extra else 0)) for j in range(stages))
+    m = seqlen // 2
+    if seqlen <= MAX_FUSED_SEQLEN:
+        return _even_factors(m)
+    return _even_factors(m // LONG_BAND) + _even_factors(LONG_BAND)
+
+
+def default_n_outer(seqlen: int, factors: tuple[int, ...]) -> int:
+    """How many leading factors form the outer part: none up to 32768, else
+    the fewest that leave a band of at most MAX_BAND points."""
+    if seqlen <= MAX_FUSED_SEQLEN:
+        return 0
+    band, n_outer = seqlen // 2, 0
+    while band > MAX_BAND and n_outer < len(factors):
+        band //= factors[n_outer]
+        n_outer += 1
+    return n_outer
 
 
 def _dft_matrix(n: int, sign: int) -> np.ndarray:
@@ -96,7 +141,7 @@ class FftPlan:
     """Tables for a length-``seqlen`` real FFT convolution on one device.
 
     ``factors`` factor the inner complex length ``M = seqlen // 2``.
-    All tables are complex64:
+    All tables are complex64. Up to seqlen 32768 (``n_outer == 0``):
 
       dft[j], idft[j]: (f_j, f_j) forward / inverse DFT matrices; the
                        stage-0 inverse carries the 1/M normalization.
@@ -107,6 +152,18 @@ class FftPlan:
       split_tw:        (M+1,) exp(-2*pi*i*k/N), the split-step twiddle.
       roots:           (MAX_FACTOR,) exp(-2*pi*i*k/MAX_FACTOR), from which
                        the kernels build every in-register line DFT.
+
+    From 65536 up the first ``n_outer`` (1 or 2) factors are the outer part,
+    F = ``outer``, and the rest the band, R = ``band``:
+
+      dft[j], idft[j]: the outer stages' matrices only (j < n_outer); the
+                       stage-0 inverse carries 1/F.
+      outer_roots:     (F,) exp(-2*pi*i*k/F): the twiddle between two outer
+                       stages is outer_roots[(ka * nb) % F].
+      outer_tw:        (F, R) exp(-2*pi*i*k0*r/M), applied after the outer DFT.
+      sub:             the plan of seqlen 2R whose dft, idft, tw, tw_flat and
+                       roots are the band's (its stage-0 inverse carries 1/R).
+      tw, tw_flat:     unused (empty, one zero).
 
     ``dtype`` is the activation dtype the plan was built for. The port
     computes in f32 whatever it is, and keeps the kernel spectrum in f32.
@@ -121,6 +178,10 @@ class FftPlan:
     tw_flat: torch.Tensor
     split_tw: torch.Tensor
     roots: torch.Tensor
+    n_outer: int = 0
+    outer_roots: torch.Tensor | None = None
+    outer_tw: torch.Tensor | None = None
+    sub: "FftPlan | None" = None
 
     @property
     def inner(self) -> int:
@@ -131,29 +192,53 @@ class FftPlan:
         return len(self.factors)
 
     @property
+    def outer_factors(self) -> tuple[int, ...]:
+        return self.factors[: self.n_outer]
+
+    @property
+    def outer(self) -> int:
+        """F, the product of the outer factors (1 for a plan without)."""
+        return math.prod(self.outer_factors)
+
+    @property
+    def band(self) -> int:
+        """R = M / F, the length of the FFT that runs in shared memory."""
+        return self.inner // self.outer
+
+    @property
     def device(self) -> torch.device:
         return self.split_tw.device
 
     def tensors(self) -> dict[str, torch.Tensor]:
         """Every table by a flat name (for registering them as buffers)."""
         out = {"tw_flat": self.tw_flat, "split_tw": self.split_tw, "roots": self.roots}
-        for j in range(self.n_stages):
+        for j in range(len(self.dft)):
             out[f"dft_{j}"] = self.dft[j]
             out[f"idft_{j}"] = self.idft[j]
+        if self.n_outer:
+            out["outer_roots"] = self.outer_roots
+            out["outer_tw"] = self.outer_tw
+            out.update({f"sub_{name}": t for name, t in self.sub.tensors().items()})
         return out
 
     def with_tensors(self, tensors: dict[str, torch.Tensor]) -> "FftPlan":
         """The same plan over the given tables (as ``tensors()`` names them)."""
-        m = self.n_stages
+        m = len(self.dft)
         tw_flat = tensors["tw_flat"]
+        long = {}
+        if self.n_outer:
+            sub = {n[len("sub_"):]: t for n, t in tensors.items() if n.startswith("sub_")}
+            long = dict(outer_roots=tensors["outer_roots"], outer_tw=tensors["outer_tw"],
+                        sub=self.sub.with_tensors(sub))
         return dataclasses.replace(
             self,
             dft=tuple(tensors[f"dft_{j}"] for j in range(m)),
             idft=tuple(tensors[f"idft_{j}"] for j in range(m)),
-            tw=_split_twiddles(tw_flat, self.factors),
+            tw=() if self.n_outer else _split_twiddles(tw_flat, self.factors),
             tw_flat=tw_flat,
             split_tw=tensors["split_tw"],
             roots=tensors["roots"],
+            **long,
         )
 
 
@@ -173,7 +258,8 @@ def make_plan(
     factors: tuple[int, ...] | None = None,
 ) -> FftPlan:
     """Build an FftPlan on ``device``; ``factors`` (of seqlen // 2) default
-    to default_factors."""
+    to default_factors. From seqlen 65536 up default_n_outer says how many
+    of them form the outer part."""
     if dtype == torch.float16:
         dtype = torch.bfloat16
     if dtype not in (torch.bfloat16, torch.float32):
@@ -189,10 +275,41 @@ def make_plan(
         raise ValueError(f"factors {factors} do not multiply to {m}")
     if any(f < 2 or f > MAX_FACTOR or f & (f - 1) for f in factors):
         raise ValueError(f"factors {factors} must be powers of two in [2, {MAX_FACTOR}]")
+    n_outer = default_n_outer(seqlen, factors)
     device = resolve_device(device)
 
     def c64(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a.astype(np.complex64))).to(device)
+
+    k = np.arange(m + 1, dtype=np.int64)
+    split_tw = c64(np.exp(-2j * np.pi * k.astype(np.float64) / seqlen))
+    roots = c64(_roots(MAX_FACTOR))
+    if seqlen > MAX_FUSED_SEQLEN:
+        outer = math.prod(factors[:n_outer])
+        band = m // outer
+        if not (1 <= n_outer <= 2 and outer <= MAX_OUTER and MIN_SEQLEN // 2 <= band <= MAX_BAND
+                and len(factors) - n_outer <= 4):
+            raise ValueError(
+                f"factors {factors} (the first {n_outer} outer) are no long plan: 1 or 2 outer "
+                f"factors of product <= {MAX_OUTER}, then at most 4 factors of a band of "
+                f"{MIN_SEQLEN // 2}..{MAX_BAND} points"
+            )
+        inv0 = _dft_matrix(factors[0], +1) / outer  # 1/F here, 1/R in the band's plan
+        return FftPlan(
+            seqlen=seqlen,
+            factors=factors,
+            dtype=dtype,
+            dft=tuple(c64(_dft_matrix(f, -1)) for f in factors[:n_outer]),
+            idft=(c64(inv0), *(c64(_dft_matrix(f, +1)) for f in factors[1:n_outer])),
+            tw=(),
+            tw_flat=c64(np.zeros(1, np.complex128)),
+            split_tw=split_tw,
+            roots=roots,
+            n_outer=n_outer,
+            outer_roots=c64(np.exp(-2j * np.pi * np.arange(outer, dtype=np.float64) / outer)),
+            outer_tw=c64(_twiddle(outer, band, -1)),
+            sub=make_plan(2 * band, dtype, device, factors[n_outer:]),
+        )
 
     dft, idft, tw = [], [], []
     r = m
@@ -206,8 +323,6 @@ def make_plan(
         if j < len(factors) - 1:
             tw.append(_twiddle(f, r, -1).reshape(-1))
     tw_flat = c64(np.concatenate(tw) if tw else np.zeros(1, np.complex128))
-    k = np.arange(m + 1, dtype=np.int64)
-    split_tw = c64(np.exp(-2j * np.pi * k.astype(np.float64) / seqlen))
     return FftPlan(
         seqlen=seqlen,
         factors=factors,
@@ -217,7 +332,7 @@ def make_plan(
         tw=_split_twiddles(tw_flat, factors),
         tw_flat=tw_flat,
         split_tw=split_tw,
-        roots=c64(_roots(MAX_FACTOR)),
+        roots=roots,
     )
 
 

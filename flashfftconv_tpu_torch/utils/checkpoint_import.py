@@ -1,0 +1,180 @@
+"""Pretrained-checkpoint import: HyenaDNA state dicts -> the port's LM.
+
+The port's counterpart of the JAX package's ``utils/checkpoint_import.py``
+(``normalize_state_dict``, ``hyenadna_to_flax``, ``merge_params``,
+``ImportReport``): the reference HyenaDNA loader strips the ``model.``
+prefix, undoes the ``.mixer.layer`` / ``.mlp.layer`` key injection of
+gradient checkpointing and copies tensors by name. Here the same surgery
+maps a HyenaDNA PyTorch state dict onto the parameter names of
+``flashfftconv_tpu_torch.models.lm.ConvLMHeadModel`` (hyena mixer, built
+with ``mixer_kwargs={"in_proj_bias": True}`` to take the checkpoint's
+in-projection bias). Both sides are PyTorch, so ``nn.Linear`` weights keep
+their (out, in) orientation; the depthwise ``nn.Conv1d`` weight (C, 1, K)
+is squeezed to (C, K).
+
+No network access is assumed: callers pass a state-dict-like mapping (for
+example from ``torch.load(path, map_location="cpu", weights_only=True)``).
+
+Deliberate differences, as in the JAX package:
+  - ``pos_emb.z`` / ``pos_emb.t`` are trainable in the reference but
+    constants here with identical init values; they are reported in
+    ``ImportReport.skipped``.
+  - The LM head is weight-tied, so ``lm_head.weight`` is skipped in favour
+    of the embedding table.
+  - ``modulation.deltas`` is a constant of the port's filter unless it was
+    built with ``learn_modulation``; a checkpoint's deltas then have no
+    parameter to land in and are skipped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class ImportReport:
+    """What happened to each source key during an import."""
+
+    used: list[str] = dataclasses.field(default_factory=list)
+    skipped: list[str] = dataclasses.field(default_factory=list)
+    missing: list[str] = dataclasses.field(default_factory=list)  # parameters left at init
+
+
+def _t(t) -> torch.Tensor:
+    """torch.Tensor or array -> float32 CPU tensor (a copy)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", torch.float32).clone()
+    return torch.from_numpy(np.array(t, dtype=np.float32))
+
+
+def strip_checkpointing_keys(key: str) -> str:
+    """Undo the gradient-checkpointing key injection of the reference loader."""
+    key = re.sub(r"\.mixer\.layer\.", ".mixer.", key)
+    key = re.sub(r"\.mlp\.layer\.", ".mlp.", key)
+    return key
+
+
+def normalize_state_dict(state: Mapping[str, Any]) -> dict[str, Any]:
+    """Unwrap {'state_dict': ...}, strip ``model.`` prefixes and
+    checkpointing-injected segments."""
+    if "state_dict" in state and isinstance(state["state_dict"], Mapping):
+        state = state["state_dict"]
+    out = {}
+    for k, v in state.items():
+        k = strip_checkpointing_keys(k)
+        if k.startswith("model."):
+            k = k[len("model."):]
+        out[k] = v
+    return out
+
+
+# HyenaDNA key (below ``backbone.layers.{i}.``) -> port key (below
+# ``backbone.blocks.{i}.``); the filter MLP's Sequential entries follow.
+_BLOCK_KEYS = {
+    "mixer.in_proj.weight": "mixer.in_proj",
+    "mixer.in_proj.bias": "mixer.in_proj_b",
+    "mixer.short_filter.weight": "mixer.short_filter.weights",
+    "mixer.short_filter.bias": "mixer.short_filter.bias",
+    "mixer.filter_fn.bias": "mixer.filter.bias",
+    "mixer.filter_fn.modulation.deltas": "mixer.filter.modulation.deltas",
+    "mixer.out_proj.weight": "mixer.out_proj.weight",
+    "mixer.out_proj.bias": "mixer.out_proj.bias",
+    "norm1.weight": "norm1.weight",
+    "norm1.bias": "norm1.bias",
+    "norm2.weight": "norm2.weight",
+    "norm2.bias": "norm2.bias",
+    "mlp.fc1.weight": "mlp.fc1.weight",
+    "mlp.fc1.bias": "mlp.fc1.bias",
+    "mlp.fc2.weight": "mlp.fc2.weight",
+    "mlp.fc2.bias": "mlp.fc2.bias",
+}
+_TOP_KEYS = {
+    "backbone.embeddings.word_embeddings.weight": "embeddings.weight",
+    "backbone.ln_f.weight": "backbone.ln_f.weight",
+    "backbone.ln_f.bias": "backbone.ln_f.bias",
+}
+_LAYER = re.compile(r"backbone\.layers\.(\d+)\.(.+)")
+_FILTER_MLP = re.compile(r"mixer\.filter_fn\.implicit_filter\.(\d+)\.(weight|bias|freq)")
+
+
+def _target(key: str, n_layer: int | None) -> str | None:
+    """The port's parameter name for a normalized HyenaDNA key, or None."""
+    if key in _TOP_KEYS:
+        return _TOP_KEYS[key]
+    m = _LAYER.match(key)
+    if not m or (n_layer is not None and int(m.group(1)) >= n_layer):
+        return None
+    rest = m.group(2)
+    sub = _BLOCK_KEYS.get(rest)
+    if sub is None and (f := _FILTER_MLP.fullmatch(rest)):
+        sub = f"mixer.filter.layers.{f.group(1)}.{f.group(2)}"
+    return None if sub is None else f"backbone.blocks.{m.group(1)}.{sub}"
+
+
+def hyenadna_state_dict(
+    state: Mapping[str, Any], n_layer: int | None = None
+) -> tuple[dict[str, torch.Tensor], ImportReport]:
+    """Map a HyenaDNA state dict onto the port's parameter names.
+
+    Returns (tensors, report): ``tensors`` holds only what the checkpoint
+    has, as float32 CPU tensors under the names of ``ConvLMHeadModel``;
+    layers at or beyond ``n_layer`` (when given) are skipped. Load them with
+    :func:`load_into`, which leaves everything else at its init value.
+    """
+    report = ImportReport()
+    out: dict[str, torch.Tensor] = {}
+    for key, value in normalize_state_dict(state).items():
+        target = _target(key, n_layer)
+        if target is None:
+            # pos_emb.z / .t (constants here), lm_head.weight (tied), task heads
+            report.skipped.append(key)
+            continue
+        t = _t(value)
+        if target.endswith("short_filter.weights"):
+            t = t[:, 0, :].contiguous()  # depthwise Conv1d (C, 1, K) -> (C, K)
+        out[target] = t
+        report.used.append(key)
+    return out, report
+
+
+def load_into(
+    model: nn.Module, tensors: Mapping[str, torch.Tensor], report: ImportReport | None = None
+) -> None:
+    """Copy ``tensors`` (by parameter name) into ``model``'s parameters.
+    Parameters the mapping lacks keep their init values (recorded in
+    ``report.missing``); a name the model has no parameter for is dropped; a
+    shape mismatch raises ValueError."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            t = tensors.get(name)
+            if t is None:
+                if report is not None:
+                    report.missing.append(name)
+                continue
+            if t.shape != p.shape:
+                raise ValueError(
+                    f"shape mismatch at {name}: checkpoint {tuple(t.shape)} "
+                    f"vs model {tuple(p.shape)}"
+                )
+            p.copy_(t.to(p.device, p.dtype))
+
+
+def import_hyenadna(model: nn.Module, state: Mapping[str, Any]) -> ImportReport:
+    """Load a HyenaDNA state dict into a port ``ConvLMHeadModel`` in place.
+    Source keys without a parameter in ``model`` (for example the filter's
+    constant ``modulation.deltas``) are reported as skipped, not used."""
+    n_layer = len(model.backbone.blocks)
+    tensors, report = hyenadna_state_dict(state, n_layer=n_layer)
+    params = {name for name, _ in model.named_parameters()}
+    for key in list(report.used):
+        if _target(key, n_layer) not in params:
+            report.used.remove(key)
+            report.skipped.append(key)
+    load_into(model, tensors, report)
+    return report

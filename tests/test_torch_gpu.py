@@ -196,3 +196,70 @@ def test_cuda_lm_grads_match_cpu():
     for name, ref in grads["cpu"].items():
         err = float((grads["cuda"][name] - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()) + 1e-8, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 524288, 4194304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_long_kernels_match_plain(n, dtype):
+    """butterfly (both directions), long_conv_inner and long_spectrum against
+    their plain versions, and the chain against torch.fft; B = 1 ungated at
+    L = N/2 and B = 3 gated at a ragged length."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, dtype, device=dev)
+    g = torch.Generator().manual_seed(n)
+    real = torch.view_as_real
+    for b, h, length, gated in [(1, 3, n // 2, False), (3, 2, n // 2 + 3, True)]:
+        u = torch.randn(b, h, length, generator=g).to(dev, dtype)
+        k = (torch.randn(h, n // 2 - 1, generator=g) * 0.05).to(dev)
+        pre, post = ([torch.randn(b, h, length, generator=g).to(dev, dtype) for _ in "ab"]
+                     if gated else (None, None))
+        n0 = (monarch_cuda.butterfly.launches, monarch_cuda.long_conv_inner.launches,
+              monarch_cuda.long_spectrum.launches)
+        k_f = monarch_cuda.long_spectrum(p, k)
+        z = monarch_cuda.butterfly(p, u, pre)
+        zr = monarch.butterfly_plain(p, u, pre)
+        z2 = monarch_cuda.long_conv_inner(p, zr, k_f)
+        z2r = monarch.long_conv_inner_plain(p, zr, k_f)
+        y = monarch_cuda.butterfly(p, z2r, post, inverse=True, length=length, dtype=dtype)
+        torch.cuda.synchronize()
+        assert (monarch_cuda.butterfly.launches, monarch_cuda.long_conv_inner.launches,
+                monarch_cuda.long_spectrum.launches) == (n0[0] + 3, n0[1] + 1, n0[2] + 1)
+        _close(real(k_f), real(monarch.long_spectrum_plain(p, k)), torch.float32)
+        _close(real(z), real(zr), torch.float32)
+        _close(real(z2), real(z2r), torch.float32)
+        _close(y, monarch.butterfly_inverse_plain(p, z2r, length, post, dtype), dtype)
+        _close(monarch_cuda.long_conv(p, u, k_f, pre, post),
+               monarch.fft_conv_reference(n, u, k, pre, post), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_long_conv_module_and_backward():
+    """FlashFFTConv(131072) on the card runs the long kernels and matches the
+    CPU; its backward on the card raises NotImplementedError (the backward
+    kernels stop at 32768) instead of taking another path; bad inputs raise."""
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    u = torch.randn(2, 3, 65000, generator=g)
+    k = torch.randn(3, 65000, generator=g) * 0.05
+    conv = tff.FlashFFTConv(131072, torch.float32)
+    n0 = monarch_cuda.long_conv_inner.launches
+    got = conv(u.to(dev), k.to(dev))
+    assert monarch_cuda.long_conv_inner.launches == n0 + 1
+    _close(got.cpu(), tff.FlashFFTConv(131072, torch.float32, device="cpu")(u, k), torch.float32)
+    with pytest.raises(NotImplementedError, match="_long_bwd_tiles"):
+        conv(u.to(dev).requires_grad_(), k.to(dev)).sum().backward()
+    p = conv.plan
+    k_f = monarch_cuda.long_spectrum(p, k.to(dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        monarch_cuda.butterfly(p, u.to(dev).transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(TypeError):
+        monarch_cuda.butterfly(p, u.to(dev).half())
+    with pytest.raises(ValueError, match="k_f shape"):
+        monarch_cuda.long_conv_inner(p, monarch_cuda.butterfly(p, u.to(dev)), k_f[:2])
+    with pytest.raises(ValueError, match="outer part"):
+        monarch_cuda.monarch_conv(p, u.to(dev), k_f)
+    with pytest.raises(ValueError, match="is on"):
+        monarch_cuda.long_spectrum(tplan.make_plan(131072, torch.float32, device="cpu"), k.to(dev))

@@ -24,6 +24,7 @@ def _env():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, flashfftconv_tpu_torch, flashfftconv_tpu_torch.models.lm, "
+        "flashfftconv_tpu_torch.models.dna, flashfftconv_tpu_torch.utils.checkpoint_import, "
         "flashfftconv_tpu_torch.utils.generation, flashfftconv_tpu_torch.utils.jax_weights, "
         "flashfftconv_tpu_torch.utils.metrics, flashfftconv_tpu_torch.utils.optim, "
         "flashfftconv_tpu_torch.utils.train\n"

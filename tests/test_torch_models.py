@@ -509,3 +509,160 @@ def test_lm_train_mode_takes_steps_on_cpu():
     losses = [float(o["loss"]) for o in out]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in tm.parameters())
+
+
+# --- HyenaDNA: the long path, the checkpoint import and scoring ---------------
+
+DNA = dict(d_model=64, n_layer=2, d_inner=256, vocab_size=5, l_max=65536)
+
+
+def test_hyenadna_logits_match_flax():
+    """A 2-layer HyenaDNA (filter emb_dim 5, vocab 5 padded to 8, l_max 65536,
+    FFT size 131072): flax params through jax_weights into the port's
+    build_model, logits against the flax model (its long convs through
+    _long_tiles in interpret mode) at 2e-3, in f32."""
+    from flashfftconv_tpu_torch.models import dna
+
+    jm = JLM(**DNA, mixer_kwargs={"impl": "pallas", "conv_dtype": jnp.float32,
+                                  "filter_args": {"emb_dim": 5}},
+             dtype=jnp.float32, pad_vocab_size_multiple=8)
+    ids = dna.synthetic_genome(0, n=DNA["l_max"])[None].astype(np.int64)
+    params, pnp = _init(jm, jnp.asarray(ids[:, :256]))
+    ref = _np(jm.apply({"params": params}, jnp.asarray(ids)))
+    tm = dna.build_model("tiny-1k", d_model=64, n_layer=2, l_max=DNA["l_max"],
+                         dtype=torch.float32, mixer_kwargs={"conv_dtype": torch.float32},
+                         device=CPU).eval()
+    tm.load_state_dict(jax_weights.from_jax_params(pnp), strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids))
+    assert got.shape == (1, DNA["l_max"], 8) and tm.vocab_size == 8
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-3)
+
+
+def _hyenadna_state(rng, d=32, d_inner=64, vocab=8, n_layer=2, emb_dim=5, order=64):
+    """A synthetic HyenaDNA state dict with the reference loader's key layout:
+    a ``model.`` prefix and the ``.mixer.layer`` / ``.mlp.layer`` segments
+    that gradient checkpointing injects into layer 1."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    state = {"model.backbone.embeddings.word_embeddings.weight": f(vocab, d)}
+    for i in range(n_layer):
+        mixer = "mixer.layer" if i == 1 else "mixer"
+        mlp = "mlp.layer" if i == 1 else "mlp"
+        p = f"model.backbone.layers.{i}"
+        state |= {
+            f"{p}.{mixer}.in_proj.weight": f(3 * d, d), f"{p}.{mixer}.in_proj.bias": f(3 * d),
+            f"{p}.{mixer}.short_filter.weight": f(3 * d, 1, 3),
+            f"{p}.{mixer}.short_filter.bias": f(3 * d),
+            f"{p}.{mixer}.filter_fn.bias": f(d),
+            f"{p}.{mixer}.filter_fn.pos_emb.z": f(1, 128, emb_dim),
+            f"{p}.{mixer}.filter_fn.pos_emb.t": f(1, 128, 1),
+            f"{p}.{mixer}.filter_fn.modulation.deltas": f(1, 1, d),
+            f"{p}.{mixer}.out_proj.weight": f(d, d), f"{p}.{mixer}.out_proj.bias": f(d),
+            f"{p}.norm1.weight": f(d), f"{p}.norm1.bias": f(d),
+            f"{p}.norm2.weight": f(d), f"{p}.norm2.bias": f(d),
+            f"{p}.{mlp}.fc1.weight": f(d_inner, d), f"{p}.{mlp}.fc1.bias": f(d_inner),
+            f"{p}.{mlp}.fc2.weight": f(d, d_inner), f"{p}.{mlp}.fc2.bias": f(d),
+        }
+        for j, (cin, cout) in enumerate([(emb_dim, order), (order, order), (order, order)]):
+            state[f"{p}.{mixer}.filter_fn.implicit_filter.{2 * j}.weight"] = f(cout, cin)
+            state[f"{p}.{mixer}.filter_fn.implicit_filter.{2 * j}.bias"] = f(cout)
+            state[f"{p}.{mixer}.filter_fn.implicit_filter.{2 * j + 1}.freq"] = f(1, order)
+        state[f"{p}.{mixer}.filter_fn.implicit_filter.6.weight"] = f(d, order)
+    state["model.backbone.ln_f.weight"] = f(d)
+    state["model.backbone.ln_f.bias"] = f(d)
+    state["model.lm_head.weight"] = f(vocab, d)  # tied: skipped
+    return {"state_dict": state}
+
+
+def test_hyenadna_import_matches_the_jax_import():
+    """The port's import_hyenadna gives the weights that the JAX package's
+    hyenadna_to_flax -> merge_params -> jax_weights.from_jax_params gives,
+    exactly; the reports name the same used keys."""
+    from flashfftconv_tpu.utils import checkpoint_import as jci
+    from flashfftconv_tpu_torch.utils import checkpoint_import as tci
+
+    state = _hyenadna_state(np.random.default_rng(7))
+    kw = dict(d_model=32, n_layer=2, d_inner=64, vocab_size=8, l_max=128)
+    jm = JLM(**kw, mixer_kwargs={"impl": "xla", "in_proj_bias": True,
+                                 "filter_args": {"emb_dim": 5}}, dtype=jnp.float32)
+    init, _ = _init(jm, jnp.zeros((1, 128), jnp.int32))
+    imported, jreport = jci.hyenadna_to_flax(state)
+    merged = jci.merge_params(jax.tree_util.tree_map(np.asarray, init), imported, jreport)
+    want = jax_weights.from_jax_params(jax.tree_util.tree_map(np.asarray, merged))
+
+    tm = ConvLMHeadModel(**kw, mixer_kwargs={"in_proj_bias": True, "filter_args": {"emb_dim": 5}},
+                         dtype=torch.float32, device=CPU,
+                         generator=torch.Generator().manual_seed(0))
+    report = tci.import_hyenadna(tm, state)
+    got = tm.state_dict()
+    assert set(got) == set(want)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+    assert report.missing == [] and jreport.missing == []
+    deltas = [k for k in report.skipped if k.endswith("modulation.deltas")]
+    assert len(deltas) == 2  # constants of the port's filter, parameters nowhere
+    assert sorted(report.used + deltas) == sorted(jreport.used)
+    assert "lm_head.weight" in report.skipped
+    assert sum(k.endswith(("pos_emb.z", "pos_emb.t")) for k in report.skipped) == 4
+
+
+def test_hyenadna_import_reports_and_refuses():
+    from flashfftconv_tpu_torch.utils import checkpoint_import as tci
+
+    assert tci.strip_checkpointing_keys("a.mixer.layer.in_proj.weight") == "a.mixer.in_proj.weight"
+    state = _hyenadna_state(np.random.default_rng(8))["state_dict"]
+    norm = tci.normalize_state_dict({"state_dict": state})
+    assert all(not k.startswith("model.") and ".layer." not in k for k in norm)
+    tensors, report = tci.hyenadna_state_dict(state, n_layer=1)
+    assert not any(k.startswith("backbone.blocks.1.") for k in tensors)
+    assert tensors["backbone.blocks.0.mixer.short_filter.weights"].shape == (96, 3)
+    assert any(k.startswith("backbone.layers.1.") for k in report.skipped)
+    kw = dict(d_model=32, n_layer=2, d_inner=64, vocab_size=8, l_max=128, dtype=torch.float32,
+              device=CPU)
+    # a model without the in-projection bias leaves the checkpoint's unused
+    tm = ConvLMHeadModel(**kw, mixer_kwargs={"filter_args": {"emb_dim": 5}})
+    partial = {k: v for k, v in state.items() if "ln_f" not in k}
+    report = tci.import_hyenadna(tm, partial)
+    assert sorted(report.missing) == ["backbone.ln_f.bias", "backbone.ln_f.weight"]
+    assert sum(k.endswith("in_proj.bias") for k in report.skipped) == 2
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tci.import_hyenadna(ConvLMHeadModel(**{**kw, "d_inner": 128}), state)
+
+
+def test_dna_score_and_genome():
+    """score gives the mean bits per base of positions 1..L-1 and the argmax
+    over the five bases after the last one, in eval mode; the synthetic
+    genome is the JAX example's; presets are the example's."""
+    import importlib.util
+    from pathlib import Path
+
+    from flashfftconv_tpu_torch.models import dna
+
+    spec = importlib.util.spec_from_file_location(
+        "hyena_dna_train", Path(__file__).resolve().parent.parent / "examples/hyena_dna/train.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    args = type("Args", (), {"fasta": "", "seed": 3})()
+    genome = dna.synthetic_genome(3)
+    np.testing.assert_array_equal(genome, example.load_genome(args))
+    assert dna.MODEL_CONFIGS == example.MODEL_CONFIGS and dna.DNA_VOCAB == example.DNA_VOCAB
+
+    tm = dna.build_model("tiny-1k", dtype=torch.float32, device=CPU,
+                         mixer_kwargs={"conv_dtype": torch.float32},
+                         generator=torch.Generator().manual_seed(1)).train()
+    assert tm.vocab_size == 8 and tm.backbone.blocks[0].mixer.filter.z.shape[-1] == 5
+    ids = torch.from_numpy(genome[:2048].reshape(2, 1024).astype(np.int64))
+    out = dna.score(tm, ids)
+    assert tm.training  # the caller's mode comes back
+    with torch.no_grad():
+        logits = tm.eval()(ids)
+    want = [float(jmetrics.cross_entropy(jnp.asarray(logits[i, :-1].numpy()),
+                                         jnp.asarray(ids[i, 1:].numpy()))) / np.log(2)
+            for i in range(2)]
+    np.testing.assert_allclose(out["bits_per_base"].numpy(), want, rtol=1e-5)
+    assert out["next_base"].tolist() == logits[:, -1, :5].argmax(-1).tolist()
+    assert bool(out["finite"]) and 1.0 < float(out["bits_per_base"].mean()) < 4.0
+    with pytest.raises(ValueError):
+        dna.score(tm, ids[0])
+    with pytest.raises(NotImplementedError, match="power of two"):
+        dna.build_model("medium-160k", device=CPU)
