@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with an H100:
 
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
                           [--phases build,identity,kernels,serve,train,parity,grad_parity,
-                                    dna,long_parity,timing[,profile]]
+                                    dna,dna_train,long_parity,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -40,17 +40,32 @@ Phases, each of which fails the run by raising:
             logits and the exact launches a forward (8 long_spectrum, 8
             long_conv, 24 butterfly, 8 depthwise, no one-block conv); prints
             bits per base, forward time, tokens/ms and peak memory;
+  dna_train  trains the same HyenaDNA large-1m (B=1, 1,048,576 bases, bf16
+            activations, f32 master weights, no dropout, the levers of
+            models.dna.train_config) on windows of the synthetic genome from
+            utils.data.lm_batches: 1 warm-up and 3 timed steps of the
+            examples/hyena_dna recipe (clip 1.0, AdamW lr 6e-4, weight decay
+            0.1, no schedule); checks finite, falling loss and the exact
+            launches a step; prints step time, tokens/s and peak memory;
   long_parity  a 2-layer, d_model 64, l_max 65536 HyenaDNA in f32 (FFT size
             131072) with the same weights on the card (long kernels) and on
-            the CPU (plain versions): logits agree within 2e-3;
+            the CPU (plain versions): logits agree within 2e-3, grads within
+            1e-3 of each parameter's largest |grad|, and a second backward on
+            the card gives the same grads bit for bit (but the embedding
+            table's, which PyTorch adds up with atomics); then a 2-layer,
+            d_model 256, l_max 131072 f32 HyenaDNA on the card with every
+            memory lever on against the same weights with none: loss and
+            grads agree within 1e-4;
   timing    times each kernel, its plain version and a PyTorch yardstick
             with CUDA events at the main paths' shapes;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
-            and by kind, and the device's busy share of the wall time.
+            and by kind, and the device's busy share of the wall time; then
+            one HyenaDNA forward and one HyenaDNA train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
-of the three long kernels in the dna phase), the
+of the three long forward kernels in the dna phase, those of the two long
+backward kernels in the dna_train phase), the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -70,7 +85,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 PHASES = ("build", "identity", "kernels", "serve", "train", "parity", "grad_parity", "dna",
-          "long_parity", "timing")
+          "dna_train", "long_parity", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -92,6 +107,7 @@ DNA_D_MODEL, DNA_N_LAYER, DNA_L_MAX = 256, 8, 1_048_576
 DNA_N_FFT = 2 * DNA_L_MAX
 DNA_REQUESTS = (131_072, 262_144, 524_288, 1_048_576)
 DNA_WARMUP, DNA_TIMED = 1, 3
+DNA_TRAIN_WARMUP, DNA_TRAIN_TIMED = 1, 3
 LONG_SIZES = (65536, 131072, 524288, 2097152, 4194304)
 
 KERNELS = {
@@ -134,8 +150,20 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/long_spectrum.cu",
         replaces="flashfftconv_tpu/ops/monarch_pallas.py:616",
     ),
+    # the band kernel of the long backward, counted on its wrapper
+    # long_conv_bwd_inner
+    "long_conv_bwd": dict(
+        source="flashfftconv_tpu_torch/csrc/long_conv_bwd.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:2843",
+    ),
+    "long_dk_finish": dict(
+        source="flashfftconv_tpu_torch/csrc/long_conv_bwd.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:740",
+    ),
 }
-LONG_KERNELS = ("butterfly", "long_conv", "long_spectrum")
+# The phase whose run gives a kernel's launches in the JSON line.
+LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
+                "long_conv_bwd": "dna_train", "long_dk_finish": "dna_train"}
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
@@ -146,6 +174,17 @@ TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_con
 DNA_LAUNCHES = {"long_spectrum": DNA_N_LAYER, "long_conv": DNA_N_LAYER,
                 "butterfly": 3 * DNA_N_LAYER, "depthwise": DNA_N_LAYER, "spectrum": 0,
                 "monarch_conv": 0}
+# Launches in one HyenaDNA train step with every block rematerialised. A
+# layer's forward and its replay in the backward each run long_spectrum (1
+# butterfly), long_conv (2 butterflies) and the short conv; its backward runs
+# long_spectrum again (1 butterfly), the butterflies of u and dout, the band
+# backward, the inverse butterfly of du, long_dk_finish (1 inverse butterfly)
+# and the short conv's backward.
+DNA_TRAIN_LAUNCHES = {"long_spectrum": 3 * DNA_N_LAYER, "long_conv": 2 * DNA_N_LAYER,
+                      "long_conv_bwd": DNA_N_LAYER, "long_dk_finish": DNA_N_LAYER,
+                      "butterfly": 11 * DNA_N_LAYER, "depthwise": 2 * DNA_N_LAYER,
+                      "depthwise_bwd": DNA_N_LAYER, "spectrum": 0, "monarch_conv": 0,
+                      "monarch_conv_bwd": 0, "dk_finish": 0}
 
 
 def log(msg: str) -> None:
@@ -304,7 +343,35 @@ def phase_kernels(torch, g):
                       f"padding={pad} {dtype}", xx, ww, dd, pad, is_bhl)
     torch.cuda.synchronize()
     errs.update(_check_long_kernels(torch, g))
+    _check_operator_spread(torch)
     return errs
+
+
+def _check_operator_spread(torch, runs=12):
+    """A small f32 Hyena operator (d_model 64, l_max 512, B=3, L=500) built
+    `runs` times from one seed on the card and on the CPU: the spread of the
+    card's largest error. Tolerance: 2e-5 of the largest |output| for the
+    kernels, plus 16 ulps of the largest in-projection value for the order in
+    which cuBLAS adds up the f32 matmuls (the output is 50 times smaller
+    than that intermediate)."""
+    from flashfftconv_tpu_torch.models.hyena import HyenaOperator
+
+    u = torch.randn(3, 500, 64, generator=torch.Generator().manual_seed(1))
+    errs = []
+    for _ in range(runs):
+        ops = {dev: HyenaOperator(64, 512, conv_dtype=torch.float32, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+               for dev in ("cpu", "cuda")}
+        with torch.inference_mode():
+            ref = ops["cpu"](u)
+            errs.append(float((ops["cuda"](u.cuda()).cpu() - ref).abs().max()))
+            x_max = float(torch.matmul(ops["cpu"].in_proj, u.transpose(1, 2)).abs().max())
+    tol = f32_tol(ref) + 16 * 2.0**-23 * x_max
+    log(f"hyena operator, card vs CPU, {runs} runs: max_abs_err min {min(errs):.3e} max "
+        f"{max(errs):.3e}, tol={tol:.3e}, |out| <= {float(ref.abs().max()):.3e}, "
+        f"|in-projection| <= {x_max:.3e}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"the operator on the card disagrees with the CPU: {errs}")
 
 
 def _long_inputs(torch, g, dev):
@@ -350,10 +417,64 @@ def _check_long(torch, plan, what, u, k, pre=None, post=None):
     return errs
 
 
+def _check_long_bwd(torch, plan, what, u, k, pre, post, g):
+    """long_conv_bwd_inner and long_dk_finish against their plain versions on
+    the same bands and partials, the whole long backward (long_conv_bwd, then
+    long_dk_finish) against conv_bwd_plain and dk_finish_plain, and a second
+    run of the whole backward against the first, bit for bit. Returns
+    {kernel: max abs err}."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+
+    real = torch.view_as_real
+    low = u.dtype != torch.float32
+    gated = pre is not None
+    dout = torch.randn(u.shape, generator=g).to(u.device, u.dtype)
+    k_len = k.shape[-1]
+    k_f = monarch_cuda.long_spectrum(plan, k)
+    zu = monarch.butterfly_plain(plan, u, pre)
+    zg = monarch.butterfly_plain(plan, dout.float() * post.float() if gated else dout)
+    got = monarch_cuda.long_conv_bwd_inner(plan, zu, zg, k_f, need_y=gated)
+    ref = monarch.long_conv_bwd_inner_plain(plan, zu, zg, k_f, need_y=gated)
+    del zu, zg
+    err = 0.0
+    for name, a, r in zip(("du bands", "y bands", "partials"), got, ref):
+        if r is not None:
+            err = max(err, compare(f"long_conv_bwd_inner {what}: {name}", real(a), real(r),
+                                   f32_tol(real(r))))
+    partials = ref[2]
+    del got, ref
+    dk_ref = monarch.long_dk_finish_plain(plan, partials, k_len)
+    errs = {"long_conv_bwd": err,
+            "long_dk_finish": compare(f"long_dk_finish {what}: dk",
+                                      monarch_cuda.long_dk_finish(plan, partials, k_len), dk_ref,
+                                      f32_tol(dk_ref))}
+    del partials, dk_ref
+
+    def whole():
+        du, dpre, dpost, parts = monarch_cuda.long_conv_bwd(plan, u, k_f, pre, post, dout)
+        return du, dpre, dpost, monarch_cuda.long_dk_finish(plan, parts, k_len)
+
+    first = whole()
+    ref = monarch.conv_bwd_plain(plan, u, k_f, pre, post, dout)
+    ref = (*ref[:3], monarch.dk_finish_plain(plan, ref[3], k_len))
+    for name, a, r in zip(("du", "dpre", "dpost", "dk"), first, ref):
+        if r is not None:
+            f32 = name == "dk" or not low
+            compare(f"long backward vs conv_bwd_plain {what}: {name}", a, r,
+                    f32_tol(r) if f32 else lowp_tol(r))
+    del ref
+    for name, a, r in zip(("du", "dpre", "dpost", "dk"), first, whole()):
+        if a is not None and not torch.equal(a, r):
+            raise AssertionError(f"long backward {what}: two runs differ in {name}")
+    torch.cuda.synchronize()
+    return errs
+
+
 def _check_long_kernels(torch, g):
-    """The three long kernels at the dna path's shapes, then at every listed
-    FFT size in f32 and bf16: B = 1 ungated at L = N/2, B = 3 and 4 gated at
-    ragged lengths; and the short depthwise conv at 1,048,576 positions."""
+    """The long kernels, forward and backward, at the dna path's shapes, then
+    at every listed FFT size in f32 and bf16: B = 1 ungated at L = N/2, B = 3
+    and 4 gated at ragged lengths and channel counts; and the short depthwise
+    conv at 1,048,576 positions."""
     from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
@@ -363,6 +484,7 @@ def _check_long_kernels(torch, g):
     log(f"long kernels: B=1 H={DNA_D_MODEL} L={DNA_L_MAX} N={DNA_N_FFT} bf16 ungated, "
         f"factors={plan.factors} (outer {plan.outer}, band {plan.band})")
     errs = _check_long(torch, plan, "main path", u, k)
+    errs.update(_check_long_bwd(torch, plan, "main path", u, k, None, None, g))
     del k, u, plan
     for n in LONG_SIZES:
         p = make_plan(n, torch.float32, device=dev)
@@ -373,8 +495,10 @@ def _check_long_kernels(torch, g):
                                  for _ in "abc")
                 kk = (torch.randn(h, n // 2 - 1, generator=g) * 0.05).to(dev)
                 gates = (pre, post) if gated else (None, None)
-                _check_long(torch, p, f"N={n} B={b} H={h} L={length} "
-                            f"{'gated' if gated else 'ungated'} {dtype}", uu, kk, *gates)
+                what = (f"N={n} B={b} H={h} L={length} {'gated' if gated else 'ungated'} "
+                        f"{dtype}")
+                _check_long(torch, p, what, uu, kk, *gates)
+                _check_long_bwd(torch, p, what, uu, kk, *gates, g)
         del p
     d = 3 * DNA_D_MODEL
     log(f"depthwise: B=1 D={d} L={DNA_L_MAX} K=3 padding=(2, 0) bias bf16 BHL")
@@ -437,7 +561,9 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
                 "dk_finish": monarch_cuda.dk_finish, "depthwise": dw.depthwise,
                 "depthwise_bwd": dw.depthwise_bwd, "butterfly": monarch_cuda.butterfly,
                 "long_conv": monarch_cuda.long_conv_inner,
-                "long_spectrum": monarch_cuda.long_spectrum}
+                "long_spectrum": monarch_cuda.long_spectrum,
+                "long_conv_bwd": monarch_cuda.long_conv_bwd_inner,
+                "long_dk_finish": monarch_cuda.long_dk_finish}
     return {name: wrappers[name] for name in names}
 
 
@@ -748,9 +874,106 @@ def phase_dna(torch, seed, np):
     return res
 
 
+def _dna_train_step(torch, model):
+    """The examples/hyena_dna train step over model: clip 1.0, then AdamW at
+    lr 6e-4, weight decay 0.1, no schedule; no dropout (eval mode)."""
+    from flashfftconv_tpu_torch.utils.train import dna_optimizer, make_train_step
+
+    return make_train_step(model.eval(), dna_optimizer(model), None, clip=1.0)
+
+
+def phase_dna_train(torch, seed, np):
+    """HyenaDNA large-1m at full width and depth takes DNA_TRAIN_WARMUP +
+    DNA_TRAIN_TIMED steps at B=1 and l_max bases."""
+    from flashfftconv_tpu_torch.models import dna
+    from flashfftconv_tpu_torch.utils.data import lm_batches
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    levers = dna.train_config(DNA_MODEL)
+    model = dna.build_model(DNA_MODEL, dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator().manual_seed(seed), **levers)
+    step = _dna_train_step(torch, model)
+    batches = lm_batches(dna.synthetic_genome(seed), 1, DNA_L_MAX, np.random.default_rng(seed))
+    n_steps = DNA_TRAIN_WARMUP + DNA_TRAIN_TIMED
+    counters = _counters(DNA_TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, per_step = [], [], []
+    try:
+        for _ in range(n_steps):
+            x, y = (torch.from_numpy(a.astype(np.int64)).to(dev) for a in next(batches))
+            before = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(x, y)
+            loss = float(out["loss"])  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(f"HyenaDNA {DNA_MODEL} train step ran out of memory with levers "
+                             f"{levers}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                             "GiB") from e
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != DNA_TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {DNA_TRAIN_LAUNCHES}")
+    timed = step_ms[DNA_TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    res = {"steps": n_steps, "levers": levers, "losses": losses, "step_ms": step_ms,
+           "step_ms_median": med, "step_ms_max": max(timed),
+           "tokens_per_s": DNA_L_MAX / (med / 1e3), "launches": launches,
+           "peak_memory_bytes": peak}
+    log(f"dna_train: HyenaDNA {DNA_MODEL} B=1 L={DNA_L_MAX} bf16, levers {levers}, {n_steps} "
+        f"steps (lr 6e-4, wd 0.1, clip 1.0), losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"dna_train: step median {med:.2f} ms max {max(timed):.2f} ms over {DNA_TRAIN_TIMED} "
+        f"timed steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {per_step[-1]}")
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _all_levers(torch):
+    """Every memory lever of the 1M-base recipe as build_model overrides; the
+    two dtype levers at f32, so that each lever is exact and the model must
+    agree with the lever-free one."""
+    return dict(
+        remat=True, scan_blocks=True, inner_remat=True, mlp_l_chunks=8,
+        mixer_kwargs={"conv_dtype": torch.float32, "conv_h_chunks": 4, "proj_l_chunks": 8,
+                      "proj_out_f32": True, "filter_output_dtype": torch.float32,
+                      "filter_args": {"emb_dim": 5, "mlp_dtype": torch.float32}})
+
+
+def _loss_and_grads(torch, model, ids):
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    model.zero_grad(set_to_none=True)
+    loss = cross_entropy(model(ids[:, :-1]), ids[:, 1:])
+    loss.backward()
+    return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _worst_grad(grads, ref):
+    """(largest max |dgrad| / max |grad| over the parameters, its name)."""
+    worst = max(((g.cpu() - ref[n].cpu()).abs().max() / ref[n].cpu().abs().max().clamp(min=1e-12),
+                 n) for n, g in grads.items())
+    return float(worst[0]), worst[1]
+
+
 def phase_long_parity(torch, seed, np):
     """A 2-layer f32 HyenaDNA at l_max 65536 (FFT size 131072) with the same
-    weights on the card (long kernels) and on the CPU (plain versions)."""
+    weights on the card (long kernels) and on the CPU (plain versions):
+    logits, then grads (twice on the card, bit for bit); then every memory
+    lever on against none, on the card."""
     from flashfftconv_tpu_torch.models import dna
 
     l_max = 65536
@@ -772,12 +995,68 @@ def phase_long_parity(torch, seed, np):
         f"(plain): max_abs_err={err:.3e} tol=2e-3, |logits| <= {float(ref.abs().max()):.2f}")
     if not err <= 2e-3:
         raise AssertionError(f"card and CPU logits disagree: {err}")
-    return {"logits_max_abs_err": err}
+    res = {"logits_max_abs_err": err}
+
+    ids = torch.from_numpy(dna.synthetic_genome(seed + 2, n=l_max + 1).astype(np.int64))[None]
+    bwd = _counters(("long_conv_bwd", "long_dk_finish"))
+    before = {name: fn.launches for name, fn in bwd.items()}
+    loss_cpu, grads_cpu = _loss_and_grads(torch, models["cpu"], ids)
+    loss_card, grads_card = _loss_and_grads(torch, models["cuda"], ids.cuda())
+    _, grads_again = _loss_and_grads(torch, models["cuda"], ids.cuda())
+    for name, fn in bwd.items():
+        if fn.launches - before[name] != 4:
+            raise AssertionError(f"{name} launched {fn.launches - before[name]} times in two "
+                                 "backwards of 2 layers, expected 4")
+    ratio, worst = _worst_grad(grads_card, grads_cpu)
+    # The embedding table's grad is excepted: PyTorch's embedding backward adds
+    # the 65536 rows' grads into 8 table rows with float atomics, in an order
+    # that changes from run to run. Every other grad comes through the port's
+    # kernels, matmuls and elementwise passes, none of which uses atomics.
+    differ = [n for n, gr in grads_card.items()
+              if n != "embeddings.weight" and not torch.equal(gr, grads_again[n])]
+    log(f"long_parity: grads, card (long backward kernels) vs CPU (plain) over "
+        f"{len(grads_cpu)} params: max |dgrad| / max |grad| = {ratio:.3e} ({worst}), tol 1e-3; "
+        f"loss {loss_card:.6f} vs {loss_cpu:.6f}; a second backward on the card differs in "
+        f"{len(differ)} of the {len(grads_cpu) - 1} params outside the embedding table {differ}")
+    if not ratio <= 1e-3:
+        raise AssertionError(f"card and CPU grads disagree: {worst} at {ratio}")
+    if differ:
+        raise AssertionError(f"two backwards on the card differ in {differ}")
+    res.update(grad_max_rel_err=ratio, grad_worst_param=worst)
+    del models, grads_cpu, grads_card, grads_again
+
+    l_max, out = 131072, {}
+    ids = torch.from_numpy(dna.synthetic_genome(seed + 3, n=l_max + 1).astype(np.int64))[None]
+    ids = ids.cuda()
+    levers = _all_levers(torch)
+    for name, kw in (("none", {"mixer_kwargs": {"conv_dtype": torch.float32}}), ("all", levers)):
+        model = dna.build_model("tiny-1k", d_model=DNA_D_MODEL, n_layer=2, l_max=l_max,
+                                dtype=torch.float32, device="cuda",
+                                generator=torch.Generator().manual_seed(seed), **kw).eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = (*_loss_and_grads(torch, model, ids), torch.cuda.max_memory_allocated())
+        del model
+        torch.cuda.empty_cache()
+    ratio, worst = _worst_grad(out["all"][1], out["none"][1])
+    loss_err = abs(out["all"][0] - out["none"][0]) / abs(out["none"][0])
+    log(f"long_parity: 2-layer d_model {DNA_D_MODEL} f32 HyenaDNA at {l_max} bases on the card, "
+        f"every lever on ({levers}) vs none: loss {out['all'][0]:.6f} vs "
+        f"{out['none'][0]:.6f} (rel err {loss_err:.3e}), max |dgrad| / max |grad| = {ratio:.3e} "
+        f"({worst}), tol 1e-4; peak memory {out['all'][2] / 2**30:.2f} vs "
+        f"{out['none'][2] / 2**30:.2f} GiB")
+    if not (ratio <= 1e-4 and loss_err <= 1e-4):
+        raise AssertionError(f"levers on and off disagree: loss {loss_err}, {worst} at {ratio}")
+    res.update(levers_grad_max_rel_err=ratio, levers_loss_rel_err=loss_err,
+               levers_peak_memory_bytes=out["all"][2], no_levers_peak_memory_bytes=out["none"][2])
+    return res
 
 
 def _kind(name: str) -> str:
     for kind, keys in (
         ("butterfly", ("butterfly_fwd_kernel", "butterfly_inv_kernel")),
+        ("long_conv_bwd", ("long_conv_bwd_kernel",)),
+        ("long_dk_finish", ("long_dk_finish_kernel",)),
         ("long_conv", ("long_conv_kernel",)),
         ("long_spectrum", ("long_spectrum_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
@@ -860,6 +1139,15 @@ def phase_profile(torch, seed):
     with torch.inference_mode():
         res["dna_forward"] = _trace(torch, f"one HyenaDNA {DNA_MODEL} forward at {DNA_L_MAX} "
                                     "bases", lambda: dna_model(bases))
+    del dna_model
+    torch.cuda.empty_cache()
+    dna_model = dna.build_model(DNA_MODEL, dtype=torch.bfloat16, device="cuda",
+                                generator=torch.Generator().manual_seed(seed),
+                                **dna.train_config(DNA_MODEL))
+    step = _dna_train_step(torch, dna_model)
+    targets = torch.roll(bases, -1, dims=1)
+    res["dna_train_step"] = _trace(torch, f"one HyenaDNA {DNA_MODEL} train step at {DNA_L_MAX} "
+                                   "bases", lambda: step(bases, targets))
     return res
 
 
@@ -1069,6 +1357,69 @@ def _time_long(torch, g):
             bound=_bound(k.numel() * 4 + k_f.numel() * 8, outer_flops + band_flops + h * m * 10),
             overhead_ms=2 * bands_bytes / HBM_BYTES_PER_S * 1e3,
         )
+        # The band kernel of the long backward (ungated, as on the main
+        # path): both band arrays and k_f in, du's bands and one dk spectrum
+        # out (at B = 1 the partials are that spectrum); three band FFTs a
+        # point, two splits, one unsplit and two products a frequency.
+        dout = torch.randn(u.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev).to(u.dtype)
+        zu, zg = monarch_cuda.butterfly(plan, u), monarch_cuda.butterfly(plan, dout)
+        spec_bytes = k_f.numel() * 8
+        res["long_conv_bwd"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.long_conv_bwd_inner(plan, zu, zg, k_f),
+                        iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.long_conv_bwd_inner_plain(plan, zu, zg, k_f),
+                              iters=1, warmup=1),
+            library_ms=None,
+            bound=_bound(3 * bands_bytes + 2 * spec_bytes, 3 * band_flops + h * m * 42),
+        )
+        parts = monarch_cuda.long_conv_bwd_inner(plan, zu, zg, k_f)[2]
+        del zu, zg
+        # long_dk_finish: one dk spectrum in, f32 dk out; the unsplit, one
+        # band FFT and the outer stage a point. The dk bands between its band
+        # kernel and the inverse butterfly are the design's own traffic.
+        res["long_dk_finish"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.long_dk_finish(plan, parts, length), iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.long_dk_finish_plain(plan, parts, length),
+                              iters=1, warmup=1),
+            library_ms=_time_ms(torch, lambda: torch.fft.irfft(parts.sum(0), n=DNA_N_FFT)[
+                ..., :length], iters=5),
+            bound=_bound(spec_bytes + h * length * 4, outer_flops + band_flops + h * m * 10),
+            overhead_ms=2 * bands_bytes / HBM_BYTES_PER_S * 1e3,
+        )
+        del parts
+        # The whole long backward of one conv as FftConvFunction runs it: u,
+        # dout and the f32 taps in, du and f32 dk out; five M-point FFTs a
+        # row. Bands, k_f and the dk spectrum cross device memory 14 times
+        # between the kernels (written and read: the taps' bands, k_f, the
+        # bands of u and of dout, du's bands, P, dk's bands).
+        def long_bwd():
+            kf = monarch_cuda.long_spectrum(plan, k)
+            du, _, _, parts = monarch_cuda.long_conv_bwd(plan, u, kf, None, None, dout)
+            return du, monarch_cuda.long_dk_finish(plan, parts, length)
+
+        def plain_bwd():
+            kf = monarch.long_spectrum_plain(plan, k)
+            du, _, _, parts = monarch.conv_bwd_plain(plan, u, kf, None, None, dout)
+            return du, monarch.dk_finish_plain(plan, parts, length)
+
+        def fft_bwd():
+            kf = torch.fft.rfft(k, n=DNA_N_FFT)
+            g_f = torch.fft.rfft(dout.float(), n=DNA_N_FFT)
+            du = torch.fft.irfft(g_f * kf.conj(), n=DNA_N_FFT)[..., :length].to(u.dtype)
+            del kf
+            g_f = g_f * torch.fft.rfft(u.float(), n=DNA_N_FFT).conj()
+            return du, torch.fft.irfft(g_f.sum(0), n=DNA_N_FFT)[..., :length]
+
+        del k_f
+        res["long_bwd_chain"] = dict(
+            ms=_time_ms(torch, long_bwd, iters=5, warmup=1),
+            plain_ms=_time_ms(torch, plain_bwd, iters=1, warmup=1),
+            library_ms=_time_ms(torch, fft_bwd, iters=5, warmup=1),
+            bound=_bound(u.numel() * 2 * 3 + k.numel() * 4 * 2,
+                         5 * (outer_flops + band_flops) + h * m * 62),
+            overhead_ms=14 * bands_bytes / HBM_BYTES_PER_S * 1e3,
+        )
     log(f"timing butterfly inverse: {res['butterfly']['inverse_ms']:.4f} ms (the row's ms is "
         "the forward's)")
     return res
@@ -1122,6 +1473,8 @@ def main() -> int:
         results["grad_parity"] = phase_grad_parity(torch, args.seed)
     if "dna" in phases:
         results["dna"] = phase_dna(torch, args.seed, np)
+    if "dna_train" in phases:
+        results["dna_train"] = phase_dna_train(torch, args.seed, np)
     if "long_parity" in phases:
         results["long_parity"] = phase_long_parity(torch, args.seed, np)
     if "timing" in phases:
@@ -1136,11 +1489,11 @@ def main() -> int:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
 
-    if {"kernels", "train", "dna", "timing"} <= set(phases):
+    if {"kernels", "train", "dna", "dna_train", "timing"} <= set(phases):
         rows = []
         for name, meta in KERNELS.items():
             t = results["timing"][name]
-            path = "dna" if name in LONG_KERNELS else "train"
+            path = LAUNCH_PHASE.get(name, "train")
             rows.append({
                 "name": name, "route": "cuda", **meta,
                 "launches": results[path]["launches"][name],

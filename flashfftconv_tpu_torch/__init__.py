@@ -4,8 +4,9 @@ Long depthwise FFT convolutions y = iFFT(FFT(u) * FFT(k)) as hand-written
 CUDA kernels for Hopper (sm_90a), forward and backward, a short depthwise
 conv kernel and its backward, and the Hyena language model on top of them,
 with the train step of the JAX package's ``examples/lm`` recipe. From FFT
-size 65536 to 4194304 the forward runs through the butterfly, band-conv and
-long-spectrum kernels (``models.dna`` serves HyenaDNA on them). Public API
+size 65536 to 4194304 forward and backward run through the butterfly,
+band-conv, long-spectrum, band-backward and dk-finish kernels (``models.dna``
+serves and trains HyenaDNA on them). Public API
 parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """
@@ -16,9 +17,15 @@ from flashfftconv_tpu_torch.ops.dispatch import fft_conv
 from flashfftconv_tpu_torch.ops.monarch import fft_conv_plain, fft_conv_reference
 from flashfftconv_tpu_torch.ops.monarch_cuda import FftConvFunction
 from flashfftconv_tpu_torch.ops.plan import FftPlan, default_factors, make_plan
+from flashfftconv_tpu_torch.utils.data import lm_batches
 from flashfftconv_tpu_torch.utils.metrics import cross_entropy
 from flashfftconv_tpu_torch.utils.optim import make_optimizer
-from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_eval_step, make_train_step
+from flashfftconv_tpu_torch.utils.train import (
+    dna_optimizer,
+    lm_optimizer,
+    make_eval_step,
+    make_train_step,
+)
 
 __version__ = "0.1.0"
 
@@ -37,6 +44,8 @@ __all__ = [
     "cross_entropy",
     "make_optimizer",
     "lm_optimizer",
+    "dna_optimizer",
+    "lm_batches",
     "make_train_step",
     "make_eval_step",
 ]

@@ -1,13 +1,16 @@
 """HyenaDNA on the port: presets, the synthetic genome and scoring.
 
-Port of the parts of the JAX package's ``examples/hyena_dna/train.py`` that
-serving needs: the reference model presets (``MODEL_CONFIGS``),
+Port of the JAX package's ``examples/hyena_dna/train.py`` without its
+command line: the reference model presets (``MODEL_CONFIGS``),
 character-level DNA ids (A/C/G/T/N), the synthetic genome with planted
 motifs that stands in for a FASTA file, ``build_model`` (the example's
 ``ConvLMHeadModel`` arguments at their defaults: hyena mixer, filter
 ``emb_dim`` 5, vocabulary 5 padded to 8, f32 residual stream and final
-LayerNorm, bf16 activations) and ``score``, the serving entry point: mean
-bits per base and the most likely next base of each request.
+LayerNorm, bf16 activations), ``score``, the serving entry point (mean
+bits per base and the most likely next base of each request) and
+``train_config``, the memory levers a preset's train step runs with on one
+80 GB card. A train step is ``utils.train.make_train_step`` over
+``utils.train.dna_optimizer`` on batches from ``utils.data.lm_batches``.
 """
 
 from __future__ import annotations
@@ -44,11 +47,22 @@ def synthetic_genome(seed: int = 0, n: int = 2_000_000) -> np.ndarray:
     return g
 
 
+def train_config(name: str = "large-1m") -> dict:
+    """The ``build_model`` overrides for training preset ``name`` at B = 1
+    on one 80 GB H100: the fewest of the example's memory levers that fit.
+    Up to 32768 bases none is needed; from 160,000 bases each block is
+    rematerialised (``remat``), which at 1,048,576 bases keeps 8 block inputs
+    of 0.5 GB and one block's activations live in place of eight blocks'."""
+    return {"remat": True} if MODEL_CONFIGS[name]["l_max"] > 32768 else {}
+
+
 def build_model(name: str = "large-1m", dtype: torch.dtype = torch.bfloat16, device="cuda",
                 generator: torch.Generator | None = None, **overrides) -> ConvLMHeadModel:
     """The HyenaDNA LM of preset ``name`` (``overrides`` replace preset
-    fields or any other ``ConvLMHeadModel`` argument). The long convs share
-    one plan at FFT size 2 * l_max, so l_max must be a power of two here."""
+    fields or any other ``ConvLMHeadModel`` argument, the memory levers of
+    ``train_config`` and the mixer's, under ``mixer_kwargs``, among them).
+    The long convs share one plan at FFT size 2 * l_max, so l_max must be a
+    power of two here."""
     cfg = {**MODEL_CONFIGS[name], **overrides}
     d_model, l_max = cfg.pop("d_model"), cfg.pop("l_max")
     if l_max & (l_max - 1):

@@ -78,17 +78,18 @@ class ExponentialModulation(nn.Module):
 
 class HyenaFilter(nn.Module):
     """Implicit long filter with modulation; ``forward(L)`` returns the
-    (1, L, d_model) kernel in f32. ``dropout`` and ``use_bias`` are accepted
-    and unused, as in the JAX module."""
+    (1, L, d_model) kernel, in f32 or in ``mlp_dtype`` when that is set: the
+    compute dtype of the implicit MLP (its Dense layers cast input and
+    weights to it; the parameters stay f32). ``dropout`` and ``use_bias``
+    are accepted and unused, as in the JAX module."""
 
     def __init__(self, d_model, emb_dim=3, order=16, seq_len=1024, dropout=0.0, w=1.0,
                  w_mod=1.0, num_inner_mlps=2, use_bias=True, modulate=True, normalized=False,
                  linear_mixer=False, modulation_args=None, mlp_dtype=None, device="cuda",
                  generator=None):
         super().__init__()
-        if mlp_dtype is not None:
-            raise NotImplementedError("HyenaFilter(mlp_dtype=...) is not ported yet")
         device = resolve_device(device)
+        self.mlp_dtype = mlp_dtype
         self.modulate = modulate
         self.normalized = normalized
         self.linear_mixer = linear_mixer
@@ -96,7 +97,8 @@ class HyenaFilter(nn.Module):
         self.register_buffer("z", z, persistent=False)
         self.register_buffer("t", t, persistent=False)
         self.bias = normal((d_model,), 1.0, generator, device)
-        dense = lambda i, o, b=True: Dense(i, o, bias=b, device=device, generator=generator)
+        dense = lambda i, o, b=True: Dense(i, o, bias=b, dtype=mlp_dtype, device=device,
+                                           generator=generator)
         if linear_mixer:
             layers = [dense(emb_dim, d_model, False)]
         else:
@@ -110,6 +112,8 @@ class HyenaFilter(nn.Module):
     def forward(self, length: int):
         h = self.z[:, :length]
         t = self.t[:, :length]
+        if self.mlp_dtype is not None:
+            h = h.to(self.mlp_dtype)
         for layer in self.layers:
             h = layer(h)
         if self.modulate:

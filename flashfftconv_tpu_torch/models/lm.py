@@ -3,9 +3,15 @@
 Port of the JAX package's ``models/lm.py`` for the hyena mixer with a tied
 head: word embeddings -> n_layer pre-norm blocks (mixer + MLP, residuals in
 f32) -> final LayerNorm in f32 -> logits in f32 against the embedding table.
-The JAX modules' other mixers and memory levers (block scan, remat, chunked
-or block-diagonal MLPs, MoE) are not ported: setting one raises
-NotImplementedError.
+
+The memory levers of the JAX package's 1M-base train step: ``remat``
+(each block under ``torch.utils.checkpoint``, which keeps only the block's
+input and replays the block, dropout's random state included, in the
+backward), ``inner_remat`` (mixer and MLP as separate checkpoint regions
+inside the block), ``mlp_l_chunks`` (``ChunkedMlp``: the MLP in L-chunks
+with a backward of its own that keeps only its input) and ``scan_blocks``.
+The JAX modules' other mixers, block-diagonal MLPs and MoE are not ported:
+setting one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator
 from flashfftconv_tpu_torch.models.layers import Dense, Embed, LayerNorm
@@ -49,9 +56,73 @@ class Mlp(nn.Module):
         return self.fc2(y, dtype=x.dtype)
 
 
+class _MlpChunked(torch.autograd.Function):
+    """fc2(act(fc1(x))) on x (rows, d) in ``c`` row chunks (the JAX package's
+    ``_mlp_chunked``): the forward keeps one chunk's fc1 output at a time and
+    saves only x and the weights; the backward recomputes fc1 per chunk and
+    accumulates the weight grads in f32. Weights are (out, in) and come at
+    x's dtype, so their grads leave at that dtype, as in the JAX function."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, c, act):
+        ctx.save_for_backward(x, w1, b1, w2)
+        ctx.c, ctx.act = c, act
+        y = x.new_empty(x.shape[0], w2.shape[0])
+        for xc, yc in zip(x.chunk(c), y.chunk(c)):
+            hc = act(F.linear(xc, w1, b1).float()).to(x.dtype)
+            torch.addmm(b2, hc, w2.T, out=yc)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2 = ctx.saved_tensors
+        dx = torch.empty_like(x)
+        dw1, db1, dw2 = (torch.zeros(t.shape, dtype=torch.float32, device=x.device)
+                         for t in (w1, b1, w2))
+        db2 = torch.zeros(w2.shape[0], dtype=torch.float32, device=x.device)
+        for xc, dyc, dxc in zip(x.chunk(ctx.c), dy.chunk(ctx.c), dx.chunk(ctx.c)):
+            with torch.enable_grad():
+                pre = F.linear(xc, w1, b1).float().requires_grad_()
+                hc = ctx.act(pre)
+            dh = (dyc @ w2).float()
+            dpre = torch.autograd.grad(hc, pre, dh)[0].to(x.dtype)
+            hc = hc.detach().to(x.dtype)
+            torch.mm(dpre, w1, out=dxc)
+            dw1 += (dpre.T @ xc).float()
+            db1 += dpre.float().sum(0)
+            dw2 += (dyc.T @ hc).float()
+            db2 += dyc.float().sum(0)
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b1.dtype),
+                None, None)
+
+
+class ChunkedMlp(Mlp):
+    """``Mlp`` with the L-chunked body and backward of ``_MlpChunked``; same
+    parameters. B * L must be a multiple of ``l_chunks``."""
+
+    def __init__(self, d_inner, d_model, l_chunks=4, activation="gelu", device="cuda",
+                 generator=None):
+        super().__init__(d_inner, d_model, activation=activation, device=device,
+                         generator=generator)
+        self.l_chunks = l_chunks
+
+    def forward(self, x):
+        b, l, d = x.shape
+        if (b * l) % self.l_chunks:
+            raise ValueError(f"B * L = {b * l} is no multiple of l_chunks = {self.l_chunks}")
+        dt = x.dtype
+        y = _MlpChunked.apply(
+            x.reshape(b * l, d), self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+            self.fc2.weight.to(dt), self.fc2.bias.to(dt), self.l_chunks, self.activation)
+        return y.reshape(b, l, -1)
+
+
 class Block(nn.Module):
     """Pre-norm block: LN -> mixer -> dropout -> +res; LN -> MLP -> dropout
-    -> +res, with the residual stream in f32 unless residual_f32=False."""
+    -> +res, with the residual stream in f32 unless residual_f32=False.
+    ``inner_remat`` puts the mixer and the MLP under a checkpoint each, so
+    that in the backward of a rematerialised block their recomputed working
+    sets never coexist, for one more forward of each."""
 
     def __init__(self, d_model, d_inner, mixer="hyena", mixer_kwargs=None, resid_dropout=0.0,
                  mlp_nblocks=0, moe_kwargs=None, mlp_activation="gelu", mlp_l_chunks=0,
@@ -60,24 +131,32 @@ class Block(nn.Module):
         _not_ported(**{
             f"mixer={mixer!r}": mixer != "hyena",
             "moe_kwargs": bool(moe_kwargs),
-            "mlp_l_chunks": mlp_l_chunks > 1,
-            "inner_remat": inner_remat,
         })
         self.residual_f32 = residual_f32
+        self.inner_remat = inner_remat
         self.norm1 = LayerNorm(d_model, device=device)
         self.mixer = HyenaOperator(d_model=d_model, **(mixer_kwargs or {}), device=device,
                                    generator=generator)
         self.norm2 = LayerNorm(d_model, device=device)
-        self.mlp = Mlp(d_inner, d_model, nblocks=mlp_nblocks, activation=mlp_activation,
-                       device=device, generator=generator)
+        if mlp_l_chunks > 1 and not mlp_nblocks:
+            self.mlp = ChunkedMlp(d_inner, d_model, l_chunks=mlp_l_chunks,
+                                  activation=mlp_activation, device=device, generator=generator)
+        else:
+            self.mlp = Mlp(d_inner, d_model, nblocks=mlp_nblocks, activation=mlp_activation,
+                           device=device, generator=generator)
         self.drop = nn.Dropout(resid_dropout)
+
+    def _part(self, module, h):
+        if self.inner_remat and torch.is_grad_enabled():
+            return checkpoint(module, h, use_reentrant=False)
+        return module(h)
 
     def forward(self, x):
         dtype = x.dtype
         res = x.float() if self.residual_f32 else x
-        h = self.drop(self.mixer(self.norm1(res).to(dtype)))
+        h = self.drop(self._part(self.mixer, self.norm1(res).to(dtype)))
         res = res + h.to(res.dtype)
-        h = self.drop(self.mlp(self.norm2(res).to(dtype)))
+        h = self.drop(self._part(self.mlp, self.norm2(res).to(dtype)))
         res = res + h.to(res.dtype)
         return res.to(dtype)
 
@@ -85,7 +164,16 @@ class Block(nn.Module):
 class LMBackbone(nn.Module):
     """n_layer Blocks and the final LayerNorm over embedded tokens. The
     embedding table belongs to the head (``ConvLMHeadModel``), which ties it
-    to the logits; ``forward`` takes the embedded (B, L, D) activations."""
+    to the logits; ``forward`` takes the embedded (B, L, D) activations.
+
+    ``remat`` runs every block under ``torch.utils.checkpoint``
+    (non-reentrant; the random state is saved, so dropout replays): only the
+    (B, L, D) block inputs stay live across layers. ``scan_blocks`` is
+    accepted and changes nothing here: the JAX package needs ``lax.scan`` to
+    make XLA run the backward one block at a time, while PyTorch's backward
+    already frees a block's recomputed activations before it reaches the
+    next. ``utils.jax_weights`` reads the stacked parameter tree that option
+    gives the flax model."""
 
     def __init__(self, d_model, n_layer, d_inner, vocab_size, l_max, mixer="hyena",
                  mixer_kwargs=None, embed_dropout=0.1, resid_dropout=0.0, mlp_nblocks=0,
@@ -93,9 +181,9 @@ class LMBackbone(nn.Module):
                  moe_kwargs=None, remat=False, scan_blocks=False, dtype=torch.bfloat16,
                  device="cuda", generator=None):
         super().__init__()
-        _not_ported(remat=remat, scan_blocks=scan_blocks)
-        del vocab_size
+        del vocab_size, scan_blocks
         self.dtype = dtype
+        self.remat = remat
         mixer_kwargs = dict(mixer_kwargs or {})
         mixer_kwargs.setdefault("l_max", l_max)
         self.embed_drop = nn.Dropout(embed_dropout)
@@ -110,8 +198,9 @@ class LMBackbone(nn.Module):
 
     def forward(self, x):
         x = self.embed_drop(x)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.ln_f(x)
 
 

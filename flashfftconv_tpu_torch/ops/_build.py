@@ -25,7 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd",
-           "butterfly", "long_conv", "long_spectrum")
+           "butterfly", "long_conv", "long_spectrum", "long_conv_bwd")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # {library: {function: argtypes}}; every function returns a CUDA error code
 # (an int). Pointers first, then the int sizes, then the stream.
@@ -41,6 +41,8 @@ SIGNATURES = {
                   "ffc_butterfly_inv": [_P] * 6 + [_I] * 6 + [_P]},
     "long_conv": {"ffc_long_conv": [_P] * 6 + [_I] * 8 + [_P]},
     "long_spectrum": {"ffc_long_spectrum": [_P] * 5 + [_I] * 7 + [_P]},
+    "long_conv_bwd": {"ffc_long_conv_bwd": [_P] * 9 + [_I] * 8 + [_P],
+                      "ffc_long_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

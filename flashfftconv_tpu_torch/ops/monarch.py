@@ -19,11 +19,13 @@ the outer twiddle; ``butterfly``), ``long_conv_inner_plain`` (per band the
 R-point FFT, the split, the product with k_f and the way back;
 ``long_conv_inner``) and ``long_spectrum_plain`` (``long_spectrum``).
 ``rfft_plain`` and ``irfft_plain`` take that chain for such a plan, so every
-function below them is valid at every size.
+function below them is valid at every size. The long backward has the same
+stages over the same bands: ``long_conv_bwd_inner_plain``
+(``long_conv_bwd_inner``) and ``long_dk_finish_plain`` (``long_dk_finish``).
 
 All math is complex64 (f32 real and imaginary parts). ``conv_bwd_plain``
 and ``dk_finish_plain`` are the backward, the CPU path's and the backward
-kernels' oracle. ``fft_conv_reference`` is the ``torch.fft`` oracle and
+kernels' oracle at every size. ``fft_conv_reference`` is the ``torch.fft`` oracle and
 serves the tests only.
 """
 
@@ -191,6 +193,33 @@ def long_conv_inner_plain(plan: FftPlan, z: torch.Tensor, k_f: torch.Tensor) -> 
     z_f = _bands_to_natural(plan, monarch_dft(plan.sub, z))
     zc = _unsplit(plan, _split(plan, z_f) * k_f)
     return monarch_idft(plan.sub, _natural_to_bands(plan, zc)).contiguous()
+
+
+def long_conv_bwd_inner_plain(
+    plan: FftPlan, zu: torch.Tensor, zg: torch.Tensor, k_f: torch.Tensor, need_y: bool = False
+):
+    """The plain version of the ``long_conv_bwd_inner`` kernel: for the bands
+    zu = butterfly(u * pre) and zg = butterfly(dout * post), both (..., H, F,
+    R), and k_f (H, M+1): the R-point DFT of every band of both and the split
+    to the half spectra U and G; then the bands (unsplit, inverse R-point DFT
+    with 1/R) of G conj(K) (du's) and, with ``need_y``, of U K (the forward's
+    output, for dpost), and the dk spectrum G conj(U). Returns (du bands,
+    y bands or None, partials): complex64 (..., H, F, R) and (..., H, M+1)."""
+    half = lambda z: _split(plan, _bands_to_natural(plan, monarch_dft(plan.sub, z)))
+    bands = lambda x: monarch_idft(plan.sub, _natural_to_bands(plan, _unsplit(plan, x)))
+    u_f, g_f = half(zu), half(zg)
+    du = bands(g_f * k_f.conj()).contiguous()
+    y = bands(u_f * k_f).contiguous() if need_y else None
+    return du, y, g_f * u_f.conj()
+
+
+def long_dk_finish_plain(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
+    """The plain version of ``long_dk_finish``: the (B, H, M+1) partials of
+    ``long_conv_bwd_inner_plain`` summed over B, unsplit, through the inverse
+    R-point DFT of every band (with 1/R) and the inverse butterfly to the
+    real f32 dk (H, k_len)."""
+    z = monarch_idft(plan.sub, _natural_to_bands(plan, _unsplit(plan, partials.sum(0))))
+    return butterfly_inverse_plain(plan, z, k_len)
 
 
 def long_spectrum_plain(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,19 @@ three more kernels take over: ``butterfly`` (csrc/butterfly.cu) replaces
 conv -> inverse butterfly over complex64 bands in device memory; it owns no
 kernel and no count of its own.
 
+The backward at these sizes has two more: ``long_conv_bwd_inner``
+(csrc/long_conv_bwd.cu) replaces ``_long_bwd_tiles`` between the butterfly
+passes, and ``long_dk_finish``, in the same source, replaces
+``_inv_dft_tiles`` as ``_finish_dk`` drives it. ``long_conv_bwd`` is the
+chain forward butterfly of u * pre and of dout * post -> band backward ->
+inverse butterfly of du (and of y when gated), with no kernel and no count
+of its own.
+
 ``FftConvFunction`` runs ``spectrum`` and ``monarch_conv`` (``long_spectrum``
 and ``long_conv`` from 65536 up) forward and, in its backward, recomputes
-the spectrum and runs ``monarch_conv_bwd`` and ``dk_finish``; it saves only
-(u, k, pregate, postgate), as the JAX package's custom VJP does. The
-backward kernels stop at FFT size 32768: above it the backward runs on CPU
-tensors (the plain versions) and raises NotImplementedError on the card.
+the spectrum and runs ``monarch_conv_bwd`` and ``dk_finish``
+(``long_conv_bwd`` and ``long_dk_finish`` from 65536 up); it saves only
+(u, k, pregate, postgate), as the JAX package's custom VJP does.
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ import torch
 
 from flashfftconv_tpu_torch.ops import _build, monarch
 from flashfftconv_tpu_torch.ops.plan import MAX_FACTOR, MAX_FUSED_SEQLEN, FftPlan
+
+# Longest band of the long backward kernel: it holds the band pairs of two
+# signals, four rows, in one block's shared memory (132 KB at 4096).
+MAX_BWD_BAND = 4096
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -297,6 +308,12 @@ def butterfly(
 butterfly.launches = 0
 
 
+def _check_bands(plan: FftPlan, name: str, z: torch.Tensor) -> None:
+    _check_cuda(name, z, plan.device, (torch.complex64,), 4)
+    if z.shape[2:] != (plan.outer, plan.band):
+        raise ValueError(f"{name} shape {tuple(z.shape)} != (B, H, {plan.outer}, {plan.band})")
+
+
 def long_conv_inner(
     plan: FftPlan, z: torch.Tensor, k_f: torch.Tensor, out: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -309,17 +326,15 @@ def long_conv_inner(
     if on_cpu(z, k_f, out):
         res = monarch.long_conv_inner_plain(plan, z, k_f)
         return res if out is None else out.copy_(res)
-    _check_cuda("z", z, plan.device, (torch.complex64,), 4)
+    _check_bands(plan, "z", z)
     b, h = z.shape[:2]
-    if z.shape[2:] != (plan.outer, plan.band):
-        raise ValueError(f"z shape {tuple(z.shape)} != (B, H, {plan.outer}, {plan.band})")
     _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
     if k_f.shape != (h, plan.inner + 1):
         raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(h, plan.inner + 1)}")
     if out is None:
         out = torch.empty_like(z)
     else:
-        _check_cuda("out", out, plan.device, (torch.complex64,), 4)
+        _check_bands(plan, "out", out)
         if out.shape != z.shape:
             raise ValueError(f"out shape {tuple(out.shape)} != z shape {tuple(z.shape)}")
     if b * h == 0:
@@ -388,6 +403,126 @@ def long_spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
 long_spectrum.launches = 0
 
 
+def long_conv_bwd_inner(
+    plan: FftPlan,
+    zu: torch.Tensor,
+    zg: torch.Tensor,
+    k_f: torch.Tensor,
+    need_y: bool = False,
+    inplace: bool = False,
+):
+    """The band stage of the backward of a long conv: for the bands zu =
+    ``butterfly(u, pre)`` and zg = ``butterfly(dout * post)``, both (B, H, F,
+    R) complex64, and k_f (H, M+1) complex64, per band pair the R-point FFTs
+    and splits of both, then the bands (unsplit, inverse FFT with 1/R) of
+    G conj(K) and, with ``need_y``, of U K, and the dk spectrum G conj(U).
+    Returns (du bands, y bands or None, partials): complex64 (B, H, F, R)
+    and (B, H, M+1), the partials one row a batch element for
+    ``long_dk_finish``. With ``inplace`` the card writes the du bands over zg
+    and the y bands over zu."""
+    _outer_args(plan)
+    if on_cpu(zu, zg, k_f):
+        return monarch.long_conv_bwd_inner_plain(plan, zu, zg, k_f, need_y)
+    if plan.band > MAX_BWD_BAND:
+        raise ValueError(
+            f"the long backward kernel takes bands of at most {MAX_BWD_BAND} points, the plan's "
+            f"factors {plan.factors} give {plan.band}"
+        )
+    _check_bands(plan, "zu", zu)
+    _check_bands(plan, "zg", zg)
+    b, h = zu.shape[:2]
+    if zg.shape != zu.shape:
+        raise ValueError(f"zg shape {tuple(zg.shape)} != zu shape {tuple(zu.shape)}")
+    _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
+    if k_f.shape != (h, plan.inner + 1):
+        raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(h, plan.inner + 1)}")
+    du = zg if inplace else torch.empty_like(zg)
+    y = (zu if inplace else torch.empty_like(zu)) if need_y else None
+    partials = torch.empty(b, h, plan.inner + 1, dtype=torch.complex64, device=zu.device)
+    if b * h == 0:
+        return du, y, partials
+    sub = plan.sub
+    lib = _build.load("long_conv_bwd")
+    rc = lib.ffc_long_conv_bwd(
+        zu.data_ptr(), zg.data_ptr(), du.data_ptr(), None if y is None else y.data_ptr(),
+        partials.data_ptr(), k_f.data_ptr(), sub.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
+        sub.roots.data_ptr(), b, h, plan.outer, *_factor_args(sub), _stream(zu.device),
+    )
+    _build.check(lib, rc, "long_conv_bwd kernel")
+    long_conv_bwd_inner.launches += 1
+    return du, y, partials
+
+
+long_conv_bwd_inner.launches = 0
+
+
+def long_dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
+    """``dk_finish`` for a long plan: dk (H, k_len) f32 from the (B, H, M+1)
+    complex64 partials of ``long_conv_bwd_inner``. Its own kernel sums them
+    over B in order, unsplits and runs the inverse R-point FFT of every band;
+    the inverse ``butterfly`` then gives the real samples [0, k_len)."""
+    _outer_args(plan)
+    if on_cpu(partials):
+        return monarch.long_dk_finish_plain(plan, partials, k_len)
+    _check_cuda("partials", partials, plan.device, (torch.complex64,), 3)
+    b, h, m1 = partials.shape
+    if m1 != plan.inner + 1:
+        raise ValueError(f"partials shape {tuple(partials.shape)} != (B, H, {plan.inner + 1})")
+    if not 1 <= k_len <= plan.seqlen:
+        raise ValueError(f"kernel length {k_len} not in [1, {plan.seqlen}]")
+    if h == 0:
+        return torch.empty(h, k_len, dtype=torch.float32, device=partials.device)
+    if b == 0:
+        return torch.zeros(h, k_len, dtype=torch.float32, device=partials.device)
+    z = torch.empty(1, h, plan.outer, plan.band, dtype=torch.complex64, device=partials.device)
+    sub = plan.sub
+    lib = _build.load("long_conv_bwd")
+    rc = lib.ffc_long_dk_finish(
+        partials.data_ptr(), z.data_ptr(), sub.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
+        sub.roots.data_ptr(), b, h, plan.outer, *_factor_args(sub), _stream(partials.device),
+    )
+    _build.check(lib, rc, "long_dk_finish kernel")
+    long_dk_finish.launches += 1
+    return butterfly(plan, z, inverse=True, length=k_len, dtype=torch.float32)[0]
+
+
+long_dk_finish.launches = 0
+
+
+def long_conv_bwd(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None,
+    postgate: torch.Tensor | None,
+    dout: torch.Tensor,
+):
+    """``monarch_conv_bwd`` for a long plan (seqlen >= 65536), same inputs
+    and outputs: (du, dpre, dpost, partials). Runs ``butterfly`` on u * pre
+    (rounded to u's dtype, as in the forward) and on g = dout * post (f32),
+    ``long_conv_bwd_inner`` in place on the two band arrays, and the inverse
+    ``butterfly`` of the du bands and, when gated, of the y bands with dout as
+    its gate. The two gate products of du_inner (du = du_inner * pre, dpre =
+    du_inner * u) are elementwise on its f32 samples."""
+    gated = pregate is not None
+    if gated != (postgate is not None):
+        raise ValueError("pregate and postgate must both be given or both be None")
+    if dout.shape != u.shape:
+        raise ValueError(f"dout shape {tuple(dout.shape)} != u shape {tuple(u.shape)}")
+    length = u.shape[-1]
+    zu = butterfly(plan, u, pregate)
+    zg = butterfly(plan, dout.float() * postgate.float() if gated else dout)
+    zdu, zy, partials = long_conv_bwd_inner(plan, zu, zg, k_f, need_y=gated, inplace=True)
+    if not gated:
+        du = butterfly(plan, zdu, inverse=True, length=length, dtype=u.dtype)
+        return du, None, None, partials
+    du_inner = butterfly(plan, zdu, inverse=True, length=length, dtype=torch.float32)
+    dpost = butterfly(plan, zy, dout, inverse=True, length=length, dtype=u.dtype)
+    du = (du_inner * pregate.float()).to(u.dtype)
+    dpre = (du_inner * u.float()).to(u.dtype)
+    return du, dpre, dpost, partials
+
+
 def _io_dtype(u: torch.Tensor) -> torch.dtype:
     """The kernels' I/O dtype: float16 runs as bfloat16 on the card (as the
     JAX package's ``_io_dtype`` does); the CPU keeps u's dtype."""
@@ -421,16 +556,13 @@ class FftConvFunction(torch.autograd.Function):
     def backward(ctx, dout):
         u, k, pregate, postgate = ctx.saved_tensors
         plan, shape, io = ctx.plan, u.shape, _io_dtype(u)
-        if plan.n_outer and not on_cpu(u, k, pregate, postgate, dout):
-            raise NotImplementedError(
-                f"the backward kernels stop at FFT size {MAX_FUSED_SEQLEN}: the backward of a "
-                f"conv of size {plan.seqlen} on the card waits for the ports of _long_bwd_tiles "
-                "and _inv_dft_tiles (ROADMAP.md, Queue B 6-7); it runs on CPU tensors"
-            )
         u3, pre3, post3, dout3 = (_rows(t, shape, io) for t in (u, pregate, postgate, dout))
-        k_f = (long_spectrum if plan.n_outer else spectrum)(plan, k.float().contiguous())
-        du, dpre, dpost, partials = monarch_conv_bwd(plan, u3, k_f, pre3, post3, dout3)
-        dk = dk_finish(plan, partials, k.shape[-1]) if ctx.needs_input_grad[2] else None
+        spec, bwd, finish = ((long_spectrum, long_conv_bwd, long_dk_finish) if plan.n_outer
+                             else (spectrum, monarch_conv_bwd, dk_finish))
+        k_f = spec(plan, k.float().contiguous())
+        du, dpre, dpost, partials = bwd(plan, u3, k_f, pre3, post3, dout3)
+        del k_f  # 2.1 GB at H = 256, N = 2^21, not needed by the dk finish
+        dk = finish(plan, partials, k.shape[-1]) if ctx.needs_input_grad[2] else None
         back = lambda g, like: None if g is None else g.reshape(like.shape).to(like.dtype)
         return (None, back(du, u), back(dk, k), back(dpre, pregate), back(dpost, postgate))
 

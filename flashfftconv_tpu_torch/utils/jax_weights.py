@@ -6,7 +6,10 @@ of ``flashfftconv_tpu_torch.models.lm.ConvLMHeadModel``;
 ``hyena_operator_state_dict`` does the same for one ``HyenaOperator``. Flax
 ``Dense`` kernels are (in, out) and are transposed to ``nn.Linear``'s
 (out, in); ``in_proj`` is already (out, in); LayerNorm ``scale`` becomes
-``weight``. The result loads with ``load_state_dict(..., strict=True)``.
+``weight``. The blocks come as ``backbone/block_{i}`` or, from a flax model
+built with ``scan_blocks=True``, as one ``backbone/blocks`` tree whose leaves
+have a leading n_layer axis. The result loads with
+``load_state_dict(..., strict=True)``.
 
 The map takes any tree shaped like the params: ``from_jax_params`` of a
 ``jax.grad`` tree gives each gradient under the port's parameter name,
@@ -74,10 +77,17 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
     out = {"embeddings.weight": _t(params["embeddings"]["embedding"])}
     backbone = params["backbone"]
     out.update(_norm(backbone["ln_f"], "backbone.ln_f"))
-    for name, block in backbone.items():
-        if not name.startswith("block_"):
-            continue
-        p = f"backbone.blocks.{int(name.split('_')[1])}."
+    blocks = {int(name.split("_")[1]): block for name, block in backbone.items()
+              if name.startswith("block_")}
+    if "blocks" in backbone:  # scan_blocks=True: one tree, leaves stacked over the layers
+        def layer(tree, i):
+            return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+        stacked = backbone["blocks"]
+        leaf = stacked["norm1"]["scale"]
+        blocks.update({i: layer(stacked, i) for i in range(leaf.shape[0])})
+    for i, block in blocks.items():
+        p = f"backbone.blocks.{i}."
         out.update(_norm(block["norm1"], p + "norm1"))
         out.update(_norm(block["norm2"], p + "norm2"))
         out.update(hyena_operator_state_dict(block["mixer"], p + "mixer."))

@@ -11,6 +11,10 @@ the backward kernels (``FftConvFunction``, ``DepthwiseFunction``).
     step = make_train_step(model, opt, sched, clip=1.0)
     metrics = step(x, y)                              # x, y (B, L) token ids
 
+``dna_optimizer`` is the ``examples/hyena_dna`` recipe: the same clip, then
+AdamW at a constant lr 6e-4 with weight decay 0.1, no schedule
+(``make_train_step(model, dna_optimizer(model))``).
+
 The orbax checkpoints, ``auto_save_on_exception`` and ``ProgressiveResizing``
 of the JAX module are not ported yet.
 """
@@ -38,6 +42,13 @@ def lm_optimizer(model: nn.Module, lr: float = 3e-4, weight_decay: float = 0.1,
     opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda(schedule, lr))
+
+
+def dna_optimizer(model: nn.Module, lr: float = 6e-4, weight_decay: float = 0.1):
+    """The ``examples/hyena_dna`` optimizer: AdamW (betas 0.9/0.999, eps 1e-8,
+    decoupled decay scaled by lr) on every parameter at a constant lr."""
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler=None,

@@ -12,6 +12,18 @@ f32 convs at 1e-4 of max(1, largest |y|) (both sides are f32 FFT chains of
 matmul operands to bf16 at every stage, the port rounds the f32 result
 once); spectra and plain stages at 1e-5 of the largest |value| against
 ``torch.fft`` (f32 roundoff of a 2^19-point FFT is about 3e-7 of it).
+
+The long backward: the port's chain (``long_conv_bwd`` and
+``long_dk_finish``, whose CPU path is the plain versions
+``long_conv_bwd_inner_plain`` and ``long_dk_finish_plain``) against the JAX
+package's fused backward functions ``_long_bwd_fused`` (3-factor plan,
+``_long_bwd_tiles``) and ``_long4_bwd_fused`` (4-factor plan, with
+``_butterfly_tiles``), called directly in interpret mode as the JAX tests
+call them, with the forward's tolerances: f32 grads at 1e-4 of
+max(1, largest |grad|), bf16 grads at 1e-2 with the inputs scaled so that
+every grad stays within 0.5; ``long_dk_finish`` against
+``_inverse_long_dft`` (``_inv_dft_tiles``) on the same spectrum at 1e-5 of
+the largest |value|.
 The CUDA kernels are held against their plain versions on the card in
 test_torch_gpu.py.
 """
@@ -224,6 +236,183 @@ def test_long_conv_grads_on_cpu_match_torch_fft():
     monarch.fft_conv_reference(n, *b).square().sum().backward()
     for x, y in zip(a, b):
         assert float((x.grad - y.grad).abs().max()) < 1e-5 * float(y.grad.abs().max())
+
+
+# --- the long backward (kernels: _long_bwd_tiles, _inv_dft_tiles) ------------
+
+BWD_FUSED = {65536: "_long_bwd_fused", 524288: "_long4_bwd_fused"}
+
+
+def _bwd_pair(n, dtype, case, b, scale=1.0):
+    """(port grads, JAX grads) of one long conv, each (du, dk, dpre, dpost)
+    as f32 numpy arrays (gates' grads None when ungated). The JAX side is the
+    fused backward of that plan, given ug and g as fft_conv_pallas's VJP gives
+    them; the port's is long_spectrum, long_conv_bwd and long_dk_finish."""
+    gated = "gated" in case
+    length = n // 2 - 7 if "padded" in case else n
+    rng = np.random.default_rng(n + 10 * b + len(case))
+    u, k, gates = _conv_data(rng, n, b, 2, length, gated)
+    dout = rng.standard_normal(u.shape).astype(np.float32) * scale
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ju, jd, *jg = (jnp.asarray(a).astype(jdt) for a in (u, dout, *gates))
+    pre, post = jg if gated else (None, None)
+    ug = ju if pre is None else ju * pre
+    g = jd if post is None else jd * post
+    fused = getattr(mp, BWD_FUSED[n])
+    want = fused(_jax_plan(n, jdt), ju, jnp.asarray(k), pre, post, jd, ug, g)
+    p = tplan.make_plan(n, dtype, device=CPU)
+    tu, td, *tg = (torch.from_numpy(a).to(dtype) for a in (u, dout, *gates))
+    tpre, tpost = tg if gated else (None, None)
+    k_f = monarch_cuda.long_spectrum(p, torch.from_numpy(k))
+    du, dpre, dpost, partials = monarch_cuda.long_conv_bwd(p, tu, k_f, tpre, tpost, td)
+    dk = monarch_cuda.long_dk_finish(p, partials, k.shape[-1])
+    assert du.dtype == dtype and dk.dtype == torch.float32 and dk.shape == k.shape
+    to_np = lambda t: None if t is None else t.float().numpy()
+    return ([to_np(t) for t in (du, dk, dpre, dpost)],
+            [None if t is None else _np(t) for t in want])
+
+
+@pytest.mark.parametrize("n", list(BWD_FUSED))
+@pytest.mark.parametrize("case,b", [("ungated", 2), ("gated", 1), ("gated_padded", 3),
+                                    ("padded", 1)])
+def test_long_backward_matches_jax_fused_backward_f32(n, case, b):
+    """f32: du, dk, dpre and dpost against _long_bwd_fused at 65536 and
+    _long4_bwd_fused at 524288 (factors (4, 4, 256, 128)), at 1e-4 of
+    max(1, largest |grad|)."""
+    got, want = _bwd_pair(n, torch.float32, case, b)
+    for name, a, r in zip(("du", "dk", "dpre", "dpost"), got, want):
+        assert (a is None) == (r is None), name
+        if r is not None:
+            assert a.shape == r.shape, name
+            assert np.abs(a - r).max() < 1e-4 * max(1.0, np.abs(r).max()), name
+
+
+@pytest.mark.parametrize("n", list(BWD_FUSED))
+@pytest.mark.parametrize("case,b", [("gated", 2), ("padded", 1)])
+def test_long_backward_matches_jax_fused_backward_bf16(n, case, b):
+    """bf16 inputs and plan: the bf16 grads within the repo's 1e-2 once dout
+    is scaled so that they stay within 0.5; dk (f32 on both sides, a sum
+    over B*L products of bf16-rounded spectra on the JAX side) within 1e-2
+    of its largest |value|."""
+    probe, _ = _bwd_pair(n, torch.float32, case, b)
+    scale = 0.5 / max(np.abs(a).max() for a in (probe[0], *probe[2:]) if a is not None)
+    got, want = _bwd_pair(n, torch.bfloat16, case, b, scale=scale)
+    for name, a, r in zip(("du", "dk", "dpre", "dpost"), got, want):
+        if r is not None:
+            tol = 1e-2 * np.abs(r).max() if name == "dk" else 1e-2
+            assert np.abs(a - r).max() < tol, (name, np.abs(a - r).max(), np.abs(r).max())
+
+
+@pytest.mark.parametrize("n", [65536, 524288])
+def test_long_dk_finish_matches_jax_inverse_long_dft(n):
+    """long_dk_finish (plain on the CPU) against _inverse_long_dft
+    (_inv_dft_tiles in interpret mode, with an inverse _butterfly_tiles at
+    524288) on the spectrum _forward_long_dft gives, brought to the port's
+    natural-order half spectrum; B = 2 partials that sum to it; k_len < N
+    cuts. 1e-5 of the largest |value|."""
+    h, k_len = 2, n // 2 - 3
+    rng = np.random.default_rng(n + 1)
+    x = (rng.standard_normal((h, n)) * 0.02).astype(np.float32)
+    jp = jff.make_plan(n, compute_dtype=jnp.float32)
+    fr, fi = mp._forward_long_dft(jp, jnp.asarray(x))
+    want = _np(mp._inverse_long_dft(jp, fr, fi))[:, :k_len]
+    full = _np(jplan.kf_unpermute(fr, jp.factors)) + 1j * _np(jplan.kf_unpermute(fi, jp.factors))
+    half = torch.from_numpy(full[:, : n // 2 + 1].astype(np.complex64))
+    noise = torch.from_numpy((rng.standard_normal(half.shape) + 1j * rng.standard_normal(
+        half.shape)).astype(np.complex64))
+    partials = torch.stack((half - noise, noise))
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    got = monarch_cuda.long_dk_finish(p, partials, k_len)
+    assert got.shape == (h, k_len) and got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() < 1e-5 * max(np.abs(want).max(), float(noise.abs().max()))
+    assert np.abs(got.numpy() - x[:, :k_len]).max() < 1e-4
+
+
+@pytest.mark.parametrize("n,factors", [(65536, None), (131072, (4, 2, 32, 16, 16)),
+                                       (524288, None)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_long_backward_stages_compose_to_conv_bwd_plain(n, factors, gated):
+    """The stage-wise plain versions (butterfly_plain on u * pre and on
+    dout * post, long_conv_bwd_inner_plain, butterfly_inverse_plain,
+    long_dk_finish_plain), as the wrappers chain them, give conv_bwd_plain
+    and dk_finish_plain bit for bit; one and two outer stages, B = 3."""
+    p = tplan.make_plan(n, torch.float32, device=CPU, factors=factors)
+    g = torch.Generator().manual_seed(n)
+    length, k_len = n // 2 + 3, n // 2 - 5
+    u, d, pre, post = (torch.randn(3, 2, length, generator=g).bfloat16() for _ in range(4))
+    if not gated:
+        pre = post = None
+    k_f = monarch_cuda.long_spectrum(p, torch.randn(2, k_len, generator=g) * 0.05)
+    zu = monarch.butterfly_plain(p, u, pre)
+    zg = monarch.butterfly_plain(p, d.float() * post.float() if gated else d)
+    zdu, zy, partials = monarch.long_conv_bwd_inner_plain(p, zu, zg, k_f, need_y=gated)
+    assert (zy is None) == (not gated) and partials.shape == (3, 2, n // 2 + 1)
+    want = monarch.conv_bwd_plain(p, u, k_f, pre, post, d)
+    assert torch.equal(partials, want[3])
+    du_inner = monarch.butterfly_inverse_plain(p, zdu, length)
+    if gated:
+        assert torch.equal((du_inner * pre.float()).bfloat16(), want[0])
+        assert torch.equal((du_inner * u.float()).bfloat16(), want[1])
+        assert torch.equal(monarch.butterfly_inverse_plain(p, zy, length, d, torch.bfloat16),
+                           want[2])
+    else:
+        assert torch.equal(du_inner.bfloat16(), want[0]) and want[1] is None and want[2] is None
+    got = monarch_cuda.long_conv_bwd(p, u, k_f, pre, post, d)
+    assert all(torch.equal(a, r) for a, r in zip(got, want) if r is not None)
+    dk = monarch.long_dk_finish_plain(p, partials, k_len)
+    assert dk.shape == (2, k_len) and torch.equal(dk, monarch.dk_finish_plain(p, want[3], k_len))
+    assert torch.equal(dk, monarch_cuda.long_dk_finish(p, partials, k_len))
+
+
+def test_fft_conv_function_backward_takes_the_long_route():
+    """FftConvFunction.backward at a long plan calls long_conv_bwd and
+    long_dk_finish (never the one-block wrappers), skips dk when k needs no
+    grad, and gives conv_bwd_plain's grads."""
+    n = 65536
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    rng = np.random.default_rng(9)
+    u, k, gates = _conv_data(rng, n, 2, 2, n // 2 + 1, True)
+    calls = []
+    real = {name: getattr(monarch_cuda, name) for name in
+            ("long_conv_bwd", "long_dk_finish", "monarch_conv_bwd", "dk_finish")}
+    try:
+        for name, fn in real.items():
+            setattr(monarch_cuda, name,
+                    lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
+        ts = [torch.from_numpy(a).requires_grad_() for a in (u, k, *gates)]
+        tff.fft_conv(p, *ts).square().sum().backward()
+        assert calls == ["long_conv_bwd", "long_dk_finish"]
+        calls.clear()
+        frozen = [torch.from_numpy(a).requires_grad_(i != 1) for i, a in enumerate((u, k, *gates))]
+        tff.fft_conv(p, *frozen).square().sum().backward()
+        assert calls == ["long_conv_bwd"] and frozen[1].grad is None
+    finally:
+        for name, fn in real.items():
+            setattr(monarch_cuda, name, fn)
+    for a, b in zip(ts, frozen):
+        assert b.grad is None or torch.equal(a.grad, b.grad)
+
+
+def test_long_backward_wrappers_refuse_bad_inputs():
+    long_plan = tplan.make_plan(65536, torch.float32, device=CPU)
+    short_plan = tplan.make_plan(4096, torch.float32, device=CPU)
+    z = torch.zeros(1, 2, 8, 4096, dtype=torch.complex64)
+    k_f = torch.zeros(2, 32769, dtype=torch.complex64)
+    u = torch.zeros(1, 2, 100)
+    with pytest.raises(ValueError, match="no outer part"):
+        monarch_cuda.long_conv_bwd_inner(short_plan, z, z, k_f)
+    with pytest.raises(ValueError, match="no outer part"):
+        monarch_cuda.long_dk_finish(short_plan, k_f[None], 10)
+    with pytest.raises(ValueError, match="both"):
+        monarch_cuda.long_conv_bwd(long_plan, u, k_f, u, None, u)
+    with pytest.raises(ValueError, match="dout shape"):
+        monarch_cuda.long_conv_bwd(long_plan, u, k_f, None, None, u[..., :50])
+    meta = torch.empty(1, 2, 8, 4096, dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        monarch_cuda.long_conv_bwd_inner(long_plan, meta, meta, k_f.to("meta"))
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        monarch_cuda.long_dk_finish(long_plan, torch.empty(1, 2, 32769, dtype=torch.complex64,
+                                                           device="meta"), 10)
 
 
 # --- module ---------------------------------------------------------------

@@ -18,6 +18,15 @@ filter MLP's Sin(w x) magnifies summation-order differences). The optimizer
 chain is held to optax's: losses within 1e-4 relative at each of three
 steps, parameters within 2 * lr * steps (a near-zero grad whose sign flips
 moves an Adam weight by 2 lr).
+
+The memory levers of the 1M-base HyenaDNA recipe (remat, scan_blocks,
+inner_remat, mlp_l_chunks, conv_h_chunks, proj_l_chunks, proj_out_f32,
+filter_output_dtype, mlp_dtype, the short filter's history): each is set on
+the flax model and on the port alike, from the same weights, and loss and
+grads are compared as above. The f32 levers are exact rearrangements, so
+the 1e-4 bound of the lever-free model holds; the two bf16 dtype levers
+round the filter to bf16 on both sides (8 bits of mantissa), and their
+grads are held to 2e-2 of each parameter's largest |grad|.
 """
 
 import jax
@@ -39,7 +48,7 @@ from flashfftconv_tpu_torch import FlashFFTConv
 from flashfftconv_tpu_torch.models import filters as tfilters
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator, ShortDepthwiseConv
 from flashfftconv_tpu_torch.models.lm import Block, ConvLMHeadModel, LMBackbone
-from flashfftconv_tpu_torch.utils import jax_weights, metrics, optim, train
+from flashfftconv_tpu_torch.utils import data, jax_weights, metrics, optim, train
 from flashfftconv_tpu_torch.utils.generation import generate, sample_logits
 
 CPU = "cpu"
@@ -199,25 +208,118 @@ _OP = dict(d_model=8, l_max=64, device=CPU)
 
 @pytest.mark.parametrize("make", [
     lambda: HyenaOperator(**_OP, seq_mesh=object()),
-    lambda: HyenaOperator(**_OP, conv_h_chunks=2),
-    lambda: HyenaOperator(**_OP, filter_output_dtype=torch.bfloat16),
-    lambda: HyenaOperator(**_OP, proj_l_chunks=4),
-    lambda: HyenaOperator(**_OP, proj_out_f32=True),
-    lambda: HyenaOperator(**_OP, filter_args={"mlp_dtype": torch.bfloat16}),
     lambda: Block(8, 16, mixer="m2", mixer_kwargs={"l_max": 64}, device=CPU),
     lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, moe_kwargs={"n_experts": 2}, device=CPU),
-    lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, mlp_l_chunks=4, device=CPU),
     lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, mlp_nblocks=2, device=CPU),
-    lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, inner_remat=True, device=CPU),
-    lambda: LMBackbone(8, 1, 16, 32, 64, remat=True, device=CPU),
-    lambda: LMBackbone(8, 1, 16, 32, 64, scan_blocks=True, device=CPU),
     lambda: ConvLMHeadModel(d_model=8, n_layer=1, d_inner=16, vocab_size=32, l_max=64,
                             mixer="mha", device=CPU),
-    lambda: ShortDepthwiseConv(4, device=CPU)(torch.zeros(1, 4, 8), history=torch.zeros(1, 4, 2)),
 ])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError):
         make()
+
+
+# --- the memory levers of the 1M-base recipe -------------------------------
+
+LEVER_LM = dict(d_model=32, n_layer=2, d_inner=64, vocab_size=64, l_max=256)
+# (LM options, mixer options, grad tolerance); dtypes by name, one per side
+LEVERS = {
+    "remat": (dict(remat=True), {}, 1e-4),
+    "scan_blocks": (dict(scan_blocks=True), {}, 1e-4),
+    "remat_scan_blocks": (dict(remat=True, scan_blocks=True), {}, 1e-4),
+    "inner_remat": (dict(inner_remat=True), {}, 1e-4),
+    "remat_inner_remat": (dict(remat=True, inner_remat=True), {}, 1e-4),
+    "mlp_l_chunks": (dict(mlp_l_chunks=4), {}, 1e-4),
+    "conv_h_chunks": ({}, dict(conv_h_chunks=4), 1e-4),
+    "proj_l_chunks": ({}, dict(proj_l_chunks=4), 1e-4),
+    "proj_out_f32": ({}, dict(proj_l_chunks=8, proj_out_f32=True), 1e-4),
+    "filter_output_dtype_f32": ({}, dict(filter_output_dtype="float32"), 1e-4),
+    "filter_output_dtype_bf16": ({}, dict(filter_output_dtype="bfloat16"), 2e-2),
+    "mlp_dtype_bf16": ({}, dict(filter_args={"mlp_dtype": "bfloat16"}), 2e-2),
+    "every_lever": (dict(remat=True, scan_blocks=True, inner_remat=True, mlp_l_chunks=8),
+                    dict(conv_h_chunks=2, proj_l_chunks=8, proj_out_f32=True,
+                         filter_output_dtype="float32", filter_args={"mlp_dtype": "float32"}),
+                    1e-4),
+}
+
+
+def _dtypes(tree, ns):
+    """tree with every dtype name replaced by ns's dtype of that name."""
+    if isinstance(tree, dict):
+        return {k: _dtypes(v, ns) for k, v in tree.items()}
+    return getattr(ns, tree) if tree in ("float32", "bfloat16") else tree
+
+
+@pytest.mark.parametrize("name", list(LEVERS))
+def test_ported_option_matches_flax(name):
+    """One memory lever (or all of them) on the flax LM and on the port, f32
+    activations, the same weights and batch: the loss and every parameter's
+    grad. scan_blocks gives the flax model a stacked parameter tree, which
+    from_jax_params unstacks."""
+    lm_kw, mixer_kw, tol = LEVERS[name]
+    jm = JLM(**LEVER_LM, **lm_kw, dtype=jnp.float32,
+             mixer_kwargs={"impl": "xla", "conv_dtype": jnp.float32, **_dtypes(mixer_kw, jnp)})
+    xy = np.random.default_rng(11).integers(0, 64, (2, 257))
+    x, y = xy[:, :-1], xy[:, 1:]
+    params, pnp = _init(jm, jnp.asarray(x))
+    assert ("blocks" in pnp["backbone"]) == bool(lm_kw.get("scan_blocks"))
+    loss, grads = jax.value_and_grad(lambda p: jmetrics.cross_entropy(
+        jm.apply({"params": p}, jnp.asarray(x), deterministic=True), jnp.asarray(y)))(params)
+    tm = ConvLMHeadModel(**LEVER_LM, **lm_kw, dtype=torch.float32, device=CPU,
+                         mixer_kwargs={"conv_dtype": torch.float32, **_dtypes(mixer_kw, torch)})
+    tm.load_state_dict(jax_weights.from_jax_params(pnp), strict=True)
+    got = metrics.cross_entropy(tm.eval()(torch.from_numpy(x)), torch.from_numpy(y))
+    got.backward()
+    assert abs(float(got.detach()) - float(loss)) <= max(tol, 1e-5) * float(loss)
+    _assert_grads_match(jax_weights.from_jax_params(jax.tree_util.tree_map(np.asarray, grads)),
+                        tm, tol=tol)
+
+
+def test_levers_need_divisible_sizes_as_in_flax():
+    """conv_h_chunks that does not divide d_model and proj_l_chunks that
+    does not divide L are ignored, as in the flax module; a chunked MLP
+    refuses rows it cannot split."""
+    g = lambda: torch.Generator().manual_seed(0)
+    u = torch.randn(2, 50, 8, generator=g())
+    op = dict(_OP, l_max=128, conv_dtype=torch.float32)
+    ref = HyenaOperator(**op, generator=g())(u)
+    odd = HyenaOperator(**op, conv_h_chunks=3, proj_l_chunks=4, generator=g())(u)
+    assert torch.equal(ref, odd)
+    block = Block(8, 16, mixer_kwargs={"l_max": 128}, mlp_l_chunks=7, device=CPU)
+    with pytest.raises(ValueError, match="l_chunks"):
+        block(u)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_short_filter_history_matches_flax(k):
+    """ShortDepthwiseConv(history=...): the output and the grads of x, the
+    history and the weights against the flax module; and two chunks with the
+    carry equal the unchunked causal conv."""
+    from flashfftconv_tpu.models.hyena import ShortDepthwiseConv as JShort
+
+    rng = np.random.default_rng(k)
+    x, dout = (rng.standard_normal((2, 6, 40)).astype(np.float32) for _ in "ab")
+    hist = rng.standard_normal((2, 6, k - 1)).astype(np.float32)
+    jm = JShort(6, k, impl="xla")
+    params, pnp = _init(jm, jnp.asarray(x), jnp.asarray(hist))
+    f = lambda p, a, h: jnp.sum(jm.apply({"params": p}, a, h) * dout)
+    ref = _np(jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(hist)))
+    gp, gx, gh = jax.grad(f, argnums=(0, 1, 2))(params, jnp.asarray(x), jnp.asarray(hist))
+    tm = ShortDepthwiseConv(6, k, padding=(k - 1, 0), device=CPU)
+    tm.load_state_dict({n: torch.from_numpy(np.array(pnp[n])) for n in ("weights", "bias")})
+    tx, th = (torch.from_numpy(a).requires_grad_() for a in (x, hist))
+    got = tm(tx, history=th)
+    (got * torch.from_numpy(dout)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=1e-5)
+    for a, r in ((tx.grad, gx), (th.grad, gh), (tm.weights.grad, gp["weights"]),
+                 (tm.bias.grad, gp["bias"])):
+        np.testing.assert_allclose(a.numpy(), _np(r), atol=1e-4 * max(1.0, float(np.abs(r).max())))
+    with torch.no_grad():
+        whole = tm(torch.from_numpy(x))[..., :40]
+        first = tm(torch.from_numpy(x[..., :24]), history=torch.zeros(2, 6, k - 1))
+        second = tm(torch.from_numpy(x[..., 24:]),
+                    history=torch.from_numpy(x[..., 24 - (k - 1):24]))
+    np.testing.assert_allclose(torch.cat((first, second), -1).numpy(), whole.numpy(), atol=1e-6)
 
 
 # --- grads, optimizer and train step ---------------------------------------
@@ -666,3 +768,93 @@ def test_dna_score_and_genome():
         dna.score(tm, ids[0])
     with pytest.raises(NotImplementedError, match="power of two"):
         dna.build_model("medium-160k", device=CPU)
+
+
+# --- HyenaDNA training: grads under remat, the optax chain, the batches ------
+
+def _hyenadna_pair(l_max, **jax_kw):
+    """A 2-layer f32 HyenaDNA (d_model 32, filter emb_dim 5, vocab 5 padded to
+    8) as a flax model with remat=True and as the port's build_model with the
+    same weights and the same lever, and one batch of l_max bases."""
+    from flashfftconv_tpu_torch.models import dna
+
+    jm = JLM(d_model=32, n_layer=2, d_inner=128, vocab_size=5, l_max=l_max, remat=True,
+             mixer_kwargs={"conv_dtype": jnp.float32, "filter_args": {"emb_dim": 5}, **jax_kw},
+             dtype=jnp.float32, pad_vocab_size_multiple=8)
+    genome = dna.synthetic_genome(4, n=4 * l_max)
+    x, y = next(data.lm_batches(genome, 1, l_max, np.random.default_rng(4)))
+    params, pnp = _init(jm, jnp.asarray(x[:, :256]))
+    tm = dna.build_model("tiny-1k", d_model=32, n_layer=2, l_max=l_max, dtype=torch.float32,
+                         mixer_kwargs={"conv_dtype": torch.float32}, device=CPU, remat=True)
+    tm.load_state_dict(jax_weights.from_jax_params(pnp), strict=True)
+    return jm, params, tm.eval(), x.astype(np.int64), y.astype(np.int64)
+
+
+def test_hyenadna_loss_and_grads_match_flax_with_remat():
+    """l_max 32768, so FFT size 65536: the flax model's convs go through
+    _long_tiles and the long backward of its custom VJP in interpret mode,
+    the port's through the long chain's plain versions, both with every block
+    rematerialised. Loss within 1e-5, grads within 1e-4 of each parameter's
+    largest |grad|."""
+    jm, params, tm, x, y = _hyenadna_pair(32768, impl="pallas")
+    loss, grads = jax.value_and_grad(lambda p: jmetrics.cross_entropy(
+        jm.apply({"params": p}, jnp.asarray(x), deterministic=True), jnp.asarray(y)))(params)
+    got = metrics.cross_entropy(tm(torch.from_numpy(x)), torch.from_numpy(y))
+    got.backward()
+    assert abs(float(got.detach()) - float(loss)) <= 1e-5 * float(loss)
+    _assert_grads_match(jax_weights.from_jax_params(jax.tree_util.tree_map(np.asarray, grads)), tm)
+
+
+def test_dna_train_step_matches_the_example_optax_chain():
+    """Three steps of the examples/hyena_dna chain (clip_by_global_norm(1.0),
+    then adamw(6e-4, weight_decay=0.1), no schedule, deterministic) against
+    make_train_step over dna_optimizer, from the same weights on lm_batches'
+    windows: losses within 1e-4 relative, parameters within 2 * lr * steps."""
+    from flashfftconv_tpu_torch.models import dna
+
+    lr, steps = 6e-4, 3
+    jm, params, tm, _, _ = _hyenadna_pair(1024, impl="xla")
+    genome = dna.synthetic_genome(5, n=50_000)
+    batches = data.lm_batches(genome, 2, 1024, np.random.default_rng(5))
+    xs = [tuple(a.astype(np.int64) for a in next(batches)) for _ in range(steps)]
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(lr, weight_decay=0.1))
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def jstep(params, opt_state, x, y):
+        loss, grads = jax.value_and_grad(lambda p: jmetrics.cross_entropy(
+            jm.apply({"params": p}, x, deterministic=True), y))(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss
+
+    jlosses = []
+    for x, y in xs:
+        params, opt_state, loss = jstep(params, opt_state, jnp.asarray(x), jnp.asarray(y))
+        jlosses.append(float(loss))
+    opt = train.dna_optimizer(tm)
+    assert opt.defaults["lr"] == lr and opt.defaults["weight_decay"] == 0.1
+    step = train.make_train_step(tm, opt, None, clip=1.0)
+    losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"]) for x, y in xs]
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    want = jax_weights.from_jax_params(jax.tree_util.tree_map(np.asarray, params))
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=2 * lr * steps,
+                                   err_msg=name)
+    assert dna.train_config("large-1m") == {"remat": True} and dna.train_config("tiny-1k") == {}
+
+
+@pytest.mark.parametrize("batch,seq_len", [(1, 1000), (3, 64)])
+def test_lm_batches_match_jax(batch, seq_len):
+    """The same generator gives the JAX function's windows, batch after
+    batch, targets one position after inputs."""
+    from flashfftconv_tpu.utils.data import lm_batches as jlm_batches
+
+    tokens = np.random.default_rng(0).integers(0, 5, 5000).astype(np.int32)
+    mine = data.lm_batches(tokens, batch, seq_len, np.random.default_rng(7))
+    ref = jlm_batches(tokens, batch, seq_len, np.random.default_rng(7))
+    for _ in range(3):
+        (x, y), (rx, ry) = next(mine), next(ref)
+        np.testing.assert_array_equal(x, rx)
+        np.testing.assert_array_equal(y, ry)
+        assert x.shape == (batch, seq_len) and np.array_equal(x[:, 1:], y[:, :-1])
+
