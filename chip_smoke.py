@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with an H100:
 
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
                           [--phases build,identity,kernels,serve,train,parity,grad_parity,
-                                    dna,dna_train,long_parity,timing[,profile]]
+                                    dna,dna_train,long_parity,bert,bert_train,bert_parity,
+                                    timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -56,16 +57,41 @@ Phases, each of which fails the run by raising:
             d_model 256, l_max 131072 f32 HyenaDNA on the card with every
             memory lever on against the same weights with none: loss and
             grads agree within 1e-4;
+  bert      builds M2-BERT base-110M (12 layers, d_model 768, l_max 128,
+            vocab 30522, dense MLP, tied MLM head, bf16, random weights from
+            --seed; every long conv at FFT size 256 on the direct kernels)
+            and answers 4 fill-mask requests of (B, L) = (1, 128), (8, 100),
+            (32, 128) and (128, 128) over the byte ids of the repo's Python
+            sources with 15% of positions masked, through models.bert.fill_mask,
+            then 1 warm-up and 5 timed forwards at B=128, L=128; checks finite
+            logits and the exact launches a forward (24 direct_conv, 24
+            spectrum, 12 depthwise, no monarch_conv); prints forward time,
+            tokens/ms, seqs/s and peak memory;
+  bert_train  trains the same model (B=128, L=128, bf16 activations, f32
+            master weights, dropout 0.1) on utils.data.mlm_batches of the same
+            bytes: 2 warm-up and 5 timed steps of the examples/bert recipe
+            (clip 1.0, AdamW lr 8e-4, weight decay 1e-5 on every parameter,
+            the MLM loss over the masked positions); checks finite, falling
+            loss and the exact launches a step; prints step time, tokens/s
+            and peak memory;
+  bert_parity  a 2-layer, d_model 128, l_max 128 f32 M2BertForMaskedLM with
+            the same weights on the card (direct kernels) and on the CPU
+            (plain versions): logits within 2e-3, masked-LM grads within 1e-3
+            of each parameter's largest |grad|, and a second backward on the
+            card gives the same grads bit for bit (but the embedding tables');
   timing    times each kernel, its plain version and a PyTorch yardstick
-            with CUDA events at the main paths' shapes;
+            with CUDA events at the main paths' shapes, and the Monarch conv
+            beside the direct one at FFT sizes 256 and 512;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
-            one HyenaDNA forward and one HyenaDNA train step.
+            one HyenaDNA forward and one HyenaDNA train step, then one
+            M2-BERT forward and one M2-BERT train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
 of the three long forward kernels in the dna phase, those of the two long
-backward kernels in the dna_train phase), the
+backward kernels in the dna_train phase, those of the direct kernels in the
+bert_train phase), the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -85,7 +111,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 PHASES = ("build", "identity", "kernels", "serve", "train", "parity", "grad_parity", "dna",
-          "dna_train", "long_parity", "timing")
+          "dna_train", "long_parity", "bert", "bert_train", "bert_parity", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -109,6 +135,16 @@ DNA_REQUESTS = (131_072, 262_144, 524_288, 1_048_576)
 DNA_WARMUP, DNA_TIMED = 1, 3
 DNA_TRAIN_WARMUP, DNA_TRAIN_TIMED = 1, 3
 LONG_SIZES = (65536, 131072, 524288, 2097152, 4194304)
+
+# M2-BERT base-110M (examples/bert/train.py preset): every layer runs two
+# long convs (the gated conv and the residual one) at FFT size 2 * l_max.
+BERT_MODEL = "base-110M"
+BERT_B, BERT_L, BERT_D_MODEL, BERT_N_LAYER = 128, 128, 768, 12
+BERT_N_FFT = 2 * BERT_L
+BERT_REQUESTS = ((1, 128), (8, 100), (32, 128), (128, 128))
+BERT_WARMUP, BERT_TIMED = 1, 5
+BERT_TRAIN_WARMUP, BERT_TRAIN_TIMED = 2, 5
+DIRECT_SIZES = (16, 32, 64, 128, 256, 512)
 
 KERNELS = {
     "spectrum": dict(
@@ -160,10 +196,21 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/long_conv_bwd.cu",
         replaces="flashfftconv_tpu/ops/monarch_pallas.py:740",
     ),
+    "direct_conv": dict(
+        source="flashfftconv_tpu_torch/csrc/direct_conv.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:477",
+    ),
+    "direct_conv_bwd": dict(
+        source="flashfftconv_tpu_torch/csrc/direct_conv.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:1460",
+    ),
 }
 # The phase whose run gives a kernel's launches in the JSON line.
 LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
-                "long_conv_bwd": "dna_train", "long_dk_finish": "dna_train"}
+                "long_conv_bwd": "dna_train", "long_dk_finish": "dna_train",
+                "direct_conv": "bert_train", "direct_conv_bwd": "bert_train"}
+# The phases whose results the kernels JSON line reads.
+JSON_PHASES = {"kernels", "train", "dna", "dna_train", "bert_train", "timing"}
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
@@ -185,6 +232,16 @@ DNA_TRAIN_LAUNCHES = {"long_spectrum": 3 * DNA_N_LAYER, "long_conv": 2 * DNA_N_L
                       "butterfly": 11 * DNA_N_LAYER, "depthwise": 2 * DNA_N_LAYER,
                       "depthwise_bwd": DNA_N_LAYER, "spectrum": 0, "monarch_conv": 0,
                       "monarch_conv_bwd": 0, "dk_finish": 0}
+# Launches in one M2-BERT forward: a layer runs the short conv once and two
+# long convs, each its kernel's spectrum and one direct_conv.
+BERT_LAUNCHES = {"direct_conv": 2 * BERT_N_LAYER, "spectrum": 2 * BERT_N_LAYER,
+                 "depthwise": BERT_N_LAYER, "monarch_conv": 0}
+# ... and in one train step: the backward recomputes each spectrum and runs
+# direct_conv_bwd and dk_finish a conv, and the short conv's backward.
+BERT_TRAIN_LAUNCHES = {"direct_conv": 2 * BERT_N_LAYER, "direct_conv_bwd": 2 * BERT_N_LAYER,
+                       "spectrum": 4 * BERT_N_LAYER, "dk_finish": 2 * BERT_N_LAYER,
+                       "depthwise": BERT_N_LAYER, "depthwise_bwd": BERT_N_LAYER,
+                       "monarch_conv": 0, "monarch_conv_bwd": 0}
 
 
 def log(msg: str) -> None:
@@ -342,6 +399,7 @@ def phase_kernels(torch, g):
         _check_dw_bwd(torch, f"{'BHL' if is_bhl else 'BLH'} B={b} D={d} L={length} K={k} "
                       f"padding={pad} {dtype}", xx, ww, dd, pad, is_bhl)
     torch.cuda.synchronize()
+    errs.update(_check_direct_kernels(torch, g))
     errs.update(_check_long_kernels(torch, g))
     _check_operator_spread(torch)
     return errs
@@ -513,6 +571,76 @@ def _check_long_kernels(torch, g):
     return errs
 
 
+def _check_direct(torch, plan, what, u, k, pre, post, dout):
+    """spectrum, direct_conv, direct_conv_bwd and dk_finish against their
+    plain versions on the same inputs, and a second backward against the
+    first, bit for bit. Returns (direct_conv error, direct_conv_bwd error)."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+
+    real = torch.view_as_real
+    low = u.dtype != torch.float32
+    k_len = k.shape[-1]
+    k_f = monarch_cuda.spectrum(plan, k)
+    ref = real(monarch.kernel_spectrum(plan, k))
+    compare(f"spectrum {what}", real(k_f), ref, f32_tol(ref))
+    ref = monarch.direct_conv_plain(plan, u, k_f, pre, post)
+    fwd = compare(f"direct_conv {what}", monarch_cuda.direct_conv(plan, u, k_f, pre, post), ref,
+                  lowp_tol(ref) if low else f32_tol(ref))
+    got = monarch_cuda.direct_conv_bwd(plan, u, k_f, pre, post, dout)
+    ref = monarch.direct_conv_bwd_plain(plan, u, k_f, pre, post, dout)
+    bwd = 0.0
+    for name, a, r in zip(("du", "dpre", "dpost"), got[:3], ref[:3]):
+        if r is not None:
+            bwd = max(bwd, compare(f"direct_conv_bwd {what}: {name}", a, r,
+                                   lowp_tol(r) if low else f32_tol(r)))
+    pr = real(ref[3])
+    bwd = max(bwd, compare(f"direct_conv_bwd {what}: dk spectrum", real(got[3]), pr,
+                           f32_tol(pr)))
+    dk = monarch_cuda.dk_finish(plan, got[3], k_len)
+    dk_ref = monarch.dk_finish_plain(plan, ref[3], k_len)
+    compare(f"dk_finish {what}: dk", dk, dk_ref, f32_tol(dk_ref))
+    again = monarch_cuda.direct_conv_bwd(plan, u, k_f, pre, post, dout)
+    for name, a, r in zip(("du", "dpre", "dpost", "dk spectrum"), got, again):
+        if a is not None and not torch.equal(a, r):
+            raise AssertionError(f"direct_conv_bwd {what}: two runs differ in {name}")
+    if not torch.equal(dk, monarch_cuda.dk_finish(plan, again[3], k_len)):
+        raise AssertionError(f"dk_finish {what}: two runs differ")
+    torch.cuda.synchronize()
+    return fwd, bwd
+
+
+def _check_direct_kernels(torch, g):
+    """The direct kernels at the M2-BERT path's shape (B=128, H=768, L=128,
+    N=256, bf16, ungated), then at every FFT size from 16 to 512 in f32 and
+    bf16: gated and ungated, L = N/2 + 3 and L = N, B = 1, 3 and 20 (two
+    chunks of the backward's batch walk at N = 256), H = 7 and 3."""
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    plan = make_plan(BERT_N_FFT, torch.bfloat16, device=dev)
+    t = torch.arange(BERT_N_FFT, dtype=torch.float32)
+    k = (torch.randn(BERT_D_MODEL, BERT_N_FFT, generator=g) * 0.02 * torch.exp(-t / 50)).to(dev)
+    u, dout = ((torch.randn(BERT_B, BERT_D_MODEL, BERT_L, generator=g) * 0.02)
+               .to(dev, torch.bfloat16) for _ in "ab")
+    log(f"direct kernels: B={BERT_B} H={BERT_D_MODEL} L={BERT_L} N={BERT_N_FFT} bf16 ungated, "
+        f"k_len={BERT_N_FFT} (a bidirectional kernel), spectrum factors {plan.factors}")
+    fwd, bwd = _check_direct(torch, plan, "main path", u, k, None, None, dout)
+    errs = {"direct_conv": fwd, "direct_conv_bwd": bwd}
+    for n in DIRECT_SIZES:
+        p = make_plan(n, torch.float32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, h, length, gated in ((1, 7, n // 2 + 3, True), (3, 7, n, False),
+                                        (20, 3, n, True)):
+                uu, pre, post, dd = (torch.randn(b, h, length, generator=g).to(dev, dtype)
+                                     for _ in "abcd")
+                kk = (torch.randn(h, n, generator=g) * 0.1).to(dev)
+                gates = (pre, post) if gated else (None, None)
+                what = (f"N={n} B={b} H={h} L={length} {'gated' if gated else 'ungated'} "
+                        f"{dtype}")
+                _check_direct(torch, p, what, uu, kk, *gates, dd)
+    return errs
+
+
 def _check_conv_bwd(torch, plan, what, u, k_f, pre, post, dout, k_len):
     """monarch_conv_bwd and dk_finish against conv_bwd_plain and
     dk_finish_plain; returns (du error, dk error)."""
@@ -563,7 +691,9 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
                 "long_conv": monarch_cuda.long_conv_inner,
                 "long_spectrum": monarch_cuda.long_spectrum,
                 "long_conv_bwd": monarch_cuda.long_conv_bwd_inner,
-                "long_dk_finish": monarch_cuda.long_dk_finish}
+                "long_dk_finish": monarch_cuda.long_dk_finish,
+                "direct_conv": monarch_cuda.direct_conv,
+                "direct_conv_bwd": monarch_cuda.direct_conv_bwd}
     return {name: wrappers[name] for name in names}
 
 
@@ -1052,6 +1182,222 @@ def phase_long_parity(torch, seed, np):
     return res
 
 
+def _m2_bert(torch, seed, dev):
+    from flashfftconv_tpu_torch.models import bert
+
+    model = bert.build_model(BERT_MODEL, dtype=torch.bfloat16, device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+    cfg = bert.PRESETS[BERT_MODEL]
+    if (cfg["d_model"], cfg["n_layer"], cfg["l_max"]) != (BERT_D_MODEL, BERT_N_LAYER, BERT_L):
+        raise AssertionError(f"preset {BERT_MODEL} is {cfg}")
+    return model
+
+
+def phase_bert(torch, seed, np):
+    """M2-BERT base-110M at full width and depth answers BERT_REQUESTS
+    fill-mask requests through models.bert.fill_mask, then BERT_WARMUP +
+    BERT_TIMED forwards at B=128, L=128."""
+    from flashfftconv_tpu_torch.models import bert
+    from flashfftconv_tpu_torch.utils.data import mlm_batches
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _m2_bert(torch, seed, dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"M2-BERT {BERT_MODEL}: {n_params / 1e6:.2f}M params, d_model {BERT_D_MODEL}, "
+        f"{BERT_N_LAYER} layers, l_max {BERT_L}, built in {time.perf_counter() - t0:.1f} s")
+    tokens = _corpus(np)
+    rng = np.random.default_rng(seed)
+    counters = _counters(BERT_LAUNCHES)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    requests = []
+    for b, length in BERT_REQUESTS:
+        x, labels = (torch.from_numpy(a).to(dev) for a in next(mlm_batches(tokens, b, length, rng)))
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bert.fill_mask(model, x, labels)
+        acc = float((out["accuracy"] * (labels >= 0).sum(1)).sum() / (labels >= 0).sum())  # waits
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {name: fn.launches - before[name] for name, fn in counters.items()}
+        top1 = out["top1"]
+        if not bool(out["finite"]) or top1.shape != (b, length):
+            raise AssertionError(f"request {(b, length)}: non-finite logits or top-1 of shape "
+                                 f"{tuple(top1.shape)}")
+        if not bool(((top1 >= 0) & (top1 < model.vocab_size)).all()):
+            raise AssertionError(f"request {(b, length)}: top-1 ids out of range")
+        if counts != BERT_LAUNCHES:
+            raise AssertionError(f"request {(b, length)} launched {counts}, expected "
+                                 f"{BERT_LAUNCHES}")
+        requests.append({"batch": b, "length": length, "masked": int((labels >= 0).sum()),
+                         "masked_accuracy": acc, "ms": ms})
+        log(f"bert: fill-mask request B={b} L={length}: {requests[-1]['masked']} masked, "
+            f"top-1 accuracy {acc:.4f}, {ms:.1f} ms, launches {counts}")
+    x = next(mlm_batches(tokens, BERT_B, BERT_L, rng))[0]
+    x = torch.from_numpy(x).to(dev)
+    fwd_ms = []
+    with torch.inference_mode():
+        for _ in range(BERT_WARMUP + BERT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(x)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (BERT_B, BERT_L, model.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)} or non-finite values")
+        del logits
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_fwd = len(BERT_REQUESTS) + BERT_WARMUP + BERT_TIMED
+    if launches != {name: n * n_fwd for name, n in BERT_LAUNCHES.items()}:
+        raise AssertionError(f"{n_fwd} forwards launched {launches}, expected {BERT_LAUNCHES} "
+                             "each")
+    peak = torch.cuda.max_memory_allocated()
+    timed = fwd_ms[BERT_WARMUP:]
+    med = float(np.median(timed))
+    res = {"requests": requests, "forwards": n_fwd, "launches": launches, "forward_ms": fwd_ms,
+           "forward_ms_median": med, "forward_ms_max": max(timed),
+           "tokens_per_ms": BERT_B * BERT_L / med, "seqs_per_s": BERT_B / (med / 1e3),
+           "peak_memory_bytes": peak}
+    log(f"bert: forward at B={BERT_B} L={BERT_L} (bf16): median {med:.2f} ms max "
+        f"{max(timed):.2f} ms over {BERT_TIMED} timed forwards, {res['tokens_per_ms']:.1f} "
+        f"tokens/ms, {res['seqs_per_s']:.1f} seqs/s, peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a forward {BERT_LAUNCHES}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _bert_train_step(torch, model):
+    """The examples/bert train step over model: clip 1.0, then AdamW at lr
+    8e-4, weight decay 1e-5 on every parameter; the MLM loss and accuracy
+    over the masked positions."""
+    from flashfftconv_tpu_torch.utils.train import bert_optimizer, make_train_step, mlm_loss
+
+    return make_train_step(model, bert_optimizer(model), None, clip=1.0, loss_fn=mlm_loss)
+
+
+def phase_bert_train(torch, seed, np):
+    """M2-BERT base-110M at full width and depth takes BERT_TRAIN_WARMUP +
+    BERT_TRAIN_TIMED steps at B=128, L=128, dropout on."""
+    from flashfftconv_tpu_torch.utils.data import mlm_batches
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.manual_seed(seed)  # the dropout masks repeat from run to run
+    model = _m2_bert(torch, seed, dev).train()
+    step = _bert_train_step(torch, model)
+    batches = mlm_batches(_corpus(np), BERT_B, BERT_L, np.random.default_rng(seed))
+    n_steps = BERT_TRAIN_WARMUP + BERT_TRAIN_TIMED
+    counters = _counters(BERT_TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, accs, step_ms, per_step = [], [], [], []
+    for _ in range(n_steps):
+        x, y = (torch.from_numpy(a).to(dev) for a in next(batches))
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(x, y)
+        loss = float(out["loss"])  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        accs.append(float(out["accuracy"]))
+        per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite MLM loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"MLM loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != BERT_TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {BERT_TRAIN_LAUNCHES}")
+    timed = step_ms[BERT_TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    res = {"steps": n_steps, "losses": losses, "accuracies": accs, "step_ms": step_ms,
+           "step_ms_median": med, "step_ms_max": max(timed),
+           "tokens_per_s": BERT_B * BERT_L / (med / 1e3), "launches": launches,
+           "peak_memory_bytes": peak}
+    log(f"bert_train: M2-BERT {BERT_MODEL} B={BERT_B} L={BERT_L} bf16, dropout 0.1, {n_steps} "
+        f"steps (lr 8e-4, wd 1e-5, clip 1.0), MLM losses {' '.join(f'{v:.4f}' for v in losses)}, "
+        f"accuracies {' '.join(f'{v:.4f}' for v in accs)}")
+    log(f"bert_train: step median {med:.2f} ms max {max(timed):.2f} ms over {BERT_TRAIN_TIMED} "
+        f"timed steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {per_step[-1]}")
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bert_parity(torch, seed, np):
+    """A 2-layer f32 M2BertForMaskedLM (d_model 128, l_max 128, bidirectional
+    kernels, residual long conv) with the same weights on the card (direct
+    kernels) and on the CPU (plain versions): logits, the masked-LM grads,
+    and a second backward on the card bit for bit. B = 20 spans two chunks
+    of the direct backward's batch walk."""
+    from flashfftconv_tpu_torch.models.bert import M2BertForMaskedLM
+    from flashfftconv_tpu_torch.utils.data import mlm_batches
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    kw = dict(vocab_size=300, d_model=128, n_layer=2, d_inner=512, l_max=128, mlp_nblocks=0,
+              tie_mlm_head=True, conv_dtype=torch.float32)
+    models = {dev: M2BertForMaskedLM(**kw, device=dev,
+                                     generator=torch.Generator().manual_seed(seed)).eval()
+              for dev in ("cpu", "cuda")}
+    x, y = (torch.from_numpy(a) for a in next(mlm_batches(_corpus(np), 20, 128,
+                                                          np.random.default_rng(seed + 1))))
+    n0 = _counters(("direct_conv",))["direct_conv"].launches
+    with torch.inference_mode():
+        ref = models["cpu"](x)
+        got = models["cuda"](x.cuda()).cpu()
+    if _counters(("direct_conv",))["direct_conv"].launches != n0 + 4:
+        raise AssertionError("the card's forward did not run two direct convs a layer")
+    err = float((got - ref).abs().max())
+    log(f"bert_parity: 2-layer f32 M2-BERT at L=128, B=20, card (direct kernels) vs CPU (plain): "
+        f"max_abs_err={err:.3e} tol=2e-3, |logits| <= {float(ref.abs().max()):.2f}")
+    if not err <= 2e-3:
+        raise AssertionError(f"card and CPU logits disagree: {err}")
+
+    def loss_and_grads(model, dev):
+        model.zero_grad(set_to_none=True)
+        loss = cross_entropy(model(x.to(dev)), y.to(dev), -100)
+        loss.backward()
+        return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    bwd = _counters(("direct_conv_bwd",))["direct_conv_bwd"]
+    n0 = bwd.launches
+    loss_cpu, grads_cpu = loss_and_grads(models["cpu"], "cpu")
+    loss_card, grads_card = loss_and_grads(models["cuda"], "cuda")
+    _, grads_again = loss_and_grads(models["cuda"], "cuda")
+    if bwd.launches - n0 != 8:
+        raise AssertionError(f"direct_conv_bwd launched {bwd.launches - n0} times in two "
+                             "backwards of 2 layers, expected 8")
+    if set(grads_card) != set(grads_cpu):
+        raise AssertionError("the card and the CPU grads cover other parameters")
+    ratio, worst = _worst_grad(grads_card, grads_cpu)
+    # The embedding tables' grads are excepted: PyTorch's embedding backward
+    # adds rows with float atomics, in an order that changes from run to run.
+    differ = [n for n, gr in grads_card.items()
+              if "embeddings" not in n and not torch.equal(gr, grads_again[n])]
+    log(f"bert_parity: masked-LM grads, card (direct backward kernels) vs CPU (plain) over "
+        f"{len(grads_cpu)} params: max |dgrad| / max |grad| = {ratio:.3e} ({worst}), tol 1e-3; "
+        f"loss {loss_card:.6f} vs {loss_cpu:.6f}; a second backward on the card differs in "
+        f"{len(differ)} params outside the embedding tables {differ}")
+    if not ratio <= 1e-3:
+        raise AssertionError(f"card and CPU grads disagree: {worst} at {ratio}")
+    if differ:
+        raise AssertionError(f"two backwards on the card differ in {differ}")
+    return {"logits_max_abs_err": err, "grad_max_rel_err": ratio, "grad_worst_param": worst}
+
+
 def _kind(name: str) -> str:
     for kind, keys in (
         ("butterfly", ("butterfly_fwd_kernel", "butterfly_inv_kernel")),
@@ -1059,6 +1405,8 @@ def _kind(name: str) -> str:
         ("long_dk_finish", ("long_dk_finish_kernel",)),
         ("long_conv", ("long_conv_kernel",)),
         ("long_spectrum", ("long_spectrum_kernel",)),
+        ("direct_conv_bwd", ("direct_conv_bwd_kernel",)),
+        ("direct_conv", ("direct_conv_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
         ("dk_finish", ("dk_finish_kernel",)),
         ("monarch_conv", ("monarch_conv_kernel",)),
@@ -1076,7 +1424,9 @@ def _kind(name: str) -> str:
 
 def _trace(torch, what, fn):
     """Device time by kernel and by kind over one call of fn (after a warm-up
-    call), with torch.profiler."""
+    call), with torch.profiler, and the wall time of one more call with the
+    profiler off. The idle share of an unprofiled call is estimated from the
+    two: the profiled call's device busy time over the unprofiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1086,6 +1436,10 @@ def _trace(torch, what, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -1102,13 +1456,14 @@ def _trace(torch, what, fn):
         kind[0] += t
         kind[1] += n
     log(f"profile: {what}, wall {wall_ms:.2f} ms (profiler on), device busy {busy:.2f} ms "
-        f"({busy / wall_ms:.1%})")
+        f"({busy / wall_ms:.1%}); the next call unprofiled {unprofiled_ms:.2f} ms of wall "
+        f"(idle share estimated {max(0.0, 1 - busy / unprofiled_ms):.1%})")
     for kind, (t, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         log(f"  {kind}: {t:.3f} ms in {n} launches ({t / busy:.1%} of device time)")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (t, n) in top:
         log(f"    {t:8.3f} ms {n:4d}x {name[:110]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "unprofiled_wall_ms": unprofiled_ms, "device_busy_ms": busy,
             "by_kind_ms": {k: v[0] for k, v in by_kind.items()},
             "by_kind_launches": {k: v[1] for k, v in by_kind.items()},
             "top": [(name, t, n) for name, (t, n) in top]}
@@ -1148,6 +1503,20 @@ def phase_profile(torch, seed):
     targets = torch.roll(bases, -1, dims=1)
     res["dna_train_step"] = _trace(torch, f"one HyenaDNA {DNA_MODEL} train step at {DNA_L_MAX} "
                                    "bases", lambda: step(bases, targets))
+    del dna_model, step
+    torch.cuda.empty_cache()
+    import numpy as np
+    from flashfftconv_tpu_torch.utils.data import mlm_batches
+
+    model = _m2_bert(torch, seed, "cuda")
+    x, y = (torch.from_numpy(a).cuda() for a in next(mlm_batches(
+        _corpus(np), BERT_B, BERT_L, np.random.default_rng(seed))))
+    with torch.inference_mode():
+        res["bert_forward"] = _trace(torch, f"one M2-BERT {BERT_MODEL} forward at B={BERT_B} "
+                                     f"L={BERT_L}", lambda: model.eval()(x))
+    step = _bert_train_step(torch, model.train())
+    res["bert_train_step"] = _trace(torch, f"one M2-BERT {BERT_MODEL} train step at B={BERT_B} "
+                                    f"L={BERT_L}", lambda: step(x, y))
     return res
 
 
@@ -1281,13 +1650,125 @@ def phase_timing(torch, g):
         )
     del k, u, x, k_f, dout, parts, dy, dy_full
     torch.cuda.empty_cache()
-    res.update(_time_long(torch, g))
+    for rows in (_time_direct(torch, g), _time_long(torch, g)):
+        if set(rows) & set(res):
+            raise AssertionError(f"timing rows named twice: {sorted(set(rows) & set(res))}")
+        res.update(rows)
     for name, r in res.items():
         extra = (f", the design's own traffic beyond the bound {r['overhead_ms']:.4f} ms"
                  if "overhead_ms" in r else "")
+        if "design_ops_ms" in r:
+            extra += f", the design's own operations at the f32 peak {r['design_ops_ms']:.4f} ms"
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"timing {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
+    return res
+
+
+def _time_direct(torch, g):
+    """The direct kernels at the M2-BERT path's shape (B=128, H=768, L=128,
+    N=256, bf16, ungated), and the Monarch kernels beside them at that shape
+    and at N=512, L=256. Both routes compute one function, so their rows
+    share one bound: its inputs read once and its outputs written once,
+    against the f32 operations the function needs with FFTs, counted as in
+    phase_timing. The direct kernels' dense transforms (M = N/2; 2 L M
+    operations a row a transform, the folded half-spectrum DFT and inverse)
+    are the design's own work, reported apart as design_ops_ms."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    res = {}
+    with torch.inference_mode():
+        for n in (BERT_N_FFT, 2 * BERT_N_FFT):
+            plan = make_plan(n, torch.bfloat16, device=dev)
+            b, h, length, m, ns = BERT_B, BERT_D_MODEL, n // 2, n // 2, plan.n_stages
+            t = torch.arange(n, dtype=torch.float32)
+            k = (torch.randn(h, n, generator=g) * 0.02 * torch.exp(-t / 50)).to(dev)
+            u, dout = ((torch.randn(b, h, length, generator=g) * 0.02).to(dev, torch.bfloat16)
+                       for _ in "ab")
+            k_f = monarch_cuda.spectrum(plan, k)
+            rows, io, spec = b * h, u.numel() * 2, k_f.numel() * 8
+            fwd_ops = rows * (2 * _fft_flops(m, ns) + 40 * (m // 2) + 4 * length)
+            bwd_ops = rows * (3 * _fft_flops(m, ns) + 60 * (m // 2) + 4 * length + 2 * (m + 1))
+            # the main path's rows keep the kernels' names; the others carry N
+            sfx = "" if n == BERT_N_FFT else f"@{n}"
+
+            def fft_conv():
+                return torch.fft.irfft(torch.fft.rfft(u.float(), n=n) * k_f, n=n)[
+                    ..., :length].to(u.dtype)
+
+            def fft_bwd():
+                g_f, u_f = torch.fft.rfft(dout.float(), n=n), torch.fft.rfft(u.float(), n=n)
+                du = torch.fft.irfft(g_f * k_f.conj(), n=n)[..., :length].to(u.dtype)
+                return du, (g_f * u_f.conj()).sum(0)
+
+            # direct_conv: u and k_f in, y out; the kernel runs two dense
+            # transforms a row and the pointwise product
+            res["direct_conv" + sfx] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.direct_conv(plan, u, k_f)),
+                plain_ms=_time_ms(torch, lambda: monarch.direct_conv_plain(plan, u, k_f), iters=5),
+                library_ms=_time_ms(torch, fft_conv),
+                bound=_bound(2 * io + spec, fwd_ops),
+                design_ops_ms=rows * (4 * length * m + 16 * m) / F32_FLOPS * 1e3,
+            )
+            # direct_conv_bwd: u, dout and k_f in, du and one dk spectrum out;
+            # the kernel runs three dense transforms a row and the dk products
+            res["direct_conv_bwd" + sfx] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.direct_conv_bwd(plan, u, k_f, None, None,
+                                                                        dout)),
+                plain_ms=_time_ms(torch, lambda: monarch.direct_conv_bwd_plain(
+                    plan, u, k_f, None, None, dout), iters=5),
+                library_ms=_time_ms(torch, fft_bwd),
+                bound=_bound(3 * io + 2 * spec, bwd_ops),
+                design_ops_ms=rows * (6 * length * m + 30 * m) / F32_FLOPS * 1e3,
+            )
+            res[f"monarch_conv@{n}"] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv(plan, u, k_f)),
+                plain_ms=_time_ms(torch, lambda: monarch.conv_with_spectrum(plan, u, k_f), iters=5),
+                library_ms=_time_ms(torch, fft_conv),
+                bound=_bound(2 * io + spec, fwd_ops),
+            )
+            res[f"monarch_conv_bwd@{n}"] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv_bwd(plan, u, k_f, None, None,
+                                                                          dout)),
+                plain_ms=_time_ms(torch, lambda: monarch.conv_bwd_plain(plan, u, k_f, None, None,
+                                                                        dout), iters=5),
+                library_ms=_time_ms(torch, fft_bwd),
+                bound=_bound(3 * io + 2 * spec, bwd_ops),
+            )
+            if n == BERT_N_FFT:
+                # The whole direct backward of one conv as FftConvFunction runs
+                # it: spectrum of the taps, direct_conv_bwd, dk_finish; u, dout
+                # and the taps in, du and f32 dk out; beside the five torch.fft
+                # calls of the same function.
+                def direct_bwd():
+                    kf = monarch_cuda.spectrum(plan, k)
+                    du, _, _, parts = monarch_cuda.direct_conv_bwd(plan, u, kf, None, None, dout)
+                    return du, monarch_cuda.dk_finish(plan, parts, n)
+
+                def plain_bwd():
+                    kf = monarch.kernel_spectrum(plan, k)
+                    du, _, _, parts = monarch.direct_conv_bwd_plain(plan, u, kf, None, None, dout)
+                    return du, monarch.dk_finish_plain(plan, parts, n)
+
+                def fft_whole_bwd():
+                    kf = torch.fft.rfft(k, n=n)
+                    g_f = torch.fft.rfft(dout.float(), n=n)
+                    du = torch.fft.irfft(g_f * kf.conj(), n=n)[..., :length].to(u.dtype)
+                    g_f = g_f * torch.fft.rfft(u.float(), n=n).conj()
+                    return du, torch.fft.irfft(g_f.sum(0), n=n)
+
+                res["direct_bwd_chain"] = dict(
+                    ms=_time_ms(torch, direct_bwd),
+                    plain_ms=_time_ms(torch, plain_bwd, iters=5),
+                    library_ms=_time_ms(torch, fft_whole_bwd),
+                    bound=_bound(3 * io + 2 * k.numel() * 4,
+                                 bwd_ops + 2 * h * (_fft_flops(m, ns) + 20 * (m // 2))),
+                    design_ops_ms=rows * (6 * length * m + 30 * m) / F32_FLOPS * 1e3,
+                )
+            del u, dout, k, k_f
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1477,6 +1958,12 @@ def main() -> int:
         results["dna_train"] = phase_dna_train(torch, args.seed, np)
     if "long_parity" in phases:
         results["long_parity"] = phase_long_parity(torch, args.seed, np)
+    if "bert" in phases:
+        results["bert"] = phase_bert(torch, args.seed, np)
+    if "bert_train" in phases:
+        results["bert_train"] = phase_bert_train(torch, args.seed, np)
+    if "bert_parity" in phases:
+        results["bert_parity"] = phase_bert_parity(torch, args.seed, np)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:
@@ -1489,7 +1976,7 @@ def main() -> int:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
 
-    if {"kernels", "train", "dna", "dna_train", "timing"} <= set(phases):
+    if JSON_PHASES <= set(phases):
         rows = []
         for name, meta in KERNELS.items():
             t = results["timing"][name]

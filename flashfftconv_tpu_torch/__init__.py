@@ -6,7 +6,8 @@ conv kernel and its backward, and the Hyena language model on top of them,
 with the train step of the JAX package's ``examples/lm`` recipe. From FFT
 size 65536 to 4194304 forward and backward run through the butterfly,
 band-conv, long-spectrum, band-backward and dk-finish kernels (``models.dna``
-serves and trains HyenaDNA on them). Public API
+serves and trains HyenaDNA on them); up to FFT size 512 the direct-DFT
+kernels do (``models.bert`` serves and trains M2-BERT on them). Public API
 parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """
@@ -17,14 +18,18 @@ from flashfftconv_tpu_torch.ops.dispatch import fft_conv
 from flashfftconv_tpu_torch.ops.monarch import fft_conv_plain, fft_conv_reference
 from flashfftconv_tpu_torch.ops.monarch_cuda import FftConvFunction
 from flashfftconv_tpu_torch.ops.plan import FftPlan, default_factors, make_plan
-from flashfftconv_tpu_torch.utils.data import lm_batches
+from flashfftconv_tpu_torch.models.bert import M2BertForMaskedLM
+from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerSequenceMixing
+from flashfftconv_tpu_torch.utils.data import lm_batches, mlm_batches
 from flashfftconv_tpu_torch.utils.metrics import cross_entropy
 from flashfftconv_tpu_torch.utils.optim import make_optimizer
 from flashfftconv_tpu_torch.utils.train import (
+    bert_optimizer,
     dna_optimizer,
     lm_optimizer,
     make_eval_step,
     make_train_step,
+    mlm_loss,
 )
 
 __version__ = "0.1.0"
@@ -45,7 +50,13 @@ __all__ = [
     "make_optimizer",
     "lm_optimizer",
     "dna_optimizer",
+    "bert_optimizer",
     "lm_batches",
+    "mlm_batches",
+    "M2BertForMaskedLM",
+    "MonarchMixerSequenceMixing",
+    "BlockdiagLinear",
     "make_train_step",
+    "mlm_loss",
     "make_eval_step",
 ]

@@ -27,9 +27,9 @@ from flashfftconv_tpu_torch.ops.plan import FftPlan, make_plan, resolve_device
 
 class FlashFFTConv(nn.Module):
     """Monarch FFT convolution of FFT size ``seqlen`` (power of two,
-    256..4194304). Up to 32768 one fused kernel runs a conv; from 65536 up
-    the chain butterfly -> band conv -> inverse butterfly does, forward only
-    on the card (the backward runs on the CPU).
+    16..4194304). Up to 512 one dense-DFT kernel runs a conv, up to 32768
+    one fused Monarch kernel; from 65536 up the chain butterfly -> band conv
+    -> inverse butterfly does. Each has its backward kernels.
 
     Args:
       seqlen: FFT size N.

@@ -3,11 +3,13 @@
 Routes a call to an implementation:
   - 'cuda':  the hand-written kernels through ``FftConvFunction``
              (``monarch_cuda.fft_conv``): ``spectrum`` of k, then one fused
-             ``monarch_conv``; the backward runs ``spectrum``,
-             ``monarch_conv_bwd`` and ``dk_finish``. From FFT size 65536 up:
-             ``long_spectrum`` of k, then ``long_conv`` (``butterfly``,
-             ``long_conv_inner``, inverse ``butterfly``); its backward on
-             the card raises NotImplementedError. CUDA tensors only.
+             ``direct_conv`` (FFT sizes 16 to 512) or ``monarch_conv`` (1024
+             to 32768); the backward runs ``spectrum``, ``direct_conv_bwd``
+             or ``monarch_conv_bwd``, and ``dk_finish``. From FFT size 65536
+             up: ``long_spectrum`` of k, then ``long_conv`` (``butterfly``,
+             ``long_conv_inner``, inverse ``butterfly``); the backward runs
+             ``long_spectrum``, ``long_conv_bwd`` and ``long_dk_finish``.
+             CUDA tensors only.
   - 'plain': ``monarch.fft_conv_plain`` under torch's autograd, on any
              device (an oracle of the Function's backward).
   - 'fft':   the ``torch.fft`` oracle (tests and debugging).

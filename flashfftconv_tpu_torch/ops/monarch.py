@@ -23,6 +23,12 @@ function below them is valid at every size. The long backward has the same
 stages over the same bands: ``long_conv_bwd_inner_plain``
 (``long_conv_bwd_inner``) and ``long_dk_finish_plain`` (``long_dk_finish``).
 
+Up to FFT size 512 (``plan.direct``) the conv runs as one dense DFT a row:
+``direct_conv_plain`` and ``direct_conv_bwd_plain`` are the plain versions
+of the ``direct_conv`` and ``direct_conv_bwd`` kernels, dense f32 products
+over the L input samples and the N/2+1 frequencies with entries taken from
+``plan.direct_roots`` at the exact index (f * t) mod N.
+
 All math is complex64 (f32 real and imaginary parts). ``conv_bwd_plain``
 and ``dk_finish_plain`` are the backward, the CPU path's and the backward
 kernels' oracle at every size. ``fft_conv_reference`` is the ``torch.fft`` oracle and
@@ -313,6 +319,89 @@ def dk_finish_plain(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.
     """dk (H, k_len) f32 from the (B, H, M+1) partials of ``conv_bwd_plain``:
     ``irfft(sum_b partials)[:k_len]``, the plain version of ``dk_finish``."""
     return irfft_plain(plan, partials.sum(0))[..., :k_len]
+
+
+def _direct_tables(plan: FftPlan, length: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The direct DFT of a real row of ``length`` <= N samples: W (L, M+1)
+    complex64, W[t, f] = exp(-2 pi i f t / N), so that x @ W is rfft(x, N);
+    and the inverse's real weights (2, M+1, L) f32, so that the first L
+    samples of irfft(Y, N) are Y.real @ A[0] + Y.imag @ A[1]:
+    A[0][f, t] = c_f cos(2 pi f t / N) / N, A[1][f, t] = -c_f sin(...) / N,
+    c_f = 1 at f = 0 and M (whose imaginary parts irfft ignores), else 2."""
+    if not plan.direct:
+        raise ValueError(f"a plan of seqlen {plan.seqlen} is no direct plan (seqlen <= 512)")
+    n, m = plan.seqlen, plan.inner
+    dev = plan.direct_roots.device
+    idx = (torch.arange(length, device=dev)[:, None] * torch.arange(m + 1, device=dev)) % n
+    w = plan.direct_roots[idx]
+    c = torch.full((m + 1,), 2.0 / n, device=dev)
+    c[0] = c[m] = 1.0 / n
+    inv = torch.stack((w.real.T * c[:, None], w.imag.T * c[:, None]))
+    inv[1, 0] = inv[1, m] = 0.0
+    return w, inv
+
+
+def _direct_dft(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.complex(x @ w.real, x @ w.imag)
+
+
+def _direct_idft(inv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return y.real @ inv[0] + y.imag @ inv[1]
+
+
+def direct_conv_plain(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None = None,
+    postgate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain version of the ``direct_conv`` kernel (the function of the
+    JAX package's ``_direct_fused_io_tiles``): for a plan of seqlen <=
+    DIRECT_MAX, ``postgate * irfft(rfft(pre*u, N) * k_f)[..., :L]`` as dense
+    DFT products in f32, k_f (H, M+1) the natural-order half spectrum from
+    ``spectrum``. The pregate product rounds to u's dtype; output at u's dtype."""
+    length = u.shape[-1]
+    if length > plan.seqlen:
+        raise ValueError(f"input length {length} > plan seqlen {plan.seqlen}")
+    w, inv = _direct_tables(plan, length)
+    ug = u if pregate is None else u * pregate
+    y = _direct_idft(inv, _direct_dft(w, ug.float()) * k_f)
+    if postgate is not None:
+        y = y * postgate.float()
+    return y.to(u.dtype)
+
+
+def direct_conv_bwd_plain(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None,
+    postgate: torch.Tensor | None,
+    dout: torch.Tensor,
+):
+    """The plain version of the ``direct_conv_bwd`` kernel (the function of
+    ``_direct_bwd_fused_io_tiles``), with the formulas of ``conv_bwd_plain``
+    as dense DFT products: U and G the direct DFTs of ug = u * pre (rounded to
+    u's dtype) and g = dout * post (f32), du_inner from G conj(K), y_inner
+    from U K when gated. Returns (du, dpre, dpost, partials) as
+    ``conv_bwd_plain`` does, but with the dk spectrum G conj(U) already
+    summed over the batch: complex64 (1, H, M+1), which ``dk_finish_plain``
+    (and ``dk_finish``) turn into dk."""
+    length = u.shape[-1]
+    w, inv = _direct_tables(plan, length)
+    ug = u if pregate is None else u * pregate
+    g = dout.float() if postgate is None else dout.float() * postgate.float()
+    u_f, g_f = _direct_dft(w, ug.float()), _direct_dft(w, g)
+    du_inner = _direct_idft(inv, g_f * k_f.conj())
+    partials = (g_f * u_f.conj()).reshape(-1, *k_f.shape).sum(0, keepdim=True)
+    if pregate is None:
+        return du_inner.to(u.dtype), None, None, partials
+    y_inner = _direct_idft(inv, u_f * k_f)
+    du = (du_inner * pregate.float()).to(u.dtype)
+    dpre = (du_inner * u.float()).to(u.dtype)
+    dpost = (y_inner * dout.float()).to(u.dtype)
+    return du, dpre, dpost, partials
 
 
 def fft_conv_plain(

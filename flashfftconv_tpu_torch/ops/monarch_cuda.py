@@ -28,11 +28,19 @@ chain forward butterfly of u * pre and of dout * post -> band backward ->
 inverse butterfly of du (and of y when gated), with no kernel and no count
 of its own.
 
-``FftConvFunction`` runs ``spectrum`` and ``monarch_conv`` (``long_spectrum``
-and ``long_conv`` from 65536 up) forward and, in its backward, recomputes
-the spectrum and runs ``monarch_conv_bwd`` and ``dk_finish``
-(``long_conv_bwd`` and ``long_dk_finish`` from 65536 up); it saves only
-(u, k, pregate, postgate), as the JAX package's custom VJP does.
+Up to FFT size 512 (``plan.direct``) a conv is one dense DFT a row:
+``direct_conv`` (csrc/direct_conv.cu) replaces ``_direct_fused_io_tiles`` and
+``direct_conv_bwd``, in the same source, replaces
+``_direct_bwd_fused_io_tiles``; its dk spectrum comes summed over the batch,
+(1, H, M+1), for ``dk_finish``.
+
+``FftConvFunction`` runs ``spectrum`` and then ``direct_conv`` up to 512,
+``monarch_conv`` up to 32768, and ``long_spectrum`` and ``long_conv`` from
+65536 up; in its backward it recomputes the spectrum and runs
+``direct_conv_bwd``, ``monarch_conv_bwd`` or ``long_conv_bwd``, then
+``dk_finish`` (``long_dk_finish`` from 65536 up). ``monarch_conv`` and
+``monarch_conv_bwd`` stay callable at every size up to 32768. The Function
+saves only (u, k, pregate, postgate), as the JAX package's custom VJP does.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from flashfftconv_tpu_torch.ops import _build, monarch
-from flashfftconv_tpu_torch.ops.plan import MAX_FACTOR, MAX_FUSED_SEQLEN, FftPlan
+from flashfftconv_tpu_torch.ops.plan import DIRECT_MAX, MAX_FACTOR, MAX_FUSED_SEQLEN, FftPlan
 
 # Longest band of the long backward kernel: it holds the band pairs of two
 # signals, four rows, in one block's shared memory (132 KB at 4096).
@@ -246,6 +254,99 @@ def dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor
 
 
 dk_finish.launches = 0
+
+
+def _check_direct(plan: FftPlan, u: torch.Tensor, k_f: torch.Tensor, *gates) -> None:
+    if not plan.direct:
+        raise ValueError(
+            f"a plan of seqlen {plan.seqlen} is no direct plan: the direct kernels take FFT "
+            f"sizes up to {DIRECT_MAX}"
+        )
+    _check_cuda("u", u, plan.device, tuple(_DTYPE_CODES), 3)
+    _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
+    if k_f.shape != (u.shape[1], plan.inner + 1):
+        raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(u.shape[1], plan.inner + 1)}")
+    _check_gates(plan, u, *gates)
+    if not 1 <= u.shape[-1] <= plan.seqlen:
+        raise ValueError(f"input length {u.shape[-1]} not in [1, {plan.seqlen}]")
+
+
+def direct_conv(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None = None,
+    postgate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``monarch_conv`` for a plan of seqlen <= DIRECT_MAX, as one dense DFT a
+    row: ``postgate * irfft(rfft(pre*u, N) * k_f)[..., :L]`` for u (B, H, L
+    <= N) in f32 or bf16, k_f (H, M+1) complex64 from ``spectrum`` and
+    optional gates (B, H, L) at u's dtype. Output (B, H, L) at u's dtype."""
+    if (pregate is None) != (postgate is None):
+        raise ValueError("pregate and postgate must both be given or both be None")
+    if on_cpu(u, k_f, pregate, postgate):
+        return monarch.direct_conv_plain(plan, u, k_f, pregate, postgate)
+    _check_direct(plan, u, k_f, pregate, postgate)
+    b, h, length = u.shape
+    out = torch.empty_like(u)
+    if b * h == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.load("direct_conv")
+    rc = lib.ffc_direct_conv(
+        u.data_ptr(), ptr(pregate), ptr(postgate), k_f.data_ptr(), out.data_ptr(),
+        plan.direct_roots.data_ptr(), b, h, length, plan.seqlen, _DTYPE_CODES[u.dtype],
+        _stream(u.device),
+    )
+    _build.check(lib, rc, "direct_conv kernel")
+    direct_conv.launches += 1
+    return out
+
+
+direct_conv.launches = 0
+
+
+def direct_conv_bwd(
+    plan: FftPlan,
+    u: torch.Tensor,
+    k_f: torch.Tensor,
+    pregate: torch.Tensor | None,
+    postgate: torch.Tensor | None,
+    dout: torch.Tensor,
+):
+    """The backward of ``direct_conv``, same inputs as ``monarch_conv_bwd``.
+    Returns (du, dpre, dpost, partials): du, dpre and dpost at u's dtype
+    (dpre, dpost None when ungated) and dk's spectrum G conj(U) summed over
+    the batch in a fixed order, complex64 (1, H, M+1), for ``dk_finish``."""
+    if (pregate is None) != (postgate is None):
+        raise ValueError("pregate and postgate must both be given or both be None")
+    if on_cpu(u, k_f, pregate, postgate, dout):
+        return monarch.direct_conv_bwd_plain(plan, u, k_f, pregate, postgate, dout)
+    _check_direct(plan, u, k_f, pregate, postgate, dout)
+    b, h, length = u.shape
+    gated = pregate is not None
+    du = torch.empty_like(u)
+    dpre = torch.empty_like(u) if gated else None
+    dpost = torch.empty_like(u) if gated else None
+    partials = torch.empty(1, h, plan.inner + 1, dtype=torch.complex64, device=u.device)
+    if h == 0:
+        return du, dpre, dpost, partials
+    if b == 0:
+        return du, dpre, dpost, partials.zero_()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.load("direct_conv")
+    rc = lib.ffc_direct_conv_bwd(
+        u.data_ptr(), ptr(pregate), ptr(postgate), dout.data_ptr(), k_f.data_ptr(),
+        du.data_ptr(), ptr(dpre), ptr(dpost), partials.data_ptr(),
+        plan.direct_roots.data_ptr(), b, h, length, plan.seqlen, _DTYPE_CODES[u.dtype],
+        _stream(u.device),
+    )
+    _build.check(lib, rc, "direct_conv_bwd kernel")
+    direct_conv_bwd.launches += 1
+    return du, dpre, dpost, partials
+
+
+direct_conv_bwd.launches = 0
 
 
 def butterfly(
@@ -549,7 +650,8 @@ class FftConvFunction(torch.autograd.Function):
         if plan.n_outer:
             out = long_conv(plan, u3, long_spectrum(plan, k.float().contiguous()), pre3, post3)
         else:
-            out = monarch_conv(plan, u3, spectrum(plan, k.float().contiguous()), pre3, post3)
+            conv = direct_conv if plan.direct else monarch_conv
+            out = conv(plan, u3, spectrum(plan, k.float().contiguous()), pre3, post3)
         return out.reshape(u.shape).to(u.dtype)
 
     @staticmethod
@@ -557,8 +659,9 @@ class FftConvFunction(torch.autograd.Function):
         u, k, pregate, postgate = ctx.saved_tensors
         plan, shape, io = ctx.plan, u.shape, _io_dtype(u)
         u3, pre3, post3, dout3 = (_rows(t, shape, io) for t in (u, pregate, postgate, dout))
-        spec, bwd, finish = ((long_spectrum, long_conv_bwd, long_dk_finish) if plan.n_outer
-                             else (spectrum, monarch_conv_bwd, dk_finish))
+        spec, bwd, finish = (
+            (long_spectrum, long_conv_bwd, long_dk_finish) if plan.n_outer
+            else (spectrum, direct_conv_bwd if plan.direct else monarch_conv_bwd, dk_finish))
         k_f = spec(plan, k.float().contiguous())
         du, dpre, dpost, partials = bwd(plan, u3, k_f, pre3, post3, dout3)
         del k_f  # 2.1 GB at H = 256, N = 2^21, not needed by the dk finish
@@ -576,8 +679,9 @@ def fft_conv(
 ) -> torch.Tensor:
     """The JAX package's ``fft_conv_pallas`` through the wrappers: the
     kernels on CUDA tensors, the plain versions on CPU tensors, at every plan
-    size from 256 to 4194304. u (..., H, L <= N), k (H, k_len <= N); gates cast to u's I/O dtype (float16 runs as
-    bfloat16 on the card); output at u's dtype. Runs through
+    size from 16 to 4194304. u (..., H, L <= N), k (H, k_len <= N); gates
+    cast to u's I/O dtype (float16 runs as bfloat16 on the card); output at
+    u's dtype. Runs through
     ``FftConvFunction``, which saves nothing and builds no graph when no
     grad is needed."""
     return FftConvFunction.apply(plan, u, k, pregate, postgate)

@@ -26,6 +26,12 @@ by ``outer_tw``, and band ``k0`` (one row of R points, frequencies
 tables are a plan of their own, ``plan.sub`` (a plan of seqlen 2R); plans
 up to N = 32768 have ``n_outer = 0`` and are unchanged.
 
+Up to ``DIRECT_MAX`` = 512 the conv itself runs as one dense DFT a row
+(the ``direct_conv`` kernels, as the JAX package's 1-factor plans do); such
+a plan also carries ``direct_roots``, the N roots of unity that the direct
+kernels index by the exact integer (f * t) mod N. Its Monarch factors still
+serve ``spectrum`` and ``dk_finish``.
+
 All DFT and twiddle phases are computed with exact integer arithmetic mod n
 in float64 before the final exp, then stored as complex64.
 """
@@ -39,15 +45,19 @@ import math
 import numpy as np
 import torch
 
-MIN_SEQLEN = 256
+MIN_SEQLEN = 16
 MAX_SEQLEN = 4_194_304
 MAX_FACTOR = 32
+# Up to this FFT size a conv is one dense DFT a row (the direct kernels).
+DIRECT_MAX = 512
 # One block's shared memory holds a whole row up to this FFT size.
 MAX_FUSED_SEQLEN = 32768
 # Longest band (inner complex FFT) of a long plan: the band kernels hold two
 # bands, k0 and F - k0, in one block's shared memory (2 x 64 KB at 8192).
 MAX_BAND = 8192
 LONG_BAND = 4096
+# Shortest band of a long plan (custom factors included).
+MIN_BAND = 128
 # Largest outer part: the butterfly kernel holds an (F, 32) tile of complex
 # f32 values in shared memory (128 KB at 512).
 MAX_OUTER = 512
@@ -85,7 +95,9 @@ def default_factors(seqlen: int) -> tuple[int, ...]:
     Up to 32768: the fewest stages whose factors are all <= MAX_FACTOR, with
     the bits of M spread as evenly as possible (larger factors first):
     32768 -> (32, 32, 16), 16384 -> (32, 16, 16), 2048 -> (32, 32),
-    256 -> (16, 8). From 65536 up: the factors of the outer part
+    256 -> (16, 8), 128 -> (8, 8), 64 -> (32,), 16 -> (8,) (up to 512 these
+    serve only the kernel's spectrum and dk; the conv is one dense DFT).
+    From 65536 up: the factors of the outer part
     F = M / LONG_BAND followed by those of the band, each part split the
     same way: 65536 -> (8, 16, 16, 16), 2097152 -> (16, 16, 16, 16, 16),
     4194304 -> (32, 16, 16, 16, 16); ``default_n_outer`` says where the
@@ -152,6 +164,8 @@ class FftPlan:
       split_tw:        (M+1,) exp(-2*pi*i*k/N), the split-step twiddle.
       roots:           (MAX_FACTOR,) exp(-2*pi*i*k/MAX_FACTOR), from which
                        the kernels build every in-register line DFT.
+      direct_roots:    (N,) exp(-2*pi*i*k/N) for seqlen <= DIRECT_MAX (None
+                       above): the direct kernels' DFT entries.
 
     From 65536 up the first ``n_outer`` (1 or 2) factors are the outer part,
     F = ``outer``, and the rest the band, R = ``band``:
@@ -182,6 +196,12 @@ class FftPlan:
     outer_roots: torch.Tensor | None = None
     outer_tw: torch.Tensor | None = None
     sub: "FftPlan | None" = None
+    direct_roots: torch.Tensor | None = None
+
+    @property
+    def direct(self) -> bool:
+        """True when the conv runs as one dense DFT a row (seqlen <= DIRECT_MAX)."""
+        return self.direct_roots is not None
 
     @property
     def inner(self) -> int:
@@ -219,6 +239,8 @@ class FftPlan:
             out["outer_roots"] = self.outer_roots
             out["outer_tw"] = self.outer_tw
             out.update({f"sub_{name}": t for name, t in self.sub.tensors().items()})
+        if self.direct:
+            out["direct_roots"] = self.direct_roots
         return out
 
     def with_tensors(self, tensors: dict[str, torch.Tensor]) -> "FftPlan":
@@ -238,6 +260,7 @@ class FftPlan:
             tw_flat=tw_flat,
             split_tw=tensors["split_tw"],
             roots=tensors["roots"],
+            direct_roots=tensors.get("direct_roots"),
             **long,
         )
 
@@ -287,12 +310,12 @@ def make_plan(
     if seqlen > MAX_FUSED_SEQLEN:
         outer = math.prod(factors[:n_outer])
         band = m // outer
-        if not (1 <= n_outer <= 2 and outer <= MAX_OUTER and MIN_SEQLEN // 2 <= band <= MAX_BAND
+        if not (1 <= n_outer <= 2 and outer <= MAX_OUTER and MIN_BAND <= band <= MAX_BAND
                 and len(factors) - n_outer <= 4):
             raise ValueError(
                 f"factors {factors} (the first {n_outer} outer) are no long plan: 1 or 2 outer "
                 f"factors of product <= {MAX_OUTER}, then at most 4 factors of a band of "
-                f"{MIN_SEQLEN // 2}..{MAX_BAND} points"
+                f"{MIN_BAND}..{MAX_BAND} points"
             )
         inv0 = _dft_matrix(factors[0], +1) / outer  # 1/F here, 1/R in the band's plan
         return FftPlan(
@@ -333,6 +356,7 @@ def make_plan(
         tw_flat=tw_flat,
         split_tw=split_tw,
         roots=roots,
+        direct_roots=c64(_roots(seqlen)) if seqlen <= DIRECT_MAX else None,
     )
 
 

@@ -1,4 +1,4 @@
-"""Pretrained-checkpoint import: HyenaDNA state dicts -> the port's LM.
+"""Pretrained-checkpoint import: HyenaDNA and M2-BERT state dicts -> the port's models.
 
 The port's counterpart of the JAX package's ``utils/checkpoint_import.py``
 (``normalize_state_dict``, ``hyenadna_to_flax``, ``merge_params``,
@@ -11,6 +11,12 @@ with ``mixer_kwargs={"in_proj_bias": True}`` to take the checkpoint's
 in-projection bias). Both sides are PyTorch, so ``nn.Linear`` weights keep
 their (out, in) orientation; the depthwise ``nn.Conv1d`` weight (C, 1, K)
 is squeezed to (C, K).
+
+``import_m2_bert_state_dict`` maps the reference M2-BERT (a BertForMaskedLM
+over Monarch Mixer sequence mixers) onto ``models.bert.M2BertForMaskedLM``
+built with ``ref_structure=True`` (the reference layer has no residual or
+LayerNorm around its mixer); ``blockdiag_to_dense_mlp`` turns block-diagonal
+MLP weights into the dense weights of a ``mlp_nblocks=0`` model.
 
 No network access is assumed: callers pass a state-dict-like mapping (for
 example from ``torch.load(path, map_location="cpu", weights_only=True)``).
@@ -178,3 +184,101 @@ def import_hyenadna(model: nn.Module, state: Mapping[str, Any]) -> ImportReport:
             report.skipped.append(key)
     load_into(model, tensors, report)
     return report
+
+
+# --- M2-BERT (the reference's examples/bert) --------------------------------
+
+_M2_TOP_KEYS = {
+    "bert.embeddings.word_embeddings.weight": "bert.word_embeddings.weight",
+    "bert.embeddings.position_embeddings.weight": "bert.position_embeddings.weight",
+    "bert.embeddings.token_type_embeddings.weight": "bert.token_type_embeddings.weight",
+    "bert.embeddings.LayerNorm.weight": "bert.embed_norm.weight",
+    "bert.embeddings.LayerNorm.bias": "bert.embed_norm.bias",
+    "cls.predictions.transform.dense.weight": "mlm_transform.weight",
+    "cls.predictions.transform.dense.bias": "mlm_transform.bias",
+    "cls.predictions.transform.LayerNorm.weight": "mlm_norm.weight",
+    "cls.predictions.transform.LayerNorm.bias": "mlm_norm.bias",
+    "cls.predictions.decoder.weight": "mlm_head.weight",
+    "cls.predictions.bias": "mlm_head.bias",
+}
+# Reference key below ``bert.encoder.layer.{i}.`` -> port key below
+# ``bert.layer.{i}.``; the implicit filters' Sequential entries follow.
+_M2_LAYER_KEYS = {
+    "attention.in_linear.weight": "mixer.in_linear",
+    "attention.short_filter.weights": "mixer.short_filter.weights",
+    "attention.short_filter.bias": "mixer.short_filter.bias",
+    "attention.filter": "mixer.filter",  # inference mode: plain kernels
+    "attention.filter2": "mixer.filter2",
+    "attention.out_linear.weight": "mixer.out_linear.weight",
+    "attention.out_linear.bias": "mixer.out_linear.bias",
+    "mlp.layernorm.weight": "norm2.weight",
+    "mlp.layernorm.bias": "norm2.bias",
+    "mlp.gated_layers.weight": "mlp_fc1.weight",
+    "mlp.gated_layers.bias": "mlp_fc1.bias",
+    "mlp.wo.weight": "mlp_fc2.weight",
+    "mlp.wo.bias": "mlp_fc2.bias",
+}
+_M2_LAYER = re.compile(r"bert\.encoder\.layer\.(\d+)\.(.+)")
+# One reference HyenaFilter holds both MLPs of a bidirectional kernel
+# (implicit_filter, implicit_filter_rev) and their shared bias and deltas;
+# the port has a second filter module (``filter_rev``) for the reverse MLP.
+_M2_FILTER = re.compile(
+    r"attention\.(filter_fn2?)\.(?:(implicit_filter(?:_rev)?)\.(\d+)\.(weight|bias|freq)"
+    r"|(bias|modulation\.deltas))")
+
+
+def _m2_target(key: str, n_layer: int) -> str | None:
+    """The port's parameter name for a normalized reference M2-BERT key, or
+    None for the keys the JAX import skips too: the in-projection's bias
+    (the reference's forward drops it), the inference kernels' unused
+    biases, the filters' positional-embedding constants, the pooler and any
+    task head."""
+    if key in _M2_TOP_KEYS:
+        return _M2_TOP_KEYS[key]
+    m = _M2_LAYER.match(key)
+    if not m or int(m.group(1)) >= n_layer:
+        return None
+    rest = m.group(2)
+    sub = _M2_LAYER_KEYS.get(rest)
+    if sub is None and (f := _M2_FILTER.fullmatch(rest)):
+        ours = "filter" if f.group(1) == "filter_fn" else "filter2"
+        if f.group(2) is None:  # the shared bias and deltas live on the forward filter
+            sub = f"mixer.{ours}.{f.group(5)}"
+        else:
+            rev = "_rev" if f.group(2).endswith("_rev") else ""
+            sub = f"mixer.{ours}{rev}.layers.{f.group(3)}.{f.group(4)}"
+    return None if sub is None else f"bert.layer.{m.group(1)}.{sub}"
+
+
+def import_m2_bert_state_dict(
+    state: Mapping[str, Any], n_layer: int | None = None
+) -> tuple[dict[str, torch.Tensor], ImportReport]:
+    """Map a reference M2-BERT state dict onto the parameter names of
+    ``M2BertForMaskedLM(ref_structure=True)`` (its per-layer LayerNorm is the
+    reference's post-MLP one, ``norm2``). Linear weights keep their (out, in)
+    orientation and block-diagonal MLP weights their (nblocks, q, p) shape;
+    convert the latter with ``blockdiag_to_dense_mlp`` for a dense-MLP model.
+    ``n_layer`` defaults to the number of layers the checkpoint holds.
+    Returns (tensors, report); load the tensors with :func:`load_into`."""
+    state = normalize_state_dict(state)
+    if n_layer is None:
+        ids = {int(m.group(1)) for k in state if (m := _M2_LAYER.match(k))}
+        n_layer = max(ids) + 1 if ids else 0
+    report = ImportReport()
+    out: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        target = _m2_target(key, n_layer)
+        if target is None:
+            report.skipped.append(key)
+            continue
+        out[target] = _t(value)
+        report.used.append(key)
+    return out, report
+
+
+def blockdiag_to_dense_mlp(tensors: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every block-diagonal weight (nblocks, q, p) among ``tensors`` as the
+    equivalent dense (nblocks * q, nblocks * p) weight, the others as they
+    are: a Monarch-MLP checkpoint then loads into a dense-MLP model."""
+    return {name: torch.block_diag(*t.unbind(0)) if t.ndim == 3 else t
+            for name, t in tensors.items()}

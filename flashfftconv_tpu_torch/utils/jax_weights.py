@@ -16,6 +16,12 @@ The map takes any tree shaped like the params: ``from_jax_params`` of a
 transposed as the weights are, to compare with the port's ``.grad``.
 ``flax_paths`` is the map's inverse: the flax path of every parameter of a
 port model, from the modules' types (the optimizer's labels read it).
+
+``m2_bert_state_dict`` does the same for the JAX package's
+``M2BertForMaskedLM``: the mixer's ``in_linear`` is already (out, in), a
+``BlockdiagLinear`` weight (nblocks, q, p) carries over 1:1, Dense kernels
+are transposed, and with ``tie_mlm_head`` the top-level ``word_embeddings``
+table lands in ``bert.word_embeddings``.
 """
 
 from __future__ import annotations
@@ -96,11 +102,69 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
     return out
 
 
+def m2_mixer_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax MonarchMixerSequenceMixing params -> port mixer state dict."""
+    out = {f"{prefix}in_linear": _t(tree["in_linear"]),
+           f"{prefix}short_filter.weights": _t(tree["short_filter"]["weights"]),
+           f"{prefix}short_filter.bias": _t(tree["short_filter"]["bias"])}
+    for name in ("filter", "filter_rev", "filter2", "filter2_rev"):
+        if name in tree:
+            sub = tree[name]
+            if isinstance(sub, dict):
+                out.update(hyena_filter_state_dict(sub, f"{prefix}{name}."))
+            else:  # inference mode: the kernel is a plain weight
+                out[f"{prefix}{name}"] = _t(sub)
+    out.update(_dense(tree["out_linear"], f"{prefix}out_linear"))
+    return out
+
+
+def _m2_linear(tree, prefix: str) -> dict[str, torch.Tensor]:
+    if "weight" in tree:  # BlockdiagLinear (nblocks, q, p)
+        out = {f"{prefix}.weight": _t(tree["weight"])}
+        if "bias" in tree:
+            out[f"{prefix}.bias"] = _t(tree["bias"])
+        return out
+    return _dense(tree, prefix)
+
+
+def m2_bert_state_dict(params) -> dict[str, torch.Tensor]:
+    """flax M2BertForMaskedLM params -> port ``models.bert.M2BertForMaskedLM``
+    state dict (any parameter the tree lacks, such as token-type embeddings
+    the flax model never used, is left out)."""
+    out = {}
+    bert = params["bert"]
+    words = params["word_embeddings"] if "word_embeddings" in params else bert["word_embeddings"]
+    out["bert.word_embeddings.weight"] = _t(words["embedding"])
+    for name in ("position_embeddings", "token_type_embeddings"):
+        if name in bert:
+            out[f"bert.{name}.weight"] = _t(bert[name]["embedding"])
+    out.update(_norm(bert["embed_norm"], "bert.embed_norm"))
+    for name, layer in bert.items():
+        if not name.startswith("layer_"):
+            continue
+        p = f"bert.layer.{name.split('_')[1]}."
+        out.update(m2_mixer_state_dict(layer["mixer"], p + "mixer."))
+        for norm in ("norm1", "norm2"):
+            if norm in layer:
+                out.update(_norm(layer[norm], p + norm))
+        out.update(_m2_linear(layer["mlp_fc1"], p + "mlp_fc1"))
+        out.update(_m2_linear(layer["mlp_fc2"], p + "mlp_fc2"))
+    out.update(_dense(params["mlm_transform"], "mlm_transform"))
+    out.update(_norm(params["mlm_norm"], "mlm_norm"))
+    if "mlm_head" in params:
+        out.update(_dense(params["mlm_head"], "mlm_head"))
+    if "mlm_bias" in params:
+        out["mlm_bias"] = _t(params["mlm_bias"])
+    return out
+
+
 def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
     """{port parameter name: flax path} for a port model (or any submodule
     the maps above cover): ``blocks.i`` is ``block_i``, ``layers.j`` is
     ``layers_j`` (``mixer`` in a linear-mixer filter), and a Dense, LayerNorm
-    or Embed ``weight`` is flax's ``kernel``, ``scale`` or ``embedding``."""
+    or Embed ``weight`` is flax's ``kernel``, ``scale`` or ``embedding``. In an
+    M2-BERT with a tied MLM head the word embeddings sit at the top of the
+    flax tree, beside ``bert``."""
     leaf_names = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding"}
     modules = dict(model.named_modules())
     out = {}
@@ -120,4 +184,6 @@ def flax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
         if leaf == "weight" and type(owner) in leaf_names:
             leaf = leaf_names[type(owner)]
         out[name] = (*path, leaf)
+    if getattr(model, "tie_mlm_head", False):
+        out["bert.word_embeddings.weight"] = ("word_embeddings", "embedding")
     return out

@@ -13,7 +13,11 @@ the backward kernels (``FftConvFunction``, ``DepthwiseFunction``).
 
 ``dna_optimizer`` is the ``examples/hyena_dna`` recipe: the same clip, then
 AdamW at a constant lr 6e-4 with weight decay 0.1, no schedule
-(``make_train_step(model, dna_optimizer(model))``).
+(``make_train_step(model, dna_optimizer(model))``). ``bert_optimizer`` is
+the ``examples/bert`` recipe: clip 1.0, AdamW at lr 8e-4 with weight decay
+1e-5 on every parameter, with ``mlm_loss``, the masked-LM loss and
+accuracy over the masked positions only (``make_train_step(model,
+bert_optimizer(model), loss_fn=mlm_loss)``).
 
 The orbax checkpoints, ``auto_save_on_exception`` and ``ProgressiveResizing``
 of the JAX module are not ported yet.
@@ -26,7 +30,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+from flashfftconv_tpu_torch.utils.metrics import accuracy, cross_entropy
 from flashfftconv_tpu_torch.utils.optim import lr_lambda, warmup_cosine_decay_schedule
 
 
@@ -51,23 +55,41 @@ def dna_optimizer(model: nn.Module, lr: float = 6e-4, weight_decay: float = 0.1)
                              weight_decay=weight_decay)
 
 
+def bert_optimizer(model: nn.Module, lr: float = 8e-4, weight_decay: float = 1e-5):
+    """The ``examples/bert`` optimizer after its clip: optax's ``adamw`` (betas
+    0.9/0.999, eps 1e-8, decoupled decay scaled by lr) at a constant lr,
+    decaying every parameter, biases and norms included."""
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100):
+    """The ``examples/bert`` masked-LM loss: (cross-entropy, {"accuracy"}),
+    each the mean over the positions whose label is not ``ignore_index``."""
+    return (cross_entropy(logits, labels, ignore_index),
+            {"accuracy": accuracy(logits.detach(), labels, ignore_index)})
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler=None,
                     clip: float = 1.0, loss_fn: Callable = cross_entropy):
     """Returns step(x, y) -> {"loss", "grad_norm"} (device tensors, not
     synchronised): forward, ``loss_fn(logits, y)``, backward, clip the
     gradients' global norm to ``clip``, optimizer step, schedule step. The
-    caller picks ``model.train()`` (dropout on) or ``eval()``."""
+    caller picks ``model.train()`` (dropout on) or ``eval()``. A ``loss_fn``
+    that returns (loss, metrics), as ``mlm_loss`` does, adds its metrics to
+    the result."""
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model(x), y)
+        loss, metrics = loss if isinstance(loss, tuple) else (loss, {})
         loss.backward()
         grad_norm = torch.nn.utils.clip_grad_norm_(
             [p for p in model.parameters() if p.grad is not None], clip)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
 
     return step
 

@@ -342,3 +342,96 @@ def test_cuda_long_backward_kernels_match_plain(n, dtype):
                 _close(a, r, dtype)
         _close(monarch_cuda.long_dk_finish(p, whole[3], k_len),
                monarch.dk_finish_plain(p, want[3], k_len), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 64, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_direct_kernels_match_plain(n, dtype):
+    """spectrum -> direct_conv and direct_conv_bwd -> dk_finish against their
+    plain versions, one launch each; B = 4 ungated at L = N/2, B = 3 gated at
+    L = N/2 + 3 with H = 7, and B = 20 gated at L = N (two chunks of the
+    backward's batch walk at N = 256); a second backward gives the same
+    bits."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, dtype, device=dev)
+    g = torch.Generator().manual_seed(n + 2)
+    for b, h, length, gated in [(4, 16, n // 2, False), (3, 7, n // 2 + 3, True),
+                                (20, 3, n, True)]:
+        u, d, *gates = (torch.randn(b, h, length, generator=g).to(dev, dtype)
+                        for _ in range(2 + 2 * gated))
+        gates = gates or [None, None]
+        k_f = monarch_cuda.spectrum(p, (torch.randn(h, n, generator=g) * 0.05).to(dev))
+        n0 = (monarch_cuda.direct_conv.launches, monarch_cuda.direct_conv_bwd.launches)
+        y = monarch_cuda.direct_conv(p, u, k_f, *gates)
+        got = monarch_cuda.direct_conv_bwd(p, u, k_f, *gates, d)
+        torch.cuda.synchronize()
+        assert (monarch_cuda.direct_conv.launches, monarch_cuda.direct_conv_bwd.launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        _close(y, monarch.direct_conv_plain(p, u, k_f, *gates), dtype)
+        ref = monarch.direct_conv_bwd_plain(p, u, k_f, *gates, d)
+        for a, r in zip(got[:3], ref[:3]):
+            if r is not None:
+                _close(a, r, dtype)
+        _close(torch.view_as_real(got[3]), torch.view_as_real(ref[3]), torch.float32)
+        _close(monarch_cuda.dk_finish(p, got[3], n), monarch.dk_finish_plain(p, ref[3], n),
+               torch.float32)
+        again = monarch_cuda.direct_conv_bwd(p, u, k_f, *gates, d)
+        assert all(a is None or torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_cuda_direct_kernels_at_the_m2_bert_shape():
+    """The M2-BERT path's shape (B=128, H=768, L=128, N=256, bf16, ungated,
+    a bidirectional kernel of 256 taps): the forward, the backward's du and
+    dk spectrum, and dk, against the plain versions; eight chunks of the
+    backward's batch walk, summed in the same order twice."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(256, torch.bfloat16, device=dev)
+    g = torch.Generator().manual_seed(5)
+    u, d = ((torch.randn(128, 768, 128, generator=g) * 0.02).to(dev, torch.bfloat16)
+            for _ in "ab")
+    k_f = monarch_cuda.spectrum(p, (torch.randn(768, 256, generator=g) * 0.02).to(dev))
+    _close(monarch_cuda.direct_conv(p, u, k_f), monarch.direct_conv_plain(p, u, k_f),
+           torch.bfloat16)
+    got = monarch_cuda.direct_conv_bwd(p, u, k_f, None, None, d)
+    ref = monarch.direct_conv_bwd_plain(p, u, k_f, None, None, d)
+    _close(got[0], ref[0], torch.bfloat16)
+    _close(torch.view_as_real(got[3]), torch.view_as_real(ref[3]), torch.float32)
+    _close(monarch_cuda.dk_finish(p, got[3], 256), monarch.dk_finish_plain(p, ref[3], 256),
+           torch.float32)
+    again = monarch_cuda.direct_conv_bwd(p, u, k_f, None, None, d)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[3], again[3])
+
+
+@pytest.mark.gpu
+def test_cuda_m2_bert_matches_cpu():
+    """A tiny f32 M2BertForMaskedLM with the same weights: logits and every
+    parameter's grad on the card (direct kernels) within 1e-4 of the CPU's
+    largest value; its long convs run direct_conv and direct_conv_bwd."""
+    _needs_card()
+    from flashfftconv_tpu_torch.models.bert import M2BertForMaskedLM
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids = torch.randint(0, 64, (3, 64), generator=torch.Generator().manual_seed(2))
+    labels = torch.where(torch.rand(ids.shape, generator=torch.Generator().manual_seed(3)) < 0.3,
+                         ids, -100)
+    out, grads = {}, {}
+    n0 = (monarch_cuda.direct_conv.launches, monarch_cuda.direct_conv_bwd.launches)
+    for dev in ("cpu", "cuda"):
+        m = M2BertForMaskedLM(vocab_size=64, d_model=32, n_layer=2, d_inner=64, l_max=64,
+                              mlp_nblocks=4, conv_dtype=torch.float32, device=dev,
+                              generator=torch.Generator().manual_seed(3)).eval()
+        out[dev] = m(ids.to(dev))
+        cross_entropy(out[dev], labels.to(dev), -100).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+    assert (monarch_cuda.direct_conv.launches, monarch_cuda.direct_conv_bwd.launches) == \
+        (n0[0] + 4, n0[1] + 4)
+    ref = out["cpu"].detach()
+    assert float((out["cuda"].detach().cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for name, r in grads["cpu"].items():
+        err = float((grads["cuda"][name] - r).abs().max())
+        assert err <= 1e-4 * float(r.abs().max()) + 1e-8, (name, err)

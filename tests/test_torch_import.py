@@ -24,7 +24,8 @@ def _env():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, flashfftconv_tpu_torch, flashfftconv_tpu_torch.models.lm, "
-        "flashfftconv_tpu_torch.models.dna, flashfftconv_tpu_torch.utils.checkpoint_import, "
+        "flashfftconv_tpu_torch.models.dna, flashfftconv_tpu_torch.models.bert, "
+        "flashfftconv_tpu_torch.models.m2_bert, flashfftconv_tpu_torch.utils.checkpoint_import, "
         "flashfftconv_tpu_torch.utils.generation, flashfftconv_tpu_torch.utils.jax_weights, "
         "flashfftconv_tpu_torch.utils.metrics, flashfftconv_tpu_torch.utils.optim, "
         "flashfftconv_tpu_torch.utils.train\n"
