@@ -4,9 +4,9 @@
 Run from the root of a checkout on a machine with an H100:
 
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
-                          [--phases build,identity,kernels,serve,train,parity,grad_parity,
-                                    dna,dna_train,long_parity,bert,bert_train,bert_parity,
-                                    timing[,profile]]
+                          [--phases build,identity,kernels,serve,train,seq_train,parity,
+                                    grad_parity,dna,dna_train,long_parity,bert,bert_train,
+                                    bert_parity,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -15,7 +15,10 @@ Phases, each of which fails the run by raising:
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
             gated, padded, odd-batch and ragged-channel shapes, with the
-            tolerance printed;
+            tolerance printed; band_conv (both conj) at the seq_train
+            shape and N2 = 16, 256, 2048, the four-real-conv band route at
+            N2 = 32768 and 131072, and the sequence-parallel conv at world
+            size 1 (gated, padded, with grads) against the torch.fft oracle;
   serve     builds Hyena-125M (12 layers, d_model 768, l_max 8192, vocab
             50257, bf16, random weights from --seed) and answers 4 requests
             (prompts of 512..4096 tokens, 8 new tokens each, greedy) through
@@ -27,6 +30,18 @@ Phases, each of which fails the run by raising:
             examples/lm recipe (AdamW lr 3e-4 with 2 warm-up steps, weight
             decay 0.1, clip 1.0); checks finite, falling loss and each
             kernel's launches a step; prints step time, tokens/s and peak memory;
+  seq_train the same Hyena-125M with mixer_kwargs={"seq_mesh": mesh}, a
+            1-rank DeviceMesh over NCCL (an in-memory store, no network): every
+            long conv through parallel.seq_conv at N2 = 16384, the band_conv
+            kernel. In f32 activations (the first batch, B=4, dropout on)
+            its loss and grads against the plain model's (1e-3 relative, 1e-3
+            of each parameter's largest |grad|); then in bf16 2 warm-up and 3
+            timed steps of the train phase's recipe on its first batches, the
+            first step's loss (1e-3) and grads against the plain model's on
+            the same batch and dropout mask (1e-3 of each largest |grad| plus
+            twice the bf16 rounding noise of a control, the plain model with
+            torch.fft long convs); checks finite, falling loss and the exact
+            launches a step; prints step time, tokens/s and peak memory;
   parity    a 2-layer, d_model 128, l_max 1024 Hyena LM in f32 with the same
             weights on the card (kernels) and on the CPU (plain versions):
             logits agree within 2e-3;
@@ -80,18 +95,18 @@ Phases, each of which fails the run by raising:
             of each parameter's largest |grad|, and a second backward on the
             card gives the same grads bit for bit (but the embedding tables');
   timing    times each kernel, its plain version and a PyTorch yardstick
-            with CUDA events at the main paths' shapes, and the Monarch conv
-            beside the direct one at FFT sizes 256 and 512;
+            with CUDA events at the main paths' shapes;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
-            one HyenaDNA forward and one HyenaDNA train step, then one
-            M2-BERT forward and one M2-BERT train step.
+            one train step of it on a 1-rank sequence mesh, one HyenaDNA
+            forward and one HyenaDNA train step, then one M2-BERT forward and
+            one M2-BERT train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
 of the three long forward kernels in the dna phase, those of the two long
 backward kernels in the dna_train phase, those of the direct kernels in the
-bert_train phase), the
+bert_train phase, band_conv's in the seq_train phase), the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -110,8 +125,9 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PHASES = ("build", "identity", "kernels", "serve", "train", "parity", "grad_parity", "dna",
-          "dna_train", "long_parity", "bert", "bert_train", "bert_parity", "timing")
+PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity",
+          "grad_parity", "dna", "dna_train", "long_parity", "bert", "bert_train", "bert_parity",
+          "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -125,6 +141,10 @@ N_FFT = 2 * L_MAX
 PROMPTS = (512, 1024, 2048, 4096)
 NEW_TOKENS = 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# The sequence-parallel Hyena-125M at world size 1: N = N_FFT over 1 rank,
+# so each long conv's band is N2 = N_FFT points.
+SEQ_WARMUP, SEQ_TIMED = 2, 3
+SEQ_N2 = N_FFT
 
 # HyenaDNA large-1m serving shapes (models/dna.py preset): one forward runs
 # one long conv a layer at FFT size 2 * l_max, whatever the request's length.
@@ -204,17 +224,28 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/direct_conv.cu",
         replaces="flashfftconv_tpu/ops/monarch_pallas.py:1460",
     ),
+    # _conv_tiles in its complex contract, the sequence-parallel band conv
+    "band_conv": dict(
+        source="flashfftconv_tpu_torch/csrc/band_conv.cu",
+        replaces="flashfftconv_tpu/ops/monarch_pallas.py:1059",
+    ),
 }
 # The phase whose run gives a kernel's launches in the JSON line.
 LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
                 "long_conv_bwd": "dna_train", "long_dk_finish": "dna_train",
-                "direct_conv": "bert_train", "direct_conv_bwd": "bert_train"}
+                "direct_conv": "bert_train", "direct_conv_bwd": "bert_train",
+                "band_conv": "seq_train"}
 # The phases whose results the kernels JSON line reads.
-JSON_PHASES = {"kernels", "train", "dna", "dna_train", "bert_train", "timing"}
+JSON_PHASES = {"kernels", "train", "seq_train", "dna", "dna_train", "bert_train", "timing"}
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
                   "dk_finish": N_LAYER, "depthwise": N_LAYER, "depthwise_bwd": N_LAYER}
+# Launches in one sequence-parallel Hyena-125M train step: a layer's long conv
+# runs band_conv once forward and once for db in its backward (the Function
+# saves its input and recomputes nothing); no Monarch conv runs.
+SEQ_TRAIN_LAUNCHES = {"band_conv": 2 * N_LAYER, "depthwise": N_LAYER, "depthwise_bwd": N_LAYER,
+                      "spectrum": 0, "monarch_conv": 0, "monarch_conv_bwd": 0, "dk_finish": 0}
 # Launches in one HyenaDNA forward: a layer runs long_spectrum (one forward
 # butterfly and its band kernel), long_conv (butterfly, band kernel, inverse
 # butterfly) and the short depthwise conv; the one-block kernels never run.
@@ -258,6 +289,13 @@ def lowp_tol(ref) -> float:
     """Kernel and plain round the same f32 result to bf16: they may differ by
     one bf16 ulp, at most 2^-7 of the largest |output|."""
     return 2.0**-7 * float(ref.abs().max()) + 1e-6
+
+
+def band_tol(ref) -> float:
+    """The complex band conv runs two N2-point complex FFTs in f32 (roundoff
+    about 1e-6 of max|y| at N2 = 16384) and the four-real-conv route four
+    convs and their sums: held at 1e-4 of the largest |y|."""
+    return 1e-4 * float(ref.abs().max()) + 1e-7
 
 
 def sum_tol(abs_sum) -> float:
@@ -401,6 +439,7 @@ def phase_kernels(torch, g):
     torch.cuda.synchronize()
     errs.update(_check_direct_kernels(torch, g))
     errs.update(_check_long_kernels(torch, g))
+    errs.update(_check_band_kernels(torch, g))
     _check_operator_spread(torch)
     return errs
 
@@ -571,6 +610,62 @@ def _check_long_kernels(torch, g):
     return errs
 
 
+def _check_band_kernels(torch, g):
+    """band_conv, both conj, against band_conv_plain on complex bands with a
+    nonzero imaginary part: at the seq_train path's shape (B=4, H=768,
+    N2=16384) and at N2 = 16, 256, 2048; the four-real-conv route of bands
+    from 32768 up (monarch_conv, then the long kernels) against
+    band_conv_plain at N2 = 32768 and 131072; and the sequence-parallel conv
+    at world size 1, gated and padded, output and grads against the
+    torch.fft oracle's autograd. Tolerance band_tol. Returns {"band_conv":
+    its largest error at the main shape}."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+    from flashfftconv_tpu_torch.parallel import seq_conv
+
+    dev = torch.device("cuda")
+    real = torch.view_as_real
+    gd = torch.Generator(device=dev).manual_seed(g.initial_seed())
+    cplx = lambda *shape: torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gd)
+    err = 0.0
+    for b, h, n2 in ((B, D_MODEL, SEQ_N2), (3, 7, 16), (3, 7, 256), (2, 5, 2048)):
+        plan = make_plan(2 * n2, torch.float32, device=dev)
+        x, k_f = cplx(b, h, n2), cplx(h, n2)
+        for conj in (False, True):
+            ref = monarch.band_conv_plain(plan, x, k_f, conj)
+            e = compare(f"band_conv B={b} H={h} N2={n2} conj={conj}",
+                        real(monarch_cuda.band_conv(plan, x, k_f, conj)), real(ref),
+                        band_tol(ref))
+            err = max(err, e) if n2 == SEQ_N2 else err
+        del x, k_f, ref
+        torch.cuda.synchronize()
+    for n2 in (32768, 131072):
+        plan = make_plan(2 * n2, torch.float32, device=dev)
+        x, kt = cplx(2, 3, n2), cplx(3, n2) * 0.01
+        ref = monarch.band_conv_plain(plan, x, monarch.cfft_plain(plan, kt))
+        compare(f"band conv N2={n2} as four real convs", real(seq_conv._band_conv_composed(x, kt)),
+                real(ref), band_tol(ref))
+        torch.cuda.synchronize()
+    mesh = _seq_mesh(torch)
+    n = SEQ_N2
+    t = torch.arange(n, device=dev)
+    u, pre, post = (torch.randn(2, 16, n, device=dev, generator=gd) for _ in "abc")
+    k = torch.randn(16, n, device=dev, generator=gd) * 0.02 * torch.exp(-t / 1000)
+    ref = monarch.fft_conv_reference(n, u, k, pre, post)
+    compare(f"seq_fft_conv gated world 1 N={n} vs torch.fft",
+            seq_conv.seq_fft_conv(u, k, mesh, pregate=pre, postgate=post), ref, band_tol(ref))
+    u, k = u[..., : n // 2].clone().requires_grad_(), k[:, : n // 2].clone().requires_grad_()
+    y = seq_conv.seq_fft_conv_padded(u, k, mesh)
+    ref = monarch.fft_conv_reference(n, u, k)
+    compare(f"seq_fft_conv_padded world 1 N={n} L={n // 2} vs torch.fft", y, ref, band_tol(ref))
+    dy = torch.randn(y.shape, device=dev, generator=gd)
+    for name, a, r in zip(("du", "dk"), torch.autograd.grad(y, (u, k), dy),
+                          torch.autograd.grad(ref, (u, k), dy)):
+        compare(f"seq_fft_conv_padded world 1 grads: {name}", a, r, band_tol(r))
+    torch.cuda.synchronize()
+    return {"band_conv": err}
+
+
 def _check_direct(torch, plan, what, u, k, pre, post, dout):
     """spectrum, direct_conv, direct_conv_bwd and dk_finish against their
     plain versions on the same inputs, and a second backward against the
@@ -693,16 +788,18 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
                 "long_conv_bwd": monarch_cuda.long_conv_bwd_inner,
                 "long_dk_finish": monarch_cuda.long_dk_finish,
                 "direct_conv": monarch_cuda.direct_conv,
-                "direct_conv_bwd": monarch_cuda.direct_conv_bwd}
+                "direct_conv_bwd": monarch_cuda.direct_conv_bwd,
+                "band_conv": monarch_cuda.band_conv}
     return {name: wrappers[name] for name in names}
 
 
-def _hyena_125m(torch, seed, dev):
+def _hyena_125m(torch, seed, dev, mixer_kwargs=None, dtype=None):
     from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
 
     return ConvLMHeadModel(
         d_model=D_MODEL, n_layer=N_LAYER, d_inner=4 * D_MODEL, vocab_size=VOCAB, l_max=L_MAX,
-        dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(seed),
+        mixer_kwargs=mixer_kwargs, dtype=dtype or torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(seed),
     )
 
 
@@ -714,6 +811,18 @@ def _corpus(np):
     if data.size < B * (L_MAX + 1):
         raise AssertionError(f"corpus of {data.size} bytes is too small")
     return data.astype(np.int64)
+
+
+def _train_batches(torch, np, seed, dev, n_steps):
+    """n_steps (x, y) batches of B windows of L_MAX + 1 bytes of the corpus."""
+    tokens = _corpus(np)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(n_steps):
+        offs = rng.integers(0, tokens.size - L_MAX - 1, B)
+        xy = torch.from_numpy(np.stack([tokens[o : o + L_MAX + 1] for o in offs])).to(dev)
+        batches.append((xy[:, :-1].contiguous(), xy[:, 1:].contiguous()))
+    return batches
 
 
 def phase_train(torch, seed, np):
@@ -728,13 +837,7 @@ def phase_train(torch, seed, np):
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=n_steps)
     step = make_train_step(model, opt, sched, clip=1.0)
-    tokens = _corpus(np)
-    rng = np.random.default_rng(seed)
-    batches = []
-    for _ in range(n_steps):
-        offs = rng.integers(0, tokens.size - L_MAX - 1, B)
-        xy = torch.from_numpy(np.stack([tokens[o : o + L_MAX + 1] for o in offs])).to(dev)
-        batches.append((xy[:, :-1].contiguous(), xy[:, 1:].contiguous()))
+    batches = _train_batches(torch, np, seed, dev, n_steps)
     counters = _counters(TRAIN_LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -781,6 +884,187 @@ def phase_train(torch, seed, np):
     log(f"train: step median {med:.2f} ms max {max(timed):.2f} ms over {TRAIN_TIMED} timed "
         f"steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
         f"launches a step {per_step[-1]}")
+    return res
+
+
+_MESH = {}
+
+
+def _seq_mesh(torch):
+    """A 1-rank sequence mesh on the card: NCCL over an in-memory store (no
+    network), the "sp" dimension of a DeviceMesh, made once."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if "sp" not in _MESH:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        _MESH["sp"] = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+    return _MESH["sp"]
+
+
+def _worst_rel(grads, ref) -> tuple[float, str]:
+    """(max |grad - ref| / max |ref|, parameter) over every parameter."""
+    return max((float((g - ref[n]).abs().max() / ref[n].abs().max().clamp(min=1e-12)), n)
+               for n, g in grads.items())
+
+
+def _noise_grad_check(grads, ref, noise):
+    """Each parameter's grads against the reference's, held at 1e-3 of the
+    largest |ref| plus twice ``noise``, the parameter's max |grad - ref| of
+    a control: the same bf16 model whose long convs take another f32 route.
+    A bf16 model rounds each conv's f32 output to bf16, so two f32 routes
+    whose outputs differ by roundoff flip some of those roundings by one
+    ulp, and the grads downstream differ by that noise, not by a share of
+    the largest |grad| (up to 2^-7 of it where a grad is itself a bf16
+    product). Returns {"worst": (max |d| / tol, parameter), "worst_rel":
+    (max |d| / max |ref|, parameter), "worst_vs_control": (max |d| / noise,
+    parameter)}; the check holds if "worst" is at most 1."""
+    worst, rel, vs = (0.0, ""), (0.0, ""), (0.0, "")
+    for n, g in grads.items():
+        d = float((g.float() - ref[n].float()).abs().max())
+        scale = float(ref[n].abs().max())
+        worst = max(worst, (d / max(1e-3 * scale + 2 * noise[n], 1e-30), n))
+        rel = max(rel, (d / max(scale, 1e-30), n))
+        vs = max(vs, (d / max(noise[n], 1e-30), n))
+    return {"worst": worst, "worst_rel": rel, "worst_vs_control": vs}
+
+
+def _seq_route_f32(torch, seed, dev, mesh, x, y):
+    """Hyena-125M at full width in f32 activations, dropout on, on the batch
+    (x, y): loss and grads of one backward through the 1-rank seq mesh
+    (seq_backward, as make_train_step runs it) against the plain model's,
+    on the same dropout mask. Returns (loss relative error, (worst grad
+    relative error, parameter), peak bytes)."""
+    from flashfftconv_tpu_torch.parallel.seq_conv import seq_backward, seq_group
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    for kw in (None, {"seq_mesh": mesh, "seq_axis": "sp"}):
+        model = _hyena_125m(torch, seed, dev, kw, dtype=torch.float32).train()
+        torch.manual_seed(seed)
+        loss = cross_entropy(model(x), y)
+        if kw is None:
+            loss.backward()
+        else:
+            loss = seq_backward(model, loss, y.numel(), seq_group(model))
+        out.append((float(loss), {n: p.grad for n, p in model.named_parameters()}))
+        del model, loss
+        torch.cuda.empty_cache()
+    (ref_loss, ref), (loss, grads) = out
+    return (abs(loss - ref_loss) / abs(ref_loss), _worst_rel(grads, ref),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_seq_train(torch, seed, np):
+    """Hyena-125M with every long conv sequence-parallel over a 1-rank mesh
+    (the band_conv route at N2 = 16384) against the plain model. In f32
+    activations, on the first batch (B=4) and dropout mask: loss within 1e-3
+    relative and grads within 1e-3 of each parameter's largest |grad|. Then
+    the bf16 model takes SEQ_WARMUP + SEQ_TIMED steps of the train phase's
+    recipe, schedule and batches; its first step's loss (1e-3 relative) and
+    grads (before the clip) against the plain bf16 model's on the same
+    batch, weights and dropout mask, by ``_noise_grad_check``: bf16
+    rounding noise moves them by more than a 1e-3 share (up to 7e-3 of the
+    largest |grad| in a Dense weight grad), and a control of the plain
+    model with its long convs through torch.fft measures that noise."""
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+    from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    mesh = _seq_mesh(torch)
+    n_steps = SEQ_WARMUP + SEQ_TIMED
+    batches = _train_batches(torch, np, seed, dev, TRAIN_WARMUP + TRAIN_TIMED)[:n_steps]
+    x0, y0 = batches[0]
+    torch.cuda.empty_cache()
+    f32_loss_err, f32_grad_err, f32_peak = _seq_route_f32(torch, seed, dev, mesh, x0, y0)
+    log(f"seq_train: f32, B={B}, dropout on, seq route vs plain model: loss rel err "
+        f"{f32_loss_err:.3e} (tol 1e-3), max |dgrad| / max |grad| {f32_grad_err[0]:.3e} "
+        f"({f32_grad_err[1]}), tol 1e-3; peak memory {f32_peak / 2**30:.2f} GiB")
+    if not (f32_loss_err <= 1e-3 and f32_grad_err[0] <= 1e-3):
+        raise AssertionError(f"f32 seq route disagrees: {f32_loss_err}, {f32_grad_err}")
+    ref = _hyena_125m(torch, seed, dev).train()
+    torch.manual_seed(seed)
+    ref_loss = cross_entropy(ref(x0), y0)
+    ref_loss.backward()
+    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    ref_loss = float(ref_loss)
+    del ref
+    ctl = _hyena_125m(torch, seed, dev, mixer_kwargs={"impl": "fft"}).train()
+    torch.manual_seed(seed)
+    ctl_loss = cross_entropy(ctl(x0), y0)
+    ctl_loss.backward()
+    noise = {n: float((p.grad - ref_grads[n]).abs().max()) for n, p in ctl.named_parameters()}
+    ctl_loss = float(ctl_loss)
+    del ctl
+    torch.cuda.empty_cache()
+
+    model = _hyena_125m(torch, seed, dev, mixer_kwargs={"seq_mesh": mesh, "seq_axis": "sp"})
+    model.train()
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2,
+                              steps=TRAIN_WARMUP + TRAIN_TIMED)
+    step = make_train_step(model, opt, sched, clip=1.0)
+    counters = _counters(SEQ_TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.manual_seed(seed)
+    losses, step_ms, per_step, grad_err = [], [], [], None
+    try:
+        for i, (x, y) in enumerate(batches):
+            before = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(x, y)
+            loss = float(out["loss"])  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+            if i == 0:  # undo the clip: grad * min(1, 1 / (norm + 1e-6))
+                unclip = max(1.0, float(out["grad_norm"]) + 1e-6)
+                grad_err = _noise_grad_check(
+                    {n: p.grad * unclip for n, p in model.named_parameters()}, ref_grads, noise)
+                del ref_grads
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(f"sequence-parallel Hyena-125M train step ran out of memory: peak "
+                             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB") from e
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    log(f"seq_train: first step against the plain model: loss {losses[0]:.6f} vs {ref_loss:.6f} "
+        f"(rel err {loss_err:.3e}, tol 1e-3; the torch.fft control {ctl_loss:.6f}); grads: worst "
+        f"max |dgrad| / (1e-3 max |grad| + 2 control) {grad_err['worst'][0]:.3f} "
+        f"({grad_err['worst'][1]}, tol 1), max |dgrad| / max |grad| "
+        f"{grad_err['worst_rel'][0]:.3e} ({grad_err['worst_rel'][1]}), max |dgrad| / control "
+        f"{grad_err['worst_vs_control'][0]:.3f} ({grad_err['worst_vs_control'][1]})")
+    if not loss_err <= 1e-3:
+        raise AssertionError(f"seq_train first loss {losses[0]} != plain {ref_loss}")
+    if not grad_err["worst"][0] <= 1.0:
+        raise AssertionError(f"seq_train grads disagree with the plain model's: {grad_err}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != SEQ_TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {SEQ_TRAIN_LAUNCHES}")
+    timed = step_ms[SEQ_WARMUP:]
+    med = float(np.median(timed))
+    res = {"steps": n_steps, "world_size": 1, "band": SEQ_N2, "losses": losses,
+           "step_ms": step_ms, "step_ms_median": med, "step_ms_max": max(timed),
+           "tokens_per_s": B * L_MAX / (med / 1e3), "launches": launches,
+           "peak_memory_bytes": peak, "f32_loss_rel_err": f32_loss_err,
+           "f32_grad_max_rel_err": f32_grad_err[0], "f32_grad_worst_param": f32_grad_err[1],
+           "f32_peak_memory_bytes": f32_peak, "first_loss_rel_err": loss_err,
+           "control_loss": ctl_loss, "first_grad_check": grad_err}
+    log(f"seq_train: Hyena-125M B={B} L={L_MAX} bf16 on a 1-rank seq mesh (N2={SEQ_N2}), "
+        f"{n_steps} steps, losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"seq_train: step median {med:.2f} ms max {max(timed):.2f} ms over {SEQ_TIMED} timed "
+        f"steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {per_step[-1]}")
+    del model, step, opt
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1405,6 +1689,7 @@ def _kind(name: str) -> str:
         ("long_dk_finish", ("long_dk_finish_kernel",)),
         ("long_conv", ("long_conv_kernel",)),
         ("long_spectrum", ("long_spectrum_kernel",)),
+        ("band_conv", ("band_conv_kernel",)),
         ("direct_conv_bwd", ("direct_conv_bwd_kernel",)),
         ("direct_conv", ("direct_conv_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
@@ -1415,6 +1700,7 @@ def _kind(name: str) -> str:
         ("depthwise", ("depthwise_",)),
         ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")),
         ("copy or cast", ("copy_kernel",)),
+        ("collective (nccl)", ("nccl",)),
         ("optimizer (foreach)", ("multi_tensor_apply",)),
     ):
         if any(k in name for k in keys):
@@ -1442,7 +1728,10 @@ def _trace(torch, what, fn):
     unprofiled_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        # "nccl:<collective>" is the profiler's range around a collective's
+        # kernel on the device, not a kernel: counting it doubles NCCL time
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        if on_device and not ev.name.startswith("nccl:"):
             k = kernels.setdefault(ev.name, [0.0, 0])
             k[0] += ev.device_time_total / 1e3 if hasattr(ev, "device_time_total") \
                 else ev.cuda_time_total / 1e3
@@ -1471,7 +1760,9 @@ def _trace(torch, what, fn):
 
 def phase_profile(torch, seed):
     """Device time by kernel over one Hyena-125M serving forward and one
-    train step (dropout on, the examples/lm optimizer)."""
+    train step (dropout on, the examples/lm optimizer), one train step of the
+    same model on a 1-rank sequence mesh, then one HyenaDNA forward and
+    train step and one M2-BERT forward and train step."""
     from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
 
     model = _hyena_125m(torch, seed, "cuda")
@@ -1484,6 +1775,13 @@ def phase_profile(torch, seed):
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
     step = make_train_step(model.train(), opt, sched, clip=1.0)
     res["train_step"] = _trace(torch, "one train step", lambda: step(x, y))
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    model = _hyena_125m(torch, seed, "cuda", {"seq_mesh": _seq_mesh(torch), "seq_axis": "sp"})
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
+    step = make_train_step(model.train(), opt, sched, clip=1.0)
+    res["seq_train_step"] = _trace(torch, "one train step on a 1-rank sequence mesh",
+                                   lambda: step(x, y))
     del model, opt, sched, step
     torch.cuda.empty_cache()
     from flashfftconv_tpu_torch.models import dna
@@ -1650,7 +1948,7 @@ def phase_timing(torch, g):
         )
     del k, u, x, k_f, dout, parts, dy, dy_full
     torch.cuda.empty_cache()
-    for rows in (_time_direct(torch, g), _time_long(torch, g)):
+    for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g)):
         if set(rows) & set(res):
             raise AssertionError(f"timing rows named twice: {sorted(set(rows) & set(res))}")
         res.update(rows)
@@ -1667,10 +1965,9 @@ def phase_timing(torch, g):
 
 def _time_direct(torch, g):
     """The direct kernels at the M2-BERT path's shape (B=128, H=768, L=128,
-    N=256, bf16, ungated), and the Monarch kernels beside them at that shape
-    and at N=512, L=256. Both routes compute one function, so their rows
-    share one bound: its inputs read once and its outputs written once,
-    against the f32 operations the function needs with FFTs, counted as in
+    N=256, bf16, ungated) and at N=512, L=256. The bound counts what the
+    function needs: its inputs read once and its outputs written once,
+    against the f32 operations of the same function with FFTs, counted as in
     phase_timing. The direct kernels' dense transforms (M = N/2; 2 L M
     operations a row a transform, the folded half-spectrum DFT and inverse)
     are the design's own work, reported apart as design_ops_ms."""
@@ -1723,20 +2020,6 @@ def _time_direct(torch, g):
                 bound=_bound(3 * io + 2 * spec, bwd_ops),
                 design_ops_ms=rows * (6 * length * m + 30 * m) / F32_FLOPS * 1e3,
             )
-            res[f"monarch_conv@{n}"] = dict(
-                ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv(plan, u, k_f)),
-                plain_ms=_time_ms(torch, lambda: monarch.conv_with_spectrum(plan, u, k_f), iters=5),
-                library_ms=_time_ms(torch, fft_conv),
-                bound=_bound(2 * io + spec, fwd_ops),
-            )
-            res[f"monarch_conv_bwd@{n}"] = dict(
-                ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv_bwd(plan, u, k_f, None, None,
-                                                                          dout)),
-                plain_ms=_time_ms(torch, lambda: monarch.conv_bwd_plain(plan, u, k_f, None, None,
-                                                                        dout), iters=5),
-                library_ms=_time_ms(torch, fft_bwd),
-                bound=_bound(3 * io + 2 * spec, bwd_ops),
-            )
             if n == BERT_N_FFT:
                 # The whole direct backward of one conv as FftConvFunction runs
                 # it: spectrum of the taps, direct_conv_bwd, dk_finish; u, dout
@@ -1768,6 +2051,34 @@ def _time_direct(torch, g):
                     design_ops_ms=rows * (6 * length * m + 30 * m) / F32_FLOPS * 1e3,
                 )
             del u, dout, k, k_f
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_band(torch, g):
+    """band_conv at the seq_train path's shape (B=4, H=768, N2=16384,
+    complex64). The function reads the bands and the spectrum once and
+    writes the bands once, and needs two N2-point complex FFTs a row (radix-2
+    line DFTs and the twiddles between the kernel plan's stages, as
+    _fft_flops counts them) and the complex product (6 a point)."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    plan = make_plan(2 * SEQ_N2, torch.float32, device=dev)
+    gd = torch.Generator(device=dev).manual_seed(g.initial_seed())
+    b = torch.randn(B, D_MODEL, SEQ_N2, dtype=torch.complex64, device=dev, generator=gd)
+    k_f = torch.randn(D_MODEL, SEQ_N2, dtype=torch.complex64, device=dev, generator=gd)
+    nbytes = b.numel() * 8 * 2 + k_f.numel() * 8
+    flops = B * D_MODEL * (2 * _fft_flops(SEQ_N2, plan.n_stages) + 6 * SEQ_N2)
+    with torch.inference_mode():
+        res = {"band_conv": dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.band_conv(plan, b, k_f)),
+            plain_ms=_time_ms(torch, lambda: monarch.band_conv_plain(plan, b, k_f), iters=5),
+            library_ms=_time_ms(torch, lambda: torch.fft.ifft(torch.fft.fft(b) * k_f)),
+            bound=_bound(nbytes, flops),
+        )}
+    del b, k_f
     torch.cuda.empty_cache()
     return res
 
@@ -1948,6 +2259,8 @@ def main() -> int:
         results["serve"] = phase_serve(torch, args.seed, np)
     if "train" in phases:
         results["train"] = phase_train(torch, args.seed, np)
+    if "seq_train" in phases:
+        results["seq_train"] = phase_seq_train(torch, args.seed, np)
     if "parity" in phases:
         results["parity"] = phase_parity(torch, args.seed)
     if "grad_parity" in phases:
@@ -1968,6 +2281,8 @@ def main() -> int:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:
         results["profile"] = phase_profile(torch, args.seed)
+    if _MESH:
+        torch.distributed.destroy_process_group()
 
     results["versions"] = {"python": sys.version.split()[0], "torch": torch.__version__,
                            "cuda": torch.version.cuda}

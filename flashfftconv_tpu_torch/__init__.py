@@ -7,7 +7,10 @@ with the train step of the JAX package's ``examples/lm`` recipe. From FFT
 size 65536 to 4194304 forward and backward run through the butterfly,
 band-conv, long-spectrum, band-backward and dk-finish kernels (``models.dna``
 serves and trains HyenaDNA on them); up to FFT size 512 the direct-DFT
-kernels do (``models.bert`` serves and trains M2-BERT on them). Public API
+kernels do (``models.bert`` serves and trains M2-BERT on them). The
+sequence-parallel FFT conv (``parallel.seq_conv``) shards one conv over the
+ranks of a ``torch.distributed`` mesh, its band conv on the ``band_conv``
+kernel, and ``HyenaOperator(seq_mesh=...)`` trains on it. Public API
 parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """

@@ -22,7 +22,9 @@
 // {kp, F - kp} of both signals of one (b, h) row: four shared-memory rows,
 // 4 x 33 KB = 132 KB at R = 4096, so one block an SM; it runs 512 threads to
 // keep as many warps in flight as the forward's two blocks of 256. R = 8192
-// (264 KB) does not fit and is refused; the default plans all have R = 4096.
+// (264 KB) does not fit and is refused; the default plans all have R = 4096,
+// and a custom plan with R = 8192 runs its backward under the default plan
+// of its size (ops/monarch_cuda.bwd_plan).
 // The block runs the R-point FFTs of all four rows, then one pass over the
 // frequency pairs: split U and G, store P[k] = G conj(U) and P[M - k], unsplit
 // G conj(K) into G's rows and, when y is wanted, U K into U's rows; then the

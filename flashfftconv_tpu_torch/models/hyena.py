@@ -16,6 +16,14 @@ backward's band arrays and dk spectrum cover H/chunks channels at a time),
 gate-multiply -> out-projection tail in L-chunks, each chunk under
 ``torch.utils.checkpoint`` as the JAX scan-of-remat is, with the short
 filter's K-1 halo carried between chunks) and ``proj_out_f32``.
+
+With ``seq_mesh`` (a ``DeviceMesh`` whose ``seq_axis`` dimension carries the
+sequence) the operator is sequence-parallel: each rank passes its chunk
+(B, L/P, D) of the sequence and gets its chunk of the output. The long conv
+is ``parallel.seq_conv.seq_fft_conv_padded`` at FFT size 2*l_max, every rank
+computing the full filter taps from the same weights; the short conv's
+history is the previous rank's last K-1 in-projection columns
+(``seq_halo``), zeros on rank 0.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from flashfftconv_tpu_torch.models.layers import Dense, uniform, zeros
 from flashfftconv_tpu_torch.ops import dispatch
 from flashfftconv_tpu_torch.ops.depthwise import depthwise_conv1d
 from flashfftconv_tpu_torch.ops.plan import get_plan, resolve_device
+from flashfftconv_tpu_torch.parallel.seq_conv import seq_fft_conv_padded, seq_halo
 
 
 class ShortDepthwiseConv(nn.Module):
@@ -69,9 +78,10 @@ class HyenaOperator(nn.Module):
     ``short_filter_impl`` the short one ('auto' | 'cuda' | 'plain').
     ``conv_h_chunks`` takes effect when it divides d_model and
     ``proj_l_chunks`` when it divides L, as in the JAX module;
-    ``proj_out_f32`` acts on the chunked tail only. The JAX module's
-    sequence-sharded mode is not ported: ``seq_mesh`` raises
-    NotImplementedError.
+    ``proj_out_f32`` acts on the chunked tail only. ``seq_mesh`` and
+    ``seq_axis`` make it sequence-parallel (module docstring); ``impl`` then
+    does not apply, as in the JAX module, nor ``conv_dtype``: the sequence-
+    parallel conv computes in f32.
     """
 
     def __init__(self, d_model, l_max, order=2, filter_order=64, dropout=0.0,
@@ -81,9 +91,8 @@ class HyenaOperator(nn.Module):
                  filter_output_dtype=None, proj_l_chunks=0, proj_out_f32=False,
                  device="cuda", generator=None):
         super().__init__()
-        if seq_mesh is not None:
-            raise NotImplementedError("HyenaOperator(seq_mesh=...) is not ported yet")
-        del seq_axis
+        self.seq_mesh = seq_mesh
+        self.seq_axis = seq_axis
         self.conv_h_chunks = conv_h_chunks
         self.filter_output_dtype = filter_output_dtype
         self.proj_l_chunks = proj_l_chunks
@@ -114,11 +123,18 @@ class HyenaOperator(nn.Module):
     def _conv(self, plan, v, k):
         """The long conv, in ``conv_h_chunks`` sequential channel blocks when
         that divides d_model (depthwise, so exact)."""
+        if self.seq_mesh is not None:
+            def conv(x, kk):
+                return seq_fft_conv_padded(x, kk, self.seq_mesh, seqlen=2 * self.l_max,
+                                           axis=self.seq_axis)
+        else:
+            def conv(x, kk):
+                return dispatch.fft_conv(plan, x, kk, impl=self.impl)
         c = self.conv_h_chunks
         if not (c > 1 and self.d_model % c == 0):
-            return dispatch.fft_conv(plan, v, k, impl=self.impl)
-        return torch.cat([dispatch.fft_conv(plan, vc, kc, impl=self.impl)
-                          for vc, kc in zip(v.chunk(c, dim=1), k.chunk(c, dim=0))], dim=1)
+            return conv(v, k)
+        return torch.cat([conv(vc, kc) for vc, kc in zip(v.chunk(c, dim=1), k.chunk(c, dim=0))],
+                         dim=1)
 
     def _in_proj(self, u):  # (B, D, L) -> (B, inner, L)
         x = torch.matmul(self.in_proj.to(u.dtype), u)
@@ -143,16 +159,22 @@ class HyenaOperator(nn.Module):
 
     def forward(self, u):
         b, l, d = u.shape
-        l_filter = min(l, self.l_max)
-        plan = get_plan(2 * self.l_max, self.conv_dtype, u.device)
+        seq = self.seq_mesh is not None
+        # under a seq mesh u is this rank's chunk of a sequence P times longer
+        l_global = l * self.seq_mesh.get_group(self.seq_axis).size() if seq else l
+        l_filter = min(l_global, self.l_max)
+        plan = None if seq else get_plan(2 * self.l_max, self.conv_dtype, u.device)
         c = self.proj_l_chunks
         chunked = c > 1 and l % c == 0
         ut = u.transpose(1, 2)  # (B, D, L)
+        k1 = self.short_filter.weights.shape[1] - 1
         if chunked:
             # The carry makes the causal conv over [carry, chunk] equal the
             # unchunked padding=(K-1, 0) conv (zero carry = the left zero pad).
-            k1 = self.short_filter.weights.shape[1] - 1
-            carry = torch.zeros(b, self.in_proj.shape[0], k1, dtype=u.dtype, device=u.device)
+            if seq:  # the previous rank's last K-1 in-projection columns
+                carry = seq_halo(self._in_proj(ut[..., l - k1:]), self.seq_mesh, self.seq_axis)
+            else:
+                carry = torch.zeros(b, self.in_proj.shape[0], k1, dtype=u.dtype, device=u.device)
             parts = []
             for u_c in ut.chunk(c, dim=2):
                 carry, *streams = checkpoint(self._seg_a, carry, u_c, use_reentrant=False)
@@ -160,7 +182,12 @@ class HyenaOperator(nn.Module):
             *gates, v = (torch.cat(stream, dim=2) for stream in zip(*parts))
         else:
             # causal: padding (K-1, 0) then cut to l
-            x = self.short_filter(self._in_proj(ut))[..., :l]
+            x = self._in_proj(ut)
+            if seq:
+                x = self.short_filter(
+                    x, history=seq_halo(x[..., l - k1:], self.seq_mesh, self.seq_axis))
+            else:
+                x = self.short_filter(x)[..., :l]
             *gates, v = x.split(d, dim=1)
 
         k = self.filter(l_filter)  # (1, L, (order-1)*D), f32

@@ -25,7 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd",
-           "butterfly", "long_conv", "long_spectrum", "long_conv_bwd", "direct_conv")
+           "butterfly", "long_conv", "long_spectrum", "long_conv_bwd", "direct_conv",
+           "band_conv")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # {library: {function: argtypes}}; every function returns a CUDA error code
 # (an int). Pointers first, then the int sizes, then the stream.
@@ -45,6 +46,7 @@ SIGNATURES = {
                       "ffc_long_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
     "direct_conv": {"ffc_direct_conv": [_P] * 6 + [_I] * 5 + [_P],
                     "ffc_direct_conv_bwd": [_P] * 10 + [_I] * 5 + [_P]},
+    "band_conv": {"ffc_band_conv": [_P] * 5 + [_I] * 8 + [_P]},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

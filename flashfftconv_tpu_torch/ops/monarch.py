@@ -29,6 +29,12 @@ of the ``direct_conv`` and ``direct_conv_bwd`` kernels, dense f32 products
 over the L input samples and the N/2+1 frequencies with entries taken from
 ``plan.direct_roots`` at the exact index (f * t) mod N.
 
+``cfft_plain`` and ``icfft_plain`` are the plan's complex M-point DFT and
+its inverse in natural order (the outer stage and the bands' stages for a
+long plan). ``band_conv_plain``, the plain version of the ``band_conv``
+kernel, is the M-point circular conv of a general complex signal with a full
+complex spectrum: the band conv of the sequence-parallel FFT conv.
+
 All math is complex64 (f32 real and imaginary parts). ``conv_bwd_plain``
 and ``dk_finish_plain`` are the backward, the CPU path's and the backward
 kernels' oracle at every size. ``fft_conv_reference`` is the ``torch.fft`` oracle and
@@ -234,23 +240,44 @@ def long_spectrum_plain(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
     return _split(plan, _bands_to_natural(plan, monarch_dft(plan.sub, butterfly_plain(plan, k))))
 
 
+def cfft_plain(plan: FftPlan, z: torch.Tensor) -> torch.Tensor:
+    """Complex (..., M) -> its M-point DFT (..., M), natural order in and out
+    (== torch.fft.fft(z)), through the plan's Monarch stages (the outer DFT
+    and the bands' stages for a long plan)."""
+    if plan.n_outer:
+        return _bands_to_natural(plan, monarch_dft(plan.sub, _outer_dft(plan, z)))
+    return kf_unpermute(monarch_dft(plan, z), plan.factors)
+
+
+def icfft_plain(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``cfft_plain``, with 1/M (== torch.fft.ifft(x))."""
+    if plan.n_outer:
+        return _outer_idft(plan, monarch_idft(plan.sub, _natural_to_bands(plan, x)))
+    return monarch_idft(plan, kf_permute(x, plan.factors))
+
+
+def band_conv_plain(
+    plan: FftPlan, b: torch.Tensor, k_f: torch.Tensor, conj: bool = False
+) -> torch.Tensor:
+    """The plain version of the ``band_conv`` kernel: for complex b (..., H,
+    M) and a full complex spectrum k_f (H, M) in natural order, the M-point
+    circular conv ``ifft(fft(b) * k_f)`` (``conj(k_f)`` with ``conj``), M =
+    ``plan.inner``, complex64. No Hermitian symmetry is assumed: a band of
+    the sequence-parallel conv is a general complex signal."""
+    k_f = k_f.conj() if conj else k_f
+    return icfft_plain(plan, cfft_plain(plan, b.to(torch.complex64)) * k_f)
+
+
 def rfft_plain(plan: FftPlan, x: torch.Tensor) -> torch.Tensor:
     """Real (..., L <= N) -> complex64 half spectrum (..., M+1) of the
     zero-padded signal, natural order (== torch.fft.rfft(x, n=N))."""
-    if plan.n_outer:
-        return long_spectrum_plain(plan, x)
-    z_f = kf_unpermute(monarch_dft(plan, _pack(x, plan.seqlen)), plan.factors)
-    return _split(plan, z_f)
+    return _split(plan, cfft_plain(plan, _pack(x, plan.seqlen)))
 
 
 def irfft_plain(plan: FftPlan, y: torch.Tensor) -> torch.Tensor:
     """Half spectrum (..., M+1) -> real f32 signal (..., N)
     (== torch.fft.irfft(y, n=N))."""
-    if plan.n_outer:
-        z = monarch_idft(plan.sub, _natural_to_bands(plan, _unsplit(plan, y)))
-        return butterfly_inverse_plain(plan, z, plan.seqlen)
-    z = monarch_idft(plan, kf_permute(_unsplit(plan, y), plan.factors))
-    return _unpack(z)
+    return _unpack(icfft_plain(plan, _unsplit(plan, y)))
 
 
 def kernel_spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,18 @@ Up to FFT size 512 (``plan.direct``) a conv is one dense DFT a row:
 ``_direct_bwd_fused_io_tiles``; its dk spectrum comes summed over the batch,
 (1, H, M+1), for ``dk_finish``.
 
+A plan whose band exceeds ``MAX_BWD_BAND`` (a custom split with R = 8192)
+runs its long backward under ``bwd_plan(plan)``, the default plan of the
+same size, as the JAX package's ``_bwd_plan`` lets a backward run under
+factors of its own: k_f and the dk partials are in natural order, so the
+function is the same.
+
+``band_conv`` (csrc/band_conv.cu) replaces ``_conv_tiles`` in its complex
+contract: the complex band conv ``ifft(fft(b) * k_f)`` of the
+sequence-parallel FFT conv (``parallel/seq_conv.py``) for bands of 16 to
+16384 points, with a ``conj`` flag for its backward; ``BandConvFunction`` is
+its autograd Function.
+
 ``FftConvFunction`` runs ``spectrum`` and then ``direct_conv`` up to 512,
 ``monarch_conv`` up to 32768, and ``long_spectrum`` and ``long_conv`` from
 65536 up; in its backward it recomputes the spectrum and runs
@@ -48,11 +60,20 @@ from __future__ import annotations
 import torch
 
 from flashfftconv_tpu_torch.ops import _build, monarch
-from flashfftconv_tpu_torch.ops.plan import DIRECT_MAX, MAX_FACTOR, MAX_FUSED_SEQLEN, FftPlan
+from flashfftconv_tpu_torch.ops.plan import (
+    DIRECT_MAX,
+    MAX_FACTOR,
+    MAX_FUSED_SEQLEN,
+    FftPlan,
+    get_plan,
+)
 
 # Longest band of the long backward kernel: it holds the band pairs of two
 # signals, four rows, in one block's shared memory (132 KB at 4096).
 MAX_BWD_BAND = 4096
+# Longest band of the band_conv kernel: one row of N2 complex points in one
+# block's shared memory (kBandConvMax in csrc/band_conv.cu).
+BAND_CONV_MAX = 16384
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -527,7 +548,8 @@ def long_conv_bwd_inner(
     if plan.band > MAX_BWD_BAND:
         raise ValueError(
             f"the long backward kernel takes bands of at most {MAX_BWD_BAND} points, the plan's "
-            f"factors {plan.factors} give {plan.band}"
+            f"factors {plan.factors} give {plan.band}; long_conv_bwd runs such a plan's "
+            f"backward under bwd_plan(plan)"
         )
     _check_bands(plan, "zu", zu)
     _check_bands(plan, "zg", zg)
@@ -590,6 +612,18 @@ def long_dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.T
 long_dk_finish.launches = 0
 
 
+def bwd_plan(plan: FftPlan) -> FftPlan:
+    """The plan a long backward runs under: ``plan`` itself when its band
+    fits the backward kernel (``MAX_BWD_BAND``), else the cached default
+    plan of the same seqlen and dtype (band ``LONG_BAND`` = 4096), as the JAX
+    package's ``_bwd_plan`` lets a backward run under factors of its own.
+    k_f and the dk partials are in natural order, so the function is the
+    same under either plan."""
+    if not plan.n_outer or plan.band <= MAX_BWD_BAND:
+        return plan
+    return get_plan(plan.seqlen, plan.dtype, plan.device)
+
+
 def long_conv_bwd(
     plan: FftPlan,
     u: torch.Tensor,
@@ -603,13 +637,15 @@ def long_conv_bwd(
     (rounded to u's dtype, as in the forward) and on g = dout * post (f32),
     ``long_conv_bwd_inner`` in place on the two band arrays, and the inverse
     ``butterfly`` of the du bands and, when gated, of the y bands with dout as
-    its gate. The two gate products of du_inner (du = du_inner * pre, dpre =
-    du_inner * u) are elementwise on its f32 samples."""
+    its gate, all under ``bwd_plan(plan)``. The two gate products of du_inner
+    (du = du_inner * pre, dpre = du_inner * u) are elementwise on its f32
+    samples."""
     gated = pregate is not None
     if gated != (postgate is not None):
         raise ValueError("pregate and postgate must both be given or both be None")
     if dout.shape != u.shape:
         raise ValueError(f"dout shape {tuple(dout.shape)} != u shape {tuple(u.shape)}")
+    plan = bwd_plan(plan)
     length = u.shape[-1]
     zu = butterfly(plan, u, pregate)
     zg = butterfly(plan, dout.float() * postgate.float() if gated else dout)
@@ -622,6 +658,71 @@ def long_conv_bwd(
     du = (du_inner * pregate.float()).to(u.dtype)
     dpre = (du_inner * u.float()).to(u.dtype)
     return du, dpre, dpost, partials
+
+
+def band_conv(
+    plan: FftPlan, b: torch.Tensor, k_f: torch.Tensor, conj: bool = False
+) -> torch.Tensor:
+    """The complex band conv of the sequence-parallel FFT conv: for complex64
+    bands b (B, H, N2) and a full complex64 spectrum k_f (H, N2) in natural
+    order, ``ifft(fft(b) * k_f)`` (``conj(k_f)`` with ``conj``), complex64
+    (B, H, N2). ``plan`` is the plan of FFT size 2 * N2 (its inner complex
+    length is N2), N2 from 16 to ``BAND_CONV_MAX``."""
+    if on_cpu(b, k_f):
+        return monarch.band_conv_plain(plan, b, k_f, conj)
+    _check_cuda("b", b, plan.device, (torch.complex64,), 3)
+    bsz, h, n2 = b.shape
+    _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
+    if n2 != plan.inner or k_f.shape != (h, n2):
+        raise ValueError(f"b shape {tuple(b.shape)} and k_f shape {tuple(k_f.shape)} do not "
+                         f"match (B, H, {plan.inner}) and (H, {plan.inner})")
+    if not 16 <= n2 <= BAND_CONV_MAX:
+        raise ValueError(f"band_conv takes bands of 16 to {BAND_CONV_MAX} points, got {n2}")
+    factors = _factor_args(plan)
+    out = torch.empty_like(b)
+    if bsz * h == 0:
+        return out
+    lib = _build.load("band_conv")
+    rc = lib.ffc_band_conv(
+        b.data_ptr(), k_f.data_ptr(), out.data_ptr(), plan.tw_flat.data_ptr(),
+        plan.roots.data_ptr(), bsz * h, h, int(conj), *factors, _stream(b.device),
+    )
+    _build.check(lib, rc, "band_conv kernel")
+    band_conv.launches += 1
+    return out
+
+
+band_conv.launches = 0
+
+
+class BandConvFunction(torch.autograd.Function):
+    """``band_conv`` over b (..., H, N2) with the JAX package's custom VJP
+    (``parallel/seq_conv.py``'s ``_band_conv_bwd``): the map is complex
+    linear, b -> F^-1 diag(k_f) F b, so db is the band conv of dy with
+    conj(k_f), one more ``band_conv`` launch, and dk_f = conj(F b) * (F dy)
+    / N2 summed over the leading axes, its two forward DFTs through the
+    plan's Monarch matmul chain (``monarch.cfft_plain``), as the JAX package
+    computes them in XLA. Saves (b, k_f)."""
+
+    @staticmethod
+    def forward(ctx, plan, b, k_f):
+        ctx.plan = plan
+        ctx.save_for_backward(b, k_f)
+        rows = b.reshape(-1, *b.shape[-2:]).contiguous()
+        return band_conv(plan, rows, k_f.contiguous()).reshape(b.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        b, k_f = ctx.saved_tensors
+        plan = ctx.plan
+        db = dk_f = None
+        if ctx.needs_input_grad[1]:
+            rows = dy.reshape(-1, *dy.shape[-2:]).contiguous()
+            db = band_conv(plan, rows, k_f.contiguous(), conj=True).reshape(b.shape)
+        if ctx.needs_input_grad[2]:
+            prod = monarch.cfft_plain(plan, b).conj() * monarch.cfft_plain(plan, dy)
+            dk_f = prod.reshape(-1, *k_f.shape).sum(0) / plan.inner
+        return None, db, dk_f
 
 
 def _io_dtype(u: torch.Tensor) -> torch.dtype:

@@ -19,6 +19,12 @@ the ``examples/bert`` recipe: clip 1.0, AdamW at lr 8e-4 with weight decay
 accuracy over the masked positions only (``make_train_step(model,
 bert_optimizer(model), loss_fn=mlm_loss)``).
 
+A model whose Hyena mixers run on a sequence mesh (``seq_mesh`` in
+``mixer_kwargs``) takes the same step on every rank of the mesh, each on its
+chunk of the sequence: ``parallel.seq_conv.seq_backward`` runs the backward
+of the global mean loss and sums the replicated parameters' grads over the
+mesh before the clip, so every rank takes the same optimizer step.
+
 The orbax checkpoints, ``auto_save_on_exception`` and ``ProgressiveResizing``
 of the JAX module are not ported yet.
 """
@@ -30,6 +36,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from flashfftconv_tpu_torch.parallel.seq_conv import seq_backward, seq_group
 from flashfftconv_tpu_torch.utils.metrics import accuracy, cross_entropy
 from flashfftconv_tpu_torch.utils.optim import lr_lambda, warmup_cosine_decay_schedule
 
@@ -77,13 +84,18 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     gradients' global norm to ``clip``, optimizer step, schedule step. The
     caller picks ``model.train()`` (dropout on) or ``eval()``. A ``loss_fn``
     that returns (loss, metrics), as ``mlm_loss`` does, adds its metrics to
-    the result."""
+    the result. Under a sequence mesh x and y are the rank's chunks and
+    "loss" is the global mean over every rank's tokens."""
+    group = seq_group(model)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model(x), y)
         loss, metrics = loss if isinstance(loss, tuple) else (loss, {})
-        loss.backward()
+        if group is None:
+            loss.backward()
+        else:
+            loss = seq_backward(model, loss, y.numel(), group)
         grad_norm = torch.nn.utils.clip_grad_norm_(
             [p for p in model.parameters() if p.grad is not None], clip)
         optimizer.step()

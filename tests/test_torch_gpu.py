@@ -435,3 +435,102 @@ def test_cuda_m2_bert_matches_cpu():
     for name, r in grads["cpu"].items():
         err = float((grads["cuda"][name] - r).abs().max())
         assert err <= 1e-4 * float(r.abs().max()) + 1e-8, (name, err)
+
+
+def _band_close(got, ref):
+    """The complex band conv: two f32 complex FFTs (and, from 32768 up, four
+    real convs): within 1e-4 of the largest |y|."""
+    got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()) + 1e-7, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n2", [16, 256, 2048, 16384])
+def test_cuda_band_conv_matches_plain(n2):
+    """band_conv, both conj, against band_conv_plain on complex bands with a
+    nonzero imaginary part; one launch a call; BandConvFunction's grads
+    against the plain chain's autograd."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(2 * n2, torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n2)
+    b = torch.randn(3, 5, n2, dtype=torch.complex64, device=dev, generator=g)
+    k_f = torch.randn(5, n2, dtype=torch.complex64, device=dev, generator=g)
+    for conj in (False, True):
+        n0 = monarch_cuda.band_conv.launches
+        y = monarch_cuda.band_conv(p, b, k_f, conj)
+        torch.cuda.synchronize()
+        assert monarch_cuda.band_conv.launches == n0 + 1
+        _band_close(y, monarch.band_conv_plain(p, b, k_f, conj))
+    dy = torch.randn(b.shape, dtype=torch.complex64, device=dev, generator=g)
+    grads = []
+    for fn in (monarch_cuda.BandConvFunction.apply, monarch.band_conv_plain):
+        xb, xk = b.clone().requires_grad_(), k_f.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(p, xb, xk), (xb, xk), dy))
+    for a, r in zip(*grads):
+        _band_close(a, r)
+
+
+@pytest.fixture(scope="module")
+def seq_mesh():
+    """A 1-rank NCCL sequence mesh over an in-memory store."""
+    _needs_card()
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    yield init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 16384, 65536, 131072])
+def test_cuda_seq_conv_world_size_1_matches_reference(seq_mesh, n):
+    """seq_fft_conv (gated) and seq_fft_conv_padded at world size 1 on the
+    card, output and grads, against the torch.fft oracle: the band_conv
+    kernel up to N2 = 16384, the four real convs above."""
+    from flashfftconv_tpu_torch.parallel import seq_conv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n)
+    t = torch.arange(n, device=dev)
+    u, pre, post = (torch.randn(2, 4, n, device=dev, generator=g) for _ in "abc")
+    k = torch.randn(4, n, device=dev, generator=g) * 0.02 * torch.exp(-t / 1000)
+    n0 = monarch_cuda.band_conv.launches
+    y = seq_conv.seq_fft_conv(u, k, seq_mesh, pregate=pre, postgate=post)
+    assert monarch_cuda.band_conv.launches == n0 + (n <= 16384)
+    ref = monarch.fft_conv_reference(n, u, k, pre, post)
+    _band_close(torch.complex(y, torch.zeros_like(y)), torch.complex(ref, torch.zeros_like(ref)))
+    uh = u[..., : n // 2].clone().requires_grad_()
+    kh = k[:, : n // 3].clone().requires_grad_()
+    y = seq_conv.seq_fft_conv_padded(uh, kh, seq_mesh)
+    ref = monarch.fft_conv_reference(n, uh, kh)
+    dy = torch.randn(y.shape, device=dev, generator=g)
+    pairs = [(y, ref), *zip(torch.autograd.grad(y, (uh, kh), dy),
+                            torch.autograd.grad(ref, (uh, kh), dy))]
+    for a, r in pairs:
+        _band_close(torch.complex(a, torch.zeros_like(a)), torch.complex(r, torch.zeros_like(r)))
+
+
+@pytest.mark.gpu
+def test_cuda_long_backward_of_a_band_8192_plan():
+    """A plan of FFT size 131072 with an 8192-point band: its backward on the
+    card no longer raises (it runs under bwd_plan, band 4096) and matches
+    the plain backward (conv_bwd_plain, dk_finish_plain)."""
+    _needs_card()
+    dev = torch.device("cuda")
+    n = 131072
+    p = tplan.make_plan(n, torch.float32, device=dev, factors=(8, 32, 16, 16))
+    assert p.band == 8192
+    g = torch.Generator(device=dev).manual_seed(8192)
+    u, pre, post, dout = (torch.randn(2, 3, n // 2, device=dev, generator=g) for _ in "abcd")
+    k = torch.randn(3, n // 2, device=dev, generator=g) * 0.02
+    ts = [a.clone().requires_grad_() for a in (u, k, pre, post)]
+    n0 = monarch_cuda.long_conv_bwd_inner.launches
+    got = torch.autograd.grad(tff.fft_conv(p, *ts), ts, dout)
+    assert monarch_cuda.long_conv_bwd_inner.launches == n0 + 1
+    k_f = monarch.kernel_spectrum(p, k)
+    du, dpre, dpost, parts = monarch.conv_bwd_plain(p, u, k_f, pre, post, dout)
+    for a, r in zip(got, (du, monarch.dk_finish_plain(p, parts, k.shape[-1]), dpre, dpost)):
+        _close(a, r, torch.float32)

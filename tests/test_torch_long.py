@@ -357,8 +357,12 @@ def test_long_backward_stages_compose_to_conv_bwd_plain(n, factors, gated):
                            want[2])
     else:
         assert torch.equal(du_inner.bfloat16(), want[0]) and want[1] is None and want[2] is None
+    # a band above MAX_BWD_BAND (this 131072 split has 8192) runs its whole
+    # backward under bwd_plan(p), the default plan of its size
+    q = monarch_cuda.bwd_plan(p)
+    want_q = want if q is p else monarch.conv_bwd_plain(q, u, k_f, pre, post, d)
     got = monarch_cuda.long_conv_bwd(p, u, k_f, pre, post, d)
-    assert all(torch.equal(a, r) for a, r in zip(got, want) if r is not None)
+    assert all(torch.equal(a, r) for a, r in zip(got, want_q) if r is not None)
     dk = monarch.long_dk_finish_plain(p, partials, k_len)
     assert dk.shape == (2, k_len) and torch.equal(dk, monarch.dk_finish_plain(p, want[3], k_len))
     assert torch.equal(dk, monarch_cuda.long_dk_finish(p, partials, k_len))
@@ -391,6 +395,43 @@ def test_fft_conv_function_backward_takes_the_long_route():
             setattr(monarch_cuda, name, fn)
     for a, b in zip(ts, frozen):
         assert b.grad is None or torch.equal(a.grad, b.grad)
+
+
+def test_long_backward_of_a_band_8192_plan_matches_jax(monkeypatch):
+    """A custom plan of FFT size 131072 with an 8192-point band (factors
+    (8, 32, 16, 16)) runs its forward under its own factors and its backward
+    under bwd_plan, the default plan of that size (band 4096: the backward
+    kernel holds four bands of at most 4096 points), as the JAX package's
+    _bwd_plan lets a backward run under factors of its own. Output and the
+    grads of u, k and the gates against fft_conv_pallas and its jax.grad at
+    1e-4 of max(1, largest |value|)."""
+    import jax
+
+    n = 131072
+    p = tplan.make_plan(n, torch.float32, device=CPU, factors=(8, 32, 16, 16))
+    assert p.band == 8192 and monarch_cuda.bwd_plan(p).band == monarch_cuda.MAX_BWD_BAND
+    assert monarch_cuda.bwd_plan(monarch_cuda.bwd_plan(p)) is monarch_cuda.bwd_plan(p)
+    bands = []
+    inner = monarch.long_conv_bwd_inner_plain
+    monkeypatch.setattr(monarch, "long_conv_bwd_inner_plain",
+                        lambda plan, *a, **kw: bands.append(plan.band) or inner(plan, *a, **kw))
+    rng = np.random.default_rng(81)
+    u, k, gates = _conv_data(rng, n, 1, 2, n // 2, True)
+    dout = rng.standard_normal(u.shape).astype(np.float32)
+    jp = jff.make_plan(n, compute_dtype=jnp.float32)
+    args = [jnp.asarray(a) for a in (u, k, *gates)]
+    y_ref = _np(mp.fft_conv_pallas(jp, *args))
+    want = jax.jit(jax.grad(lambda *a: jnp.sum(mp.fft_conv_pallas(jp, *a) * dout),
+                            argnums=(0, 1, 2, 3)))(*args)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (u, k, *gates)]
+    y = tff.fft_conv(p, *ts)
+    np.testing.assert_allclose(y.detach().numpy(), y_ref, atol=1e-4 * max(1.0, np.abs(y_ref).max()))
+    got = torch.autograd.grad(y, ts, torch.from_numpy(dout))
+    assert bands == [4096]
+    for name, a, r in zip(("u", "k", "pre", "post"), got, want):
+        r = _np(r)
+        np.testing.assert_allclose(a.numpy(), r, atol=1e-4 * max(1.0, np.abs(r).max()),
+                                   err_msg=name)
 
 
 def test_long_backward_wrappers_refuse_bad_inputs():

@@ -207,7 +207,7 @@ _OP = dict(d_model=8, l_max=64, device=CPU)
 
 
 @pytest.mark.parametrize("make", [
-    lambda: HyenaOperator(**_OP, seq_mesh=object()),
+    lambda: Block(8, 16, mixer="h3", mixer_kwargs={"l_max": 64}, device=CPU),
     lambda: Block(8, 16, mixer="m2", mixer_kwargs={"l_max": 64}, device=CPU),
     lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, moe_kwargs={"n_experts": 2}, device=CPU),
     lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, mlp_nblocks=2, device=CPU),

@@ -191,6 +191,50 @@ def test_conv_any_shape(b, h, length, k_len):
     np.testing.assert_allclose(got.numpy(), y_ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fallback_shape_matches_jax_tile_kernels(monkeypatch, dtype):
+    """N = 2048 (JAX factors (16, 128)), B = 3, H = 5, L = 1000: odd B, no
+    channel tile and L % n2 != 0 send fft_conv_pallas to its tile kernels,
+    _conv_tiles (real I/O) forward and _bwd_tiles backward, in interpret
+    mode (spies assert they ran). The port's FftConvFunction computes their
+    function at this shape (monarch_conv and monarch_conv_bwd, plain on the
+    CPU): output and grads of u, k and the gates at the module docstring's
+    f32 and bf16 tolerances."""
+    n, b, h, length = 2048, 3, 5, 1000
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jp = jff.make_plan(n, compute_dtype=jdt)
+    assert jp.factors == (16, 128) and monarch_pallas._h_tile(*jp.factors, h) is None
+    calls = {"_conv_tiles": 0, "_bwd_tiles": 0}
+    for name in calls:
+        orig = getattr(monarch_pallas, name)
+
+        def spy(*a, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(monarch_pallas, name, spy)
+    low = dtype == torch.bfloat16
+    u, k, gates = _conv_data(np.random.default_rng(60 + low), b, h, length, length, True,
+                             y_max=0.5 if low else None)
+    dout = np.random.default_rng(61).standard_normal(u.shape).astype(np.float32)
+    cast = lambda a: jnp.asarray(a, jdt)
+    jargs = [cast(u), jnp.asarray(k), *map(cast, gates)]
+    y_ref = _np(monarch_pallas.fft_conv_pallas(jp, *jargs).astype(jnp.float32))
+    want = jax.jit(jax.grad(
+        lambda *a: jnp.sum((monarch_pallas.fft_conv_pallas(jp, *a) * cast(dout))
+                           .astype(jnp.float32)), argnums=(0, 1, 2, 3)))(*jargs)
+    assert calls == {"_conv_tiles": 2, "_bwd_tiles": 1}
+    p = tplan.make_plan(n, dtype, device=CPU)
+    ts = [torch.from_numpy(_np(a)) for a in jargs]
+    ts = [(t if i == 1 else t.to(dtype)).requires_grad_() for i, t in enumerate(ts)]
+    y = tff.fft_conv(p, *ts)
+    tol = 1e-2 if low else 1e-4
+    np.testing.assert_allclose(y.detach().float().numpy(), y_ref,
+                               atol=tol * max(1.0, np.abs(y_ref).max()))
+    got = torch.autograd.grad(y, ts, torch.from_numpy(_np(cast(dout))).to(dtype))
+    _assert_grads_close(got, want, tol, "u k pre post".split())
+
+
 def test_conv_reference_matches_jax_reference():
     u, k, gates = _conv_data(np.random.default_rng(3), 2, 4, 700, 300, True)
     y_ref = _np(jff.fft_conv_reference(2048, *(jnp.asarray(a) for a in (u, k, *gates))))
