@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with an H100:
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
                           [--phases build,identity,kernels,serve,train,seq_train,parity,
                                     grad_parity,dna,dna_train,long_parity,bert,bert_train,
-                                    bert_parity,timing[,profile]]
+                                    bert_parity,gpt_serve,gpt_train,gpt_parity,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -19,6 +19,11 @@ Phases, each of which fails the run by raising:
             shape and N2 = 16, 256, 2048, the four-real-conv band route at
             N2 = 32768 and 131072, and the sequence-parallel conv at world
             size 1 (gated, padded, with grads) against the torch.fft oracle;
+            the three flash-attention kernels (forward, dK/dV, dQ) against
+            their plain versions at the GPT-2 shape (B=8, H=12, L=1024, D=64,
+            f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
+            non-causal, with an ALiBi bias (and its grad), with segment ids
+            from pack_sequences, and two backwards bit for bit;
   serve     builds Hyena-125M (12 layers, d_model 768, l_max 8192, vocab
             50257, bf16, random weights from --seed) and answers 4 requests
             (prompts of 512..4096 tokens, 8 new tokens each, greedy) through
@@ -94,6 +99,29 @@ Phases, each of which fails the run by raising:
             (plain versions): logits within 2e-3, masked-LM grads within 1e-3
             of each parameter's largest |grad|, and a second backward on the
             card gives the same grads bit for bit (but the embedding tables');
+  gpt_serve builds GPT-2 124M (12 layers, d_model 768, 12 heads, l_max 1024,
+            vocab 50257, bf16, random weights from --seed) and answers 4
+            requests (prompts of 128, 256, 512 and 1000 tokens, 8 greedy new
+            tokens each) through utils.generation.generate_kv (KV-cached
+            decode, plain attention over the cache), then 1 warm-up and 5
+            timed scoring forwards at B=8, L=1024 through the flash-attention
+            kernel; checks finite logits, exactly 12 flash_attn_fwd launches a
+            forward, and one request's decode-step logits with an f32 cache
+            against the full forward's at the same positions (the bf16
+            cache's deviation is printed beside); prints forward time,
+            tokens/s and peak memory;
+  gpt_train trains the same model (B=16, L=1024, bf16 activations, f32
+            attention and master weights, embedding dropout 0.1) on the byte
+            ids of the repo's Python sources: 2 warm-up and 5 timed steps of
+            the examples/lm recipe (AdamW lr 3e-4 with 2 warm-up steps, weight
+            decay 0.1, clip 1.0); checks finite, falling loss and exactly 12
+            launches of each attention kernel a step; prints step time,
+            tokens/s and peak memory;
+  gpt_parity  a 2-layer f32 GPT (d_model 256, 4 heads of 64, l_max 1024) with
+            the same weights on the card (attention kernels) and on the CPU
+            (plain versions): logits within 2e-3, grads within 1e-3 of each
+            parameter's largest |grad|, and a second backward on the card bit
+            for bit (but the embedding table's);
   timing    times each kernel, its plain version and a PyTorch yardstick
             with CUDA events at the main paths' shapes;
   profile   (only when named in --phases) traces one Hyena-125M forward
@@ -101,12 +129,13 @@ Phases, each of which fails the run by raising:
             and by kind, and the device's busy share of the wall time; then
             one train step of it on a 1-rank sequence mesh, one HyenaDNA
             forward and one HyenaDNA train step, then one M2-BERT forward and
-            one M2-BERT train step.
+            one M2-BERT train step, then one GPT-2 124M forward and train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
 of the three long forward kernels in the dna phase, those of the two long
 backward kernels in the dna_train phase, those of the direct kernels in the
-bert_train phase, band_conv's in the seq_train phase), the
+bert_train phase, band_conv's in the seq_train phase, those of the
+attention kernels in the gpt_train phase), the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -127,7 +156,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity",
           "grad_parity", "dna", "dna_train", "long_parity", "bert", "bert_train", "bert_parity",
-          "timing")
+          "gpt_serve", "gpt_train", "gpt_parity", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -165,6 +194,14 @@ BERT_REQUESTS = ((1, 128), (8, 100), (32, 128), (128, 128))
 BERT_WARMUP, BERT_TIMED = 1, 5
 BERT_TRAIN_WARMUP, BERT_TRAIN_TIMED = 2, 5
 DIRECT_SIZES = (16, 32, 64, 128, 256, 512)
+
+# GPT-2 124M (the gpt2 checkpoint's geometry, models/gpt.py): one forward runs
+# the attention kernel once a layer.
+GPT_D_MODEL, GPT_N_LAYER, GPT_HEADS, GPT_L_MAX, GPT_VOCAB = 768, 12, 12, 1024, 50257
+GPT_HEAD_DIM = GPT_D_MODEL // GPT_HEADS
+GPT_PROMPTS = (128, 256, 512, 1000)
+GPT_SERVE_B, GPT_WARMUP, GPT_TIMED = 8, 1, 5
+GPT_TRAIN_B, GPT_TRAIN_WARMUP, GPT_TRAIN_TIMED = 16, 2, 5
 
 KERNELS = {
     "spectrum": dict(
@@ -229,14 +266,33 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/band_conv.cu",
         replaces="flashfftconv_tpu/ops/monarch_pallas.py:1059",
     ),
+    # JAX's Pallas flash_attention, called at ops/attention.py:202: its kernels
+    # are in jax/experimental/pallas/ops/tpu/flash_attention.py (jax 0.9.0):
+    # the forward _flash_attention_impl (def l.589, pallas_call l.758) ...
+    "flash_attn_fwd": dict(
+        source="flashfftconv_tpu_torch/csrc/flash_attn.cu",
+        replaces="flashfftconv_tpu/ops/attention.py:202",
+    ),
+    # ... _flash_attention_bwd_dkv (def l.941, pallas_call l.1121) ...
+    "flash_attn_bwd_dkv": dict(
+        source="flashfftconv_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="flashfftconv_tpu/ops/attention.py:202",
+    ),
+    # ... and _flash_attention_bwd_dq (def l.1287, pallas_call l.1456)
+    "flash_attn_bwd_dq": dict(
+        source="flashfftconv_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="flashfftconv_tpu/ops/attention.py:202",
+    ),
 }
 # The phase whose run gives a kernel's launches in the JSON line.
 LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
                 "long_conv_bwd": "dna_train", "long_dk_finish": "dna_train",
                 "direct_conv": "bert_train", "direct_conv_bwd": "bert_train",
-                "band_conv": "seq_train"}
+                "band_conv": "seq_train", "flash_attn_fwd": "gpt_train",
+                "flash_attn_bwd_dkv": "gpt_train", "flash_attn_bwd_dq": "gpt_train"}
 # The phases whose results the kernels JSON line reads.
-JSON_PHASES = {"kernels", "train", "seq_train", "dna", "dna_train", "bert_train", "timing"}
+JSON_PHASES = {"kernels", "train", "seq_train", "dna", "dna_train", "bert_train", "gpt_train",
+               "timing"}
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
@@ -273,6 +329,11 @@ BERT_TRAIN_LAUNCHES = {"direct_conv": 2 * BERT_N_LAYER, "direct_conv_bwd": 2 * B
                        "spectrum": 4 * BERT_N_LAYER, "dk_finish": 2 * BERT_N_LAYER,
                        "depthwise": BERT_N_LAYER, "depthwise_bwd": BERT_N_LAYER,
                        "monarch_conv": 0, "monarch_conv_bwd": 0}
+# Launches in one GPT-2 forward and one train step: a layer runs the attention
+# forward once, and in the backward the dK/dV and the dQ kernels once each.
+GPT_LAUNCHES = {"flash_attn_fwd": GPT_N_LAYER}
+GPT_TRAIN_LAUNCHES = {"flash_attn_fwd": GPT_N_LAYER, "flash_attn_bwd_dkv": GPT_N_LAYER,
+                      "flash_attn_bwd_dq": GPT_N_LAYER}
 
 
 def log(msg: str) -> None:
@@ -440,7 +501,120 @@ def phase_kernels(torch, g):
     errs.update(_check_direct_kernels(torch, g))
     errs.update(_check_long_kernels(torch, g))
     errs.update(_check_band_kernels(torch, g))
+    errs.update(_check_attention_kernels(torch, g))
     _check_operator_spread(torch)
+    return errs
+
+
+def attn_tol(ref) -> float:
+    """An attention output or grad against its plain version: in f32 the two
+    sum the same products in another order (the forward also rescales by the
+    online softmax), 2e-5 of the largest |value| or of 1 where that is
+    smaller (grads that are 0 up to rounding, as dq and dk at L = 1, round to
+    about 1e-6); in bf16 both round the same f32 value once, one ulp of the
+    largest |value|."""
+    if ref.element_size() == 2:
+        return lowp_tol(ref)
+    return 2e-5 * max(1.0, float(ref.float().abs().max()))
+
+
+def _attn_inputs(torch, g, dev, b, h, l, d, dtype):
+    return [torch.randn(b, h, l, d, generator=g).to(dev, dtype) for _ in range(4)]
+
+
+def _check_attention(torch, what, q, k, v, do, causal, bias=None, seg=None):
+    """flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq against the
+    plain forward and backward on the same inputs; the dQ kernel's ds (the
+    bias's grad) too when there is a bias. Returns the three largest errors."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    o, lse = ac.flash_attn_fwd(q, k, v, causal, None, bias, seg)
+    ro, rlse = plain.flash_attn_fwd_plain(q, k, v, causal, None, bias, seg)
+    e_fwd = max(compare(f"flash_attn_fwd {what}", o, ro, attn_tol(ro)),
+                compare(f"flash_attn_fwd lse {what}", lse, rlse, f32_tol(rlse)))
+    delta = plain.attention_delta(o, do)
+    dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, causal, None, bias, seg)
+    dq, ds = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, causal, None, bias, seg,
+                                  bias_grad=bias is not None)
+    rq, rk, rv, rds = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, causal, None, bias, seg,
+                                                 bias is not None)
+    e_dkv = max(compare(f"flash_attn_bwd_dkv dk {what}", dk, rk, attn_tol(rk)),
+                compare(f"flash_attn_bwd_dkv dv {what}", dv, rv, attn_tol(rv)))
+    e_dq = compare(f"flash_attn_bwd_dq dq {what}", dq, rq, attn_tol(rq))
+    if bias is not None:
+        e_dq = max(e_dq, compare(f"flash_attn_bwd_dq ds {what}", ds, rds, attn_tol(rds)))
+    torch.cuda.synchronize()
+    return e_fwd, e_dkv, e_dq
+
+
+def _check_attention_kernels(torch, g):
+    """The attention kernels at the GPT-2 shapes of the main path (H=12,
+    L=1024, D=64, f32, causal; B=8 as gpt_serve's forwards give it, B=16 as
+    gpt_train's steps give all three), with two backwards bit for bit at
+    each; then at D=128, ragged L, bf16, non-causal, ALiBi, packed segment
+    ids; and FlashAttnFunction's grads (the bias's summed to its shape)
+    against autograd through mha_reference."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    errs = {"flash_attn_fwd": 0.0, "flash_attn_bwd_dkv": 0.0, "flash_attn_bwd_dq": 0.0}
+    h, l, d = GPT_HEADS, GPT_L_MAX, GPT_HEAD_DIM
+    for b, path in ((GPT_SERVE_B, "gpt_serve"), (GPT_TRAIN_B, "gpt_train")):
+        log(f"flash attention: B={b} H={h} L={l} D={d} f32 causal (the GPT-2 shape of {path})")
+        q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
+        got = _check_attention(torch, f"GPT-2 shape B={b}", q, k, v, do, True)
+        for name, e in zip(errs, got):
+            errs[name] = max(errs[name], e)
+        o, lse = ac.flash_attn_fwd(q, k, v)
+        delta = plain.attention_delta(o, do)
+        runs = [(*ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
+                 ac.flash_attn_bwd_dq(q, k, v, do, lse, delta)[0]) for _ in range(2)]
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        log(f"  two backwards at the GPT-2 shape B={b} bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"two attention backwards on the card differ at B={b}")
+        del q, k, v, do, o, lse, delta, runs
+        torch.cuda.empty_cache()
+
+    for (b, h, l, d, dtype, causal) in (
+        (2, 4, 512, 128, torch.float32, True), (2, 3, 1, 64, torch.float32, True),
+        (2, 3, 63, 64, torch.float32, True), (2, 3, 65, 128, torch.float32, True),
+        (2, 3, 1000, 64, torch.float32, True), (2, 3, 1000, 64, torch.bfloat16, True),
+        (2, 4, 512, 128, torch.bfloat16, False), (2, 3, 300, 64, torch.float32, False),
+    ):
+        args = _attn_inputs(torch, g, dev, b, h, l, d, dtype)
+        _check_attention(torch, f"B={b} H={h} L={l} D={d} {dtype} causal={causal}", *args,
+                         causal)
+    for dtype in (torch.float32, torch.bfloat16):
+        b, h, l, d = 2, 12, 1000, 64
+        args = _attn_inputs(torch, g, dev, b, h, l, d, dtype)
+        bias = plain.alibi_bias(h, l, l, device=dev)
+        _check_attention(torch, f"ALiBi (1, H, L, L) B={b} H={h} L={l} {dtype}", *args, True,
+                         bias=bias)
+    import numpy as np
+
+    lengths = np.random.default_rng(0).integers(50, 400, 12)
+    _, seg, _ = plain.pack_sequences([np.zeros(n) for n in lengths], 1024)
+    seg = torch.from_numpy(seg).to(dev)
+    args = _attn_inputs(torch, g, dev, seg.shape[0], 4, 1024, 64, torch.float32)
+    _check_attention(torch, f"segment ids of {len(lengths)} sequences packed in "
+                     f"{seg.shape[0]} rows of 1024", *args, True, seg=seg)
+
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(torch, g, dev, 2, 4, 200, 64,
+                                                         torch.float32)[:3])
+    bias = plain.alibi_bias(4, 200, 200, device=dev).requires_grad_()
+    w = torch.randn(q.shape, generator=g).to(dev)
+    grads = []
+    for fn in (plain.flash_mha, plain.mha_reference):
+        (fn(q, k, v, bias=bias) * w).sum().backward()
+        grads.append([t.grad.clone() for t in (q, k, v, bias)])
+        for t in (q, k, v, bias):
+            t.grad = None
+    for name, got, ref in zip(("dq", "dk", "dv", "dbias"), *grads):
+        compare(f"FlashAttnFunction {name} vs autograd through mha_reference", got, ref,
+                attn_tol(ref))
     return errs
 
 
@@ -776,6 +950,7 @@ def _check_dw_bwd(torch, what, x, w, dout, pad, is_bhl):
 
 def _counters(names=("spectrum", "monarch_conv", "depthwise")):
     """The kernel wrappers of the given names, each with its launches count."""
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
     from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops import monarch_cuda
 
@@ -789,7 +964,10 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
                 "long_dk_finish": monarch_cuda.long_dk_finish,
                 "direct_conv": monarch_cuda.direct_conv,
                 "direct_conv_bwd": monarch_cuda.direct_conv_bwd,
-                "band_conv": monarch_cuda.band_conv}
+                "band_conv": monarch_cuda.band_conv,
+                "flash_attn_fwd": ac.flash_attn_fwd,
+                "flash_attn_bwd_dkv": ac.flash_attn_bwd_dkv,
+                "flash_attn_bwd_dq": ac.flash_attn_bwd_dq}
     return {name: wrappers[name] for name in names}
 
 
@@ -813,14 +991,14 @@ def _corpus(np):
     return data.astype(np.int64)
 
 
-def _train_batches(torch, np, seed, dev, n_steps):
-    """n_steps (x, y) batches of B windows of L_MAX + 1 bytes of the corpus."""
+def _train_batches(torch, np, seed, dev, n_steps, b=B, length=L_MAX):
+    """n_steps (x, y) batches of b windows of length + 1 bytes of the corpus."""
     tokens = _corpus(np)
     rng = np.random.default_rng(seed)
     batches = []
     for _ in range(n_steps):
-        offs = rng.integers(0, tokens.size - L_MAX - 1, B)
-        xy = torch.from_numpy(np.stack([tokens[o : o + L_MAX + 1] for o in offs])).to(dev)
+        offs = rng.integers(0, tokens.size - length - 1, b)
+        xy = torch.from_numpy(np.stack([tokens[o : o + length + 1] for o in offs])).to(dev)
         batches.append((xy[:, :-1].contiguous(), xy[:, 1:].contiguous()))
     return batches
 
@@ -1682,6 +1860,232 @@ def phase_bert_parity(torch, seed, np):
     return {"logits_max_abs_err": err, "grad_max_rel_err": ratio, "grad_worst_param": worst}
 
 
+def _gpt2(torch, seed, dev, **kw):
+    from flashfftconv_tpu_torch.models.gpt import GPTLMHeadModel
+
+    cfg = dict(d_model=GPT_D_MODEL, n_layer=GPT_N_LAYER, d_inner=4 * GPT_D_MODEL,
+               vocab_size=GPT_VOCAB, l_max=GPT_L_MAX, num_heads=GPT_HEADS, dtype=torch.bfloat16)
+    return GPTLMHeadModel(**{**cfg, **kw}, device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def _decode_logits(torch, model, ids, cache_dtype):
+    """The logits of model.step at every position of ids (1, n) over fresh
+    caches of cache_dtype."""
+    caches = model.init_cache(1, ids.shape[1], cache_dtype)
+    return torch.cat([model.step(ids[:, p : p + 1], caches, p)[0] for p in range(ids.shape[1])],
+                     dim=1)
+
+
+def phase_gpt_serve(torch, seed, np):
+    """GPT-2 124M answers GPT_PROMPTS requests through generate_kv, then
+    GPT_WARMUP + GPT_TIMED scoring forwards at B=8, L=1024 through the
+    attention kernel; one request's decode logits against the forward's."""
+    from flashfftconv_tpu_torch.utils.generation import generate_kv
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = _gpt2(torch, seed, dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"GPT-2 124M: {n_params / 1e6:.2f}M params, built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    counters = _counters(GPT_TRAIN_LAUNCHES)
+    res = {}
+    with torch.inference_mode():
+        req_s, outs = [], []
+        for fn in counters.values():
+            fn.launches = 0
+        for n in GPT_PROMPTS:
+            prompt = torch.from_numpy(rng.integers(0, GPT_VOCAB, (1, n))).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate_kv(model, prompt, NEW_TOKENS, n + NEW_TOKENS, temperature=0.0)
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - t0)
+            new = out[0, n:]
+            if out.shape != (1, n + NEW_TOKENS) or not torch.equal(out[:, :n], prompt) or \
+                    not bool(((new >= 0) & (new < model.vocab_size)).all()):
+                raise AssertionError(f"request of {n} tokens: bad output {out[0, n - 2:].tolist()}")
+            outs.append(out)
+        decode_launches = {name: fn.launches for name, fn in counters.items()}
+        if any(decode_launches.values()):
+            raise AssertionError(f"KV-cached decoding launched {decode_launches}; it runs plain "
+                                 "attention over the cache")
+        log(f"gpt_serve: {len(GPT_PROMPTS)} requests (prompts {GPT_PROMPTS}, {NEW_TOKENS} greedy "
+            f"tokens each) through generate_kv in {' '.join(f'{t:.3f}' for t in req_s)} s "
+            f"({len(GPT_PROMPTS) * NEW_TOKENS / sum(req_s):.1f} new tokens/s over "
+            f"{sum(GPT_PROMPTS) + len(GPT_PROMPTS) * (NEW_TOKENS - 1)} decode steps)")
+
+        # Decode logits of the first request against the full forward's. The
+        # cache's precision shows in an f32 GPT-2 124M (the same geometry and
+        # seed): there the step over an f32 cache differs from the forward
+        # (flash_attn_fwd) only by f32 rounding, held at 1e-4 of the largest
+        # |logit| as tests/test_torch_attention.py holds the CPU step, and a
+        # bf16 cache shows its own rounding beside it.
+        ids = outs[0]
+        f32_model = _gpt2(torch, seed, dev, dtype=torch.float32).eval()
+        full = f32_model(ids)[0]
+        dev_f32 = float((_decode_logits(torch, f32_model, ids, torch.float32)[0] - full)
+                        .abs().max())
+        dev_f32_bf16 = float((_decode_logits(torch, f32_model, ids, torch.bfloat16)[0] - full)
+                             .abs().max())
+        scale = float(full.abs().max())
+        tol = 1e-4 * scale
+        log(f"gpt_serve: f32 GPT-2 124M, decode-step logits of the {ids.shape[1]}-token "
+            f"request vs the full forward (flash_attn_fwd): f32 cache max_abs_err="
+            f"{dev_f32:.3e} tol={tol:.3e} (1e-4 of |logits| <= {scale:.2f}); bf16 cache "
+            f"{dev_f32_bf16:.3e}")
+        if not dev_f32 <= tol:
+            raise AssertionError(f"f32 decode logits with an f32 cache disagree with the "
+                                 f"forward: {dev_f32} > {tol}")
+        del f32_model, full
+        # The served bf16 model: its step's (1, D) matmuls and the forward's
+        # (L, D) ones round the MLPs' bf16 operands apart, a few bf16 ulps
+        # through 12 layers, whatever the cache holds. Its readings are
+        # printed, with a loose 2e-2 of the largest |logit| against gross
+        # faults.
+        full = model(ids)[0]
+        dev_bf16_f32 = float((_decode_logits(torch, model, ids, torch.float32)[0] - full)
+                             .abs().max())
+        dev_bf16 = float((_decode_logits(torch, model, ids, torch.bfloat16)[0] - full)
+                         .abs().max())
+        bscale = float(full.abs().max())
+        log(f"gpt_serve: bf16 GPT-2 124M, the same request: f32 cache max_abs_err="
+            f"{dev_bf16_f32:.3e}, bf16 cache {dev_bf16:.3e} (|logits| <= {bscale:.2f}, "
+            f"bound {2e-2 * bscale:.3e})")
+        if not max(dev_bf16_f32, dev_bf16) <= 2e-2 * bscale:
+            raise AssertionError(f"bf16 decode logits disagree with the forward beyond bf16 "
+                                 f"rounding: {dev_bf16_f32}, {dev_bf16} > {2e-2 * bscale}")
+
+        ids = torch.from_numpy(rng.integers(0, GPT_VOCAB, (GPT_SERVE_B, GPT_L_MAX))).to(dev)
+        for _ in range(GPT_WARMUP):
+            model(ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        fwd_ms = []
+        for _ in range(GPT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if logits.shape != (GPT_SERVE_B, GPT_L_MAX, model.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)} or non-finite values")
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: GPT_TIMED * GPT_LAUNCHES.get(name, 0) for name in counters}
+    if launches != want:
+        raise AssertionError(f"{GPT_TIMED} forwards launched {launches}, expected {want}")
+    med = float(np.median(fwd_ms))
+    res.update(requests_s=req_s, decode_f32_cache_max_abs_err=dev_f32,
+               decode_f32_model_bf16_cache_max_abs_err=dev_f32_bf16,
+               decode_bf16_model_f32_cache_max_abs_err=dev_bf16_f32,
+               decode_bf16_model_bf16_cache_max_abs_err=dev_bf16, forward_ms=fwd_ms,
+               forward_ms_median=med, forward_ms_max=max(fwd_ms),
+               tokens_per_s=GPT_SERVE_B * GPT_L_MAX / (med / 1e3), launches=launches,
+               peak_memory_bytes=peak)
+    log(f"gpt_serve: B={GPT_SERVE_B} L={GPT_L_MAX} forward median {med:.2f} ms max "
+        f"{max(fwd_ms):.2f} ms over {GPT_TIMED} ({res['tokens_per_s']:.0f} tokens/s), launches "
+        f"{launches}, peak memory {peak / 2**30:.2f} GiB")
+    return res
+
+
+def phase_gpt_train(torch, seed, np):
+    """GPT-2 124M (B=16, L=1024, bf16 activations, embedding dropout 0.1)
+    takes GPT_TRAIN_WARMUP + GPT_TRAIN_TIMED steps of the examples/lm recipe
+    on byte data."""
+    from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    torch.manual_seed(seed)
+    model = _gpt2(torch, seed, dev).train()
+    n_steps = GPT_TRAIN_WARMUP + GPT_TRAIN_TIMED
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=n_steps)
+    step = make_train_step(model, opt, sched, clip=1.0)
+    batches = _train_batches(torch, np, seed, dev, n_steps, GPT_TRAIN_B, GPT_L_MAX)
+    counters = _counters(GPT_TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for x, y in batches:
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(x, y)["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != GPT_TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {GPT_TRAIN_LAUNCHES}")
+    timed = step_ms[GPT_TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    res = {"steps": n_steps, "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "step_ms_max": max(timed), "tokens_per_s": GPT_TRAIN_B * GPT_L_MAX / (med / 1e3),
+           "launches": launches, "peak_memory_bytes": peak}
+    log(f"gpt_train: GPT-2 124M B={GPT_TRAIN_B} L={GPT_L_MAX} bf16, {n_steps} steps (lr 3e-4, "
+        f"wd 0.1, clip 1.0, warmup 2), losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"gpt_train: step median {med:.2f} ms max {max(timed):.2f} ms over {GPT_TRAIN_TIMED} "
+        f"timed steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {per_step[-1]}")
+    return res
+
+
+def phase_gpt_parity(torch, seed, np):
+    """A 2-layer f32 GPT (d_model 256, 4 heads of 64, l_max 1024) with the
+    same weights on the card (attention kernels) and on the CPU (plain
+    versions): logits, grads, and a second backward on the card bit for bit."""
+    kw = dict(d_model=256, n_layer=2, d_inner=1024, vocab_size=256, l_max=GPT_L_MAX,
+              num_heads=4, dtype=torch.float32)
+    models = {dev: _gpt2(torch, seed, dev, **kw).eval() for dev in ("cpu", "cuda")}
+    x, y = _train_batches(torch, np, seed + 1, "cpu", 1, 2, GPT_L_MAX)[0]
+    ids = torch.cat([x, y[:, -1:]], dim=1)  # L + 1 bytes: inputs and targets
+    counters = _counters(GPT_TRAIN_LAUNCHES)
+    before = {name: fn.launches for name, fn in counters.items()}
+    with torch.inference_mode():
+        ref = models["cpu"](ids[:, :-1])
+        got = models["cuda"](ids[:, :-1].cuda()).cpu()
+    err = float((got - ref).abs().max())
+    log(f"gpt_parity: 2-layer f32 GPT at L={GPT_L_MAX}, B=2, card (attention kernels) vs CPU "
+        f"(plain): max_abs_err={err:.3e} tol=2e-3, |logits| <= {float(ref.abs().max()):.2f}")
+    if not err <= 2e-3:
+        raise AssertionError(f"card and CPU logits disagree: {err}")
+    loss_cpu, grads_cpu = _loss_and_grads(torch, models["cpu"], ids)
+    loss_card, grads_card = _loss_and_grads(torch, models["cuda"], ids.cuda())
+    _, grads_again = _loss_and_grads(torch, models["cuda"], ids.cuda())
+    counts = {name: fn.launches - before[name] for name, fn in counters.items()}
+    want = {"flash_attn_fwd": 6, "flash_attn_bwd_dkv": 4, "flash_attn_bwd_dq": 4}
+    if counts != want:
+        raise AssertionError(f"one forward and two train passes launched {counts}, "
+                             f"expected {want}")
+    ratio, worst = _worst_grad(grads_card, grads_cpu)
+    # The embedding table's grad is excepted: PyTorch's embedding backward adds
+    # rows with float atomics, in an order that changes from run to run.
+    differ = [n for n, gr in grads_card.items()
+              if n != "embeddings.weight" and not torch.equal(gr, grads_again[n])]
+    log(f"gpt_parity: grads, card (attention backward kernels) vs CPU (plain) over "
+        f"{len(grads_cpu)} params: max |dgrad| / max |grad| = {ratio:.3e} ({worst}), tol 1e-3; "
+        f"loss {loss_card:.6f} vs {loss_cpu:.6f}; a second backward on the card differs in "
+        f"{len(differ)} params outside the embedding table {differ}")
+    if not ratio <= 1e-3:
+        raise AssertionError(f"card and CPU grads disagree: {worst} at {ratio}")
+    if differ:
+        raise AssertionError(f"two backwards on the card differ in {differ}")
+    return {"logits_max_abs_err": err, "grad_max_rel_err": ratio, "grad_worst_param": worst}
+
+
 def _kind(name: str) -> str:
     for kind, keys in (
         ("butterfly", ("butterfly_fwd_kernel", "butterfly_inv_kernel")),
@@ -1690,6 +2094,9 @@ def _kind(name: str) -> str:
         ("long_conv", ("long_conv_kernel",)),
         ("long_spectrum", ("long_spectrum_kernel",)),
         ("band_conv", ("band_conv_kernel",)),
+        ("flash_attn_bwd_dkv", ("flash_attn_bwd_dkv_kernel",)),
+        ("flash_attn_bwd_dq", ("flash_attn_bwd_dq_kernel",)),
+        ("flash_attn_fwd", ("flash_attn_fwd_kernel",)),
         ("direct_conv_bwd", ("direct_conv_bwd_kernel",)),
         ("direct_conv", ("direct_conv_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
@@ -1762,7 +2169,8 @@ def phase_profile(torch, seed):
     """Device time by kernel over one Hyena-125M serving forward and one
     train step (dropout on, the examples/lm optimizer), one train step of the
     same model on a 1-rank sequence mesh, then one HyenaDNA forward and
-    train step and one M2-BERT forward and train step."""
+    train step, one M2-BERT forward and train step, and one GPT-2 124M
+    forward and train step."""
     from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
 
     model = _hyena_125m(torch, seed, "cuda")
@@ -1815,6 +2223,17 @@ def phase_profile(torch, seed):
     step = _bert_train_step(torch, model.train())
     res["bert_train_step"] = _trace(torch, f"one M2-BERT {BERT_MODEL} train step at B={BERT_B} "
                                     f"L={BERT_L}", lambda: step(x, y))
+    del model, step
+    torch.cuda.empty_cache()
+    model = _gpt2(torch, seed, "cuda")
+    x, y = _train_batches(torch, np, seed, "cuda", 1, GPT_TRAIN_B, GPT_L_MAX)[0]
+    with torch.inference_mode():
+        res["gpt_forward"] = _trace(torch, f"one GPT-2 124M forward at B={GPT_SERVE_B} "
+                                    f"L={GPT_L_MAX}", lambda: model.eval()(x[:GPT_SERVE_B]))
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
+    step = make_train_step(model.train(), opt, sched, clip=1.0)
+    res["gpt_train_step"] = _trace(torch, f"one GPT-2 124M train step at B={GPT_TRAIN_B} "
+                                   f"L={GPT_L_MAX}", lambda: step(x, y))
     return res
 
 
@@ -1948,7 +2367,8 @@ def phase_timing(torch, g):
         )
     del k, u, x, k_f, dout, parts, dy, dy_full
     torch.cuda.empty_cache()
-    for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g)):
+    for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g),
+                 _time_attention(torch, g)):
         if set(rows) & set(res):
             raise AssertionError(f"timing rows named twice: {sorted(set(rows) & set(res))}")
         res.update(rows)
@@ -2079,6 +2499,62 @@ def _time_band(torch, g):
             bound=_bound(nbytes, flops),
         )}
     del b, k_f
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_attention(torch, g):
+    """The attention kernels at the gpt_train path's shape (B=16, H=12,
+    L=1024, D=64, f32, causal). Bytes: each input read once, each output
+    written once. Operations: the causal half of each function's products, 2
+    a multiply-add: the forward q k^T and p v (4 B H L^2 D in all, half of it
+    causal); dK/dV q k^T, do v^T, p^T do and ds^T q (8); dQ q k^T, do v^T and
+    ds k (6); the two backward kernels recompute q k^T and do v^T each, which
+    the fused backward (10) would not. library_ms is
+    scaled_dot_product_attention's forward for the forward row and its
+    backward (dq, dk and dv in one call) for both backward rows."""
+    import torch.nn.functional as F
+
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    b, h, l, d = GPT_TRAIN_B, GPT_HEADS, GPT_L_MAX, GPT_HEAD_DIM
+    q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
+    n, stats = q.numel() * 4, b * h * l * 4
+    causal_ops = b * h * l * l * d  # a quarter of 4 B H L^2 D: one causal product
+    o, lse = ac.flash_attn_fwd(q, k, v)
+    delta = plain.attention_delta(o, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                           retain_graph=True), iters=10)
+    plain_bwd = _time_ms(torch, lambda: plain.flash_attn_bwd_plain(q, k, v, o, lse, do),
+                         iters=3, warmup=1)
+    with torch.inference_mode():
+        res = {
+            "flash_attn_fwd": dict(
+                ms=_time_ms(torch, lambda: ac.flash_attn_fwd(q, k, v), iters=10),
+                plain_ms=_time_ms(torch, lambda: plain.flash_attn_fwd_plain(q, k, v), iters=3,
+                                  warmup=1),
+                library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), iters=10),
+                bound=_bound(3 * n + n + stats, 2 * causal_ops),
+            ),
+            "flash_attn_bwd_dkv": dict(
+                ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
+                            iters=10),
+                plain_ms=plain_bwd, library_ms=sdpa_bwd,
+                bound=_bound(4 * n + 2 * stats + 2 * n, 4 * causal_ops),
+            ),
+            "flash_attn_bwd_dq": dict(
+                ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dq(q, k, v, do, lse, delta),
+                            iters=10),
+                plain_ms=plain_bwd, library_ms=sdpa_bwd,
+                bound=_bound(4 * n + 2 * stats + n, 3 * causal_ops),
+            ),
+        }
+    del q, k, v, do, o, lse, delta, qs, ks, vs, out
     torch.cuda.empty_cache()
     return res
 
@@ -2277,6 +2753,12 @@ def main() -> int:
         results["bert_train"] = phase_bert_train(torch, args.seed, np)
     if "bert_parity" in phases:
         results["bert_parity"] = phase_bert_parity(torch, args.seed, np)
+    if "gpt_serve" in phases:
+        results["gpt_serve"] = phase_gpt_serve(torch, args.seed, np)
+    if "gpt_train" in phases:
+        results["gpt_train"] = phase_gpt_train(torch, args.seed, np)
+    if "gpt_parity" in phases:
+        results["gpt_parity"] = phase_gpt_parity(torch, args.seed, np)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:

@@ -4,14 +4,20 @@ Port of the JAX package's ``models/lm.py`` for the hyena mixer with a tied
 head: word embeddings -> n_layer pre-norm blocks (mixer + MLP, residuals in
 f32) -> final LayerNorm in f32 -> logits in f32 against the embedding table.
 
+Mixers by name: ``"hyena"`` (``HyenaOperator``) and ``"mha"``
+(``models.attention.MHAOperator``, the flash-attention kernels on the card);
+``Block.step`` decodes one token through a mixer with a KV cache (the
+``"mha"`` mixer has one).
+
 The memory levers of the JAX package's 1M-base train step: ``remat``
 (each block under ``torch.utils.checkpoint``, which keeps only the block's
 input and replays the block, dropout's random state included, in the
 backward), ``inner_remat`` (mixer and MLP as separate checkpoint regions
 inside the block), ``mlp_l_chunks`` (``ChunkedMlp``: the MLP in L-chunks
 with a backward of its own that keeps only its input) and ``scan_blocks``.
-The JAX modules' other mixers, block-diagonal MLPs and MoE are not ported:
-setting one raises NotImplementedError.
+The JAX modules' other mixers (``"m2"``, ``"h3"``, ``"long-conv"``),
+block-diagonal MLPs and MoE are not ported: setting one raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from flashfftconv_tpu_torch.models.attention import MHAOperator
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator
 from flashfftconv_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from flashfftconv_tpu_torch.ops.plan import resolve_device
@@ -36,6 +43,10 @@ def _not_ported(**options) -> None:
     for name, is_set in options.items():
         if is_set:
             raise NotImplementedError(f"{name} is not ported yet")
+
+
+# The mixer registry of the JAX package's get_mixer_cls, as far as it is ported.
+MIXERS = {"hyena": HyenaOperator, "mha": MHAOperator}
 
 
 class Mlp(nn.Module):
@@ -129,13 +140,13 @@ class Block(nn.Module):
                  residual_f32=True, inner_remat=False, device="cuda", generator=None):
         super().__init__()
         _not_ported(**{
-            f"mixer={mixer!r}": mixer != "hyena",
+            f"mixer={mixer!r}": mixer not in MIXERS,
             "moe_kwargs": bool(moe_kwargs),
         })
         self.residual_f32 = residual_f32
         self.inner_remat = inner_remat
         self.norm1 = LayerNorm(d_model, device=device)
-        self.mixer = HyenaOperator(d_model=d_model, **(mixer_kwargs or {}), device=device,
+        self.mixer = MIXERS[mixer](d_model=d_model, **(mixer_kwargs or {}), device=device,
                                    generator=generator)
         self.norm2 = LayerNorm(d_model, device=device)
         if mlp_l_chunks > 1 and not mlp_nblocks:
@@ -159,6 +170,16 @@ class Block(nn.Module):
         h = self.drop(self._part(self.mlp, self.norm2(res).to(dtype)))
         res = res + h.to(res.dtype)
         return res.to(dtype)
+
+    def step(self, x_t, cache, pos: int):
+        """One KV-cached decode step through the mixer's ``step`` (residual in
+        f32, no dropout). Returns (x_t at the next layer, cache)."""
+        dtype = x_t.dtype
+        res = x_t.float()
+        h, cache = self.mixer.step(self.norm1(res).to(dtype), cache, pos)
+        res = res + h.float()
+        res = res + self.mlp(self.norm2(res).to(dtype)).float()
+        return res.to(dtype), cache
 
 
 class LMBackbone(nn.Module):

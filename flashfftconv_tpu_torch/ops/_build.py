@@ -26,7 +26,7 @@ SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd",
            "butterfly", "long_conv", "long_spectrum", "long_conv_bwd", "direct_conv",
-           "band_conv")
+           "band_conv", "flash_attn", "flash_attn_bwd")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # {library: {function: argtypes}}; every function returns a CUDA error code
 # (an int). Pointers first, then the int sizes, then the stream.
@@ -47,6 +47,9 @@ SIGNATURES = {
     "direct_conv": {"ffc_direct_conv": [_P] * 6 + [_I] * 5 + [_P],
                     "ffc_direct_conv_bwd": [_P] * 10 + [_I] * 5 + [_P]},
     "band_conv": {"ffc_band_conv": [_P] * 5 + [_I] * 8 + [_P]},
+    "flash_attn": {"ffc_flash_attn_fwd": [_P] * 7 + [_I] * 10 + [_P]},
+    "flash_attn_bwd": {"ffc_flash_attn_bwd_dkv": [_P] * 10 + [_I] * 10 + [_P],
+                       "ffc_flash_attn_bwd_dq": [_P] * 10 + [_I] * 10 + [_P]},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

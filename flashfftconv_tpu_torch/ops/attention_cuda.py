@@ -1,0 +1,220 @@
+"""Wrappers of the flash-attention kernels and the autograd Function over them.
+
+``flash_attn_fwd`` (csrc/flash_attn.cu) replaces the forward TPU kernel of
+JAX's Pallas ``flash_attention`` that the JAX package's ``flash_mha`` calls
+(``flashfftconv_tpu/ops/attention.py:202``); ``flash_attn_bwd_dkv`` and
+``flash_attn_bwd_dq`` (csrc/flash_attn_bwd.cu) replace its two backward
+kernels, the dK/dV one and the dQ one that also gives the bias's grad. On
+a CUDA tensor each wrapper checks its inputs, allocates its outputs with
+``torch.empty`` (``torch.zeros`` for the bias grad, whose tiles above the
+diagonal the causal kernel never visits), launches its kernel on the current
+stream, raises if the launch failed, and adds one to its ``launches``
+count. On CPU tensors it runs the plain version from ``ops/attention.py``.
+
+The kernels take q, k, v (B, H, L, D) contiguous, of one dtype (f32 or
+bf16), head_dim 64 or 128, any L >= 1; an optional f32 bias whose
+expansion to (B, H, L, L) has a unit last stride (a (1, H, L, L) ALiBi table
+is read in place for every batch row, not copied) and optional int32
+segment ids (B, L). Softmax statistics and every accumulation are f32.
+
+``FlashAttnFunction`` is the attention over (q, k, v, bias, segment_ids):
+its forward saves q, k, v, the output and the row logsumexp; its backward
+computes delta = rowsum(do * o) in torch (as JAX's backward does in XLA),
+then runs the dK/dV kernel and the dQ kernel, and sums the dQ kernel's ds to
+the bias's shape (``sum_to_size``, no atomics): two backwards give the same
+bits.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+from flashfftconv_tpu_torch.ops import _build
+from flashfftconv_tpu_torch.ops import attention as plain
+from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
+
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _scale_bits(sm_scale: float) -> int:
+    """sm_scale as the bits of an f32, the form the C interface takes."""
+    return struct.unpack("<i", struct.pack("<f", sm_scale))[0]
+
+
+def _check_qkv(*tensors: torch.Tensor) -> tuple[int, int, int, int]:
+    q = tensors[0]
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, H, L, D), got shape {tuple(q.shape)}")
+    for t in tensors:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"q, k, v (and do) must share shape, dtype and device; got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device} against "
+                             f"{tuple(q.shape)} {q.dtype} {q.device}")
+        if not t.is_contiguous():
+            raise ValueError("q, k, v (and do) must be contiguous")
+    b, h, l, d = q.shape
+    if q.dtype not in DTYPES:
+        raise ValueError(f"the flash-attention kernels take f32 or bf16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernels take head_dim in {HEAD_DIMS}, got {d}")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
+    return b, h, l, d
+
+
+def _bias_args(bias: torch.Tensor | None, shape) -> tuple[torch.Tensor | None, list[int]]:
+    """The bias as an f32 (B, H, L, L) view with a unit last stride, and its
+    (b, h, query) strides."""
+    if bias is None:
+        return None, [0, 0, 0]
+    b, h, l, _ = shape
+    e = bias.float().expand(b, h, l, l)
+    if e.stride(-1) != 1:
+        e = e.contiguous()
+    strides = list(e.stride()[:3])
+    if max(strides) >= 2**31:
+        raise ValueError(f"bias strides {strides} do not fit the kernels' 32-bit ints")
+    return e, strides
+
+
+def _seg(segment_ids: torch.Tensor | None, b: int, l: int, device) -> torch.Tensor | None:
+    if segment_ids is None:
+        return None
+    if segment_ids.shape != (b, l) or segment_ids.dtype != torch.int32 or \
+            segment_ids.device != device or not segment_ids.is_contiguous():
+        raise ValueError(f"segment_ids must be contiguous int32 ({b}, {l}) on {device}, got "
+                         f"{tuple(segment_ids.shape)} {segment_ids.dtype} {segment_ids.device}")
+    return segment_ids
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _common(q, causal, sm_scale, bias, segment_ids):
+    """(the kernels' trailing int args, the bias view, the segment ids)."""
+    b, h, l, d = q.shape
+    bias_e, strides = _bias_args(bias, q.shape)
+    seg = _seg(segment_ids, b, l, q.device)
+    args = [b, h, l, d, int(q.dtype == torch.bfloat16), int(causal), *strides,
+            _scale_bits(sm_scale)]
+    return args, bias_e, seg
+
+
+def flash_attn_fwd(q, k, v, causal: bool = True, sm_scale: float | None = None, bias=None,
+                   segment_ids=None):
+    """(o, lse): softmax(q k^T * sm_scale + bias) v at q's dtype, and the row
+    logsumexp (B, H, L) f32 (+inf for a row that sees no key)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if on_cpu(q, k, v, bias, segment_ids):
+        return plain.flash_attn_fwd_plain(q, k, v, causal, sm_scale, bias, segment_ids)
+    b, h, l, d = _check_qkv(q, k, v)
+    args, bias_e, seg = _common(q, causal, sm_scale, bias, segment_ids)
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attn")
+    rc = lib.ffc_flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(bias_e),
+        _ptr(seg), *args, _stream(q.device))
+    _build.check(lib, rc, "flash_attn_fwd kernel")
+    flash_attn_fwd.launches += 1
+    return o, lse
+
+
+flash_attn_fwd.launches = 0
+
+
+def _check_stats(lse, delta, shape) -> None:
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != shape[:3] or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 {tuple(shape[:3])}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def flash_attn_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                       sm_scale: float | None = None, bias=None, segment_ids=None):
+    """(dk, dv) from the output grad do, the forward's logsumexp lse and
+    delta = rowsum(do * o) (both (B, H, L) f32)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if on_cpu(q, k, v, do, lse, delta, bias, segment_ids):
+        _, dk, dv, _ = plain.flash_attn_bwd_plain(q, k, v, None, lse, do, causal, sm_scale, bias,
+                                                  segment_ids, delta=delta)
+        return dk, dv
+    _check_qkv(q, k, v, do)
+    _check_stats(lse, delta, q.shape)
+    args, bias_e, seg = _common(q, causal, sm_scale, bias, segment_ids)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load("flash_attn_bwd")
+    rc = lib.ffc_flash_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(bias_e), _ptr(seg), *args,
+        _stream(q.device))
+    _build.check(lib, rc, "flash_attn_bwd_dkv kernel")
+    flash_attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attn_bwd_dkv.launches = 0
+
+
+def flash_attn_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                      sm_scale: float | None = None, bias=None, segment_ids=None,
+                      bias_grad: bool = False):
+    """(dq, ds): dq, and with ``bias_grad`` the grad of the bias broadcast to
+    (B, H, L, L) f32 (else None)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if on_cpu(q, k, v, do, lse, delta, bias, segment_ids):
+        dq, _, _, ds = plain.flash_attn_bwd_plain(q, k, v, None, lse, do, causal, sm_scale,
+                                                  bias, segment_ids, bias_grad, delta=delta)
+        return dq, ds
+    b, h, l, _ = _check_qkv(q, k, v, do)
+    _check_stats(lse, delta, q.shape)
+    args, bias_e, seg = _common(q, causal, sm_scale, bias, segment_ids)
+    dq = torch.empty_like(q)
+    ds = torch.zeros(b, h, l, l, dtype=torch.float32, device=q.device) if bias_grad else None
+    lib = _build.load("flash_attn_bwd")
+    rc = lib.ffc_flash_attn_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), _ptr(ds), _ptr(bias_e), _ptr(seg), *args,
+        _stream(q.device))
+    _build.check(lib, rc, "flash_attn_bwd_dq kernel")
+    flash_attn_bwd_dq.launches += 1
+    return dq, ds
+
+
+flash_attn_bwd_dq.launches = 0
+
+
+class FlashAttnFunction(torch.autograd.Function):
+    """Attention over (q, k, v, bias, segment_ids, causal, sm_scale) with the
+    kernels' backward (the plain versions on CPU tensors). q, k, v, the bias
+    and the output grad are made contiguous and the segment ids int32; grads
+    come back at each input's dtype, the bias's summed to its shape."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, segment_ids, causal, sm_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(torch.int32).contiguous()
+        o, lse = flash_attn_fwd(q, k, v, causal, sm_scale, bias, segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, bias, segment_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, bias, seg = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = plain.attention_delta(o, do)
+        args = (ctx.causal, ctx.sm_scale, bias, seg)
+        dk, dv = flash_attn_bwd_dkv(q, k, v, do, lse, delta, *args)
+        bias_grad = bias is not None and ctx.needs_input_grad[3]
+        dq, ds = flash_attn_bwd_dq(q, k, v, do, lse, delta, *args, bias_grad=bias_grad)
+        dbias = ds.sum_to_size(bias.shape).to(bias.dtype) if bias_grad else None
+        return dq, dk, dv, dbias, None, None, None

@@ -1,4 +1,4 @@
-"""Pretrained-checkpoint import: HyenaDNA and M2-BERT state dicts -> the port's models.
+"""Pretrained-checkpoint import: HyenaDNA, M2-BERT, GPT-2 and OPT state dicts -> the port's models.
 
 The port's counterpart of the JAX package's ``utils/checkpoint_import.py``
 (``normalize_state_dict``, ``hyenadna_to_flax``, ``merge_params``,
@@ -17,6 +17,13 @@ over Monarch Mixer sequence mixers) onto ``models.bert.M2BertForMaskedLM``
 built with ``ref_structure=True`` (the reference layer has no residual or
 LayerNorm around its mixer); ``blockdiag_to_dense_mlp`` turns block-diagonal
 MLP weights into the dense weights of a ``mlp_nblocks=0`` model.
+
+``import_gpt2_state_dict`` and ``import_opt_state_dict`` map HuggingFace's
+``GPT2LMHeadModel`` and ``OPTForCausalLM`` keys onto
+``models.gpt.GPTLMHeadModel``: GPT-2's ``Conv1D`` weights are (in, out) and
+are transposed to (out, in); OPT's q, k and v projections are concatenated
+(q; k; v) into ``qkv_proj``, and its position table drops the two offset
+rows. The embedding table is zero-padded to the padded vocabulary.
 
 No network access is assumed: callers pass a state-dict-like mapping (for
 example from ``torch.load(path, map_location="cpu", weights_only=True)``).
@@ -282,3 +289,86 @@ def blockdiag_to_dense_mlp(tensors: Mapping[str, torch.Tensor]) -> dict[str, tor
     are: a Monarch-MLP checkpoint then loads into a dense-MLP model."""
     return {name: torch.block_diag(*t.unbind(0)) if t.ndim == 3 else t
             for name, t in tensors.items()}
+
+
+# --- GPT-2 and OPT (HuggingFace transformers) --------------------------------
+
+def _pad_rows(table: torch.Tensor, multiple: int) -> torch.Tensor:
+    pad = (-table.shape[0]) % multiple
+    return torch.cat([table, table.new_zeros(pad, table.shape[1])]) if pad else table
+
+
+def import_gpt2_state_dict(
+    state: Mapping[str, Any], n_layer: int, pad_vocab_size_multiple: int = 8
+) -> tuple[dict[str, torch.Tensor], ImportReport]:
+    """Map a ``GPT2LMHeadModel`` state dict onto ``GPTLMHeadModel``'s
+    parameter names. ``lm_head.weight`` (tied) and the attention mask buffers
+    are skipped. Returns (tensors, report); load with :func:`load_into`."""
+    report = ImportReport()
+    state = {k.removeprefix("transformer."): v for k, v in normalize_state_dict(state).items()}
+    out: dict[str, torch.Tensor] = {}
+
+    def take(key: str) -> torch.Tensor:
+        report.used.append(key)
+        return _t(state[key])
+
+    def copy(src: str, dst: str, conv1d: bool = False) -> None:
+        for leaf in ("weight", "bias"):
+            t = take(f"{src}.{leaf}")
+            out[f"{dst}.{leaf}"] = t.T.contiguous() if conv1d and leaf == "weight" else t
+
+    out["embeddings.weight"] = _pad_rows(take("wte.weight"), pad_vocab_size_multiple)
+    out["pos_embeddings"] = take("wpe.weight")
+    copy("ln_f", "ln_f")
+    for i in range(n_layer):
+        src, dst = f"h.{i}.", f"blocks.{i}."
+        copy(src + "ln_1", dst + "norm1")
+        copy(src + "ln_2", dst + "norm2")
+        copy(src + "attn.c_attn", dst + "mixer.qkv_proj", conv1d=True)
+        copy(src + "attn.c_proj", dst + "mixer.out_proj", conv1d=True)
+        copy(src + "mlp.c_fc", dst + "mlp.fc1", conv1d=True)
+        copy(src + "mlp.c_proj", dst + "mlp.fc2", conv1d=True)
+    used = set(report.used)
+    report.skipped = [k for k in state if k not in used]
+    return out, report
+
+
+def import_opt_state_dict(
+    state: Mapping[str, Any], n_layer: int, pad_vocab_size_multiple: int = 8
+) -> tuple[dict[str, torch.Tensor], ImportReport]:
+    """Map an ``OPTForCausalLM`` state dict onto ``GPTLMHeadModel``'s
+    parameter names (build it with ``mlp_activation="relu"`` and, where
+    ``word_embed_proj_dim`` differs from the hidden size, ``embed_dim``).
+    ``lm_head.weight`` (tied) is skipped. Returns (tensors, report)."""
+    report = ImportReport()
+    state = {k.removeprefix("decoder."): v for k, v in normalize_state_dict(state).items()}
+    out: dict[str, torch.Tensor] = {}
+
+    def take(key: str) -> torch.Tensor:
+        report.used.append(key)
+        return _t(state[key])
+
+    def copy(src: str, dst: str) -> None:
+        for leaf in ("weight", "bias"):
+            if f"{src}.{leaf}" in state:
+                out[f"{dst}.{leaf}"] = take(f"{src}.{leaf}")
+
+    out["embeddings.weight"] = _pad_rows(take("embed_tokens.weight"), pad_vocab_size_multiple)
+    # OPTLearnedPositionalEmbedding's offset: rows 0 and 1 are never addressed
+    out["pos_embeddings"] = take("embed_positions.weight")[2:].contiguous()
+    copy("final_layer_norm", "ln_f")
+    for proj in ("project_in", "project_out"):
+        copy(proj, proj)
+    for i in range(n_layer):
+        src, dst = f"layers.{i}.", f"blocks.{i}."
+        copy(src + "self_attn_layer_norm", dst + "norm1")
+        copy(src + "final_layer_norm", dst + "norm2")
+        for leaf in ("weight", "bias"):
+            out[f"{dst}mixer.qkv_proj.{leaf}"] = torch.cat(
+                [take(f"{src}self_attn.{n}_proj.{leaf}") for n in "qkv"])
+        copy(src + "self_attn.out_proj", dst + "mixer.out_proj")
+        copy(src + "fc1", dst + "mlp.fc1")
+        copy(src + "fc2", dst + "mlp.fc2")
+    used = set(report.used)
+    report.skipped = [k for k in state if k not in used]
+    return out, report

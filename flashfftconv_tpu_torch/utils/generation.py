@@ -4,6 +4,10 @@ Port of the JAX package's ``utils/generation.py``: long-conv models have no
 KV cache, so each step re-runs the forward over the fixed-size, right-padded
 context window and samples the next token from the logits at the last
 filled position. Sampling draws from an explicit ``torch.Generator``.
+
+``generate_kv`` is the KV-cached loop of the attention LMs
+(``models.gpt.GPTLMHeadModel``): one decode step a token, prompt tokens
+included (they fill the cache), sampling only past the prompt.
 """
 
 from __future__ import annotations
@@ -69,3 +73,28 @@ def generate(model, input_ids: torch.Tensor, max_new_tokens: int, max_length: in
         tokens[rows[inside], pos[inside]] = nxt[inside]
         pos = pos + 1
     return tokens[:, :end]
+
+
+@torch.inference_mode()
+def generate_kv(model, input_ids: torch.Tensor, max_new_tokens: int, max_length: int,
+                temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """KV-cached generation: ``model.step`` at positions 0 .. L0 + new - 2,
+    each feeding the token at that position and sampling the next one past
+    the prompt. input_ids (B, L0); max_length bounds the caches (and the
+    positions), L0 + max_new_tokens <= max_length. The caches hold keys and
+    values in the model's dtype, as in the JAX package. Returns
+    (B, L0 + max_new_tokens)."""
+    b, l0 = input_ids.shape
+    if l0 + max_new_tokens > max_length:
+        raise ValueError(f"{l0} prompt tokens + {max_new_tokens} new exceed max_length "
+                         f"{max_length}")
+    tokens = torch.zeros((b, max_length), dtype=input_ids.dtype, device=input_ids.device)
+    tokens[:, :l0] = input_ids
+    caches = model.init_cache(b, max_length)
+    for pos in range(l0 - 1 + max_new_tokens):
+        logits, caches = model.step(tokens[:, pos : pos + 1], caches, pos)
+        if pos + 1 >= l0:
+            nxt = sample_logits(logits[:, 0], temperature, top_k, top_p, generator)
+            tokens[:, pos + 1] = nxt.to(tokens.dtype)
+    return tokens[:, : l0 + max_new_tokens]

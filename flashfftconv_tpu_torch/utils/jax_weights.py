@@ -22,6 +22,12 @@ port model, from the modules' types (the optimizer's labels read it).
 ``BlockdiagLinear`` weight (nblocks, q, p) carries over 1:1, Dense kernels
 are transposed, and with ``tie_mlm_head`` the top-level ``word_embeddings``
 table lands in ``bert.word_embeddings``.
+
+``gpt_state_dict`` does the same for the JAX package's ``GPTLMHeadModel``
+(``embeddings``, ``pos_embeddings``, ``block_i/{norm1, norm2, mixer/{qkv_proj,
+out_proj}, mlp/{fc1, fc2}}``, ``ln_f`` and OPT's ``project_in`` and
+``project_out``), and ``mha_state_dict`` for one ``MHAOperator``;
+``from_jax_params`` takes a ``ConvLMHeadModel`` with the ``"mha"`` mixer too.
 """
 
 from __future__ import annotations
@@ -78,8 +84,37 @@ def hyena_operator_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]
     return out
 
 
+def mha_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax MHAOperator params -> port MHAOperator state dict."""
+    return {**_dense(tree["qkv_proj"], f"{prefix}qkv_proj"),
+            **_dense(tree["out_proj"], f"{prefix}out_proj")}
+
+
+def _block_state_dict(block, prefix: str) -> dict[str, torch.Tensor]:
+    """One flax lm.Block (hyena or mha mixer, dense MLP) -> port state dict."""
+    mixer = mha_state_dict if "qkv_proj" in block["mixer"] else hyena_operator_state_dict
+    return {**_norm(block["norm1"], prefix + "norm1"), **_norm(block["norm2"], prefix + "norm2"),
+            **mixer(block["mixer"], prefix + "mixer."),
+            **_dense(block["mlp"]["fc1"], prefix + "mlp.fc1"),
+            **_dense(block["mlp"]["fc2"], prefix + "mlp.fc2")}
+
+
+def gpt_state_dict(params) -> dict[str, torch.Tensor]:
+    """flax GPTLMHeadModel params -> port ``models.gpt.GPTLMHeadModel`` state dict."""
+    out = {"embeddings.weight": _t(params["embeddings"]["embedding"]),
+           "pos_embeddings": _t(params["pos_embeddings"])}
+    out.update(_norm(params["ln_f"], "ln_f"))
+    for name in ("project_in", "project_out"):
+        if name in params:
+            out.update(_dense(params[name], name))
+    for name, block in params.items():
+        if name.startswith("block_"):
+            out.update(_block_state_dict(block, f"blocks.{name.split('_')[1]}."))
+    return out
+
+
 def from_jax_params(params) -> dict[str, torch.Tensor]:
-    """flax ConvLMHeadModel params (hyena mixer, tied head) -> port state dict."""
+    """flax ConvLMHeadModel params (hyena or mha mixer, tied head) -> port state dict."""
     out = {"embeddings.weight": _t(params["embeddings"]["embedding"])}
     backbone = params["backbone"]
     out.update(_norm(backbone["ln_f"], "backbone.ln_f"))
@@ -93,12 +128,7 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
         leaf = stacked["norm1"]["scale"]
         blocks.update({i: layer(stacked, i) for i in range(leaf.shape[0])})
     for i, block in blocks.items():
-        p = f"backbone.blocks.{i}."
-        out.update(_norm(block["norm1"], p + "norm1"))
-        out.update(_norm(block["norm2"], p + "norm2"))
-        out.update(hyena_operator_state_dict(block["mixer"], p + "mixer."))
-        out.update(_dense(block["mlp"]["fc1"], p + "mlp.fc1"))
-        out.update(_dense(block["mlp"]["fc2"], p + "mlp.fc2"))
+        out.update(_block_state_dict(block, f"backbone.blocks.{i}."))
     return out
 
 

@@ -1,0 +1,530 @@
+"""Parity of the port's attention slice with the JAX package.
+
+The attention op (``flash_mha`` through ``FlashAttnFunction``, whose CPU
+forward and backward are ``flash_attn_fwd_plain`` and ``flash_attn_bwd_plain``,
+the plain versions of the three CUDA kernels) against JAX's Pallas
+``flash_attention`` itself, run by the JAX package's ``flash_mha(impl="flash")``
+inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64 and 128),
+and against the JAX ``mha_reference`` at ragged L (1, 7, 129, 300), where the
+Pallas kernel cannot tile: forward and grads (dq, dk, dv, d bias), causal,
+non-causal, ALiBi and segment ids, f32 and bf16. Then the helpers (ALiBi,
+rotary, ``pack_sequences``, the window and block-sparse plain paths),
+``MHAOperator`` and its KV-cached ``step``, a 2-layer ``GPTLMHeadModel`` (GPT-2
+and OPT shapes), ``generate_kv``, ``ConvLMHeadModel(mixer="mha")``, three
+optimizer steps of the ``examples/lm`` chain and the GPT-2 and OPT imports,
+each against the JAX package on the CPU. Inputs come from numpy with a seed.
+
+Tolerances: f32 attention outputs at 1e-5 (measured 3.6e-7 against the
+interpret-mode kernel), f32 grads at 1e-4 of max(1, each largest |grad|)
+(measured <= 7.6e-6; at L = 1 dq is 0 and both sides round to ~1e-7); bf16 outputs at the repo's 1e-2 and bf16 grads at 2e-2 of max(1, each
+largest |grad|) (the Pallas kernel rounds p to bf16 before p v, the port's
+plain version keeps p in f32). Modules and models in f32: outputs at 1e-5
+of their largest |value|, logits at 1e-4 absolute, grads at 1e-4 of each
+parameter's largest |grad|.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from flashfftconv_tpu.models import attention as jattn_mod
+from flashfftconv_tpu.models import gpt as jgpt
+from flashfftconv_tpu.models.lm import ConvLMHeadModel as JLM
+from flashfftconv_tpu.ops import attention as jattn
+from flashfftconv_tpu.ops import fused as jfused
+from flashfftconv_tpu.utils import checkpoint_import as jci
+from flashfftconv_tpu.utils import generation as jgen
+from flashfftconv_tpu.utils import metrics as jmetrics
+from flashfftconv_tpu_torch.models import attention as tattn_mod
+from flashfftconv_tpu_torch.models import gpt as tgpt
+from flashfftconv_tpu_torch.models.lm import Block, ConvLMHeadModel
+from flashfftconv_tpu_torch.ops import attention as tattn
+from flashfftconv_tpu_torch.ops import attention_cuda, fused
+from flashfftconv_tpu_torch.utils import checkpoint_import as tci
+from flashfftconv_tpu_torch.utils import generation, jax_weights, train
+
+CPU = "cpu"
+B, H = 2, 2
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+# (L, head_dim, dtype, case): L = 256 runs JAX's Pallas kernel in interpret
+# mode, the ragged lengths its mha_reference.
+KERNEL_CASES = [
+    (256, 64, "f32", "causal"), (256, 64, "f32", "noncausal"), (256, 64, "f32", "alibi"),
+    (256, 64, "f32", "segments"), (256, 128, "f32", "causal"), (256, 128, "f32", "alibi"),
+    (256, 64, "bf16", "causal"), (256, 64, "bf16", "alibi"),
+]
+RAGGED_CASES = [
+    (1, 64, "f32", "causal"), (7, 64, "f32", "alibi"), (129, 128, "f32", "segments"),
+    (300, 64, "f32", "noncausal"), (300, 64, "bf16", "causal"),
+]
+
+
+def _segments(l: int) -> np.ndarray:
+    """(B, L) segment ids from pack_sequences: row 0 packs two sequences,
+    row 1 one."""
+    seqs = [np.zeros(n, np.float32) for n in (l // 3, l - l // 3, l)]
+    _, seg, _ = tattn.pack_sequences(seqs, l)
+    assert seg.shape == (B, l)
+    return seg
+
+
+def _inputs(l, d, case):
+    rng = np.random.default_rng(l * 1000 + d + len(case))
+    q, k, v, do = (rng.standard_normal((B, H, l, d)).astype(np.float32) for _ in range(4))
+    bias = np.asarray(jattn.alibi_bias(H, l, l)) if case == "alibi" else None
+    seg = _segments(l) if case == "segments" else None
+    return q, k, v, do, bias, seg
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_attention(l, d, dtype, case):
+    """(inputs, out, (dq, dk, dv, dbias)) of the JAX package's flash_mha: the
+    Pallas kernel in interpret mode where it tiles, else mha_reference."""
+    q, k, v, do, bias, seg = _inputs(l, d, case)
+    jdt = DTYPES[dtype][0]
+    causal = case != "noncausal"
+    pallas = l % 128 == 0 and l >= 256
+    seg_j = None if seg is None else jnp.asarray(seg)
+
+    def f(q, k, v, b):
+        return jattn.flash_mha(q, k, v, causal=causal, impl="flash" if pallas else "xla", bias=b,
+                               segment_ids=seg_j)
+
+    @jax.jit
+    def fwd_bwd(q, k, v, b, do):
+        out, vjp = jax.vjp(f, q, k, v, b)
+        return out, vjp(do)
+
+    args = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    b = jnp.zeros((1, H, l, l), jnp.float32) if bias is None else jnp.asarray(bias)
+    with pltpu.force_tpu_interpret_mode():
+        out, grads = fwd_bwd(*args, b, jnp.asarray(do, jdt))
+    to_np = lambda a: np.asarray(a.astype(jnp.float32))
+    return (q, k, v, do, bias, seg), to_np(out), tuple(to_np(g) for g in grads)
+
+
+def _port_attention(inputs, dtype, case):
+    q, k, v, do, bias, seg = inputs
+    tdt = DTYPES[dtype][1]
+    qt, kt, vt = (torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v))
+    bt = None if bias is None else torch.from_numpy(bias).requires_grad_()
+    st = None if seg is None else torch.from_numpy(seg)
+    out = tattn.flash_mha(qt, kt, vt, causal=case != "noncausal", bias=bt, segment_ids=st)
+    out.backward(torch.from_numpy(do).to(tdt))
+    grads = [t.grad.float().numpy() for t in (qt, kt, vt)]
+    grads.append(None if bt is None else bt.grad.numpy())
+    return out.detach().float().numpy(), grads
+
+
+def _check(out, grads, ref_out, ref_grads, dtype, bias):
+    out_tol, grad_tol = (1e-5, 1e-4) if dtype == "f32" else (1e-2, 2e-2)
+    np.testing.assert_allclose(out, ref_out, atol=out_tol, rtol=0)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, ref_grads):
+        if name == "dbias" and bias is None:
+            continue
+        err = float(np.abs(g - r).max())
+        assert err <= grad_tol * max(1.0, float(np.abs(r).max())), (name, err, np.abs(r).max())
+
+
+@pytest.mark.parametrize("l,d,dtype,case", KERNEL_CASES + RAGGED_CASES)
+def test_flash_mha_matches_jax_flash_attention(l, d, dtype, case):
+    """The port's attention (the plain versions of the three kernels on the
+    CPU) against the Pallas kernel (L = 256) or mha_reference (ragged L)."""
+    inputs, ref_out, ref_grads = _jax_attention(l, d, dtype, case)
+    out, grads = _port_attention(inputs, dtype, case)
+    _check(out, grads, ref_out, ref_grads, dtype, inputs[4])
+
+
+@pytest.mark.parametrize("l,d,dtype,case", KERNEL_CASES[:4])
+def test_flash_attn_bwd_plain_matches_jax_grad(l, d, dtype, case):
+    """flash_attn_bwd_plain from flash_attn_fwd_plain's (o, lse) against
+    jax.grad of the interpret-mode kernel; the wrappers' CPU paths give the
+    same grads."""
+    (q, k, v, do, bias, seg), ref_out, ref_grads = _jax_attention(l, d, dtype, case)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    bt = None if bias is None else torch.from_numpy(bias)
+    st = None if seg is None else torch.from_numpy(seg)
+    causal = case != "noncausal"
+    o, lse = tattn.flash_attn_fwd_plain(qt, kt, vt, causal, None, bt, st)
+    grads = tattn.flash_attn_bwd_plain(qt, kt, vt, o, lse, dot, causal, None, bt, st,
+                                       bias_grad=bias is not None)
+    grads = [None if g is None else g.numpy() for g in grads[:3]] + [
+        None if grads[3] is None else grads[3].sum(0, keepdim=True).numpy()]
+    _check(o.numpy(), grads, ref_out, ref_grads, dtype, bias)
+    o2, lse2 = attention_cuda.flash_attn_fwd(qt, kt, vt, causal, None, bt, st)
+    delta = tattn.attention_delta(o2, dot)
+    dk, dv = attention_cuda.flash_attn_bwd_dkv(qt, kt, vt, dot, lse2, delta, causal, None, bt, st)
+    dq, _ = attention_cuda.flash_attn_bwd_dq(qt, kt, vt, dot, lse2, delta, causal, None, bt, st)
+    for got, want in zip((o2, lse2, dq, dk, dv), (o, lse, *grads[:3])):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_flash_mha_routes_and_refusals():
+    """On CPU tensors impl='auto' runs FlashAttnFunction (whose forward is
+    the plain version of the kernel), impl='xla' the oracle, impl='flash'
+    raises; bad impl names raise."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 9, 16)).astype(np.float32))
+               for _ in range(3))
+    before = attention_cuda.flash_attn_fwd.launches
+    a = tattn.flash_mha(q, k, v)
+    b = tattn.flash_mha(q, k, v, impl="xla")
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    assert attention_cuda.flash_attn_fwd.launches == before  # no kernel on the CPU
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_mha(q, k, v, impl="flash")
+    with pytest.raises(ValueError, match="impl"):
+        tattn.flash_mha(q, k, v, impl="pallas")
+
+
+def test_alibi_rotary_and_packing_match_jax():
+    np.testing.assert_allclose(tattn.alibi_slopes(12).numpy(),
+                               np.asarray(jattn.alibi_slopes(12)), rtol=1e-7)
+    for h, lq, lk in ((12, 7, 9), (8, 5, 5), (6, 1, 4)):
+        np.testing.assert_allclose(tattn.alibi_bias(h, lq, lk).numpy(),
+                                   np.asarray(jattn.alibi_bias(h, lq, lk)), rtol=1e-6)
+    for l, dim in ((17, 8), (33, 64)):
+        for got, want in zip(tattn_mod.rotary_tables(l, dim),
+                             jattn_mod.rotary_tables(l, dim)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+        x = np.random.default_rng(l).standard_normal((2, 3, l, dim)).astype(np.float32)
+        cos, sin = jattn_mod.rotary_tables(l, dim)
+        want = jfused.apply_rotary_emb(jnp.asarray(x), cos, sin)
+        got = fused.apply_rotary_emb(torch.from_numpy(x), *tattn_mod.rotary_tables(l, dim))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    rng = np.random.default_rng(4)
+    seqs = [rng.standard_normal((n, 3)).astype(np.float32) for n in (5, 9, 3, 12, 1, 7)]
+    got, want = tattn.pack_sequences(seqs, 12), jattn.pack_sequences(seqs, 12)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2]
+    with pytest.raises(ValueError):
+        tattn.pack_sequences(seqs, 8)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_window_and_blocksparse_plain_paths_match_jax(causal):
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((2, 2, 64, 32)).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    got = tattn.flash_mha(tq, tk, tv, causal=causal, window=9)
+    want = jattn.flash_mha(jq, jk, jv, causal=causal, window=9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    mask = np.array([[1, 0, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0], [1, 0, 1, 1]])
+    got = tattn.blocksparse_mha(tq, tk, tv, mask, block_size=16, causal=causal)
+    want = jattn.blocksparse_mha(jq, jk, jv, mask, block_size=16, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert not got[:, :, 32:48].any()  # the empty row block gives zeros
+    with pytest.raises(ValueError):
+        tattn.blocksparse_mha(tq, tk, tv, mask, block_size=8)
+
+
+def _init(model, *args, **kw):
+    params = model.init(jax.random.PRNGKey(0), *args, **kw)["params"]
+    return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+def _assert_grads(jax_grads: dict, model, tol=1e-4):
+    assert set(jax_grads) == {n for n, _ in model.named_parameters()}
+    for name, p in model.named_parameters():
+        ref = jax_grads[name].numpy()
+        err = float(np.abs(p.grad.numpy() - ref).max())
+        assert err <= tol * float(np.abs(ref).max()) + 1e-7, (name, err, float(np.abs(ref).max()))
+
+
+MHA_CASES = {
+    "plain": dict(),
+    "rotary8": dict(rotary_dim=8),
+    "rotary_full": dict(rotary_dim=64),
+    "alibi": dict(alibi=True),
+    "segments": dict(),
+}
+
+
+@pytest.mark.parametrize("case", list(MHA_CASES))
+def test_mha_operator_matches_flax(case):
+    """MHAOperator forward, input grad and parameter grads against flax
+    (d_model 128, 2 heads of 64, L = 40), weights carried by mha_state_dict."""
+    kw = MHA_CASES[case]
+    rng = np.random.default_rng(6)
+    u = rng.standard_normal((2, 40, 128)).astype(np.float32)
+    w = rng.standard_normal((2, 40, 128)).astype(np.float32)
+    seg = np.repeat(np.array([[1, 2, 3, 4], [1, 1, 2, 2]]), 10, axis=1).astype(np.int32) \
+        if case == "segments" else None
+    jm = jattn_mod.MHAOperator(d_model=128, num_heads=2, **kw)
+    params, pnp = _init(jm, jnp.asarray(u))
+    seg_j = None if seg is None else jnp.asarray(seg)
+
+    def loss(p, x):
+        return (jm.apply({"params": p}, x, segment_ids=seg_j) * w).sum()
+
+    ref = jm.apply({"params": params}, jnp.asarray(u), segment_ids=seg_j)
+    gp, gu = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(u))
+    tm = tattn_mod.MHAOperator(128, num_heads=2, **kw, device=CPU)
+    tm.load_state_dict(jax_weights.mha_state_dict(pnp), strict=True)
+    ut = torch.from_numpy(u).requires_grad_()
+    out = tm(ut, segment_ids=None if seg is None else torch.from_numpy(seg))
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5 * float(np.abs(ref).max()))
+    np.testing.assert_allclose(ut.grad.numpy(), np.asarray(gu),
+                               atol=1e-4 * float(np.abs(gu).max()))
+    _assert_grads(jax_weights.mha_state_dict(jax.tree_util.tree_map(np.asarray, gp)), tm)
+
+
+@pytest.mark.parametrize("kw", [dict(rotary_dim=16), dict(alibi=True)])
+def test_mha_step_decodes_like_the_forward_and_flax(kw):
+    """step over a fresh cache, one position at a time, gives the forward's
+    outputs at every position, and flax's apply_step the same."""
+    rng = np.random.default_rng(7)
+    u = rng.standard_normal((2, 12, 128)).astype(np.float32)
+    jm = jattn_mod.MHAOperator(d_model=128, num_heads=2, **kw)
+    params, pnp = _init(jm, jnp.asarray(u))
+    tm = tattn_mod.MHAOperator(128, num_heads=2, **kw, device=CPU).eval()
+    tm.load_state_dict(jax_weights.mha_state_dict(pnp), strict=True)
+    with torch.no_grad():
+        full = tm(torch.from_numpy(u))
+        cache = tm.init_cache(2, 16)
+        steps = []
+        for pos in range(12):
+            y, cache = tm.step(torch.from_numpy(u[:, pos : pos + 1]), cache, pos)
+            steps.append(y)
+    np.testing.assert_allclose(torch.cat(steps, 1).numpy(), full.numpy(), atol=1e-5)
+    jcache = jm.init_cache(2, 16)
+    for pos in range(12):
+        jy, jcache = jm.apply_step({"params": params}, jnp.asarray(u[:, pos : pos + 1]), jcache,
+                                   pos)
+        np.testing.assert_allclose(steps[pos].numpy(), np.asarray(jy), atol=1e-5)
+    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(jcache["k"]), atol=1e-5)
+
+
+GPT_CASES = {
+    "gpt2": dict(d_model=128, n_layer=2, d_inner=512, vocab_size=200, l_max=64, num_heads=2),
+    "opt_embed_dim": dict(d_model=128, n_layer=2, d_inner=512, vocab_size=200, l_max=64,
+                          num_heads=2, embed_dim=64, mlp_activation="relu"),
+    "rotary_remat": dict(d_model=128, n_layer=2, d_inner=512, vocab_size=200, l_max=64,
+                         num_heads=2, mixer_kwargs={"rotary_dim": 64}, remat=True),
+}
+
+
+def _gpt_pair(case, **extra):
+    """The flax model (without remat, which changes no number) and the port's,
+    with the same weights."""
+    cfg = GPT_CASES[case]
+    jm = jgpt.GPTLMHeadModel(**{k: v for k, v in cfg.items() if k != "remat"},
+                             dtype=jnp.float32, **extra)
+    ids = np.random.default_rng(8).integers(0, cfg["vocab_size"], (2, 48))
+    params, pnp = _init(jm, jnp.asarray(ids))
+    tm = tgpt.GPTLMHeadModel(**cfg, dtype=torch.float32, device=CPU).eval()
+    tm.load_state_dict(jax_weights.gpt_state_dict(pnp), strict=True)
+    return jm, params, tm, ids
+
+
+@pytest.mark.parametrize("case", list(GPT_CASES))
+def test_gpt_logits_and_grads_match_flax(case):
+    jm, params, tm, ids = _gpt_pair(case)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def loss(p):
+        return jmetrics.cross_entropy(jm.apply({"params": p}, jnp.asarray(x)), jnp.asarray(y))
+
+    ref_logits = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
+    ref_loss, gp = jax.jit(jax.value_and_grad(loss))(params)
+    tm.train()  # remat replays blocks only with grad on; dropout stays off below
+    tm.embed_drop.p = 0.0
+    logits = tm(torch.from_numpy(x))
+    lt = train.cross_entropy(logits, torch.from_numpy(y))
+    lt.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref_logits), atol=1e-4)
+    assert float(lt) == pytest.approx(float(ref_loss), rel=1e-5)
+    _assert_grads(jax_weights.gpt_state_dict(jax.tree_util.tree_map(np.asarray, gp)), tm)
+
+
+@pytest.mark.parametrize("case", ["gpt2", "opt_embed_dim"])
+def test_gpt_step_and_generate_kv_match_flax(case):
+    """step over f32 caches gives the forward's logits at every position; the
+    JAX package's generate_kv and the port's give the same greedy tokens."""
+    jm, params, tm, ids = _gpt_pair(case)
+    prompt = ids[:, :10]
+    with torch.no_grad():
+        full = tm(torch.from_numpy(prompt))
+        caches = tm.init_cache(2, 24, torch.float32)
+        steps = [tm.step(torch.from_numpy(prompt[:, p : p + 1]), caches, p)[0]
+                 for p in range(10)]
+    np.testing.assert_allclose(torch.cat(steps, 1).numpy(), full.numpy(), atol=1e-4)
+    want = jgen.generate_kv(jm, params, jnp.asarray(prompt), 6, 24, temperature=0.0)
+    got = generation.generate_kv(tm, torch.from_numpy(prompt), 6, 24, temperature=0.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError):
+        generation.generate_kv(tm, torch.from_numpy(prompt), 20, 24)
+
+
+def test_conv_lm_with_the_mha_mixer_matches_flax():
+    cfg = dict(d_model=128, n_layer=2, d_inner=256, vocab_size=64, l_max=32)
+    mk = {"num_heads": 2, "alibi": True}
+    jm = JLM(**cfg, mixer="mha", mixer_kwargs=mk, dtype=jnp.float32)
+    ids = np.random.default_rng(9).integers(0, 64, (2, 32))
+    params, pnp = _init(jm, jnp.asarray(ids))
+    gp = jax.jit(jax.grad(lambda p: jm.apply({"params": p}, jnp.asarray(ids)).sum()))(params)
+    tm = ConvLMHeadModel(**cfg, mixer="mha", mixer_kwargs=mk, dtype=torch.float32,
+                         device=CPU).eval()
+    tm.load_state_dict(jax_weights.from_jax_params(pnp), strict=True)
+    logits = tm(torch.from_numpy(ids))
+    logits.sum().backward()
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(jm.apply({"params": params}, jnp.asarray(ids))),
+                               atol=1e-4)
+    _assert_grads(jax_weights.from_jax_params(jax.tree_util.tree_map(np.asarray, gp)), tm)
+    for mixer in ("h3", "m2", "long-conv"):
+        with pytest.raises(NotImplementedError, match=mixer):
+            Block(16, 32, mixer=mixer, device=CPU)
+
+
+def test_gpt_train_steps_match_the_example_optax_chain():
+    """Three steps of the examples/lm chain (clip_by_global_norm(1.0), then
+    adamw over warmup_cosine_decay_schedule, decaying every parameter) on a
+    2-layer f32 GPT, dropout off: lm_optimizer serves GPT as it is. Every
+    parameter sits in a group that decays it by wd, and each element's change
+    over the three steps matches optax's within 5e-3 of its parameter's
+    largest |change|, 8e-6 here (the differences measured reach 1e-3 of it;
+    the decay alone moves a LayerNorm scale by 1.5e-4 over the steps, 18
+    times the tolerance). An element whose first gradient is at rounding
+    level (below 1e-5 of its parameter's largest, as the key bias's, which
+    softmax cancels) takes a step of either sign in either framework: those
+    elements, under 1% of all, are held to Adam's bound of the summed lr
+    alone."""
+    lr, wd, warmup, steps = 1e-3, 0.1, 1, 3
+    jm, params, tm, ids = _gpt_pair("gpt2", embed_dropout=0.0)
+    x, y = ids[:, :-1], ids[:, 1:]
+    before = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(
+        optax.warmup_cosine_decay_schedule(0.0, lr, warmup, max(steps, warmup + 1)),
+        weight_decay=wd))
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def jstep(params, opt_state):
+        loss, grads = jax.value_and_grad(lambda p: jmetrics.cross_entropy(
+            jm.apply({"params": p}, jnp.asarray(x)), jnp.asarray(y)))(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, grads
+
+    jlosses, first_grads = [], None
+    for _ in range(steps):
+        params, opt_state, loss, grads = jstep(params, opt_state)
+        jlosses.append(float(loss))
+        first_grads = first_grads or jax_weights.gpt_state_dict(
+            jax.tree_util.tree_map(np.asarray, grads))
+    opt, sched = train.lm_optimizer(tm, lr=lr, weight_decay=wd, warmup=warmup, steps=steps)
+    decayed = {id(p) for grp in opt.param_groups if grp["weight_decay"] == wd
+               for p in grp["params"]}
+    assert decayed == {id(p) for p in tm.parameters()}
+    step = train.make_train_step(tm, opt, sched, clip=1.0)
+    lrs, losses = [], []
+    for _ in range(steps):
+        lrs.append(opt.param_groups[0]["lr"])
+        losses.append(float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    want = jax_weights.gpt_state_dict(jax.tree_util.tree_map(np.asarray, params))
+    n_noise = n_all = 0
+    for name, p in tm.named_parameters():
+        change, ref = (p.detach() - before[name]).numpy(), (want[name] - before[name]).numpy()
+        g = np.abs(first_grads[name].numpy())
+        noise = g <= 1e-5 * g.max()
+        n_noise, n_all = n_noise + int(noise.sum()), n_all + noise.size
+        np.testing.assert_allclose(change[~noise], ref[~noise], atol=5e-3 * np.abs(ref).max(),
+                                   rtol=0, err_msg=name)
+        assert np.all(np.abs(change[noise]) <= 1.01 * sum(lrs)), name
+    assert n_noise < 0.01 * n_all
+
+
+def _hf_gpt2_state(rng, n_layer, d, vocab, n_pos):
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    st = {"transformer.wte.weight": r(vocab, d), "transformer.wpe.weight": r(n_pos, d),
+          "transformer.ln_f.weight": r(d), "transformer.ln_f.bias": r(d),
+          "lm_head.weight": r(vocab, d)}
+    for i in range(n_layer):
+        p = f"transformer.h.{i}."
+        st.update({p + "ln_1.weight": r(d), p + "ln_1.bias": r(d), p + "ln_2.weight": r(d),
+                   p + "ln_2.bias": r(d), p + "attn.c_attn.weight": r(d, 3 * d),
+                   p + "attn.c_attn.bias": r(3 * d), p + "attn.c_proj.weight": r(d, d),
+                   p + "attn.c_proj.bias": r(d), p + "mlp.c_fc.weight": r(d, 4 * d),
+                   p + "mlp.c_fc.bias": r(4 * d), p + "mlp.c_proj.weight": r(4 * d, d),
+                   p + "mlp.c_proj.bias": r(d), p + "attn.bias": np.ones((1, 1, 8, 8), np.float32)})
+    return st
+
+
+def _hf_opt_state(rng, n_layer, d, vocab, n_pos, proj):
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    e = proj or d
+    st = {"model.decoder.embed_tokens.weight": r(vocab, e),
+          "model.decoder.embed_positions.weight": r(n_pos + 2, d),
+          "model.decoder.final_layer_norm.weight": r(d),
+          "model.decoder.final_layer_norm.bias": r(d), "lm_head.weight": r(vocab, e)}
+    if proj:
+        st["model.decoder.project_in.weight"] = r(d, e)
+        st["model.decoder.project_out.weight"] = r(e, d)
+    for i in range(n_layer):
+        p = f"model.decoder.layers.{i}."
+        for n in ("q", "k", "v", "out"):
+            st[p + f"self_attn.{n}_proj.weight"] = r(d, d)
+            st[p + f"self_attn.{n}_proj.bias"] = r(d)
+        for n in ("self_attn_layer_norm", "final_layer_norm"):
+            st[p + f"{n}.weight"], st[p + f"{n}.bias"] = r(d), r(d)
+        st[p + "fc1.weight"], st[p + "fc1.bias"] = r(4 * d, d), r(4 * d)
+        st[p + "fc2.weight"], st[p + "fc2.bias"] = r(d, 4 * d), r(d)
+    return st
+
+
+@pytest.mark.parametrize("which", ["gpt2", "opt", "opt_proj"])
+def test_gpt2_and_opt_imports_match_the_jax_import(which):
+    """HuggingFace-keyed state dicts built in memory: the port's import gives
+    the JAX import's parameters (through gpt_state_dict) and loads strictly
+    into a GPTLMHeadModel whose logits match flax's on them."""
+    rng = np.random.default_rng(10)
+    n_layer, d, vocab, n_pos = 2, 64, 45, 32
+    if which == "gpt2":
+        state = _hf_gpt2_state(rng, n_layer, d, vocab, n_pos)
+        want, jrep = jci.import_gpt2_state_dict(state, n_layer)
+        got, rep = tci.import_gpt2_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                                              n_layer)
+        cfg = dict(mlp_activation="gelu")
+    else:
+        proj = 32 if which == "opt_proj" else None
+        state = _hf_opt_state(rng, n_layer, d, vocab, n_pos, proj)
+        want, jrep = jci.import_opt_state_dict(state, n_layer)
+        got, rep = tci.import_opt_state_dict(state, n_layer)
+        cfg = dict(mlp_activation="relu", embed_dim=proj)
+    want_sd = jax_weights.gpt_state_dict(want)
+    assert set(got) == set(want_sd)
+    for name, t in want_sd.items():
+        np.testing.assert_array_equal(got[name].numpy(), t.numpy(), err_msg=name)
+    assert sorted(rep.skipped) == sorted(jrep.skipped)
+    tm = tgpt.GPTLMHeadModel(d, n_layer, 4 * d, vocab, n_pos, num_heads=2, dtype=torch.float32,
+                             device=CPU, **cfg).eval()
+    tm.load_state_dict(got, strict=True)
+    jm = jgpt.GPTLMHeadModel(d_model=d, n_layer=n_layer, d_inner=4 * d, vocab_size=vocab,
+                             l_max=n_pos, num_heads=2, dtype=jnp.float32, **cfg)
+    ids = rng.integers(0, vocab, (2, 16))
+    with torch.no_grad():
+        logits = tm(torch.from_numpy(ids))
+    ref = jm.apply({"params": want}, jnp.asarray(ids))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref), atol=1e-3 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("width", ["125m", "350m", "1.3b"])
+def test_opt_lm_configs_match_jax(monkeypatch, width):
+    """opt_lm passes the JAX package's OPT geometry (the model is not built)."""
+    monkeypatch.setattr(tgpt, "GPTLMHeadModel", lambda **kw: kw)
+    got = tgpt.opt_lm(50272, 2048, width, dtype=torch.float32)
+    want = jgpt.opt_lm(50272, 2048, width)
+    for name in ("d_model", "n_layer", "d_inner", "vocab_size", "l_max", "num_heads",
+                 "embed_dim", "mlp_activation"):
+        assert got[name] == getattr(want, name), name

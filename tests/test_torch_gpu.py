@@ -534,3 +534,114 @@ def test_cuda_long_backward_of_a_band_8192_plan():
     du, dpre, dpost, parts = monarch.conv_bwd_plain(p, u, k_f, pre, post, dout)
     for a, r in zip(got, (du, monarch.dk_finish_plain(p, parts, k.shape[-1]), dpre, dpost)):
         _close(a, r, torch.float32)
+
+
+# --- the flash-attention kernels ---------------------------------------------
+
+def _attn_close(got, ref):
+    """Kernel against plain: f32 within 2e-5 of the largest |value| or of 1
+    where that is smaller (another summation order; grads that are 0 up to
+    rounding, as dq at L = 1, round to about 1e-6), bf16 within one ulp of
+    the largest |value|."""
+    scale = float(ref.float().abs().max())
+    tol = ULP[torch.bfloat16] * scale + 1e-6 if ref.dtype == torch.bfloat16 else 2e-5 * max(1.0, scale)
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,d", [(1, 64), (65, 128), (256, 64), (1000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "segments"])
+def test_cuda_attention_kernels_match_plain(l, d, dtype, case):
+    """flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq against
+    flash_attn_fwd_plain and flash_attn_bwd_plain, each launched once."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(l + d)
+    q, k, v, do = (torch.randn(2, 3, l, d, device=dev, generator=g).to(dtype) for _ in "qkvd")
+    causal = case != "noncausal"
+    bias = plain.alibi_bias(3, l, l, device=dev) if case == "alibi" else None
+    seg = None
+    if case == "segments":
+        seg = (torch.arange(l, device=dev) * 3 // max(l, 1)).int()[None].repeat(2, 1)
+        seg[1] = 7
+    counts = [f.launches for f in (ac.flash_attn_fwd, ac.flash_attn_bwd_dkv, ac.flash_attn_bwd_dq)]
+    o, lse = ac.flash_attn_fwd(q, k, v, causal, None, bias, seg)
+    delta = plain.attention_delta(o, do)
+    dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, causal, None, bias, seg)
+    dq, ds = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, causal, None, bias, seg,
+                                  bias_grad=bias is not None)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (ac.flash_attn_fwd, ac.flash_attn_bwd_dkv,
+                                 ac.flash_attn_bwd_dq)] == [c + 1 for c in counts]
+    ro, rlse = plain.flash_attn_fwd_plain(q, k, v, causal, None, bias, seg)
+    rq, rk, rv, rds = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, causal, None, bias, seg,
+                                                 bias is not None)
+    for got, ref in ((o, ro), (lse, rlse), (dq, rq), (dk, rk), (dv, rv)):
+        _attn_close(got, ref)
+    if bias is not None:
+        _attn_close(ds, rds)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_mha_grads_match_autograd_of_the_reference():
+    """flash_mha through FlashAttnFunction on the card (the bias's grad
+    summed to its (1, H, L, L) shape) against autograd through mha_reference,
+    and two backwards bit for bit."""
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(2, 4, 300, 64, device=dev, generator=g).requires_grad_()
+               for _ in "qkv")
+    bias = tff.alibi_bias(4, 300, 300, device=dev).requires_grad_()
+    w = torch.randn(q.shape, device=dev, generator=g)
+    grads = []
+    for fn in (tff.flash_mha, tff.flash_mha, tff.mha_reference):
+        grads.append(torch.autograd.grad((fn(q, k, v, bias=bias) * w).sum(), (q, k, v, bias)))
+    assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+    for got, ref in zip(grads[0], grads[2]):
+        _attn_close(got, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refuses_what_the_kernels_do_not_take():
+    _needs_card()
+    dev = torch.device("cuda")
+    q = torch.randn(1, 2, 16, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tff.flash_mha(q, q, q)
+    q = torch.randn(1, 2, 16, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        tff.flash_mha(q, q, q)
+    q = torch.randn(1, 2, 64, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="splash"):
+        tff.flash_mha(q, q, q, window=8)
+    with pytest.raises(NotImplementedError, match="splash"):
+        tff.blocksparse_mha(q, q, q, [[1, 0], [1, 1]], block_size=32)
+    ref = tff.flash_mha(q, q, q, window=8, impl="xla")  # the plain version when asked for
+    assert ref.shape == q.shape
+
+
+@pytest.mark.gpu
+def test_cuda_gpt_matches_cpu():
+    """A 2-layer f32 GPT with the same weights on the card (attention kernels)
+    and the CPU (plain versions): logits and every grad."""
+    _needs_card()
+    kw = dict(d_model=128, n_layer=2, d_inner=256, vocab_size=100, l_max=200, num_heads=2,
+              dtype=torch.float32)
+    ids = torch.randint(0, 100, (2, 161), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = tff.GPTLMHeadModel(**kw, device=dev,
+                               generator=torch.Generator().manual_seed(0)).eval()
+        x, y = ids[:, :-1].to(dev), ids[:, 1:].to(dev)
+        logits = m(x)
+        torch.nn.functional.cross_entropy(logits.flatten(0, 1), y.flatten()).backward()
+        out[dev] = (logits.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 2e-3
+    for name, grad in out["cuda"][1].items():
+        ref = out["cpu"][1][name]
+        assert float((grad - ref).abs().max()) <= 1e-3 * float(ref.abs().max()) + 1e-7, name

@@ -28,7 +28,9 @@ def test_import_pulls_in_no_jax():
         "flashfftconv_tpu_torch.models.m2_bert, flashfftconv_tpu_torch.utils.checkpoint_import, "
         "flashfftconv_tpu_torch.utils.generation, flashfftconv_tpu_torch.utils.jax_weights, "
         "flashfftconv_tpu_torch.utils.metrics, flashfftconv_tpu_torch.utils.optim, "
-        "flashfftconv_tpu_torch.utils.train\n"
+        "flashfftconv_tpu_torch.utils.train, flashfftconv_tpu_torch.ops.attention, "
+        "flashfftconv_tpu_torch.ops.attention_cuda, flashfftconv_tpu_torch.ops.fused, "
+        "flashfftconv_tpu_torch.models.attention, flashfftconv_tpu_torch.models.gpt\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'flashfftconv_tpu'))\n"
         "assert not bad, bad\n"

@@ -212,7 +212,7 @@ _OP = dict(d_model=8, l_max=64, device=CPU)
     lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, moe_kwargs={"n_experts": 2}, device=CPU),
     lambda: Block(8, 16, mixer_kwargs={"l_max": 64}, mlp_nblocks=2, device=CPU),
     lambda: ConvLMHeadModel(d_model=8, n_layer=1, d_inner=16, vocab_size=32, l_max=64,
-                            mixer="mha", device=CPU),
+                            mixer="long-conv", device=CPU),
 ])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError):
