@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with an H100:
     python3 chip_smoke.py [--seed 0] [--out-dir DIR]
                           [--phases build,identity,kernels,serve,train,seq_train,parity,
                                     grad_parity,dna,dna_train,long_parity,bert,bert_train,
-                                    bert_parity,gpt_serve,gpt_train,gpt_parity,timing[,profile]]
+                                    bert_parity,gpt_serve,gpt_train,gpt_parity,window_serve,
+                                    window_train,window_parity,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -23,7 +24,16 @@ Phases, each of which fails the run by raising:
             their plain versions at the GPT-2 shape (B=8, H=12, L=1024, D=64,
             f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
             non-causal, with an ALiBi bias (and its grad), with segment ids
-            from pack_sequences, and two backwards bit for bit;
+            from pack_sequences, and two backwards bit for bit; the three
+            splash-attention kernels (forward, dK/dV, dQ) against their plain
+            versions at the windowed GPT's shapes (B=8 and B=4, H=12, L=2048,
+            D=64, f32, window 256) with two backwards bit for bit, at windows
+            1, 100 and >= L (which must give the causal flash kernels'
+            numbers), ragged L, bf16 and D=128, at benchmarks/
+            tpu_attention.py's block-sparse case (B=2, H=4, L=1024, D=128,
+            bf16, 256-wide blocks, its seed-1 mask, causal), at 16-wide
+            blocks not causal, and with an empty row block (exact zeros,
+            finite grads);
   serve     builds Hyena-125M (12 layers, d_model 768, l_max 8192, vocab
             50257, bf16, random weights from --seed) and answers 4 requests
             (prompts of 512..4096 tokens, 8 new tokens each, greedy) through
@@ -122,20 +132,47 @@ Phases, each of which fails the run by raising:
             (plain versions): logits within 2e-3, grads within 1e-3 of each
             parameter's largest |grad|, and a second backward on the card bit
             for bit (but the embedding table's);
+  window_serve  builds a windowed GPT at GPT-Neo-125M's published sizes (12
+            layers, d_model 768, 12 heads of 64, l_max 2048, vocab 50257,
+            one window of 256 on every layer, bf16 with f32 attention, random
+            weights from --seed) and answers 2 generate_kv requests of 300
+            and 1500 prompt tokens (8 greedy tokens each; the second is
+            longer than the window), then 1 warm-up and 5 timed scoring
+            forwards at B=4, L=2048 through the splash forward kernel;
+            checks finite logits, exactly 12 splash_attn_fwd and no flash
+            launches a forward and none while decoding, and an f32 copy's
+            decode-step logits of the 1500-token request against its full
+            forward at 1e-4 of the largest |logit|; prints forward time,
+            tokens/s and peak memory;
+  window_train  trains the same model (B=8, L=2048) with gpt_train's recipe,
+            2 warm-up and 5 timed steps; checks finite, falling loss and
+            exactly 12 launches of each splash kernel and none of the flash
+            kernels a step; prints step time, tokens/s and peak memory;
+  window_parity  a 2-layer f32 windowed GPT (d_model 256, 4 heads of 64,
+            L=2048, window 256) on the card (splash kernels) and the CPU
+            (plain versions): logits within 2e-3, grads within 1e-3 of each
+            parameter's largest |grad|, a second backward bit for bit (but
+            the embedding table's);
   timing    times each kernel, its plain version and a PyTorch yardstick
-            with CUDA events at the main paths' shapes;
+            with CUDA events at the main paths' shapes; the splash kernels
+            at the window_train shape beside the causal flash kernel there
+            (the splash forward must take at most half its time) and SDPA
+            with the dense boolean mask, and the splash forward at
+            tpu_attention.py's block-sparse case;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
             one train step of it on a 1-rank sequence mesh, one HyenaDNA
             forward and one HyenaDNA train step, then one M2-BERT forward and
-            one M2-BERT train step, then one GPT-2 124M forward and train step.
+            one M2-BERT train step, then one GPT-2 124M forward and train
+            step, then one windowed GPT forward and train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
 of the three long forward kernels in the dna phase, those of the two long
 backward kernels in the dna_train phase, those of the direct kernels in the
-bert_train phase, band_conv's in the seq_train phase, those of the
-attention kernels in the gpt_train phase), the
+bert_train phase, band_conv's in the seq_train phase, those of the flash
+attention kernels in the gpt_train phase, those of the splash kernels in
+the window_train phase), the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -156,7 +193,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity",
           "grad_parity", "dna", "dna_train", "long_parity", "bert", "bert_train", "bert_parity",
-          "gpt_serve", "gpt_train", "gpt_parity", "timing")
+          "gpt_serve", "gpt_train", "gpt_parity", "window_serve", "window_train", "window_parity",
+          "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -202,6 +240,18 @@ GPT_HEAD_DIM = GPT_D_MODEL // GPT_HEADS
 GPT_PROMPTS = (128, 256, 512, 1000)
 GPT_SERVE_B, GPT_WARMUP, GPT_TIMED = 8, 1, 5
 GPT_TRAIN_B, GPT_TRAIN_WARMUP, GPT_TRAIN_TIMED = 16, 2, 5
+
+# A windowed GPT at GPT-Neo-125M's published sizes (EleutherAI gpt-neo-125M,
+# config.json: hidden 768, 12 layers, 12 heads of 64, max_position_embeddings
+# 2048, window_size 256, vocab 50257, learned positions, tied head, GELU),
+# as the repo's GPTLMHeadModel with one window on every layer
+# (mixer_kwargs={"window": 256}; GPT-Neo alternates global and local layers,
+# which the JAX package does not have): a forward runs the splash forward
+# once a layer.
+WIN_L_MAX, WIN_W = 2048, 256
+WIN_PROMPTS = (300, 1500)
+WIN_SERVE_B, WIN_WARMUP, WIN_TIMED = 4, 1, 5
+WIN_TRAIN_B, WIN_TRAIN_WARMUP, WIN_TRAIN_TIMED = 8, 2, 5
 
 KERNELS = {
     "spectrum": dict(
@@ -283,16 +333,41 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/flash_attn_bwd.cu",
         replaces="flashfftconv_tpu/ops/attention.py:202",
     ),
+    # JAX's splash attention (jax 0.9.0), which flashfftconv_tpu/ops/attention.py
+    # runs through _splash_call (:268-283) for flash_mha(window=) (:186) and
+    # blocksparse_mha (:340): the forward _splash_attention_forward (def
+    # l.895, pallas_call l.1137) ...
+    "splash_attn_fwd": dict(
+        source="flashfftconv_tpu_torch/csrc/splash_attn.cu",
+        replaces="jax/experimental/pallas/ops/tpu/splash_attention/"
+                 "splash_attention_kernel.py:1137",
+    ),
+    # ... and the fused backward _splash_attention_bwd_dkv (def l.1857,
+    # pallas_call l.2196; use_fused_bwd_kernel=True at ops/attention.py:264),
+    # whose dk and dv the dK/dV kernel computes and whose dq (unreduced, summed
+    # at l.2232-2234) the dQ kernel computes
+    "splash_attn_bwd_dkv": dict(
+        source="flashfftconv_tpu_torch/csrc/splash_attn_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/splash_attention/"
+                 "splash_attention_kernel.py:2196",
+    ),
+    "splash_attn_bwd_dq": dict(
+        source="flashfftconv_tpu_torch/csrc/splash_attn_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/splash_attention/"
+                 "splash_attention_kernel.py:2196",
+    ),
 }
 # The phase whose run gives a kernel's launches in the JSON line.
 LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
                 "long_conv_bwd": "dna_train", "long_dk_finish": "dna_train",
                 "direct_conv": "bert_train", "direct_conv_bwd": "bert_train",
                 "band_conv": "seq_train", "flash_attn_fwd": "gpt_train",
-                "flash_attn_bwd_dkv": "gpt_train", "flash_attn_bwd_dq": "gpt_train"}
+                "flash_attn_bwd_dkv": "gpt_train", "flash_attn_bwd_dq": "gpt_train",
+                "splash_attn_fwd": "window_train", "splash_attn_bwd_dkv": "window_train",
+                "splash_attn_bwd_dq": "window_train"}
 # The phases whose results the kernels JSON line reads.
 JSON_PHASES = {"kernels", "train", "seq_train", "dna", "dna_train", "bert_train", "gpt_train",
-               "timing"}
+               "window_train", "timing"}
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
@@ -334,6 +409,11 @@ BERT_TRAIN_LAUNCHES = {"direct_conv": 2 * BERT_N_LAYER, "direct_conv_bwd": 2 * B
 GPT_LAUNCHES = {"flash_attn_fwd": GPT_N_LAYER}
 GPT_TRAIN_LAUNCHES = {"flash_attn_fwd": GPT_N_LAYER, "flash_attn_bwd_dkv": GPT_N_LAYER,
                       "flash_attn_bwd_dq": GPT_N_LAYER}
+# ... and in the windowed GPT: the splash kernels in place of the flash ones.
+WIN_LAUNCHES = {"splash_attn_fwd": GPT_N_LAYER, "flash_attn_fwd": 0}
+WIN_TRAIN_LAUNCHES = {"splash_attn_fwd": GPT_N_LAYER, "splash_attn_bwd_dkv": GPT_N_LAYER,
+                      "splash_attn_bwd_dq": GPT_N_LAYER, "flash_attn_fwd": 0,
+                      "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
 
 
 def log(msg: str) -> None:
@@ -502,6 +582,7 @@ def phase_kernels(torch, g):
     errs.update(_check_long_kernels(torch, g))
     errs.update(_check_band_kernels(torch, g))
     errs.update(_check_attention_kernels(torch, g))
+    errs.update(_check_splash_kernels(torch, g))
     _check_operator_spread(torch)
     return errs
 
@@ -615,6 +696,126 @@ def _check_attention_kernels(torch, g):
     for name, got, ref in zip(("dq", "dk", "dv", "dbias"), *grads):
         compare(f"FlashAttnFunction {name} vs autograd through mha_reference", got, ref,
                 attn_tol(ref))
+    return errs
+
+
+def _tpu_attention_blockmask(np, l, block):
+    """benchmarks/tpu_attention.py's block mask: random 0/1 blocks from seed
+    1, the diagonal kept."""
+    nb = l // block
+    blockmask = np.random.default_rng(1).integers(0, 2, size=(nb, nb))
+    blockmask[np.arange(nb), np.arange(nb)] = 1
+    return blockmask
+
+
+def _check_splash(torch, what, q, k, v, do, mask):
+    """splash_attn_fwd, splash_attn_bwd_dkv and splash_attn_bwd_dq against
+    the plain forward and backward under the mask's dense form; a row that
+    sees no key must have lse +inf in both. Returns the three largest errors
+    and the kernels' (o, lse, dk, dv, dq)."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    keep = mask.dense(q.device)
+    o, lse = ac.splash_attn_fwd(q, k, v, mask)
+    ro, rlse = plain.splash_attn_fwd_plain(q, k, v, keep)
+    seen = torch.isfinite(rlse)
+    if not torch.equal(torch.isfinite(lse), seen):
+        raise AssertionError(f"splash_attn_fwd {what}: the rows that see no key differ")
+    e_fwd = max(compare(f"splash_attn_fwd {what}", o, ro, attn_tol(ro)),
+                compare(f"splash_attn_fwd lse {what}", lse[seen], rlse[seen],
+                        f32_tol(rlse[seen])))
+    delta = plain.attention_delta(o, do)
+    dk, dv = ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask)
+    dq = ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask)
+    rq, rk, rv = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep)
+    e_dkv = max(compare(f"splash_attn_bwd_dkv dk {what}", dk, rk, attn_tol(rk)),
+                compare(f"splash_attn_bwd_dkv dv {what}", dv, rv, attn_tol(rv)))
+    e_dq = compare(f"splash_attn_bwd_dq dq {what}", dq, rq, attn_tol(rq))
+    torch.cuda.synchronize()
+    return (e_fwd, e_dkv, e_dq), (o, lse, dk, dv, dq)
+
+
+def _check_splash_kernels(torch, g):
+    """The splash kernels at the windowed GPT's shapes (H=12, L=2048, D=64,
+    f32, W=256; B=8 as window_train's steps give all three, B=4 as
+    window_serve's forwards give the forward), with two backwards bit for
+    bit; then W = 1, W = 100 (no multiple of 64), W >= L (which must give
+    the causal flash kernels' numbers), ragged L, bf16 and D=128;
+    benchmarks/tpu_attention.py's block-sparse case (B=2, H=4, L=1024,
+    D=128, bf16, 256-wide blocks, its seed-1 mask with the diagonal kept,
+    causal), 16-wide blocks not causal, and a mask with an empty row block,
+    which must give exact zeros and finite grads."""
+    import numpy as np
+
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    dev = torch.device("cuda")
+    names = ("splash_attn_fwd", "splash_attn_bwd_dkv", "splash_attn_bwd_dq")
+    errs = dict.fromkeys(names, 0.0)
+    h, l, d = GPT_HEADS, WIN_L_MAX, GPT_HEAD_DIM
+    mask = SplashMask.local(l, WIN_W)
+    for b, path in ((WIN_TRAIN_B, "window_train"), (WIN_SERVE_B, "window_serve")):
+        log(f"splash attention: B={b} H={h} L={l} D={d} f32 window {WIN_W} (the windowed GPT "
+            f"shape of {path})")
+        q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
+        got, (o, lse, dk, dv, dq) = _check_splash(torch, f"windowed GPT shape B={b}", q, k, v,
+                                                  do, mask)
+        for name, e in zip(names, got):
+            errs[name] = max(errs[name], e)
+        delta = plain.attention_delta(o, do)
+        again = (*ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
+                 ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask))
+        same = all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+        log(f"  two backwards at the windowed GPT shape B={b} bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"two splash backwards on the card differ at B={b}")
+        del q, k, v, do, o, lse, dk, dv, dq, delta, again
+        torch.cuda.empty_cache()
+
+    for (b, hh, ll, dd, dtype, w) in (
+        (2, 3, 1000, 64, torch.float32, 1), (2, 3, 1000, 64, torch.float32, 100),
+        (2, 3, 65, 64, torch.float32, 30), (2, 3, 1000, 64, torch.bfloat16, 256),
+        (2, 4, 512, 128, torch.float32, 200), (2, 4, 512, 128, torch.bfloat16, 64),
+    ):
+        args = _attn_inputs(torch, g, dev, b, hh, ll, dd, dtype)
+        _check_splash(torch, f"B={b} H={hh} L={ll} D={dd} {dtype} window {w}", *args,
+                      SplashMask.local(ll, w))
+    for (b, hh, ll, dd, dtype) in ((2, 3, 1000, 64, torch.float32),
+                                   (2, 4, 65, 128, torch.bfloat16)):
+        q, k, v, do = _attn_inputs(torch, g, dev, b, hh, ll, dd, dtype)
+        what = f"B={b} H={hh} L={ll} D={dd} {dtype} window {ll + 7} >= L"
+        _, got = _check_splash(torch, what, q, k, v, do, SplashMask.local(ll, ll + 7))
+        fo, flse = ac.flash_attn_fwd(q, k, v, True)
+        delta = plain.attention_delta(fo, do)
+        ref = (fo, flse, *ac.flash_attn_bwd_dkv(q, k, v, do, flse, delta, True),
+               ac.flash_attn_bwd_dq(q, k, v, do, flse, delta, True)[0])
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        for x, y, name in zip(got, ref, ("o", "lse", "dk", "dv", "dq")):
+            compare(f"splash vs causal flash_attn {name} {what}", x, y, attn_tol(y))
+        log(f"  {what}: the causal flash kernels' numbers bit for bit: {same}")
+
+    blockmask = _tpu_attention_blockmask(np, 1024, 256)
+    log(f"splash attention: benchmarks/tpu_attention.py's block-sparse case, B=2 H=4 L=1024 "
+        f"D=128 bf16, 256-wide blocks, causal, mask {blockmask.tolist()}")
+    args = _attn_inputs(torch, g, dev, 2, 4, 1024, 128, torch.bfloat16)
+    _check_splash(torch, "block-sparse tpu_attention case", *args,
+                  SplashMask.blocks(blockmask, 256, causal=True))
+    mask16 = np.random.default_rng(2).random((16, 16)) < 0.3
+    np.fill_diagonal(mask16, True)
+    args = _attn_inputs(torch, g, dev, 2, 3, 256, 64, torch.float32)
+    _check_splash(torch, "16-wide blocks, not causal", *args, SplashMask.blocks(mask16, 16))
+    empty = np.array([[1, 0, 0, 1], [0, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 1]], bool)
+    args = _attn_inputs(torch, g, dev, 2, 3, 400, 64, torch.float32)
+    _, (o, lse, dk, dv, dq) = _check_splash(torch, "100-wide blocks, an empty row block",
+                                            *args, SplashMask.blocks(empty, 100))
+    zero = not o[:, :, 100:200].any() and not dq[:, :, 100:200].any()
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, dk, dv, dq))
+    log(f"  the empty row block: exact zeros {zero}, every grad finite {finite}")
+    if not (zero and finite):
+        raise AssertionError("a row block that sees no key must give zeros and finite grads")
     return errs
 
 
@@ -967,7 +1168,10 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
                 "band_conv": monarch_cuda.band_conv,
                 "flash_attn_fwd": ac.flash_attn_fwd,
                 "flash_attn_bwd_dkv": ac.flash_attn_bwd_dkv,
-                "flash_attn_bwd_dq": ac.flash_attn_bwd_dq}
+                "flash_attn_bwd_dq": ac.flash_attn_bwd_dq,
+                "splash_attn_fwd": ac.splash_attn_fwd,
+                "splash_attn_bwd_dkv": ac.splash_attn_bwd_dkv,
+                "splash_attn_bwd_dq": ac.splash_attn_bwd_dq}
     return {name: wrappers[name] for name in names}
 
 
@@ -1993,20 +2197,17 @@ def phase_gpt_serve(torch, seed, np):
     return res
 
 
-def phase_gpt_train(torch, seed, np):
-    """GPT-2 124M (B=16, L=1024, bf16 activations, embedding dropout 0.1)
-    takes GPT_TRAIN_WARMUP + GPT_TRAIN_TIMED steps of the examples/lm recipe
-    on byte data."""
+def _attention_lm_train(torch, seed, np, what, model, b, length, warmup, timed, want):
+    """warmup + timed steps of the examples/lm recipe (AdamW lr 3e-4 with 2
+    warm-up steps, weight decay 0.1, clip 1.0) on byte data: a finite,
+    falling loss and the launches of `want` every step."""
     from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
 
-    dev = torch.device("cuda")
-    torch.manual_seed(seed)
-    model = _gpt2(torch, seed, dev).train()
-    n_steps = GPT_TRAIN_WARMUP + GPT_TRAIN_TIMED
+    n_steps = warmup + timed
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=n_steps)
     step = make_train_step(model, opt, sched, clip=1.0)
-    batches = _train_batches(torch, np, seed, dev, n_steps, GPT_TRAIN_B, GPT_L_MAX)
-    counters = _counters(GPT_TRAIN_LAUNCHES)
+    batches = _train_batches(torch, np, seed, "cuda", n_steps, b, length)
+    counters = _counters(want)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2028,45 +2229,56 @@ def phase_gpt_train(torch, seed, np):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train loss did not fall: {losses}")
     for i, counts in enumerate(per_step):
-        if counts != GPT_TRAIN_LAUNCHES:
-            raise AssertionError(f"step {i} launched {counts}, expected {GPT_TRAIN_LAUNCHES}")
-    timed = step_ms[GPT_TRAIN_WARMUP:]
-    med = float(np.median(timed))
+        if counts != want:
+            raise AssertionError(f"step {i} launched {counts}, expected {want}")
+    timed_ms = step_ms[warmup:]
+    med = float(np.median(timed_ms))
     res = {"steps": n_steps, "losses": losses, "step_ms": step_ms, "step_ms_median": med,
-           "step_ms_max": max(timed), "tokens_per_s": GPT_TRAIN_B * GPT_L_MAX / (med / 1e3),
+           "step_ms_max": max(timed_ms), "tokens_per_s": b * length / (med / 1e3),
            "launches": launches, "peak_memory_bytes": peak}
-    log(f"gpt_train: GPT-2 124M B={GPT_TRAIN_B} L={GPT_L_MAX} bf16, {n_steps} steps (lr 3e-4, "
-        f"wd 0.1, clip 1.0, warmup 2), losses {' '.join(f'{v:.4f}' for v in losses)}")
-    log(f"gpt_train: step median {med:.2f} ms max {max(timed):.2f} ms over {GPT_TRAIN_TIMED} "
-        f"timed steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
-        f"launches a step {per_step[-1]}")
+    log(f"{what} B={b} L={length} bf16, {n_steps} steps (lr 3e-4, wd 0.1, clip 1.0, warmup 2), "
+        f"losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"{what}: step median {med:.2f} ms max {max(timed_ms):.2f} ms over {timed} timed steps "
+        f"({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, launches a "
+        f"step {per_step[-1]}")
     return res
 
 
-def phase_gpt_parity(torch, seed, np):
-    """A 2-layer f32 GPT (d_model 256, 4 heads of 64, l_max 1024) with the
-    same weights on the card (attention kernels) and on the CPU (plain
-    versions): logits, grads, and a second backward on the card bit for bit."""
-    kw = dict(d_model=256, n_layer=2, d_inner=1024, vocab_size=256, l_max=GPT_L_MAX,
-              num_heads=4, dtype=torch.float32)
+def phase_gpt_train(torch, seed, np):
+    """GPT-2 124M (B=16, L=1024, bf16 activations, embedding dropout 0.1)
+    takes GPT_TRAIN_WARMUP + GPT_TRAIN_TIMED steps of the examples/lm recipe
+    on byte data."""
+    torch.manual_seed(seed)
+    model = _gpt2(torch, seed, "cuda").train()
+    return _attention_lm_train(torch, seed, np, "gpt_train: GPT-2 124M", model, GPT_TRAIN_B,
+                               GPT_L_MAX, GPT_TRAIN_WARMUP, GPT_TRAIN_TIMED, GPT_TRAIN_LAUNCHES)
+
+
+def _attention_lm_parity(torch, seed, np, what, length, want, **kw):
+    """A 2-layer f32 GPT (d_model 256, 4 heads of 64) with the same weights
+    on the card (kernels) and on the CPU (plain versions): logits within
+    2e-3, grads within 1e-3 of each parameter's largest |grad|, a second
+    backward on the card bit for bit (but the embedding table's), and the
+    launches of `want` over one forward and two train passes."""
+    kw = dict(d_model=256, n_layer=2, d_inner=1024, vocab_size=256, l_max=length, num_heads=4,
+              dtype=torch.float32, **kw)
     models = {dev: _gpt2(torch, seed, dev, **kw).eval() for dev in ("cpu", "cuda")}
-    x, y = _train_batches(torch, np, seed + 1, "cpu", 1, 2, GPT_L_MAX)[0]
+    x, y = _train_batches(torch, np, seed + 1, "cpu", 1, 2, length)[0]
     ids = torch.cat([x, y[:, -1:]], dim=1)  # L + 1 bytes: inputs and targets
-    counters = _counters(GPT_TRAIN_LAUNCHES)
+    counters = _counters(want)
     before = {name: fn.launches for name, fn in counters.items()}
     with torch.inference_mode():
         ref = models["cpu"](ids[:, :-1])
         got = models["cuda"](ids[:, :-1].cuda()).cpu()
     err = float((got - ref).abs().max())
-    log(f"gpt_parity: 2-layer f32 GPT at L={GPT_L_MAX}, B=2, card (attention kernels) vs CPU "
-        f"(plain): max_abs_err={err:.3e} tol=2e-3, |logits| <= {float(ref.abs().max()):.2f}")
+    log(f"{what} at L={length}, B=2, card (kernels) vs CPU (plain): max_abs_err={err:.3e} "
+        f"tol=2e-3, |logits| <= {float(ref.abs().max()):.2f}")
     if not err <= 2e-3:
         raise AssertionError(f"card and CPU logits disagree: {err}")
     loss_cpu, grads_cpu = _loss_and_grads(torch, models["cpu"], ids)
     loss_card, grads_card = _loss_and_grads(torch, models["cuda"], ids.cuda())
     _, grads_again = _loss_and_grads(torch, models["cuda"], ids.cuda())
     counts = {name: fn.launches - before[name] for name, fn in counters.items()}
-    want = {"flash_attn_fwd": 6, "flash_attn_bwd_dkv": 4, "flash_attn_bwd_dq": 4}
     if counts != want:
         raise AssertionError(f"one forward and two train passes launched {counts}, "
                              f"expected {want}")
@@ -2075,15 +2287,140 @@ def phase_gpt_parity(torch, seed, np):
     # rows with float atomics, in an order that changes from run to run.
     differ = [n for n, gr in grads_card.items()
               if n != "embeddings.weight" and not torch.equal(gr, grads_again[n])]
-    log(f"gpt_parity: grads, card (attention backward kernels) vs CPU (plain) over "
-        f"{len(grads_cpu)} params: max |dgrad| / max |grad| = {ratio:.3e} ({worst}), tol 1e-3; "
-        f"loss {loss_card:.6f} vs {loss_cpu:.6f}; a second backward on the card differs in "
-        f"{len(differ)} params outside the embedding table {differ}")
+    log(f"{what}: grads, card (backward kernels) vs CPU (plain) over {len(grads_cpu)} params: "
+        f"max |dgrad| / max |grad| = {ratio:.3e} ({worst}), tol 1e-3; loss {loss_card:.6f} vs "
+        f"{loss_cpu:.6f}; a second backward on the card differs in {len(differ)} params "
+        f"outside the embedding table {differ}")
     if not ratio <= 1e-3:
         raise AssertionError(f"card and CPU grads disagree: {worst} at {ratio}")
     if differ:
         raise AssertionError(f"two backwards on the card differ in {differ}")
     return {"logits_max_abs_err": err, "grad_max_rel_err": ratio, "grad_worst_param": worst}
+
+
+def phase_gpt_parity(torch, seed, np):
+    """A 2-layer f32 GPT (d_model 256, 4 heads of 64, l_max 1024) on the card
+    (flash-attention kernels) against the CPU."""
+    want = {"flash_attn_fwd": 6, "flash_attn_bwd_dkv": 4, "flash_attn_bwd_dq": 4}
+    return _attention_lm_parity(torch, seed, np, "gpt_parity: 2-layer f32 GPT", GPT_L_MAX, want)
+
+
+def _window_gpt(torch, seed, dev, **kw):
+    """The windowed GPT at GPT-Neo-125M's sizes (see WIN_L_MAX)."""
+    return _gpt2(torch, seed, dev, **{"l_max": WIN_L_MAX, "mixer_kwargs": {"window": WIN_W},
+                                      **kw})
+
+
+def phase_window_serve(torch, seed, np):
+    """The windowed GPT answers WIN_PROMPTS requests through generate_kv (the
+    1500-token prompt is longer than the window, so the cached step's window
+    mask decides), then WIN_WARMUP + WIN_TIMED scoring forwards at B=4,
+    L=2048 through the splash forward kernel; the decode logits of an f32
+    copy against its forward's."""
+    from flashfftconv_tpu_torch.utils.generation import generate_kv
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = _window_gpt(torch, seed, dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"windowed GPT (GPT-Neo-125M sizes, window {WIN_W}): {n_params / 1e6:.2f}M params, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    counters = _counters(WIN_TRAIN_LAUNCHES)
+    with torch.inference_mode():
+        req_s, outs = [], []
+        for fn in counters.values():
+            fn.launches = 0
+        for n in WIN_PROMPTS:
+            prompt = torch.from_numpy(rng.integers(0, GPT_VOCAB, (1, n))).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate_kv(model, prompt, NEW_TOKENS, n + NEW_TOKENS, temperature=0.0)
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - t0)
+            new = out[0, n:]
+            if out.shape != (1, n + NEW_TOKENS) or not torch.equal(out[:, :n], prompt) or \
+                    not bool(((new >= 0) & (new < model.vocab_size)).all()):
+                raise AssertionError(f"request of {n} tokens: bad output {out[0, n - 2:].tolist()}")
+            outs.append(out)
+        decode_launches = {name: fn.launches for name, fn in counters.items()}
+        if any(decode_launches.values()):
+            raise AssertionError(f"KV-cached decoding launched {decode_launches}; it runs plain "
+                                 "attention over the cache")
+        log(f"window_serve: {len(WIN_PROMPTS)} requests (prompts {WIN_PROMPTS}, {NEW_TOKENS} "
+            f"greedy tokens each) through generate_kv in {' '.join(f'{t:.3f}' for t in req_s)} "
+            f"s ({len(WIN_PROMPTS) * NEW_TOKENS / sum(req_s):.1f} new tokens/s)")
+
+        # The decode-step logits of the 1500-token request against the full
+        # forward's (the splash kernel's window) in an f32 copy with an f32
+        # cache: they differ by f32 rounding only, held at 1e-4 of the largest
+        # |logit| as gpt_serve holds GPT-2's.
+        ids = outs[-1]
+        f32_model = _window_gpt(torch, seed, dev, dtype=torch.float32).eval()
+        full = f32_model(ids)[0]
+        dev_f32 = float((_decode_logits(torch, f32_model, ids, torch.float32)[0] - full)
+                        .abs().max())
+        scale = float(full.abs().max())
+        tol = 1e-4 * scale
+        log(f"window_serve: f32 copy, decode-step logits of the {ids.shape[1]}-token request vs "
+            f"the full forward (splash_attn_fwd): f32 cache max_abs_err={dev_f32:.3e} "
+            f"tol={tol:.3e} (1e-4 of |logits| <= {scale:.2f})")
+        if not dev_f32 <= tol:
+            raise AssertionError(f"f32 decode logits with an f32 cache disagree with the "
+                                 f"forward: {dev_f32} > {tol}")
+        del f32_model, full
+
+        ids = torch.from_numpy(rng.integers(0, GPT_VOCAB, (WIN_SERVE_B, WIN_L_MAX))).to(dev)
+        for _ in range(WIN_WARMUP):
+            model(ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        fwd_ms = []
+        for _ in range(WIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if logits.shape != (WIN_SERVE_B, WIN_L_MAX, model.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)} or non-finite values")
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: WIN_TIMED * WIN_LAUNCHES.get(name, 0) for name in counters}
+    if launches != want:
+        raise AssertionError(f"{WIN_TIMED} forwards launched {launches}, expected {want}")
+    med = float(np.median(fwd_ms))
+    res = {"requests_s": req_s, "decode_f32_cache_max_abs_err": dev_f32, "forward_ms": fwd_ms,
+           "forward_ms_median": med, "forward_ms_max": max(fwd_ms),
+           "tokens_per_s": WIN_SERVE_B * WIN_L_MAX / (med / 1e3), "launches": launches,
+           "peak_memory_bytes": peak}
+    log(f"window_serve: B={WIN_SERVE_B} L={WIN_L_MAX} forward median {med:.2f} ms max "
+        f"{max(fwd_ms):.2f} ms over {WIN_TIMED} ({res['tokens_per_s']:.0f} tokens/s), launches "
+        f"{launches}, peak memory {peak / 2**30:.2f} GiB")
+    return res
+
+
+def phase_window_train(torch, seed, np):
+    """The windowed GPT (B=8, L=2048, bf16 activations, embedding dropout
+    0.1) takes WIN_TRAIN_WARMUP + WIN_TRAIN_TIMED steps of the examples/lm
+    recipe on byte data, through the three splash kernels."""
+    torch.manual_seed(seed)
+    model = _window_gpt(torch, seed, "cuda").train()
+    return _attention_lm_train(torch, seed, np, "window_train: windowed GPT", model,
+                               WIN_TRAIN_B, WIN_L_MAX, WIN_TRAIN_WARMUP, WIN_TRAIN_TIMED,
+                               WIN_TRAIN_LAUNCHES)
+
+
+def phase_window_parity(torch, seed, np):
+    """A 2-layer f32 windowed GPT (d_model 256, 4 heads of 64, L=2048,
+    W=256) on the card (splash kernels) against the CPU."""
+    want = {"splash_attn_fwd": 6, "splash_attn_bwd_dkv": 4, "splash_attn_bwd_dq": 4,
+            "flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+    return _attention_lm_parity(torch, seed, np, "window_parity: 2-layer f32 windowed GPT",
+                                WIN_L_MAX, want, mixer_kwargs={"window": WIN_W})
 
 
 def _kind(name: str) -> str:
@@ -2097,6 +2434,9 @@ def _kind(name: str) -> str:
         ("flash_attn_bwd_dkv", ("flash_attn_bwd_dkv_kernel",)),
         ("flash_attn_bwd_dq", ("flash_attn_bwd_dq_kernel",)),
         ("flash_attn_fwd", ("flash_attn_fwd_kernel",)),
+        ("splash_attn_bwd_dkv", ("splash_attn_bwd_dkv_kernel",)),
+        ("splash_attn_bwd_dq", ("splash_attn_bwd_dq_kernel",)),
+        ("splash_attn_fwd", ("splash_attn_fwd_kernel",)),
         ("direct_conv_bwd", ("direct_conv_bwd_kernel",)),
         ("direct_conv", ("direct_conv_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
@@ -2234,6 +2574,17 @@ def phase_profile(torch, seed):
     step = make_train_step(model.train(), opt, sched, clip=1.0)
     res["gpt_train_step"] = _trace(torch, f"one GPT-2 124M train step at B={GPT_TRAIN_B} "
                                    f"L={GPT_L_MAX}", lambda: step(x, y))
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    model = _window_gpt(torch, seed, "cuda")
+    x, y = _train_batches(torch, np, seed, "cuda", 1, WIN_TRAIN_B, WIN_L_MAX)[0]
+    with torch.inference_mode():
+        res["window_forward"] = _trace(torch, f"one windowed GPT forward at B={WIN_SERVE_B} "
+                                       f"L={WIN_L_MAX}", lambda: model.eval()(x[:WIN_SERVE_B]))
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
+    step = make_train_step(model.train(), opt, sched, clip=1.0)
+    res["window_train_step"] = _trace(torch, f"one windowed GPT train step at B={WIN_TRAIN_B} "
+                                      f"L={WIN_L_MAX}", lambda: step(x, y))
     return res
 
 
@@ -2368,7 +2719,7 @@ def phase_timing(torch, g):
     del k, u, x, k_f, dout, parts, dy, dy_full
     torch.cuda.empty_cache()
     for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g),
-                 _time_attention(torch, g)):
+                 _time_attention(torch, g), _time_splash(torch, g)):
         if set(rows) & set(res):
             raise AssertionError(f"timing rows named twice: {sorted(set(rows) & set(res))}")
         res.update(rows)
@@ -2377,6 +2728,10 @@ def phase_timing(torch, g):
                  if "overhead_ms" in r else "")
         if "design_ops_ms" in r:
             extra += f", the design's own operations at the f32 peak {r['design_ops_ms']:.4f} ms"
+        if "library_fwd_bwd_ms" in r:
+            extra += f", the library's forward + backward {r['library_fwd_bwd_ms']:.4f} ms"
+        if "causal_flash_ms" in r:
+            extra += f", the causal flash kernel at this shape {r['causal_flash_ms']:.4f} ms"
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"timing {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
@@ -2555,6 +2910,104 @@ def _time_attention(torch, g):
             ),
         }
     del q, k, v, do, o, lse, delta, qs, ks, vs, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_splash(torch, g):
+    """The splash kernels at the window_train path's shape (B=8, H=12,
+    L=2048, D=64, f32, W=256), and the forward at benchmarks/
+    tpu_attention.py's block-sparse case (B=2, H=4, L=1024, D=128, bf16,
+    256-wide blocks, causal). Bytes: each input read once, each output
+    written once. Operations: the products over the elements the mask keeps
+    (491,648 a (b, h) here, not L W), 2 a multiply-add: the forward q k^T and
+    p v (4 a kept element a channel), dK/dV q k^T, do v^T, p^T do and ds^T q
+    (8), dQ q k^T, do v^T and ds k (6). library_ms is
+    scaled_dot_product_attention with the dense boolean mask as attn_mask
+    (f32 for the window; it has no block skipping): its forward for the
+    forward rows, its backward (dq, dk and dv in one call) for both backward
+    rows; library_fwd_bwd_ms is its forward and backward together.
+    causal_flash_ms is flash_attn_fwd, causal, at the same shape: the
+    window's tiles are 0.28 of the causal ones, and the forward must take at
+    most half its time."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    dev = torch.device("cuda")
+    b, h, l, d = WIN_TRAIN_B, GPT_HEADS, WIN_L_MAX, GPT_HEAD_DIM
+    mask = SplashMask.local(l, WIN_W)
+    keep = mask.dense(dev)
+    q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
+    n, stats = q.numel() * 4, b * h * l * 4
+    kept_ops = b * h * int(keep.sum()) * d  # one product over the kept elements
+    o, lse = ac.splash_attn_fwd(q, k, v, mask)
+    delta = plain.attention_delta(o, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+
+    out = sdpa()
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                           retain_graph=True), iters=10)
+    sdpa_fwd_bwd = _time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do),
+                            iters=10)
+    plain_bwd = _time_ms(torch, lambda: plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep),
+                         iters=3, warmup=1)
+    with torch.inference_mode():
+        fwd_ms = _time_ms(torch, lambda: ac.splash_attn_fwd(q, k, v, mask), iters=10)
+        causal_ms = _time_ms(torch, lambda: ac.flash_attn_fwd(q, k, v), iters=10)
+        res = {
+            "splash_attn_fwd": dict(
+                ms=fwd_ms,
+                plain_ms=_time_ms(torch, lambda: plain.splash_attn_fwd_plain(q, k, v, keep),
+                                  iters=3, warmup=1),
+                library_ms=_time_ms(torch, sdpa, iters=10),
+                library_fwd_bwd_ms=sdpa_fwd_bwd, causal_flash_ms=causal_ms,
+                bound=_bound(3 * n + n + stats, 4 * kept_ops),
+            ),
+            "splash_attn_bwd_dkv": dict(
+                ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
+                            iters=10),
+                plain_ms=plain_bwd, library_ms=sdpa_bwd, library_fwd_bwd_ms=sdpa_fwd_bwd,
+                bound=_bound(4 * n + 2 * stats + 2 * n, 8 * kept_ops),
+            ),
+            "splash_attn_bwd_dq": dict(
+                ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask),
+                            iters=10),
+                plain_ms=plain_bwd, library_ms=sdpa_bwd, library_fwd_bwd_ms=sdpa_fwd_bwd,
+                bound=_bound(4 * n + 2 * stats + n, 6 * kept_ops),
+            ),
+        }
+    log(f"timing splash_attn_fwd: {fwd_ms:.4f} ms against the causal flash_attn_fwd's "
+        f"{causal_ms:.4f} ms at the same shape ({fwd_ms / causal_ms:.3f} of it; the window's "
+        f"tiles are 150 of 528 a (b, h))")
+    if not fwd_ms <= 0.5 * causal_ms:
+        raise AssertionError(f"splash_attn_fwd takes {fwd_ms} ms, more than half the causal "
+                             f"flash kernel's {causal_ms} ms: the window's tiles are not skipped")
+    del q, k, v, do, o, lse, delta, qs, ks, vs, out, keep
+    torch.cuda.empty_cache()
+
+    blockmask = _tpu_attention_blockmask(np, 1024, 256)
+    mask = SplashMask.blocks(blockmask, 256, causal=True)
+    keep = mask.dense(dev)
+    q, k, v = _attn_inputs(torch, g, dev, 2, 4, 1024, 128, torch.bfloat16)[:3]
+    n = q.numel() * 2
+    with torch.inference_mode():
+        res["splash_attn_fwd blocksparse"] = dict(
+            ms=_time_ms(torch, lambda: ac.splash_attn_fwd(q, k, v, mask), iters=10),
+            plain_ms=_time_ms(torch, lambda: plain.splash_attn_fwd_plain(q, k, v, keep),
+                              iters=3, warmup=1),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep), iters=10),
+            causal_flash_ms=_time_ms(torch, lambda: ac.flash_attn_fwd(q, k, v), iters=10),
+            bound=_bound(4 * n + 2 * 4 * 1024 * 4, 4 * 2 * 4 * int(keep.sum()) * 128),
+        )
+    del q, k, v, keep
     torch.cuda.empty_cache()
     return res
 
@@ -2759,6 +3212,12 @@ def main() -> int:
         results["gpt_train"] = phase_gpt_train(torch, args.seed, np)
     if "gpt_parity" in phases:
         results["gpt_parity"] = phase_gpt_parity(torch, args.seed, np)
+    if "window_serve" in phases:
+        results["window_serve"] = phase_window_serve(torch, args.seed, np)
+    if "window_train" in phases:
+        results["window_train"] = phase_window_train(torch, args.seed, np)
+    if "window_parity" in phases:
+        results["window_parity"] = phase_window_parity(torch, args.seed, np)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:

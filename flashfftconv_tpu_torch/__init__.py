@@ -13,7 +13,10 @@ ranks of a ``torch.distributed`` mesh, its band conv on the ``band_conv``
 kernel, and ``HyenaOperator(seq_mesh=...)`` trains on it. Attention
 (``ops.attention.flash_mha``) runs hand-written flash-attention kernels,
 forward and backward, and ``models.gpt`` serves and trains GPT-2 and OPT on
-them (``utils.generation.generate_kv`` decodes with a KV cache). Public API
+them (``utils.generation.generate_kv`` decodes with a KV cache); a sliding
+window (``flash_mha(window=W)``, a GPT's ``mixer_kwargs={"window": W}``) and
+``blocksparse_mha`` run hand-written splash-attention kernels that skip the
+masked tiles. Public API
 parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """

@@ -6,10 +6,13 @@
 flax promotes them), splits the heads, applies rotary embedding to the first
 ``rotary_dim`` channels of q and k, and attends through ``ops.attention.
 flash_mha``: on the card the hand-written flash-attention kernels, forward
-and backward. With ``dropout > 0`` in training mode the probabilities are
-dropped out, which needs the materialised (L, L) matrix: that branch is plain
-torch, as it is XLA in the JAX package. ALiBi, a sliding window and
-``segment_ids`` (packed variable-length rows) are options of the call.
+and backward, or with ``window=W`` the splash-attention kernels, which skip
+the tiles outside the window. With ``dropout > 0`` in training mode the
+probabilities are dropped out, which needs the materialised (L, L) matrix:
+that branch is plain torch, as it is XLA in the JAX package. ALiBi, a
+sliding window and ``segment_ids`` (packed variable-length rows) are options
+of the call; a window with ALiBi or segment ids raises on the card, as the
+JAX package's kernel path does.
 
 ``step`` and ``init_cache`` decode one token at a time against a KV cache
 (B, H, max_length, head_dim): a plain f32 softmax over the cache, as the JAX

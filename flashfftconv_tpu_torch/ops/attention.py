@@ -12,17 +12,24 @@ not apply here. On CPU tensors the same Function runs the plain versions
 below. ``impl="xla"`` asks for the plain ``mha_reference`` on any device,
 under the JAX package's name for it.
 
-The sliding window (``window=``) and ``blocksparse_mha`` run JAX's splash
-attention kernel on a TPU, which is not ported yet: on CUDA tensors they
-raise NotImplementedError (unless ``impl="xla"`` asks for the plain
-version), and on CPU tensors they run their plain versions, as the JAX
-package does off-TPU.
+The sliding window (``flash_mha(window=W)``) and ``blocksparse_mha`` run
+JAX's splash attention on a TPU. Here they run the hand-written splash
+kernels (``splash_attn_fwd``, ``splash_attn_bwd_dkv``, ``splash_attn_bwd_dq``)
+through ``SplashAttnFunction`` on CUDA tensors, under a ``SplashMask``
+(``ops/splash_mask.py``) whose hidden tiles the kernels skip, and the same
+Function's plain versions on CPU tensors. A window with a bias or segment
+ids raises NotImplementedError on CUDA tensors, as the JAX package's TPU
+path does, and runs ``mha_reference`` on CPU tensors, as the JAX package
+does off a TPU. A row that sees no key gives 0, as the JAX package's plain
+version documents.
 
 The plain versions: ``mha_reference`` (the oracle, differentiated by
 autograd), ``flash_attn_fwd_plain`` (the output and the row logsumexp the
-forward kernel writes) and ``flash_attn_bwd_plain`` (the explicit softmax
-backward, the CPU backward of ``FlashAttnFunction``). The bias convention
-is flash_mha's: an additive f32 bias broadcastable to (B, H, L, L), added
+forward kernel writes), ``flash_attn_bwd_plain`` (the explicit softmax
+backward, the CPU backward of ``FlashAttnFunction``) and their splash
+counterparts ``splash_attn_fwd_plain`` and ``splash_attn_bwd_plain``, which
+take the mask as a dense (L, L) boolean. The bias convention is
+flash_mha's: an additive f32 bias broadcastable to (B, H, L, L), added
 after the ``sm_scale`` multiply.
 """
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from flashfftconv_tpu_torch.ops.monarch_cuda import on_cpu
+from flashfftconv_tpu_torch.ops.splash_mask import SplashMask, window_keep
 
 
 def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
@@ -64,22 +72,17 @@ def alibi_bias(num_heads: int, l_q: int, l_k: int, dtype=torch.float32,
     return (-slopes[:, None, None] * dist)[None].to(dtype)
 
 
-def _window_mask(l_q: int, l_k: int, window: int, device=None) -> torch.Tensor:
-    """Boolean (Lq, Lk) sliding-window causal mask: query i (aligned to the
-    end of the key axis) sees keys (i - window, i]."""
-    qpos = torch.arange(l_q, device=device)[:, None] + (l_k - l_q)
-    kpos = torch.arange(l_k, device=device)[None, :]
-    return (kpos <= qpos) & (kpos > qpos - window)
-
-
-def masked_scores(q, k, causal, sm_scale, bias, window=None, segment_ids=None):
-    """f32 (B, H, Lq, Lk) scores q k^T * sm_scale + bias, -inf where masked."""
+def masked_scores(q, k, causal, sm_scale, bias, window=None, segment_ids=None, keep=None):
+    """f32 (B, H, Lq, Lk) scores q k^T * sm_scale + bias, -inf where masked;
+    ``keep`` an optional (Lq, Lk) boolean mask besides."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if bias is not None:
         scores = scores + bias.float()
     l_q, l_k = scores.shape[-2:]
+    if keep is not None:
+        scores = scores.masked_fill(~keep, -math.inf)
     if window is not None:
-        scores = scores.masked_fill(~_window_mask(l_q, l_k, window, q.device), -math.inf)
+        scores = scores.masked_fill(~window_keep(l_q, l_k, window, q.device), -math.inf)
     elif causal:
         keep = torch.ones(l_q, l_k, dtype=torch.bool, device=q.device).tril(l_k - l_q)
         scores = scores.masked_fill(~keep, -math.inf)
@@ -103,13 +106,14 @@ def mha_reference(q, k, v, causal: bool = True, sm_scale: float | None = None, b
 
 
 def flash_attn_fwd_plain(q, k, v, causal: bool = True, sm_scale: float | None = None,
-                         bias=None, segment_ids=None):
+                         bias=None, segment_ids=None, keep=None):
     """(o, lse): what ``flash_attn_fwd`` computes, in f32 and cast to v's
     dtype; lse (B, H, L) f32 is the row logsumexp of the masked scores, +inf
-    for a row that sees no key (whose output is then 0)."""
+    for a row that sees no key (whose output is then 0). ``keep``: an
+    optional (L, L) boolean mask besides."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    scores = masked_scores(q, k, causal, sm_scale, bias, segment_ids=segment_ids)
+    scores = masked_scores(q, k, causal, sm_scale, bias, segment_ids=segment_ids, keep=keep)
     lse = torch.logsumexp(scores, dim=-1)
     lse = lse.masked_fill(lse == -math.inf, math.inf)
     p = torch.exp(scores - lse[..., None])
@@ -123,18 +127,19 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_attn_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
                          sm_scale: float | None = None, bias=None, segment_ids=None,
-                         bias_grad: bool = False, delta=None):
+                         bias_grad: bool = False, delta=None, keep=None):
     """(dq, dk, dv, ds): the explicit softmax backward from the forward's
     output o and row logsumexp lse, with p = exp(s - lse), dp = do v^T and
     ds = p (dp - rowsum(do o)); dq = ds k * sm_scale, dk = ds^T q * sm_scale,
     dv = p^T do, each at its input's dtype. ds (B, H, L, L) f32 is the grad
     of the bias broadcast to that shape, returned when ``bias_grad`` (else
-    None). ``delta`` may be given in place of o."""
+    None). ``delta`` may be given in place of o; ``keep`` is an optional
+    (L, L) boolean mask besides."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if delta is None:
         delta = attention_delta(o, do)
-    scores = masked_scores(q, k, causal, sm_scale, bias, segment_ids=segment_ids)
+    scores = masked_scores(q, k, causal, sm_scale, bias, segment_ids=segment_ids, keep=keep)
     p = torch.exp(scores - lse[..., None])
     dof = do.float()
     dv = p.transpose(-1, -2) @ dof
@@ -144,11 +149,19 @@ def flash_attn_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds if bias_grad else None
 
 
-def _splash_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} runs JAX's splash-attention kernel on a TPU, which is not ported to CUDA "
-        "yet; pass CPU tensors or impl='xla' for the plain version"
-    )
+def splash_attn_fwd_plain(q, k, v, keep, sm_scale: float | None = None):
+    """(o, lse): what ``splash_attn_fwd`` computes under the (L, L) boolean
+    mask ``keep`` (``SplashMask.dense()``): o 0 and lse +inf on a row that
+    sees no key."""
+    return flash_attn_fwd_plain(q, k, v, False, sm_scale, keep=keep)
+
+
+def splash_attn_bwd_plain(q, k, v, o, lse, do, keep, sm_scale: float | None = None,
+                          delta=None):
+    """(dq, dk, dv): what ``splash_attn_bwd_dq`` and ``splash_attn_bwd_dkv``
+    compute under ``keep``; ``delta`` may be given in place of o."""
+    return flash_attn_bwd_plain(q, k, v, o, lse, do, False, sm_scale, delta=delta,
+                                keep=keep)[:3]
 
 
 def flash_mha(q, k, v, causal: bool = True, sm_scale: float | None = None, impl: str = "auto",
@@ -160,7 +173,8 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: float | None = None, impl:
     'xla' (the plain ``mha_reference`` wherever the tensors are).
     bias: additive bias broadcastable to (B, H, L, L), e.g. ``alibi_bias``,
     added after the sm_scale multiply; differentiable.
-    window: sliding-window width (the splash kernel on a TPU; see above).
+    window: sliding-window width (causal implied): the splash kernels, which
+    skip the tiles outside the window (see above).
     segment_ids: (B, L) int; tokens attend only within equal ids, the packed
     form of variable-length batches (``pack_sequences`` builds them).
     """
@@ -175,16 +189,22 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: float | None = None, impl:
     if impl == "flash" and cpu:
         raise ValueError("impl='flash' runs the CUDA kernels and needs CUDA tensors; "
                          "impl='auto' runs the plain version on CPU tensors")
-    if window is not None or q.shape != k.shape:
+    masked = window is not None and (bias is not None or segment_ids is not None)
+    if masked or q.shape != k.shape:
         if not cpu:
-            if window is not None:
-                raise _splash_not_ported("flash_mha(window=...)")
-            raise ValueError(f"the flash-attention kernels take q, k, v of one shape, got "
+            if masked:
+                raise NotImplementedError(
+                    "flash_mha(window=...) with a bias or segment ids: the splash kernels "
+                    "take neither (as on a TPU); use impl='xla'")
+            raise ValueError(f"the attention kernels take q, k, v of one shape, got "
                              f"{tuple(q.shape)}, {tuple(k.shape)}")
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias,
                              window=window, segment_ids=segment_ids)
-    from flashfftconv_tpu_torch.ops.attention_cuda import FlashAttnFunction
+    from flashfftconv_tpu_torch.ops.attention_cuda import FlashAttnFunction, SplashAttnFunction
 
+    if window is not None:
+        return SplashAttnFunction.apply(q, k, v, SplashMask.local(q.shape[2], window),
+                                        float(sm_scale))
     return FlashAttnFunction.apply(q, k, v, bias, segment_ids, causal, float(sm_scale))
 
 
@@ -229,9 +249,13 @@ def blocksparse_mha(q, k, v, blockmask, block_size: int = 256, causal: bool = Fa
     """Block-sparse attention: blockmask is a static (L / block_size,
     L / block_size) 0/1 array; block (r, c) == 0 hides keys of column block c
     from queries of row block r, and causal also lower-triangularises within
-    the kept blocks. A row that sees no key gives zeros. The plain dense-mask
-    version; the splash kernel that skips zero blocks on a TPU is not ported
-    yet (see the module docstring)."""
+    the kept blocks. A row that sees no key gives zeros.
+
+    impl: 'auto' (the splash kernels, which skip the hidden tiles, on CUDA
+    tensors; their plain versions on CPU tensors), 'flash' (the kernels;
+    raises on CPU tensors), 'xla' (the plain dense-mask softmax anywhere)."""
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got {impl!r}")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     l = q.shape[2]
@@ -240,13 +264,17 @@ def blocksparse_mha(q, k, v, blockmask, block_size: int = 256, causal: bool = Fa
     if nr * block_size != l or nc * block_size != l:
         raise ValueError(f"blockmask {blockmask.shape} x block_size {block_size} "
                          f"does not tile L={l}")
-    if impl != "xla" and not on_cpu(q, k, v):
-        raise _splash_not_ported("blocksparse_mha")
-    dense = np.kron(blockmask, np.ones((block_size, block_size), bool))
-    if causal:
-        dense &= np.tril(np.ones((l, l), bool))
-    keep = torch.from_numpy(dense).to(q.device)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    attn = scores.masked_fill(~keep, -math.inf).softmax(-1)
-    attn = attn.masked_fill(~keep.any(1)[:, None], 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", attn.to(v.dtype), v)
+    mask = SplashMask.blocks(blockmask, block_size, causal)
+    cpu = on_cpu(q, k, v)
+    if impl == "xla":
+        keep = mask.dense(q.device)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+        attn = scores.masked_fill(~keep, -math.inf).softmax(-1)
+        attn = attn.masked_fill(~keep.any(1)[:, None], 0.0)
+        return torch.einsum("bhqk,bhkd->bhqd", attn.to(v.dtype), v)
+    if impl == "flash" and cpu:
+        raise ValueError("impl='flash' runs the CUDA kernels and needs CUDA tensors; "
+                         "impl='auto' runs the plain version on CPU tensors")
+    from flashfftconv_tpu_torch.ops.attention_cuda import SplashAttnFunction
+
+    return SplashAttnFunction.apply(q, k, v, mask, float(sm_scale))

@@ -1,27 +1,36 @@
-"""Wrappers of the flash-attention kernels and the autograd Function over them.
+"""Wrappers of the attention kernels and the autograd Functions over them.
 
 ``flash_attn_fwd`` (csrc/flash_attn.cu) replaces the forward TPU kernel of
 JAX's Pallas ``flash_attention`` that the JAX package's ``flash_mha`` calls
 (``flashfftconv_tpu/ops/attention.py:202``); ``flash_attn_bwd_dkv`` and
 ``flash_attn_bwd_dq`` (csrc/flash_attn_bwd.cu) replace its two backward
-kernels, the dK/dV one and the dQ one that also gives the bias's grad. On
-a CUDA tensor each wrapper checks its inputs, allocates its outputs with
-``torch.empty`` (``torch.zeros`` for the bias grad, whose tiles above the
-diagonal the causal kernel never visits), launches its kernel on the current
-stream, raises if the launch failed, and adds one to its ``launches``
-count. On CPU tensors it runs the plain version from ``ops/attention.py``.
+kernels, the dK/dV one and the dQ one that also gives the bias's grad.
+``splash_attn_fwd`` (csrc/splash_attn.cu) replaces the forward kernel of
+JAX's splash attention, which ``flash_mha(window=W)`` and
+``blocksparse_mha`` reach (``ops/attention.py:268-294, 331-340`` there);
+``splash_attn_bwd_dkv`` and ``splash_attn_bwd_dq`` (csrc/splash_attn_bwd.cu)
+replace its fused backward kernel, dK/dV in one kernel and dQ in another,
+under a ``SplashMask`` (``ops/splash_mask.py``) whose hidden tiles they
+skip. On a CUDA tensor each wrapper checks its inputs, allocates its
+outputs with ``torch.empty`` (``torch.zeros`` for the bias grad, whose
+tiles above the diagonal the causal kernel never visits), launches its
+kernel on the current stream, raises if the launch failed, and adds one to
+its ``launches`` count. On CPU tensors it runs the plain version from
+``ops/attention.py``.
 
 The kernels take q, k, v (B, H, L, D) contiguous, of one dtype (f32 or
-bf16), head_dim 64 or 128, any L >= 1; an optional f32 bias whose
-expansion to (B, H, L, L) has a unit last stride (a (1, H, L, L) ALiBi table
-is read in place for every batch row, not copied) and optional int32
-segment ids (B, L). Softmax statistics and every accumulation are f32.
+bf16), head_dim 64 or 128, any L >= 1. The flash kernels also take an
+optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
+(1, H, L, L) ALiBi table is read in place for every batch row, not copied)
+and optional int32 segment ids (B, L). Softmax statistics and every
+accumulation are f32.
 
-``FlashAttnFunction`` is the attention over (q, k, v, bias, segment_ids):
-its forward saves q, k, v, the output and the row logsumexp; its backward
-computes delta = rowsum(do * o) in torch (as JAX's backward does in XLA),
-then runs the dK/dV kernel and the dQ kernel, and sums the dQ kernel's ds to
-the bias's shape (``sum_to_size``, no atomics): two backwards give the same
+``FlashAttnFunction`` is the attention over (q, k, v, bias, segment_ids)
+and ``SplashAttnFunction`` over (q, k, v) under a mask: each forward saves
+q, k, v, the output and the row logsumexp; each backward computes delta =
+rowsum(do * o) in torch (as JAX's backward does in XLA), then runs the
+dK/dV kernel and the dQ kernel (the flash dQ kernel's ds summed to the
+bias's shape by ``sum_to_size``). No atomics: two backwards give the same
 bits.
 """
 
@@ -57,9 +66,9 @@ def _check_qkv(*tensors: torch.Tensor) -> tuple[int, int, int, int]:
             raise ValueError("q, k, v (and do) must be contiguous")
     b, h, l, d = q.shape
     if q.dtype not in DTYPES:
-        raise ValueError(f"the flash-attention kernels take f32 or bf16, got {q.dtype}")
+        raise ValueError(f"the attention kernels take f32 or bf16, got {q.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernels take head_dim in {HEAD_DIMS}, got {d}")
+        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS}, got {d}")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
     return b, h, l, d
@@ -218,3 +227,107 @@ class FlashAttnFunction(torch.autograd.Function):
         dq, ds = flash_attn_bwd_dq(q, k, v, do, lse, delta, *args, bias_grad=bias_grad)
         dbias = ds.sum_to_size(bias.shape).to(bias.dtype) if bias_grad else None
         return dq, dk, dv, dbias, None, None, None
+
+
+def _check_mask(mask, q) -> None:
+    if q.ndim != 4 or mask.length != q.shape[2]:
+        raise ValueError(f"the mask is over L={mask.length}, q has shape {tuple(q.shape)}")
+
+
+def _splash_launch(name: str, fn_name: str, q, mask, sm_scale, pointers) -> None:
+    """Launch ``fn_name`` of library ``name`` with the tensors' pointers,
+    the mask's table and block mask, and the sizes."""
+    b, h, l, d = q.shape
+    table, blocks, ints = mask.kernel_args(q.device)
+    lib = _build.load(name)
+    rc = getattr(lib, fn_name)(*pointers, _ptr(table), _ptr(blocks), b, h, l, d,
+                               int(q.dtype == torch.bfloat16), *ints, _scale_bits(sm_scale),
+                               _stream(q.device))
+    _build.check(lib, rc, f"{fn_name} kernel")
+
+
+def splash_attn_fwd(q, k, v, mask, sm_scale: float | None = None):
+    """(o, lse) under ``mask`` (a ``SplashMask``): softmax(q k^T * sm_scale)
+    v at q's dtype over the kept scores, and the row logsumexp (B, H, L) f32;
+    a row that sees no key gives o = 0 and lse = +inf."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    _check_mask(mask, q)
+    if on_cpu(q, k, v):
+        return plain.splash_attn_fwd_plain(q, k, v, mask.dense(q.device), sm_scale)
+    b, h, l, _ = _check_qkv(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+    _splash_launch("splash_attn", "ffc_splash_attn_fwd", q, mask, sm_scale,
+                   [t.data_ptr() for t in (q, k, v, o, lse)])
+    splash_attn_fwd.launches += 1
+    return o, lse
+
+
+splash_attn_fwd.launches = 0
+
+
+def splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask, sm_scale: float | None = None):
+    """(dk, dv) under ``mask`` from the output grad do, the forward's
+    logsumexp lse and delta = rowsum(do * o) (both (B, H, L) f32)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    _check_mask(mask, q)
+    if on_cpu(q, k, v, do, lse, delta):
+        _, dk, dv = plain.splash_attn_bwd_plain(q, k, v, None, lse, do, mask.dense(q.device),
+                                                sm_scale, delta=delta)
+        return dk, dv
+    _check_qkv(q, k, v, do)
+    _check_stats(lse, delta, q.shape)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _splash_launch("splash_attn_bwd", "ffc_splash_attn_bwd_dkv", q, mask, sm_scale,
+                   [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)])
+    splash_attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+splash_attn_bwd_dkv.launches = 0
+
+
+def splash_attn_bwd_dq(q, k, v, do, lse, delta, mask, sm_scale: float | None = None):
+    """dq under ``mask``, from the same inputs as ``splash_attn_bwd_dkv``."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    _check_mask(mask, q)
+    if on_cpu(q, k, v, do, lse, delta):
+        return plain.splash_attn_bwd_plain(q, k, v, None, lse, do, mask.dense(q.device),
+                                           sm_scale, delta=delta)[0]
+    _check_qkv(q, k, v, do)
+    _check_stats(lse, delta, q.shape)
+    dq = torch.empty_like(q)
+    _splash_launch("splash_attn_bwd", "ffc_splash_attn_bwd_dq", q, mask, sm_scale,
+                   [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)])
+    splash_attn_bwd_dq.launches += 1
+    return dq
+
+
+splash_attn_bwd_dq.launches = 0
+
+
+class SplashAttnFunction(torch.autograd.Function):
+    """Attention over (q, k, v, mask, sm_scale), mask a ``SplashMask``, with
+    the splash kernels forward and backward (the plain versions on CPU
+    tensors). q, k, v and the output grad are made contiguous; grads come
+    back at each input's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, sm_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = splash_attn_fwd(q, k, v, mask, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask, ctx.sm_scale = mask, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = plain.attention_delta(o, do)
+        dk, dv = splash_attn_bwd_dkv(q, k, v, do, lse, delta, ctx.mask, ctx.sm_scale)
+        dq = splash_attn_bwd_dq(q, k, v, do, lse, delta, ctx.mask, ctx.sm_scale)
+        return dq, dk, dv, None, None

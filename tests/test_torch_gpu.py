@@ -617,12 +617,19 @@ def test_cuda_attention_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="f32 or bf16"):
         tff.flash_mha(q, q, q)
     q = torch.randn(1, 2, 64, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="splash"):
-        tff.flash_mha(q, q, q, window=8)
-    with pytest.raises(NotImplementedError, match="splash"):
-        tff.blocksparse_mha(q, q, q, [[1, 0], [1, 1]], block_size=32)
-    ref = tff.flash_mha(q, q, q, window=8, impl="xla")  # the plain version when asked for
+    bias = tff.alibi_bias(2, 64, 64, device=dev)
+    seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="bias or segment ids"):
+        tff.flash_mha(q, q, q, window=8, bias=bias)
+    with pytest.raises(NotImplementedError, match="bias or segment ids"):
+        tff.flash_mha(q, q, q, window=8, segment_ids=seg)
+    ref = tff.flash_mha(q, q, q, window=8, bias=bias, impl="xla")  # the plain version when asked
     assert ref.shape == q.shape
+    q = torch.randn(1, 2, 64, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tff.flash_mha(q, q, q, window=8)
+    with pytest.raises(ValueError, match="head_dim"):
+        tff.blocksparse_mha(q, q, q, [[1, 0], [1, 1]], block_size=32)
 
 
 @pytest.mark.gpu
@@ -641,6 +648,145 @@ def test_cuda_gpt_matches_cpu():
         logits = m(x)
         torch.nn.functional.cross_entropy(logits.flatten(0, 1), y.flatten()).backward()
         out[dev] = (logits.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 2e-3
+    for name, grad in out["cuda"][1].items():
+        ref = out["cpu"][1][name]
+        assert float((grad - ref).abs().max()) <= 1e-3 * float(ref.abs().max()) + 1e-7, name
+
+
+# --- the splash-attention kernels ---------------------------------------------
+
+# (mask, L, head_dim, dtype, window or block size, causal)
+SPLASH_CASES = [
+    ("window", 2048, 64, torch.float32, 256, True), ("window", 300, 64, torch.float32, 100, True),
+    ("window", 1000, 64, torch.bfloat16, 1, True), ("window", 65, 128, torch.float32, 1000, True),
+    ("window", 256, 128, torch.bfloat16, 64, True),
+    ("blocks", 1024, 128, torch.bfloat16, 256, True),
+    ("blocks", 256, 64, torch.float32, 16, False), ("blocks", 80, 64, torch.float32, 16, True),
+    ("empty_row", 256, 64, torch.float32, 64, False),
+]
+
+
+def _splash_mask(kind, l, arg, causal):
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    if kind == "window":
+        return SplashMask.local(l, arg)
+    n = l // arg
+    m = torch.rand(n, n, generator=torch.Generator().manual_seed(l + arg)) < 0.5
+    m.fill_diagonal_(True)
+    if kind == "empty_row":
+        m[1] = False
+    return SplashMask.blocks(m.numpy(), arg, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,l,d,dtype,arg,causal", SPLASH_CASES)
+def test_cuda_splash_kernels_match_plain(kind, l, d, dtype, arg, causal):
+    """splash_attn_fwd, splash_attn_bwd_dkv and splash_attn_bwd_dq against
+    splash_attn_fwd_plain and splash_attn_bwd_plain under the dense mask,
+    each launched once; an empty row block gives exact zeros; two backwards
+    bit for bit."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(l + d + arg)
+    b, h = (2, 3) if l < 2048 else (1, 4)
+    q, k, v, do = (torch.randn(b, h, l, d, device=dev, generator=g).to(dtype) for _ in "qkvd")
+    mask = _splash_mask(kind, l, arg, causal)
+    fns = (ac.splash_attn_fwd, ac.splash_attn_bwd_dkv, ac.splash_attn_bwd_dq)
+    counts = [f.launches for f in fns]
+    o, lse = ac.splash_attn_fwd(q, k, v, mask)
+    delta = plain.attention_delta(o, do)
+    dk, dv = ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask)
+    dq = ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    keep = mask.dense(dev)
+    ro, rlse = plain.splash_attn_fwd_plain(q, k, v, keep)
+    rq, rk, rv = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep)
+    for got, ref in ((o, ro), (dq, rq), (dk, rk), (dv, rv)):
+        _attn_close(got, ref)
+    seen = torch.isfinite(rlse)  # +inf on a row that sees no key
+    assert torch.equal(torch.isfinite(lse), seen)
+    _attn_close(lse[seen], rlse[seen])
+    if kind == "empty_row":
+        assert not o[:, :, 64:128].any() and not dq[:, :, 64:128].any()
+        assert torch.isinf(lse[:, :, 64:128]).all()
+    again = ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask) + (
+        ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask),)
+    assert all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,d,dtype", [(1000, 64, torch.float32), (256, 128, torch.bfloat16)])
+def test_cuda_splash_window_of_at_least_l_is_the_causal_flash_kernel(l, d, dtype):
+    """A window W >= L keeps the causal half: the splash kernels give the
+    causal flash kernels' numbers."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(l)
+    q, k, v, do = (torch.randn(2, 3, l, d, device=dev, generator=g).to(dtype) for _ in "qkvd")
+    mask = SplashMask.local(l, l + 5)
+    o, lse = ac.splash_attn_fwd(q, k, v, mask)
+    fo, flse = ac.flash_attn_fwd(q, k, v, True)
+    delta = plain.attention_delta(o, do)
+    got = (o, lse, *ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
+           ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask))
+    ref = (fo, flse, *ac.flash_attn_bwd_dkv(q, k, v, do, flse, delta, True),
+           ac.flash_attn_bwd_dq(q, k, v, do, flse, delta, True)[0])
+    for a, r in zip(got, ref):
+        _attn_close(a, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["window", "blocks"])
+def test_cuda_splash_grads_match_autograd_of_the_reference(kind):
+    """flash_mha(window=W) and blocksparse_mha through SplashAttnFunction on
+    the card against autograd through their plain versions (impl="xla")."""
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 384, 64, device=dev, generator=g).requires_grad_()
+               for _ in "qkv")
+    w = torch.randn(q.shape, device=dev, generator=g)
+    mask = [[1, 0, 0], [1, 1, 0], [0, 1, 1]]
+    if kind == "window":
+        fn = lambda impl: tff.flash_mha(q, k, v, window=100, impl=impl)
+    else:
+        fn = lambda impl: tff.blocksparse_mha(q, k, v, mask, block_size=128, causal=True,
+                                              impl=impl)
+    got, ref = (torch.autograd.grad((fn(impl) * w).sum(), (q, k, v)) for impl in ("auto", "xla"))
+    for a, r in zip(got, ref):
+        _attn_close(a, r)
+
+
+@pytest.mark.gpu
+def test_cuda_windowed_gpt_matches_cpu():
+    """A 2-layer f32 GPT with mixer_kwargs={"window": 64} on the card (splash
+    kernels) and the CPU (plain versions): logits and every grad."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    kw = dict(d_model=128, n_layer=2, d_inner=256, vocab_size=100, l_max=300, num_heads=2,
+              mixer_kwargs={"window": 64}, dtype=torch.float32)
+    ids = torch.randint(0, 100, (2, 257), generator=torch.Generator().manual_seed(2))
+    out = {}
+    n0 = ac.splash_attn_fwd.launches
+    for dev in ("cpu", "cuda"):
+        m = tff.GPTLMHeadModel(**kw, device=dev,
+                               generator=torch.Generator().manual_seed(0)).eval()
+        x, y = ids[:, :-1].to(dev), ids[:, 1:].to(dev)
+        logits = m(x)
+        torch.nn.functional.cross_entropy(logits.flatten(0, 1), y.flatten()).backward()
+        out[dev] = (logits.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    assert ac.splash_attn_fwd.launches == n0 + 2
     assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 2e-3
     for name, grad in out["cuda"][1].items():
         ref = out["cpu"][1][name]
