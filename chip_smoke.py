@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an H100:
                           [--phases build,identity,kernels,serve,train,seq_train,parity,
                                     grad_parity,dna,dna_train,long_parity,bert,bert_train,
                                     bert_parity,gpt_serve,gpt_train,gpt_parity,window_serve,
-                                    window_train,window_parity,timing[,profile]]
+                                    window_train,window_parity,h3_serve,h3_train,
+                                    listops_train,mixers_parity,smem_probe,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -33,7 +34,12 @@ Phases, each of which fails the run by raising:
             tpu_attention.py's block-sparse case (B=2, H=4, L=1024, D=128,
             bf16, 256-wide blocks, its seed-1 mask, causal), at 16-wide
             blocks not causal, and with an empty row block (exact zeros,
-            finite grads);
+            finite grads); spectrum, monarch_conv and its backward with a
+            kernel as long as the FFT (k_len = N) at the ListOps shape (B=64,
+            H=128, L=2048, N=4096, f32), the forward against the torch.fft
+            oracle; smem_probe_touch (16 KB and the largest working size) and
+            smem_copy (256 MiB of f32 at 16 KB, 64 KB and the largest tile)
+            against their plain versions bit for bit;
   serve     builds Hyena-125M (12 layers, d_model 768, l_max 8192, vocab
             50257, bf16, random weights from --seed) and answers 4 requests
             (prompts of 512..4096 tokens, 8 new tokens each, greedy) through
@@ -153,26 +159,56 @@ Phases, each of which fails the run by raising:
             (plain versions): logits within 2e-3, grads within 1e-3 of each
             parameter's largest |grad|, a second backward bit for bit (but
             the embedding table's);
+  h3_serve  H3 at 125M size (examples/lm/train.py --preset hyena-125M --mixer
+            h3: 12 layers, d_model 768, l_max 8192, vocab 50257, bf16, every
+            layer H3 with long-conv kernels, FFT size 16384) answers the serve
+            phase's 4 requests, then its forwards; checks finite logits and
+            exactly 24 spectrum and 24 monarch_conv launches a forward;
+  h3_train  trains it with the train phase's recipe (B=4, L=8192, 2 + 5
+            steps); checks finite, falling loss and the launches a step (48
+            spectrum, 24 monarch_conv, 24 monarch_conv_bwd, 24 dk_finish);
+  listops_train  trains the LRA ListOps LongConvModel at the example's
+            defaults (B=64, 6 layers, d_model 128, L=2048, FFT size 4096 with
+            kernels of 4096 taps, dropout 0.1, one-hot over 16 tokens, a
+            masked-mean pool, seeded ids of lengths 500-2048) with the
+            example's optimizer (AdamW lr 4e-3, wd 0.05, the kernels at lr
+            1e-3 without decay, no clip; a 2-step warm-up) for 2 + 5 steps on
+            one batch; checks finite, falling loss and the launches a step;
+            prints step time, tokens/s and peak memory;
+  mixers_parity  2-layer f32 LMs (d_model 128) with the h3 mixer (long-conv
+            kernels; shift and s4d kernels at head_dim 2), the m2 mixer with a
+            block-diagonal MLP (l_max 128, direct kernels) and the long-conv
+            mixer, and a 2-layer f32 ListOps LongConvModel (L=2048, k_len =
+            N = 4096), on the card and the CPU: logits within 2e-3, grads
+            within 1e-3 of each parameter's largest |grad|;
+  smem_probe  the shared-memory probe (utils/smem_probe.py, the counterpart
+            of benchmarks/tpu_vmem_probe.py): dynamic shared memory sizes of
+            16-228 KB until the first refusal, each launched size returning
+            4.0, the largest equal to the opt-in attribute on the grid, then
+            smem_copy at three tiles bit for bit with x * 1.0001 and timed;
   timing    times each kernel, its plain version and a PyTorch yardstick
             with CUDA events at the main paths' shapes; the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
-            tpu_attention.py's block-sparse case;
+            tpu_attention.py's block-sparse case; smem_copy at three tiles
+            beside torch.mul and smem_probe_touch, with utils.benchmarking;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
             one train step of it on a 1-rank sequence mesh, one HyenaDNA
             forward and one HyenaDNA train step, then one M2-BERT forward and
             one M2-BERT train step, then one GPT-2 124M forward and train
-            step, then one windowed GPT forward and train step.
+            step, then one windowed GPT forward and train step, then one
+            H3-125M forward and train step and one ListOps train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
 of the three long forward kernels in the dna phase, those of the two long
 backward kernels in the dna_train phase, those of the direct kernels in the
 bert_train phase, band_conv's in the seq_train phase, those of the flash
 attention kernels in the gpt_train phase, those of the splash kernels in
-the window_train phase), the
+the window_train phase, those of the probe kernels in the smem_probe phase),
+the
 card's name and power limit (nvidia-smi), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero
 with no result when there is no CUDA device or no package beside this file.
@@ -194,7 +230,7 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity",
           "grad_parity", "dna", "dna_train", "long_parity", "bert", "bert_train", "bert_parity",
           "gpt_serve", "gpt_train", "gpt_parity", "window_serve", "window_train", "window_parity",
-          "timing")
+          "h3_serve", "h3_train", "listops_train", "mixers_parity", "smem_probe", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -252,6 +288,18 @@ WIN_L_MAX, WIN_W = 2048, 256
 WIN_PROMPTS = (300, 1500)
 WIN_SERVE_B, WIN_WARMUP, WIN_TIMED = 4, 1, 5
 WIN_TRAIN_B, WIN_TRAIN_WARMUP, WIN_TRAIN_TIMED = 8, 2, 5
+
+# H3 at 125M size: examples/lm/train.py --preset hyena-125M --mixer h3 (the
+# preset's sizes above; every layer H3 with H3Operator's defaults: head_dim 1,
+# long-conv kernels of l_max taps, FFT size 16384, a bf16 plan). A layer runs
+# two long convs; the second at f32 I/O (k_D promotes k to f32, as in flax).
+# The LRA ListOps Long Conv model (examples/lra/train_listops.py:95-120,
+# 158-169 defaults): B=64, 6 layers, d_model 128, l_max 2048 (FFT size 4096,
+# kernels of 4096 taps: k_len = N), dropout 0.1, kernel_lam 0.001, one-hot
+# over 16 tokens (PAD 0), lengths in [500, 2048], a masked-mean pool.
+LISTOPS_B, LISTOPS_LAYERS, LISTOPS_D, LISTOPS_L = 64, 6, 128, 2048
+LISTOPS_VOCAB, LISTOPS_CLASSES, LISTOPS_MIN_LEN = 16, 10, 500
+LISTOPS_WARMUP, LISTOPS_TIMED = 2, 5
 
 KERNELS = {
     "spectrum": dict(
@@ -356,6 +404,17 @@ KERNELS = {
         replaces="jax/experimental/pallas/ops/tpu/splash_attention/"
                  "splash_attention_kernel.py:2196",
     ),
+    # the VMEM probes of benchmarks/tpu_vmem_probe.py as a shared-memory probe:
+    # the capacity trial (def l.42, pallas_call l.54) ...
+    "smem_probe_touch": dict(
+        source="flashfftconv_tpu_torch/csrc/smem_probe.cu",
+        replaces="benchmarks/tpu_vmem_probe.py:54",
+    ),
+    # ... and the copy through large blocks (copy_kernel, pallas_call l.96)
+    "smem_copy": dict(
+        source="flashfftconv_tpu_torch/csrc/smem_probe.cu",
+        replaces="benchmarks/tpu_vmem_probe.py:96",
+    ),
 }
 # The phase whose run gives a kernel's launches in the JSON line.
 LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
@@ -364,10 +423,11 @@ LAUNCH_PHASE = {"butterfly": "dna", "long_conv": "dna", "long_spectrum": "dna",
                 "band_conv": "seq_train", "flash_attn_fwd": "gpt_train",
                 "flash_attn_bwd_dkv": "gpt_train", "flash_attn_bwd_dq": "gpt_train",
                 "splash_attn_fwd": "window_train", "splash_attn_bwd_dkv": "window_train",
-                "splash_attn_bwd_dq": "window_train"}
+                "splash_attn_bwd_dq": "window_train", "smem_probe_touch": "smem_probe",
+                "smem_copy": "smem_probe"}
 # The phases whose results the kernels JSON line reads.
 JSON_PHASES = {"kernels", "train", "seq_train", "dna", "dna_train", "bert_train", "gpt_train",
-               "window_train", "timing"}
+               "window_train", "smem_probe", "timing"}
 # Launches of each kernel in one Hyena-125M train step: the backward
 # recomputes every long conv's kernel spectrum.
 TRAIN_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": N_LAYER, "monarch_conv_bwd": N_LAYER,
@@ -414,6 +474,17 @@ WIN_LAUNCHES = {"splash_attn_fwd": GPT_N_LAYER, "flash_attn_fwd": 0}
 WIN_TRAIN_LAUNCHES = {"splash_attn_fwd": GPT_N_LAYER, "splash_attn_bwd_dkv": GPT_N_LAYER,
                       "splash_attn_bwd_dq": GPT_N_LAYER, "flash_attn_fwd": 0,
                       "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+# Launches in one H3-125M forward (two long convs a layer, each its kernel's
+# spectrum and one monarch_conv; no short conv) and in one train step (the
+# backward recomputes each spectrum, then monarch_conv_bwd and dk_finish).
+H3_LAUNCHES = {"spectrum": 2 * N_LAYER, "monarch_conv": 2 * N_LAYER, "depthwise": 0}
+H3_TRAIN_LAUNCHES = {"spectrum": 4 * N_LAYER, "monarch_conv": 2 * N_LAYER,
+                     "monarch_conv_bwd": 2 * N_LAYER, "dk_finish": 2 * N_LAYER, "depthwise": 0,
+                     "depthwise_bwd": 0}
+# ... and in one ListOps train step: one long conv a layer.
+LISTOPS_TRAIN_LAUNCHES = {"spectrum": 2 * LISTOPS_LAYERS, "monarch_conv": LISTOPS_LAYERS,
+                          "monarch_conv_bwd": LISTOPS_LAYERS, "dk_finish": LISTOPS_LAYERS,
+                          "direct_conv": 0}
 
 
 def log(msg: str) -> None:
@@ -583,7 +654,57 @@ def phase_kernels(torch, g):
     errs.update(_check_band_kernels(torch, g))
     errs.update(_check_attention_kernels(torch, g))
     errs.update(_check_splash_kernels(torch, g))
+    _check_kernel_as_long_as_the_fft(torch, g)
+    errs.update(_check_smem_kernels(torch, g))
     _check_operator_spread(torch)
+    return errs
+
+
+def _check_kernel_as_long_as_the_fft(torch, g):
+    """spectrum, monarch_conv, monarch_conv_bwd and dk_finish at the ListOps
+    shape (B=64, H=128, L=2048, N=4096, f32 I/O) with k_len = N, the taps'
+    second half reaching the output by the circular wrap: the forward against
+    the torch.fft oracle (fft_conv_reference), the backward against the plain
+    versions."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    n = 2 * LISTOPS_L
+    dev = torch.device("cuda")
+    plan = make_plan(n, torch.bfloat16, device=dev)
+    k = (torch.randn(LISTOPS_D, n, generator=g) * 0.02).to(dev)
+    u = torch.randn(LISTOPS_B, LISTOPS_D, LISTOPS_L, generator=g).to(dev)
+    log(f"k_len = N: B={LISTOPS_B} H={LISTOPS_D} L={LISTOPS_L} N={n} k_len={n} f32")
+    k_f = monarch_cuda.spectrum(plan, k)
+    ref = monarch.kernel_spectrum(plan, k)
+    compare("spectrum k_len = N", torch.view_as_real(k_f), torch.view_as_real(ref),
+            f32_tol(torch.view_as_real(ref)))
+    ref = monarch.fft_conv_reference(n, u, k)
+    compare("monarch_conv k_len = N against fft_conv_reference",
+            monarch_cuda.monarch_conv(plan, u, k_f), ref, f32_tol(ref))
+    dout = torch.randn(u.shape, generator=g).to(dev)
+    _check_conv_bwd(torch, plan, "k_len = N", u, k_f, None, None, dout, n)
+    torch.cuda.synchronize()
+
+
+def _check_smem_kernels(torch, g):
+    """smem_probe_touch at 16 KB and the largest working size, and smem_copy
+    over 256 MiB of f32 at 16 KB, 64 KB and the largest tile, against their
+    plain versions bit for bit (the touch adds x*2 and x+1, the copy is one
+    f32 multiply: both exact in the same order)."""
+    from flashfftconv_tpu_torch.utils import smem_probe as sp
+
+    best = sp.grid_floor(sp.device_attrs("cuda")["max_shared_per_block_optin"])
+    x = torch.randn(sp.PROBE_SHAPE, generator=g).cuda()
+    errs = {}
+    for nbytes in (16 * 1024, best):
+        errs["smem_probe_touch"] = compare(f"smem_probe_touch {nbytes} B", sp.smem_probe_touch(
+            x, nbytes), sp.touch_plain(x), 0.0)
+    src = torch.randn(sp.COPY_BYTES // 4, generator=g).cuda()
+    for tile in (16 * 1024, 64 * 1024, best):
+        errs["smem_copy"] = compare(f"smem_copy {tile} B tiles over 256 MiB f32",
+                                    sp.smem_copy(src, tile), sp.copy_plain(src), 0.0)
+    torch.cuda.synchronize()
     return errs
 
 
@@ -1154,6 +1275,7 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
     from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops import monarch_cuda
+    from flashfftconv_tpu_torch.utils import smem_probe as sp
 
     wrappers = {"spectrum": monarch_cuda.spectrum, "monarch_conv": monarch_cuda.monarch_conv,
                 "monarch_conv_bwd": monarch_cuda.monarch_conv_bwd,
@@ -1171,16 +1293,18 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
                 "flash_attn_bwd_dq": ac.flash_attn_bwd_dq,
                 "splash_attn_fwd": ac.splash_attn_fwd,
                 "splash_attn_bwd_dkv": ac.splash_attn_bwd_dkv,
-                "splash_attn_bwd_dq": ac.splash_attn_bwd_dq}
+                "splash_attn_bwd_dq": ac.splash_attn_bwd_dq,
+                "smem_probe_touch": sp.smem_probe_touch, "smem_copy": sp.smem_copy}
     return {name: wrappers[name] for name in names}
 
 
-def _hyena_125m(torch, seed, dev, mixer_kwargs=None, dtype=None):
+def _hyena_125m(torch, seed, dev, mixer_kwargs=None, dtype=None, mixer="hyena"):
+    """The hyena-125M preset's LM (mixer="h3": H3-125M)."""
     from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
 
     return ConvLMHeadModel(
         d_model=D_MODEL, n_layer=N_LAYER, d_inner=4 * D_MODEL, vocab_size=VOCAB, l_max=L_MAX,
-        mixer_kwargs=mixer_kwargs, dtype=dtype or torch.bfloat16, device=dev,
+        mixer=mixer, mixer_kwargs=mixer_kwargs, dtype=dtype or torch.bfloat16, device=dev,
         generator=torch.Generator().manual_seed(seed),
     )
 
@@ -1494,13 +1618,25 @@ def phase_grad_parity(torch, seed):
 
 
 def phase_serve(torch, seed, np):
+    return _serve(torch, seed, np, "serve", "Hyena-125M", "hyena",
+                  {"spectrum": N_LAYER, "monarch_conv": N_LAYER, "depthwise": N_LAYER})
+
+
+def phase_h3_serve(torch, seed, np):
+    """H3-125M answers the serve phase's requests, then its forwards."""
+    return _serve(torch, seed, np, "h3_serve", "H3-125M", "h3", H3_LAUNCHES)
+
+
+def _serve(torch, seed, np, what, name, mixer, per_fwd):
+    """The preset's LM (``mixer``) answers PROMPTS requests through
+    generate after one scoring forward; each forward launches per_fwd."""
     from flashfftconv_tpu_torch.utils.generation import generate
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    model = _hyena_125m(torch, seed, dev).eval()
+    model = _hyena_125m(torch, seed, dev, mixer=mixer).eval()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"Hyena-125M: {n_params / 1e6:.2f}M params, built in {time.perf_counter() - t0:.1f} s")
+    log(f"{name}: {n_params / 1e6:.2f}M params, built in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(seed)
     ids = torch.zeros(B, L_MAX, dtype=torch.long)
@@ -1524,7 +1660,7 @@ def phase_serve(torch, seed, np):
         model(ids)  # warm-up: cuBLAS handles, library loads
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        counters = _counters()
+        counters = _counters(per_fwd)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1550,10 +1686,10 @@ def phase_serve(torch, seed, np):
             raise AssertionError(f"request {i}: prompt changed")
     if n_fwd != 1 + NEW_TOKENS:
         raise AssertionError(f"{n_fwd} forwards, expected {1 + NEW_TOKENS}")
-    for name, count in launches.items():
-        if count != N_LAYER * n_fwd:
-            raise AssertionError(f"{name} launched {count} times in {n_fwd} forwards, "
-                                 f"expected {N_LAYER} a forward")
+    for kernel, count in launches.items():
+        if count != per_fwd[kernel] * n_fwd:
+            raise AssertionError(f"{kernel} launched {count} times in {n_fwd} forwards, "
+                                 f"expected {per_fwd[kernel]} a forward")
     med = float(np.median(fwd_ms))
     res = {
         "forwards": n_fwd,
@@ -1567,7 +1703,7 @@ def phase_serve(torch, seed, np):
         "generated_tokens_per_s": B * NEW_TOKENS / gen_s,
         "peak_memory_bytes": peak,
     }
-    log(f"serve: {n_fwd} forwards, launches {launches}, forward median {med:.2f} ms max "
+    log(f"{what}: {n_fwd} forwards, launches {launches}, forward median {med:.2f} ms max "
         f"{max(fwd_ms):.2f} ms ({res['context_tokens_per_s']:.0f} context tokens/s), "
         f"generate {gen_s:.3f} s for {B * NEW_TOKENS} tokens "
         f"({res['generated_tokens_per_s']:.1f} new tokens/s), peak memory {peak / 2**30:.2f} GiB")
@@ -1750,12 +1886,15 @@ def _all_levers(torch):
 
 
 def _loss_and_grads(torch, model, ids):
+    """The LM loss and every parameter's grad (a parameter the forward never
+    reads, as an M2 filter's bias, has none and is left out)."""
     from flashfftconv_tpu_torch.utils.metrics import cross_entropy
 
     model.zero_grad(set_to_none=True)
     loss = cross_entropy(model(ids[:, :-1]), ids[:, 1:])
     loss.backward()
-    return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
 
 
 def _worst_grad(grads, ref):
@@ -2197,7 +2336,7 @@ def phase_gpt_serve(torch, seed, np):
     return res
 
 
-def _attention_lm_train(torch, seed, np, what, model, b, length, warmup, timed, want):
+def _lm_train(torch, seed, np, what, model, b, length, warmup, timed, want):
     """warmup + timed steps of the examples/lm recipe (AdamW lr 3e-4 with 2
     warm-up steps, weight decay 0.1, clip 1.0) on byte data: a finite,
     falling loss and the launches of `want` every step."""
@@ -2250,7 +2389,7 @@ def phase_gpt_train(torch, seed, np):
     on byte data."""
     torch.manual_seed(seed)
     model = _gpt2(torch, seed, "cuda").train()
-    return _attention_lm_train(torch, seed, np, "gpt_train: GPT-2 124M", model, GPT_TRAIN_B,
+    return _lm_train(torch, seed, np, "gpt_train: GPT-2 124M", model, GPT_TRAIN_B,
                                GPT_L_MAX, GPT_TRAIN_WARMUP, GPT_TRAIN_TIMED, GPT_TRAIN_LAUNCHES)
 
 
@@ -2409,7 +2548,7 @@ def phase_window_train(torch, seed, np):
     recipe on byte data, through the three splash kernels."""
     torch.manual_seed(seed)
     model = _window_gpt(torch, seed, "cuda").train()
-    return _attention_lm_train(torch, seed, np, "window_train: windowed GPT", model,
+    return _lm_train(torch, seed, np, "window_train: windowed GPT", model,
                                WIN_TRAIN_B, WIN_L_MAX, WIN_TRAIN_WARMUP, WIN_TRAIN_TIMED,
                                WIN_TRAIN_LAUNCHES)
 
@@ -2421,6 +2560,200 @@ def phase_window_parity(torch, seed, np):
             "flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     return _attention_lm_parity(torch, seed, np, "window_parity: 2-layer f32 windowed GPT",
                                 WIN_L_MAX, want, mixer_kwargs={"window": WIN_W})
+
+
+def phase_h3_train(torch, seed, np):
+    """H3-125M (B=4, L=8192, bf16 activations, embedding dropout 0.1) takes
+    TRAIN_WARMUP + TRAIN_TIMED steps of the examples/lm recipe on byte data."""
+    torch.manual_seed(seed)
+    model = _hyena_125m(torch, seed, "cuda", mixer="h3").train()
+    return _lm_train(torch, seed, np, "h3_train: H3-125M", model, B, L_MAX, TRAIN_WARMUP,
+                     TRAIN_TIMED, H3_TRAIN_LAUNCHES)
+
+
+def _listops_batch(torch, np, seed, b, length):
+    """b right-padded token ids in 1..15 (PAD 0) with lengths drawn in
+    [LISTOPS_MIN_LEN, length], and b labels in 0..9."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min(LISTOPS_MIN_LEN, length), length + 1, b)
+    ids = rng.integers(1, LISTOPS_VOCAB, (b, length))
+    ids[np.arange(length)[None, :] >= lens[:, None]] = 0
+    return torch.from_numpy(ids), torch.from_numpy(rng.integers(0, LISTOPS_CLASSES, b))
+
+
+def _listops_model(torch, seed, dev, **kw):
+    """The ListOps LongConvModel over token ids: one-hot over the 16 tokens
+    and the pool's mask ids != PAD, as examples/lra/train_listops.py applies
+    it."""
+    import torch.nn.functional as F
+
+    from flashfftconv_tpu_torch.models.long_conv import LongConvModel
+
+    class ListOps(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = LongConvModel(
+                LISTOPS_VOCAB, d_output=LISTOPS_CLASSES, **{
+                    "d_model": LISTOPS_D, "n_layers": LISTOPS_LAYERS, "l_max": LISTOPS_L,
+                    "dropout": 0.1, "kernel_lam": 0.001, **kw},
+                device=dev, generator=torch.Generator().manual_seed(seed))
+
+        def forward(self, ids):
+            return self.model(F.one_hot(ids, LISTOPS_VOCAB).float(), mask=ids != 0)
+
+    return ListOps()
+
+
+def phase_listops_train(torch, seed, np):
+    """The LRA ListOps LongConvModel at the example's defaults (B=64, 6
+    layers, d_model 128, L=2048, FFT size 4096 with kernels of 4096 taps, a
+    bf16 conv plan under f32 activations, dropout 0.1) takes LISTOPS_WARMUP +
+    LISTOPS_TIMED steps of the example's optimizer (make_optimizer: AdamW lr
+    4e-3, weight decay 0.05; the kernel-labelled parameters at lr 1e-3, no
+    decay; no clip), with a 2-step warm-up in place of the example's 1000, on
+    one seeded batch: a finite, falling loss and the launches of
+    LISTOPS_TRAIN_LAUNCHES every step."""
+    from flashfftconv_tpu_torch.utils.optim import make_optimizer
+    from flashfftconv_tpu_torch.utils.train import make_train_step
+
+    torch.manual_seed(seed)
+    model = _listops_model(torch, seed, "cuda").train()
+    opt, sched = make_optimizer(model.model, lr=4e-3, weight_decay=0.05, special_lr=1e-3,
+                                warmup_steps=2)
+    step = make_train_step(model, opt, sched, clip=math.inf)
+    x, y = (t.cuda() for t in _listops_batch(torch, np, seed, LISTOPS_B, LISTOPS_L))
+    counters = _counters(LISTOPS_TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, per_step = [], [], []
+    for _ in range(LISTOPS_WARMUP + LISTOPS_TIMED):
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != LISTOPS_TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {LISTOPS_TRAIN_LAUNCHES}")
+    timed = step_ms[LISTOPS_WARMUP:]
+    med = float(np.median(timed))
+    n_params = sum(p.numel() for p in model.parameters())
+    res = {"steps": len(losses), "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "step_ms_max": max(timed), "tokens_per_s": LISTOPS_B * LISTOPS_L / (med / 1e3),
+           "launches": {name: fn.launches for name, fn in counters.items()},
+           "peak_memory_bytes": peak, "params": n_params}
+    log(f"listops_train: LongConvModel {n_params / 1e6:.3f}M params, B={LISTOPS_B} "
+        f"L={LISTOPS_L} N={2 * LISTOPS_L} k_len={2 * LISTOPS_L}, {len(losses)} steps (lr 4e-3, "
+        f"kernels 1e-3, wd 0.05), losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"listops_train: step median {med:.2f} ms max {max(timed):.2f} ms over {LISTOPS_TIMED} "
+        f"timed steps ({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {per_step[-1]}")
+    return res
+
+
+# The 2-layer f32 LMs of mixers_parity: (options, long convs a layer). FFT
+# size 2048 (Monarch kernels) but for m2 at l_max 128 (direct kernels).
+MIXER_PARITY = {
+    "h3": (dict(mixer="h3", l_max=1024), 2),
+    "h3_shift_s4d": (dict(mixer="h3", l_max=1024, mixer_kwargs={
+        "head_dim": 2, "k_kernel_type": "shift", "ssm_kernel_type": "s4d"}), 2),
+    "m2": (dict(mixer="m2", l_max=128, mlp_nblocks=4), 1),
+    "long_conv": (dict(mixer="long-conv", l_max=1024), 1),
+}
+
+
+def _check_card_vs_cpu(what, out, grads):
+    """Logits within 2e-3, grads within 1e-3 of each parameter's largest |grad|."""
+    err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
+    if set(grads["cuda"]) != set(grads["cpu"]):
+        raise AssertionError(f"{what}: card and CPU grads cover other parameters")
+    ratio, worst = _worst_grad(grads["cuda"], grads["cpu"])
+    log(f"mixers_parity: {what}, card (kernels) vs CPU (plain): logits max_abs_err={err:.3e} "
+        f"tol=2e-3 (|logits| <= {float(out['cpu'].abs().max()):.2f}); grads max |dgrad| / max "
+        f"|grad| = {ratio:.3e} ({worst}) over {len(grads['cpu'])} params, tol 1e-3")
+    if not err <= 2e-3:
+        raise AssertionError(f"{what}: card and CPU logits disagree: {err}")
+    if not ratio <= 1e-3:
+        raise AssertionError(f"{what}: card and CPU grads disagree: {worst} at {ratio}")
+    return {"logits_max_abs_err": err, "grad_max_rel_err": ratio, "grad_worst_param": worst}
+
+
+def phase_mixers_parity(torch, seed, np):
+    """2-layer f32 LMs (d_model 128) with the h3 mixer (long-conv kernels;
+    shift and s4d kernels at head_dim 2), the m2 mixer with a block-diagonal
+    MLP and the long-conv mixer, then a 2-layer f32 ListOps LongConvModel
+    (d_model 64, L=2048, FFT size 4096, k_len = N), each with the same
+    weights on the card (kernels) and the CPU (plain versions): logits and
+    every parameter's grad. Each LM's long convs launch their kernels once a
+    conv forward and once backward."""
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    res = {}
+    for what, (cfg, convs) in MIXER_PARITY.items():
+        cfg = dict(cfg)
+        l_max = cfg.pop("l_max")
+        mk = {**cfg.pop("mixer_kwargs", {}), "conv_dtype": torch.float32}
+        fwd, bwd = (("direct_conv", "direct_conv_bwd") if l_max <= 256
+                    else ("monarch_conv", "monarch_conv_bwd"))
+        counters = _counters((fwd, bwd))
+        before = {n: fn.launches for n, fn in counters.items()}
+        ids = torch.randint(0, 256, (2, l_max + 1),
+                            generator=torch.Generator().manual_seed(seed + 3))
+        out, grads = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = ConvLMHeadModel(d_model=128, n_layer=2, d_inner=512, vocab_size=256,
+                                    l_max=l_max, mixer_kwargs=mk, dtype=torch.float32,
+                                    device=dev, generator=torch.Generator().manual_seed(seed),
+                                    **cfg).eval()
+            with torch.inference_mode():
+                out[dev] = model(ids[:, :-1].to(dev)).float()
+            grads[dev] = _loss_and_grads(torch, model, ids.to(dev))[1]
+        counts = {n: fn.launches - before[n] for n, fn in counters.items()}
+        want = {fwd: 2 * 2 * convs, bwd: 2 * convs}
+        if counts != want:
+            raise AssertionError(f"{what}: launched {counts}, expected {want}")
+        res[what] = _check_card_vs_cpu(f"2-layer f32 {what} LM at l_max {l_max}", out, grads)
+    x, y = _listops_batch(torch, np, seed + 4, 2, LISTOPS_L)
+    out, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = _listops_model(torch, seed, dev, d_model=64, n_layers=2,
+                               conv_dtype=torch.float32).eval()
+        out[dev] = model(x.to(dev))
+        cross_entropy(out[dev], y.to(dev)).backward()
+        out[dev] = out[dev].detach()
+        grads[dev] = {n: p.grad.detach() for n, p in model.named_parameters()}
+    res["listops"] = _check_card_vs_cpu(f"2-layer f32 ListOps LongConvModel at L={LISTOPS_L}",
+                                        out, grads)
+    return res
+
+
+def phase_smem_probe(torch, seed):
+    """The shared-memory probe (utils.smem_probe.run_probe): the sweep of
+    KB_GRID with smem_probe_touch, 4.0 at every size that launched, the
+    largest working size equal to the opt-in attribute on the grid, a second
+    launch at it, then smem_copy over 256 MiB of f32 at 16 KB, 64 KB and the
+    largest tile, each bit for bit with x * 1.0001 and timed beside
+    torch.mul."""
+    from flashfftconv_tpu_torch.utils import smem_probe as sp
+
+    counters = _counters(("smem_probe_touch", "smem_copy"))
+    for fn in counters.values():
+        fn.launches = 0
+    res = sp.run_probe("cuda", seed=seed, log=log)
+    res["launches"] = {name: fn.launches for name, fn in counters.items()}
+    if not all(res["launches"].values()):
+        raise AssertionError(f"a probe kernel never launched: {res['launches']}")
+    return res
 
 
 def _kind(name: str) -> str:
@@ -2509,8 +2842,9 @@ def phase_profile(torch, seed):
     """Device time by kernel over one Hyena-125M serving forward and one
     train step (dropout on, the examples/lm optimizer), one train step of the
     same model on a 1-rank sequence mesh, then one HyenaDNA forward and
-    train step, one M2-BERT forward and train step, and one GPT-2 124M
-    forward and train step."""
+    train step, one M2-BERT forward and train step, one GPT-2 124M and one
+    windowed GPT forward and train step, one H3-125M forward and train step
+    and one ListOps train step."""
     from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
 
     model = _hyena_125m(torch, seed, "cuda")
@@ -2585,6 +2919,28 @@ def phase_profile(torch, seed):
     step = make_train_step(model.train(), opt, sched, clip=1.0)
     res["window_train_step"] = _trace(torch, f"one windowed GPT train step at B={WIN_TRAIN_B} "
                                       f"L={WIN_L_MAX}", lambda: step(x, y))
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    model = _hyena_125m(torch, seed, "cuda", mixer="h3")
+    x, y = _train_batches(torch, np, seed, "cuda", 1)[0]
+    with torch.inference_mode():
+        res["h3_forward"] = _trace(torch, f"one H3-125M forward at B={B} L={L_MAX}",
+                                   lambda: model.eval()(x))
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
+    step = make_train_step(model.train(), opt, sched, clip=1.0)
+    res["h3_train_step"] = _trace(torch, f"one H3-125M train step at B={B} L={L_MAX}",
+                                  lambda: step(x, y))
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    from flashfftconv_tpu_torch.utils.optim import make_optimizer
+
+    model = _listops_model(torch, seed, "cuda").train()
+    opt, sched = make_optimizer(model.model, lr=4e-3, weight_decay=0.05, special_lr=1e-3,
+                                warmup_steps=2)
+    step = make_train_step(model, opt, sched, clip=math.inf)
+    x, y = (t.cuda() for t in _listops_batch(torch, np, seed, LISTOPS_B, LISTOPS_L))
+    res["listops_train_step"] = _trace(torch, f"one ListOps train step at B={LISTOPS_B} "
+                                       f"L={LISTOPS_L}", lambda: step(x, y))
     return res
 
 
@@ -2719,7 +3075,7 @@ def phase_timing(torch, g):
     del k, u, x, k_f, dout, parts, dy, dy_full
     torch.cuda.empty_cache()
     for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g),
-                 _time_attention(torch, g), _time_splash(torch, g)):
+                 _time_attention(torch, g), _time_splash(torch, g), _time_smem(torch, g)):
         if set(rows) & set(res):
             raise AssertionError(f"timing rows named twice: {sorted(set(rows) & set(res))}")
         res.update(rows)
@@ -2732,10 +3088,44 @@ def phase_timing(torch, g):
             extra += f", the library's forward + backward {r['library_fwd_bwd_ms']:.4f} ms"
         if "causal_flash_ms" in r:
             extra += f", the causal flash kernel at this shape {r['causal_flash_ms']:.4f} ms"
+        if "tile_bytes" in r:
+            extra += (f", {r['tile_bytes'] // 1024} KB tiles, "
+                      f"{2 * r['bytes'] / r['ms'] / 1e6:.1f} GB/s")
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"timing {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
     return res
+
+
+def _time_smem(torch, g):
+    """The probe kernels with utils.benchmarking (CUDA events, 10 launches
+    after 3 warm-ups): smem_probe_touch at the largest working size (one
+    block; it moves 8 KB, so its time is a launch's) and smem_copy over
+    256 MiB of f32 at 16 KB, 64 KB and the largest tile (the row named
+    smem_copy), beside torch.mul, the library call of the same function. The
+    bound counts each float read once and written once (the copy: 512 MiB
+    over 3.35 TB/s) against one multiply an element."""
+    from flashfftconv_tpu_torch.utils import benchmarking as bench
+    from flashfftconv_tpu_torch.utils import smem_probe as sp
+
+    def timed(fn, *args):
+        return bench.benchmark_forward(fn, *args, repeats=10, warmup=3, device="cuda")
+
+    best = sp.grid_floor(sp.device_attrs("cuda")["max_shared_per_block_optin"])
+    x = torch.randn(sp.PROBE_SHAPE, generator=g).cuda()
+    rows = {"smem_probe_touch": dict(
+        ms=timed(sp.smem_probe_touch, x, best), plain_ms=timed(sp.touch_plain, x),
+        library_ms=None, bound=_bound(2 * x.numel() * 4, 3 * x.numel()))}
+    src = torch.randn(sp.COPY_BYTES // 4, generator=g).cuda()
+    nbytes = 2 * src.numel() * 4
+    library_ms = timed(torch.mul, src, 1.0001)
+    plain_ms = timed(sp.copy_plain, src)
+    for tile, name in ((16 * 1024, "smem_copy@16KB"), (64 * 1024, "smem_copy@64KB"),
+                       (best, "smem_copy")):
+        rows[name] = dict(ms=timed(sp.smem_copy, src, tile), plain_ms=plain_ms,
+                          library_ms=library_ms, bound=_bound(nbytes, src.numel()),
+                          tile_bytes=tile, bytes=src.numel() * 4)
+    return rows
 
 
 def _time_direct(torch, g):
@@ -3218,6 +3608,16 @@ def main() -> int:
         results["window_train"] = phase_window_train(torch, args.seed, np)
     if "window_parity" in phases:
         results["window_parity"] = phase_window_parity(torch, args.seed, np)
+    if "h3_serve" in phases:
+        results["h3_serve"] = phase_h3_serve(torch, args.seed, np)
+    if "h3_train" in phases:
+        results["h3_train"] = phase_h3_train(torch, args.seed, np)
+    if "listops_train" in phases:
+        results["listops_train"] = phase_listops_train(torch, args.seed, np)
+    if "mixers_parity" in phases:
+        results["mixers_parity"] = phase_mixers_parity(torch, args.seed, np)
+    if "smem_probe" in phases:
+        results["smem_probe"] = phase_smem_probe(torch, args.seed)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, g)
     if "profile" in phases:

@@ -16,7 +16,11 @@ forward and backward, and ``models.gpt`` serves and trains GPT-2 and OPT on
 them (``utils.generation.generate_kv`` decodes with a KV cache); a sliding
 window (``flash_mha(window=W)``, a GPT's ``mixer_kwargs={"window": W}``) and
 ``blocksparse_mha`` run hand-written splash-attention kernels that skip the
-masked tiles. Public API
+masked tiles. ``models.h3`` (H3 with long-conv, shift and S4D kernels),
+``models.long_conv`` (the Long Conv layer and sequence classifier) and
+``models.sequence`` (encoders, pools, decoders, ``SequenceModel``) run on the
+same FFT conv kernels; ``utils.smem_probe`` probes the card's shared memory a
+block with a kernel of its own. Public API
 parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """

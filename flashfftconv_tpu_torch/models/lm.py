@@ -1,13 +1,17 @@
-"""Causal language model over the Hyena mixer (PyTorch).
+"""Causal language model over long-conv and attention mixers (PyTorch).
 
-Port of the JAX package's ``models/lm.py`` for the hyena mixer with a tied
-head: word embeddings -> n_layer pre-norm blocks (mixer + MLP, residuals in
-f32) -> final LayerNorm in f32 -> logits in f32 against the embedding table.
+Port of the JAX package's ``models/lm.py`` with a tied head: word
+embeddings -> n_layer pre-norm blocks (mixer + MLP, residuals in f32) ->
+final LayerNorm in f32 -> logits in f32 against the embedding table.
 
-Mixers by name: ``"hyena"`` (``HyenaOperator``) and ``"mha"``
+Mixers by name (``MIXERS``, the JAX package's ``get_mixer_cls``):
+``"hyena"`` (``HyenaOperator``), ``"m2"`` (``MonarchMixerSequenceMixing``),
+``"h3"`` (``models.h3.H3Operator``), ``"long-conv"``
+(``models.long_conv.LongConvOperator``) and ``"mha"``
 (``models.attention.MHAOperator``, the flash-attention kernels on the card);
 ``Block.step`` decodes one token through a mixer with a KV cache (the
-``"mha"`` mixer has one).
+``"mha"`` mixer has one). ``mlp_nblocks`` > 0 makes the MLP's two layers
+block-diagonal (``BlockdiagLinear``), as in M2.
 
 The memory levers of the JAX package's 1M-base train step: ``remat``
 (each block under ``torch.utils.checkpoint``, which keeps only the block's
@@ -15,9 +19,7 @@ input and replays the block, dropout's random state included, in the
 backward), ``inner_remat`` (mixer and MLP as separate checkpoint regions
 inside the block), ``mlp_l_chunks`` (``ChunkedMlp``: the MLP in L-chunks
 with a backward of its own that keeps only its input) and ``scan_blocks``.
-The JAX modules' other mixers (``"m2"``, ``"h3"``, ``"long-conv"``),
-block-diagonal MLPs and MoE are not ported: setting one raises
-NotImplementedError.
+MoE (``moe_kwargs``) is not ported: setting it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from flashfftconv_tpu_torch.models.attention import MHAOperator
+from flashfftconv_tpu_torch.models.h3 import H3Operator
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator
 from flashfftconv_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from flashfftconv_tpu_torch.models.long_conv import LongConvOperator
+from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerSequenceMixing
 from flashfftconv_tpu_torch.ops.plan import resolve_device
 
 _ACTIVATIONS = {
@@ -39,32 +44,36 @@ _ACTIVATIONS = {
 }
 
 
-def _not_ported(**options) -> None:
-    for name, is_set in options.items():
-        if is_set:
-            raise NotImplementedError(f"{name} is not ported yet")
-
-
-# The mixer registry of the JAX package's get_mixer_cls, as far as it is ported.
-MIXERS = {"hyena": HyenaOperator, "mha": MHAOperator}
+# The mixer registry of the JAX package's get_mixer_cls.
+MIXERS = {"hyena": HyenaOperator, "m2": MonarchMixerSequenceMixing, "h3": H3Operator,
+          "mha": MHAOperator, "long-conv": LongConvOperator}
 
 
 class Mlp(nn.Module):
-    """fc2(act(fc1(x))) with both Dense layers in x's dtype and the
-    activation in f32."""
+    """fc2(act(fc1(x))) with the activation in f32. Dense layers compute in
+    x's dtype; with ``nblocks`` > 0 both are ``BlockdiagLinear`` (whose f32
+    bias promotes the output to f32, as in the flax module)."""
 
     def __init__(self, d_inner, d_model, nblocks=0, activation="gelu", device="cuda",
                  generator=None):
         super().__init__()
-        _not_ported(mlp_nblocks=nblocks > 0)
         self.activation = _ACTIVATIONS[activation]
-        self.fc1 = Dense(d_model, d_inner, device=device, generator=generator)
-        self.fc2 = Dense(d_inner, d_model, device=device, generator=generator)
+        self.nblocks = nblocks
+        mk = dict(device=device, generator=generator)
+        if nblocks:
+            self.fc1 = BlockdiagLinear(d_model, d_inner, nblocks=nblocks, **mk)
+            self.fc2 = BlockdiagLinear(d_inner, d_model, nblocks=nblocks, **mk)
+        else:
+            self.fc1 = Dense(d_model, d_inner, **mk)
+            self.fc2 = Dense(d_inner, d_model, **mk)
+
+    def _layer(self, layer, x):
+        return layer(x) if self.nblocks else layer(x, dtype=x.dtype)
 
     def forward(self, x):
-        y = self.fc1(x, dtype=x.dtype)
+        y = self._layer(self.fc1, x)
         y = self.activation(y.float()).to(x.dtype)
-        return self.fc2(y, dtype=x.dtype)
+        return self._layer(self.fc2, y)
 
 
 class _MlpChunked(torch.autograd.Function):
@@ -139,10 +148,10 @@ class Block(nn.Module):
                  mlp_nblocks=0, moe_kwargs=None, mlp_activation="gelu", mlp_l_chunks=0,
                  residual_f32=True, inner_remat=False, device="cuda", generator=None):
         super().__init__()
-        _not_ported(**{
-            f"mixer={mixer!r}": mixer not in MIXERS,
-            "moe_kwargs": bool(moe_kwargs),
-        })
+        if mixer not in MIXERS:
+            raise ValueError(f"unknown mixer {mixer!r}; have {sorted(MIXERS)}")
+        if moe_kwargs:
+            raise NotImplementedError("moe_kwargs is not ported yet")
         self.residual_f32 = residual_f32
         self.inner_remat = inner_remat
         self.norm1 = LayerNorm(d_model, device=device)

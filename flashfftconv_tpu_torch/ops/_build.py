@@ -26,7 +26,8 @@ SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("spectrum", "monarch_conv", "monarch_conv_bwd", "depthwise", "depthwise_bwd",
            "butterfly", "long_conv", "long_spectrum", "long_conv_bwd", "direct_conv",
-           "band_conv", "flash_attn", "flash_attn_bwd", "splash_attn", "splash_attn_bwd")
+           "band_conv", "flash_attn", "flash_attn_bwd", "splash_attn", "splash_attn_bwd",
+           "smem_probe")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # {library: {function: argtypes}}; every function returns a CUDA error code
 # (an int). Pointers first, then the int sizes, then the stream.
@@ -53,6 +54,9 @@ SIGNATURES = {
     "splash_attn": {"ffc_splash_attn_fwd": [_P] * 7 + [_I] * 11 + [_P]},
     "splash_attn_bwd": {"ffc_splash_attn_bwd_dkv": [_P] * 10 + [_I] * 11 + [_P],
                         "ffc_splash_attn_bwd_dq": [_P] * 9 + [_I] * 11 + [_P]},
+    "smem_probe": {"ffc_smem_device_attrs": [_P, _I], "ffc_smem_set_limit": [_I],
+                   "ffc_smem_probe_touch": [_P, _P, _I, _P],
+                   "ffc_smem_copy": [_P, _P, _I, _I, _P]},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

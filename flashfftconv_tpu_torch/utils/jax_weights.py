@@ -23,6 +23,14 @@ port model, from the modules' types (the optimizer's labels read it).
 are transposed, and with ``tie_mlm_head`` the top-level ``word_embeddings``
 table lands in ``bert.word_embeddings``.
 
+``h3_operator_state_dict``, ``long_conv_state_dict`` and
+``long_conv_operator_state_dict`` carry one ``H3Operator``, ``LongConv`` or
+``LongConvOperator`` (their kernel generators' parameters keep the flax
+names); ``from_jax_params`` takes a ``ConvLMHeadModel`` with any mixer of
+the registry (``hyena``, ``m2``, ``h3``, ``long-conv``, ``mha``) and a
+dense or block-diagonal MLP; ``long_conv_model_state_dict`` takes a
+``LongConvModel`` and ``sequence_model_state_dict`` a ``SequenceModel``.
+
 ``gpt_state_dict`` does the same for the JAX package's ``GPTLMHeadModel``
 (``embeddings``, ``pos_embeddings``, ``block_i/{norm1, norm2, mixer/{qkv_proj,
 out_proj}, mlp/{fc1, fc2}}``, ``ln_f`` and OPT's ``project_in`` and
@@ -90,13 +98,75 @@ def mha_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
             **_dense(tree["out_proj"], f"{prefix}out_proj")}
 
 
+def _leaves(tree, prefix: str) -> dict[str, torch.Tensor]:
+    """Every leaf of a flax subtree under its own name (nested by '.')."""
+    out = {}
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            out.update(_leaves(sub, f"{prefix}{name}."))
+        else:
+            out[f"{prefix}{name}"] = _t(sub)
+    return out
+
+
+def h3_operator_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax H3Operator params -> port H3Operator state dict: the four Dense
+    layers transposed, the kernel generators (``k_kernel``, ``kernel``) and
+    the skips ``k_D`` and ``D`` leaf for leaf."""
+    out = {}
+    for name in ("q_proj", "k_proj", "v_proj", "output_linear"):
+        out.update(_dense(tree[name], prefix + name))
+    for name in ("k_kernel", "kernel"):
+        out.update(_leaves(tree[name], f"{prefix}{name}."))
+    out[f"{prefix}k_D"] = _t(tree["k_D"])
+    out[f"{prefix}D"] = _t(tree["D"])
+    return out
+
+
+def long_conv_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax LongConv params -> port LongConv state dict."""
+    return {f"{prefix}kernel": _t(tree["kernel"]), f"{prefix}D": _t(tree["D"]),
+            **_dense(tree["output_linear"], prefix + "output_linear")}
+
+
+def long_conv_operator_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax LongConvOperator params -> port LongConvOperator state dict."""
+    return long_conv_state_dict(tree["conv"], prefix + "conv.")
+
+
+def long_conv_model_state_dict(params) -> dict[str, torch.Tensor]:
+    """flax LongConvModel params -> port ``models.long_conv.LongConvModel``
+    state dict (``layer_i`` -> ``layer.i``, ``norm_i`` -> ``norm.i``)."""
+    out = {**_dense(params["encoder"], "encoder"), **_dense(params["decoder"], "decoder")}
+    for name, sub in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "layer":
+            out.update(long_conv_state_dict(sub, f"layer.{i}."))
+        elif kind == "norm":
+            out.update(_norm(sub, f"norm.{i}"))
+    return out
+
+
+def _mixer_state_dict(tree, prefix: str) -> dict[str, torch.Tensor]:
+    """A flax mixer of the lm registry, told apart by its parameters."""
+    if "qkv_proj" in tree:
+        return mha_state_dict(tree, prefix)
+    if "q_proj" in tree:
+        return h3_operator_state_dict(tree, prefix)
+    if "in_linear" in tree:
+        return m2_mixer_state_dict(tree, prefix)
+    if "conv" in tree:
+        return long_conv_operator_state_dict(tree, prefix)
+    return hyena_operator_state_dict(tree, prefix)
+
+
 def _block_state_dict(block, prefix: str) -> dict[str, torch.Tensor]:
-    """One flax lm.Block (hyena or mha mixer, dense MLP) -> port state dict."""
-    mixer = mha_state_dict if "qkv_proj" in block["mixer"] else hyena_operator_state_dict
+    """One flax lm.Block (any mixer of the registry, a dense or
+    block-diagonal MLP) -> port state dict."""
     return {**_norm(block["norm1"], prefix + "norm1"), **_norm(block["norm2"], prefix + "norm2"),
-            **mixer(block["mixer"], prefix + "mixer."),
-            **_dense(block["mlp"]["fc1"], prefix + "mlp.fc1"),
-            **_dense(block["mlp"]["fc2"], prefix + "mlp.fc2")}
+            **_mixer_state_dict(block["mixer"], prefix + "mixer."),
+            **_m2_linear(block["mlp"]["fc1"], prefix + "mlp.fc1"),
+            **_m2_linear(block["mlp"]["fc2"], prefix + "mlp.fc2")}
 
 
 def gpt_state_dict(params) -> dict[str, torch.Tensor]:
@@ -185,6 +255,30 @@ def m2_bert_state_dict(params) -> dict[str, torch.Tensor]:
         out.update(_dense(params["mlm_head"], "mlm_head"))
     if "mlm_bias" in params:
         out["mlm_bias"] = _t(params["mlm_bias"])
+    return out
+
+
+def sequence_model_state_dict(params) -> dict[str, torch.Tensor]:
+    """flax SequenceModel params -> port ``models.sequence.SequenceModel``
+    state dict: ``encoder_i``, ``block_i``, ``pool_i``, ``ln_f`` and the
+    decoder (``proj``, or a retrieval head's ``fc1`` and ``fc2``)."""
+    out = _norm(params["ln_f"], "ln_f")
+    for name, sub in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "encoder":
+            if "embed" in sub:
+                out[f"encoder.{i}.embed.weight"] = _t(sub["embed"]["embedding"])
+            elif "patch" in sub:
+                out[f"encoder.{i}.patch_kernel"] = _t(sub["patch"]["kernel"])
+                out[f"encoder.{i}.patch_bias"] = _t(sub["patch"]["bias"])
+            elif "proj" in sub:
+                out.update(_dense(sub["proj"], f"encoder.{i}.proj"))
+        elif kind == "block":
+            out.update(_block_state_dict(sub, f"blocks.{i}."))
+        elif kind == "pool" and "proj" in sub:
+            out.update(_dense(sub["proj"], f"pool.{i}.proj"))
+    for name, sub in params.get("decoder", {}).items():
+        out.update(_dense(sub, f"decoder.{name}"))
     return out
 
 

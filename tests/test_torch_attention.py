@@ -382,9 +382,8 @@ def test_conv_lm_with_the_mha_mixer_matches_flax():
                                np.asarray(jm.apply({"params": params}, jnp.asarray(ids))),
                                atol=1e-4)
     _assert_grads(jax_weights.from_jax_params(jax.tree_util.tree_map(np.asarray, gp)), tm)
-    for mixer in ("h3", "m2", "long-conv"):
-        with pytest.raises(NotImplementedError, match=mixer):
-            Block(16, 32, mixer=mixer, device=CPU)
+    with pytest.raises(ValueError, match="unknown mixer"):
+        Block(16, 32, mixer="attention", device=CPU)
 
 
 def test_gpt_train_steps_match_the_example_optax_chain():

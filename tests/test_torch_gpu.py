@@ -791,3 +791,108 @@ def test_cuda_windowed_gpt_matches_cpu():
     for name, grad in out["cuda"][1].items():
         ref = out["cpu"][1][name]
         assert float((grad - ref).abs().max()) <= 1e-3 * float(ref.abs().max()) + 1e-7, name
+
+
+# --- the shared-memory probe, a kernel as long as the FFT, H3 and Long Conv ----------
+
+@pytest.mark.gpu
+def test_cuda_smem_probe_touch_sweep():
+    """The sweep on the card: every size that launched returns 4.0, the
+    largest working size is the opt-in attribute on the grid (227 KB on an
+    H100), the refusal is the expected error, and a second launch at the
+    largest size works."""
+    _needs_card()
+    from flashfftconv_tpu_torch.utils import smem_probe as sp
+
+    attrs = sp.device_attrs("cuda")
+    x = torch.ones(sp.PROBE_SHAPE, device="cuda")
+    n0 = sp.smem_probe_touch.launches
+    records, best = sp.sweep(lambda nbytes: sp.smem_probe_touch(x, nbytes))
+    assert best == sp.grid_floor(attrs["max_shared_per_block_optin"]) > 48 * 1024
+    assert all(r["max_abs_err"] == 0.0 for r in records if r["ok"])
+    assert sp.smem_probe_touch.launches == n0 + sum(r["ok"] for r in records)
+    assert torch.equal(sp.smem_probe_touch(x, best), sp.touch_plain(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_kb", [16, 64, 227])
+def test_cuda_smem_copy_matches_plain_bit_for_bit(tile_kb):
+    """x * 1.0001 through shared-memory tiles, over a ragged last tile."""
+    _needs_card()
+    from flashfftconv_tpu_torch.utils import smem_probe as sp
+
+    x = torch.randn(3_000_004, generator=torch.Generator().manual_seed(tile_kb)).cuda()
+    n0 = sp.smem_copy.launches
+    y = sp.smem_copy(x, tile_kb * 1024)
+    torch.cuda.synchronize()
+    assert sp.smem_copy.launches == n0 + 1
+    assert torch.equal(y, torch.mul(x, 1.0001))
+    with pytest.raises(ValueError):
+        sp.smem_copy(x[:3], 16 * 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 4096, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fft_conv_with_a_kernel_as_long_as_the_fft(n, dtype):
+    """k_len = N (a LongConv kernel): the second half of the taps reaches the
+    output by the circular wrap. Output and grads of FftConvFunction on the
+    card against the torch.fft oracle: f32 within 2e-5 of the largest value,
+    bf16 within one bf16 ulp of it; dk within 1e-4 of its largest value."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import dispatch
+
+    p = tplan.get_plan(n, dtype, "cuda")
+    g = torch.Generator().manual_seed(n)
+    u = torch.randn(4, 8, n // 2, generator=g).to("cuda", dtype).requires_grad_()
+    k = (torch.randn(8, n, generator=g) * 0.02).cuda().requires_grad_()
+    dy = torch.randn(4, 8, n // 2, generator=g).to("cuda", dtype)
+    y = dispatch.fft_conv(p, u, k)
+    du, dk = torch.autograd.grad(y, (u, k), dy)
+    uf, kf = u.detach().float().requires_grad_(), k.detach().requires_grad_()
+    r = monarch.fft_conv_reference(n, uf, kf)
+    ru, rk = torch.autograd.grad(r, (uf, kf), dy.float())
+    _close(y, r, dtype)
+    _close(du, ru, dtype)
+    err = float((dk - rk).abs().max())
+    assert err <= 1e-4 * float(rk.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["h3", "h3_shift_s4d", "long-conv", "listops"])
+def test_cuda_h3_and_long_conv_models_match_cpu(kind):
+    """Small f32 models with the same weights on the card (kernels) and the
+    CPU (plain versions): logits within 1e-4 of the largest |logit| and
+    every parameter's grad within 1e-4 of its largest |grad|."""
+    _needs_card()
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.models.long_conv import LongConvModel
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids = torch.randint(1, 64, (2, 257), generator=torch.Generator().manual_seed(4))
+    out, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        gen = torch.Generator().manual_seed(5)
+        if kind == "listops":
+            m = LongConvModel(16, d_model=32, n_layers=2, l_max=256, kernel_lam=0.001,
+                              conv_dtype=torch.float32, device=dev, generator=gen).eval()
+            x = torch.nn.functional.one_hot(ids[:, :-1] % 16, 16).float().to(dev)
+            out[dev] = m(x, mask=(ids[:, :-1] % 16 != 0).to(dev))
+            cross_entropy(out[dev], ids[:, 0].to(dev) % 10).backward()
+        else:
+            mk = {"conv_dtype": torch.float32}
+            if kind == "h3_shift_s4d":
+                mk.update(head_dim=2, k_kernel_type="shift", ssm_kernel_type="s4d", d_state=16)
+            m = ConvLMHeadModel(d_model=32, n_layer=2, d_inner=64, vocab_size=64, l_max=256,
+                                mixer=kind.split("_")[0], mixer_kwargs=mk, dtype=torch.float32,
+                                device=dev, generator=gen).eval()
+            out[dev] = m(ids[:, :-1].to(dev))
+            cross_entropy(out[dev], ids[:, 1:].to(dev)).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+    ref = out["cpu"].detach()
+    assert float((out["cuda"].detach().cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for name, r in grads["cpu"].items():
+        err = float((grads["cuda"][name] - r).abs().max())
+        assert err <= 1e-4 * float(r.abs().max()) + 1e-8, (name, err)

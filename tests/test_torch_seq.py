@@ -85,7 +85,27 @@ def _cases(world):
         ids = np.random.default_rng(50).integers(0, LM["vocab_size"], (LM_BATCH, LM["l_max"] + 1))
         cases["lm"] = dict(kind="lm", state=_lm_state(), ids=ids, mixer={})
         cases["lm_levers"] = dict(kind="lm", state=_lm_state(), ids=ids, mixer=LM_LEVERS)
+        rng = np.random.default_rng(60 + world)
+        cases["long_conv_op"] = dict(
+            kind="long_conv_op", state=_long_conv_state(),
+            x=rng.standard_normal((2, LC["l_max"], LC["d_model"])).astype(np.float32),
+            dout=rng.standard_normal((2, LC["l_max"], LC["d_model"])).astype(np.float32))
     return cases
+
+
+# LongConvOperator on the mesh: its kernel is as long as the FFT (2 l_max)
+LC = dict(d_model=16, l_max=256, lam=0.003)
+
+
+def _long_conv_state():
+    """A seeded port LongConvOperator's weights, as numpy."""
+    from flashfftconv_tpu_torch.models.long_conv import LongConvOperator
+
+    op = LongConvOperator(**LC, conv_dtype=torch.float32, device=CPU,
+                          generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():  # kernel taps large enough to pass the squash
+        op.conv.kernel.mul_(10)
+    return {n: t.numpy() for n, t in op.state_dict().items()}
 
 
 _LM_STATE = {}
@@ -170,7 +190,26 @@ def _run_lm(case, mesh, world, rank):
     return out
 
 
-_RUNNERS = {"conv": _run_conv, "padded": _run_padded, "errors": _run_errors, "lm": _run_lm}
+def _run_long_conv_op(case, mesh, world, rank):
+    """The rank's chunk (B, L/P, D) through LongConvOperator(seq_mesh): its
+    output chunk, its input grad and its share of the parameters' grads."""
+    from flashfftconv_tpu_torch.models.long_conv import LongConvOperator
+
+    op = LongConvOperator(**LC, conv_dtype=torch.float32, seq_mesh=mesh, seq_axis="sp",
+                          device=CPU)
+    op.load_state_dict({n: torch.from_numpy(a) for n, a in case["state"].items()})
+    c = LC["l_max"] // world
+    x = torch.from_numpy(np.ascontiguousarray(case["x"][:, rank * c:(rank + 1) * c]))
+    x.requires_grad_()
+    y = op(x)
+    (y * torch.from_numpy(np.ascontiguousarray(case["dout"][:, rank * c:(rank + 1) * c]))
+     ).sum().backward()
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+            "grads": {n: p.grad.numpy() for n, p in op.named_parameters()}}
+
+
+_RUNNERS = {"conv": _run_conv, "padded": _run_padded, "errors": _run_errors, "lm": _run_lm,
+            "long_conv_op": _run_long_conv_op}
 
 
 def _rank_main(rank, world, store, cases_path, out_dir):
@@ -521,3 +560,31 @@ def test_hyena_operator_accepts_a_seq_mesh():
     assert op.seq_mesh is not None and op.seq_axis == "sp"
     assert seq_conv.seq_group(torch.nn.Sequential(op)) == ("group", "sp")
     assert seq_conv.seq_group(torch.nn.Linear(2, 2)) is None
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_long_conv_operator_on_a_seq_mesh_matches_the_plain_operator(world):
+    """LongConvOperator(seq_mesh) on P gloo ranks, each with its chunk of the
+    sequence (L = l_max = 256, FFT size 512, a kernel of 512 taps): the
+    joined outputs and input grads, and the parameters' grads summed over
+    the ranks (as seq_backward sums them), against the port's operator
+    without a mesh on the whole sequence: outputs at 1e-5 of the largest
+    |value|, grads at 1e-4 of each largest |grad|."""
+    from flashfftconv_tpu_torch.models.long_conv import LongConvOperator
+
+    cases, res = _ranks(world)
+    case = cases["long_conv_op"]
+    op = LongConvOperator(**LC, conv_dtype=torch.float32, device=CPU)
+    op.load_state_dict({n: torch.from_numpy(a) for n, a in case["state"].items()})
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    y = op(x)
+    (y * torch.from_numpy(case["dout"])).sum().backward()
+    got_y = np.concatenate([r["long_conv_op"]["y"] for r in res], axis=1)
+    got_dx = np.concatenate([r["long_conv_op"]["dx"] for r in res], axis=1)
+    ref_y, ref_dx = y.detach().numpy(), x.grad.numpy()
+    np.testing.assert_allclose(got_y, ref_y, atol=1e-5 * np.abs(ref_y).max())
+    np.testing.assert_allclose(got_dx, ref_dx, atol=1e-4 * np.abs(ref_dx).max())
+    for name, p in op.named_parameters():
+        got = sum(r["long_conv_op"]["grads"][name] for r in res)
+        ref = p.grad.numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max() + 1e-7, err_msg=name)
