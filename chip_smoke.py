@@ -17,10 +17,13 @@ Phases, each of which fails the run by raising:
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
             gated, padded, odd-batch and ragged-channel shapes, with the
-            tolerance printed; band_conv (both conj) at the seq_train
-            shape and N2 = 16, 256, 2048, the four-real-conv band route at
-            N2 = 32768 and 131072, and the sequence-parallel conv at world
-            size 1 (gated, padded, with grads) against the torch.fft oracle;
+            tolerance printed; spectrum at every one-block FFT size (N = 16
+            ... 32768), k_len 1, 3, N/2 - 1, N/2 and N, H 1, 5 and 768, row
+            starts on a 16-byte boundary and not; band_conv (both conj) at
+            the seq_train shape and N2 = 16, 256, 2048, the four-real-conv
+            band route at N2 = 32768 and 131072, and the sequence-parallel
+            conv at world size 1 (gated, padded, with grads) against the
+            torch.fft oracle;
             the three flash-attention kernels (forward, dK/dV, dQ) against
             their plain versions at the GPT-2 shape (B=8, H=12, L=1024, D=64,
             f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
@@ -187,7 +190,9 @@ Phases, each of which fails the run by raising:
             4.0, the largest equal to the opt-in attribute on the grid, then
             smem_copy at three tiles bit for bit with x * 1.0001 and timed;
   timing    times each kernel, its plain version and a PyTorch yardstick
-            with CUDA events at the main paths' shapes; the splash kernels
+            with CUDA events at the main paths' shapes (spectrum also at
+            M2-BERT's and ListOps' shapes, rows spectrum@256 and
+            spectrum@4096); the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
@@ -534,9 +539,10 @@ def phase_build():
     log(f"built {len(paths)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name in paths:
         for line in _build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'|(Used \d+ registers.*)", line)
+            m = re.search(r"Compiling entry function '(\w+)'|(Used \d+ registers.*)|"
+                          r"(\d+ bytes stack frame.*)", line)
             if m:
-                log(f"  {name}: {m.group(1) or m.group(2)}")
+                log(f"  {name}: {m.group(1) or m.group(2) or m.group(3)}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -578,6 +584,7 @@ def phase_kernels(torch, g):
     errs["spectrum"] = compare("spectrum", torch.view_as_real(k_f), torch.view_as_real(ref),
                                f32_tol(torch.view_as_real(ref)))
     torch.cuda.synchronize()
+    _check_spectrum_sizes(torch)
 
     log(f"monarch_conv: B={B} H={D_MODEL} L={L_MAX} N={N_FFT} bf16 ungated")
     y = monarch_cuda.monarch_conv(plan, u, k_f)
@@ -658,6 +665,38 @@ def phase_kernels(torch, g):
     errs.update(_check_smem_kernels(torch, g))
     _check_operator_spread(torch)
     return errs
+
+
+def _check_spectrum_sizes(torch):
+    """spectrum against kernel_spectrum at every one-block plan size (N = 16
+    ... 32768; the kernel has one instantiation per size), k_len 1, 3,
+    N/2 - 1, N/2 and N, H 1, 5 and D_MODEL, the taps' storage on a 16-byte
+    boundary and one float past it; one line a size with the worst
+    err / f32_tol."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    gc = torch.Generator(device=dev).manual_seed(11)
+    for n in (16 << i for i in range(12)):
+        p = make_plan(n, torch.float32, device=dev)
+        worst, cases = 0.0, 0
+        for k_len in sorted({1, 3, n // 2 - 1, n // 2, n}):
+            for h in (1, 5, D_MODEL):
+                for skew in (0, 1):
+                    k = torch.randn(h * k_len + skew, device=dev, generator=gc)[skew:]
+                    k = k.view(h, k_len)
+                    got = torch.view_as_real(monarch_cuda.spectrum(p, k))
+                    ref = torch.view_as_real(monarch.kernel_spectrum(p, k))
+                    err, tol = float((got - ref).abs().max()), f32_tol(ref)
+                    if not (math.isfinite(err) and err <= tol):
+                        raise AssertionError(f"spectrum N={n} k_len={k_len} H={h} skew={skew}: "
+                                             f"kernel disagrees with its plain version "
+                                             f"({err} > {tol})")
+                    worst, cases = max(worst, err / tol), cases + 1
+        torch.cuda.synchronize()
+        log(f"  spectrum N={n}: {cases} cases (k_len 1, 3, N/2-1, N/2, N; H 1, 5, {D_MODEL}; "
+            f"aligned and unaligned rows), worst err/tol {worst:.3e} ok")
 
 
 def _check_kernel_as_long_as_the_fft(torch, g):
@@ -2956,6 +2995,29 @@ def _time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, iters=20) -> float:
+    """Device time of one call of fn without the host's launch cost: iters
+    calls captured in a CUDA graph, replayed 5 times after one replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2981,15 +3043,29 @@ def phase_timing(torch, g):
     k_f = monarch_cuda.spectrum(plan, k)
     res = {}
     with torch.inference_mode():
-        # spectrum: read f32 taps, write f32 half spectrum; one FFT and a split a row
-        nbytes = k.numel() * 4 + k_f.numel() * 8
-        flops = D_MODEL * (_fft_flops(m, ns) + 20 * (m // 2))
-        res["spectrum"] = dict(
-            ms=_time_ms(torch, lambda: monarch_cuda.spectrum(plan, k)),
-            plain_ms=_time_ms(torch, lambda: monarch.kernel_spectrum(plan, k), iters=5),
-            library_ms=_time_ms(torch, lambda: torch.fft.rfft(k, n=N_FFT)),
-            bound=_bound(nbytes, flops),
-        )
+        # spectrum: read f32 taps, write f32 half spectrum; one FFT and a split
+        # a row. At the Hyena and H3 shape, then at M2-BERT's (H=768, k_len =
+        # N = 256) and ListOps' (H=128, k_len = N = 4096). Beside the times of
+        # back-to-back calls, which the host's launch cost bounds at the small
+        # shapes, each call's device time from a CUDA graph (device_ms, the
+        # kernel; library_device_ms, rfft).
+        for name, kk, n in (("spectrum", k, N_FFT),
+                            (f"spectrum@{BERT_N_FFT}",
+                             (torch.randn(BERT_D_MODEL, BERT_N_FFT, generator=g) * 0.02).to(dev),
+                             BERT_N_FFT),
+                            (f"spectrum@{2 * LISTOPS_L}",
+                             (torch.randn(LISTOPS_D, 2 * LISTOPS_L, generator=g) * 0.02).to(dev),
+                             2 * LISTOPS_L)):
+            p, h, mm = make_plan(n, torch.bfloat16, device=dev), kk.shape[0], n // 2
+            res[name] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.spectrum(p, kk)),
+                plain_ms=_time_ms(torch, lambda: monarch.kernel_spectrum(p, kk), iters=5),
+                library_ms=_time_ms(torch, lambda: torch.fft.rfft(kk, n=n)),
+                bound=_bound(kk.numel() * 4 + h * (mm + 1) * 8,
+                             h * (_fft_flops(mm, p.n_stages) + 20 * (mm // 2))),
+                device_ms=_graph_ms(torch, lambda: monarch_cuda.spectrum(p, kk)),
+                library_device_ms=_graph_ms(torch, lambda: torch.fft.rfft(kk, n=n)),
+            )
         # monarch_conv: read u and k_f, write y; two FFTs and the pointwise pass a row
         nbytes = u.numel() * 2 * 2 + k_f.numel() * 8
         flops = B * D_MODEL * (2 * _fft_flops(m, ns) + 40 * (m // 2) + 4 * L_MAX)
@@ -3086,6 +3162,9 @@ def phase_timing(torch, g):
             extra += f", the design's own operations at the f32 peak {r['design_ops_ms']:.4f} ms"
         if "library_fwd_bwd_ms" in r:
             extra += f", the library's forward + backward {r['library_fwd_bwd_ms']:.4f} ms"
+        if "device_ms" in r:
+            extra += (f", device time a call {r['device_ms']:.4f} ms (library "
+                      f"{r['library_device_ms']:.4f} ms)")
         if "causal_flash_ms" in r:
             extra += f", the causal flash kernel at this shape {r['causal_flash_ms']:.4f} ms"
         if "tile_bytes" in r:

@@ -6,7 +6,7 @@
 // (def at l.589 of jax 0.9.0, pallas_call at l.758, body _flash_attention_kernel
 // at l.331). Its contract here is flash_mha's: the bias is added after the
 // scale (the Pallas kernel adds `ab` before it, so flash_mha pre-divides),
-// q, k, v f32 or bf16 at head_dim 64 or 128, any L >= 1, causal or not,
+// q, k, v f32, bf16 or f16 at head_dim 64 or 128, any L >= 1, causal or not,
 // optional segment ids. It writes o in the operands' dtype and the row
 // logsumexp m + log(l) (f32, +inf for a row that sees no key) for the
 // backward, where the Pallas kernel saves l and m apart.
@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int ffc_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* lse, const void* bias, const void* seg, int batch,
-                                  int heads, int len, int head_dim, int is_bf16, int causal,
+                                  int heads, int len, int head_dim, int dtype, int causal,
                                   int bias_sb, int bias_sh, int bias_sq, int scale_bits,
                                   void* stream) {
   using namespace ffc::attn;
@@ -50,7 +50,7 @@ extern "C" int ffc_flash_attn_fwd(const void* q, const void* k, const void* v, v
     return (int)cudaErrorInvalidValue;
   const FlashMask m = make_flash_mask(batch, heads, len, causal, bias, bias_sb, bias_sh, bias_sq,
                                       seg, scale_bits);
-  return (int)dispatch(head_dim, is_bf16, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
     return launch(flash_attn_fwd_kernel<D, T>, fwd_smem_bytes<D>(), len, batch * heads,

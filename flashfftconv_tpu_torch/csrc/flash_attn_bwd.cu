@@ -6,7 +6,7 @@
 // _flash_attention_bwd_dkv (def at l.941, pallas_call at l.1121, body at
 // l.796) and _flash_attention_bwd_dq (def at l.1287, pallas_call at l.1456,
 // body at l.1146), which also writes ds, the bias's grad. The contract is
-// flash_mha's, as in flash_attn.cu: bias added after the scale, f32 or bf16
+// flash_mha's, as in flash_attn.cu: bias added after the scale, f32, bf16 or f16
 // operands at head_dim 64 or 128, any L >= 1.
 //
 // Both are the bodies attn_bwd_dkv and attn_bwd_dq (flash_attn_common.cuh)
@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int ffc_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, const void* bias, const void* seg,
-                                      int batch, int heads, int len, int head_dim, int is_bf16,
+                                      int batch, int heads, int len, int head_dim, int dtype,
                                       int causal, int bias_sb, int bias_sh, int bias_sq,
                                       int scale_bits, void* stream) {
   using namespace ffc::attn;
@@ -65,7 +65,7 @@ extern "C" int ffc_flash_attn_bwd_dkv(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const FlashMask m = make_flash_mask(batch, heads, len, causal, bias, bias_sb, bias_sh, bias_sq,
                                       seg, scale_bits);
-  return (int)dispatch(head_dim, is_bf16, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
     return launch(flash_attn_bwd_dkv_kernel<D, T>, bwd_dkv_smem_bytes<D>(), len, batch * heads,
@@ -76,7 +76,7 @@ extern "C" int ffc_flash_attn_bwd_dkv(const void* q, const void* k, const void* 
 extern "C" int ffc_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      void* dq, void* ds, const void* bias, const void* seg,
-                                     int batch, int heads, int len, int head_dim, int is_bf16,
+                                     int batch, int heads, int len, int head_dim, int dtype,
                                      int causal, int bias_sb, int bias_sh, int bias_sq,
                                      int scale_bits, void* stream) {
   using namespace ffc::attn;
@@ -84,7 +84,7 @@ extern "C" int ffc_flash_attn_bwd_dq(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   const FlashMask m = make_flash_mask(batch, heads, len, causal, bias, bias_sb, bias_sh, bias_sq,
                                       seg, scale_bits);
-  return (int)dispatch(head_dim, is_bf16, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
     return launch(flash_attn_bwd_dq_kernel<D, T>, bwd_dq_smem_bytes<D>(), len, batch * heads,

@@ -618,13 +618,23 @@ struct HeadDim {
   static constexpr int value = D;
 };
 
-// f(HeadDim<D>{}, T{}) for the operands' head_dim (64 or 128) and dtype (f32
-// or bf16); an invalid value for any other.
+// The operands' dtype as the C entries take it.
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+template <typename F, typename Dim>
+cudaError_t dispatch_dtype(int dtype, Dim dim, F f) {
+  if (dtype == kF32) return f(dim, 0.f);
+  if (dtype == kBF16) return f(dim, __nv_bfloat16{});
+  if (dtype == kF16) return f(dim, __half{});
+  return cudaErrorInvalidValue;
+}
+
+// f(HeadDim<D>{}, T{}) for the operands' head_dim (64 or 128) and dtype
+// (DType: f32, bf16 or f16); an invalid value for any other.
 template <typename F>
-cudaError_t dispatch(int head_dim, int is_bf16, F f) {
-  if (head_dim == 64) return is_bf16 ? f(HeadDim<64>{}, __nv_bfloat16{}) : f(HeadDim<64>{}, 0.f);
-  if (head_dim == 128)
-    return is_bf16 ? f(HeadDim<128>{}, __nv_bfloat16{}) : f(HeadDim<128>{}, 0.f);
+cudaError_t dispatch(int head_dim, int dtype, F f) {
+  if (head_dim == 64) return dispatch_dtype(dtype, HeadDim<64>{}, f);
+  if (head_dim == 128) return dispatch_dtype(dtype, HeadDim<128>{}, f);
   return cudaErrorInvalidValue;
 }
 

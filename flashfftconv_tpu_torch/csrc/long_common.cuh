@@ -1,5 +1,6 @@
 // Device code shared by the long-FFT kernels (butterfly.cu, long_conv.cu,
-// long_spectrum.cu), for FFT sizes N from 65536 up.
+// long_spectrum.cu), for FFT sizes N from 65536 up, and the in-register line
+// transforms (line_fft, line_fft_const) that spectrum.cu uses too.
 //
 // The packed M = N/2 point complex signal is viewed as (F, R): the butterfly
 // kernels take the F-point DFT down the columns and multiply by the outer
@@ -60,7 +61,7 @@ __device__ __forceinline__ void store_real(T* __restrict__ out, const T* __restr
 template <int I, int BITS> struct BitRev { static constexpr int value = bit_reverse(I, BITS); };
 
 template <int F, int I = 0>
-__device__ __forceinline__ void bitrev_swap(float2 (&v)[F]) {
+__device__ __forceinline__ void bitrev_swap(float2* v) {
   if constexpr (I < F) {
     constexpr int J = BitRev<I, ilog2(F)>::value;
     if constexpr (J > I) {
@@ -99,6 +100,61 @@ __device__ __forceinline__ void line_fft(float2 (&v)[F], const float2* roots) {
   fft_level<F, 8, INV>(v, roots);
   fft_level<F, 16, INV>(v, roots);
   fft_level<F, 32, INV>(v, roots);
+}
+
+// exp(-2 pi i k / 32) for k < 16, rounded to f32.
+__host__ __device__ constexpr float root32_re(int k) {
+  constexpr float c[16] = {1.0f, 0.98078525f, 0.9238795f, 0.8314696f, 0.70710677f, 0.55557024f,
+                           0.38268343f, 0.19509032f, 0.0f, -0.19509032f, -0.38268343f,
+                           -0.55557024f, -0.70710677f, -0.8314696f, -0.9238795f, -0.98078525f};
+  return c[k];
+}
+__host__ __device__ constexpr float root32_im(int k) {
+  constexpr float c[16] = {0.0f, -0.19509032f, -0.38268343f, -0.55557024f, -0.70710677f,
+                           -0.8314696f, -0.9238795f, -0.98078525f, -1.0f, -0.98078525f,
+                           -0.9238795f, -0.8314696f, -0.70710677f, -0.55557024f, -0.38268343f,
+                           -0.19509032f};
+  return c[k];
+}
+
+// b * exp(-2 pi i K / 32), K < 16: 1 and -i cost no multiply.
+template <int K>
+__device__ __forceinline__ float2 mul_root(float2 b) {
+  if constexpr (K == 0) {
+    return b;
+  } else if constexpr (K == 8) {
+    return make_float2(b.y, -b.x);
+  } else {
+    constexpr float wr = root32_re(K), wi = root32_im(K);
+    return make_float2(b.x * wr - b.y * wi, b.x * wi + b.y * wr);
+  }
+}
+
+// fft_level with the root of column J a compile-time constant.
+template <int F, int LEN, int J = 0>
+__device__ __forceinline__ void fft_level_const(float2* v) {
+  if constexpr (J < LEN / 2) {
+#pragma unroll
+    for (int i = 0; i < F; i += LEN) {
+      const float2 a = v[i + J];
+      const float2 b = mul_root<J * (kMaxFactor / LEN)>(v[i + J + LEN / 2]);
+      v[i + J] = make_float2(a.x + b.x, a.y + b.y);
+      v[i + J + LEN / 2] = make_float2(a.x - b.x, a.y - b.y);
+    }
+    fft_level_const<F, LEN, J + 1>(v);
+  }
+}
+
+// Forward line_fft of the F points at v with the 32nd roots as literals in
+// place of a roots table (spectrum.cu, whose lines are slices of a longer
+// register array).
+template <int F, int LEN = 2>
+__device__ __forceinline__ void line_fft_const(float2* v) {
+  if constexpr (LEN == 2) bitrev_swap<F>(v);
+  if constexpr (LEN <= F) {
+    fft_level_const<F, LEN>(v);
+    line_fft_const<F, 2 * LEN>(v);
+  }
 }
 
 // stage_lines (fft_common.cuh) over line_fft: one Monarch stage of a band in

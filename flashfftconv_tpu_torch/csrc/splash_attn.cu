@@ -9,7 +9,7 @@
 // of jax 0.9.0, _splash_attention_forward (def at l.895, pallas_call at
 // l.1137, body flash_attention_kernel at l.696). JAX multiplies q by sm_scale
 // in q's dtype before the kernel; here the scale multiplies the f32 scores,
-// as in the flash kernels. q, k, v f32 or bf16 at head_dim 64 or 128, any
+// as in the flash kernels. q, k, v f32, bf16 or f16 at head_dim 64 or 128, any
 // L >= 1 (splash's L multiple of min(512, L) is a TPU tiling limit). It
 // writes o in the operands' dtype and the row logsumexp (f32, +inf for a row
 // that sees no key, whose o is 0: the JAX package's plain contract; JAX's
@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int ffc_splash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const void* table, const void* blocks, int batch,
-                                   int heads, int len, int head_dim, int is_bf16, int window,
+                                   int heads, int len, int head_dim, int dtype, int window,
                                    int block_size, int n_blocks, int n_entries, int causal,
                                    int scale_bits, void* stream) {
   using namespace ffc::attn;
@@ -57,7 +57,7 @@ extern "C" int ffc_splash_attn_fwd(const void* q, const void* k, const void* v, 
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, window, table, blocks, block_size,
                                         n_blocks, n_entries, causal, scale_bits);
-  return (int)dispatch(head_dim, is_bf16, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
     return launch(splash_attn_fwd_kernel<D, T>, fwd_smem_bytes<D>(), len, batch * heads,

@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, const void* table, const void* blocks,
-                                       int batch, int heads, int len, int head_dim, int is_bf16,
+                                       int batch, int heads, int len, int head_dim, int dtype,
                                        int window, int block_size, int n_blocks, int n_entries,
                                        int causal, int scale_bits, void* stream) {
   using namespace ffc::attn;
@@ -66,7 +66,7 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, window, table, blocks, block_size,
                                         n_blocks, n_entries, causal, scale_bits);
-  return (int)dispatch(head_dim, is_bf16, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
     return launch(splash_attn_bwd_dkv_kernel<D, T>, bwd_dkv_smem_bytes<D>(), len,
@@ -77,7 +77,7 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
 extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, const void* table, const void* blocks, int batch,
-                                      int heads, int len, int head_dim, int is_bf16, int window,
+                                      int heads, int len, int head_dim, int dtype, int window,
                                       int block_size, int n_blocks, int n_entries, int causal,
                                       int scale_bits, void* stream) {
   using namespace ffc::attn;
@@ -85,7 +85,7 @@ extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, window, table, blocks, block_size,
                                         n_blocks, n_entries, causal, scale_bits);
-  return (int)dispatch(head_dim, is_bf16, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
     return launch(splash_attn_bwd_dq_kernel<D, T>, bwd_dq_smem_bytes<D>(), len, batch * heads,

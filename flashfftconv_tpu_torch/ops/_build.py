@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # {library: {function: argtypes}}; every function returns a CUDA error code
 # (an int). Pointers first, then the int sizes, then the stream.
 SIGNATURES = {
-    "spectrum": {"ffc_spectrum": [_P] * 5 + [_I] * 7 + [_P]},
+    "spectrum": {"ffc_spectrum": [_P] * 3 + [_I] * 3 + [_P]},
     "monarch_conv": {"ffc_monarch_conv": [_P] * 8 + [_I] * 9 + [_P]},
     "monarch_conv_bwd": {"ffc_monarch_conv_bwd": [_P] * 12 + [_I] * 9 + [_P],
                          "ffc_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},

@@ -6,11 +6,16 @@ Layout is (B, num_heads, L, head_dim) throughout, as in the JAX package.
 hand-written flash-attention kernels (``ops/attention_cuda.py``:
 ``flash_attn_fwd``, and ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq`` in
 the backward) through ``FlashAttnFunction``, for every shape they take (q,
-k, v of one shape, head_dim 64 or 128, f32 or bf16) and raises for any
-other; the JAX package's TPU limits (L and head_dim multiples of 128) do
-not apply here. On CPU tensors the same Function runs the plain versions
-below. ``impl="xla"`` asks for the plain ``mha_reference`` on any device,
-under the JAX package's name for it.
+k, v of one shape, head_dim 64 or 128, f32, bf16 or f16, B * H <= 65535:
+``attention_cuda.kernels_take``); the JAX package's TPU limits (L and
+head_dim multiples of 128) do not apply here. Where the kernels refuse a
+CUDA call, ``impl="auto"`` runs the plain ``mha_reference`` if the JAX
+package's ``auto`` would run XLA there too (L < 256, or L or head_dim not a
+multiple of 128), and raises where its TPU kernel would run (head_dim 256,
+B * H > 65535, q and k of different shapes); ``impl="flash"`` raises. On
+CPU tensors the same Function runs the plain versions below.
+``impl="xla"`` asks for the plain ``mha_reference`` on any device, under
+the JAX package's name for it.
 
 The sliding window (``flash_mha(window=W)``) and ``blocksparse_mha`` run
 JAX's splash attention on a TPU. Here they run the hand-written splash
@@ -18,10 +23,13 @@ kernels (``splash_attn_fwd``, ``splash_attn_bwd_dkv``, ``splash_attn_bwd_dq``)
 through ``SplashAttnFunction`` on CUDA tensors, under a ``SplashMask``
 (``ops/splash_mask.py``) whose hidden tiles the kernels skip, and the same
 Function's plain versions on CPU tensors. A window with a bias or segment
-ids raises NotImplementedError on CUDA tensors, as the JAX package's TPU
-path does, and runs ``mha_reference`` on CPU tensors, as the JAX package
-does off a TPU. A row that sees no key gives 0, as the JAX package's plain
-version documents.
+ids raises NotImplementedError where the kernels would run (CUDA tensors
+they take, or any under ``impl="flash"``), as the JAX package's TPU path
+does, and runs ``mha_reference`` elsewhere, as the JAX package does off a
+TPU or where its kernel does not tile. ``blocksparse_mha`` under ``auto``
+likewise runs its plain dense-mask softmax where the kernels refuse and
+the JAX package's kernel would not run. A row
+that sees no key gives 0, as the JAX package's plain version documents.
 
 The plain versions: ``mha_reference`` (the oracle, differentiated by
 autograd), ``flash_attn_fwd_plain`` (the output and the row logsumexp the
@@ -164,13 +172,35 @@ def splash_attn_bwd_plain(q, k, v, o, lse, do, keep, sm_scale: float | None = No
                                 keep=keep)[:3]
 
 
+# The JAX package's TPU kernels take L >= 256 with L and head_dim multiples
+# of 128 (its _flash_ok); its 'auto' runs the plain version elsewhere.
+_TPU_MIN_FLASH_LEN = 256
+
+
+def _auto_runs_plain(q, k, v) -> bool:
+    """Whether ``impl='auto'`` runs the plain version on these CUDA tensors:
+    where the kernels refuse them (``attention_cuda.kernels_take``) and the
+    JAX package's 'auto' would not run its TPU kernel either. A call that
+    its TPU kernel takes and these kernels refuse (head_dim 256, B * H >
+    65535, q and k of different shapes) goes to the kernels and raises."""
+    from flashfftconv_tpu_torch.ops.attention_cuda import kernels_take
+
+    if kernels_take(q, k, v) or q.ndim != 4:
+        return False
+    _, _, l, d = q.shape
+    return not (l >= _TPU_MIN_FLASH_LEN and l % 128 == 0 and d % 128 == 0)
+
+
 def flash_mha(q, k, v, causal: bool = True, sm_scale: float | None = None, impl: str = "auto",
               bias=None, window: int | None = None, segment_ids=None) -> torch.Tensor:
     """Fused multi-head attention, shapes (B, num_heads, L, head_dim).
 
-    impl: 'auto' (the flash-attention kernels on CUDA tensors, their plain
-    versions on CPU tensors), 'flash' (the kernels; raises on CPU tensors),
-    'xla' (the plain ``mha_reference`` wherever the tensors are).
+    impl: 'auto' (the flash-attention kernels on CUDA tensors they take,
+    ``mha_reference`` on other CUDA tensors the JAX package's 'auto' runs
+    in XLA too (``_auto_runs_plain``), the kernels' plain versions on CPU
+    tensors), 'flash' (the kernels; raises on CPU tensors and where the
+    kernels refuse), 'xla' (the plain ``mha_reference`` wherever the tensors
+    are).
     bias: additive bias broadcastable to (B, H, L, L), e.g. ``alibi_bias``,
     added after the sm_scale multiply; differentiable.
     window: sliding-window width (causal implied): the splash kernels, which
@@ -189,19 +219,20 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: float | None = None, impl:
     if impl == "flash" and cpu:
         raise ValueError("impl='flash' runs the CUDA kernels and needs CUDA tensors; "
                          "impl='auto' runs the plain version on CPU tensors")
-    masked = window is not None and (bias is not None or segment_ids is not None)
-    if masked or q.shape != k.shape:
-        if not cpu:
-            if masked:
-                raise NotImplementedError(
-                    "flash_mha(window=...) with a bias or segment ids: the splash kernels "
-                    "take neither (as on a TPU); use impl='xla'")
-            raise ValueError(f"the attention kernels take q, k, v of one shape, got "
-                             f"{tuple(q.shape)}, {tuple(k.shape)}")
-        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias,
-                             window=window, segment_ids=segment_ids)
     from flashfftconv_tpu_torch.ops.attention_cuda import FlashAttnFunction, SplashAttnFunction
 
+    masked = window is not None and (bias is not None or segment_ids is not None)
+    if cpu:
+        plain = masked or q.shape != k.shape
+    else:
+        plain = impl == "auto" and _auto_runs_plain(q, k, v)
+        if masked and not plain:
+            raise NotImplementedError(
+                "flash_mha(window=...) with a bias or segment ids: the splash kernels "
+                "take neither (as on a TPU); use impl='xla'")
+    if plain:
+        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias,
+                             window=window, segment_ids=segment_ids)
     if window is not None:
         return SplashAttnFunction.apply(q, k, v, SplashMask.local(q.shape[2], window),
                                         float(sm_scale))
@@ -252,8 +283,11 @@ def blocksparse_mha(q, k, v, blockmask, block_size: int = 256, causal: bool = Fa
     the kept blocks. A row that sees no key gives zeros.
 
     impl: 'auto' (the splash kernels, which skip the hidden tiles, on CUDA
-    tensors; their plain versions on CPU tensors), 'flash' (the kernels;
-    raises on CPU tensors), 'xla' (the plain dense-mask softmax anywhere)."""
+    tensors they take, the dense-mask softmax on other CUDA tensors the
+    JAX package's 'auto' runs in XLA too; the kernels' plain versions on
+    CPU tensors), 'flash' (the kernels; raises on
+    CPU tensors and where the kernels refuse), 'xla' (the plain dense-mask
+    softmax anywhere)."""
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got {impl!r}")
     if sm_scale is None:
@@ -264,9 +298,11 @@ def blocksparse_mha(q, k, v, blockmask, block_size: int = 256, causal: bool = Fa
     if nr * block_size != l or nc * block_size != l:
         raise ValueError(f"blockmask {blockmask.shape} x block_size {block_size} "
                          f"does not tile L={l}")
+    from flashfftconv_tpu_torch.ops.attention_cuda import SplashAttnFunction
+
     mask = SplashMask.blocks(blockmask, block_size, causal)
     cpu = on_cpu(q, k, v)
-    if impl == "xla":
+    if impl == "xla" or (impl == "auto" and not cpu and _auto_runs_plain(q, k, v)):
         keep = mask.dense(q.device)
         scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
         attn = scores.masked_fill(~keep, -math.inf).softmax(-1)
@@ -275,6 +311,4 @@ def blocksparse_mha(q, k, v, blockmask, block_size: int = 256, causal: bool = Fa
     if impl == "flash" and cpu:
         raise ValueError("impl='flash' runs the CUDA kernels and needs CUDA tensors; "
                          "impl='auto' runs the plain version on CPU tensors")
-    from flashfftconv_tpu_torch.ops.attention_cuda import SplashAttnFunction
-
     return SplashAttnFunction.apply(q, k, v, mask, float(sm_scale))

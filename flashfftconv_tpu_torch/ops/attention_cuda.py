@@ -18,8 +18,10 @@ kernel on the current stream, raises if the launch failed, and adds one to
 its ``launches`` count. On CPU tensors it runs the plain version from
 ``ops/attention.py``.
 
-The kernels take q, k, v (B, H, L, D) contiguous, of one dtype (f32 or
-bf16), head_dim 64 or 128, any L >= 1. The flash kernels also take an
+The kernels take q, k, v (B, H, L, D) contiguous, of one shape and dtype
+(f32, bf16 or f16), head_dim 64 or 128, B * H <= 65535, any L >= 1
+(``kernels_take`` asks this of shapes and dtypes; the wrappers raise
+otherwise). The flash kernels also take an
 optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
 (1, H, L, L) ALiBi table is read in place for every batch row, not copied)
 and optional int32 segment ids (B, L). Softmax statistics and every
@@ -45,7 +47,9 @@ from flashfftconv_tpu_torch.ops import attention as plain
 from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+# The operands' dtypes, each with its code in the C interface (DType in
+# csrc/flash_attn_common.cuh).
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _scale_bits(sm_scale: float) -> int:
@@ -53,10 +57,35 @@ def _scale_bits(sm_scale: float) -> int:
     return struct.unpack("<i", struct.pack("<f", sm_scale))[0]
 
 
+def _refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
+    """Why the attention kernels cannot take q, k, v, or None if they can.
+    Looks at shapes and dtypes only, never at the device."""
+    if q.ndim != 4:
+        return f"q must be (B, H, L, D), got shape {tuple(q.shape)}"
+    for t in (k, v):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            return (f"the attention kernels take q, k, v of one shape and dtype, got "
+                    f"{tuple(t.shape)} {t.dtype} against {tuple(q.shape)} {q.dtype}")
+    b, h, _, d = q.shape
+    if q.dtype not in DTYPES:
+        return f"the attention kernels take f32, bf16 or f16, got {q.dtype}"
+    if d not in HEAD_DIMS:
+        return f"the attention kernels take head_dim in {HEAD_DIMS}, got {d}"
+    if b * h > 65535:
+        return f"B * H = {b * h} exceeds the grid's 65535"
+    return None
+
+
+def kernels_take(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """True if the attention kernels take q, k, v (B, H, L, D) by shape and
+    dtype: what ``impl='auto'`` asks before it sends CUDA tensors to them."""
+    return _refusal(q, k, v) is None
+
+
 def _check_qkv(*tensors: torch.Tensor) -> tuple[int, int, int, int]:
     q = tensors[0]
-    if q.ndim != 4:
-        raise ValueError(f"q must be (B, H, L, D), got shape {tuple(q.shape)}")
+    if (why := _refusal(*tensors[:3])) is not None:
+        raise ValueError(why)
     for t in tensors:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"q, k, v (and do) must share shape, dtype and device; got "
@@ -64,14 +93,7 @@ def _check_qkv(*tensors: torch.Tensor) -> tuple[int, int, int, int]:
                              f"{tuple(q.shape)} {q.dtype} {q.device}")
         if not t.is_contiguous():
             raise ValueError("q, k, v (and do) must be contiguous")
-    b, h, l, d = q.shape
-    if q.dtype not in DTYPES:
-        raise ValueError(f"the attention kernels take f32 or bf16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
-    return b, h, l, d
+    return tuple(q.shape)
 
 
 def _bias_args(bias: torch.Tensor | None, shape) -> tuple[torch.Tensor | None, list[int]]:
@@ -108,7 +130,7 @@ def _common(q, causal, sm_scale, bias, segment_ids):
     b, h, l, d = q.shape
     bias_e, strides = _bias_args(bias, q.shape)
     seg = _seg(segment_ids, b, l, q.device)
-    args = [b, h, l, d, int(q.dtype == torch.bfloat16), int(causal), *strides,
+    args = [b, h, l, d, DTYPES[q.dtype], int(causal), *strides,
             _scale_bits(sm_scale)]
     return args, bias_e, seg
 
@@ -241,7 +263,7 @@ def _splash_launch(name: str, fn_name: str, q, mask, sm_scale, pointers) -> None
     table, blocks, ints = mask.kernel_args(q.device)
     lib = _build.load(name)
     rc = getattr(lib, fn_name)(*pointers, _ptr(table), _ptr(blocks), b, h, l, d,
-                               int(q.dtype == torch.bfloat16), *ints, _scale_bits(sm_scale),
+                               DTYPES[q.dtype], *ints, _scale_bits(sm_scale),
                                _stream(q.device))
     _build.check(lib, rc, f"{fn_name} kernel")
 

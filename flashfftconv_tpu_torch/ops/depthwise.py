@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from flashfftconv_tpu_torch.ops import _build
-from flashfftconv_tpu_torch.ops.monarch_cuda import on_cpu
+from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _IMPLS = ("auto", "cuda", "plain")
@@ -84,10 +84,6 @@ def _shape_args(x, weights, padding, is_bhl: bool) -> tuple[int, ...]:
     return b, d, length, k, left, out_len
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def depthwise(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
     """The depthwise kernel's wrapper: csrc/depthwise.cu on CUDA tensors,
     ``depthwise_plain`` on CPU tensors. x contiguous f32/bf16/f16; weights
@@ -105,7 +101,7 @@ def depthwise(x, weights, bias, padding, is_bhl: bool) -> torch.Tensor:
     lib = _build.load("depthwise")
     rc = lib.ffc_depthwise(
         x.data_ptr(), w.data_ptr(), None if bf is None else bf.data_ptr(), out.data_ptr(),
-        b, d, length, k, left, out_len, int(is_bhl), _DTYPE_CODES[x.dtype], _stream(x),
+        b, d, length, k, left, out_len, int(is_bhl), _DTYPE_CODES[x.dtype], _stream(x.device),
     )
     _build.check(lib, rc, "depthwise kernel")
     depthwise.launches += 1
@@ -166,7 +162,7 @@ def depthwise_bwd(x, weights, dout, padding, is_bhl: bool):
     rc = lib.ffc_depthwise_bwd(
         x.data_ptr(), dout.data_ptr(), w.data_ptr(), du.data_ptr(), partials.data_ptr(),
         dk.data_ptr(), dbias.data_ptr(), b, d, length, k, left, out_len, int(is_bhl),
-        _DTYPE_CODES[x.dtype], _stream(x),
+        _DTYPE_CODES[x.dtype], _stream(x.device),
     )
     _build.check(lib, rc, "depthwise_bwd kernel")
     depthwise_bwd.launches += 1

@@ -123,14 +123,25 @@ def _outer_args(plan: FftPlan) -> list[int]:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an int, for the C launchers.
+    The raw query: ``current_stream(device).cuda_stream`` builds a Stream
+    object on every call, a host cost that bounded small launches."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
-    """Half spectrum (H, M+1) complex64 of real f32 taps k (H, k_len <= N)."""
+    """Half spectrum (H, M+1) complex64 of real f32 taps k (H, k_len <= N).
+    The kernel is instantiated per FFT size and needs only the plan's
+    ``split_tw`` (its root table); the plan's factors do not enter."""
     if on_cpu(k):
         return monarch.kernel_spectrum(plan, k)
     _check_cuda("k", k, plan.device, (torch.float32,), 2)
+    if plan.n_outer:
+        raise ValueError(
+            f"a plan of seqlen {plan.seqlen} has an outer part: spectrum stops at "
+            f"{MAX_FUSED_SEQLEN}; use long_spectrum"
+        )
     h, k_len = k.shape
     if not 1 <= k_len <= plan.seqlen:
         raise ValueError(f"kernel length {k_len} not in [1, {plan.seqlen}]")
@@ -138,10 +149,8 @@ def spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
     if h == 0:
         return out
     lib = _build.load("spectrum")
-    rc = lib.ffc_spectrum(
-        k.data_ptr(), out.data_ptr(), plan.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
-        plan.roots.data_ptr(), h, k_len, *_factor_args(plan), _stream(k.device),
-    )
+    rc = lib.ffc_spectrum(k.data_ptr(), out.data_ptr(), plan.split_tw.data_ptr(), h, k_len,
+                          plan.seqlen, _stream(k.device))
     _build.check(lib, rc, "spectrum kernel")
     spectrum.launches += 1
     return out

@@ -37,7 +37,7 @@ import sys
 import torch
 
 from flashfftconv_tpu_torch.ops import _build
-from flashfftconv_tpu_torch.ops.monarch_cuda import on_cpu
+from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 from flashfftconv_tpu_torch.utils.benchmarking import benchmark_forward
 
 KB_GRID = (16, 32, 48, 64, 96, 128, 160, 192, 224, 227, 228)
@@ -70,10 +70,6 @@ def touch_plain(x: torch.Tensor) -> torch.Tensor:
 def copy_plain(x: torch.Tensor) -> torch.Tensor:
     """The TPU copy kernel's function: x * 1.0001, one f32 multiply."""
     return torch.mul(x, 1.0001)
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _check(name: str, x: torch.Tensor) -> None:
@@ -111,7 +107,7 @@ def smem_probe_touch(x: torch.Tensor, nbytes: int) -> torch.Tensor:
         raise SmemLimitError(nbytes, "attribute call", rc, lib.ffc_error_string(rc).decode())
     _build.check(lib, rc, "cudaFuncSetAttribute")
     out = torch.empty_like(x)
-    rc = lib.ffc_smem_probe_touch(x.data_ptr(), out.data_ptr(), int(nbytes), _stream(x))
+    rc = lib.ffc_smem_probe_touch(x.data_ptr(), out.data_ptr(), int(nbytes), _stream(x.device))
     if rc in LAUNCH_ERRORS:
         raise SmemLimitError(nbytes, "launch", rc, lib.ffc_error_string(rc).decode())
     _build.check(lib, rc, "smem_probe_touch kernel")
@@ -133,7 +129,8 @@ def smem_copy(x: torch.Tensor, tile_bytes: int) -> torch.Tensor:
                          "alignment")
     out = torch.empty_like(x)
     lib = _build.load("smem_probe")
-    rc = lib.ffc_smem_copy(x.data_ptr(), out.data_ptr(), x.numel(), int(tile_bytes), _stream(x))
+    rc = lib.ffc_smem_copy(x.data_ptr(), out.data_ptr(), x.numel(), int(tile_bytes),
+                           _stream(x.device))
     _build.check(lib, rc, "smem_copy kernel")
     smem_copy.launches += 1
     return out

@@ -183,6 +183,106 @@ def test_flash_mha_routes_and_refusals():
         tattn.flash_mha(q, k, v, impl="pallas")
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# (what, q, k, v) that the attention kernels refuse by shape or dtype
+REFUSED = {
+    "head_dim 32": (_meta(2, 8, 16, 32),) * 3,
+    "head_dim 96": (_meta(2, 8, 16, 96),) * 3,
+    "head_dim 256": (_meta(2, 4, 16, 256),) * 3,
+    "f64": (_meta(2, 4, 16, 64, dtype=torch.float64),) * 3,
+    "B * H = 65792": (_meta(256, 257, 1, 64),) * 3,
+    "k shorter than q": (_meta(2, 4, 16, 64), _meta(2, 4, 8, 64), _meta(2, 4, 8, 64)),
+    "v in another dtype": (_meta(2, 4, 16, 64),) * 2 + (_meta(2, 4, 16, 64, dtype=torch.bfloat16),),
+    "3-d q": (_meta(4, 16, 64),) * 3,
+}
+
+
+@pytest.mark.parametrize("what", list(REFUSED))
+def test_kernels_take_refuses_what_check_qkv_refuses(what):
+    """kernels_take (what impl='auto' asks before a kernel) and _check_qkv
+    (what every attention wrapper asks on CUDA tensors) are one predicate:
+    each refusal on meta tensors, no card needed."""
+    for q in (_meta(2, 4, 16, 64), _meta(65535, 1, 3, 128, dtype=torch.bfloat16),
+              _meta(1, 2, 5, 128, dtype=torch.float16)):
+        assert attention_cuda.kernels_take(q, q, q)
+        assert attention_cuda._check_qkv(q, q, q, q) == tuple(q.shape)
+    assert not attention_cuda.kernels_take(*REFUSED[what])
+    with pytest.raises(ValueError):
+        attention_cuda._check_qkv(*REFUSED[what])
+
+
+@pytest.mark.parametrize("d,dtype", [(32, torch.float32), (96, torch.float16)])
+def test_auto_runs_the_plain_version_where_the_kernels_refuse(monkeypatch, d, dtype):
+    """With the tensors taken for CUDA ones (on_cpu patched to False), a
+    head_dim the kernels refuse, at an L the JAX package's TPU kernels do not
+    tile either, runs mha_reference (flash_mha, and a window with a bias) or
+    the dense mask (blocksparse_mha) under impl='auto', as the JAX package's
+    'auto' runs its XLA path there (JAX's own auto on the CPU is the oracle
+    here); impl='flash' raises without reaching a kernel."""
+    monkeypatch.setattr(tattn, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(attention_cuda, "on_cpu", lambda *t: False)
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((2, 3, 64, d)).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, jnp.float16 if dtype == torch.float16 else jnp.float32)
+                  for a in (q, k, v))
+    bias = tattn.alibi_bias(3, 64, 64)
+    mask = np.array([[1, 0], [1, 1]])
+    tol = 1e-5 if dtype == torch.float32 else 2e-3
+    launches = (attention_cuda.flash_attn_fwd.launches, attention_cuda.splash_attn_fwd.launches)
+    for got, want in (
+        (tattn.flash_mha(tq, tk, tv), jattn.flash_mha(jq, jk, jv)),
+        (tattn.flash_mha(tq, tk, tv, window=9, bias=bias),
+         jattn.flash_mha(jq, jk, jv, window=9, bias=jnp.asarray(bias.numpy()))),
+        (tattn.blocksparse_mha(tq, tk, tv, mask, block_size=32),
+         jattn.blocksparse_mha(jq, jk, jv, mask, block_size=32)),
+    ):
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol)
+    assert launches == (attention_cuda.flash_attn_fwd.launches,
+                        attention_cuda.splash_attn_fwd.launches)
+    for call in (lambda: tattn.flash_mha(tq, tk, tv, impl="flash"),
+                 lambda: tattn.flash_mha(tq, tk, tv, window=9, impl="flash"),
+                 lambda: tattn.blocksparse_mha(tq, tk, tv, mask, block_size=32, impl="flash")):
+        with pytest.raises(ValueError, match="head_dim"):
+            call()
+    with pytest.raises(NotImplementedError, match="bias or segment ids"):
+        tattn.flash_mha(tq, tk, tv, window=9, bias=bias, impl="flash")
+
+
+# (what, q, k, v, the refusal): calls the JAX package's TPU kernels take
+# (L >= 256, L and head_dim multiples of 128) and the CUDA kernels refuse
+TPU_ONLY = {
+    "head_dim 256": ((_meta(1, 2, 256, 256),) * 3, "head_dim"),
+    "B * H = 65792": ((_meta(256, 257, 256, 128),) * 3, "65535"),
+    "k shorter than q": ((_meta(1, 2, 256, 128), _meta(1, 2, 128, 128), _meta(1, 2, 128, 128)),
+                         "one shape"),
+}
+
+
+@pytest.mark.parametrize("what", list(TPU_ONLY))
+def test_auto_raises_where_only_the_tpu_kernels_take_the_call(monkeypatch, what):
+    """With meta tensors taken for CUDA ones (on_cpu patched to False): where
+    the JAX package's 'auto' would run its TPU kernel and the CUDA kernels
+    refuse the call, impl='auto' raises the kernels' refusal, as
+    impl='flash' does, for flash_mha, a window and blocksparse_mha; it does
+    not run the plain version on the card."""
+    monkeypatch.setattr(tattn, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(attention_cuda, "on_cpu", lambda *t: False)
+    (q, k, v), why = TPU_ONLY[what]
+    assert not tattn._auto_runs_plain(q, k, v)
+    for impl in ("auto", "flash"):
+        for call in (lambda: tattn.flash_mha(q, k, v, impl=impl),
+                     lambda: tattn.flash_mha(q, k, v, window=9, impl=impl),
+                     lambda: tattn.blocksparse_mha(q, k, v, [[1, 0], [1, 1]], block_size=128,
+                                                   impl=impl)):
+            with pytest.raises(ValueError, match=why):
+                call()
+
+
 def test_alibi_rotary_and_packing_match_jax():
     np.testing.assert_allclose(tattn.alibi_slopes(12).numpy(),
                                np.asarray(jattn.alibi_slopes(12)), rtol=1e-7)

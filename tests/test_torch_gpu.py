@@ -58,6 +58,30 @@ def test_cuda_conv_kernels_match_plain(n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [16 << i for i in range(12)])
+def test_cuda_spectrum_matches_plain_at_every_plan_size(n):
+    """The spectrum kernel (one instantiation per FFT size) against
+    kernel_spectrum at every one-block plan size, k_len 1, 3, N/2 - 1, N/2
+    and N, H 1, 5 and 768, with the taps' storage starting on a 16-byte
+    boundary and one float past it (every row start unaligned at H = 1)."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, torch.float32, device=dev)
+    g = torch.Generator().manual_seed(n)
+    for k_len in sorted({1, 3, n // 2 - 1, n // 2, n}):
+        for h in (1, 5, 768):
+            for skew in (0, 1):
+                k = torch.randn(h * k_len + skew, generator=g).to(dev)[skew:].view(h, k_len)
+                n0 = monarch_cuda.spectrum.launches
+                got = monarch_cuda.spectrum(p, k)
+                torch.cuda.synchronize()
+                assert monarch_cuda.spectrum.launches == n0 + 1
+                assert got.shape == (h, n // 2 + 1)
+                _close(torch.view_as_real(got),
+                       torch.view_as_real(monarch.kernel_spectrum(p, k)), torch.float32)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("is_bhl", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_cuda_depthwise_matches_plain(is_bhl, dtype):
@@ -542,15 +566,15 @@ def _attn_close(got, ref):
     """Kernel against plain: f32 within 2e-5 of the largest |value| or of 1
     where that is smaller (another summation order; grads that are 0 up to
     rounding, as dq at L = 1, round to about 1e-6), bf16 within one ulp of
-    the largest |value|."""
+    the largest |value|, f16 within one f16 ulp of it."""
     scale = float(ref.float().abs().max())
-    tol = ULP[torch.bfloat16] * scale + 1e-6 if ref.dtype == torch.bfloat16 else 2e-5 * max(1.0, scale)
+    tol = 2e-5 * max(1.0, scale) if ref.dtype == torch.float32 else ULP[ref.dtype] * scale + 1e-6
     assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("l,d", [(1, 64), (65, 128), (256, 64), (1000, 64)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "segments"])
 def test_cuda_attention_kernels_match_plain(l, d, dtype, case):
     """flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq against
@@ -608,14 +632,26 @@ def test_cuda_flash_mha_grads_match_autograd_of_the_reference():
 
 @pytest.mark.gpu
 def test_cuda_attention_refuses_what_the_kernels_do_not_take():
+    """impl='flash' raises for what the kernels do not take (head_dim, dtype,
+    B * H over the grid's 65535), and so does impl='auto' where the JAX
+    package's TPU kernel would take the call (head_dim 256 at L = 256); a
+    window with a bias or segment ids raises where the kernels would run, as
+    on a TPU."""
     _needs_card()
     dev = torch.device("cuda")
     q = torch.randn(1, 2, 16, 32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
-        tff.flash_mha(q, q, q)
-    q = torch.randn(1, 2, 16, 64, device=dev, dtype=torch.float16)
-    with pytest.raises(ValueError, match="f32 or bf16"):
-        tff.flash_mha(q, q, q)
+        tff.flash_mha(q, q, q, impl="flash")
+    q = torch.randn(1, 2, 16, 64, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
+        tff.flash_mha(q, q, q, impl="flash")
+    q = torch.randn(1, 2, 256, 256, device=dev)
+    for impl in ("auto", "flash"):
+        with pytest.raises(ValueError, match="head_dim"):
+            tff.flash_mha(q, q, q, impl=impl)
+    q = torch.randn(256, 257, 1, 64, device=dev)
+    with pytest.raises(ValueError, match="65535"):
+        tff.flash_mha(q, q, q, impl="flash")
     q = torch.randn(1, 2, 64, 64, device=dev)
     bias = tff.alibi_bias(2, 64, 64, device=dev)
     seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
@@ -627,9 +663,84 @@ def test_cuda_attention_refuses_what_the_kernels_do_not_take():
     assert ref.shape == q.shape
     q = torch.randn(1, 2, 64, 32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
-        tff.flash_mha(q, q, q, window=8)
+        tff.flash_mha(q, q, q, window=8, impl="flash")
     with pytest.raises(ValueError, match="head_dim"):
-        tff.blocksparse_mha(q, q, q, [[1, 0], [1, 1]], block_size=32)
+        tff.blocksparse_mha(q, q, q, [[1, 0], [1, 1]], block_size=32, impl="flash")
+
+
+@pytest.mark.gpu
+def test_cuda_attention_auto_runs_the_kernels_in_f16():
+    """f16 at head_dim 128, L = 256, a call the JAX package's TPU kernels
+    take: flash_mha (causal and windowed) and blocksparse_mha under
+    impl='auto' launch one forward kernel each and match their plain
+    versions, forward and grads."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(2, 4, 256, 128, device=dev, generator=g).half().requires_grad_()
+               for _ in "qkv")
+    do = torch.randn(q.shape, device=dev, generator=g).half()
+    blocks = [[1, 0], [1, 1]]
+    for fn, keep in (
+        (lambda *a: tff.flash_mha(*a), None),
+        (lambda *a: tff.flash_mha(*a, window=40), SplashMask.local(256, 40).dense(dev)),
+        (lambda *a: tff.blocksparse_mha(*a, blocks, block_size=128, causal=True),
+         SplashMask.blocks(blocks, 128, True).dense(dev)),
+    ):
+        n0 = ac.flash_attn_fwd.launches + ac.splash_attn_fwd.launches
+        o = fn(q, k, v)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        assert ac.flash_attn_fwd.launches + ac.splash_attn_fwd.launches == n0 + 1
+        assert o.dtype == torch.float16
+        with torch.no_grad():
+            if keep is None:
+                ro, lse = plain.flash_attn_fwd_plain(q, k, v, True)
+                refs = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, True)[:3]
+            else:
+                ro, lse = plain.splash_attn_fwd_plain(q, k, v, keep)
+                refs = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep)
+        for got, ref in zip((o.detach(), *grads), (ro, *refs)):
+            _attn_close(got, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_auto_runs_the_plain_version_where_the_kernels_refuse():
+    """impl='auto' on CUDA tensors the kernels do not take runs the plain
+    version and matches it, forward and grads, launching no kernel, where
+    the JAX package's 'auto' runs XLA too: head_dim 32
+    (MHAOperator(d_model=256, num_heads=8)) in f32, f16 and bf16, through
+    flash_mha, a window and blocksparse_mha against its dense-mask
+    softmax."""
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    launches = (ac.flash_attn_fwd.launches, ac.flash_attn_bwd_dq.launches,
+                ac.splash_attn_fwd.launches)
+    for d, dtype in ((32, torch.float32), (32, torch.float16), (32, torch.bfloat16)):
+        q, k, v = (torch.randn(2, 8, 256, d, device=dev, generator=g).to(dtype).requires_grad_()
+                   for _ in "qkv")
+        w = torch.randn(q.shape, device=dev, generator=g).to(dtype)
+        mask = [[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]]
+        for fn, plain in (
+            (lambda *a: tff.flash_mha(*a), lambda *a: tff.mha_reference(*a)),
+            (lambda *a: tff.flash_mha(*a, window=40), lambda *a: tff.mha_reference(*a, window=40)),
+            (lambda *a: tff.blocksparse_mha(*a, mask, block_size=64, causal=True),
+             lambda *a: tff.blocksparse_mha(*a, mask, block_size=64, causal=True, impl="xla")),
+        ):
+            got, ref = fn(q, k, v), plain(q, k, v)
+            assert got.dtype == dtype
+            _attn_close(got, ref)
+            for a, b in zip(torch.autograd.grad((got * w).sum(), (q, k, v)),
+                            torch.autograd.grad((ref * w).sum(), (q, k, v))):
+                _attn_close(a, b)
+    assert launches == (ac.flash_attn_fwd.launches, ac.flash_attn_bwd_dq.launches,
+                        ac.splash_attn_fwd.launches)
 
 
 @pytest.mark.gpu
