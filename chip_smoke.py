@@ -13,6 +13,8 @@ Run from the root of a checkout on a machine with an H100:
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
+            fails if an attention backward instance (dK/dV or dQ, flash or
+            splash) has a stack frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -29,6 +31,9 @@ Phases, each of which fails the run by raising:
             f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
             non-causal, with an ALiBi bias (and its grad), with segment ids
             from pack_sequences, and two backwards bit for bit; the three
+            flash and the three splash kernels at B*H = 65792 (B=257, H=256,
+            L=64, D=64, f32, causal and a window of 16), past one grid
+            dimension's 65535; the three
             splash-attention kernels (forward, dK/dV, dQ) against their plain
             versions at the windowed GPT's shapes (B=8 and B=4, H=12, L=2048,
             D=64, f32, window 256) with two backwards bit for bit, at windows
@@ -196,8 +201,12 @@ Phases, each of which fails the run by raising:
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
-            tpu_attention.py's block-sparse case; smem_copy at three tiles
-            beside torch.mul and smem_probe_touch, with utils.benchmarking;
+            tpu_attention.py's block-sparse case; beside each attention
+            backward row's f32 bound its tensor-core bound tc_bound (its
+            products' operations times 3 split-TF32 passes at 494.7
+            TFLOP/s), and the dK/dV + dQ pair's sum beside SDPA's backward;
+            smem_copy at three tiles beside torch.mul and smem_probe_touch,
+            with utils.benchmarking;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
@@ -241,6 +250,8 @@ OPT_IN_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA's H100 SXM data sheet)
+TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -537,12 +548,23 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build_all()
     log(f"built {len(paths)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    spilled = []
     for name in paths:
+        props = None  # the function whose properties ptxas reports next
         for line in _build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'|(Used \d+ registers.*)|"
-                          r"(\d+ bytes stack frame.*)", line)
-            if m:
-                log(f"  {name}: {m.group(1) or m.group(2) or m.group(3)}")
+                          r"(\d+ bytes stack frame.*)|Function properties for (\w+)", line)
+            if not m:
+                continue
+            if m.group(4):
+                props = m.group(4)
+                continue
+            log(f"  {name}: {m.group(1) or m.group(2) or m.group(3)}")
+            if (m.group(3) and props and "attn_bwd" in props
+                    and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
+                spilled.append(f"{props}: {m.group(3)}")
+    if spilled:
+        raise AssertionError(f"attention backward instances with a stack frame: {spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -794,8 +816,9 @@ def _check_attention_kernels(torch, g):
     L=1024, D=64, f32, causal; B=8 as gpt_serve's forwards give it, B=16 as
     gpt_train's steps give all three), with two backwards bit for bit at
     each; then at D=128, ragged L, bf16, non-causal, ALiBi, packed segment
-    ids; and FlashAttnFunction's grads (the bias's summed to its shape)
-    against autograd through mha_reference."""
+    ids, and at B*H = 65792 (past one grid dimension); and
+    FlashAttnFunction's grads (the bias's summed to its shape) against
+    autograd through mha_reference."""
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
 
@@ -842,6 +865,13 @@ def _check_attention_kernels(torch, g):
     args = _attn_inputs(torch, g, dev, seg.shape[0], 4, 1024, 64, torch.float32)
     _check_attention(torch, f"segment ids of {len(lengths)} sequences packed in "
                      f"{seg.shape[0]} rows of 1024", *args, True, seg=seg)
+
+    b, h, l, d = 257, 256, 64, 64
+    log(f"flash attention: B={b} H={h} (B*H = {b * h}, past one grid dimension's 65535) "
+        f"L={l} D={d} f32 causal, {b * h * l * d * 4 / 2**30:.2f} GiB a tensor")
+    _check_attention(torch, f"B*H = {b * h}", *_attn_inputs(torch, g, dev, b, h, l, d,
+                                                           torch.float32), True)
+    torch.cuda.empty_cache()
 
     q, k, v = (t.requires_grad_() for t in _attn_inputs(torch, g, dev, 2, 4, 200, 64,
                                                          torch.float32)[:3])
@@ -904,8 +934,9 @@ def _check_splash_kernels(torch, g):
     the causal flash kernels' numbers), ragged L, bf16 and D=128;
     benchmarks/tpu_attention.py's block-sparse case (B=2, H=4, L=1024,
     D=128, bf16, 256-wide blocks, its seed-1 mask with the diagonal kept,
-    causal), 16-wide blocks not causal, and a mask with an empty row block,
-    which must give exact zeros and finite grads."""
+    causal), B*H = 65792 under a window, 16-wide blocks not causal, and a
+    mask with an empty row block, which must give exact zeros and finite
+    grads."""
     import numpy as np
 
     from flashfftconv_tpu_torch.ops import attention as plain
@@ -967,6 +998,12 @@ def _check_splash_kernels(torch, g):
     np.fill_diagonal(mask16, True)
     args = _attn_inputs(torch, g, dev, 2, 3, 256, 64, torch.float32)
     _check_splash(torch, "16-wide blocks, not causal", *args, SplashMask.blocks(mask16, 16))
+    b, hh, ll, w = 257, 256, 64, 16
+    log(f"splash attention: B={b} H={hh} (B*H = {b * hh}) L={ll} D=64 f32 window {w}")
+    _check_splash(torch, f"B*H = {b * hh} window {w}",
+                  *_attn_inputs(torch, g, dev, b, hh, ll, 64, torch.float32),
+                  SplashMask.local(ll, w))
+    torch.cuda.empty_cache()
     empty = np.array([[1, 0, 0, 1], [0, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 1]], bool)
     args = _attn_inputs(torch, g, dev, 2, 3, 400, 64, torch.float32)
     _, (o, lse, dk, dv, dq) = _check_splash(torch, "100-wide blocks, an empty row block",
@@ -3023,6 +3060,12 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _tc_bound(flops: float) -> float:
+    """ms of a function's products on the tensor cores: its operations times
+    the split-TF32 passes of f32 operands at the dense TF32 rate."""
+    return flops * TF32_PASSES / TF32_FLOPS * 1e3
+
+
 def _fft_flops(m: int, n_stages: int) -> float:
     """f32 operations of one M-point complex FFT as the kernels do it: radix-2
     line DFTs (5 M log2 M) and the twiddles between stages (6 M each)."""
@@ -3167,6 +3210,11 @@ def phase_timing(torch, g):
                       f"{r['library_device_ms']:.4f} ms)")
         if "causal_flash_ms" in r:
             extra += f", the causal flash kernel at this shape {r['causal_flash_ms']:.4f} ms"
+        if "tc_bound" in r:
+            extra += f", tc_bound {r['tc_bound']:.4f} ms ({TF32_PASSES} TF32 passes)"
+        if "pair_ms" in r:
+            extra += (f", dK/dV + dQ {r['pair_ms']:.4f} ms against the library's backward "
+                      f"{r['library_ms']:.4f} ms")
         if "tile_bytes" in r:
             extra += (f", {r['tile_bytes'] // 1024} KB tiles, "
                       f"{2 * r['bytes'] / r['ms'] / 1e6:.1f} GB/s")
@@ -3334,9 +3382,11 @@ def _time_attention(torch, g):
     a multiply-add: the forward q k^T and p v (4 B H L^2 D in all, half of it
     causal); dK/dV q k^T, do v^T, p^T do and ds^T q (8); dQ q k^T, do v^T and
     ds k (6); the two backward kernels recompute q k^T and do v^T each, which
-    the fused backward (10) would not. library_ms is
+    the fused backward (10) would not. tc_bound: a backward row's operations
+    on the tensor cores, 3 split-TF32 passes at 494.7 TFLOP/s. library_ms is
     scaled_dot_product_attention's forward for the forward row and its
-    backward (dq, dk and dv in one call) for both backward rows."""
+    backward (dq, dk and dv in one call) for both backward rows, beside
+    which the dQ row carries pair_ms, dK/dV + dQ."""
     import torch.nn.functional as F
 
     from flashfftconv_tpu_torch.ops import attention as plain
@@ -3370,14 +3420,18 @@ def _time_attention(torch, g):
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd,
                 bound=_bound(4 * n + 2 * stats + 2 * n, 4 * causal_ops),
+                tc_bound=_tc_bound(4 * causal_ops),
             ),
             "flash_attn_bwd_dq": dict(
                 ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dq(q, k, v, do, lse, delta),
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd,
                 bound=_bound(4 * n + 2 * stats + n, 3 * causal_ops),
+                tc_bound=_tc_bound(3 * causal_ops),
             ),
         }
+        res["flash_attn_bwd_dq"]["pair_ms"] = (res["flash_attn_bwd_dkv"]["ms"]
+                                               + res["flash_attn_bwd_dq"]["ms"])
     del q, k, v, do, o, lse, delta, qs, ks, vs, out
     torch.cuda.empty_cache()
     return res
@@ -3391,9 +3445,9 @@ def _time_splash(torch, g):
     written once. Operations: the products over the elements the mask keeps
     (491,648 a (b, h) here, not L W), 2 a multiply-add: the forward q k^T and
     p v (4 a kept element a channel), dK/dV q k^T, do v^T, p^T do and ds^T q
-    (8), dQ q k^T, do v^T and ds k (6). library_ms is
-    scaled_dot_product_attention with the dense boolean mask as attn_mask
-    (f32 for the window; it has no block skipping): its forward for the
+    (8), dQ q k^T, do v^T and ds k (6); tc_bound as in _time_attention.
+    library_ms is scaled_dot_product_attention with the dense boolean mask
+    as attn_mask (f32 for the window; it has no block skipping): its forward for the
     forward rows, its backward (dq, dk and dv in one call) for both backward
     rows; library_fwd_bwd_ms is its forward and backward together.
     causal_flash_ms is flash_attn_fwd, causal, at the same shape: the
@@ -3444,14 +3498,18 @@ def _time_splash(torch, g):
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd, library_fwd_bwd_ms=sdpa_fwd_bwd,
                 bound=_bound(4 * n + 2 * stats + 2 * n, 8 * kept_ops),
+                tc_bound=_tc_bound(8 * kept_ops),
             ),
             "splash_attn_bwd_dq": dict(
                 ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask),
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd, library_fwd_bwd_ms=sdpa_fwd_bwd,
                 bound=_bound(4 * n + 2 * stats + n, 6 * kept_ops),
+                tc_bound=_tc_bound(6 * kept_ops),
             ),
         }
+        res["splash_attn_bwd_dq"]["pair_ms"] = (res["splash_attn_bwd_dkv"]["ms"]
+                                                + res["splash_attn_bwd_dq"]["ms"])
     log(f"timing splash_attn_fwd: {fwd_ms:.4f} ms against the causal flash_attn_fwd's "
         f"{causal_ms:.4f} ms at the same shape ({fwd_ms / causal_ms:.3f} of it; the window's "
         f"tiles are 150 of 528 a (b, h))")

@@ -6,8 +6,8 @@
 // (def at l.589 of jax 0.9.0, pallas_call at l.758, body _flash_attention_kernel
 // at l.331). Its contract here is flash_mha's: the bias is added after the
 // scale (the Pallas kernel adds `ab` before it, so flash_mha pre-divides),
-// q, k, v f32, bf16 or f16 at head_dim 64 or 128, any L >= 1, causal or not,
-// optional segment ids. It writes o in the operands' dtype and the row
+// q, k, v f32, bf16 or f16 at head_dim 64 or 128, any B * H, any L >= 1,
+// causal or not, optional segment ids. It writes o in the operands' dtype and the row
 // logsumexp m + log(l) (f32, +inf for a row that sees no key) for the
 // backward, where the Pallas kernel saves l and m apart.
 //
@@ -46,15 +46,15 @@ extern "C" int ffc_flash_attn_fwd(const void* q, const void* k, const void* v, v
                                   int bias_sb, int bias_sh, int bias_sq, int scale_bits,
                                   void* stream) {
   using namespace ffc::attn;
-  if (batch < 1 || heads < 1 || len < 1 || batch * heads > 65535)
+  if (batch < 1 || heads < 1 || len < 1)
     return (int)cudaErrorInvalidValue;
   const FlashMask m = make_flash_mask(batch, heads, len, causal, bias, bias_sb, bias_sh, bias_sq,
                                       seg, scale_bits);
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
-    return launch(flash_attn_fwd_kernel<D, T>, fwd_smem_bytes<D>(), len, batch * heads,
-                  (cudaStream_t)stream, q, k, v, o, lse, m);
+    return launch(flash_attn_fwd_kernel<D, T>, kThreads, fwd_smem_bytes<D>(), len,
+                  batch * heads, (cudaStream_t)stream, q, k, v, o, lse, m);
   });
 }
 

@@ -60,7 +60,8 @@ extern "C" int ffc_splash_attn_fwd(const void* q, const void* k, const void* v, 
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
-    return launch(splash_attn_fwd_kernel<D, T>, fwd_smem_bytes<D>(), len, batch * heads,
+    return launch(splash_attn_fwd_kernel<D, T>, kThreads, fwd_smem_bytes<D>(), len,
+                  batch * heads,
                   (cudaStream_t)stream, q, k, v, o, lse, m);
   });
 }

@@ -19,13 +19,16 @@ its ``launches`` count. On CPU tensors it runs the plain version from
 ``ops/attention.py``.
 
 The kernels take q, k, v (B, H, L, D) contiguous, of one shape and dtype
-(f32, bf16 or f16), head_dim 64 or 128, B * H <= 65535, any L >= 1
+(f32, bf16 or f16), head_dim 64 or 128, any B * H, any L >= 1
 (``kernels_take`` asks this of shapes and dtypes; the wrappers raise
 otherwise). The flash kernels also take an
 optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
 (1, H, L, L) ALiBi table is read in place for every batch row, not copied)
 and optional int32 segment ids (B, L). Softmax statistics and every
-accumulation are f32.
+accumulation are f32. The backward kernels run their products on the
+tensor cores in split TF32, which keeps f32 accuracy (``csrc/
+flash_attn_common.cuh``), and load 16 bytes at a time: their wrappers copy
+an operand whose data does not start on a 16-byte boundary.
 
 ``FlashAttnFunction`` is the attention over (q, k, v, bias, segment_ids)
 and ``SplashAttnFunction`` over (q, k, v) under a mask: each forward saves
@@ -66,13 +69,10 @@ def _refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
         if t.shape != q.shape or t.dtype != q.dtype:
             return (f"the attention kernels take q, k, v of one shape and dtype, got "
                     f"{tuple(t.shape)} {t.dtype} against {tuple(q.shape)} {q.dtype}")
-    b, h, _, d = q.shape
     if q.dtype not in DTYPES:
         return f"the attention kernels take f32, bf16 or f16, got {q.dtype}"
-    if d not in HEAD_DIMS:
-        return f"the attention kernels take head_dim in {HEAD_DIMS}, got {d}"
-    if b * h > 65535:
-        return f"B * H = {b * h} exceeds the grid's 65535"
+    if q.shape[-1] not in HEAD_DIMS:
+        return f"the attention kernels take head_dim in {HEAD_DIMS}, got {q.shape[-1]}"
     return None
 
 
@@ -94,6 +94,12 @@ def _check_qkv(*tensors: torch.Tensor) -> tuple[int, int, int, int]:
         if not t.is_contiguous():
             raise ValueError("q, k, v (and do) must be contiguous")
     return tuple(q.shape)
+
+
+def _aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors, each copied if its data does not start on a 16-byte
+    boundary (the backward kernels load 16 bytes at a time)."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 
 def _bias_args(bias: torch.Tensor | None, shape) -> tuple[torch.Tensor | None, list[int]]:
@@ -178,6 +184,7 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
         return dk, dv
     _check_qkv(q, k, v, do)
     _check_stats(lse, delta, q.shape)
+    q, k, v, do = _aligned(q, k, v, do)
     args, bias_e, seg = _common(q, causal, sm_scale, bias, segment_ids)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("flash_attn_bwd")
@@ -206,6 +213,7 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
         return dq, ds
     b, h, l, _ = _check_qkv(q, k, v, do)
     _check_stats(lse, delta, q.shape)
+    q, k, v, do = _aligned(q, k, v, do)
     args, bias_e, seg = _common(q, causal, sm_scale, bias, segment_ids)
     dq = torch.empty_like(q)
     ds = torch.zeros(b, h, l, l, dtype=torch.float32, device=q.device) if bias_grad else None
@@ -301,6 +309,7 @@ def splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask, sm_scale: float | None = 
         return dk, dv
     _check_qkv(q, k, v, do)
     _check_stats(lse, delta, q.shape)
+    q, k, v, do = _aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _splash_launch("splash_attn_bwd", "ffc_splash_attn_bwd_dkv", q, mask, sm_scale,
                    [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)])
@@ -321,6 +330,7 @@ def splash_attn_bwd_dq(q, k, v, do, lse, delta, mask, sm_scale: float | None = N
                                            sm_scale, delta=delta)[0]
     _check_qkv(q, k, v, do)
     _check_stats(lse, delta, q.shape)
+    q, k, v, do = _aligned(q, k, v, do)
     dq = torch.empty_like(q)
     _splash_launch("splash_attn_bwd", "ffc_splash_attn_bwd_dq", q, mask, sm_scale,
                    [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)])

@@ -193,7 +193,6 @@ REFUSED = {
     "head_dim 96": (_meta(2, 8, 16, 96),) * 3,
     "head_dim 256": (_meta(2, 4, 16, 256),) * 3,
     "f64": (_meta(2, 4, 16, 64, dtype=torch.float64),) * 3,
-    "B * H = 65792": (_meta(256, 257, 1, 64),) * 3,
     "k shorter than q": (_meta(2, 4, 16, 64), _meta(2, 4, 8, 64), _meta(2, 4, 8, 64)),
     "v in another dtype": (_meta(2, 4, 16, 64),) * 2 + (_meta(2, 4, 16, 64, dtype=torch.bfloat16),),
     "3-d q": (_meta(4, 16, 64),) * 3,
@@ -257,7 +256,6 @@ def test_auto_runs_the_plain_version_where_the_kernels_refuse(monkeypatch, d, dt
 # (L >= 256, L and head_dim multiples of 128) and the CUDA kernels refuse
 TPU_ONLY = {
     "head_dim 256": ((_meta(1, 2, 256, 256),) * 3, "head_dim"),
-    "B * H = 65792": ((_meta(256, 257, 256, 128),) * 3, "65535"),
     "k shorter than q": ((_meta(1, 2, 256, 128), _meta(1, 2, 128, 128), _meta(1, 2, 128, 128)),
                          "one shape"),
 }
@@ -281,6 +279,80 @@ def test_auto_raises_where_only_the_tpu_kernels_take_the_call(monkeypatch, what)
                                                    impl=impl)):
             with pytest.raises(ValueError, match=why):
                 call()
+
+
+@pytest.mark.parametrize("shape", [(256, 257, 1, 64), (256, 257, 256, 128)])
+def test_kernels_take_any_batch_times_heads(monkeypatch, shape):
+    """B * H = 65792, past the 65535 of one grid dimension: the kernels fold
+    it over two, so kernels_take and _check_qkv accept it and impl='auto'
+    sends it to the kernels (on meta tensors, with on_cpu patched to False)."""
+    monkeypatch.setattr(attention_cuda, "on_cpu", lambda *t: False)
+    q = _meta(*shape)
+    assert attention_cuda.kernels_take(q, q, q)
+    assert attention_cuda._check_qkv(q, q, q, q) == shape
+    assert not tattn._auto_runs_plain(q, q, q)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero (on the bits, which are sign and
+    magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tensor_core_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the backward kernels' mma.sync TF32 products compute it: each
+    f32 operand split into hi = tf32(x) and lo = x - hi, of which the tensor
+    cores read the leading 19 bits (a truncation to TF32), and lo hi + hi lo
+    + hi hi summed (passes=3), or hi hi alone (passes=1); products of TF32
+    values are exact in f32, and the sums are f32."""
+    trunc = lambda x: (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if passes == 3:
+        out = trunc(a - ah) @ bh + ah @ trunc(b - bh) + out
+    return out
+
+
+def _tensor_core_backward(q, k, v, do, passes: int):
+    """(dq, dk, dv) of causal attention as the backward kernels compute
+    them: the five products by _tensor_core_mm, p and ds in f32, lse and
+    delta from the plain forward."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = tattn.flash_attn_fwd_plain(q, k, v, True)
+    delta = tattn.attention_delta(o, do)
+    keep = torch.ones(q.shape[2], q.shape[2], dtype=torch.bool).tril()
+    s = _tensor_core_mm(q, k.transpose(-1, -2), passes) * scale
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (_tensor_core_mm(do, v.transpose(-1, -2), passes) - delta[..., None])
+    dv = _tensor_core_mm(p.transpose(-1, -2), do, passes)
+    dk = _tensor_core_mm(ds.transpose(-1, -2), q, passes) * scale
+    dq = _tensor_core_mm(ds, k, passes) * scale
+    return dq, dk, dv
+
+
+def test_split_tf32_keeps_the_backward_within_the_card_tolerance():
+    """The backward kernels' split-TF32 products, emulated on the CPU at
+    B=1, H=2, L=192, D=64, f32, causal, land within the card checks' f32
+    tolerance (2e-5 of max(1, the largest |grad|): chip_smoke.attn_tol,
+    test_torch_gpu._attn_close) of the f32 plain backward (measured about
+    1e-6); one TF32 pass does not (about 5e-4), so the tensor cores keep
+    the f32 contract only split. It shows that the split is needed, and
+    only that: every product is summed by torch's f32 matmul, so it models
+    neither the tensor cores' truncating accumulation, nor the kernels'
+    grouping of each tile's terms that bounds it, nor ex2.approx. The card
+    checks (chip_smoke.py kernels, tests/test_torch_gpu.py) guard those."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 2, 192, 64)).astype(np.float32))
+                   for _ in range(4))
+    o, lse = tattn.flash_attn_fwd_plain(q, k, v, True)
+    ref = tattn.flash_attn_bwd_plain(q, k, v, o, lse, do, True)[:3]
+    for passes, within in ((3, True), (1, False)):
+        got = _tensor_core_backward(q, k, v, do, passes)
+        errs = [float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
+                for g, r in zip(got, ref)]
+        assert (max(errs) <= 2e-5) == within, (passes, errs)
 
 
 def test_alibi_rotary_and_packing_match_jax():

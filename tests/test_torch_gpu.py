@@ -573,12 +573,14 @@ def _attn_close(got, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("l,d", [(1, 64), (65, 128), (256, 64), (1000, 64)])
+@pytest.mark.parametrize("l,d", [(1, 64), (1, 128), (63, 64), (65, 128), (256, 64), (1000, 64),
+                                 (1000, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "segments"])
 def test_cuda_attention_kernels_match_plain(l, d, dtype, case):
     """flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq against
-    flash_attn_fwd_plain and flash_attn_bwd_plain, each launched once."""
+    flash_attn_fwd_plain and flash_attn_bwd_plain, each launched once, at
+    the edges of the backward's 64-row tiles and 8-row tensor-core steps."""
     _needs_card()
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
@@ -632,9 +634,10 @@ def test_cuda_flash_mha_grads_match_autograd_of_the_reference():
 
 @pytest.mark.gpu
 def test_cuda_attention_refuses_what_the_kernels_do_not_take():
-    """impl='flash' raises for what the kernels do not take (head_dim, dtype,
-    B * H over the grid's 65535), and so does impl='auto' where the JAX
-    package's TPU kernel would take the call (head_dim 256 at L = 256); a
+    """impl='flash' raises for what the kernels do not take (head_dim,
+    dtype), and so does impl='auto' where the JAX package's TPU kernel would
+    take the call (head_dim 256 at L = 256); B * H = 65792, past one grid
+    dimension's 65535, runs the kernels and matches the plain version; a
     window with a bias or segment ids raises where the kernels would run, as
     on a TPU."""
     _needs_card()
@@ -650,8 +653,7 @@ def test_cuda_attention_refuses_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="head_dim"):
             tff.flash_mha(q, q, q, impl=impl)
     q = torch.randn(256, 257, 1, 64, device=dev)
-    with pytest.raises(ValueError, match="65535"):
-        tff.flash_mha(q, q, q, impl="flash")
+    _attn_close(tff.flash_mha(q, q, q, impl="flash"), tff.flash_mha(q, q, q, impl="xla"))
     q = torch.randn(1, 2, 64, 64, device=dev)
     bias = tff.alibi_bias(2, 64, 64, device=dev)
     seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
@@ -775,6 +777,12 @@ SPLASH_CASES = [
     ("blocks", 1024, 128, torch.bfloat16, 256, True),
     ("blocks", 256, 64, torch.float32, 16, False), ("blocks", 80, 64, torch.float32, 16, True),
     ("empty_row", 256, 64, torch.float32, 64, False),
+    # the edges of the backward's 64-row tiles, in every dtype
+    ("window", 1, 64, torch.float16, 1, True), ("window", 63, 128, torch.float16, 20, True),
+    ("window", 65, 64, torch.bfloat16, 30, True), ("window", 1000, 128, torch.float32, 300, True),
+    ("blocks", 63, 128, torch.float16, 21, True), ("blocks", 65, 64, torch.bfloat16, 13, False),
+    ("blocks", 1000, 64, torch.float16, 250, False),
+    ("blocks", 1000, 128, torch.float32, 125, True),
 ]
 
 
@@ -791,13 +799,28 @@ def _splash_mask(kind, l, arg, causal):
     return SplashMask.blocks(m.numpy(), arg, causal)
 
 
+def _exact_backward(q, k, v, do, lse, delta, keep):
+    """(dq, dk, dv) in f64 from the backward kernels' own inputs: q, k, v,
+    do and the f32 lse and delta they are given, under the (L, L) mask."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = ((q @ k.transpose(-1, -2)) * scale).masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse.double()[..., None])
+    ds = p * (do @ v.transpose(-1, -2) - delta.double()[..., None])
+    return (ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale, p.transpose(-1, -2) @ do
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,l,d,dtype,arg,causal", SPLASH_CASES)
-def test_cuda_splash_kernels_match_plain(kind, l, d, dtype, arg, causal):
-    """splash_attn_fwd, splash_attn_bwd_dkv and splash_attn_bwd_dq against
-    splash_attn_fwd_plain and splash_attn_bwd_plain under the dense mask,
-    each launched once; an empty row block gives exact zeros; two backwards
-    bit for bit."""
+def test_cuda_splash_kernels_match_plain(kind, l, d, dtype, arg, causal, record_property):
+    """splash_attn_fwd against splash_attn_fwd_plain, and splash_attn_bwd_dkv
+    and splash_attn_bwd_dq against the same backward in f64 on their own
+    inputs, under the dense mask, each launched once; an empty row block
+    gives exact zeros; two backwards bit for bit. The grads' reference is
+    f64 because at window 1 dq and dk cancel to 0 up to the rounding of
+    dp - delta, where the f32 plain version (splash_attn_bwd_plain) is
+    itself as far from the exact value as the bound; its error and the
+    kernels' are recorded as properties (junitxml)."""
     _needs_card()
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
@@ -817,9 +840,13 @@ def test_cuda_splash_kernels_match_plain(kind, l, d, dtype, arg, causal):
     assert [f.launches for f in fns] == [c + 1 for c in counts]
     keep = mask.dense(dev)
     ro, rlse = plain.splash_attn_fwd_plain(q, k, v, keep)
+    _attn_close(o, ro)
     rq, rk, rv = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep)
-    for got, ref in ((o, ro), (dq, rq), (dk, rk), (dv, rv)):
-        _attn_close(got, ref)
+    exact = _exact_backward(q, k, v, do, lse, delta, keep)
+    for name, got, ref, ex in zip(("dq", "dk", "dv"), (dq, dk, dv), (rq, rk, rv), exact):
+        record_property(f"{name}_kernel_err", float((got.double() - ex).abs().max()))
+        record_property(f"{name}_plain_err", float((ref.double() - ex).abs().max()))
+        _attn_close(got, ex.to(dtype))
     seen = torch.isfinite(rlse)  # +inf on a row that sees no key
     assert torch.equal(torch.isfinite(lse), seen)
     _attn_close(lse[seen], rlse[seen])
@@ -829,6 +856,46 @@ def test_cuda_splash_kernels_match_plain(kind, l, d, dtype, arg, causal):
     again = ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask) + (
         ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask),)
     assert all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flash", "window"])
+def test_cuda_attention_kernels_take_any_batch_times_heads(kind):
+    """B * H = 65792 (B=257, H=256), past one grid dimension's 65535: the
+    forward, dK/dV and dQ kernels, flash (causal) and splash (a window of
+    16), each launched once, against their plain versions."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(257, 256, 40, 64, device=dev, generator=g) for _ in "qkvd")
+    if kind == "flash":
+        fns = (ac.flash_attn_fwd, ac.flash_attn_bwd_dkv, ac.flash_attn_bwd_dq)
+        counts = [f.launches for f in fns]
+        o, lse = ac.flash_attn_fwd(q, k, v)
+        delta = plain.attention_delta(o, do)
+        got = (o, *ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
+               ac.flash_attn_bwd_dq(q, k, v, do, lse, delta)[0])
+        ro, rlse = plain.flash_attn_fwd_plain(q, k, v)
+        rq, rk, rv, _ = plain.flash_attn_bwd_plain(q, k, v, o, lse, do)
+    else:
+        mask = SplashMask.local(40, 16)
+        fns = (ac.splash_attn_fwd, ac.splash_attn_bwd_dkv, ac.splash_attn_bwd_dq)
+        counts = [f.launches for f in fns]
+        o, lse = ac.splash_attn_fwd(q, k, v, mask)
+        delta = plain.attention_delta(o, do)
+        got = (o, *ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
+               ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask))
+        keep = mask.dense(dev)
+        ro, rlse = plain.splash_attn_fwd_plain(q, k, v, keep)
+        rq, rk, rv = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    for a, r in zip((*got, lse), (ro, rk, rv, rq, rlse)):
+        _attn_close(a, r)
 
 
 @pytest.mark.gpu
