@@ -14,14 +14,18 @@ Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
             fails if an attention backward instance (dK/dV or dQ, flash or
-            splash) has a stack frame or spills;
+            splash, every head_dim) or a monarch_conv instance has a stack
+            frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
             gated, padded, odd-batch and ragged-channel shapes, with the
             tolerance printed; spectrum at every one-block FFT size (N = 16
             ... 32768), k_len 1, 3, N/2 - 1, N/2 and N, H 1, 5 and 768, row
-            starts on a 16-byte boundary and not; band_conv (both conj) at
+            starts on a 16-byte boundary and not; monarch_conv at every
+            one-block FFT size, k_len 1, N/2 and N, gated and not, f32 and
+            bf16, L = N/2 and N - 5, rows on a 16-byte boundary and not, two
+            calls bit for bit; band_conv (both conj) at
             the seq_train shape and N2 = 16, 256, 2048, the four-real-conv
             band route at N2 = 32768 and 131072, and the sequence-parallel
             conv at world size 1 (gated, padded, with grads) against the
@@ -33,7 +37,9 @@ Phases, each of which fails the run by raising:
             from pack_sequences, and two backwards bit for bit; the three
             flash and the three splash kernels at B*H = 65792 (B=257, H=256,
             L=64, D=64, f32, causal and a window of 16), past one grid
-            dimension's 65535; the three
+            dimension's 65535; the six attention kernels at head_dim 256,
+            384 and 512 (f32, bf16 with ALiBi, f16 with segment ids, L = 1;
+            windows and block masks); the three
             splash-attention kernels (forward, dK/dV, dQ) against their plain
             versions at the windowed GPT's shapes (B=8 and B=4, H=12, L=2048,
             D=64, f32, window 256) with two backwards bit for bit, at windows
@@ -197,7 +203,11 @@ Phases, each of which fails the run by raising:
   timing    times each kernel, its plain version and a PyTorch yardstick
             with CUDA events at the main paths' shapes (spectrum also at
             M2-BERT's and ListOps' shapes, rows spectrum@256 and
-            spectrum@4096); the splash kernels
+            spectrum@4096; monarch_conv also at H3's f32-I/O shape and
+            ListOps', rows monarch_conv@f32 and monarch_conv@4096, each with
+            a CUDA graph's device time beside the library's); the flash
+            kernels also at head_dim 256 (rows flash_attn_*@256, B=4, H=8,
+            L=2048, f32, causal); the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
@@ -560,11 +570,13 @@ def phase_build():
                 props = m.group(4)
                 continue
             log(f"  {name}: {m.group(1) or m.group(2) or m.group(3)}")
-            if (m.group(3) and props and "attn_bwd" in props
+            if (m.group(3) and props
+                    and ("attn_bwd" in props or "monarch_conv_kernel" in props)
                     and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
                 spilled.append(f"{props}: {m.group(3)}")
     if spilled:
-        raise AssertionError(f"attention backward instances with a stack frame: {spilled}")
+        raise AssertionError(f"attention backward or monarch_conv instances with a stack frame: "
+                             f"{spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -629,6 +641,7 @@ def phase_kernels(torch, g):
             tol = f32_tol(rr) if dtype == torch.float32 else lowp_tol(rr)
             compare(f"monarch_conv gated N={n} B={b} H={h} L={length} {dtype}", yy, rr, tol)
         torch.cuda.synchronize()
+    _check_monarch_conv_sizes(torch)
 
     log(f"depthwise: B={B} D={3 * D_MODEL} L={L_MAX} K=3 padding=(2, 0) bias bf16 BHL")
     y = dw.depthwise(x, w, bias, (2, 0), True)
@@ -719,6 +732,50 @@ def _check_spectrum_sizes(torch):
         torch.cuda.synchronize()
         log(f"  spectrum N={n}: {cases} cases (k_len 1, 3, N/2-1, N/2, N; H 1, 5, {D_MODEL}; "
             f"aligned and unaligned rows), worst err/tol {worst:.3e} ok")
+
+
+def _check_monarch_conv_sizes(torch):
+    """monarch_conv against conv_with_spectrum at every one-block plan size
+    (N = 16 ... 32768; one instantiation per size, dtype and gating): k_len
+    1, N/2 and N; gated and ungated; f32 and bf16; the rows on a 16-byte
+    boundary and one element past it; L = N/2 and N - 5; two calls give the
+    same bits. One line a size with the worst err / tol."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    gc = torch.Generator(device=dev).manual_seed(13)
+    b, h = 3, 5
+    for n in (16 << i for i in range(12)):
+        p = make_plan(n, torch.float32, device=dev)
+        worst, cases = 0.0, 0
+        for k_len in sorted({1, n // 2, n}):
+            k_f = monarch_cuda.spectrum(p, torch.randn(h, k_len, device=dev, generator=gc) * 0.1)
+            for dtype in (torch.float32, torch.bfloat16):
+                for length in (n // 2, n - 5):
+                    for gated in (False, True):
+                        for skew in (0, 1):
+                            u, pre, post = (torch.randn(b * h * length + skew, device=dev,
+                                                        generator=gc).to(dtype)[skew:]
+                                            .view(b, h, length) for _ in "abc")
+                            gates = (pre, post) if gated else ()
+                            y = monarch_cuda.monarch_conv(p, u, k_f, *gates)
+                            again = monarch_cuda.monarch_conv(p, u, k_f, *gates)
+                            ref = monarch.conv_with_spectrum(p, u, k_f, *gates)
+                            tol = f32_tol(ref) if dtype == torch.float32 else lowp_tol(ref)
+                            err = float((y.float() - ref.float()).abs().max())
+                            what = (f"monarch_conv N={n} k_len={k_len} {dtype} L={length} "
+                                    f"gated={gated} skew={skew}")
+                            if not (math.isfinite(err) and err <= tol):
+                                raise AssertionError(f"{what}: kernel disagrees with its plain "
+                                                     f"version ({err} > {tol})")
+                            if not torch.equal(y, again):
+                                raise AssertionError(f"{what}: two calls differ")
+                            worst, cases = max(worst, err / tol), cases + 1
+        torch.cuda.synchronize()
+        log(f"  monarch_conv N={n}: {cases} cases (k_len 1, N/2, N; f32, bf16; L = N/2, N-5; "
+            f"gated, ungated; aligned and unaligned rows; two calls bit for bit), worst "
+            f"err/tol {worst:.3e} ok")
 
 
 def _check_kernel_as_long_as_the_fft(torch, g):
@@ -873,6 +930,21 @@ def _check_attention_kernels(torch, g):
                                                            torch.float32), True)
     torch.cuda.empty_cache()
 
+    for d in (256, 384, 512):
+        log(f"flash attention at head_dim {d} (above 256 the forward's 32-row parts; the wide "
+            f"backward)")
+        for (b, h, l, dtype, causal, extra) in (
+            (2, 3, 1000, torch.float32, True, None), (2, 3, 257, torch.bfloat16, True, "alibi"),
+            (2, 3, 130, torch.float16, False, "segments"), (1, 2, 1, torch.float32, True, None),
+        ):
+            bias = plain.alibi_bias(h, l, l, device=dev) if extra == "alibi" else None
+            seg = None
+            if extra == "segments":
+                seg = (torch.arange(l, device=dev) * 3 // l).int()[None].repeat(b, 1)
+            _check_attention(torch, f"B={b} H={h} L={l} D={d} {dtype} causal={causal} {extra}",
+                             *_attn_inputs(torch, g, dev, b, h, l, d, dtype), causal, bias=bias,
+                             seg=seg)
+
     q, k, v = (t.requires_grad_() for t in _attn_inputs(torch, g, dev, 2, 4, 200, 64,
                                                          torch.float32)[:3])
     bias = plain.alibi_bias(4, 200, 200, device=dev).requires_grad_()
@@ -998,6 +1070,17 @@ def _check_splash_kernels(torch, g):
     np.fill_diagonal(mask16, True)
     args = _attn_inputs(torch, g, dev, 2, 3, 256, 64, torch.float32)
     _check_splash(torch, "16-wide blocks, not causal", *args, SplashMask.blocks(mask16, 16))
+    for dd in (256, 384, 512):
+        log(f"splash attention at head_dim {dd}")
+        args = _attn_inputs(torch, g, dev, 2, 3, 1000, dd, torch.float32)
+        _check_splash(torch, f"B=2 H=3 L=1000 D={dd} f32 window 300", *args,
+                      SplashMask.local(1000, 300))
+        args = _attn_inputs(torch, g, dev, 2, 3, 400, dd, torch.bfloat16)
+        _check_splash(torch, f"B=2 H=3 L=400 D={dd} bf16 100-wide blocks, causal", *args,
+                      SplashMask.blocks(_tpu_attention_blockmask(np, 400, 100), 100, causal=True))
+        args = _attn_inputs(torch, g, dev, 2, 3, 129, dd, torch.float16)
+        _check_splash(torch, f"B=2 H=3 L=129 D={dd} f16 window 40", *args,
+                      SplashMask.local(129, 40))
     b, hh, ll, w = 257, 256, 64, 16
     log(f"splash attention: B={b} H={hh} (B*H = {b * hh}) L={ll} D=64 f32 window {w}")
     _check_splash(torch, f"B*H = {b * hh} window {w}",
@@ -3109,16 +3192,38 @@ def phase_timing(torch, g):
                 device_ms=_graph_ms(torch, lambda: monarch_cuda.spectrum(p, kk)),
                 library_device_ms=_graph_ms(torch, lambda: torch.fft.rfft(kk, n=n)),
             )
-        # monarch_conv: read u and k_f, write y; two FFTs and the pointwise pass a row
-        nbytes = u.numel() * 2 * 2 + k_f.numel() * 8
-        flops = B * D_MODEL * (2 * _fft_flops(m, ns) + 40 * (m // 2) + 4 * L_MAX)
-        res["monarch_conv"] = dict(
-            ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv(plan, u, k_f)),
-            plain_ms=_time_ms(torch, lambda: monarch.conv_with_spectrum(plan, u, k_f), iters=5),
-            library_ms=_time_ms(torch, lambda: torch.fft.irfft(
-                torch.fft.rfft(u.float(), n=N_FFT) * k_f, n=N_FFT)[..., :L_MAX].to(u.dtype)),
-            bound=_bound(nbytes, flops),
-        )
+        # monarch_conv: read u and k_f, write y; two FFTs and the pointwise pass a
+        # row. At the Hyena shape (bf16 I/O), at H3's second conv (the same
+        # shape at f32 I/O) and at ListOps' (B=64, H=128, L=2048, N=4096, k_len =
+        # N, f32 I/O); beside the times of back-to-back calls, each call's
+        # device time from a CUDA graph (device_ms; library_device_ms, rfft ·
+        # k_f -> irfft).
+        n_lo = 2 * LISTOPS_L
+        p_lo = make_plan(n_lo, torch.bfloat16, device=dev)
+        u_lo = torch.randn(LISTOPS_B, LISTOPS_D, LISTOPS_L, generator=g).to(dev)
+        kf_lo = monarch_cuda.spectrum(p_lo, (torch.randn(LISTOPS_D, n_lo, generator=g) * 0.02)
+                                      .to(dev))
+        for name, p, uu, kf in (("monarch_conv", plan, u, k_f),
+                                ("monarch_conv@f32", plan, u.float(), k_f),
+                                (f"monarch_conv@{n_lo}", p_lo, u_lo, kf_lo)):
+            bb, hh, length = uu.shape
+            n, mm = p.seqlen, p.inner
+
+            def fft_conv(uu=uu, kf=kf, n=n, length=length):
+                return torch.fft.irfft(torch.fft.rfft(uu.float(), n=n) * kf, n=n)[
+                    ..., :length].to(uu.dtype)
+
+            res[name] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv(p, uu, kf)),
+                plain_ms=_time_ms(torch, lambda: monarch.conv_with_spectrum(p, uu, kf), iters=5),
+                library_ms=_time_ms(torch, fft_conv),
+                bound=_bound(uu.numel() * uu.element_size() * 2 + kf.numel() * 8,
+                             bb * hh * (2 * _fft_flops(mm, p.n_stages) + 40 * (mm // 2)
+                                        + 4 * length)),
+                device_ms=_graph_ms(torch, lambda: monarch_cuda.monarch_conv(p, uu, kf)),
+                library_device_ms=_graph_ms(torch, fft_conv),
+            )
+        del u_lo, kf_lo
         # depthwise: read x, write out; 2K operations an output
         nbytes = x.numel() * 2 * 2
         flops = x.numel() * (2 * 3 + 1)
@@ -3377,23 +3482,32 @@ def _time_band(torch, g):
 
 def _time_attention(torch, g):
     """The attention kernels at the gpt_train path's shape (B=16, H=12,
-    L=1024, D=64, f32, causal). Bytes: each input read once, each output
-    written once. Operations: the causal half of each function's products, 2
-    a multiply-add: the forward q k^T and p v (4 B H L^2 D in all, half of it
-    causal); dK/dV q k^T, do v^T, p^T do and ds^T q (8); dQ q k^T, do v^T and
-    ds k (6); the two backward kernels recompute q k^T and do v^T each, which
-    the fused backward (10) would not. tc_bound: a backward row's operations
-    on the tensor cores, 3 split-TF32 passes at 494.7 TFLOP/s. library_ms is
+    L=1024, D=64, f32, causal), then at head_dim 256 (rows
+    flash_attn_*@256: B=4, H=8, L=2048, f32, causal; the wide backward).
+    Bytes: each input read once, each output written once. Operations: the
+    causal half of each function's products, 2 a multiply-add: the forward
+    q k^T and p v (4 B H L^2 D in all, half of it causal); dK/dV q k^T,
+    do v^T, p^T do and ds^T q (8); dQ q k^T, do v^T and ds k (6); the two
+    backward kernels recompute q k^T and do v^T each, which the fused
+    backward (10) would not. tc_bound: a backward row's operations on the
+    tensor cores, 3 split-TF32 passes at 494.7 TFLOP/s. library_ms is
     scaled_dot_product_attention's forward for the forward row and its
     backward (dq, dk and dv in one call) for both backward rows, beside
     which the dQ row carries pair_ms, dK/dV + dQ."""
+    res = _flash_rows(torch, g, GPT_TRAIN_B, GPT_HEADS, GPT_L_MAX, GPT_HEAD_DIM, "")
+    res.update(_flash_rows(torch, g, 4, 8, 2048, 256, "@256"))
+    return res
+
+
+def _flash_rows(torch, g, b, h, l, d, suffix):
+    """The three flash rows of _time_attention at (B, H, L, D), f32, causal,
+    each name with suffix."""
     import torch.nn.functional as F
 
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
 
     dev = torch.device("cuda")
-    b, h, l, d = GPT_TRAIN_B, GPT_HEADS, GPT_L_MAX, GPT_HEAD_DIM
     q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
     n, stats = q.numel() * 4, b * h * l * 4
     causal_ops = b * h * l * l * d  # a quarter of 4 B H L^2 D: one causal product
@@ -3406,8 +3520,10 @@ def _time_attention(torch, g):
     plain_bwd = _time_ms(torch, lambda: plain.flash_attn_bwd_plain(q, k, v, o, lse, do),
                          iters=3, warmup=1)
     with torch.inference_mode():
+        fwd, dkv, dq = (f"flash_attn_fwd{suffix}", f"flash_attn_bwd_dkv{suffix}",
+                        f"flash_attn_bwd_dq{suffix}")
         res = {
-            "flash_attn_fwd": dict(
+            fwd: dict(
                 ms=_time_ms(torch, lambda: ac.flash_attn_fwd(q, k, v), iters=10),
                 plain_ms=_time_ms(torch, lambda: plain.flash_attn_fwd_plain(q, k, v), iters=3,
                                   warmup=1),
@@ -3415,14 +3531,14 @@ def _time_attention(torch, g):
                     q, k, v, is_causal=True), iters=10),
                 bound=_bound(3 * n + n + stats, 2 * causal_ops),
             ),
-            "flash_attn_bwd_dkv": dict(
+            dkv: dict(
                 ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd,
                 bound=_bound(4 * n + 2 * stats + 2 * n, 4 * causal_ops),
                 tc_bound=_tc_bound(4 * causal_ops),
             ),
-            "flash_attn_bwd_dq": dict(
+            dq: dict(
                 ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dq(q, k, v, do, lse, delta),
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd,
@@ -3430,8 +3546,7 @@ def _time_attention(torch, g):
                 tc_bound=_tc_bound(3 * causal_ops),
             ),
         }
-        res["flash_attn_bwd_dq"]["pair_ms"] = (res["flash_attn_bwd_dkv"]["ms"]
-                                               + res["flash_attn_bwd_dq"]["ms"])
+        res[dq]["pair_ms"] = res[dkv]["ms"] + res[dq]["ms"]
     del q, k, v, do, o, lse, delta, qs, ks, vs, out
     torch.cuda.empty_cache()
     return res

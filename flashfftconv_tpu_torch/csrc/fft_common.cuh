@@ -1,4 +1,6 @@
-// Device code shared by the FFT kernels (spectrum.cu, monarch_conv.cu).
+// Device code shared by the FFT kernels (monarch_conv_bwd.cu, band_conv.cu
+// and the long kernels; spectrum.cu and monarch_conv.cu take their row FFT
+// from row_fft.cuh and the pair splits and type conversions from here).
 //
 // One thread block owns one real row of length N = 2M. The row is packed as
 // an M-point complex signal z[n] = x[2n] + i x[2n+1] and held in shared

@@ -6,10 +6,12 @@
 // (def at l.589 of jax 0.9.0, pallas_call at l.758, body _flash_attention_kernel
 // at l.331). Its contract here is flash_mha's: the bias is added after the
 // scale (the Pallas kernel adds `ab` before it, so flash_mha pre-divides),
-// q, k, v f32, bf16 or f16 at head_dim 64 or 128, any B * H, any L >= 1,
-// causal or not, optional segment ids. It writes o in the operands' dtype and the row
-// logsumexp m + log(l) (f32, +inf for a row that sees no key) for the
-// backward, where the Pallas kernel saves l and m apart.
+// q, k, v f32, bf16 or f16 at head_dim 64, 128, 256, 384 or 512, any B * H,
+// any L >= 1, causal or not, optional segment ids. It writes o in the
+// operands' dtype and the row logsumexp m + log(l) (f32, +inf for a row
+// that sees no key) for the backward, where the Pallas kernel saves l and m
+// apart. Above D = 256 a block takes its 64-query tile as two parts of 32
+// queries, and each key tile as two parts of 32 keys (fwd_part).
 //
 // Design: attn_fwd (flash_attn_common.cuh) under FlashMask. One block owns
 // (b, h, a tile of 64 queries) and walks the key tiles, under causal up to

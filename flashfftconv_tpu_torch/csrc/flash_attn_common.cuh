@@ -22,6 +22,8 @@
 // address across a half-warp); one read along the columns is kept
 // transposed ((D, 65), one pad float a row, so that 16 neighbouring columns
 // and 32 neighbouring rows each fall on distinct banks).
+// Above D = 256 the same layout takes 32-row parts of the query and key
+// tiles (fwd_part).
 //
 // The backward (attn_bwd_dkv, attn_bwd_dq) runs its products on the tensor
 // cores (mma.sync m16n8k8 TF32, tf32_mma.cuh) with 128 threads: warp w owns
@@ -44,6 +46,8 @@
 // by 16-byte cp.async, issued before the current tile's products; bf16 and
 // f16 ones by 16-byte loads converted to f32 on the way in. The next tile's
 // row statistics wait in registers.
+// Above D = 128 the wide bodies (attn_bwd_dkv_wide, attn_bwd_dq_wide) keep
+// 16 rows and split D over D / 64 warps instead; see their section below.
 //
 // The three kernel bodies are written once over a mask policy, the kernel's
 // parameter, which says which tiles a block visits and which scores of a
@@ -80,7 +84,6 @@ namespace attn {
 constexpr int kTile = 64;         // queries and keys a tile
 constexpr int kThreads = 256;     // the forward's 16 x 16 threads, a 4 x 4 block of a tile each
 constexpr int kBwdThreads = 128;  // the backward's 4 warps, 16 rows of a tile each
-constexpr int kTS = kTile + 1;    // row stride of the forward's transposed (D, 64) tile
 
 // sm_scale arrives as the bits of an f32 (the ctypes interface passes ints)
 inline float scale_from_bits(int bits) {
@@ -261,69 +264,72 @@ inline bool aligned16(const void* q, const void* k, const void* v, const void* d
   return (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) & 15) == 0;
 }
 
-// Rows row0 .. row0 + 63 of a (L, D) slab into a row-major (64, D) f32 tile,
-// zeros past L. Neighbouring threads read neighbouring elements.
-template <int D, typename T>
+// Rows row0 .. row0 + R - 1 of a (L, D) slab into a row-major (R, D) f32
+// tile, zeros past L. Neighbouring threads read neighbouring elements.
+template <int D, typename T, int R = kTile>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int row0,
                                           int len) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, d = e % D;
     dst[e] = row0 + r < len ? to_f(src[(size_t)(row0 + r) * D + d]) : 0.f;
   }
 }
 
-// The same rows into a transposed (D, kTS) tile: dst[d * kTS + r].
-template <int D, typename T>
+// The same rows into a transposed (D, R + 1) tile: dst[d * (R + 1) + r].
+template <int D, typename T, int R = kTile>
 __device__ __forceinline__ void load_rows_t(float* dst, const T* __restrict__ src, int row0,
                                             int len) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    dst[d * kTS + r] = row0 + r < len ? to_f(src[(size_t)(row0 + r) * D + d]) : 0.f;
+    dst[d * (R + 1) + r] = row0 + r < len ? to_f(src[(size_t)(row0 + r) * D + d]) : 0.f;
   }
 }
 
-// acc[i][j] += sum_d A[4 ty + i][d] * Bt[d][tx + 16 j], A row-major (64, D),
-// Bt transposed (D, kTS): the (4, 4) block of a tile A B^T.
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A, const float* Bt,
-                                         int tx, int ty) {
+// acc[i][j] += sum_d A[N ty + i][d] * Bt[d][tx + 16 j], N = R / 16, A
+// row-major (R, D), Bt transposed (D, R + 1): the (N, N) block of a tile A B^T.
+template <int D, int R = kTile>
+__device__ __forceinline__ void tile_abt(float (&acc)[R / 16][R / 16], const float* A,
+                                         const float* Bt, int tx, int ty) {
+  constexpr int N = R / 16;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
-    float4 av[4];
+    float4 av[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * D + d);
+    for (int i = 0; i < N; ++i) av[i] = *reinterpret_cast<const float4*>(A + (N * ty + i) * D + d);
 #pragma unroll
     for (int dd = 0; dd < 4; ++dd) {
-      float bv[4];
+      float bv[N];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bt[(d + dd) * kTS + tx + 16 * j];
+      for (int j = 0; j < N; ++j) bv[j] = Bt[(d + dd) * (R + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < N; ++i) {
         const float a = dd == 0 ? av[i].x : dd == 1 ? av[i].y : dd == 2 ? av[i].z : av[i].w;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+        for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
       }
     }
   }
 }
 
-// acc[i][j] += sum_c P[4 ty + i][c] * B[c][tx + 16 j] over the 64 columns of
-// a row-major (64, 64) tile P, B row-major (64, D): the rows' block of P B.
-template <int D>
-__device__ __forceinline__ void tile_pb(float (&acc)[4][D / 16], const float* P, const float* B,
-                                        int tx, int ty) {
+// acc[i][j] += sum_c P[N ty + i][c] * B[c][tx + 16 j] over the R columns of
+// a row-major (R, R) tile P, B row-major (R, D), N = R / 16: the rows' block
+// of P B.
+template <int D, int R = kTile>
+__device__ __forceinline__ void tile_pb(float (&acc)[R / 16][D / 16], const float* P,
+                                        const float* B, int tx, int ty) {
+  constexpr int N = R / 16;
 #pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 pv[4];
+  for (int c = 0; c < R; c += 4) {
+    float4 pv[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kTile + c);
+    for (int i = 0; i < N; ++i) pv[i] = *reinterpret_cast<const float4*>(P + (N * ty + i) * R + c);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       float bv[D / 16];
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) bv[j] = B[(c + cc) * D + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < N; ++i) {
         const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
         for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p, bv[j], acc[i][j]);
@@ -350,27 +356,40 @@ __device__ __forceinline__ float row_sum(float v) {
 // gridDim.z, and a block past B * H returns at once.
 __device__ __forceinline__ int block_bh() { return blockIdx.y + gridDim.y * blockIdx.z; }
 
+// Queries, and keys, that the forward takes of a 64-row tile at once: the
+// whole tile up to D = 256 (214,016 B of shared memory there), 32 rows above
+// (tiles of 64 would take 312,832 B at D = 384, past the 232,448 a block may
+// have), the tile's halves walked in turn.
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return (2 * kTile * D + D * kTS + kTile * kTile) * sizeof(float);  // Qs, Vs, Kt, Ps
+__host__ __device__ constexpr int fwd_part() {
+  return D <= 256 ? kTile : kTile / 2;
 }
 
-// The forward: one block owns (b, h, a tile of 64 queries); the query tile
-// stays in shared memory while the block walks the key tiles its mask names,
-// each K tile transposed and each V tile row-major in shared memory. Scores,
-// the online softmax (running max m and sum l a row, rescaling the
-// accumulator by exp(m_old - m_new)) and the (64, D) accumulator live in
-// registers, f32 throughout. Query tiles run last first (under causal the
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  constexpr int R = fwd_part<D>();
+  return (2 * R * D + D * (R + 1) + R * R) * sizeof(float);  // Qs, Vs, Kt, Ps
+}
+
+// The forward: one block owns (b, h, a tile of 64 queries); the queries of a
+// part (R = fwd_part rows) stay in shared memory while the block walks the
+// key tiles its mask names, R keys at a time, each K part transposed and
+// each V part row-major in shared memory. Scores, the online softmax
+// (running max m and sum l a row, rescaling the accumulator by
+// exp(m_old - m_new)) and the (R, D) accumulator live in registers, f32
+// throughout: thread (ty, tx) owns rows N ty .. N ty + N - 1 (N = R / 16)
+// and columns tx + 16 j. Query tiles run last first (under causal the
 // heaviest first). Writes o and the logsumexp m + log(l).
 template <int D, typename T, typename Mask>
 __device__ __forceinline__ void attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
                                          const T* __restrict__ v, T* __restrict__ o,
                                          float* __restrict__ lse, const Mask& m) {
+  constexpr int R = fwd_part<D>(), N = R / 16;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // (64, D) queries, row-major
-  float* Vs = Qs + kTile * D;                    // (64, D) values, row-major
-  float* Kt = Vs + kTile * D;                    // (D, kTS) keys, transposed
-  float* Ps = Kt + D * kTS;                      // (64, 64) probabilities, row-major
+  float* Qs = reinterpret_cast<float*>(smem4);  // (R, D) queries, row-major
+  float* Vs = Qs + R * D;                        // (R, D) values, row-major
+  float* Kt = Vs + R * D;                        // (D, R + 1) keys, transposed
+  float* Ps = Kt + D * (R + 1);                  // (R, R) probabilities, row-major
   __shared__ int seg_q[kTile], seg_k[kTile];
 
   const int bh = block_bh();
@@ -380,71 +399,78 @@ __device__ __forceinline__ void attn_fwd(const T* __restrict__ q, const T* __res
   const int b = bh / m.heads, h = bh % m.heads;
   const size_t base = (size_t)bh * len * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qt * kTile;
-
-  load_rows<D>(Qs, q + base, q0, len);
-  m.load_seg(seg_q, b, q0, -1);
-
-  float acc[4][D / 16];
-  float mx_run[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mx_run[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  }
-
   const int n_kv = m.n_kv(qt);
-  for (int n = 0; n < n_kv; ++n) {
-    bool full;
-    const int k0 = m.kv_tile(qt, n, full) * kTile;
-    __syncthreads();  // the previous tile's Kt, Vs and Ps are read
-    load_rows_t<D>(Kt, k + base, k0, len);
-    load_rows<D>(Vs, v + base, k0, len);
-    m.load_seg(seg_k, b, k0, -2);
-    __syncthreads();
 
-    float s[4][4] = {};
-    tile_abt<D>(s, Qs, Kt, tx, ty);
+  for (int part = 0; part < kTile / R; ++part) {
+    // The previous part last read Qs and seg_q before its last barrier.
+    const int q0 = qt * kTile + part * R;
+    load_rows<D, T, R>(Qs, q + base, q0, len);
+    m.load_seg(seg_q, b, q0, -1);
+
+    float acc[N][D / 16];
+    float mx_run[N], l[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = 4 * ty + i;
-      float mx = -INFINITY;
+    for (int i = 0; i < N; ++i) {
+      mx_run[i] = -INFINITY;
+      l[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = m.score(b, h, q0 + rl, k0 + tx + 16 * j, s[i][j], full, seg_q[rl],
-                          seg_k[tx + 16 * j]);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(mx_run[i], row_max(mx));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(mx_run[i] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_use);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      mx_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[rl * kTile + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
     }
-    __syncthreads();
-    tile_pb<D>(acc, Ps, Vs, tx, ty);
-  }
+
+    for (int n = 0; n < n_kv; ++n) {
+      bool full;
+      const int kt0 = m.kv_tile(qt, n, full) * kTile;
+      for (int kp = 0; kp < kTile / R; ++kp) {
+        const int k0 = kt0 + kp * R;
+        __syncthreads();  // the previous part's Kt, Vs and Ps are read
+        load_rows_t<D, T, R>(Kt, k + base, k0, len);
+        load_rows<D, T, R>(Vs, v + base, k0, len);
+        m.load_seg(seg_k, b, k0, -2);
+        __syncthreads();
+
+        float s[N][N] = {};
+        tile_abt<D, R>(s, Qs, Kt, tx, ty);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int rl = N * ty + i;
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            s[i][j] = m.score(b, h, q0 + rl, k0 + tx + 16 * j, s[i][j], full, seg_q[rl],
+                              seg_k[tx + 16 * j]);
+            mx = fmaxf(mx, s[i][j]);
+          }
+          const float m_new = fmaxf(mx_run[i], row_max(mx));
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = expf(mx_run[i] - m_use);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            s[i][j] = expf(s[i][j] - m_use);
+            sum += s[i][j];
+          }
+          l[i] = l[i] * alpha + row_sum(sum);
+          mx_run[i] = m_new;
+#pragma unroll
+          for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
+#pragma unroll
+          for (int j = 0; j < N; ++j) Ps[rl * R + tx + 16 * j] = s[i][j];
+        }
+        __syncthreads();
+        tile_pb<D, R>(acc, Ps, Vs, tx, ty);
+      }
+    }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r >= len) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    for (int i = 0; i < N; ++i) {
+      const int r = q0 + N * ty + i;
+      if (r >= len) continue;
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) o[base + (size_t)r * D + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
-    if (tx == 0) lse[(size_t)bh * len + r] = l[i] > 0.f ? mx_run[i] + logf(l[i]) : INFINITY;
+      for (int j = 0; j < D / 16; ++j)
+        o[base + (size_t)r * D + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+      if (tx == 0) lse[(size_t)bh * len + r] = l[i] > 0.f ? mx_run[i] + logf(l[i]) : INFINITY;
+    }
   }
 }
 
@@ -475,26 +501,50 @@ __host__ __device__ constexpr int bwd_ld() {
   return D + 4;
 }
 
-// Two tiles the block keeps (K and V, or Q and dO) and two stages of the two
-// it walks.
+// Above D = 128 (the wide bodies below) a block keeps kWideRows rows of its
+// tile and walks wide_walk rows of the other side a step, one stage, with
+// one warp for every 64 columns of D.
+constexpr int kWideRows = 16;
+
 template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return 6 * kTile * bwd_ld<D>() * sizeof(float);
+__host__ __device__ constexpr int wide_walk() {
+  return D <= 256 ? kTile : kTile / 2;
 }
 
-// Rows row0 .. row0 + 63 of a (L, D) slab into a row-major (64, bwd_ld) f32
-// tile, zeros past L. f32 by 16-byte asynchronous copies, complete after the
-// next cp_async_wait that covers them (the zeros past L are plain stores);
-// bf16 and f16 by 16-byte loads, converted in registers. Unrolled by 2 only:
-// a full unroll keeps every piece's address in registers through the loop.
-template <int D, typename T>
+// The backward's threads a block: 4 warps up to D = 128, D / 64 above.
+template <int D>
+__host__ __device__ constexpr int bwd_threads() {
+  return D <= 128 ? kBwdThreads : 32 * (D / 64);
+}
+
+// Up to D = 128: two tiles the block keeps (K and V, or Q and dO) and two
+// stages of the two it walks. Above: the two kept parts of kWideRows rows,
+// the two walked parts, and the A fragments of p and ds (float4 a lane and
+// 8-key step) for the kept rows.
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  if constexpr (D <= 128) {
+    return 6 * kTile * bwd_ld<D>() * sizeof(float);
+  } else {
+    return (2 * kWideRows + 2 * wide_walk<D>()) * bwd_ld<D>() * sizeof(float) +
+           2 * (wide_walk<D>() / 8) * 32 * sizeof(float4);
+  }
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a (L, D) slab into a row-major (ROWS,
+// bwd_ld) f32 tile by THREADS threads, zeros past L. f32 by 16-byte
+// asynchronous copies, complete after the next cp_async_wait that covers
+// them (the zeros past L are plain stores); bf16 and f16 by 16-byte loads,
+// converted in registers. Unrolled by 2 only: a full unroll keeps every
+// piece's address in registers through the loop.
+template <int D, typename T, int ROWS = kTile, int THREADS = kBwdThreads>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
                                           int len) {
   constexpr int LD = bwd_ld<D>();
   if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 2
-    for (int i = 0; i < kTile * D / 4 / kBwdThreads; ++i) {
-      const int e = threadIdx.x + i * kBwdThreads, r = e / (D / 4), c = e % (D / 4) * 4;
+    for (int i = 0; i < ROWS * D / 4 / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS, r = e / (D / 4), c = e % (D / 4) * 4;
       if (row0 + r < len)
         cp_async16(dst + r * LD + c, src + (size_t)(row0 + r) * D + c);
       else
@@ -502,8 +552,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     }
   } else {
 #pragma unroll 2
-    for (int i = 0; i < kTile * D / 8 / kBwdThreads; ++i) {
-      const int e = threadIdx.x + i * kBwdThreads, r = e / (D / 8), c = e % (D / 8) * 8;
+    for (int i = 0; i < ROWS * D / 8 / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS, r = e / (D / 8), c = e % (D / 8) * 8;
       float x[8] = {};
       if (row0 + r < len) {
         const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
@@ -699,19 +749,19 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (
   }
 }
 
-// The warp's accumulator times mul into rows row0 .. row0 + 15 of a (L, D)
-// slab, rows past L dropped.
-template <int D, typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[D / 8][4],
-                                           int row0, int len, float mul) {
+// The warp's accumulator (N C fragments: columns c0 .. c0 + 8 N - 1) times
+// mul into rows row0 .. row0 + 15 of a (L, D) slab, rows past L dropped.
+template <int D, typename T, int N>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[N][4],
+                                           int row0, int len, float mul, int c0 = 0) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + g + 8 * i;
     if (r >= len) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      T* out = dst + (size_t)r * D + 8 * n + 2 * t;
+    for (int n = 0; n < N; ++n) {
+      T* out = dst + (size_t)r * D + c0 + 8 * n + 2 * t;
       out[0] = from_f<T>(acc[n][2 * i] * mul);
       out[1] = from_f<T>(acc[n][2 * i + 1] * mul);
     }
@@ -920,6 +970,247 @@ __device__ __forceinline__ void attn_bwd_dq(const T* __restrict__ q, const T* __
   store_rows<D>(dq + base, acc, q0 + r0, len, m.scale);
 }
 
+// --- the backward above D = 128 ----------------------------------------------
+//
+// At D = 128 a warp's dk and dv accumulators over its 16 rows take 128
+// registers a thread, and the tiles 202,752 B of shared memory; both grow
+// with D. Above D = 128 a block therefore keeps kWideRows = 16 rows of its
+// 64-row tile (K and V, or Q and dO: the tile's four parts in turn), walks
+// the other side wide_walk rows a step (64 at D = 256, 32 at 384 and 512),
+// each walked tile of the mask's list in parts, with one load stage, and has
+// D / 64 warps: the warps split D into 64-column chunks of the accumulators
+// (dk, dv: 64 registers a thread at any D). The score tiles s and dp need
+// all of D: each warp computes whole 16 x 8 score tiles over D (the walk's
+// W / 8 of them shared out over the warps), turns them into p and ds in
+// registers and leaves them in shared memory as A fragments (float4 a lane:
+// the C fragment in frag_a_of_c's order); every warp then reads all of them
+// for its chunk of dv += p^T do and dk += ds^T q (or dq += ds k). Shared
+// memory: 174,592 B at D = 256, 153,088 B at 384, 202,240 B at 512.
+
+// A score tile's C fragment c (p or ds) as the A fragment its consumer reads.
+__device__ __forceinline__ float4 frag_of_c(const float (&c)[4]) {
+  return make_float4(c[0], c[2], c[1], c[3]);
+}
+
+// acc (the warp's 16 rows by the 64 columns c0 .., as 8 C fragments) += P B
+// over the W walked rows: P the (16, W) fragments frags[j * 32 + lane] of
+// 8-row step j (frag_of_c), B rows 0 .. W - 1 of a row-major (W, bwd_ld)
+// tile. Each step's terms are summed apart and added in f32, as in
+// accumulate.
+template <int D, int W, bool kSplitB>
+__device__ __forceinline__ void accumulate_wide(float (&acc)[8][4], const float4* frags,
+                                                const float* B, int c0) {
+  // The steps unroll by 2, by 1 at D = 512, where a second step's fragments
+  // took the dQ body 8 bytes of stack in bf16 and f16 at 255 registers.
+  constexpr int LD = bwd_ld<D>(), G = 4, kUnroll = D == 512 ? 1 : 2;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n0 = 0; n0 < 8; n0 += G) {
+    float part[G][4] = {};
+#pragma unroll kUnroll
+    for (int j = 0; j < W / 8; ++j) {
+      const float4 f = frags[j * 32 + lane];
+      uint32_t ah[4], al[4];
+      split_tf32<true>(f.x, ah[0], al[0]);
+      split_tf32<true>(f.y, ah[1], al[1]);
+      split_tf32<true>(f.z, ah[2], al[2]);
+      split_tf32<true>(f.w, ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < G; ++n) {
+        uint32_t bh[2], bl[2];
+        frag_b_perm<LD, kSplitB>(bh, bl, B, 8 * j, c0 + 8 * (n0 + n));
+        mma_split<true, kSplitB>(part[n], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < G; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+  }
+}
+
+// dK/dV above D = 128: one block owns (b, h, a tile of 64 keys) and takes its
+// four parts of 16 keys in turn, each over every query tile its mask names.
+template <int D, typename T, typename Mask>
+__device__ __forceinline__ void attn_bwd_dkv_wide(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, const Mask& m) {
+  constexpr int LD = bwd_ld<D>(), R = kWideRows, W = wide_walk<D>();
+  constexpr int NW = D / 64, NTH = bwd_threads<D>();
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // (R, LD) keys
+  float* Vs = Ks + R * LD;                       // (R, LD) values
+  float* Qs = Vs + R * LD;                       // (W, LD) queries
+  float* dOs = Qs + W * LD;                      // (W, LD) output grads
+  float4* Pf = reinterpret_cast<float4*>(dOs + W * LD);  // (W / 8, 32) fragments of p^T
+  float4* DSf = Pf + (W / 8) * 32;                        // and of ds^T
+  __shared__ float lse_s[kTile], delta_s[kTile];
+  __shared__ int seg_q[kTile], seg_k[kTile];
+
+  const int bh = block_bh();
+  if (bh >= m.batch * m.heads) return;
+  const int len = m.len, kt = blockIdx.x, b = bh / m.heads, h = bh % m.heads;
+  const size_t base = (size_t)bh * len * D, row_base = (size_t)bh * len;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_q = m.n_q(kt);
+
+  for (int part = 0; part < kTile / R; ++part) {
+    const int k0 = kt * kTile + part * R;
+    __syncthreads();  // the previous part's Ks, Vs and seg_k are read
+    load_tile<D, T, R, NTH>(Ks, k + base, k0, len);
+    load_tile<D, T, R, NTH>(Vs, v + base, k0, len);
+    m.load_seg(seg_k, b, k0, -2);
+    float acc_dk[8][4] = {}, acc_dv[8][4] = {};
+    for (int n = 0; n < n_q; ++n) {
+      bool full;
+      const int qt0 = m.q_tile(kt, n, full) * kTile;
+      for (int wp = 0; wp < kTile / W; ++wp) {
+        const int q0 = qt0 + wp * W;
+        __syncthreads();  // the previous step's Qs, dOs, fragments and statistics are read
+        load_tile<D, T, W, NTH>(Qs, q + base, q0, len);
+        load_tile<D, T, W, NTH>(dOs, dout + base, q0, len);
+        if (threadIdx.x < W) {
+          const RowStats st = row_stats(m, lse, delta, b, row_base, q0 + threadIdx.x);
+          lse_s[threadIdx.x] = st.lse;
+          delta_s[threadIdx.x] = st.delta;
+          seg_q[threadIdx.x] = st.seg;
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+
+#pragma unroll 1
+        for (int j = warp; j < W / 8; j += NW) {  // s^T, dp^T of the 16 keys, queries 8 j ..
+          float s[1][4], dp[1][4];
+          asm volatile("" ::: "memory");
+          score_tiles<D, 1, kSplit>(s, dp, Ks, Qs, Vs, dOs, 0, 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kr = g + 8 * (e >> 1), qc = 8 * j + 2 * t + (e & 1);
+            const float x = m.score(b, h, q0 + qc, k0 + kr, s[0][e], full, seg_q[qc],
+                                    seg_k[kr]);
+            const float p = x == -INFINITY ? 0.f : fast_exp2((x - lse_s[qc]) * kLog2e);
+            s[0][e] = p;
+            dp[0][e] = p * (dp[0][e] - delta_s[qc]);
+          }
+          Pf[j * 32 + lane] = frag_of_c(s[0]);
+          DSf[j * 32 + lane] = frag_of_c(dp[0]);
+        }
+        __syncthreads();
+        accumulate_wide<D, W, kSplit>(acc_dv, Pf, dOs, 64 * warp);   // dv += p^T do
+        accumulate_wide<D, W, kSplit>(acc_dk, DSf, Qs, 64 * warp);   // dk += ds^T q
+      }
+    }
+    store_rows<D>(dk + base, acc_dk, k0, len, m.scale, 64 * warp);
+    store_rows<D>(dv + base, acc_dv, k0, len, 1.f, 64 * warp);
+  }
+}
+
+// dQ above D = 128: one block owns (b, h, a tile of 64 queries) and takes its
+// four parts of 16 queries in turn, each over every key tile its mask names.
+template <int D, typename T, typename Mask>
+__device__ __forceinline__ void attn_bwd_dq_wide(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, float* __restrict__ ds_out, const Mask& m) {
+  constexpr int LD = bwd_ld<D>(), R = kWideRows, W = wide_walk<D>();
+  constexpr int NW = D / 64, NTH = bwd_threads<D>();
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // (R, LD) queries
+  float* dOs = Qs + R * LD;                      // (R, LD) output grads
+  float* Ks = dOs + R * LD;                      // (W, LD) keys
+  float* Vs = Ks + W * LD;                       // (W, LD) values
+  float4* DSf = reinterpret_cast<float4*>(Vs + W * LD);  // (W / 8, 32) fragments of ds
+  __shared__ float lse_s[kWideRows], delta_s[kWideRows];
+  __shared__ int seg_q[kWideRows], seg_k[kTile];
+
+  const int bh = block_bh();
+  if (bh >= m.batch * m.heads) return;
+  const int len = m.len, qt = m.n_tiles - 1 - blockIdx.x, b = bh / m.heads, h = bh % m.heads;
+  const size_t base = (size_t)bh * len * D, row_base = (size_t)bh * len;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_kv = m.n_kv(qt);
+
+  for (int part = 0; part < kTile / R; ++part) {
+    const int q0 = qt * kTile + part * R;
+    __syncthreads();  // the previous part's Qs, dOs and statistics are read
+    load_tile<D, T, R, NTH>(Qs, q + base, q0, len);
+    load_tile<D, T, R, NTH>(dOs, dout + base, q0, len);
+    if (threadIdx.x < R) {
+      const RowStats st = row_stats(m, lse, delta, b, row_base, q0 + threadIdx.x);
+      lse_s[threadIdx.x] = st.lse;
+      delta_s[threadIdx.x] = st.delta;
+      seg_q[threadIdx.x] = st.seg;
+    }
+    float acc[8][4] = {};
+    for (int n = 0; n < n_kv; ++n) {
+      bool full;
+      const int kt0 = m.kv_tile(qt, n, full) * kTile;
+      for (int wp = 0; wp < kTile / W; ++wp) {
+        const int k0 = kt0 + wp * W;
+        __syncthreads();  // the previous step's Ks, Vs, fragments and seg_k are read
+        load_tile<D, T, W, NTH>(Ks, k + base, k0, len);
+        load_tile<D, T, W, NTH>(Vs, v + base, k0, len);
+        if (threadIdx.x < W) seg_k[threadIdx.x] = m.seg_at(b, k0 + threadIdx.x, -2);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+
+#pragma unroll 1
+        for (int j = warp; j < W / 8; j += NW) {  // s, dp of the 16 queries, keys 8 j ..
+          float s[1][4], dp[1][4];
+          asm volatile("" ::: "memory");
+          score_tiles<D, 1, kSplit>(s, dp, Qs, Ks, dOs, Vs, 0, 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rl = g + 8 * (e >> 1), kc = 8 * j + 2 * t + (e & 1);
+            const int r = q0 + rl, c = k0 + kc;
+            const float x = m.score(b, h, r, c, s[0][e], full, seg_q[rl], seg_k[kc]);
+            const float p = x == -INFINITY ? 0.f : fast_exp2((x - lse_s[rl]) * kLog2e);
+            dp[0][e] = p * (dp[0][e] - delta_s[rl]);
+            if (ds_out != nullptr && r < len && c < len)
+              ds_out[(row_base + r) * len + c] = dp[0][e];
+          }
+          DSf[j * 32 + lane] = frag_of_c(dp[0]);
+        }
+        __syncthreads();
+        accumulate_wide<D, W, kSplit>(acc, DSf, Ks, 64 * warp);  // dq += ds k
+      }
+    }
+    store_rows<D>(dq + base, acc, q0, len, m.scale, 64 * warp);
+  }
+}
+
+// The backward bodies for every head_dim the kernels take.
+template <int D, typename T, typename Mask>
+__device__ __forceinline__ void bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+                                        const T* __restrict__ v, const T* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, T* __restrict__ dk,
+                                        T* __restrict__ dv, const Mask& m) {
+  if constexpr (D <= 128)
+    attn_bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
+  else
+    attn_bwd_dkv_wide<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
+}
+
+template <int D, typename T, typename Mask>
+__device__ __forceinline__ void bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                                       const T* __restrict__ v, const T* __restrict__ dout,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta, T* __restrict__ dq,
+                                       float* __restrict__ ds_out, const Mask& m) {
+  if constexpr (D <= 128)
+    attn_bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
+  else
+    attn_bwd_dq_wide<D, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
+}
+
 // --- launching ---------------------------------------------------------------
 
 template <int D>
@@ -938,12 +1229,23 @@ cudaError_t dispatch_dtype(int dtype, Dim dim, F f) {
   return cudaErrorInvalidValue;
 }
 
-// f(HeadDim<D>{}, T{}) for the operands' head_dim (64 or 128) and dtype
-// (DType: f32, bf16 or f16); an invalid value for any other.
+// The largest head_dim the kernels take. Above D = 128 the backward keeps 16
+// rows (the tensor cores' smallest tile) and walks at least 32 a step (four
+// 8-key score tiles to share out over the warps): (2 x 16 + 2 x 32) rows at a
+// stride of D + 4 floats and 4,096 B of fragments fit the 232,448 B a block
+// may have up to D = 590; the next multiple of 128, D = 640, needs
+// 251,392 B (and the forward's 32-row parts 252,416 B).
+constexpr int kMaxHeadDim = 512;
+
+// f(HeadDim<D>{}, T{}) for the operands' head_dim (64, 128, 256, 384 or 512)
+// and dtype (DType: f32, bf16 or f16); an invalid value for any other.
 template <typename F>
 cudaError_t dispatch(int head_dim, int dtype, F f) {
   if (head_dim == 64) return dispatch_dtype(dtype, HeadDim<64>{}, f);
   if (head_dim == 128) return dispatch_dtype(dtype, HeadDim<128>{}, f);
+  if (head_dim == 256) return dispatch_dtype(dtype, HeadDim<256>{}, f);
+  if (head_dim == 384) return dispatch_dtype(dtype, HeadDim<384>{}, f);
+  if (head_dim == 512) return dispatch_dtype(dtype, HeadDim<512>{}, f);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Device code shared by the long-FFT kernels (butterfly.cu, long_conv.cu,
 // long_spectrum.cu), for FFT sizes N from 65536 up, and the in-register line
-// transforms (line_fft, line_fft_const) that spectrum.cu uses too.
+// transforms (line_fft, line_fft_const) that row_fft.cuh (spectrum.cu,
+// monarch_conv.cu) uses too.
 //
 // The packed M = N/2 point complex signal is viewed as (F, R): the butterfly
 // kernels take the F-point DFT down the columns and multiply by the outer
@@ -146,7 +147,7 @@ __device__ __forceinline__ void fft_level_const(float2* v) {
 }
 
 // Forward line_fft of the F points at v with the 32nd roots as literals in
-// place of a roots table (spectrum.cu, whose lines are slices of a longer
+// place of a roots table (row_fft.cuh, whose lines are slices of a longer
 // register array).
 template <int F, int LEN = 2>
 __device__ __forceinline__ void line_fft_const(float2* v) {

@@ -7,147 +7,350 @@
 // multiplies by the kernel spectrum, runs the inverse FFT, truncates to L,
 // applies the optional postgate and writes the output at u's dtype.
 //
-// Design on the H100. The TPU kernel packs two batch rows as one complex
-// signal and keeps a full N-point complex tile (128 KB in f32 at N = 16384)
-// in VMEM. Here one block owns one (b, h) row and packs its even and odd
-// samples as one M = N/2 point complex signal instead (fft_conv's real input
-// is exploited once, any B works and no partner row is needed), so a row is
-// 8M bytes of shared memory: 64 KB at N = 16384, three blocks an SM, and
-// 128 KB at N = 32768, which still fits the 227 KB a block may have. The
-// kernel spectrum comes in as the f32 half spectrum (H, M+1) from
-// spectrum.cu. Blocks are ordered channel-major so the B rows of one channel
-// run together and share its spectrum in L2. Any B, H and L <= N are taken:
-// the load masks the ragged end and the store truncates.
-//
 // Bound on the H100: at B=4, H=768, L=8192, N=16384 (bf16, ungated) the
 // kernel must move 50 MB of u, 50 MB of output and 50 MB of f32 spectrum,
 // about 45 us at 3.35 TB/s, and do two 8192-point complex FFTs a row in f32
-// FMA (radix-2 lines, about 5 M log2 M operations each, plus the stage and
-// split twiddles): about 4.3 GFLOP, about 64 us at 67 TFLOP/s. So the f32
-// pipes bound it; tensor-core DFTs (mma.sync / wgmma on bf16 operands) are
-// the later step that moves that bound.
+// (about 5 M log2 M operations each, plus the stage and split twiddles):
+// about 4.3 GFLOP, about 64 us at 67 TFLOP/s. So the f32 pipes bound it.
+//
+// Design. Each (b, h) row is packed, its even and odd samples, as one
+// M = N/2 point complex signal (the TPU kernel packs two batch rows
+// instead; here any B works). One instantiation per FFT size,
+// dtype and gating (monarch_conv_kernel<LOG_M, T, GATED>, N = 16 ... 32768;
+// the C entry dispatches on N) of the in-register row FFT of row_fft.cuh:
+// T = M/P threads a row, P points each, every index a compile-time constant
+// (ptxas: no stack frame, no spills), XOR-swizzled shared memory, stage and
+// split twiddles from a table of coarse and fine roots. The row's M points
+// take 8M bytes of shared memory: 64 KB at N = 16384, 128 KB at 32768.
+//   - Forward, stage 0: each thread loads E packed points (16 bytes: 4 f32
+//     or 8 bf16 samples, E = 2 or 4) a step straight from device memory, u
+//     and the pregate, into E lines of P/E points; scalar loads only at a
+//     ragged end or on a row off a 16-byte boundary; samples past L are
+//     zeros that are never loaded. The pregate product is rounded to T, as
+//     u * pregate is in the JAX package and in the plain version.
+//   - The later stages as in spectrum.cu; the last writes Z in natural
+//     frequency order.
+//   - The pointwise pass, between the last forward stage and the first
+//     inverse stage: each thread takes frequency pairs (f, M - f), f = tr +
+//     T q, from the natural-order Z in shared memory into registers: split
+//     (fft_common.cuh split_pair), the product with the kernel's half
+//     spectrum k_f (H, M+1) from spectrum.cu, unsplit, the conjugate, and
+//     back to the same two slots. The inverse FFT is the same forward
+//     transform of the conjugate, conjugated at the store. (Fusing the pass
+//     into the inverse stage 0, whose thread then owns lines r and R0 - r,
+//     ran 1-4% faster on an H100 but left 24-128 bytes of stack in six
+//     instances at 128 registers; PERF.md.)
+//   - The last inverse stage writes natural order; the store reads E points
+//     a thread and writes them as one 16-byte store, times the postgate (a
+//     16-byte load), scaled by 1/M, truncated at L.
+// Registers: P = 32 points a thread take 64 of the 128 that 256 threads (two
+// blocks an SM) may have; every instance has 0 bytes of stack. The row's
+// offset and the inverse's index math are recomputed from a second read of
+// threadIdx.x (fresh_tid) rather than kept through the FFTs, and the inverse
+// stage 0 takes its lines in another thread order than the store reads its
+// points (thread tr the lines of tr ^ 1), so that no slot address lives from
+// one to the other. N = 8192 (128 threads) is compiled for three blocks an
+// SM (170 registers) instead of four.
+// Blocks run channel-major, so the B rows of one channel run together and
+// share its spectrum in L2. Every output has one writer: two calls give the
+// same bits.
+//
+// C entry: ffc_monarch_conv(u, pre, post, k_f, out, split_tw, batch,
+// channels, length, n, dtype, stream), n the FFT size; the plan's
+// split_tw (exp(-2 pi i m / N), m = 0 .. M) is its only table, the plan's
+// factors and stage twiddles do not enter.
 
-#include "fft_common.cuh"
+#include "row_fft.cuh"
 
 namespace ffc {
+namespace mconv {
 
-// x[i] of the (gated) input, 0 past the end. The pregate product is rounded
-// to T, as u * pregate is in the JAX package and in the plain version.
+using namespace row;
+
+// The row configuration for samples of type T: E = 16 bytes / (2 sizeof T)
+// packed points a load.
+template <int LOG_M, typename T>
+using CfgT = Cfg<LOG_M, sizeof(T) == 4 ? 1 : 2>;
+
+// Samples i .. i + 16/sizeof(T) - 1 of the (gated) input into x: one
+// 16-byte load of each operand where the row is aligned and whole there,
+// load_real (long_common.cuh) a sample otherwise.
 template <typename T, bool GATED>
-__device__ __forceinline__ float load_in(const T* __restrict__ u, const T* __restrict__ pre,
-                                         int i, int length) {
-  if (i >= length) return 0.f;
-  if (GATED) return to_f(from_f<T>(to_f(u[i]) * to_f(pre[i])));
-  return to_f(u[i]);
+__device__ __forceinline__ void load_vec(float* x, const T* __restrict__ u,
+                                         const T* __restrict__ pre, int i, int length,
+                                         bool aligned) {
+  constexpr int kN = 16 / sizeof(T);
+  if (aligned && i + kN <= length) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(u + i));
+    const T* ua = reinterpret_cast<const T*>(&a);
+    if constexpr (GATED) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(pre + i));
+      const T* pb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) x[c] = to_f(from_f<T>(to_f(ua[c]) * to_f(pb[c])));
+    } else {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) x[c] = to_f(ua[c]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) x[c] = load_real<T, GATED>(u, pre, i + c, length);
+  }
 }
 
+// y (16/sizeof(T) samples, times the postgate) to out[i ..], truncated at L.
 template <typename T, bool GATED>
-__device__ __forceinline__ void store_out(T* __restrict__ out, const T* __restrict__ post, int i,
-                                          int length, float y) {
-  if (i >= length) return;
-  if (GATED) y *= to_f(post[i]);
-  out[i] = from_f<T>(y);
+__device__ __forceinline__ void store_vec(T* __restrict__ out, const T* __restrict__ post,
+                                          int i, int length, bool aligned, float* y) {
+  constexpr int kN = 16 / sizeof(T);
+  if (aligned && i + kN <= length) {
+    if constexpr (GATED) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(post + i));
+      const T* pb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) y[c] *= to_f(pb[c]);
+    }
+    uint4 r;
+    T* rt = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) rt[c] = from_f<T>(y[c]);
+    *reinterpret_cast<uint4*>(out + i) = r;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) store_real<T, GATED>(out, post, i + c, length, y[c]);
+  }
 }
 
-template <typename T, bool GATED>
-__global__ void __launch_bounds__(kThreads)
+// The pointwise pass of one frequency pair, f and M - f, from the forward
+// FFT's natural-order output in s: split into X[f], X[M - f], times k_f,
+// unsplit, conjugated for the inverse transform, into za (for f) and zb
+// (for M - f). f = 0 pairs with Z[M] = Z[0] and k_f[M].
+template <class C>
+__device__ __forceinline__ void pointwise(float2& za, float2& zb, int f, const float2* s,
+                                          const float2* __restrict__ kf, const float2* tab) {
+  const float2 ka = __ldg(kf + f), kb = __ldg(kf + C::kM - f);
+  const float2 w = root<C>(tab, f);
+  float2 xa, xb, ya, yb;
+  split_pair(s[swz(f)], s[swz((C::kM - f) & (C::kM - 1))], w, xa, xb);
+  unsplit_pair(cmul(xa, ka), cmul(xb, kb), w, ya, yb);
+  za = make_float2(ya.x, -ya.y);
+  zb = make_float2(yb.x, -yb.y);
+}
+
+// A frequency that is its own partner (f = 0 or M/2).
+template <class C>
+__device__ __forceinline__ void pointwise_self(float2& z, int f, const float2* s,
+                                               const float2* __restrict__ kf, const float2* tab) {
+  float2 unused;
+  pointwise<C>(z, unused, f, s, kf, tab);
+}
+
+// The offset of the row of thread tid in the (B, H, L) operands, and its
+// channel h: blocks run channel-major (row = h B + b). False past B * H.
+template <class C>
+__device__ __forceinline__ bool row_offset(int tid, int batch, int channels, int length,
+                                           size_t& off, int& h) {
+  const int row = blockIdx.x * C::kRows + tid / C::kT;
+  const bool active = row < batch * channels;
+  h = active ? row / batch : 0;
+  off = ((size_t)(active ? row - h * batch : 0) * channels + h) * length;
+  return active;
+}
+
+// threadIdx.x, read anew. The inverse FFT's index math (line bases, swizzled
+// slots, frequencies) is the forward's over again, and the store needs the
+// row's offset that the loads had: computed from a second read (which the
+// compiler cannot merge with the first), each is recomputed where it is used
+// instead of being kept in registers through the FFTs, which took the sizes
+// from N = 8192 up past 128 registers.
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* a, const T* b, const T* c, const T* d) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) &
+          15) == 0;
+}
+
+// Blocks an SM the kernel is compiled for: spectrum's, but three at N = 8192.
+template <int LOG_M, typename T>
+constexpr int min_blocks() {
+  return LOG_M == 12 ? 3 : CfgT<LOG_M, T>::kMinBlocks;
+}
+
+template <int LOG_M, typename T, bool GATED>
+__global__ void __launch_bounds__(CfgT<LOG_M, T>::kThreads, min_blocks<LOG_M, T>())
     monarch_conv_kernel(const T* __restrict__ u, const T* __restrict__ pre,
                         const T* __restrict__ post, const float2* __restrict__ k_f,
-                        T* __restrict__ out, const float2* __restrict__ tw,
-                        const float2* __restrict__ split_tw, const float2* __restrict__ roots_g,
-                        int batch, int channels, int length, Plan p) {
-  extern __shared__ float2 s[];
-  __shared__ float2 roots[kMaxFactor];
-  const int m = p.m;
-  const int h = blockIdx.x / batch;
-  const int b = blockIdx.x - h * batch;
-  const size_t row = ((size_t)b * channels + h) * length;
-  u += row;
-  out += row;
-  if (GATED) {
-    pre += row;
-    post += row;
+                        T* __restrict__ out, const float2* __restrict__ split_tw, int batch,
+                        int channels, int length) {
+  using C = CfgT<LOG_M, T>;
+  constexpr int kM = C::kM, kT = C::kT, kP = C::kP, kE = C::kE, kF0 = C::kF0, kR0 = C::kR0;
+  extern __shared__ float4 smem_raw[];
+  float2* smem = reinterpret_cast<float2*>(smem_raw);
+  int tr = threadIdx.x % kT;
+  float2* s = smem + (threadIdx.x / kT) * kM;
+  float2* tab = smem + C::kRows * kM;
+  size_t off;
+  int h;
+
+  // Forward stage 0's lines r = E tr + e, e < E: v[e * F0 + j] = z[j * R0 + r],
+  // the packed points of samples 2E (j T + tr) .. + 2E - 1. One alignment
+  // flag for every operand: the rows of u, the gates and out share off.
+  float2 v[kP];
+  {
+    const bool active = row_offset<C>(threadIdx.x, batch, channels, length, off, h);
+    const bool aligned = GATED ? aligned16(u + off, pre + off, post + off, out + off)
+                               : aligned16(u + off, u + off, out + off, out + off);
+#pragma unroll
+    for (int j = 0; j < kF0; ++j) {
+      const int i = 2 * kE * (j * kT + tr);
+      float x[2 * kE];
+#pragma unroll
+      for (int c = 0; c < 2 * kE; ++c) x[c] = 0.f;
+      if (active && i < length)
+        load_vec<T, GATED>(x, u + off, GATED ? pre + off : nullptr, i, length, aligned);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) v[e * kF0 + j] = make_float2(x[2 * e], x[2 * e + 1]);
+    }
   }
-  k_f += (size_t)h * (m + 1);
-  load_roots(roots, roots_g);
-  for (int n = threadIdx.x; n < m; n += blockDim.x) {
-    s[slot(n)] = make_float2(load_in<T, GATED>(u, pre, 2 * n, length),
-                             load_in<T, GATED>(u, pre, 2 * n + 1, length));
+  load_table<C>(tab, split_tw);
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kE; ++e) first_stage_line<C>(v + e * kF0, s, tab, kE * tr + e);
+  mid_stages<C>(v, s, tab, tr);
+  last_stage<C>(v, s, tr);
+  __syncthreads();
+
+  // The pointwise pass: pairs (f, M - f), f = tr + T q < M/2, and M/2 alone.
+  {
+    row_offset<C>(fresh_tid(), batch, channels, length, off, h);
+    const float2* kf = k_f + (size_t)h * (kM + 1);
+#pragma unroll
+    for (int q = 0; q < kP / 2; ++q) {
+      const int f = tr + kT * q;
+      float2 za, zb;
+      pointwise<C>(za, zb, f, s, kf, tab);
+      s[swz(f)] = za;
+      if (f != 0) s[swz(kM - f)] = zb;
+    }
+    if (tr == 0) {
+      float2 z;
+      pointwise_self<C>(z, kM / 2, s, kf, tab);
+      s[swz(kM / 2)] = z;
+    }
   }
   __syncthreads();
-  forward_fft(s, p, tw, roots);
-
-  // Pointwise in frequency: split the pair (k, M-k) into the half spectrum
-  // of the real row, multiply by the kernel's, and pack it back.
-  for (int f = threadIdx.x; f <= m / 2; f += blockDim.x) {
-    const int sk = freq_slot(f, p);
-    const int sm = freq_slot((m - f) & (m - 1), p);
-    const float2 w = __ldg(split_tw + f);
-    float2 xk, xm, zk, zm;
-    split_pair(s[sk], s[sm], w, xk, xm);
-    unsplit_pair(cmul(xk, __ldg(k_f + f)), cmul(xm, __ldg(k_f + m - f)), w, zk, zm);
-    s[sk] = zk;
-    if (f != 0) s[sm] = zm;
+  // The inverse FFT of the conjugate; its stage 0 on the lines of thread
+  // tr ^ 1 (see the registers note above).
+  tr = fresh_tid() % kT;
+  s = smem + (fresh_tid() / kT) * kM;
+  {
+    const int t0 = tr ^ (kT > 1 ? 1 : 0);
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+#pragma unroll
+      for (int j = 0; j < kF0; ++j) v[e * kF0 + j] = s[swz(j * kR0 + kE * t0 + e)];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) first_stage_line<C>(v + e * kF0, s, tab, kE * t0 + e);
   }
+  mid_stages<C>(v, s, tab, tr);
+  last_stage<C>(v, s, tr);
   __syncthreads();
-  inverse_fft(s, p, tw, roots);
+  if (!row_offset<C>(fresh_tid(), batch, channels, length, off, h)) return;
+  const bool aligned = GATED ? aligned16(u + off, pre + off, post + off, out + off)
+                             : aligned16(u + off, u + off, out + off, out + off);
 
-  const float scale = 1.f / (float)m;
-  for (int n = threadIdx.x; n < m; n += blockDim.x) {
-    const float2 z = s[slot(n)];
-    store_out<T, GATED>(out, post, 2 * n, length, z.x * scale);
-    store_out<T, GATED>(out, post, 2 * n + 1, length, z.y * scale);
+  // y[2n] + i y[2n+1] = conj(s[n]) / M; E points (16 bytes of T) a store.
+  const float scale = 1.f / (float)kM;
+#pragma unroll
+  for (int q = 0; q < kP / kE; ++q) {
+    const int n0 = kE * (tr + kT * q), i = 2 * n0;
+    if (i >= length) continue;
+    float y[2 * kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const float2 z = s[swz(n0 + e)];
+      y[2 * e] = z.x * scale;
+      y[2 * e + 1] = -z.y * scale;
+    }
+    store_vec<T, GATED>(out + off, GATED ? post + off : nullptr, i, length, aligned, y);
   }
 }
 
-template <typename T, bool GATED>
-cudaError_t launch(const void* u, const void* pre, const void* post, const void* k_f, void* out,
-                   const void* tw, const void* split_tw, const void* roots, int batch,
-                   int channels, int length, const Plan& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.m);
-  auto kernel = monarch_conv_kernel<T, GATED>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)(batch * channels), kThreads, smem, stream>>>(
+template <int LOG_M, typename T, bool GATED>
+cudaError_t launch_one(const void* u, const void* pre, const void* post, const void* k_f,
+                       void* out, const void* split_tw, int batch, int channels, int length,
+                       cudaStream_t stream) {
+  using C = CfgT<LOG_M, T>;
+  auto kernel = monarch_conv_kernel<LOG_M, T, GATED>;
+  if constexpr (C::kSmem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (int)(((long long)batch * channels + C::kRows - 1) / C::kRows);
+  kernel<<<blocks, C::kThreads, C::kSmem, stream>>>(
       (const T*)u, (const T*)pre, (const T*)post, (const float2*)k_f, (T*)out,
-      (const float2*)tw, (const float2*)split_tw, (const float2*)roots, batch, channels, length,
-      p);
+      (const float2*)split_tw, batch, channels, length);
   return cudaGetLastError();
 }
 
+// dtype: 0 = float32, 1 = bfloat16.
+template <int LOG_M>
+cudaError_t launch(const void* u, const void* pre, const void* post, const void* k_f, void* out,
+                   const void* split_tw, int batch, int channels, int length, int dtype,
+                   cudaStream_t st) {
+  const bool gated = pre != nullptr;
+  if (dtype == 0)
+    return gated ? launch_one<LOG_M, float, true>(u, pre, post, k_f, out, split_tw, batch,
+                                                  channels, length, st)
+                 : launch_one<LOG_M, float, false>(u, pre, post, k_f, out, split_tw, batch,
+                                                   channels, length, st);
+  if (dtype == 1)
+    return gated ? launch_one<LOG_M, __nv_bfloat16, true>(u, pre, post, k_f, out, split_tw,
+                                                          batch, channels, length, st)
+                 : launch_one<LOG_M, __nv_bfloat16, false>(u, pre, post, k_f, out, split_tw,
+                                                           batch, channels, length, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace mconv
 }  // namespace ffc
 
-// dtype: 0 = float32, 1 = bfloat16. pre and post are both null (ungated) or
-// both set (gated).
+// n: the FFT size (16 ... 32768, a power of two); dtype: 0 = float32,
+// 1 = bfloat16. pre and post are both null (ungated) or both set (gated).
 extern "C" int ffc_monarch_conv(const void* u, const void* pre, const void* post,
-                                const void* k_f, void* out, const void* tw, const void* split_tw,
-                                const void* roots, int batch, int channels, int length,
-                                int n_stages, int f0, int f1, int f2, int f3, int dtype,
-                                void* stream) {
-  const int factors[4] = {f0, f1, f2, f3};
-  ffc::Plan p;
-  if (!ffc::make_plan(n_stages, factors, &p) || batch < 1 || channels < 1 || length < 1 ||
-      length > 2 * p.m || (long long)batch * channels > 0x7fffffffLL ||
-      (pre == nullptr) != (post == nullptr))
+                                const void* k_f, void* out, const void* split_tw, int batch,
+                                int channels, int length, int n, int dtype, void* stream) {
+  if (batch < 1 || channels < 1 || length < 1 || length > n ||
+      (long long)batch * channels > 0x7fffffffLL || (pre == nullptr) != (post == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool gated = pre != nullptr;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = gated ? ffc::launch<float, true>(u, pre, post, k_f, out, tw, split_tw, roots, batch,
-                                           channels, length, p, st)
-                : ffc::launch<float, false>(u, pre, post, k_f, out, tw, split_tw, roots, batch,
-                                            channels, length, p, st);
-  } else if (dtype == 1) {
-    err = gated ? ffc::launch<__nv_bfloat16, true>(u, pre, post, k_f, out, tw, split_tw, roots,
-                                                   batch, channels, length, p, st)
-                : ffc::launch<__nv_bfloat16, false>(u, pre, post, k_f, out, tw, split_tw, roots,
-                                                    batch, channels, length, p, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
+#define FFC_MCONV_CASE(LOG_M)                                                                \
+  case 2 << LOG_M:                                                                           \
+    return (int)ffc::mconv::launch<LOG_M>(u, pre, post, k_f, out, split_tw, batch, channels, \
+                                          length, dtype, st);
+  switch (n) {
+    FFC_MCONV_CASE(3)
+    FFC_MCONV_CASE(4)
+    FFC_MCONV_CASE(5)
+    FFC_MCONV_CASE(6)
+    FFC_MCONV_CASE(7)
+    FFC_MCONV_CASE(8)
+    FFC_MCONV_CASE(9)
+    FFC_MCONV_CASE(10)
+    FFC_MCONV_CASE(11)
+    FFC_MCONV_CASE(12)
+    FFC_MCONV_CASE(13)
+    FFC_MCONV_CASE(14)
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)err;
+#undef FFC_MCONV_CASE
 }
 
 FFC_EXPORT_ERROR_STRING()

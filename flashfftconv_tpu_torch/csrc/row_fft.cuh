@@ -1,0 +1,192 @@
+// The in-register row FFT of spectrum.cu and monarch_conv.cu: an M-point
+// complex FFT of a packed real row (z[n] = x[2n] + i x[2n+1], M = N/2) with
+// every size, factor, stride and register index a compile-time constant, so
+// a thread's points never leave registers.
+//
+// A row is owned by T = M/P threads, P points each (8 up to M = 256, 16 up to
+// 2048, 32 above); up to M = 1024 a block of 128 threads takes 128/T rows.
+// The FFT is Cooley-Tukey over stages of at most P points:
+//   - stage 0 gives each thread E lines of P/E points at stride E*T (the
+//     caller loads them: spectrum.cu and monarch_conv.cu straight from
+//     device memory, E packed points, 16 bytes, a load);
+//   - each later stage reads its lines from shared memory, transforms them
+//     in registers and writes them back (mid_stages);
+//   - the last stage writes its outputs in natural frequency order
+//     (last_stage).
+// Shared memory is addressed through an XOR swizzle of the low 4 bits of a
+// point's index by the next 4 (swz), which keeps the strided stage accesses
+// free of bank conflicts without padding.
+// Twiddles: line DFTs of 2-32 points (line_fft_const, long_common.cuh) take
+// the 32nd roots as compile-time constants (1 and -i cost no multiply);
+// the stage twiddles and the split's exp(-2 pi i f / N) are products of two
+// entries of a small table of N-th roots (N >> B coarse and 2^B fine,
+// B = ceil(log2(N) / 2): 384 entries at N=32768), which each block copies
+// once from the plan's exact split_tw into shared memory (load_table). A
+// line's twiddles w^k, k < F, are w^(4a) * w^c, c < 4, so a line makes
+// F/4 + 3 table lookups.
+#pragma once
+
+#include "long_common.cuh"
+
+namespace ffc {
+namespace row {
+
+template <int LOG_M, int LOG_E = 1>
+struct Cfg {
+  static constexpr int kM = 1 << LOG_M;
+  static constexpr int kLogN = LOG_M + 1;
+  static constexpr int kLogP = LOG_M <= 8 ? 3 : LOG_M <= 11 ? 4 : 5;
+  static constexpr int kP = 1 << kLogP;                  // points a thread
+  static constexpr int kT = kM / kP;                     // threads a row
+  static constexpr int kRows = LOG_M <= 10 ? 128 / kT : 1;
+  static constexpr int kThreads = kT * kRows;
+  static constexpr int kE = 1 << LOG_E;                  // stage 0's lines a thread
+  static constexpr int kF0 = kP / kE;                    // stage 0's points a line
+  static constexpr int kR0 = kE * kT;                    // stage 0's stride
+  // Stage bits: stage 0 takes P/E points; the rest of log2 M is split into
+  // the fewest stages of at most P points, as evenly as possible.
+  static constexpr int kBits0 = kLogP - LOG_E;
+  static constexpr int kRest = LOG_M - kBits0;
+  static constexpr int kLast = (kRest + kLogP - 1) / kLogP;  // index of the last stage
+  __host__ __device__ static constexpr int bits(int j) {
+    return j == 0 ? kBits0 : kRest / kLast + (j - 1 < kRest % kLast ? 1 : 0);
+  }
+  __host__ __device__ static constexpr int done(int j) {
+    return j == 0 ? 0 : done(j - 1) + bits(j - 1);
+  }
+  __host__ __device__ static constexpr int log_stride(int j) { return LOG_M - done(j + 1); }
+  // Root table: exp(-2 pi i m / N) = hi[m >> kB] * lo[m & (kLo - 1)].
+  static constexpr int kB = (kLogN + 1) / 2;
+  static constexpr int kLo = 1 << kB;
+  static constexpr int kHi = (2 * kM) >> kB;
+  static constexpr size_t kSmem = (size_t(kRows) * kM + kLo + kHi) * sizeof(float2);
+  static constexpr int kMinBlocks = 65536 / (kThreads * 128);  // <= 128 registers a thread
+};
+
+// Shared-memory slot of point i of a row.
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 15); }
+
+template <class C>
+__device__ __forceinline__ float2 root(const float2* tab, int m) {
+  return cmul(tab[C::kLo + (m >> C::kB)], tab[m & (C::kLo - 1)]);
+}
+
+// The block's root table from split_tw (exp(-2 pi i m / N), m = 0 .. M).
+template <class C>
+__device__ __forceinline__ void load_table(float2* tab, const float2* __restrict__ split_tw) {
+  for (int i = threadIdx.x; i < C::kLo + C::kHi; i += C::kThreads) {
+    if (i < C::kLo) {
+      tab[i] = split_tw[i];
+    } else {
+      const int m = (i - C::kLo) << C::kB;
+      const float2 w = split_tw[m <= C::kM ? m : m - C::kM];
+      tab[i] = m <= C::kM ? w : make_float2(-w.x, -w.y);
+    }
+  }
+}
+
+// v[k] *= w^k for k < F, w = exp(-2 pi i m1 / N).
+template <class C, int F>
+__device__ __forceinline__ void twiddle_line(float2* v, const float2* tab, int m1) {
+  const float2 w1 = root<C>(tab, m1);
+  v[1] = cmul(v[1], w1);
+  if constexpr (F > 2) {
+    const float2 w2 = root<C>(tab, 2 * m1), w3 = root<C>(tab, 3 * m1);
+    v[2] = cmul(v[2], w2);
+    v[3] = cmul(v[3], w3);
+#pragma unroll
+    for (int a = 4; a < F; a += 4) {
+      const float2 b = root<C>(tab, a * m1);
+      v[a] = cmul(v[a], b);
+      v[a + 1] = cmul(v[a + 1], cmul(b, w1));
+      v[a + 2] = cmul(v[a + 2], cmul(b, w2));
+      v[a + 3] = cmul(v[a + 3], cmul(b, w3));
+    }
+  }
+}
+
+// Stage 0 of one line r held at v (points z[u * R0 + r], u < F0): DFT, the
+// twiddles w^(k r) with w = exp(-2 pi i / M), and the store to its slots.
+template <class C>
+__device__ __forceinline__ void first_stage_line(float2* v, float2* s, const float2* tab, int r) {
+  line_fft_const<C::kF0>(v);
+  twiddle_line<C, C::kF0>(v, tab, 2 * r);
+#pragma unroll
+  for (int u = 0; u < C::kF0; ++u) s[swz(u * C::kR0 + r)] = v[u];
+}
+
+// Stage J (0 < J < last) in place: lines l = tr + T*i, points
+// (l / R) * F * R + u * R + l % R, u < F; DFT, then w^(k r) with
+// w = exp(-2 pi i / (F R)).
+template <class C, int J>
+__device__ __forceinline__ void mid_stage(float2 (&v)[C::kP], float2* s, const float2* tab,
+                                          int tr) {
+  constexpr int kF = 1 << C::bits(J), kLogR = C::log_stride(J), kR = 1 << kLogR;
+  constexpr int kLines = C::kP / kF;
+  int base[kLines];
+#pragma unroll
+  for (int i = 0; i < kLines; ++i) {
+    const int l = tr + C::kT * i;
+    base[i] = ((l >> kLogR) << (C::bits(J) + kLogR)) + (l & (kR - 1));
+#pragma unroll
+    for (int u = 0; u < kF; ++u) v[i * kF + u] = s[swz(base[i] + u * kR)];
+  }
+#pragma unroll
+  for (int i = 0; i < kLines; ++i) {
+    line_fft_const<kF>(v + i * kF);
+    const int r = (tr + C::kT * i) & (kR - 1);
+    twiddle_line<C, kF>(v + i * kF, tab, r << (C::kLogN - C::bits(J) - kLogR));
+#pragma unroll
+    for (int u = 0; u < kF; ++u) s[swz(base[i] + u * kR)] = v[i * kF + u];
+  }
+}
+
+// Every stage between the first and the last, each after a barrier.
+template <class C, int J = 1>
+__device__ __forceinline__ void mid_stages(float2 (&v)[C::kP], float2* s, const float2* tab,
+                                           int tr) {
+  if constexpr (J < C::kLast) {
+    __syncthreads();
+    mid_stage<C, J>(v, s, tab, tr);
+    mid_stages<C, J + 1>(v, s, tab, tr);
+  }
+}
+
+// Frequency of the last stage's output k of line p: the digits k_j of the
+// position p * F_last + k, weighted by the product of the earlier factors.
+template <class C, int J = 0>
+__device__ __forceinline__ int freq_of_line(int p) {
+  if constexpr (J == C::kLast) {
+    return 0;
+  } else {
+    constexpr int kShift = C::log_stride(J) - C::bits(C::kLast);
+    return (((p >> kShift) & ((1 << C::bits(J)) - 1)) << C::done(J)) + freq_of_line<C, J + 1>(p);
+  }
+}
+
+// The last stage, after a barrier: contiguous lines p = tr + T*i, their
+// outputs to their natural-order slots, so every line is read before any is
+// written. The caller synchronises before it reads the result.
+template <class C>
+__device__ __forceinline__ void last_stage(float2 (&v)[C::kP], float2* s, int tr) {
+  constexpr int kF = 1 << C::bits(C::kLast), kLines = C::kP / kF;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kLines; ++i) {
+    const int p = tr + C::kT * i;
+#pragma unroll
+    for (int u = 0; u < kF; ++u) v[i * kF + u] = s[swz(p * kF + u)];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kLines; ++i) {
+    const int p = tr + C::kT * i;
+    line_fft_const<kF>(v + i * kF);
+    const int f0 = freq_of_line<C>(p);
+#pragma unroll
+    for (int u = 0; u < kF; ++u) s[swz(f0 + (u << C::done(C::kLast)))] = v[i * kF + u];
+  }
+}
+
+}  // namespace row
+}  // namespace ffc

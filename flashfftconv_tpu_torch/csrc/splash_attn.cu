@@ -9,11 +9,11 @@
 // of jax 0.9.0, _splash_attention_forward (def at l.895, pallas_call at
 // l.1137, body flash_attention_kernel at l.696). JAX multiplies q by sm_scale
 // in q's dtype before the kernel; here the scale multiplies the f32 scores,
-// as in the flash kernels. q, k, v f32, bf16 or f16 at head_dim 64 or 128, any
-// L >= 1 (splash's L multiple of min(512, L) is a TPU tiling limit). It
-// writes o in the operands' dtype and the row logsumexp (f32, +inf for a row
-// that sees no key, whose o is 0: the JAX package's plain contract; JAX's
-// splash kernel leaves such rows nonzero).
+// as in the flash kernels. q, k, v f32, bf16 or f16 at head_dim 64, 128, 256,
+// 384 or 512, any L >= 1 (splash's L multiple of min(512, L) is a TPU tiling
+// limit). It writes o in the operands' dtype and the row logsumexp (f32,
+// +inf for a row that sees no key, whose o is 0: the JAX package's plain
+// contract; JAX's splash kernel leaves such rows nonzero).
 //
 // Design: attn_fwd (flash_attn_common.cuh) under SplashMask. One block owns
 // (b, h, a tile of 64 queries) and walks only the key tiles that hold a kept

@@ -39,21 +39,21 @@ namespace ffc {
 namespace attn {
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(bwd_threads<D>(), 1)
     splash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                T* __restrict__ dk, T* __restrict__ dv, SplashMask m) {
-  attn_bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
+  bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
 }
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(bwd_threads<D>(), 1)
     splash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               T* __restrict__ dq, SplashMask m) {
-  attn_bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, nullptr, m);
+  bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, nullptr, m);
 }
 
 }  // namespace attn
@@ -74,8 +74,8 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
-    return launch(splash_attn_bwd_dkv_kernel<D, T>, kBwdThreads, bwd_smem_bytes<D>(), len,
-                  batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, m);
+    return launch(splash_attn_bwd_dkv_kernel<D, T>, bwd_threads<D>(), bwd_smem_bytes<D>(),
+                  len, batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, m);
   });
 }
 
@@ -94,8 +94,8 @@ extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* 
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     using T = decltype(t);
-    return launch(splash_attn_bwd_dq_kernel<D, T>, kBwdThreads, bwd_smem_bytes<D>(), len,
-                  batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dq, m);
+    return launch(splash_attn_bwd_dq_kernel<D, T>, bwd_threads<D>(), bwd_smem_bytes<D>(),
+                  len, batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dq, m);
   });
 }
 

@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (an int). Pointers first, then the int sizes, then the stream.
 SIGNATURES = {
     "spectrum": {"ffc_spectrum": [_P] * 3 + [_I] * 3 + [_P]},
-    "monarch_conv": {"ffc_monarch_conv": [_P] * 8 + [_I] * 9 + [_P]},
+    "monarch_conv": {"ffc_monarch_conv": [_P] * 6 + [_I] * 5 + [_P]},
     "monarch_conv_bwd": {"ffc_monarch_conv_bwd": [_P] * 12 + [_I] * 9 + [_P],
                          "ffc_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
     "depthwise": {"ffc_depthwise": [_P] * 4 + [_I] * 8 + [_P]},

@@ -6,14 +6,14 @@ Layout is (B, num_heads, L, head_dim) throughout, as in the JAX package.
 hand-written flash-attention kernels (``ops/attention_cuda.py``:
 ``flash_attn_fwd``, and ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq`` in
 the backward) through ``FlashAttnFunction``, for every shape they take (q,
-k, v of one shape, head_dim 64 or 128, f32, bf16 or f16, any B * H:
-``attention_cuda.kernels_take``); the JAX package's TPU limits (L and
+k, v of one shape, head_dim 64, 128, 256, 384 or 512, f32, bf16 or f16, any
+B * H: ``attention_cuda.kernels_take``); the JAX package's TPU limits (L and
 head_dim multiples of 128) do not apply here. Where the kernels refuse a
 CUDA call, ``impl="auto"`` runs the plain ``mha_reference`` if the JAX
 package's ``auto`` would run XLA there too (L < 256, or L or head_dim not a
-multiple of 128), and raises where its TPU kernel would run (head_dim 256,
-q and k of different shapes); ``impl="flash"`` raises. On
-CPU tensors the same Function runs the plain versions below.
+multiple of 128), and raises where its TPU kernel would run (head_dim above
+512, q and k of different shapes); ``impl="flash"`` raises. On CPU tensors
+the same Function runs the plain versions below.
 ``impl="xla"`` asks for the plain ``mha_reference`` on any device, under
 the JAX package's name for it.
 
@@ -181,8 +181,8 @@ def _auto_runs_plain(q, k, v) -> bool:
     """Whether ``impl='auto'`` runs the plain version on these CUDA tensors:
     where the kernels refuse them (``attention_cuda.kernels_take``) and the
     JAX package's 'auto' would not run its TPU kernel either. A call that
-    its TPU kernel takes and these kernels refuse (head_dim 256, q and k of
-    different shapes) goes to the kernels and raises."""
+    its TPU kernel takes and these kernels refuse (head_dim above 512, q and k
+    of different shapes) goes to the kernels and raises."""
     from flashfftconv_tpu_torch.ops.attention_cuda import kernels_take
 
     if kernels_take(q, k, v) or q.ndim != 4:

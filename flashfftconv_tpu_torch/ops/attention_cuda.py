@@ -19,9 +19,9 @@ its ``launches`` count. On CPU tensors it runs the plain version from
 ``ops/attention.py``.
 
 The kernels take q, k, v (B, H, L, D) contiguous, of one shape and dtype
-(f32, bf16 or f16), head_dim 64 or 128, any B * H, any L >= 1
-(``kernels_take`` asks this of shapes and dtypes; the wrappers raise
-otherwise). The flash kernels also take an
+(f32, bf16 or f16), head_dim 64, 128, 256, 384 or 512, any B * H, any
+L >= 1 (``kernels_take`` asks this of shapes and dtypes; the wrappers raise
+otherwise, above head_dim 512 with a message that names the limit). The flash kernels also take an
 optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
 (1, H, L, L) ALiBi table is read in place for every batch row, not copied)
 and optional int32 segment ids (B, L). Softmax statistics and every
@@ -49,7 +49,10 @@ from flashfftconv_tpu_torch.ops import _build
 from flashfftconv_tpu_torch.ops import attention as plain
 from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256, 384, 512)
+# Above 512 a block's 232,448 B of shared memory cannot hold the backward's
+# tiles (kMaxHeadDim in csrc/flash_attn_common.cuh).
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 # The operands' dtypes, each with its code in the C interface (DType in
 # csrc/flash_attn_common.cuh).
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -72,7 +75,9 @@ def _refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
     if q.dtype not in DTYPES:
         return f"the attention kernels take f32, bf16 or f16, got {q.dtype}"
     if q.shape[-1] not in HEAD_DIMS:
-        return f"the attention kernels take head_dim in {HEAD_DIMS}, got {q.shape[-1]}"
+        return (f"the attention kernels take head_dim in {HEAD_DIMS} (at most {MAX_HEAD_DIM}: "
+                f"above it a block's shared memory cannot hold the backward's tiles), got "
+                f"{q.shape[-1]}")
     return None
 
 

@@ -3,7 +3,14 @@
 ``spectrum`` (csrc/spectrum.cu) replaces the TPU kernel ``_spectrum_tiles``,
 ``monarch_conv`` (csrc/monarch_conv.cu) replaces ``_conv_fused_io_tiles``
 and ``monarch_conv_bwd`` (csrc/monarch_conv_bwd.cu) replaces
-``_bwd_fused_io_tiles`` (flashfftconv_tpu/ops/monarch_pallas.py);
+``_bwd_fused_io_tiles`` (flashfftconv_tpu/ops/monarch_pallas.py).
+``spectrum`` and ``monarch_conv`` are instantiated per FFT size on the
+in-register row FFT of csrc/row_fft.cuh, and their C entries
+(``ffc_spectrum``, ``ffc_monarch_conv(u, pre, post, k_f, out, split_tw,
+batch, channels, length, n, dtype, stream)``) take the FFT size and the
+plan's ``split_tw`` alone; ``monarch_conv`` moves u, the output and the f32
+spectrum once (bytes: about 45 us at B=4, H=768, L=8192, N=16384, bf16 on
+an H100) and does two FFTs a row (about 64 us of f32 operations there);
 ``dk_finish``, in the same source, is the card's counterpart of the JAX
 package's ``_finish_dk``. On a CUDA tensor each wrapper checks its inputs,
 allocates its outputs with ``torch.empty``, launches its kernel on the
@@ -176,7 +183,10 @@ def monarch_conv(
 ) -> torch.Tensor:
     """``postgate * irfft(rfft(pre*u, N) * k_f)[..., :L]`` for u (B, H, L <= N)
     in f32 or bf16, k_f (H, M+1) complex64 from ``spectrum``, and optional
-    gates (B, H, L) at u's dtype. Output (B, H, L) at u's dtype."""
+    gates (B, H, L) at u's dtype. Output (B, H, L) at u's dtype. The kernel
+    is instantiated per FFT size (16 ... 32768), dtype and gating, and needs
+    only the plan's ``split_tw`` (its root table); the plan's factors do not
+    enter."""
     if (pregate is None) != (postgate is None):
         raise ValueError("pregate and postgate must both be given or both be None")
     if on_cpu(u, k_f, pregate, postgate):
@@ -192,14 +202,18 @@ def monarch_conv(
     out = torch.empty_like(u)
     if b * h == 0:
         return out
+    if plan.n_outer:
+        raise ValueError(
+            f"a plan of seqlen {plan.seqlen} has an outer part: monarch_conv stops at "
+            f"{MAX_FUSED_SEQLEN}; use long_spectrum and long_conv"
+        )
     lib = _build.load("monarch_conv")
     rc = lib.ffc_monarch_conv(
         u.data_ptr(),
         None if pregate is None else pregate.data_ptr(),
         None if postgate is None else postgate.data_ptr(),
-        k_f.data_ptr(), out.data_ptr(),
-        plan.tw_flat.data_ptr(), plan.split_tw.data_ptr(), plan.roots.data_ptr(),
-        b, h, length, *_factor_args(plan), _DTYPE_CODES[u.dtype], _stream(u.device),
+        k_f.data_ptr(), out.data_ptr(), plan.split_tw.data_ptr(),
+        b, h, length, plan.seqlen, _DTYPE_CODES[u.dtype], _stream(u.device),
     )
     _build.check(lib, rc, "monarch_conv kernel")
     monarch_conv.launches += 1

@@ -4,7 +4,7 @@ The attention op (``flash_mha`` through ``FlashAttnFunction``, whose CPU
 forward and backward are ``flash_attn_fwd_plain`` and ``flash_attn_bwd_plain``,
 the plain versions of the three CUDA kernels) against JAX's Pallas
 ``flash_attention`` itself, run by the JAX package's ``flash_mha(impl="flash")``
-inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64 and 128),
+inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64, 128 and 256),
 and against the JAX ``mha_reference`` at ragged L (1, 7, 129, 300), where the
 Pallas kernel cannot tile: forward and grads (dq, dk, dv, d bias), causal,
 non-causal, ALiBi and segment ids, f32 and bf16. Then the helpers (ALiBi,
@@ -58,6 +58,7 @@ KERNEL_CASES = [
     (256, 64, "f32", "causal"), (256, 64, "f32", "noncausal"), (256, 64, "f32", "alibi"),
     (256, 64, "f32", "segments"), (256, 128, "f32", "causal"), (256, 128, "f32", "alibi"),
     (256, 64, "bf16", "causal"), (256, 64, "bf16", "alibi"),
+    (256, 256, "f32", "causal"), (256, 256, "bf16", "alibi"),
 ]
 RAGGED_CASES = [
     (1, 64, "f32", "causal"), (7, 64, "f32", "alibi"), (129, 128, "f32", "segments"),
@@ -191,7 +192,7 @@ def _meta(*shape, dtype=torch.float32):
 REFUSED = {
     "head_dim 32": (_meta(2, 8, 16, 32),) * 3,
     "head_dim 96": (_meta(2, 8, 16, 96),) * 3,
-    "head_dim 256": (_meta(2, 4, 16, 256),) * 3,
+    "head_dim 640": (_meta(2, 4, 16, 640),) * 3,
     "f64": (_meta(2, 4, 16, 64, dtype=torch.float64),) * 3,
     "k shorter than q": (_meta(2, 4, 16, 64), _meta(2, 4, 8, 64), _meta(2, 4, 8, 64)),
     "v in another dtype": (_meta(2, 4, 16, 64),) * 2 + (_meta(2, 4, 16, 64, dtype=torch.bfloat16),),
@@ -255,7 +256,7 @@ def test_auto_runs_the_plain_version_where_the_kernels_refuse(monkeypatch, d, dt
 # (what, q, k, v, the refusal): calls the JAX package's TPU kernels take
 # (L >= 256, L and head_dim multiples of 128) and the CUDA kernels refuse
 TPU_ONLY = {
-    "head_dim 256": ((_meta(1, 2, 256, 256),) * 3, "head_dim"),
+    "head_dim 640": ((_meta(1, 2, 256, 640),) * 3, "head_dim"),
     "k shorter than q": ((_meta(1, 2, 256, 128), _meta(1, 2, 128, 128), _meta(1, 2, 128, 128)),
                          "one shape"),
 }
@@ -291,6 +292,23 @@ def test_kernels_take_any_batch_times_heads(monkeypatch, shape):
     assert attention_cuda.kernels_take(q, q, q)
     assert attention_cuda._check_qkv(q, q, q, q) == shape
     assert not tattn._auto_runs_plain(q, q, q)
+
+
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_kernels_take_head_dims_up_to_512(monkeypatch, d):
+    """head_dim 256, 384 and 512: kernels_take and _check_qkv accept them in
+    every dtype and impl='auto' sends them to the kernels (meta tensors,
+    on_cpu patched to False); one past the largest, 640, is refused with a
+    message that names the limit."""
+    monkeypatch.setattr(attention_cuda, "on_cpu", lambda *t: False)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q = _meta(2, 3, 256, d, dtype=dtype)
+        assert attention_cuda.kernels_take(q, q, q)
+        assert attention_cuda._check_qkv(q, q, q, q) == (2, 3, 256, d)
+        assert not tattn._auto_runs_plain(q, q, q)
+    q = _meta(2, 3, 256, 640)
+    with pytest.raises(ValueError, match="at most 512"):
+        attention_cuda._check_qkv(q, q, q)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

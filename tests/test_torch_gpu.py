@@ -82,6 +82,37 @@ def test_cuda_spectrum_matches_plain_at_every_plan_size(n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [16 << i for i in range(12)])
+def test_cuda_monarch_conv_matches_plain_at_every_plan_size(n):
+    """The monarch_conv kernel (one instantiation per FFT size, dtype and
+    gating) against conv_with_spectrum at every one-block plan size: k_len
+    1, N/2 and N; gated and ungated; f32 and bf16; L = N/2 and N - 5; the
+    rows' storage on a 16-byte boundary and one element past it; two calls
+    give the same bits."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, torch.float32, device=dev)
+    g = torch.Generator().manual_seed(n)
+    b, h = 3, 5
+    for k_len in sorted({1, n // 2, n}):
+        k_f = monarch_cuda.spectrum(p, (torch.randn(h, k_len, generator=g) * 0.1).to(dev))
+        for dtype in (torch.float32, torch.bfloat16):
+            for length in (n // 2, n - 5):
+                for gated in (False, True):
+                    for skew in (0, 1):
+                        u, pre, post = (torch.randn(b * h * length + skew, generator=g).to(
+                            dev, dtype)[skew:].view(b, h, length) for _ in "abc")
+                        gates = (pre, post) if gated else ()
+                        n0 = monarch_cuda.monarch_conv.launches
+                        y = monarch_cuda.monarch_conv(p, u, k_f, *gates)
+                        again = monarch_cuda.monarch_conv(p, u, k_f, *gates)
+                        torch.cuda.synchronize()
+                        assert monarch_cuda.monarch_conv.launches == n0 + 2
+                        assert torch.equal(y, again)
+                        _close(y, monarch.conv_with_spectrum(p, u, k_f, *gates), dtype)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("is_bhl", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_cuda_depthwise_matches_plain(is_bhl, dtype):
@@ -574,13 +605,14 @@ def _attn_close(got, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("l,d", [(1, 64), (1, 128), (63, 64), (65, 128), (256, 64), (1000, 64),
-                                 (1000, 128)])
+                                 (1000, 128), (1000, 256), (65, 384), (300, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "segments"])
 def test_cuda_attention_kernels_match_plain(l, d, dtype, case):
     """flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq against
     flash_attn_fwd_plain and flash_attn_bwd_plain, each launched once, at
-    the edges of the backward's 64-row tiles and 8-row tensor-core steps."""
+    the edges of the backward's 64-row tiles and 8-row tensor-core steps, and
+    at head_dim 256, 384 and 512 (the wide backward's 16-row parts)."""
     _needs_card()
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
@@ -636,7 +668,7 @@ def test_cuda_flash_mha_grads_match_autograd_of_the_reference():
 def test_cuda_attention_refuses_what_the_kernels_do_not_take():
     """impl='flash' raises for what the kernels do not take (head_dim,
     dtype), and so does impl='auto' where the JAX package's TPU kernel would
-    take the call (head_dim 256 at L = 256); B * H = 65792, past one grid
+    take the call (head_dim 640 at L = 256); B * H = 65792, past one grid
     dimension's 65535, runs the kernels and matches the plain version; a
     window with a bias or segment ids raises where the kernels would run, as
     on a TPU."""
@@ -648,9 +680,9 @@ def test_cuda_attention_refuses_what_the_kernels_do_not_take():
     q = torch.randn(1, 2, 16, 64, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="f32, bf16 or f16"):
         tff.flash_mha(q, q, q, impl="flash")
-    q = torch.randn(1, 2, 256, 256, device=dev)
+    q = torch.randn(1, 2, 256, 640, device=dev)
     for impl in ("auto", "flash"):
-        with pytest.raises(ValueError, match="head_dim"):
+        with pytest.raises(ValueError, match="head_dim.*at most 512"):
             tff.flash_mha(q, q, q, impl=impl)
     q = torch.randn(256, 257, 1, 64, device=dev)
     _attn_close(tff.flash_mha(q, q, q, impl="flash"), tff.flash_mha(q, q, q, impl="xla"))
@@ -705,6 +737,65 @@ def test_cuda_attention_auto_runs_the_kernels_in_f16():
             else:
                 ro, lse = plain.splash_attn_fwd_plain(q, k, v, keep)
                 refs = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep)
+        for got, ref in zip((o.detach(), *grads), (ro, *refs)):
+            _attn_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_cuda_attention_runs_the_kernels_at_head_dims_up_to_512(d, dtype, impl):
+    """head_dim 256, 384 and 512 at L = 256 (a call the JAX package's TPU
+    kernels take): flash_mha causal, non-causal, with ALiBi and with segment
+    ids, a window and blocksparse_mha under impl='auto' and impl='flash'
+    launch the kernels (one forward, one dK/dV, one dQ each) and match the
+    plain versions, forward and grads (the bias's too)."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    l = 256
+    q, k, v = (torch.randn(2, 3, l, d, device=dev, generator=g).to(dtype).requires_grad_()
+               for _ in "qkv")
+    do = torch.randn(q.shape, device=dev, generator=g).to(dtype)
+    bias = plain.alibi_bias(3, l, l, device=dev).requires_grad_()
+    seg = (torch.arange(l, device=dev) * 3 // l).int()[None].repeat(2, 1)
+    blocks = [[1, 0], [1, 1]]
+    fns = ("flash_attn_fwd", "splash_attn_fwd", "flash_attn_bwd_dkv", "splash_attn_bwd_dkv",
+           "flash_attn_bwd_dq", "splash_attn_bwd_dq")
+    for call, flash, kw in (
+        (lambda *a: tff.flash_mha(*a, impl=impl), True, dict(causal=True)),
+        (lambda *a: tff.flash_mha(*a, causal=False, impl=impl), True, dict(causal=False)),
+        (lambda *a: tff.flash_mha(*a, bias=bias, impl=impl), True, dict(causal=True, bias=bias)),
+        (lambda *a: tff.flash_mha(*a, segment_ids=seg, impl=impl), True,
+         dict(causal=True, segment_ids=seg)),
+        (lambda *a: tff.flash_mha(*a, window=40, impl=impl), False,
+         dict(keep=SplashMask.local(l, 40).dense(dev))),
+        (lambda *a: tff.blocksparse_mha(*a, blocks, block_size=128, causal=True, impl=impl),
+         False, dict(keep=SplashMask.blocks(blocks, 128, True).dense(dev))),
+    ):
+        n0 = [getattr(ac, f).launches for f in fns]
+        o = call(q, k, v)
+        wrt = (q, k, v, bias) if "bias" in kw else (q, k, v)
+        grads = torch.autograd.grad(o, wrt, do)
+        torch.cuda.synchronize()
+        want = [n + int(flash == f.startswith("flash")) for n, f in zip(n0, fns)]
+        assert [getattr(ac, f).launches for f in fns] == want
+        assert o.dtype == dtype
+        with torch.no_grad():
+            if flash:
+                causal, b_, s_ = kw["causal"], kw.get("bias"), kw.get("segment_ids")
+                ro, lse = plain.flash_attn_fwd_plain(q, k, v, causal, None, b_, s_)
+                rq, rk, rv, rds = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, causal, None,
+                                                             b_, s_, b_ is not None)
+                refs = (rq, rk, rv) + (() if b_ is None else (rds.sum_to_size(b_.shape),))
+            else:
+                ro, lse = plain.splash_attn_fwd_plain(q, k, v, kw["keep"])
+                refs = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, kw["keep"])
         for got, ref in zip((o.detach(), *grads), (ro, *refs)):
             _attn_close(got, ref)
 
@@ -783,6 +874,12 @@ SPLASH_CASES = [
     ("blocks", 63, 128, torch.float16, 21, True), ("blocks", 65, 64, torch.bfloat16, 13, False),
     ("blocks", 1000, 64, torch.float16, 250, False),
     ("blocks", 1000, 128, torch.float32, 125, True),
+    # head_dim 256, 384 and 512: the forward's 32-row parts above 256, the
+    # wide backward
+    ("window", 1000, 256, torch.float32, 300, True),
+    ("window", 300, 384, torch.bfloat16, 100, True), ("window", 129, 512, torch.float16, 40, True),
+    ("blocks", 1024, 512, torch.float32, 256, True), ("blocks", 65, 256, torch.bfloat16, 13, False),
+    ("blocks", 400, 384, torch.float16, 100, False),
 ]
 
 
