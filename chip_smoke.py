@@ -13,9 +13,9 @@ Run from the root of a checkout on a machine with an H100:
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
-            fails if an attention backward instance (dK/dV or dQ, flash or
-            splash, every head_dim) or a monarch_conv instance has a stack
-            frame or spills;
+            fails if an attention instance (forward, dK/dV or dQ, flash
+            or splash, every head_dim), a monarch_conv or a dk_finish
+            instance has a stack frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -38,8 +38,11 @@ Phases, each of which fails the run by raising:
             flash and the three splash kernels at B*H = 65792 (B=257, H=256,
             L=64, D=64, f32, causal and a window of 16), past one grid
             dimension's 65535; the six attention kernels at head_dim 256,
-            384 and 512 (f32, bf16 with ALiBi, f16 with segment ids, L = 1;
-            windows and block masks); the three
+            384, 512, 640, 768 and 1024 (f32, bf16 with ALiBi, f16 with
+            segment ids, L = 1; windows and block masks; above 512 the D
+            slices, whose outputs must agree bit for bit where the inputs'
+            slices are equal); dk_finish at every one-block FFT size (N = 16
+            ... 32768, B 1 and 3, ragged k_len, two calls bit for bit); the three
             splash-attention kernels (forward, dK/dV, dQ) against their plain
             versions at the windowed GPT's shapes (B=8 and B=4, H=12, L=2048,
             D=64, f32, window 256) with two backwards bit for bit, at windows
@@ -206,13 +209,15 @@ Phases, each of which fails the run by raising:
             spectrum@4096; monarch_conv also at H3's f32-I/O shape and
             ListOps', rows monarch_conv@f32 and monarch_conv@4096, each with
             a CUDA graph's device time beside the library's); the flash
-            kernels also at head_dim 256 (rows flash_attn_*@256, B=4, H=8,
-            L=2048, f32, causal); the splash kernels
+            kernels also at head_dim 256, 640 and 1024 (rows
+            flash_attn_*@256, @640, @1024, B=4, H=8, L=2048, f32, causal);
+            dk_finish also at M2-BERT's and ListOps' shapes (rows
+            dk_finish@256, dk_finish@4096); the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
             tpu_attention.py's block-sparse case; beside each attention
-            backward row's f32 bound its tensor-core bound tc_bound (its
+            row's f32 bound its tensor-core bound tc_bound (its
             products' operations times 3 split-TF32 passes at 494.7
             TFLOP/s), and the dK/dV + dQ pair's sum beside SDPA's backward;
             smem_copy at three tiles beside torch.mul and smem_probe_touch,
@@ -262,6 +267,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA's H100 SXM data sheet)
 TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
+# Kernel instances that must build with no stack frame (phase_build): every
+# attention kernel, monarch_conv and dk_finish.
+STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "dkf16dk_finish_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -299,6 +307,9 @@ DIRECT_SIZES = (16, 32, 64, 128, 256, 512)
 # the attention kernel once a layer.
 GPT_D_MODEL, GPT_N_LAYER, GPT_HEADS, GPT_L_MAX, GPT_VOCAB = 768, 12, 12, 1024, 50257
 GPT_HEAD_DIM = GPT_D_MODEL // GPT_HEADS
+# The head_dims above 128 that the kernels phase holds the attention kernels
+# to their plain versions at: the wide bodies, and above 512 the D slices.
+WIDE_HEAD_DIMS = (256, 384, 512, 640, 768, 1024)
 GPT_PROMPTS = (128, 256, 512, 1000)
 GPT_SERVE_B, GPT_WARMUP, GPT_TIMED = 8, 1, 5
 GPT_TRAIN_B, GPT_TRAIN_WARMUP, GPT_TRAIN_TIMED = 16, 2, 5
@@ -570,13 +581,12 @@ def phase_build():
                 props = m.group(4)
                 continue
             log(f"  {name}: {m.group(1) or m.group(2) or m.group(3)}")
-            if (m.group(3) and props
-                    and ("attn_bwd" in props or "monarch_conv_kernel" in props)
+            if (m.group(3) and props and any(k in props for k in STACKLESS)
                     and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
                 spilled.append(f"{props}: {m.group(3)}")
     if spilled:
-        raise AssertionError(f"attention backward or monarch_conv instances with a stack frame: "
-                             f"{spilled}")
+        raise AssertionError(f"attention, monarch_conv or dk_finish instances with a stack "
+                             f"frame: {spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -672,6 +682,7 @@ def phase_kernels(torch, g):
                         f"k_len={k_len} {dtype}")
                 _check_conv_bwd(torch, p, what, uu, kf, *gates, dd, k_len)
         torch.cuda.synchronize()
+    _check_dk_finish_sizes(torch)
 
     log(f"depthwise_bwd: B={B} D={3 * D_MODEL} L={L_MAX} K=3 padding=(2, 0) bf16 BHL")
     dy = torch.randn(x.shape, generator=g).to(dev, torch.bfloat16)
@@ -776,6 +787,39 @@ def _check_monarch_conv_sizes(torch):
         log(f"  monarch_conv N={n}: {cases} cases (k_len 1, N/2, N; f32, bf16; L = N/2, N-5; "
             f"gated, ungated; aligned and unaligned rows; two calls bit for bit), worst "
             f"err/tol {worst:.3e} ok")
+
+
+def _check_dk_finish_sizes(torch):
+    """dk_finish against dk_finish_plain at every one-block plan size (N = 16
+    ... 32768; one instantiation per size): B 1 and 3, k_len 1, N/2 - 1, N/2
+    and N, dk rows on 16-byte boundaries and not (an odd k_len); two calls
+    give the same bits. One line a size with the worst err / tol."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    gc = torch.Generator(device=dev).manual_seed(14)
+    for n in (16 << i for i in range(12)):
+        p = make_plan(n, torch.float32, device=dev)
+        worst, cases = 0.0, 0
+        for b, h in ((1, 5), (3, 7)):
+            parts = torch.view_as_complex(torch.randn(b, h, n // 2 + 1, 2, device=dev,
+                                                      generator=gc))
+            for k_len in sorted({1, max(1, n // 2 - 1), n // 2, n}):
+                dk = monarch_cuda.dk_finish(p, parts, k_len)
+                again = monarch_cuda.dk_finish(p, parts, k_len)
+                ref = monarch.dk_finish_plain(p, parts, k_len)
+                tol, err = f32_tol(ref), float((dk - ref).abs().max())
+                what = f"dk_finish N={n} B={b} H={h} k_len={k_len}"
+                if not (math.isfinite(err) and err <= tol):
+                    raise AssertionError(f"{what}: kernel disagrees with its plain version "
+                                         f"({err} > {tol})")
+                if not torch.equal(dk, again):
+                    raise AssertionError(f"{what}: two calls differ")
+                worst, cases = max(worst, err / tol), cases + 1
+        torch.cuda.synchronize()
+        log(f"  dk_finish N={n}: {cases} cases (B 1, 3; k_len 1, N/2-1, N/2, N; two calls bit "
+            f"for bit), worst err/tol {worst:.3e} ok")
 
 
 def _check_kernel_as_long_as_the_fft(torch, g):
@@ -930,9 +974,8 @@ def _check_attention_kernels(torch, g):
                                                            torch.float32), True)
     torch.cuda.empty_cache()
 
-    for d in (256, 384, 512):
-        log(f"flash attention at head_dim {d} (above 256 the forward's 32-row parts; the wide "
-            f"backward)")
+    for d in WIDE_HEAD_DIMS:
+        log(f"flash attention at head_dim {d} (the wide bodies; above 512 in D slices)")
         for (b, h, l, dtype, causal, extra) in (
             (2, 3, 1000, torch.float32, True, None), (2, 3, 257, torch.bfloat16, True, "alibi"),
             (2, 3, 130, torch.float16, False, "segments"), (1, 2, 1, torch.float32, True, None),
@@ -944,6 +987,9 @@ def _check_attention_kernels(torch, g):
             _check_attention(torch, f"B={b} H={h} L={l} D={d} {dtype} causal={causal} {extra}",
                              *_attn_inputs(torch, g, dev, b, h, l, d, dtype), causal, bias=bias,
                              seg=seg)
+
+    for d in (768, 1024):
+        _check_slices_agree(torch, g, d)
 
     q, k, v = (t.requires_grad_() for t in _attn_inputs(torch, g, dev, 2, 4, 200, 64,
                                                          torch.float32)[:3])
@@ -959,6 +1005,33 @@ def _check_attention_kernels(torch, g):
         compare(f"FlashAttnFunction {name} vs autograd through mha_reference", got, ref,
                 attn_tol(ref))
     return errs
+
+
+def _check_slices_agree(torch, g, d):
+    """Above head_dim 512 every D slice of a tile is a block that computes
+    the scores over all of D, in the same order, and slice 0 alone writes
+    the logsumexp (and ds): so the slices' p, running max and row sums must
+    agree bit for bit. With q, k, v and do made of one 256-column block
+    repeated, o, dk, dv and dq must then be that too, slice for slice; in
+    f32, bf16 and f16 (B=2, H=3, L=300, causal, ALiBi)."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v, do = (t.repeat(1, 1, 1, d // ac.SLICE_DIM).contiguous()
+                       for t in _attn_inputs(torch, g, dev, 2, 3, 300, ac.SLICE_DIM, dtype))
+        bias = plain.alibi_bias(3, 300, 300, device=dev)
+        o, lse = ac.flash_attn_fwd(q, k, v, True, None, bias)
+        delta = plain.attention_delta(o, do)
+        dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, True, None, bias)
+        dq, _ = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, True, None, bias, bias_grad=True)
+        for name, t in (("o", o), ("dk", dk), ("dv", dv), ("dq", dq)):
+            parts = t.split(ac.SLICE_DIM, -1)
+            if not all(torch.equal(parts[0], x) for x in parts[1:]):
+                raise AssertionError(f"head_dim {d} {dtype}: the D slices of {name} differ")
+        log(f"  head_dim {d} {dtype}: the {d // ac.SLICE_DIM} D slices of o, dk, dv and dq "
+            f"agree bit for bit")
 
 
 def _tpu_attention_blockmask(np, l, block):
@@ -1070,7 +1143,7 @@ def _check_splash_kernels(torch, g):
     np.fill_diagonal(mask16, True)
     args = _attn_inputs(torch, g, dev, 2, 3, 256, 64, torch.float32)
     _check_splash(torch, "16-wide blocks, not causal", *args, SplashMask.blocks(mask16, 16))
-    for dd in (256, 384, 512):
+    for dd in WIDE_HEAD_DIMS:
         log(f"splash attention at head_dim {dd}")
         args = _attn_inputs(torch, g, dev, 2, 3, 1000, dd, torch.float32)
         _check_splash(torch, f"B=2 H=3 L=1000 D={dd} f32 window 300", *args,
@@ -3265,18 +3338,38 @@ def phase_timing(torch, g):
             overhead_ms=overhead_ms,
         )
         # dk_finish: the function reads one (H, M+1) dk spectrum and writes
-        # dk; the unsplit (20 a pair) and one inverse FFT a channel
-        nbytes = spec_bytes + D_MODEL * L_MAX * 4
-        flops = D_MODEL * (_fft_flops(m, ns) + 20 * (m // 2))
-        res["dk_finish"] = dict(
-            ms=_time_ms(torch, lambda: monarch_cuda.dk_finish(plan, parts, L_MAX)),
-            plain_ms=_time_ms(torch, lambda: monarch.dk_finish_plain(plan, parts, L_MAX),
-                              iters=5),
-            library_ms=_time_ms(torch, lambda: torch.fft.irfft(parts.sum(0), n=N_FFT)[
-                ..., :L_MAX]),
-            bound=_bound(nbytes, flops),
-            overhead_ms=overhead_ms,
-        )
+        # dk; the unsplit (20 a pair) and one inverse FFT a channel. At the
+        # Hyena shape (the partials above), M2-BERT's (B=128, H=768, N=256,
+        # k_len = N) and ListOps' (B=64, H=128, N=4096, k_len = N); reading
+        # the B partials instead of one spectrum is the design's own traffic
+        # (overhead_ms); beside the back-to-back times, a CUDA graph's device
+        # time a call (device_ms; library_device_ms, sum and irfft).
+        for name, pp, pa, k_len in (
+                ("dk_finish", plan, parts, L_MAX),
+                (f"dk_finish@{BERT_N_FFT}", make_plan(BERT_N_FFT, torch.bfloat16, device=dev),
+                 torch.randn(BERT_B, BERT_D_MODEL, BERT_N_FFT // 2 + 1, dtype=torch.complex64,
+                             generator=g).to(dev), BERT_N_FFT),
+                (f"dk_finish@{2 * LISTOPS_L}", make_plan(2 * LISTOPS_L, torch.bfloat16,
+                                                          device=dev),
+                 torch.randn(LISTOPS_B, LISTOPS_D, LISTOPS_L + 1, dtype=torch.complex64,
+                             generator=g).to(dev), 2 * LISTOPS_L)):
+            bb, hh, m1 = pa.shape
+            n = pp.seqlen
+
+            def lib_dk(pa=pa, n=n, k_len=k_len):
+                return torch.fft.irfft(pa.sum(0), n=n)[..., :k_len]
+
+            res[name] = dict(
+                ms=_time_ms(torch, lambda: monarch_cuda.dk_finish(pp, pa, k_len)),
+                plain_ms=_time_ms(torch, lambda: monarch.dk_finish_plain(pp, pa, k_len),
+                                  iters=5),
+                library_ms=_time_ms(torch, lib_dk),
+                bound=_bound(hh * m1 * 8 + hh * k_len * 4,
+                             hh * (_fft_flops(m1 - 1, pp.n_stages) + 20 * ((m1 - 1) // 2))),
+                overhead_ms=(bb - 1) * hh * m1 * 8 / HBM_BYTES_PER_S * 1e3,
+                device_ms=_graph_ms(torch, lambda: monarch_cuda.dk_finish(pp, pa, k_len)),
+                library_device_ms=_graph_ms(torch, lib_dk),
+            )
         # depthwise_bwd: read x and dout, write du; 2K operations a position
         # for du, 2K for dk and 1 for dbias
         dy = torch.randn(x.shape, generator=g).to(dev, x.dtype)
@@ -3482,20 +3575,27 @@ def _time_band(torch, g):
 
 def _time_attention(torch, g):
     """The attention kernels at the gpt_train path's shape (B=16, H=12,
-    L=1024, D=64, f32, causal), then at head_dim 256 (rows
-    flash_attn_*@256: B=4, H=8, L=2048, f32, causal; the wide backward).
+    L=1024, D=64, f32, causal), then at head_dim 256, 640 and 1024 (rows
+    flash_attn_*@256, @640, @1024: B=4, H=8, L=2048, f32, causal; the wide
+    bodies, above 512 in D slices of 256 columns).
     Bytes: each input read once, each output written once. Operations: the
     causal half of each function's products, 2 a multiply-add: the forward
     q k^T and p v (4 B H L^2 D in all, half of it causal); dK/dV q k^T,
     do v^T, p^T do and ds^T q (8); dQ q k^T, do v^T and ds k (6); the two
     backward kernels recompute q k^T and do v^T each, which the fused
-    backward (10) would not. tc_bound: a backward row's operations on the
-    tensor cores, 3 split-TF32 passes at 494.7 TFLOP/s. library_ms is
+    backward (10) would not. tc_bound: a row's operations on the tensor
+    cores, 3 split-TF32 passes at 494.7 TFLOP/s. library_ms is
     scaled_dot_product_attention's forward for the forward row and its
     backward (dq, dk and dv in one call) for both backward rows, beside
     which the dQ row carries pair_ms, dK/dV + dQ."""
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
     res = _flash_rows(torch, g, GPT_TRAIN_B, GPT_HEADS, GPT_L_MAX, GPT_HEAD_DIM, "")
-    res.update(_flash_rows(torch, g, 4, 8, 2048, 256, "@256"))
+    for d in (256, 640, 1024):
+        # only where the checkout's kernels take d, so that this phase also
+        # times a commit from before head_dim 640 was taken (an A/B)
+        if ac.kernels_take(*[torch.empty(1, 1, 1, d, device="meta")] * 3):
+            res.update(_flash_rows(torch, g, 4, 8, 2048, d, f"@{d}"))
     return res
 
 
@@ -3530,6 +3630,7 @@ def _flash_rows(torch, g, b, h, l, d, suffix):
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), iters=10),
                 bound=_bound(3 * n + n + stats, 2 * causal_ops),
+                tc_bound=_tc_bound(2 * causal_ops),
             ),
             dkv: dict(
                 ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
@@ -3607,6 +3708,7 @@ def _time_splash(torch, g):
                 library_ms=_time_ms(torch, sdpa, iters=10),
                 library_fwd_bwd_ms=sdpa_fwd_bwd, causal_flash_ms=causal_ms,
                 bound=_bound(3 * n + n + stats, 4 * kept_ops),
+                tc_bound=_tc_bound(4 * kept_ops),
             ),
             "splash_attn_bwd_dkv": dict(
                 ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),

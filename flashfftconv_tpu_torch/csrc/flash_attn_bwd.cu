@@ -7,8 +7,9 @@
 // l.796) and _flash_attention_bwd_dq (def at l.1287, pallas_call at l.1456,
 // body at l.1146), which also writes ds, the bias's grad. The contract is
 // flash_mha's, as in flash_attn.cu: bias added after the scale, f32, bf16 or f16
-// operands at head_dim 64, 128, 256, 384 or 512 (above 128 the wide bodies of
-// flash_attn_common.cuh), any B * H, any L >= 1.
+// operands at head_dim 64 or any multiple of 128 (above 128 the wide bodies
+// of flash_attn_common.cuh, above 512 in D slices across blocks), any B * H,
+// any L >= 1.
 //
 // Both are the bodies attn_bwd_dkv and attn_bwd_dq (flash_attn_common.cuh)
 // under FlashMask: they recompute p = exp(s - lse) from the forward's row
@@ -40,22 +41,22 @@
 namespace ffc {
 namespace attn {
 
-template <int D, typename T>
-__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+template <int D, bool SL, typename T>
+__global__ void __launch_bounds__(body_threads<D>(), 1)
     flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               T* __restrict__ dk, T* __restrict__ dv, FlashMask m) {
-  bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
+  bwd_dkv<D, SL, T>(q, k, v, dout, lse, delta, dk, dv, m);
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+template <int D, bool SL, typename T>
+__global__ void __launch_bounds__(body_threads<D>(), 1)
     flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              T* __restrict__ dq, float* __restrict__ ds_out, FlashMask m) {
-  bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
+  bwd_dq<D, SL, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
 }
 
 }  // namespace attn
@@ -70,13 +71,14 @@ extern "C" int ffc_flash_attn_bwd_dkv(const void* q, const void* k, const void* 
   using namespace ffc::attn;
   if (batch < 1 || heads < 1 || len < 1 || !aligned16(q, k, v, dout))
     return (int)cudaErrorInvalidValue;
-  const FlashMask m = make_flash_mask(batch, heads, len, causal, bias, bias_sb, bias_sh, bias_sq,
-                                      seg, scale_bits);
+  const FlashMask m = make_flash_mask(batch, heads, len, head_dim, causal, bias, bias_sb,
+                                      bias_sh, bias_sq, seg, scale_bits);
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
+    constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
-    return launch(flash_attn_bwd_dkv_kernel<D, T>, bwd_threads<D>(), bwd_smem_bytes<D>(),
-                  len, batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, m);
+    return launch(flash_attn_bwd_dkv_kernel<D, SL, T>, body_threads<D>(), bwd_smem_bytes<D>(),
+                  len, batch * heads, m.n_slices, (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, m);
   });
 }
 
@@ -89,13 +91,14 @@ extern "C" int ffc_flash_attn_bwd_dq(const void* q, const void* k, const void* v
   using namespace ffc::attn;
   if (batch < 1 || heads < 1 || len < 1 || !aligned16(q, k, v, dout))
     return (int)cudaErrorInvalidValue;
-  const FlashMask m = make_flash_mask(batch, heads, len, causal, bias, bias_sb, bias_sh, bias_sq,
-                                      seg, scale_bits);
+  const FlashMask m = make_flash_mask(batch, heads, len, head_dim, causal, bias, bias_sb,
+                                      bias_sh, bias_sq, seg, scale_bits);
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
+    constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
-    return launch(flash_attn_bwd_dq_kernel<D, T>, bwd_threads<D>(), bwd_smem_bytes<D>(),
-                  len, batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dq, ds, m);
+    return launch(flash_attn_bwd_dq_kernel<D, SL, T>, body_threads<D>(), bwd_smem_bytes<D>(),
+                  len, batch * heads, m.n_slices, (cudaStream_t)stream, q, k, v, dout, lse, delta, dq, ds, m);
   });
 }
 

@@ -7,34 +7,22 @@
 // bias where the mask has one, and -inf where the mask hides (i, j).
 //
 // Every kernel works on 64 x 64 tiles of the score matrix. A block owns one
-// tile of 64 rows of one (b, h): blockIdx.x is the tile and (b, h) is
+// tile of 64 rows of one (b, h): blockIdx.x is the tile (above D = 512 the
+// tile and a D slice, see "above D = 128" below) and (b, h) is
 // blockIdx.y + gridDim.y * blockIdx.z (block_bh), so that B * H may exceed
 // the 65535 of one grid dimension. Shared memory holds f32 whatever the
 // operands' dtype; softmax statistics and every sum are f32.
 //
-// The forward (attn_fwd) runs on the CUDA cores, every product an f32 FMA
-// (no tensor cores in this version), with 256 threads: thread (ty, tx) =
-// (tid / 16, tid % 16) owns rows 4 ty .. 4 ty + 3 and columns tx, tx + 16,
-// tx + 32, tx + 48 of a tile, and the same rows and the columns tx + 16 j of
-// a (64, D) accumulator. The 16 threads of one ty sit in one half-warp, so a
-// row's max and sum are four shuffles. An operand read along the rows is
-// kept row-major in shared memory ((64, D), read as float4 over D, the same
-// address across a half-warp); one read along the columns is kept
-// transposed ((D, 65), one pad float a row, so that 16 neighbouring columns
-// and 32 neighbouring rows each fall on distinct banks).
-// Above D = 256 the same layout takes 32-row parts of the query and key
-// tiles (fwd_part).
-//
-// The backward (attn_bwd_dkv, attn_bwd_dq) runs its products on the tensor
-// cores (mma.sync m16n8k8 TF32, tf32_mma.cuh) with 128 threads: warp w owns
-// rows 16 w .. 16 w + 15 of the block's tile, and its score tiles and (16, D)
+// Every product runs on the tensor cores (mma.sync m16n8k8 TF32,
+// tf32_mma.cuh). Up to D = 128 a block has 128 threads: warp w owns rows
+// 16 w .. 16 w + 15 of the block's tile, and its score tiles and (16, D)
 // accumulators live in the MMA's C fragments. f32 accuracy comes from a
 // split: x = hi + lo with hi = tf32(x) and lo = x - hi (read by the tensor
 // cores to TF32), and a product of two split operands sums lo hi + hi lo +
 // hi hi (three passes; what they drop is about 2^-21 of each product, as in
 // CUTLASS's split-TF32 f32 GEMM). A bf16 or f16 operand is exact in TF32 and
 // has no lo part; p and ds are f32 and always split. The tensor cores
-// truncate as they accumulate, so each tile's terms of dk, dv and dq are
+// truncate as they accumulate, so each tile's terms of o, dk, dv and dq are
 // summed apart and added to the accumulators in f32 (accumulate). p and ds
 // never leave registers: the C fragment of a score tile is the A fragment of
 // the next product once that product reads the 8 k indices of each step in
@@ -44,11 +32,16 @@
 // rows, B rows read as columns, B rows in the permuted order) then fall on
 // 32 distinct banks. The walked tiles go through a two-stage ring: f32 ones
 // by 16-byte cp.async, issued before the current tile's products; bf16 and
-// f16 ones by 16-byte loads converted to f32 on the way in. The next tile's
-// row statistics wait in registers.
-// Above D = 128 the wide bodies (attn_bwd_dkv_wide, attn_bwd_dq_wide) keep
-// 16 rows and split D over D / 64 warps instead; see their section below.
-//
+// f16 ones by 16-byte loads converted to f32 on the way in.
+// The forward (attn_fwd) keeps Q and walks K and V: s = q k^T, the online
+// softmax on the C fragments (a thread's rows g and g + 8, the row max a
+// quad shuffle, 2^x by fast_exp2), o += p v. The backward (attn_bwd_dkv,
+// attn_bwd_dq) keeps K and V, or Q and dO, walks the other pair, and keeps
+// the next tile's row statistics in registers.
+// Above D = 128 the wide bodies (attn_fwd_wide, attn_bwd_dkv_wide,
+// attn_bwd_dq_wide) keep 16 rows and split D over D / 64 warps instead, and
+// above D = 512 they split D across blocks; see their section below.
+
 // The three kernel bodies are written once over a mask policy, the kernel's
 // parameter, which says which tiles a block visits and which scores of a
 // visited tile it keeps:
@@ -81,9 +74,15 @@
 namespace ffc {
 namespace attn {
 
-constexpr int kTile = 64;         // queries and keys a tile
-constexpr int kThreads = 256;     // the forward's 16 x 16 threads, a 4 x 4 block of a tile each
-constexpr int kBwdThreads = 128;  // the backward's 4 warps, 16 rows of a tile each
+constexpr int kTile = 64;            // queries and keys a tile
+constexpr int kNarrowThreads = 128;  // up to D = 128: 4 warps, 16 rows of a tile each
+constexpr int kMaxUnsliced = 512;    // the largest head_dim a block holds whole
+constexpr int kSliceDim = 256;       // the columns of a slice above it
+
+// D slices a block of the head_dim: 1 up to kMaxUnsliced.
+inline int slices_of(int head_dim) {
+  return head_dim > kMaxUnsliced ? (head_dim + kSliceDim - 1) / kSliceDim : 1;
+}
 
 // sm_scale arrives as the bits of an f32 (the ctypes interface passes ints)
 inline float scale_from_bits(int bits) {
@@ -96,9 +95,9 @@ inline float scale_from_bits(int bits) {
 // diagonal; an optional additive f32 bias indexed
 // [b * bias_sb + h * bias_sh + i * bias_sq + j] (sb or sh 0 when the bias
 // broadcasts over B or H); optional int32 segment ids (B, L): a pair with
-// other ids is masked.
+// other ids is masked. head_dim is q's, n_slices its D slices (slices_of).
 struct FlashMask {
-  int batch, heads, len, n_tiles;
+  int batch, heads, len, n_tiles, head_dim, n_slices;
   float scale;
   int causal;
   const float* bias;
@@ -138,13 +137,16 @@ struct FlashMask {
   }
 };
 
-inline FlashMask make_flash_mask(int batch, int heads, int len, int causal, const void* bias,
-                                 int sb, int sh, int sq, const void* seg, int scale_bits) {
+inline FlashMask make_flash_mask(int batch, int heads, int len, int head_dim, int causal,
+                                 const void* bias, int sb, int sh, int sq, const void* seg,
+                                 int scale_bits) {
   FlashMask m = {};
   m.batch = batch;
   m.heads = heads;
   m.len = len;
   m.n_tiles = (len + kTile - 1) / kTile;
+  m.head_dim = head_dim;
+  m.n_slices = slices_of(head_dim);
   m.scale = scale_from_bits(scale_bits);
   m.causal = causal;
   m.bias = (const float*)bias;
@@ -169,8 +171,9 @@ inline FlashMask make_flash_mask(int batch, int heads, int len, int causal, cons
 //    element (fwd_ptr, fwd_idx) and for each key tile the query tiles
 //    (bwd_ptr, bwd_idx); an entry is 2 tile + full.
 // An element of a tile that is not full is tested against the predicate.
+// head_dim and n_slices as in FlashMask.
 struct SplashMask {
-  int batch, heads, len, n_tiles;
+  int batch, heads, len, n_tiles, head_dim, n_slices;
   float scale;
   int window;
   const int *fwd_ptr, *fwd_idx, *bwd_ptr, *bwd_idx;
@@ -225,14 +228,16 @@ struct SplashMask {
 
 // The table is one int32 array: fwd_ptr (n_tiles + 1), fwd_idx (n_entries),
 // bwd_ptr (n_tiles + 1), bwd_idx (n_entries).
-inline SplashMask make_splash_mask(int batch, int heads, int len, int window, const void* table,
-                                   const void* blocks, int block_size, int n_blocks,
-                                   int n_entries, int causal, int scale_bits) {
+inline SplashMask make_splash_mask(int batch, int heads, int len, int head_dim, int window,
+                                   const void* table, const void* blocks, int block_size,
+                                   int n_blocks, int n_entries, int causal, int scale_bits) {
   SplashMask m = {};
   m.batch = batch;
   m.heads = heads;
   m.len = len;
   m.n_tiles = (len + kTile - 1) / kTile;
+  m.head_dim = head_dim;
+  m.n_slices = slices_of(head_dim);
   m.scale = scale_from_bits(scale_bits);
   m.window = window;
   if (window == 0) {
@@ -258,96 +263,10 @@ inline bool splash_args_ok(int batch, int heads, int len, int window, const void
          (long long)block_size * n_blocks == len;
 }
 
-// The backward's 16-byte loads need operands on 16-byte boundaries (the
+// The kernels' 16-byte loads need operands on 16-byte boundaries (the
 // wrappers copy one that is not).
 inline bool aligned16(const void* q, const void* k, const void* v, const void* dout) {
   return (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) & 15) == 0;
-}
-
-// Rows row0 .. row0 + R - 1 of a (L, D) slab into a row-major (R, D) f32
-// tile, zeros past L. Neighbouring threads read neighbouring elements.
-template <int D, typename T, int R = kTile>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int row0,
-                                          int len) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[e] = row0 + r < len ? to_f(src[(size_t)(row0 + r) * D + d]) : 0.f;
-  }
-}
-
-// The same rows into a transposed (D, R + 1) tile: dst[d * (R + 1) + r].
-template <int D, typename T, int R = kTile>
-__device__ __forceinline__ void load_rows_t(float* dst, const T* __restrict__ src, int row0,
-                                            int len) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[d * (R + 1) + r] = row0 + r < len ? to_f(src[(size_t)(row0 + r) * D + d]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum_d A[N ty + i][d] * Bt[d][tx + 16 j], N = R / 16, A
-// row-major (R, D), Bt transposed (D, R + 1): the (N, N) block of a tile A B^T.
-template <int D, int R = kTile>
-__device__ __forceinline__ void tile_abt(float (&acc)[R / 16][R / 16], const float* A,
-                                         const float* Bt, int tx, int ty) {
-  constexpr int N = R / 16;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 av[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) av[i] = *reinterpret_cast<const float4*>(A + (N * ty + i) * D + d);
-#pragma unroll
-    for (int dd = 0; dd < 4; ++dd) {
-      float bv[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) bv[j] = Bt[(d + dd) * (R + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float a = dd == 0 ? av[i].x : dd == 1 ? av[i].y : dd == 2 ? av[i].z : av[i].w;
-#pragma unroll
-        for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][j] += sum_c P[N ty + i][c] * B[c][tx + 16 j] over the R columns of
-// a row-major (R, R) tile P, B row-major (R, D), N = R / 16: the rows' block
-// of P B.
-template <int D, int R = kTile>
-__device__ __forceinline__ void tile_pb(float (&acc)[R / 16][D / 16], const float* P,
-                                        const float* B, int tx, int ty) {
-  constexpr int N = R / 16;
-#pragma unroll 2
-  for (int c = 0; c < R; c += 4) {
-    float4 pv[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) pv[i] = *reinterpret_cast<const float4*>(P + (N * ty + i) * R + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float bv[D / 16];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) bv[j] = B[(c + cc) * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p, bv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Max and sum over the 16 threads of a half-warp (one row of a tile).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // --- the kernel bodies, over a mask policy ---------------------------------
@@ -355,124 +274,6 @@ __device__ __forceinline__ float row_sum(float v) {
 // The (b, h) index of this block: launch folds B * H over gridDim.y and
 // gridDim.z, and a block past B * H returns at once.
 __device__ __forceinline__ int block_bh() { return blockIdx.y + gridDim.y * blockIdx.z; }
-
-// Queries, and keys, that the forward takes of a 64-row tile at once: the
-// whole tile up to D = 256 (214,016 B of shared memory there), 32 rows above
-// (tiles of 64 would take 312,832 B at D = 384, past the 232,448 a block may
-// have), the tile's halves walked in turn.
-template <int D>
-__host__ __device__ constexpr int fwd_part() {
-  return D <= 256 ? kTile : kTile / 2;
-}
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  constexpr int R = fwd_part<D>();
-  return (2 * R * D + D * (R + 1) + R * R) * sizeof(float);  // Qs, Vs, Kt, Ps
-}
-
-// The forward: one block owns (b, h, a tile of 64 queries); the queries of a
-// part (R = fwd_part rows) stay in shared memory while the block walks the
-// key tiles its mask names, R keys at a time, each K part transposed and
-// each V part row-major in shared memory. Scores, the online softmax
-// (running max m and sum l a row, rescaling the accumulator by
-// exp(m_old - m_new)) and the (R, D) accumulator live in registers, f32
-// throughout: thread (ty, tx) owns rows N ty .. N ty + N - 1 (N = R / 16)
-// and columns tx + 16 j. Query tiles run last first (under causal the
-// heaviest first). Writes o and the logsumexp m + log(l).
-template <int D, typename T, typename Mask>
-__device__ __forceinline__ void attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
-                                         const T* __restrict__ v, T* __restrict__ o,
-                                         float* __restrict__ lse, const Mask& m) {
-  constexpr int R = fwd_part<D>(), N = R / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // (R, D) queries, row-major
-  float* Vs = Qs + R * D;                        // (R, D) values, row-major
-  float* Kt = Vs + R * D;                        // (D, R + 1) keys, transposed
-  float* Ps = Kt + D * (R + 1);                  // (R, R) probabilities, row-major
-  __shared__ int seg_q[kTile], seg_k[kTile];
-
-  const int bh = block_bh();
-  if (bh >= m.batch * m.heads) return;
-  const int len = m.len;
-  const int qt = m.n_tiles - 1 - blockIdx.x;
-  const int b = bh / m.heads, h = bh % m.heads;
-  const size_t base = (size_t)bh * len * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int n_kv = m.n_kv(qt);
-
-  for (int part = 0; part < kTile / R; ++part) {
-    // The previous part last read Qs and seg_q before its last barrier.
-    const int q0 = qt * kTile + part * R;
-    load_rows<D, T, R>(Qs, q + base, q0, len);
-    m.load_seg(seg_q, b, q0, -1);
-
-    float acc[N][D / 16];
-    float mx_run[N], l[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      mx_run[i] = -INFINITY;
-      l[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-    }
-
-    for (int n = 0; n < n_kv; ++n) {
-      bool full;
-      const int kt0 = m.kv_tile(qt, n, full) * kTile;
-      for (int kp = 0; kp < kTile / R; ++kp) {
-        const int k0 = kt0 + kp * R;
-        __syncthreads();  // the previous part's Kt, Vs and Ps are read
-        load_rows_t<D, T, R>(Kt, k + base, k0, len);
-        load_rows<D, T, R>(Vs, v + base, k0, len);
-        m.load_seg(seg_k, b, k0, -2);
-        __syncthreads();
-
-        float s[N][N] = {};
-        tile_abt<D, R>(s, Qs, Kt, tx, ty);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const int rl = N * ty + i;
-          float mx = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < N; ++j) {
-            s[i][j] = m.score(b, h, q0 + rl, k0 + tx + 16 * j, s[i][j], full, seg_q[rl],
-                              seg_k[tx + 16 * j]);
-            mx = fmaxf(mx, s[i][j]);
-          }
-          const float m_new = fmaxf(mx_run[i], row_max(mx));
-          const float m_use = m_new == -INFINITY ? 0.f : m_new;
-          const float alpha = expf(mx_run[i] - m_use);
-          float sum = 0.f;
-#pragma unroll
-          for (int j = 0; j < N; ++j) {
-            s[i][j] = expf(s[i][j] - m_use);
-            sum += s[i][j];
-          }
-          l[i] = l[i] * alpha + row_sum(sum);
-          mx_run[i] = m_new;
-#pragma unroll
-          for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
-#pragma unroll
-          for (int j = 0; j < N; ++j) Ps[rl * R + tx + 16 * j] = s[i][j];
-        }
-        __syncthreads();
-        tile_pb<D, R>(acc, Ps, Vs, tx, ty);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int r = q0 + N * ty + i;
-      if (r >= len) continue;
-      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        o[base + (size_t)r * D + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
-      if (tx == 0) lse[(size_t)bh * len + r] = l[i] > 0.f ? mx_run[i] + logf(l[i]) : INFINITY;
-    }
-  }
-}
 
 // --- the backward, on the tensor cores --------------------------------------
 //
@@ -495,9 +296,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return r;
 }
 
-// Row stride, in floats, of a (64, D) tile in the backward's shared memory.
+// Row stride, in floats, of a tile in shared memory: D + 4, so that the
+// fragment reads fall on 32 distinct banks.
 template <int D>
-__host__ __device__ constexpr int bwd_ld() {
+__host__ __device__ constexpr int tile_ld() {
   return D + 4;
 }
 
@@ -511,42 +313,82 @@ __host__ __device__ constexpr int wide_walk() {
   return D <= 256 ? kTile : kTile / 2;
 }
 
-// The backward's threads a block: 4 warps up to D = 128, D / 64 above.
+// Threads a block: 4 warps up to D = 128, D / 64 above.
 template <int D>
-__host__ __device__ constexpr int bwd_threads() {
-  return D <= 128 ? kBwdThreads : 32 * (D / 64);
+__host__ __device__ constexpr int body_threads() {
+  return D <= 128 ? kNarrowThreads : 32 * (D / 64);
 }
 
-// Up to D = 128: two tiles the block keeps (K and V, or Q and dO) and two
-// stages of the two it walks. Above: the two kept parts of kWideRows rows,
-// the two walked parts, and the A fragments of p and ds (float4 a lane and
-// 8-key step) for the kept rows.
+// The forward above D = 128 (attn_fwd_wide): R kept queries (32 at D = 256,
+// and so in the slices above 512; 16 at 384 and 512), W walked keys a step,
+// and warps of 16 rows by 64 columns of o: NRG row groups of NWC warps each.
+// A row group's NS score tiles a step are shared out over its warps, TPW
+// each at most. (Warps of 128 columns, which let the whole 64-row tile stay
+// at D = 256, spilled 600-900 bytes at 255 registers in f32; 32 rows at 384
+// and 512 would need 192 and 256 threads' registers for 12 and 16 warps.)
+template <int D>
+struct FwdWide {
+  static constexpr int kR = D == 256 ? kTile / 2 : kWideRows;
+  static constexpr int kW = wide_walk<D>();
+  static constexpr int kNRG = kR / 16, kNWC = D / 64;
+  static constexpr int kThreads = 32 * kNRG * kNWC;
+  static constexpr int kNS = kW / 8, kTPW = (kNS + kNWC - 1) / kNWC;
+};
+
+template <int D>
+__host__ __device__ constexpr int fwd_threads() {
+  if constexpr (D <= 128)
+    return kNarrowThreads;
+  else
+    return FwdWide<D>::kThreads;
+}
+
+// The forward up to D = 128: the kept query tile and two stages of K and V.
+// Above: the kept queries, the walked K and V, and for each row group the A
+// fragments of p (float4 a lane and 8-key step) and each score tile's row
+// maxima: 175,616 B at D = 256, 126,464 at 384, 167,424 at 512.
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  if constexpr (D <= 128) {
+    return 5 * kTile * tile_ld<D>() * sizeof(float);
+  } else {
+    using F = FwdWide<D>;
+    return (F::kR + 2 * F::kW) * tile_ld<D>() * sizeof(float) +
+           F::kNRG * F::kNS * (32 * sizeof(float4) + 16 * sizeof(float));
+  }
+}
+
+// The backward up to D = 128: two tiles the block keeps (K and V, or Q and
+// dO) and two stages of the two it walks. Above: the two kept parts of
+// kWideRows rows, the two walked parts, and the A fragments of p and ds for
+// the kept rows.
 template <int D>
 constexpr size_t bwd_smem_bytes() {
   if constexpr (D <= 128) {
-    return 6 * kTile * bwd_ld<D>() * sizeof(float);
+    return 6 * kTile * tile_ld<D>() * sizeof(float);
   } else {
-    return (2 * kWideRows + 2 * wide_walk<D>()) * bwd_ld<D>() * sizeof(float) +
+    return (2 * kWideRows + 2 * wide_walk<D>()) * tile_ld<D>() * sizeof(float) +
            2 * (wide_walk<D>() / 8) * 32 * sizeof(float4);
   }
 }
 
 // Rows row0 .. row0 + ROWS - 1 of a (L, D) slab into a row-major (ROWS,
-// bwd_ld) f32 tile by THREADS threads, zeros past L. f32 by 16-byte
+// tile_ld) f32 tile by THREADS threads, zeros past L. f32 by 16-byte
 // asynchronous copies, complete after the next cp_async_wait that covers
 // them (the zeros past L are plain stores); bf16 and f16 by 16-byte loads,
 // converted in registers. Unrolled by 2 only: a full unroll keeps every
-// piece's address in registers through the loop.
-template <int D, typename T, int ROWS = kTile, int THREADS = kBwdThreads>
+// piece's address in registers through the loop. kSliced: the tile is the
+// D-column slice from column col0 of an (L, ld) slab, zeros past column ld.
+template <int D, typename T, int ROWS = kTile, int THREADS = kNarrowThreads, bool kSliced = false>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
-                                          int len) {
-  constexpr int LD = bwd_ld<D>();
+                                          int len, int ld = D, int col0 = 0) {
+  constexpr int LD = tile_ld<D>();
   if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 2
     for (int i = 0; i < ROWS * D / 4 / THREADS; ++i) {
       const int e = threadIdx.x + i * THREADS, r = e / (D / 4), c = e % (D / 4) * 4;
-      if (row0 + r < len)
-        cp_async16(dst + r * LD + c, src + (size_t)(row0 + r) * D + c);
+      if (row0 + r < len && (!kSliced || col0 + c < ld))
+        cp_async16(dst + r * LD + c, src + (size_t)(row0 + r) * ld + col0 + c);
       else
         *reinterpret_cast<float4*>(dst + r * LD + c) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -555,8 +397,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     for (int i = 0; i < ROWS * D / 8 / THREADS; ++i) {
       const int e = threadIdx.x + i * THREADS, r = e / (D / 8), c = e % (D / 8) * 8;
       float x[8] = {};
-      if (row0 + r < len) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
+      if (row0 + r < len && (!kSliced || col0 + c < ld)) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col0 + c);
         const T* h = reinterpret_cast<const T*>(&raw);
 #pragma unroll
         for (int j = 0; j < 8; ++j) x[j] = to_f(h[j]);
@@ -645,13 +488,13 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4]
 }
 
 // s (the C fragments of the warp's rows r0 .. r0 + 15 and the columns c0 ..
-// c0 + 8 NT - 1) = A B^T over D, A and B row-major (64, bwd_ld) tiles, in
+// c0 + 8 NT - 1) = A B^T over D, A and B row-major (64, tile_ld) tiles, in
 // groups of KG k-steps: each group's terms are summed apart and added to s
 // in f32, which keeps the tensor cores' truncation to a chain of KG steps.
 template <int D, int NT, int KG, bool kSplit>
 __device__ __forceinline__ void product_t(float (&s)[NT][4], const float* A, const float* B,
                                           int r0, int c0) {
-  constexpr int LD = bwd_ld<D>();
+  constexpr int LD = tile_ld<D>();
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -678,7 +521,7 @@ __device__ __forceinline__ void product_t(float (&s)[NT][4], const float* A, con
 
 // Two score-shaped products for the warp's rows r0 .. r0 + 15 and the
 // columns c0 .. c0 + 8 NT - 1: s = A1 B1^T and dp = A2 B2^T over D, the four
-// tiles row-major (64, bwd_ld). s[j], dp[j]: the C fragments of columns
+// tiles row-major (64, tile_ld). s[j], dp[j]: the C fragments of columns
 // c0 + 8 j .. At D = 64 in f32 (the GPT path) the two chains of 24 mma run
 // interleaved, straight into s and dp (product_t there took the dK/dV + dQ
 // pair 12% longer on an H100); a longer chain (D = 128), or one whose single
@@ -688,7 +531,7 @@ template <int D, int NT, bool kSplit>
 __device__ __forceinline__ void score_tiles(float (&s)[NT][4], float (&dp)[NT][4],
                                             const float* A1, const float* B1, const float* A2,
                                             const float* B2, int r0, int c0) {
-  constexpr int LD = bwd_ld<D>();
+  constexpr int LD = tile_ld<D>();
   if constexpr (kSplit && D == 64) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -719,7 +562,7 @@ __device__ __forceinline__ void score_tiles(float (&s)[NT][4], float (&dp)[NT][4
 
 // acc (the warp's 16 rows by D, as D / 8 C fragments) += P B over 8 NT
 // terms: P the C fragments p (columns c0 ..), B rows c0 .. c0 + 8 NT - 1 of a
-// row-major (64, bwd_ld) tile. The tensor cores truncate as they accumulate,
+// row-major (64, tile_ld) tile. The tensor cores truncate as they accumulate,
 // so one chain of mma over a whole row drifts by about 2^-24 of acc a step:
 // with dk's 384 steps at L = 1024 that read 1.7e-5 of the largest |dk| on an
 // H100, against 1e-6 with these terms summed apart (64 columns of D at a
@@ -727,7 +570,7 @@ __device__ __forceinline__ void score_tiles(float (&s)[NT][4], float (&dp)[NT][4
 template <int D, int NT, bool kSplitB>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&p)[NT][4],
                                            const float* B, int c0) {
-  constexpr int LD = bwd_ld<D>(), G = D == 64 ? 8 : 4;  // C fragments summed apart at once
+  constexpr int LD = tile_ld<D>(), G = D == 64 ? 8 : 4;  // C fragments summed apart at once
 #pragma unroll
   for (int n0 = 0; n0 < D / 8; n0 += G) {
     float part[G][4] = {};
@@ -749,11 +592,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (
   }
 }
 
-// The warp's accumulator (N C fragments: columns c0 .. c0 + 8 N - 1) times
-// mul into rows row0 .. row0 + 15 of a (L, D) slab, rows past L dropped.
+// The warp's accumulator (N C fragments: columns c0 .. c0 + 8 N - 1) into
+// rows row0 .. row0 + 15 of an (L, ld) slab, row g + 8 i times mul[i], rows
+// past L dropped.
 template <int D, typename T, int N>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[N][4],
-                                           int row0, int len, float mul, int c0 = 0) {
+                                           int row0, int len, const float (&mul)[2],
+                                           int c0 = 0, int ld = D) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -761,11 +606,20 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&ac
     if (r >= len) continue;
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      T* out = dst + (size_t)r * D + c0 + 8 * n + 2 * t;
-      out[0] = from_f<T>(acc[n][2 * i] * mul);
-      out[1] = from_f<T>(acc[n][2 * i + 1] * mul);
+      T* out = dst + (size_t)r * ld + c0 + 8 * n + 2 * t;
+      out[0] = from_f<T>(acc[n][2 * i] * mul[i]);
+      out[1] = from_f<T>(acc[n][2 * i + 1] * mul[i]);
     }
   }
+}
+
+// The same with one multiplier for both rows.
+template <int D, typename T, int N>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[N][4],
+                                           int row0, int len, float mul, int c0 = 0,
+                                           int ld = D) {
+  const float muls[2] = {mul, mul};
+  store_rows<D>(dst, acc, row0, len, muls, c0, ld);
 }
 
 // A query row's statistics: lse (+inf past L, so that p = 0 there), delta
@@ -783,6 +637,168 @@ __device__ __forceinline__ RowStats row_stats(const Mask& m, const float* __rest
   return {in ? lse[row_base + r] : INFINITY, in ? delta[row_base + r] : 0.f, m.seg_at(b, r, -1)};
 }
 
+// The max and the sum over the four threads of a quad (t = 0 .. 3: the
+// columns of one row of a C fragment).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One step of the online softmax for a thread's two rows (g and g + 8):
+// the new running max m_run from the step's row max mx (-inf where the row
+// sees nothing yet), the factor alpha that rescales what was accumulated,
+// and m_use, the max the step's p = exp(s - m_use) subtract (0 while the row
+// has seen nothing, so that no -inf - -inf arises).
+__device__ __forceinline__ void softmax_step(float (&m_run)[2], const float (&mx)[2],
+                                             float (&alpha)[2], float (&m_use)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m_run[i], mx[i]);
+    m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[i] = fast_exp2((m_run[i] - m_use[i]) * kLog2e);
+    m_run[i] = m_new;
+  }
+}
+
+__device__ __forceinline__ float softmax_p(float x, float m_use) {
+  return x == -INFINITY ? 0.f : fast_exp2((x - m_use) * kLog2e);
+}
+
+// The forward's output: rows row0 + g, row0 + g + 8 of o (columns c0 ..)
+// as acc / l, l the row sums summed over the quad; and, where write_lse,
+// their logsumexp m + log(l) (+inf for a row that saw no key, whose output
+// is 0).
+template <int D, typename T, int N>
+__device__ __forceinline__ void store_fwd(T* __restrict__ o, float* __restrict__ lse,
+                                          const float (&acc)[N][4], const float (&m_run)[2],
+                                          const float (&l_run)[2], int row0, int len,
+                                          bool write_lse, int c0 = 0, int ld = D) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float l[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l_run[i]);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+  store_rows<D>(o, acc, row0, len, inv, c0, ld);
+  if (write_lse && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      if (r < len) lse[r] = l[i] > 0.f ? m_run[i] + logf(l[i]) : INFINITY;
+    }
+  }
+}
+
+// The forward up to D = 128: one block of 4 warps owns (b, h, a tile of 64
+// queries), keeps Q, and walks the key tiles its mask names, K and V
+// through the ring, query tiles last first (under causal the heaviest
+// first). Each warp computes its 16 queries' score tile s = Q K^T over the
+// tile's keys (64 a step at D = 64, 32 at D = 128) in C fragments, runs the
+// online softmax on them (a thread's rows g
+// and g + 8: the row max is a quad shuffle, the row sums stay a thread's own
+// until the end), rescales its (16, D) accumulator and adds p v, p passed
+// from C to A fragments in registers (frag_a_of_c).
+template <int D, typename T, typename Mask>
+__device__ __forceinline__ void attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, T* __restrict__ o,
+                                         float* __restrict__ lse, const Mask& m) {
+  // Keys a softmax step: the tile's 64 at D = 64, 32 at D = 128, where the
+  // (16, 128) accumulator takes 64 registers a thread (with 64 keys the
+  // instances spilled at 255 registers).
+  constexpr int LD = tile_ld<D>(), NT = D == 64 ? 8 : 4;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int KG = kSplit ? (D == 64 ? 8 : 4) : 2;  // the score chains, as in score_tiles
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // (64, LD) queries
+  float* Ks = Qs + kTile * LD;                   // two stages of (64, LD) keys
+  float* Vs = Ks + 2 * kTile * LD;               // two stages of (64, LD) values
+  __shared__ int seg_k[2][kTile];
+
+  const int bh = block_bh();
+  if (bh >= m.batch * m.heads) return;
+  const int len = m.len, qt = m.n_tiles - 1 - blockIdx.x, b = bh / m.heads, h = bh % m.heads;
+  const size_t base = (size_t)bh * len * D;
+  const int q0 = qt * kTile, r0 = threadIdx.x / 32 * 16;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int n_kv = m.n_kv(qt);
+  const int seg_r[2] = {m.seg_at(b, q0 + r0 + g, -1), m.seg_at(b, q0 + r0 + g + 8, -1)};
+  bool full;
+
+  load_tile<D>(Qs, q + base, q0, len);
+  if (n_kv > 0) {
+    const int k0 = m.kv_tile(qt, 0, full) * kTile;
+    load_tile<D>(Ks, k + base, k0, len);
+    load_tile<D>(Vs, v + base, k0, len);
+    if (threadIdx.x < kTile) seg_k[0][threadIdx.x] = m.seg_at(b, k0 + threadIdx.x, -2);
+  }
+  cp_async_commit();
+
+  float acc[D / 8][4] = {};
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int n = 0; n < n_kv; ++n) {
+    const int cur = n & 1, nxt = cur ^ 1;
+    const int k0 = m.kv_tile(qt, n, full) * kTile;
+    int next_seg = 0;
+    if (n + 1 < n_kv) {  // the next tile's copies fly while this one is multiplied
+      bool next_full;
+      const int k1 = m.kv_tile(qt, n + 1, next_full) * kTile;
+      load_tile<D>(Ks + nxt * kTile * LD, k + base, k1, len);
+      load_tile<D>(Vs + nxt * kTile * LD, v + base, k1, len);
+      if (threadIdx.x < kTile) next_seg = m.seg_at(b, k1 + threadIdx.x, -2);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile n and (n = 0) Q are in shared memory
+
+    const float* Kc = Ks + cur * kTile * LD;
+    const float* Vc = Vs + cur * kTile * LD;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NT) {
+      float s[NT][4];
+      asm volatile("" ::: "memory");  // the kept tile's loads stay here, not in registers
+      product_t<D, NT, KG, kSplit>(s, Qs, Kc, r0, c0);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kc = c0 + 8 * j + 2 * t + (e & 1);
+          s[j][e] = m.score(b, h, q0 + r0 + g + 8 * (e >> 1), k0 + kc, s[j][e], full,
+                            seg_r[e >> 1], seg_k[cur][kc]);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+      float alpha[2], m_use[2];
+      softmax_step(m_run, mx, alpha, m_use);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] *= alpha[i];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = softmax_p(s[j][e], m_use[e >> 1]);
+          l_run[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n8][e] *= alpha[e >> 1];
+      accumulate<D, NT, kSplit>(acc, s, Vc, c0);  // o += p v
+    }
+    if (n + 1 < n_kv && threadIdx.x < kTile) seg_k[nxt][threadIdx.x] = next_seg;
+    __syncthreads();  // every warp is done with stage cur before tile n + 2 lands in it
+  }
+  cp_async_wait<0>();
+
+  store_fwd<D>(o + base, lse + (size_t)bh * len, acc, m_run, l_run, q0 + r0, len, true);
+}
+
 // dK/dV: one block owns (b, h, a tile of 64 keys), keeps K and V, and walks
 // the query tiles its mask names, Q and dO through the ring. Each warp
 // computes its 16 keys' rows of s^T = K Q^T and dp^T = V dO^T, turns them
@@ -797,7 +813,7 @@ __device__ __forceinline__ void attn_bwd_dkv(const T* __restrict__ q, const T* _
                                              const float* __restrict__ delta,
                                              T* __restrict__ dk, T* __restrict__ dv,
                                              const Mask& m) {
-  constexpr int LD = bwd_ld<D>(), NT = D == 64 ? 8 : 1;
+  constexpr int LD = tile_ld<D>(), NT = D == 64 ? 8 : 1;
   constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // (64, LD) keys
@@ -895,7 +911,7 @@ __device__ __forceinline__ void attn_bwd_dq(const T* __restrict__ q, const T* __
                                             const float* __restrict__ lse,
                                             const float* __restrict__ delta, T* __restrict__ dq,
                                             float* __restrict__ ds_out, const Mask& m) {
-  constexpr int LD = bwd_ld<D>(), NT = D == 64 ? 8 : 4;
+  constexpr int LD = tile_ld<D>(), NT = D == 64 ? 8 : 4;
   constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // (64, LD) queries
@@ -970,22 +986,52 @@ __device__ __forceinline__ void attn_bwd_dq(const T* __restrict__ q, const T* __
   store_rows<D>(dq + base, acc, q0 + r0, len, m.scale);
 }
 
-// --- the backward above D = 128 ----------------------------------------------
+// --- above D = 128 -----------------------------------------------------------
 //
 // At D = 128 a warp's dk and dv accumulators over its 16 rows take 128
 // registers a thread, and the tiles 202,752 B of shared memory; both grow
-// with D. Above D = 128 a block therefore keeps kWideRows = 16 rows of its
-// 64-row tile (K and V, or Q and dO: the tile's four parts in turn), walks
-// the other side wide_walk rows a step (64 at D = 256, 32 at 384 and 512),
-// each walked tile of the mask's list in parts, with one load stage, and has
-// D / 64 warps: the warps split D into 64-column chunks of the accumulators
-// (dk, dv: 64 registers a thread at any D). The score tiles s and dp need
-// all of D: each warp computes whole 16 x 8 score tiles over D (the walk's
-// W / 8 of them shared out over the warps), turns them into p and ds in
-// registers and leaves them in shared memory as A fragments (float4 a lane:
-// the C fragment in frag_a_of_c's order); every warp then reads all of them
-// for its chunk of dv += p^T do and dk += ds^T q (or dq += ds k). Shared
-// memory: 174,592 B at D = 256, 153,088 B at 384, 202,240 B at 512.
+// with D. Above D = 128 the backward therefore keeps kWideRows = 16 rows of
+// its 64-row tile (K and V, or Q and dO: the tile's four parts in turn),
+// walks the other side wide_walk rows a step (64 at D = 256, 32 at 384 and
+// 512), each walked tile of the mask's list in parts, with one load stage,
+// and has D / 64 warps: the warps split D into 64-column chunks of the
+// accumulators (dk, dv, dq: 32 registers a thread each at any D). The
+// forward at D = 256 keeps 32 rows in two row groups of D / 64 warps
+// (FwdWide), so that each walked K and V tile is loaded twice a tile
+// instead of four times; at 384 and 512, 16 rows like the backward. The
+// score tiles s and dp need all of D: each warp computes whole
+// 16 x 8 score tiles over D (its row group's W / 8 of them shared out over
+// the group's warps), turns them into p and ds in registers and leaves them
+// in shared memory as A fragments (float4 a lane: the C fragment in
+// frag_a_of_c's order); every warp of the group then reads all of them for
+// its chunk of o += p v, dv += p^T do and dk += ds^T q, or dq += ds k. The
+// forward's online softmax needs each row's max over the step's score tiles
+// first: each warp leaves its tiles' row maxima in shared memory, and every
+// thread takes the max of them for its rows, so every warp of a row group
+// rescales by the same factor. Shared memory: forward 175,616 B at D = 256,
+// 126,464 at 384, 167,424 at 512; backward 174,592 B at D = 256, 153,088 at
+// 384, 202,240 at 512.
+//
+// Above D = 512 (the bodies with SL = true) no block holds a row's D
+// columns: 16 kept rows and 32 walked ones at a stride of D + 4 floats pass
+// a block's 232,448 B at D = 590 (D = 640 would need 251,392 B). D is cut
+// into slices of kSliceDim = 256 columns (the last one zero-padded when
+// kSliceDim does not divide D), and each (tile, slice) pair is a block of
+// its own (blockIdx.x = tile * n_slices + slice; one template at D = 256
+// serves every D, the slice count a runtime value). Each block computes its
+// score tiles over all of D, slice by slice in order (each slice's q, k, v
+// or do columns loaded in turn into the step's tiles; the kept rows are
+// loaded again with them), then accumulates and writes only its own slice
+// of o, dk and dv, or dq, reloading that slice of the walked rows first
+// where the last slice loaded was another. Every block of a tile computes
+// the same scores in the same order, so their p, and in the forward their
+// running max and row sums, agree bit for bit: slice 0 alone writes the
+// logsumexp and the bias's grad ds, and each output element still has one
+// writer. The cost: every block does the score products over all of D, so
+// with S = ceil(D / 256) slices the forward does (S + 1) / 2 times the
+// products of an unsliced one, dK/dV (2 S + 2) / 4 and dQ (2 S + 1) / 3 (at
+// D = 640, S = 3: 2x, 2x and 2.3x; at D = 2048, S = 8: 4.5x, 4.5x, 5.7x),
+// and loads of q and k, or of all four, grow the same way.
 
 // A score tile's C fragment c (p or ds) as the A fragment its consumer reads.
 __device__ __forceinline__ float4 frag_of_c(const float (&c)[4]) {
@@ -994,15 +1040,17 @@ __device__ __forceinline__ float4 frag_of_c(const float (&c)[4]) {
 
 // acc (the warp's 16 rows by the 64 columns c0 .., as 8 C fragments) += P B
 // over the W walked rows: P the (16, W) fragments frags[j * 32 + lane] of
-// 8-row step j (frag_of_c), B rows 0 .. W - 1 of a row-major (W, bwd_ld)
+// 8-row step j (frag_of_c), B rows 0 .. W - 1 of a row-major (W, tile_ld)
 // tile. Each step's terms are summed apart and added in f32, as in
 // accumulate.
-template <int D, int W, bool kSplitB>
+// The steps unroll by kUnroll: 2 by default, 1 at D = 512, where a second
+// step's fragments took the dQ body 8 bytes of stack in bf16 and f16 at 255
+// registers (and in the forward, which took the D = 256 bf16 and f16
+// instances 8 bytes).
+template <int D, int W, bool kSplitB, int kUnroll = (D == 512 ? 1 : 2)>
 __device__ __forceinline__ void accumulate_wide(float (&acc)[8][4], const float4* frags,
                                                 const float* B, int c0) {
-  // The steps unroll by 2, by 1 at D = 512, where a second step's fragments
-  // took the dQ body 8 bytes of stack in bf16 and f16 at 255 registers.
-  constexpr int LD = bwd_ld<D>(), G = 4, kUnroll = D == 512 ? 1 : 2;
+  constexpr int LD = tile_ld<D>(), G = 4;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int n0 = 0; n0 < 8; n0 += G) {
@@ -1029,39 +1077,261 @@ __device__ __forceinline__ void accumulate_wide(float (&acc)[8][4], const float4
   }
 }
 
-// dK/dV above D = 128: one block owns (b, h, a tile of 64 keys) and takes its
-// four parts of 16 keys in turn, each over every query tile its mask names.
-template <int D, typename T, typename Mask>
+// Where the wide bodies are: the tile (query or key) and the D slice of
+// this block, the slices, and the row stride of q, k, v. Not SL, n_slices
+// is 1 but read from the mask: a loop over slices the compiler sees run
+// once took the D = 256 forward from 206 registers past 255 in f32 (it
+// interleaved the step's score tiles).
+struct WidePlace {
+  int tile, slice, n_slices, ld;
+};
+
+template <int D, bool SL, typename Mask>
+__device__ __forceinline__ WidePlace wide_place(const Mask& m) {
+  if constexpr (SL) {
+    const int tile = blockIdx.x / m.n_slices;
+    return {tile, (int)blockIdx.x - tile * m.n_slices, m.n_slices, m.head_dim};
+  } else {
+    return {(int)blockIdx.x, 0, m.n_slices, D};
+  }
+}
+
+// Rows row0 .. of slice j (columns kSliceDim j ..) of an (L, ld) slab into
+// a (ROWS, tile_ld) tile, or the whole rows when not SL.
+template <int D, bool SL, typename T, int ROWS, int THREADS>
+__device__ __forceinline__ void load_part(float* dst, const T* __restrict__ src, int row0,
+                                          int len, const WidePlace& at, int j) {
+  if constexpr (SL)
+    load_tile<D, T, ROWS, THREADS, true>(dst, src, row0, len, at.ld, j * D);
+  else
+    load_tile<D, T, ROWS, THREADS>(dst, src, row0, len);
+}
+
+// The forward above D = 128: one block owns (b, h, a tile of 64 queries;
+// above D = 512 one D slice of it) and takes it in parts of R = FwdWide::kR
+// queries, each over every key tile its mask names. Warp (rg, cg) keeps o's
+// rows 16 rg .. and columns 64 cg .. of the part.
+// Each walked step: the row group's score tiles over D (slice by slice in
+// order above 512), their row maxima through shared memory, the online
+// softmax, p as A fragments through shared memory, o += p v. V's copies fly
+// while the scores are computed.
+template <int D, typename T, typename Mask, bool SL = false>
+__device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v, T* __restrict__ o,
+                                              float* __restrict__ lse, const Mask& m) {
+  using F = FwdWide<D>;
+  constexpr int LD = tile_ld<D>(), R = F::kR, W = F::kW, NS = F::kNS, NWC = F::kNWC;
+  constexpr int TPW = F::kTPW, NTH = F::kThreads;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int KG = 2;  // chains of 6 mma in f32: with 12 the f32 instances spilled
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);                   // (R, LD) queries
+  float* Ks = Qs + R * LD;                                        // (W, LD) keys
+  float* Vs = Ks + W * LD;                                        // (W, LD) values
+  float4* Pf = reinterpret_cast<float4*>(Vs + W * LD);            // (NRG, NS, 32) p
+  float* tile_max = reinterpret_cast<float*>(Pf + F::kNRG * NS * 32);  // (NRG, NS, 16)
+  __shared__ int seg_q[kTile], seg_k[kTile];
+
+  const int bh = block_bh();
+  if (bh >= m.batch * m.heads) return;
+  const WidePlace at = wide_place<D, SL>(m);
+  const int len = m.len, qt = m.n_tiles - 1 - at.tile, b = bh / m.heads, h = bh % m.heads;
+  const size_t base = (size_t)bh * len * at.ld;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int rg = warp / NWC, cg = warp % NWC, r0 = 16 * rg;
+  const int g = lane >> 2, t = lane & 3;
+  const int c_out = at.slice * D + 64 * cg;  // the warp's first column of o
+  float4* Pr = Pf + rg * NS * 32;                  // the row group's fragments
+  float* max_r = tile_max + rg * NS * 16;          // and row maxima
+  const float* Qr = Qs + r0 * LD;                  // and queries
+  const int n_kv = m.n_kv(qt);
+
+  for (int part = 0; part < kTile / R; ++part) {
+    const int q0 = qt * kTile + part * R;
+    __syncthreads();  // the previous part's Qs and seg_q are read
+    if constexpr (!SL) load_tile<D, T, R, NTH>(Qs, q + base, q0, len);
+    if (threadIdx.x < R) seg_q[threadIdx.x] = m.seg_at(b, q0 + threadIdx.x, -1);
+    float acc[8][4] = {};
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    for (int n = 0; n < n_kv; ++n) {
+      bool full;
+      const int kt0 = m.kv_tile(qt, n, full) * kTile;
+      for (int wp = 0; wp < kTile / W; ++wp) {
+        const int k0 = kt0 + wp * W;
+        __syncthreads();  // the previous step's tiles, fragments and maxima are read
+        if (threadIdx.x < W) seg_k[threadIdx.x] = m.seg_at(b, k0 + threadIdx.x, -2);
+        // f32 V by cp.async flies while the scores are computed (unsliced: a
+        // copy group of its own after K's); bf16 and f16 V (loads converted
+        // in registers), and sliced V, come first.
+        constexpr bool kLateV = !SL && kSplit;
+        if (!kLateV) load_part<D, SL, T, W, NTH>(Vs, v + base, k0, len, at, at.slice);
+        float s[TPW][4] = {};
+        for (int j = 0; j < at.n_slices; ++j) {  // s = q k^T over D, slice by slice
+          if (j > 0) __syncthreads();  // slice j - 1's Qs and Ks are read
+          if (SL) load_part<D, SL, T, R, NTH>(Qs, q + base, q0, len, at, j);
+          load_part<D, SL, T, W, NTH>(Ks, k + base, k0, len, at, j);
+          cp_async_commit();
+          if constexpr (kLateV) {
+            load_tile<D, T, W, NTH>(Vs, v + base, k0, len);
+            cp_async_commit();
+            cp_async_wait<1>();  // Q and K; V flies on
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+#pragma unroll
+          for (int i = 0; i < TPW; ++i) {
+            const int jt = cg + NWC * i;
+            if (jt < NS) {
+              float x[1][4];
+              asm volatile("" ::: "memory");
+              product_t<D, 1, KG, kSplit>(x, Qr, Ks, 0, 8 * jt);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[i][e] += x[0][e];
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {  // the masked scores and each tile's row maxima
+          const int jt = cg + NWC * i;
+          if (jt < NS) {
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int rl = r0 + g + 8 * (e >> 1), kc = 8 * jt + 2 * t + (e & 1);
+              s[i][e] = m.score(b, h, q0 + rl, k0 + kc, s[i][e], full, seg_q[rl], seg_k[kc]);
+              mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+            }
+            mx[0] = quad_max(mx[0]);
+            mx[1] = quad_max(mx[1]);
+            if (t == 0) {
+              max_r[jt * 16 + g] = mx[0];
+              max_r[jt * 16 + g + 8] = mx[1];
+            }
+          }
+        }
+        cp_async_wait<0>();
+        __syncthreads();  // the maxima, and V
+        float mx[2] = {-INFINITY, -INFINITY}, alpha[2], m_use[2];
+#pragma unroll
+        for (int jt = 0; jt < NS; ++jt) {
+          mx[0] = fmaxf(mx[0], max_r[jt * 16 + g]);
+          mx[1] = fmaxf(mx[1], max_r[jt * 16 + g + 8]);
+        }
+        softmax_step(m_run, mx, alpha, m_use);
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          const int jt = cg + NWC * i;
+          if (jt < NS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[i][e] = softmax_p(s[i][e], m_use[e >> 1]);
+            Pr[jt * 32 + lane] = frag_of_c(s[i]);
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l_run[i] *= alpha[i];
+#pragma unroll
+        for (int jt = 0; jt < NS; ++jt) {  // the row sums, from the fragments every warp reads
+          const float4 f = Pr[jt * 32 + lane];
+          l_run[0] += f.x + f.z;
+          l_run[1] += f.y + f.w;
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n8][e] *= alpha[e >> 1];
+        accumulate_wide<D, W, kSplit, 1>(acc, Pr, Vs, 64 * cg);  // o += p v
+      }
+    }
+    if (!SL || c_out < at.ld)
+      store_fwd<D>(o + base, lse + (size_t)bh * len, acc, m_run, l_run, q0 + r0, len,
+                   at.slice == 0 && cg == 0, c_out, at.ld);
+  }
+}
+
+// A walked step's s and dp tiles over all of D for the sliced backward:
+// the kept rows' tiles A1 (s) and A2 (dp) against the walked rows' B1 and
+// B2, slice by slice (each slice's four tiles loaded in turn from a1, b1,
+// a2, b2: kept rows R from a0, walked W from b0), for the warp's score
+// tiles jt = warp + NW i.
+template <int D, typename T, int TPW, bool kSplit>
+__device__ __forceinline__ void wide_scores(float (&s)[TPW][4], float (&dp)[TPW][4], float* A1,
+                                            float* B1, float* A2, float* B2,
+                                            const T* __restrict__ a1, const T* __restrict__ b1,
+                                            const T* __restrict__ a2, const T* __restrict__ b2,
+                                            int a0, int b0, int len, const WidePlace& at) {
+  constexpr int R = kWideRows, W = wide_walk<D>(), NS = W / 8, NW = D / 64;
+  constexpr int NTH = body_threads<D>();
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < TPW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+  for (int j = 0; j < at.n_slices; ++j) {
+    if (j > 0) __syncthreads();  // slice j - 1's tiles are read
+    load_part<D, true, T, R, NTH>(A1, a1, a0, len, at, j);
+    load_part<D, true, T, R, NTH>(A2, a2, a0, len, at, j);
+    load_part<D, true, T, W, NTH>(B1, b1, b0, len, at, j);
+    load_part<D, true, T, W, NTH>(B2, b2, b0, len, at, j);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      const int jt = warp + NW * i;
+      if (jt < NS) {
+        float x[1][4], y[1][4];
+        asm volatile("" ::: "memory");
+        score_tiles<D, 1, kSplit>(x, y, A1, B1, A2, B2, 0, 8 * jt);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][e] += x[0][e];
+          dp[i][e] += y[0][e];
+        }
+      }
+    }
+  }
+}
+
+// dK/dV above D = 128: one block owns (b, h, a tile of 64 keys; above
+// D = 512 one D slice of it) and takes its four parts of 16 keys in turn,
+// each over every query tile its mask names.
+template <int D, typename T, typename Mask, bool SL = false>
 __device__ __forceinline__ void attn_bwd_dkv_wide(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, const Mask& m) {
-  constexpr int LD = bwd_ld<D>(), R = kWideRows, W = wide_walk<D>();
-  constexpr int NW = D / 64, NTH = bwd_threads<D>();
+  constexpr int LD = tile_ld<D>(), R = kWideRows, W = wide_walk<D>(), NS = W / 8;
+  constexpr int NW = D / 64, NTH = body_threads<D>(), TPW = (NS + NW - 1) / NW;
   constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // (R, LD) keys
   float* Vs = Ks + R * LD;                       // (R, LD) values
   float* Qs = Vs + R * LD;                       // (W, LD) queries
   float* dOs = Qs + W * LD;                      // (W, LD) output grads
-  float4* Pf = reinterpret_cast<float4*>(dOs + W * LD);  // (W / 8, 32) fragments of p^T
-  float4* DSf = Pf + (W / 8) * 32;                        // and of ds^T
+  float4* Pf = reinterpret_cast<float4*>(dOs + W * LD);  // (NS, 32) fragments of p^T
+  float4* DSf = Pf + NS * 32;                             // and of ds^T
   __shared__ float lse_s[kTile], delta_s[kTile];
   __shared__ int seg_q[kTile], seg_k[kTile];
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const int len = m.len, kt = blockIdx.x, b = bh / m.heads, h = bh % m.heads;
-  const size_t base = (size_t)bh * len * D, row_base = (size_t)bh * len;
+  const WidePlace at = wide_place<D, SL>(m);
+  const int len = m.len, kt = at.tile, b = bh / m.heads, h = bh % m.heads;
+  const size_t base = (size_t)bh * len * at.ld, row_base = (size_t)bh * len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int c_out = at.slice * D + 64 * warp;  // the warp's first column of dk and dv
   const int n_q = m.n_q(kt);
 
   for (int part = 0; part < kTile / R; ++part) {
     const int k0 = kt * kTile + part * R;
     __syncthreads();  // the previous part's Ks, Vs and seg_k are read
-    load_tile<D, T, R, NTH>(Ks, k + base, k0, len);
-    load_tile<D, T, R, NTH>(Vs, v + base, k0, len);
+    if (!SL) {
+      load_tile<D, T, R, NTH>(Ks, k + base, k0, len);
+      load_tile<D, T, R, NTH>(Vs, v + base, k0, len);
+    }
     m.load_seg(seg_k, b, k0, -2);
     float acc_dk[8][4] = {}, acc_dv[8][4] = {};
     for (int n = 0; n < n_q; ++n) {
@@ -1070,77 +1340,105 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
       for (int wp = 0; wp < kTile / W; ++wp) {
         const int q0 = qt0 + wp * W;
         __syncthreads();  // the previous step's Qs, dOs, fragments and statistics are read
-        load_tile<D, T, W, NTH>(Qs, q + base, q0, len);
-        load_tile<D, T, W, NTH>(dOs, dout + base, q0, len);
+        if (!SL) {
+          load_tile<D, T, W, NTH>(Qs, q + base, q0, len);
+          load_tile<D, T, W, NTH>(dOs, dout + base, q0, len);
+        }
         if (threadIdx.x < W) {
           const RowStats st = row_stats(m, lse, delta, b, row_base, q0 + threadIdx.x);
           lse_s[threadIdx.x] = st.lse;
           delta_s[threadIdx.x] = st.delta;
           seg_q[threadIdx.x] = st.seg;
         }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-
-#pragma unroll 1
-        for (int j = warp; j < W / 8; j += NW) {  // s^T, dp^T of the 16 keys, queries 8 j ..
-          float s[1][4], dp[1][4];
-          asm volatile("" ::: "memory");
-          score_tiles<D, 1, kSplit>(s, dp, Ks, Qs, Vs, dOs, 0, 8 * j);
+        // s^T, dp^T of the 16 keys, queries 8 jt .., to p^T and ds^T fragments
+        auto grads = [&](float (&s)[4], float (&dp)[4], int jt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int kr = g + 8 * (e >> 1), qc = 8 * j + 2 * t + (e & 1);
-            const float x = m.score(b, h, q0 + qc, k0 + kr, s[0][e], full, seg_q[qc],
-                                    seg_k[kr]);
+            const int kr = g + 8 * (e >> 1), qc = 8 * jt + 2 * t + (e & 1);
+            const float x = m.score(b, h, q0 + qc, k0 + kr, s[e], full, seg_q[qc], seg_k[kr]);
             const float p = x == -INFINITY ? 0.f : fast_exp2((x - lse_s[qc]) * kLog2e);
-            s[0][e] = p;
-            dp[0][e] = p * (dp[0][e] - delta_s[qc]);
+            s[e] = p;
+            dp[e] = p * (dp[e] - delta_s[qc]);
           }
-          Pf[j * 32 + lane] = frag_of_c(s[0]);
-          DSf[j * 32 + lane] = frag_of_c(dp[0]);
+          Pf[jt * 32 + lane] = frag_of_c(s);
+          DSf[jt * 32 + lane] = frag_of_c(dp);
+        };
+        if constexpr (!SL) {
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+#pragma unroll 1
+          for (int jt = warp; jt < NS; jt += NW) {
+            float s[1][4], dp[1][4];
+            asm volatile("" ::: "memory");
+            score_tiles<D, 1, kSplit>(s, dp, Ks, Qs, Vs, dOs, 0, 8 * jt);
+            grads(s[0], dp[0], jt);
+          }
+        } else {
+          float s[TPW][4], dp[TPW][4];
+          wide_scores<D, T, TPW, kSplit>(s, dp, Ks, Qs, Vs, dOs, k + base, q + base, v + base,
+                                         dout + base, k0, q0, len, at);
+          if (at.slice != at.n_slices - 1) {  // this slice's q and do for the products
+            __syncthreads();
+            load_part<D, SL, T, W, NTH>(Qs, q + base, q0, len, at, at.slice);
+            load_part<D, SL, T, W, NTH>(dOs, dout + base, q0, len, at, at.slice);
+            cp_async_commit();
+            cp_async_wait<0>();
+          }
+#pragma unroll
+          for (int i = 0; i < TPW; ++i)
+            if (warp + NW * i < NS) grads(s[i], dp[i], warp + NW * i);
         }
         __syncthreads();
         accumulate_wide<D, W, kSplit>(acc_dv, Pf, dOs, 64 * warp);   // dv += p^T do
         accumulate_wide<D, W, kSplit>(acc_dk, DSf, Qs, 64 * warp);   // dk += ds^T q
       }
     }
-    store_rows<D>(dk + base, acc_dk, k0, len, m.scale, 64 * warp);
-    store_rows<D>(dv + base, acc_dv, k0, len, 1.f, 64 * warp);
+    if (!SL || c_out < at.ld) {
+      store_rows<D>(dk + base, acc_dk, k0, len, m.scale, c_out, at.ld);
+      store_rows<D>(dv + base, acc_dv, k0, len, 1.f, c_out, at.ld);
+    }
   }
 }
 
-// dQ above D = 128: one block owns (b, h, a tile of 64 queries) and takes its
-// four parts of 16 queries in turn, each over every key tile its mask names.
-template <int D, typename T, typename Mask>
+// dQ above D = 128: one block owns (b, h, a tile of 64 queries; above
+// D = 512 one D slice of it) and takes its four parts of 16 queries in
+// turn, each over every key tile its mask names.
+template <int D, typename T, typename Mask, bool SL = false>
 __device__ __forceinline__ void attn_bwd_dq_wide(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, float* __restrict__ ds_out, const Mask& m) {
-  constexpr int LD = bwd_ld<D>(), R = kWideRows, W = wide_walk<D>();
-  constexpr int NW = D / 64, NTH = bwd_threads<D>();
+  constexpr int LD = tile_ld<D>(), R = kWideRows, W = wide_walk<D>(), NS = W / 8;
+  constexpr int NW = D / 64, NTH = body_threads<D>(), TPW = (NS + NW - 1) / NW;
   constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // (R, LD) queries
   float* dOs = Qs + R * LD;                      // (R, LD) output grads
   float* Ks = dOs + R * LD;                      // (W, LD) keys
   float* Vs = Ks + W * LD;                       // (W, LD) values
-  float4* DSf = reinterpret_cast<float4*>(Vs + W * LD);  // (W / 8, 32) fragments of ds
+  float4* DSf = reinterpret_cast<float4*>(Vs + W * LD);  // (NS, 32) fragments of ds
   __shared__ float lse_s[kWideRows], delta_s[kWideRows];
   __shared__ int seg_q[kWideRows], seg_k[kTile];
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const int len = m.len, qt = m.n_tiles - 1 - blockIdx.x, b = bh / m.heads, h = bh % m.heads;
-  const size_t base = (size_t)bh * len * D, row_base = (size_t)bh * len;
+  const WidePlace at = wide_place<D, SL>(m);
+  const int len = m.len, qt = m.n_tiles - 1 - at.tile, b = bh / m.heads, h = bh % m.heads;
+  const size_t base = (size_t)bh * len * at.ld, row_base = (size_t)bh * len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int c_out = at.slice * D + 64 * warp;  // the warp's first column of dq
+  const bool write_ds = ds_out != nullptr && at.slice == 0;
   const int n_kv = m.n_kv(qt);
 
   for (int part = 0; part < kTile / R; ++part) {
     const int q0 = qt * kTile + part * R;
     __syncthreads();  // the previous part's Qs, dOs and statistics are read
-    load_tile<D, T, R, NTH>(Qs, q + base, q0, len);
-    load_tile<D, T, R, NTH>(dOs, dout + base, q0, len);
+    if (!SL) {
+      load_tile<D, T, R, NTH>(Qs, q + base, q0, len);
+      load_tile<D, T, R, NTH>(dOs, dout + base, q0, len);
+    }
     if (threadIdx.x < R) {
       const RowStats st = row_stats(m, lse, delta, b, row_base, q0 + threadIdx.x);
       lse_s[threadIdx.x] = st.lse;
@@ -1154,40 +1452,70 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
       for (int wp = 0; wp < kTile / W; ++wp) {
         const int k0 = kt0 + wp * W;
         __syncthreads();  // the previous step's Ks, Vs, fragments and seg_k are read
-        load_tile<D, T, W, NTH>(Ks, k + base, k0, len);
-        load_tile<D, T, W, NTH>(Vs, v + base, k0, len);
+        if (!SL) {
+          load_tile<D, T, W, NTH>(Ks, k + base, k0, len);
+          load_tile<D, T, W, NTH>(Vs, v + base, k0, len);
+        }
         if (threadIdx.x < W) seg_k[threadIdx.x] = m.seg_at(b, k0 + threadIdx.x, -2);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-
-#pragma unroll 1
-        for (int j = warp; j < W / 8; j += NW) {  // s, dp of the 16 queries, keys 8 j ..
-          float s[1][4], dp[1][4];
-          asm volatile("" ::: "memory");
-          score_tiles<D, 1, kSplit>(s, dp, Qs, Ks, dOs, Vs, 0, 8 * j);
+        // s, dp of the 16 queries, keys 8 jt .., to ds fragments (and ds_out)
+        auto grads = [&](const float (&s)[4], float (&dp)[4], int jt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int rl = g + 8 * (e >> 1), kc = 8 * j + 2 * t + (e & 1);
+            const int rl = g + 8 * (e >> 1), kc = 8 * jt + 2 * t + (e & 1);
             const int r = q0 + rl, c = k0 + kc;
-            const float x = m.score(b, h, r, c, s[0][e], full, seg_q[rl], seg_k[kc]);
+            const float x = m.score(b, h, r, c, s[e], full, seg_q[rl], seg_k[kc]);
             const float p = x == -INFINITY ? 0.f : fast_exp2((x - lse_s[rl]) * kLog2e);
-            dp[0][e] = p * (dp[0][e] - delta_s[rl]);
-            if (ds_out != nullptr && r < len && c < len)
-              ds_out[(row_base + r) * len + c] = dp[0][e];
+            dp[e] = p * (dp[e] - delta_s[rl]);
+            if (write_ds && r < len && c < len) ds_out[(row_base + r) * len + c] = dp[e];
           }
-          DSf[j * 32 + lane] = frag_of_c(dp[0]);
+          DSf[jt * 32 + lane] = frag_of_c(dp);
+        };
+        if constexpr (!SL) {
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+#pragma unroll 1
+          for (int jt = warp; jt < NS; jt += NW) {
+            float s[1][4], dp[1][4];
+            asm volatile("" ::: "memory");
+            score_tiles<D, 1, kSplit>(s, dp, Qs, Ks, dOs, Vs, 0, 8 * jt);
+            grads(s[0], dp[0], jt);
+          }
+        } else {
+          float s[TPW][4], dp[TPW][4];
+          wide_scores<D, T, TPW, kSplit>(s, dp, Qs, Ks, dOs, Vs, q + base, k + base,
+                                         dout + base, v + base, q0, k0, len, at);
+          if (at.slice != at.n_slices - 1) {  // this slice's k for the product
+            __syncthreads();
+            load_part<D, SL, T, W, NTH>(Ks, k + base, k0, len, at, at.slice);
+            cp_async_commit();
+            cp_async_wait<0>();
+          }
+#pragma unroll
+          for (int i = 0; i < TPW; ++i)
+            if (warp + NW * i < NS) grads(s[i], dp[i], warp + NW * i);
         }
         __syncthreads();
         accumulate_wide<D, W, kSplit>(acc, DSf, Ks, 64 * warp);  // dq += ds k
       }
     }
-    store_rows<D>(dq + base, acc, q0, len, m.scale, 64 * warp);
+    if (!SL || c_out < at.ld) store_rows<D>(dq + base, acc, q0, len, m.scale, c_out, at.ld);
   }
 }
 
-// The backward bodies for every head_dim the kernels take.
-template <int D, typename T, typename Mask>
+// The bodies for every head_dim the kernels take: D = 64 and 128 narrow,
+// 256 to 512 wide, above 512 (SL) wide in slices of D = kSliceDim columns.
+template <int D, bool SL, typename T, typename Mask>
+__device__ __forceinline__ void fwd(const T* __restrict__ q, const T* __restrict__ k,
+                                    const T* __restrict__ v, T* __restrict__ o,
+                                    float* __restrict__ lse, const Mask& m) {
+  if constexpr (D <= 128)
+    attn_fwd<D, T>(q, k, v, o, lse, m);
+  else
+    attn_fwd_wide<D, T, Mask, SL>(q, k, v, o, lse, m);
+}
+
+template <int D, bool SL, typename T, typename Mask>
 __device__ __forceinline__ void bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
                                         const T* __restrict__ v, const T* __restrict__ dout,
                                         const float* __restrict__ lse,
@@ -1196,10 +1524,10 @@ __device__ __forceinline__ void bwd_dkv(const T* __restrict__ q, const T* __rest
   if constexpr (D <= 128)
     attn_bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
   else
-    attn_bwd_dkv_wide<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
+    attn_bwd_dkv_wide<D, T, Mask, SL>(q, k, v, dout, lse, delta, dk, dv, m);
 }
 
-template <int D, typename T, typename Mask>
+template <int D, bool SL, typename T, typename Mask>
 __device__ __forceinline__ void bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, const T* __restrict__ dout,
                                        const float* __restrict__ lse,
@@ -1208,14 +1536,17 @@ __device__ __forceinline__ void bwd_dq(const T* __restrict__ q, const T* __restr
   if constexpr (D <= 128)
     attn_bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
   else
-    attn_bwd_dq_wide<D, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
+    attn_bwd_dq_wide<D, T, Mask, SL>(q, k, v, dout, lse, delta, dq, ds_out, m);
 }
 
 // --- launching ---------------------------------------------------------------
 
-template <int D>
+// A kernel instance's head_dim: D columns a block, and with SL D slices of
+// a wider head.
+template <int D, bool SL = false>
 struct HeadDim {
   static constexpr int value = D;
+  static constexpr bool sliced = SL;
 };
 
 // The operands' dtype as the C entries take it.
@@ -1229,16 +1560,9 @@ cudaError_t dispatch_dtype(int dtype, Dim dim, F f) {
   return cudaErrorInvalidValue;
 }
 
-// The largest head_dim the kernels take. Above D = 128 the backward keeps 16
-// rows (the tensor cores' smallest tile) and walks at least 32 a step (four
-// 8-key score tiles to share out over the warps): (2 x 16 + 2 x 32) rows at a
-// stride of D + 4 floats and 4,096 B of fragments fit the 232,448 B a block
-// may have up to D = 590; the next multiple of 128, D = 640, needs
-// 251,392 B (and the forward's 32-row parts 252,416 B).
-constexpr int kMaxHeadDim = 512;
-
-// f(HeadDim<D>{}, T{}) for the operands' head_dim (64, 128, 256, 384 or 512)
-// and dtype (DType: f32, bf16 or f16); an invalid value for any other.
+// f(HeadDim{}, T{}) for the operands' head_dim (64, 128, 256, 384, 512, or
+// any multiple of 128 above, in slices of kSliceDim) and dtype (DType: f32,
+// bf16 or f16); an invalid value for any other.
 template <typename F>
 cudaError_t dispatch(int head_dim, int dtype, F f) {
   if (head_dim == 64) return dispatch_dtype(dtype, HeadDim<64>{}, f);
@@ -1246,23 +1570,26 @@ cudaError_t dispatch(int head_dim, int dtype, F f) {
   if (head_dim == 256) return dispatch_dtype(dtype, HeadDim<256>{}, f);
   if (head_dim == 384) return dispatch_dtype(dtype, HeadDim<384>{}, f);
   if (head_dim == 512) return dispatch_dtype(dtype, HeadDim<512>{}, f);
+  if (head_dim > kMaxUnsliced && head_dim % 128 == 0)
+    return dispatch_dtype(dtype, HeadDim<kSliceDim, true>{}, f);
   return cudaErrorInvalidValue;
 }
 
 constexpr int kMaxGridY = 65535;
 
-// kernel on the (tiles of L, B * H) grid of `threads` threads with `smem`
-// bytes of dynamic shared memory, its arguments cast to the kernel's own
-// types. B * H is folded over gridDim.y (at most 65535) and gridDim.z
-// (block_bh); blockIdx.x stays the tile.
+// kernel on the (tiles of L times D slices, B * H) grid of `threads`
+// threads with `smem` bytes of dynamic shared memory, its arguments cast to
+// the kernel's own types. B * H is folded over gridDim.y (at most 65535) and
+// gridDim.z (block_bh); blockIdx.x is the tile (times the slices, and the
+// slice: wide_place).
 template <typename... P, typename... A>
 cudaError_t launch(void (*kernel)(P...), int threads, size_t smem, int len, int batch_heads,
-                   cudaStream_t stream, A... args) {
+                   int slices, cudaStream_t stream, A... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int z = (batch_heads + kMaxGridY - 1) / kMaxGridY;  // at most z - 1 idle columns
-  const dim3 grid((len + kTile - 1) / kTile, (batch_heads + z - 1) / z, z);
+  const dim3 grid((len + kTile - 1) / kTile * slices, (batch_heads + z - 1) / z, z);
   kernel<<<grid, threads, smem, stream>>>(((P)args)...);
   return cudaGetLastError();
 }

@@ -157,18 +157,6 @@ __device__ __forceinline__ bool row_offset(int tid, int batch, int channels, int
   return active;
 }
 
-// threadIdx.x, read anew. The inverse FFT's index math (line bases, swizzled
-// slots, frequencies) is the forward's over again, and the store needs the
-// row's offset that the loads had: computed from a second read (which the
-// compiler cannot merge with the first), each is recomputed where it is used
-// instead of being kept in registers through the FFTs, which took the sizes
-// from N = 8192 up past 128 registers.
-__device__ __forceinline__ int fresh_tid() {
-  int t;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
-  return t;
-}
-
 template <typename T>
 __device__ __forceinline__ bool aligned16(const T* a, const T* b, const T* c, const T* d) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |

@@ -63,6 +63,18 @@ struct Cfg {
   static constexpr int kMinBlocks = 65536 / (kThreads * 128);  // <= 128 registers a thread
 };
 
+// threadIdx.x, read anew. A kernel whose inverse FFT's index math (line
+// bases, swizzled slots, frequencies) repeats the forward's, or whose store
+// needs the row's offset that its loads had, recomputes each from a second
+// read (which the compiler cannot merge with the first) where it is used,
+// instead of keeping it in registers through the FFTs, which took
+// monarch_conv's sizes from N = 8192 up past 128 registers.
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
 // Shared-memory slot of point i of a row.
 __device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 15); }
 

@@ -9,13 +9,14 @@
 // of jax 0.9.0, _splash_attention_forward (def at l.895, pallas_call at
 // l.1137, body flash_attention_kernel at l.696). JAX multiplies q by sm_scale
 // in q's dtype before the kernel; here the scale multiplies the f32 scores,
-// as in the flash kernels. q, k, v f32, bf16 or f16 at head_dim 64, 128, 256,
-// 384 or 512, any L >= 1 (splash's L multiple of min(512, L) is a TPU tiling
+// as in the flash kernels. q, k, v f32, bf16 or f16 at head_dim 64 or any
+// multiple of 128, any L >= 1 (splash's L multiple of min(512, L) is a TPU tiling
 // limit). It writes o in the operands' dtype and the row logsumexp (f32,
 // +inf for a row that sees no key, whose o is 0: the JAX package's plain
 // contract; JAX's splash kernel leaves such rows nonzero).
 //
-// Design: attn_fwd (flash_attn_common.cuh) under SplashMask. One block owns
+// Design: the forward bodies of flash_attn_common.cuh (on the tensor cores,
+// as in flash_attn.cu) under SplashMask. One block owns
 // (b, h, a tile of 64 queries) and walks only the key tiles that hold a kept
 // element: for a window W the range max(0, 64 t - W + 1) / 64 .. t,
 // computed; for a block mask the tile list of ops/splash_mask.py (splash's
@@ -36,12 +37,12 @@
 namespace ffc {
 namespace attn {
 
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+template <int D, bool SL, typename T>
+__global__ void __launch_bounds__(fwd_threads<D>(), 1)
     splash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                            SplashMask m) {
-  attn_fwd<D, T>(q, k, v, o, lse, m);
+  fwd<D, SL, T>(q, k, v, o, lse, m);
 }
 
 }  // namespace attn
@@ -53,16 +54,17 @@ extern "C" int ffc_splash_attn_fwd(const void* q, const void* k, const void* v, 
                                    int block_size, int n_blocks, int n_entries, int causal,
                                    int scale_bits, void* stream) {
   using namespace ffc::attn;
-  if (!splash_args_ok(batch, heads, len, window, table, blocks, block_size, n_blocks))
+  if (!splash_args_ok(batch, heads, len, window, table, blocks, block_size, n_blocks) ||
+      !aligned16(q, k, v, v))
     return (int)cudaErrorInvalidValue;
-  const SplashMask m = make_splash_mask(batch, heads, len, window, table, blocks, block_size,
-                                        n_blocks, n_entries, causal, scale_bits);
+  const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
+                                        block_size, n_blocks, n_entries, causal, scale_bits);
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
+    constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
-    return launch(splash_attn_fwd_kernel<D, T>, kThreads, fwd_smem_bytes<D>(), len,
-                  batch * heads,
-                  (cudaStream_t)stream, q, k, v, o, lse, m);
+    return launch(splash_attn_fwd_kernel<D, SL, T>, fwd_threads<D>(), fwd_smem_bytes<D>(),
+                  len, batch * heads, m.n_slices, (cudaStream_t)stream, q, k, v, o, lse, m);
   });
 }
 

@@ -38,22 +38,22 @@
 namespace ffc {
 namespace attn {
 
-template <int D, typename T>
-__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+template <int D, bool SL, typename T>
+__global__ void __launch_bounds__(body_threads<D>(), 1)
     splash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                T* __restrict__ dk, T* __restrict__ dv, SplashMask m) {
-  bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
+  bwd_dkv<D, SL, T>(q, k, v, dout, lse, delta, dk, dv, m);
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+template <int D, bool SL, typename T>
+__global__ void __launch_bounds__(body_threads<D>(), 1)
     splash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               T* __restrict__ dq, SplashMask m) {
-  bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, nullptr, m);
+  bwd_dq<D, SL, T>(q, k, v, dout, lse, delta, dq, nullptr, m);
 }
 
 }  // namespace attn
@@ -69,13 +69,14 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
   if (!splash_args_ok(batch, heads, len, window, table, blocks, block_size, n_blocks) ||
       !aligned16(q, k, v, dout))
     return (int)cudaErrorInvalidValue;
-  const SplashMask m = make_splash_mask(batch, heads, len, window, table, blocks, block_size,
-                                        n_blocks, n_entries, causal, scale_bits);
+  const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
+                                        block_size, n_blocks, n_entries, causal, scale_bits);
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
+    constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
-    return launch(splash_attn_bwd_dkv_kernel<D, T>, bwd_threads<D>(), bwd_smem_bytes<D>(),
-                  len, batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, m);
+    return launch(splash_attn_bwd_dkv_kernel<D, SL, T>, body_threads<D>(), bwd_smem_bytes<D>(),
+                  len, batch * heads, m.n_slices, (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, m);
   });
 }
 
@@ -89,13 +90,14 @@ extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* 
   if (!splash_args_ok(batch, heads, len, window, table, blocks, block_size, n_blocks) ||
       !aligned16(q, k, v, dout))
     return (int)cudaErrorInvalidValue;
-  const SplashMask m = make_splash_mask(batch, heads, len, window, table, blocks, block_size,
-                                        n_blocks, n_entries, causal, scale_bits);
+  const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
+                                        block_size, n_blocks, n_entries, causal, scale_bits);
   return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
+    constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
-    return launch(splash_attn_bwd_dq_kernel<D, T>, bwd_threads<D>(), bwd_smem_bytes<D>(),
-                  len, batch * heads, (cudaStream_t)stream, q, k, v, dout, lse, delta, dq, m);
+    return launch(splash_attn_bwd_dq_kernel<D, SL, T>, body_threads<D>(), bwd_smem_bytes<D>(),
+                  len, batch * heads, m.n_slices, (cudaStream_t)stream, q, k, v, dout, lse, delta, dq, m);
   });
 }
 

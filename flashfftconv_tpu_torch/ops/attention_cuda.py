@@ -19,16 +19,17 @@ its ``launches`` count. On CPU tensors it runs the plain version from
 ``ops/attention.py``.
 
 The kernels take q, k, v (B, H, L, D) contiguous, of one shape and dtype
-(f32, bf16 or f16), head_dim 64, 128, 256, 384 or 512, any B * H, any
-L >= 1 (``kernels_take`` asks this of shapes and dtypes; the wrappers raise
-otherwise, above head_dim 512 with a message that names the limit). The flash kernels also take an
+(f32, bf16 or f16), head_dim 64 or any multiple of 128 (above 512 in D
+slices of 256 columns across blocks), any B * H, any L >= 1
+(``kernels_take`` asks this of shapes and dtypes; the wrappers raise
+otherwise). The flash kernels also take an
 optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
 (1, H, L, L) ALiBi table is read in place for every batch row, not copied)
 and optional int32 segment ids (B, L). Softmax statistics and every
-accumulation are f32. The backward kernels run their products on the
-tensor cores in split TF32, which keeps f32 accuracy (``csrc/
-flash_attn_common.cuh``), and load 16 bytes at a time: their wrappers copy
-an operand whose data does not start on a 16-byte boundary.
+accumulation are f32. The kernels run their products on the tensor cores
+in split TF32, which keeps f32 accuracy (``csrc/flash_attn_common.cuh``),
+and load 16 bytes at a time: their wrappers copy an operand whose data
+does not start on a 16-byte boundary.
 
 ``FlashAttnFunction`` is the attention over (q, k, v, bias, segment_ids)
 and ``SplashAttnFunction`` over (q, k, v) under a mask: each forward saves
@@ -49,10 +50,12 @@ from flashfftconv_tpu_torch.ops import _build
 from flashfftconv_tpu_torch.ops import attention as plain
 from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 
+# The head_dims with kernel instances of their own; above MAX_UNSLICED any
+# multiple of 128, in D slices of SLICE_DIM columns, one block a slice
+# (kMaxUnsliced and kSliceDim in csrc/flash_attn_common.cuh): no largest.
 HEAD_DIMS = (64, 128, 256, 384, 512)
-# Above 512 a block's 232,448 B of shared memory cannot hold the backward's
-# tiles (kMaxHeadDim in csrc/flash_attn_common.cuh).
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_UNSLICED = HEAD_DIMS[-1]
+SLICE_DIM = 256
 # The operands' dtypes, each with its code in the C interface (DType in
 # csrc/flash_attn_common.cuh).
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -74,10 +77,10 @@ def _refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
                     f"{tuple(t.shape)} {t.dtype} against {tuple(q.shape)} {q.dtype}")
     if q.dtype not in DTYPES:
         return f"the attention kernels take f32, bf16 or f16, got {q.dtype}"
-    if q.shape[-1] not in HEAD_DIMS:
-        return (f"the attention kernels take head_dim in {HEAD_DIMS} (at most {MAX_HEAD_DIM}: "
-                f"above it a block's shared memory cannot hold the backward's tiles), got "
-                f"{q.shape[-1]}")
+    d = q.shape[-1]
+    if d not in HEAD_DIMS and not (d > MAX_UNSLICED and d % 128 == 0):
+        return (f"the attention kernels take head_dim in {HEAD_DIMS} or a multiple of 128 "
+                f"above {MAX_UNSLICED}, got {d}")
     return None
 
 
@@ -103,7 +106,7 @@ def _check_qkv(*tensors: torch.Tensor) -> tuple[int, int, int, int]:
 
 def _aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
     """The tensors, each copied if its data does not start on a 16-byte
-    boundary (the backward kernels load 16 bytes at a time)."""
+    boundary (the kernels load 16 bytes at a time)."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 
@@ -155,6 +158,7 @@ def flash_attn_fwd(q, k, v, causal: bool = True, sm_scale: float | None = None, 
     if on_cpu(q, k, v, bias, segment_ids):
         return plain.flash_attn_fwd_plain(q, k, v, causal, sm_scale, bias, segment_ids)
     b, h, l, d = _check_qkv(q, k, v)
+    q, k, v = _aligned(q, k, v)
     args, bias_e, seg = _common(q, causal, sm_scale, bias, segment_ids)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
@@ -291,6 +295,7 @@ def splash_attn_fwd(q, k, v, mask, sm_scale: float | None = None):
     if on_cpu(q, k, v):
         return plain.splash_attn_fwd_plain(q, k, v, mask.dense(q.device), sm_scale)
     b, h, l, _ = _check_qkv(q, k, v)
+    q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
     _splash_launch("splash_attn", "ffc_splash_attn_fwd", q, mask, sm_scale,

@@ -4,7 +4,8 @@ The attention op (``flash_mha`` through ``FlashAttnFunction``, whose CPU
 forward and backward are ``flash_attn_fwd_plain`` and ``flash_attn_bwd_plain``,
 the plain versions of the three CUDA kernels) against JAX's Pallas
 ``flash_attention`` itself, run by the JAX package's ``flash_mha(impl="flash")``
-inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64, 128 and 256),
+inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64, 128, 256 and
+640, the last above 512, where the CUDA kernels split D across blocks),
 and against the JAX ``mha_reference`` at ragged L (1, 7, 129, 300), where the
 Pallas kernel cannot tile: forward and grads (dq, dk, dv, d bias), causal,
 non-causal, ALiBi and segment ids, f32 and bf16. Then the helpers (ALiBi,
@@ -59,6 +60,11 @@ KERNEL_CASES = [
     (256, 64, "f32", "segments"), (256, 128, "f32", "causal"), (256, 128, "f32", "alibi"),
     (256, 64, "bf16", "causal"), (256, 64, "bf16", "alibi"),
     (256, 256, "f32", "causal"), (256, 256, "bf16", "alibi"),
+    # head_dim 640, above 512: the CUDA kernels' D slices. In bf16 it is
+    # non-causal: causal and ALiBi put one of 655,360 outputs (|o| = 2.0234,
+    # 5e-8 from a bf16 rounding midpoint) one bf16 ulp, 0.015625, from JAX's,
+    # both within half an ulp of the f64 value, past the absolute 1e-2.
+    (256, 640, "f32", "causal"), (256, 640, "bf16", "noncausal"),
 ]
 RAGGED_CASES = [
     (1, 64, "f32", "causal"), (7, 64, "f32", "alibi"), (129, 128, "f32", "segments"),
@@ -192,7 +198,7 @@ def _meta(*shape, dtype=torch.float32):
 REFUSED = {
     "head_dim 32": (_meta(2, 8, 16, 32),) * 3,
     "head_dim 96": (_meta(2, 8, 16, 96),) * 3,
-    "head_dim 640": (_meta(2, 4, 16, 640),) * 3,
+    "head_dim 576": (_meta(2, 4, 16, 576),) * 3,
     "f64": (_meta(2, 4, 16, 64, dtype=torch.float64),) * 3,
     "k shorter than q": (_meta(2, 4, 16, 64), _meta(2, 4, 8, 64), _meta(2, 4, 8, 64)),
     "v in another dtype": (_meta(2, 4, 16, 64),) * 2 + (_meta(2, 4, 16, 64, dtype=torch.bfloat16),),
@@ -256,7 +262,6 @@ def test_auto_runs_the_plain_version_where_the_kernels_refuse(monkeypatch, d, dt
 # (what, q, k, v, the refusal): calls the JAX package's TPU kernels take
 # (L >= 256, L and head_dim multiples of 128) and the CUDA kernels refuse
 TPU_ONLY = {
-    "head_dim 640": ((_meta(1, 2, 256, 640),) * 3, "head_dim"),
     "k shorter than q": ((_meta(1, 2, 256, 128), _meta(1, 2, 128, 128), _meta(1, 2, 128, 128)),
                          "one shape"),
 }
@@ -294,20 +299,23 @@ def test_kernels_take_any_batch_times_heads(monkeypatch, shape):
     assert not tattn._auto_runs_plain(q, q, q)
 
 
-@pytest.mark.parametrize("d", [256, 384, 512])
-def test_kernels_take_head_dims_up_to_512(monkeypatch, d):
-    """head_dim 256, 384 and 512: kernels_take and _check_qkv accept them in
-    every dtype and impl='auto' sends them to the kernels (meta tensors,
-    on_cpu patched to False); one past the largest, 640, is refused with a
-    message that names the limit."""
+@pytest.mark.parametrize("d", [256, 384, 512, 640, 768, 1024, 2048])
+def test_kernels_take_every_wide_head_dim(monkeypatch, d):
+    """head_dim 256, 384 and 512, and above 512 (D slices across blocks, no
+    largest) 640, 768, 1024 and 2048: kernels_take and _check_qkv accept
+    them in every dtype and impl='auto' sends them to the kernels (meta
+    tensors, on_cpu patched to False), as the JAX package's 'auto' sends
+    every multiple of 128 to its TPU kernel; 64 more, no multiple of 128,
+    is refused with a message that names head_dim."""
     monkeypatch.setattr(attention_cuda, "on_cpu", lambda *t: False)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q = _meta(2, 3, 256, d, dtype=dtype)
         assert attention_cuda.kernels_take(q, q, q)
         assert attention_cuda._check_qkv(q, q, q, q) == (2, 3, 256, d)
         assert not tattn._auto_runs_plain(q, q, q)
-    q = _meta(2, 3, 256, 640)
-    with pytest.raises(ValueError, match="at most 512"):
+    q = _meta(2, 3, 256, d + 64)
+    assert not attention_cuda.kernels_take(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
         attention_cuda._check_qkv(q, q, q)
 
 
@@ -348,6 +356,40 @@ def _tensor_core_backward(q, k, v, do, passes: int):
     dk = _tensor_core_mm(ds.transpose(-1, -2), q, passes) * scale
     dq = _tensor_core_mm(ds, k, passes) * scale
     return dq, dk, dv
+
+
+def _tensor_core_forward(q, k, v, passes: int):
+    """(o, lse) of causal attention as the forward kernels compute them:
+    s = q k^T and p v by _tensor_core_mm, the softmax's max, exp and sums in
+    f32, o = (p v) / l."""
+    scale = q.shape[-1] ** -0.5
+    keep = torch.ones(q.shape[2], q.shape[2], dtype=torch.bool).tril()
+    s = torch.where(keep, _tensor_core_mm(q, k.transpose(-1, -2), passes) * scale, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return _tensor_core_mm(p, v, passes) / l, (m + torch.log(l))[..., 0]
+
+
+def test_split_tf32_keeps_the_forward_within_the_card_tolerance():
+    """The forward kernels' split-TF32 products (q k^T and p v), emulated on
+    the CPU at B=1, H=2, L=192, D=64, f32, causal, land within the card
+    checks' f32 tolerance (2e-5 of max(1, the largest |o|): chip_smoke.
+    attn_tol, test_torch_gpu._attn_close) of flash_attn_fwd_plain, output
+    and logsumexp; one TF32 pass does not, so the forward keeps the f32
+    contract only split. As in the backward's test below, every product is
+    summed by torch's f32 matmul: the tensor cores' truncating accumulation,
+    the kernels' grouping of each tile's terms, the online softmax's
+    rescaling and ex2.approx are left to the card checks."""
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 192, 64)).astype(np.float32))
+               for _ in range(3))
+    ref = tattn.flash_attn_fwd_plain(q, k, v, True)
+    for passes, within in ((3, True), (1, False)):
+        got = _tensor_core_forward(q, k, v, passes)
+        errs = [float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
+                for g, r in zip(got, ref)]
+        assert (max(errs) <= 2e-5) == within, (passes, errs)
 
 
 def test_split_tf32_keeps_the_backward_within_the_card_tolerance():

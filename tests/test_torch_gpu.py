@@ -197,6 +197,29 @@ def test_cuda_wrappers_refuse_grad_and_bad_inputs():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [16 << i for i in range(12)])
+def test_cuda_dk_finish_matches_plain_at_every_plan_size(n):
+    """The dk_finish kernel (one instantiation per FFT size) against
+    dk_finish_plain at every one-block plan size: B 1 and 3, k_len 1,
+    N/2 - 1, N/2 and N (an odd k_len leaves dk's rows off 16-byte
+    boundaries); two calls give the same bits."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, torch.float32, device=dev)
+    g = torch.Generator().manual_seed(n + 2)
+    for b, h in ((1, 5), (3, 7)):
+        parts = torch.view_as_complex(torch.randn(b, h, n // 2 + 1, 2, generator=g)).to(dev)
+        for k_len in sorted({1, max(1, n // 2 - 1), n // 2, n}):
+            n0 = monarch_cuda.dk_finish.launches
+            dk = monarch_cuda.dk_finish(p, parts, k_len)
+            again = monarch_cuda.dk_finish(p, parts, k_len)
+            torch.cuda.synchronize()
+            assert monarch_cuda.dk_finish.launches == n0 + 2
+            assert torch.equal(dk, again)
+            _close(dk, monarch.dk_finish_plain(p, parts, k_len), torch.float32)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [256, 4096, 16384, 32768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_conv_backward_kernels_match_plain(n, dtype):
@@ -605,14 +628,16 @@ def _attn_close(got, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("l,d", [(1, 64), (1, 128), (63, 64), (65, 128), (256, 64), (1000, 64),
-                                 (1000, 128), (1000, 256), (65, 384), (300, 512)])
+                                 (1000, 128), (1000, 256), (65, 384), (300, 512), (130, 640),
+                                 (65, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "segments"])
 def test_cuda_attention_kernels_match_plain(l, d, dtype, case):
     """flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq against
     flash_attn_fwd_plain and flash_attn_bwd_plain, each launched once, at
-    the edges of the backward's 64-row tiles and 8-row tensor-core steps, and
-    at head_dim 256, 384 and 512 (the wide backward's 16-row parts)."""
+    the edges of the 64-row tiles and 8-row tensor-core steps, and at
+    head_dim 256, 384 and 512 (the wide bodies' 16-row parts) and 640 and
+    1024 (their D slices)."""
     _needs_card()
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
@@ -668,7 +693,8 @@ def test_cuda_flash_mha_grads_match_autograd_of_the_reference():
 def test_cuda_attention_refuses_what_the_kernels_do_not_take():
     """impl='flash' raises for what the kernels do not take (head_dim,
     dtype), and so does impl='auto' where the JAX package's TPU kernel would
-    take the call (head_dim 640 at L = 256); B * H = 65792, past one grid
+    take the call (a k shorter than q at L = 256); head_dim 640 runs the
+    kernels under both and matches the plain version; B * H = 65792, past one grid
     dimension's 65535, runs the kernels and matches the plain version; a
     window with a bias or segment ids raises where the kernels would run, as
     on a TPU."""
@@ -682,8 +708,11 @@ def test_cuda_attention_refuses_what_the_kernels_do_not_take():
         tff.flash_mha(q, q, q, impl="flash")
     q = torch.randn(1, 2, 256, 640, device=dev)
     for impl in ("auto", "flash"):
-        with pytest.raises(ValueError, match="head_dim.*at most 512"):
-            tff.flash_mha(q, q, q, impl=impl)
+        _attn_close(tff.flash_mha(q, q, q, impl=impl), tff.flash_mha(q, q, q, impl="xla"))
+    k = torch.randn(1, 2, 128, 128, device=dev)
+    for impl in ("auto", "flash"):
+        with pytest.raises(ValueError, match="one shape"):
+            tff.flash_mha(torch.randn(1, 2, 256, 128, device=dev), k, k, impl=impl)
     q = torch.randn(256, 257, 1, 64, device=dev)
     _attn_close(tff.flash_mha(q, q, q, impl="flash"), tff.flash_mha(q, q, q, impl="xla"))
     q = torch.randn(1, 2, 64, 64, device=dev)
@@ -742,11 +771,12 @@ def test_cuda_attention_auto_runs_the_kernels_in_f16():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [256, 384, 512])
+@pytest.mark.parametrize("d", [256, 384, 512, 640, 768, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("impl", ["auto", "flash"])
-def test_cuda_attention_runs_the_kernels_at_head_dims_up_to_512(d, dtype, impl):
-    """head_dim 256, 384 and 512 at L = 256 (a call the JAX package's TPU
+def test_cuda_attention_runs_the_kernels_at_wide_head_dims(d, dtype, impl):
+    """head_dim 256, 384 and 512, and above 512 (D slices) 640, 768, 1024
+    and 2048, at L = 256 (a call the JAX package's TPU
     kernels take): flash_mha causal, non-causal, with ALiBi and with segment
     ids, a window and blocksparse_mha under impl='auto' and impl='flash'
     launch the kernels (one forward, one dK/dV, one dQ each) and match the
@@ -798,6 +828,36 @@ def test_cuda_attention_runs_the_kernels_at_head_dims_up_to_512(d, dtype, impl):
                 refs = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, kw["keep"])
         for got, ref in zip((o.detach(), *grads), (ro, *refs)):
             _attn_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_attention_d_slices_agree_bit_for_bit(d, dtype):
+    """Above head_dim 512 each D slice of a tile is a block of its own that
+    computes the scores over all of D in the same order, and slice 0 alone
+    writes the logsumexp: the slices' p, running max and row sums agree bit
+    for bit. With q, k, v and do one 256-column block repeated, o, dk, dv
+    and dq are that too, slice for slice, and match the plain versions."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, do = (torch.randn(2, 3, 300, ac.SLICE_DIM, device=dev, generator=g).to(dtype)
+                   .repeat(1, 1, 1, d // ac.SLICE_DIM).contiguous() for _ in "qkvd")
+    o, lse = ac.flash_attn_fwd(q, k, v, True)
+    delta = plain.attention_delta(o, do)
+    dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, True)
+    dq, _ = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, True)
+    for t in (o, dk, dv, dq):
+        parts = t.split(ac.SLICE_DIM, -1)
+        assert all(torch.equal(parts[0], x) for x in parts[1:])
+    ro, rlse = plain.flash_attn_fwd_plain(q, k, v, True)
+    rq, rk, rv, _ = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, True)
+    for got, ref in ((o, ro), (lse, rlse), (dq, rq), (dk, rk), (dv, rv)):
+        _attn_close(got, ref)
 
 
 @pytest.mark.gpu
@@ -874,12 +934,15 @@ SPLASH_CASES = [
     ("blocks", 63, 128, torch.float16, 21, True), ("blocks", 65, 64, torch.bfloat16, 13, False),
     ("blocks", 1000, 64, torch.float16, 250, False),
     ("blocks", 1000, 128, torch.float32, 125, True),
-    # head_dim 256, 384 and 512: the forward's 32-row parts above 256, the
+    # head_dim 256, 384 and 512: the wide bodies (16 or 32 kept rows), the
     # wide backward
     ("window", 1000, 256, torch.float32, 300, True),
     ("window", 300, 384, torch.bfloat16, 100, True), ("window", 129, 512, torch.float16, 40, True),
     ("blocks", 1024, 512, torch.float32, 256, True), ("blocks", 65, 256, torch.bfloat16, 13, False),
     ("blocks", 400, 384, torch.float16, 100, False),
+    # head_dim 640, 768 and 1024: the D slices
+    ("window", 300, 640, torch.float32, 100, True), ("window", 129, 768, torch.bfloat16, 40, True),
+    ("blocks", 256, 1024, torch.float16, 64, True), ("blocks", 130, 640, torch.bfloat16, 13, False),
 ]
 
 
