@@ -14,8 +14,8 @@ Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
             fails if an attention instance (forward, dK/dV or dQ, flash
-            or splash, every head_dim), a monarch_conv or a dk_finish
-            instance has a stack frame or spills;
+            or splash, every head_dim), a monarch_conv, a monarch_conv_bwd
+            or a dk_finish instance has a stack frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -41,7 +41,11 @@ Phases, each of which fails the run by raising:
             384, 512, 640, 768 and 1024 (f32, bf16 with ALiBi, f16 with
             segment ids, L = 1; windows and block masks; above 512 the D
             slices, whose outputs must agree bit for bit where the inputs'
-            slices are equal); dk_finish at every one-block FFT size (N = 16
+            slices are equal); monarch_conv_bwd and dk_finish at every
+            one-block FFT size (N = 16 ... 32768, B 1, 3, 4, 8 and 64, the dk
+            spectra summed over groups of bwd_group(B) rows in thread block
+            clusters, gated and not, f32 and bf16, L = N/2 and N - 5, two
+            calls bit for bit); dk_finish at every one-block FFT size (N = 16
             ... 32768, B 1 and 3, ragged k_len, two calls bit for bit); the three
             splash-attention kernels (forward, dK/dV, dQ) against their plain
             versions at the windowed GPT's shapes (B=8 and B=4, H=12, L=2048,
@@ -211,8 +215,13 @@ Phases, each of which fails the run by raising:
             a CUDA graph's device time beside the library's); the flash
             kernels also at head_dim 256, 640 and 1024 (rows
             flash_attn_*@256, @640, @1024, B=4, H=8, L=2048, f32, causal);
-            dk_finish also at M2-BERT's and ListOps' shapes (rows
-            dk_finish@256, dk_finish@4096); the splash kernels
+            monarch_conv_bwd also at H3's f32-I/O shape and ListOps' (rows
+            monarch_conv_bwd@f32, monarch_conv_bwd@4096), each beside the
+            same kernel with one partial a row (group 1, c1_ms) and the
+            whole dk path (monarch_conv_bwd + dk_finish against rfft x2,
+            irfft, the batch sum and irfft); dk_finish on the partials
+            monarch_conv_bwd leaves at the Hyena and ListOps shapes and at
+            M2-BERT's (rows dk_finish@256, dk_finish@4096); the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
@@ -247,6 +256,7 @@ With --out-dir DIR a copy of all numbers goes to DIR/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import re
@@ -268,8 +278,9 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA's H100 SXM data sheet)
 TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 # Kernel instances that must build with no stack frame (phase_build): every
-# attention kernel, monarch_conv and dk_finish.
-STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "dkf16dk_finish_kernel")
+# attention kernel, monarch_conv, monarch_conv_bwd and dk_finish.
+STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "monarch_conv_bwd_kernel",
+             "dkf16dk_finish_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -585,8 +596,8 @@ def phase_build():
                     and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
                 spilled.append(f"{props}: {m.group(3)}")
     if spilled:
-        raise AssertionError(f"attention, monarch_conv or dk_finish instances with a stack "
-                             f"frame: {spilled}")
+        raise AssertionError(f"attention, monarch_conv, monarch_conv_bwd or dk_finish "
+                             f"instances with a stack frame: {spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -682,6 +693,7 @@ def phase_kernels(torch, g):
                         f"k_len={k_len} {dtype}")
                 _check_conv_bwd(torch, p, what, uu, kf, *gates, dd, k_len)
         torch.cuda.synchronize()
+    _check_conv_bwd_sizes(torch)
     _check_dk_finish_sizes(torch)
 
     log(f"depthwise_bwd: B={B} D={3 * D_MODEL} L={L_MAX} K=3 padding=(2, 0) bf16 BHL")
@@ -786,6 +798,63 @@ def _check_monarch_conv_sizes(torch):
         torch.cuda.synchronize()
         log(f"  monarch_conv N={n}: {cases} cases (k_len 1, N/2, N; f32, bf16; L = N/2, N-5; "
             f"gated, ungated; aligned and unaligned rows; two calls bit for bit), worst "
+            f"err/tol {worst:.3e} ok")
+
+
+def _check_conv_bwd_sizes(torch):
+    """monarch_conv_bwd and dk_finish against conv_bwd_plain and
+    dk_finish_plain at every one-block plan size (N = 16 ... 32768; one
+    instantiation per size, dtype and gating): B 1, 3, 4, 8 and 64 (the dk
+    spectra summed in groups of 1, 1, 4, 8 and 8 rows, in thread block
+    clusters), gated and ungated, f32 and bf16, L = N/2 and N - 5 (rows off
+    16-byte boundaries); the partials against the plain version's grouped
+    ones; two calls give the same bits. One line a size with the worst
+    err / tol."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops.plan import make_plan
+
+    dev = torch.device("cuda")
+    gc = torch.Generator(device=dev).manual_seed(15)
+    for n in (16 << i for i in range(12)):
+        p = make_plan(n, torch.float32, device=dev)
+        k_len = max(1, n // 2 - 1)
+        worst, cases = 0.0, 0
+        for b in (1, 3, 4, 8, 64):
+            h = 2 if b == 64 else 5
+            k_f = monarch_cuda.spectrum(p, torch.randn(h, k_len, device=dev, generator=gc) * 0.1)
+            for length, dtype, gated in itertools.product(
+                    (n // 2, n - 5), (torch.float32, torch.bfloat16), (False, True)):
+                u, d, pre, post = (torch.randn(b, h, length, device=dev, generator=gc).to(dtype)
+                                   for _ in "abcd")
+                gates = (pre, post) if gated else (None, None)
+                got = monarch_cuda.monarch_conv_bwd(p, u, k_f, *gates, d)
+                again = monarch_cuda.monarch_conv_bwd(p, u, k_f, *gates, d)
+                ref = monarch.conv_bwd_plain(p, u, k_f, *gates, d)
+                dk = monarch_cuda.dk_finish(p, got[3], k_len)
+                what = (f"monarch_conv_bwd N={n} B={b} H={h} L={length} {dtype} "
+                        f"gated={gated}")
+                pairs = [*zip(("du", "dpre", "dpost"), got[:3], ref[:3]),
+                         ("partials", torch.view_as_real(got[3]), torch.view_as_real(ref[3])),
+                         ("dk", dk, monarch.dk_finish_plain(p, ref[3], k_len))]
+                for name, a, r in pairs:
+                    if r is None:
+                        continue
+                    tol = lowp_tol(r) if a.dtype == torch.bfloat16 else f32_tol(r)
+                    if a.shape != r.shape:
+                        raise AssertionError(f"{what}: {name} shape {tuple(a.shape)} != "
+                                             f"{tuple(r.shape)}")
+                    err = float((a.float() - r.float()).abs().max())
+                    if not (math.isfinite(err) and err <= tol):
+                        raise AssertionError(f"{what}: {name} disagrees with its plain version "
+                                             f"({err} > {tol})")
+                    worst = max(worst, err / tol)
+                if not (all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+                        and torch.equal(dk, monarch_cuda.dk_finish(p, again[3], k_len))):
+                    raise AssertionError(f"{what}: two calls differ")
+                cases += 1
+        torch.cuda.synchronize()
+        log(f"  monarch_conv_bwd + dk_finish N={n}: {cases} cases (B 1, 3, 4, 8, 64; L = N/2, "
+            f"N-5; f32, bf16; gated, ungated; grouped partials; two calls bit for bit), worst "
             f"err/tol {worst:.3e} ok")
 
 
@@ -1466,10 +1535,15 @@ def _check_direct_kernels(torch, g):
 
 def _check_conv_bwd(torch, plan, what, u, k_f, pre, post, dout, k_len):
     """monarch_conv_bwd and dk_finish against conv_bwd_plain and
-    dk_finish_plain; returns (du error, dk error)."""
+    dk_finish_plain, the partials against the plain version's, grouped as
+    the kernel groups them (B / bwd_group(B), H, M+1); two calls give the
+    same bits. Returns (du error, dk error)."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
 
     got = monarch_cuda.monarch_conv_bwd(plan, u, k_f, pre, post, dout)
+    again = monarch_cuda.monarch_conv_bwd(plan, u, k_f, pre, post, dout)
+    if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"monarch_conv_bwd {what}: two calls differ")
     ref = monarch.conv_bwd_plain(plan, u, k_f, pre, post, dout)
     low = u.dtype != torch.float32
     errs = []
@@ -3231,7 +3305,7 @@ def _fft_flops(m: int, n_stages: int) -> float:
 def phase_timing(torch, g):
     import torch.nn.functional as F
 
-    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
+    from flashfftconv_tpu_torch.ops import _build, monarch, monarch_cuda
     from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
@@ -3296,7 +3370,6 @@ def phase_timing(torch, g):
                 device_ms=_graph_ms(torch, lambda: monarch_cuda.monarch_conv(p, uu, kf)),
                 library_device_ms=_graph_ms(torch, fft_conv),
             )
-        del u_lo, kf_lo
         # depthwise: read x, write out; 2K operations an output
         nbytes = x.numel() * 2 * 2
         flops = x.numel() * (2 * 3 + 1)
@@ -3309,50 +3382,56 @@ def phase_timing(torch, g):
                 x, wb, bias.to(x.dtype), padding=2, groups=x.shape[1])[..., :L_MAX]),
             bound=_bound(nbytes, flops),
         )
-        # monarch_conv_bwd (ungated, as on the main path): the function reads
+        # monarch_conv_bwd (ungated, as on the main paths): the function reads
         # u, dout and k_f and writes du and one (H, M+1) dk spectrum, summed
         # over B as the TPU kernel does on chip; three FFTs a row, about 60
         # operations a frequency pair, 4 a sample and the batch sum besides.
-        # The (B, H, M+1) partials this design writes instead, and dk_finish
-        # reads back, are the design's own traffic: reported as overhead_ms,
-        # not counted in either bound.
+        # The design's own traffic, in neither bound, is overhead_ms: the
+        # (B, H, M+1) park written once (L2 serves its read-back) and the
+        # partials beyond one a channel. At the Hyena shape (bf16 I/O), H3's
+        # f32-I/O conv and ListOps' (B=64, H=128, L=2048, N=4096, f32). Beside
+        # it: the same kernel with group 1 (one partial a row, through the C
+        # entry: c1_ms), each call's device time from a CUDA graph, and the
+        # whole dk path, monarch_conv_bwd + dk_finish (whole_ms; c1_whole_ms
+        # with group 1 and B partials), against rfft x2, irfft, the batch sum
+        # and irfft (library_whole_ms).
+        lib = _build.load("monarch_conv_bwd")
+
+        def bwd_group1(p, uu, kf, dd):
+            bb, hh, length = uu.shape
+            du = torch.empty_like(uu)
+            park = torch.empty(bb, hh, p.inner + 1, dtype=torch.complex64, device=dev)
+            parts = torch.empty_like(park)
+            rc = lib.ffc_monarch_conv_bwd(
+                uu.data_ptr(), None, None, dd.data_ptr(), kf.data_ptr(), du.data_ptr(), None,
+                None, park.data_ptr(), parts.data_ptr(), p.split_tw.data_ptr(), bb, hh, length,
+                p.seqlen, 1, 0 if uu.dtype == torch.float32 else 1, monarch_cuda._stream(dev))
+            _build.check(lib, rc, "monarch_conv_bwd kernel, group 1")
+            return du, None, None, parts
+
         dout = (torch.randn(u.shape, generator=g) * 0.02).to(dev, u.dtype)
-        parts = monarch_cuda.monarch_conv_bwd(plan, u, k_f, None, None, dout)[3]
-        spec_bytes = k_f.numel() * 8
-        overhead_ms = (parts.numel() * 8 - spec_bytes) / HBM_BYTES_PER_S * 1e3
-        nbytes = u.numel() * 2 * 3 + k_f.numel() * 8 + spec_bytes
-        flops = B * D_MODEL * (3 * _fft_flops(m, ns) + 60 * (m // 2) + 4 * L_MAX + 2 * (m + 1))
-
-        def fft_bwd():
-            g_f, u_f = torch.fft.rfft(dout.float(), n=N_FFT), torch.fft.rfft(u.float(), n=N_FFT)
-            du = torch.fft.irfft(g_f * k_f.conj(), n=N_FFT)[..., :L_MAX].to(u.dtype)
-            return du, g_f * u_f.conj()
-
-        res["monarch_conv_bwd"] = dict(
-            ms=_time_ms(torch, lambda: monarch_cuda.monarch_conv_bwd(plan, u, k_f, None, None,
-                                                                      dout)),
-            plain_ms=_time_ms(torch, lambda: monarch.conv_bwd_plain(plan, u, k_f, None, None,
-                                                                    dout), iters=5),
-            library_ms=_time_ms(torch, fft_bwd),
-            bound=_bound(nbytes, flops),
-            overhead_ms=overhead_ms,
-        )
-        # dk_finish: the function reads one (H, M+1) dk spectrum and writes
-        # dk; the unsplit (20 a pair) and one inverse FFT a channel. At the
-        # Hyena shape (the partials above), M2-BERT's (B=128, H=768, N=256,
-        # k_len = N) and ListOps' (B=64, H=128, N=4096, k_len = N); reading
-        # the B partials instead of one spectrum is the design's own traffic
+        d_lo = (torch.randn(u_lo.shape, generator=g) * 0.02).to(dev)
+        bwd_shapes = (("monarch_conv_bwd", plan, u, k_f, dout, L_MAX),
+                      ("monarch_conv_bwd@f32", plan, u.float(), k_f, dout.float(), L_MAX),
+                      (f"monarch_conv_bwd@{n_lo}", p_lo, u_lo, kf_lo, d_lo, n_lo))
+        bwd_parts = {name: monarch_cuda.monarch_conv_bwd(p, uu, kf, None, None, dd)[3]
+                     for name, p, uu, kf, dd, _ in bwd_shapes}
+        # dk_finish, timed before the backward rows (timed after their CUDA
+        # graphs, its back-to-back calls were host-bound): the function
+        # reads one (H, M+1) dk spectrum and writes dk; the unsplit (20 a
+        # pair) and one inverse FFT a channel. At the
+        # Hyena shape and ListOps' (k_len = N), on the partials that
+        # monarch_conv_bwd gives there ((1, 768, 8193) and (8, 128, 2049)),
+        # and at M2-BERT's (B=128, H=768, N=256, k_len = N, 128 partials);
+        # reading more than one spectrum is the design's own traffic
         # (overhead_ms); beside the back-to-back times, a CUDA graph's device
         # time a call (device_ms; library_device_ms, sum and irfft).
         for name, pp, pa, k_len in (
-                ("dk_finish", plan, parts, L_MAX),
+                ("dk_finish", plan, bwd_parts["monarch_conv_bwd"], L_MAX),
                 (f"dk_finish@{BERT_N_FFT}", make_plan(BERT_N_FFT, torch.bfloat16, device=dev),
                  torch.randn(BERT_B, BERT_D_MODEL, BERT_N_FFT // 2 + 1, dtype=torch.complex64,
                              generator=g).to(dev), BERT_N_FFT),
-                (f"dk_finish@{2 * LISTOPS_L}", make_plan(2 * LISTOPS_L, torch.bfloat16,
-                                                          device=dev),
-                 torch.randn(LISTOPS_B, LISTOPS_D, LISTOPS_L + 1, dtype=torch.complex64,
-                             generator=g).to(dev), 2 * LISTOPS_L)):
+                (f"dk_finish@{n_lo}", p_lo, bwd_parts[f"monarch_conv_bwd@{n_lo}"], n_lo)):
             bb, hh, m1 = pa.shape
             n = pp.seqlen
 
@@ -3370,6 +3449,51 @@ def phase_timing(torch, g):
                 device_ms=_graph_ms(torch, lambda: monarch_cuda.dk_finish(pp, pa, k_len)),
                 library_device_ms=_graph_ms(torch, lib_dk),
             )
+        for name, p, uu, kf, dd, k_len in bwd_shapes:
+            bb, hh, length = uu.shape
+            n, mm = p.seqlen, p.inner
+            parts = bwd_parts[name]
+            spec, io = hh * (mm + 1) * 8, uu.numel() * uu.element_size()
+            flops = bb * hh * (3 * _fft_flops(mm, p.n_stages) + 60 * (mm // 2) + 4 * length
+                               + 2 * (mm + 1))
+            dk_flops = hh * (_fft_flops(mm, p.n_stages) + 20 * (mm // 2))
+
+            def kernel(p=p, uu=uu, kf=kf, dd=dd):
+                return monarch_cuda.monarch_conv_bwd(p, uu, kf, None, None, dd)
+
+            def fft_bwd(uu=uu, kf=kf, dd=dd, n=n, length=length):
+                g_f, u_f = torch.fft.rfft(dd.float(), n=n), torch.fft.rfft(uu.float(), n=n)
+                du = torch.fft.irfft(g_f * kf.conj(), n=n)[..., :length].to(uu.dtype)
+                return du, g_f * u_f.conj()
+
+            def whole(bwd=kernel, p=p, k_len=k_len):
+                du, _, _, pa = bwd()
+                return du, monarch_cuda.dk_finish(p, pa, k_len)
+
+            def fft_whole(uu=uu, kf=kf, dd=dd, n=n, length=length, k_len=k_len):
+                g_f = torch.fft.rfft(dd.float(), n=n)
+                du = torch.fft.irfft(g_f * kf.conj(), n=n)[..., :length].to(uu.dtype)
+                g_f = g_f * torch.fft.rfft(uu.float(), n=n).conj()
+                return du, torch.fft.irfft(g_f.sum(0), n=n)[..., :k_len]
+
+            group1 = lambda p=p, uu=uu, kf=kf, dd=dd: bwd_group1(p, uu, kf, dd)
+            res[name] = dict(
+                ms=_time_ms(torch, kernel),
+                plain_ms=_time_ms(torch, lambda: monarch.conv_bwd_plain(p, uu, kf, None, None,
+                                                                        dd), iters=5),
+                library_ms=_time_ms(torch, fft_bwd),
+                bound=_bound(3 * io + 2 * spec, flops),
+                overhead_ms=(parts.numel() * 8 - spec + bb * spec) / HBM_BYTES_PER_S * 1e3,
+                device_ms=_graph_ms(torch, kernel),
+                library_device_ms=_graph_ms(torch, fft_bwd),
+                c1_ms=_time_ms(torch, group1),
+                c1_device_ms=_graph_ms(torch, group1),
+                whole_ms=_time_ms(torch, whole),
+                c1_whole_ms=_time_ms(torch, lambda: whole(group1)),
+                library_whole_ms=_time_ms(torch, fft_whole),
+                whole_bound=_bound(3 * io + spec + hh * k_len * 4, flops + dk_flops),
+            )
+        del u_lo, kf_lo, d_lo, bwd_parts
         # depthwise_bwd: read x and dout, write du; 2K operations a position
         # for du, 2K for dk and 1 for dbias
         dy = torch.randn(x.shape, generator=g).to(dev, x.dtype)
@@ -3389,7 +3513,7 @@ def phase_timing(torch, g):
             library_ms=_time_ms(torch, conv_bwd),
             bound=_bound(nbytes, flops),
         )
-    del k, u, x, k_f, dout, parts, dy, dy_full
+    del k, u, x, k_f, dout, dy, dy_full
     torch.cuda.empty_cache()
     for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g),
                  _time_attention(torch, g), _time_splash(torch, g), _time_smem(torch, g)):
@@ -3406,6 +3530,12 @@ def phase_timing(torch, g):
         if "device_ms" in r:
             extra += (f", device time a call {r['device_ms']:.4f} ms (library "
                       f"{r['library_device_ms']:.4f} ms)")
+        if "c1_ms" in r:
+            extra += (f"; group 1 (a partial a row) {r['c1_ms']:.4f} ms, device "
+                      f"{r['c1_device_ms']:.4f} ms; whole (with dk_finish) {r['whole_ms']:.4f} "
+                      f"ms, group 1 {r['c1_whole_ms']:.4f} ms, library "
+                      f"{r['library_whole_ms']:.4f} ms, bound {r['whole_bound'][0]:.4f} ms "
+                      f"({r['whole_bound'][1]})")
         if "causal_flash_ms" in r:
             extra += f", the causal flash kernel at this shape {r['causal_flash_ms']:.4f} ms"
         if "tc_bound" in r:

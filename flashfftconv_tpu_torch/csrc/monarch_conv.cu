@@ -67,60 +67,6 @@ namespace mconv {
 
 using namespace row;
 
-// The row configuration for samples of type T: E = 16 bytes / (2 sizeof T)
-// packed points a load.
-template <int LOG_M, typename T>
-using CfgT = Cfg<LOG_M, sizeof(T) == 4 ? 1 : 2>;
-
-// Samples i .. i + 16/sizeof(T) - 1 of the (gated) input into x: one
-// 16-byte load of each operand where the row is aligned and whole there,
-// load_real (long_common.cuh) a sample otherwise.
-template <typename T, bool GATED>
-__device__ __forceinline__ void load_vec(float* x, const T* __restrict__ u,
-                                         const T* __restrict__ pre, int i, int length,
-                                         bool aligned) {
-  constexpr int kN = 16 / sizeof(T);
-  if (aligned && i + kN <= length) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(u + i));
-    const T* ua = reinterpret_cast<const T*>(&a);
-    if constexpr (GATED) {
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(pre + i));
-      const T* pb = reinterpret_cast<const T*>(&b);
-#pragma unroll
-      for (int c = 0; c < kN; ++c) x[c] = to_f(from_f<T>(to_f(ua[c]) * to_f(pb[c])));
-    } else {
-#pragma unroll
-      for (int c = 0; c < kN; ++c) x[c] = to_f(ua[c]);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < kN; ++c) x[c] = load_real<T, GATED>(u, pre, i + c, length);
-  }
-}
-
-// y (16/sizeof(T) samples, times the postgate) to out[i ..], truncated at L.
-template <typename T, bool GATED>
-__device__ __forceinline__ void store_vec(T* __restrict__ out, const T* __restrict__ post,
-                                          int i, int length, bool aligned, float* y) {
-  constexpr int kN = 16 / sizeof(T);
-  if (aligned && i + kN <= length) {
-    if constexpr (GATED) {
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(post + i));
-      const T* pb = reinterpret_cast<const T*>(&b);
-#pragma unroll
-      for (int c = 0; c < kN; ++c) y[c] *= to_f(pb[c]);
-    }
-    uint4 r;
-    T* rt = reinterpret_cast<T*>(&r);
-#pragma unroll
-    for (int c = 0; c < kN; ++c) rt[c] = from_f<T>(y[c]);
-    *reinterpret_cast<uint4*>(out + i) = r;
-  } else {
-#pragma unroll
-    for (int c = 0; c < kN; ++c) store_real<T, GATED>(out, post, i + c, length, y[c]);
-  }
-}
-
 // The pointwise pass of one frequency pair, f and M - f, from the forward
 // FFT's natural-order output in s: split into X[f], X[M - f], times k_f,
 // unsplit, conjugated for the inverse transform, into za (for f) and zb
@@ -143,31 +89,6 @@ __device__ __forceinline__ void pointwise_self(float2& z, int f, const float2* s
                                                const float2* __restrict__ kf, const float2* tab) {
   float2 unused;
   pointwise<C>(z, unused, f, s, kf, tab);
-}
-
-// The offset of the row of thread tid in the (B, H, L) operands, and its
-// channel h: blocks run channel-major (row = h B + b). False past B * H.
-template <class C>
-__device__ __forceinline__ bool row_offset(int tid, int batch, int channels, int length,
-                                           size_t& off, int& h) {
-  const int row = blockIdx.x * C::kRows + tid / C::kT;
-  const bool active = row < batch * channels;
-  h = active ? row / batch : 0;
-  off = ((size_t)(active ? row - h * batch : 0) * channels + h) * length;
-  return active;
-}
-
-template <typename T>
-__device__ __forceinline__ bool aligned16(const T* a, const T* b, const T* c, const T* d) {
-  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) &
-          15) == 0;
-}
-
-// Blocks an SM the kernel is compiled for: spectrum's, but three at N = 8192.
-template <int LOG_M, typename T>
-constexpr int min_blocks() {
-  return LOG_M == 12 ? 3 : CfgT<LOG_M, T>::kMinBlocks;
 }
 
 template <int LOG_M, typename T, bool GATED>

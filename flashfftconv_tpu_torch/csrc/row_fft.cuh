@@ -1,4 +1,5 @@
-// The in-register row FFT of spectrum.cu and monarch_conv.cu: an M-point
+// The in-register row FFT of spectrum.cu, monarch_conv.cu and
+// monarch_conv_bwd.cu (the backward and dk_finish): an M-point
 // complex FFT of a packed real row (z[n] = x[2n] + i x[2n+1], M = N/2) with
 // every size, factor, stride and register index a compile-time constant, so
 // a thread's points never leave registers.
@@ -7,8 +8,8 @@
 // 2048, 32 above); up to M = 1024 a block of 128 threads takes 128/T rows.
 // The FFT is Cooley-Tukey over stages of at most P points:
 //   - stage 0 gives each thread E lines of P/E points at stride E*T (the
-//     caller loads them: spectrum.cu and monarch_conv.cu straight from
-//     device memory, E packed points, 16 bytes, a load);
+//     caller loads them: spectrum.cu, monarch_conv.cu and the backward
+//     straight from device memory, E packed points, 16 bytes, a load);
 //   - each later stage reads its lines from shared memory, transforms them
 //     in registers and writes them back (mid_stages);
 //   - the last stage writes its outputs in natural frequency order
@@ -129,17 +130,23 @@ __device__ __forceinline__ void first_stage_line(float2* v, float2* s, const flo
 
 // Stage J (0 < J < last) in place: lines l = tr + T*i, points
 // (l / R) * F * R + u * R + l % R, u < F; DFT, then w^(k r) with
-// w = exp(-2 pi i / (F R)).
-template <class C, int J>
+// w = exp(-2 pi i / (F R)). FRESH: the stores' slots are recomputed from tr
+// passed through a warp shuffle, which the compiler cannot fold, instead of
+// kept from the loads: in monarch_conv_bwd's kernel the P slot addresses
+// held through the DFT spilled (a second %tid.x read, fresh_tid, was
+// merged with the first).
+template <class C, int J, bool FRESH = false>
 __device__ __forceinline__ void mid_stage(float2 (&v)[C::kP], float2* s, const float2* tab,
                                           int tr) {
   constexpr int kF = 1 << C::bits(J), kLogR = C::log_stride(J), kR = 1 << kLogR;
   constexpr int kLines = C::kP / kF;
+  const auto line_base = [](int l) {
+    return ((l >> kLogR) << (C::bits(J) + kLogR)) + (l & (kR - 1));
+  };
   int base[kLines];
 #pragma unroll
   for (int i = 0; i < kLines; ++i) {
-    const int l = tr + C::kT * i;
-    base[i] = ((l >> kLogR) << (C::bits(J) + kLogR)) + (l & (kR - 1));
+    base[i] = line_base(tr + C::kT * i);
 #pragma unroll
     for (int u = 0; u < kF; ++u) v[i * kF + u] = s[swz(base[i] + u * kR)];
   }
@@ -148,19 +155,21 @@ __device__ __forceinline__ void mid_stage(float2 (&v)[C::kP], float2* s, const f
     line_fft_const<kF>(v + i * kF);
     const int r = (tr + C::kT * i) & (kR - 1);
     twiddle_line<C, kF>(v + i * kF, tab, r << (C::kLogN - C::bits(J) - kLogR));
+    const int b = FRESH ? line_base(__shfl_sync(0xffffffffu, tr, threadIdx.x & 31) + C::kT * i)
+                        : base[i];
 #pragma unroll
-    for (int u = 0; u < kF; ++u) s[swz(base[i] + u * kR)] = v[i * kF + u];
+    for (int u = 0; u < kF; ++u) s[swz(b + u * kR)] = v[i * kF + u];
   }
 }
 
 // Every stage between the first and the last, each after a barrier.
-template <class C, int J = 1>
+template <class C, int J = 1, bool FRESH = false>
 __device__ __forceinline__ void mid_stages(float2 (&v)[C::kP], float2* s, const float2* tab,
                                            int tr) {
   if constexpr (J < C::kLast) {
     __syncthreads();
-    mid_stage<C, J>(v, s, tab, tr);
-    mid_stages<C, J + 1>(v, s, tab, tr);
+    mid_stage<C, J, FRESH>(v, s, tab, tr);
+    mid_stages<C, J + 1, FRESH>(v, s, tab, tr);
   }
 }
 
@@ -198,6 +207,95 @@ __device__ __forceinline__ void last_stage(float2 (&v)[C::kP], float2* s, int tr
 #pragma unroll
     for (int u = 0; u < kF; ++u) s[swz(f0 + (u << C::done(C::kLast)))] = v[i * kF + u];
   }
+}
+
+// Rows of (B, H, L) operands at T (monarch_conv.cu, monarch_conv_bwd.cu).
+
+// The row configuration for samples of type T: E = 16 bytes / (2 sizeof T)
+// packed points a load.
+template <int LOG_M, typename T>
+using CfgT = Cfg<LOG_M, sizeof(T) == 4 ? 1 : 2>;
+
+// Samples i .. i + 16/sizeof(T) - 1 of the (gated) input into x: one
+// 16-byte load of each operand where the row is aligned and whole there,
+// a sample at a time otherwise (load_real, long_common.cuh). The gate's
+// product is rounded to T (u * pregate, as the forward convolves it) unless
+// ROUND is false (dout * postgate, which the backward keeps in f32).
+template <typename T, bool GATED, bool ROUND = true>
+__device__ __forceinline__ void load_vec(float* x, const T* __restrict__ u,
+                                         const T* __restrict__ pre, int i, int length,
+                                         bool aligned) {
+  constexpr int kN = 16 / sizeof(T);
+  if (aligned && i + kN <= length) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(u + i));
+    const T* ua = reinterpret_cast<const T*>(&a);
+    if constexpr (GATED) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(pre + i));
+      const T* pb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        const float p = to_f(ua[c]) * to_f(pb[c]);
+        x[c] = ROUND ? to_f(from_f<T>(p)) : p;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) x[c] = to_f(ua[c]);
+    }
+  } else if constexpr (ROUND || !GATED) {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) x[c] = load_real<T, GATED>(u, pre, i + c, length);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) x[c] = i + c < length ? to_f(u[i + c]) * to_f(pre[i + c]) : 0.f;
+  }
+}
+
+// y (16/sizeof(T) samples, times the postgate) to out[i ..], truncated at L.
+template <typename T, bool GATED>
+__device__ __forceinline__ void store_vec(T* __restrict__ out, const T* __restrict__ post,
+                                          int i, int length, bool aligned, float* y) {
+  constexpr int kN = 16 / sizeof(T);
+  if (aligned && i + kN <= length) {
+    if constexpr (GATED) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(post + i));
+      const T* pb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) y[c] *= to_f(pb[c]);
+    }
+    uint4 r;
+    T* rt = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) rt[c] = from_f<T>(y[c]);
+    *reinterpret_cast<uint4*>(out + i) = r;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) store_real<T, GATED>(out, post, i + c, length, y[c]);
+  }
+}
+
+// The offset of the row of thread tid in the (B, H, L) operands, and its
+// channel h: blocks run channel-major (row = h B + b). False past B * H.
+template <class C>
+__device__ __forceinline__ bool row_offset(int tid, int batch, int channels, int length,
+                                           size_t& off, int& h) {
+  const int row = blockIdx.x * C::kRows + tid / C::kT;
+  const bool active = row < batch * channels;
+  h = active ? row / batch : 0;
+  off = ((size_t)(active ? row - h * batch : 0) * channels + h) * length;
+  return active;
+}
+
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* a, const T* b, const T* c, const T* d) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) &
+          15) == 0;
+}
+
+// Blocks an SM the kernel is compiled for: spectrum's, but three at N = 8192.
+template <int LOG_M, typename T>
+constexpr int min_blocks() {
+  return LOG_M == 12 ? 3 : CfgT<LOG_M, T>::kMinBlocks;
 }
 
 }  // namespace row

@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "spectrum": {"ffc_spectrum": [_P] * 3 + [_I] * 3 + [_P]},
     "monarch_conv": {"ffc_monarch_conv": [_P] * 6 + [_I] * 5 + [_P]},
-    "monarch_conv_bwd": {"ffc_monarch_conv_bwd": [_P] * 12 + [_I] * 9 + [_P],
+    "monarch_conv_bwd": {"ffc_monarch_conv_bwd": [_P] * 11 + [_I] * 6 + [_P],
                          "ffc_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
     "depthwise": {"ffc_depthwise": [_P] * 4 + [_I] * 8 + [_P]},
     "depthwise_bwd": {"ffc_depthwise_bwd": [_P] * 7 + [_I] * 8 + [_P],

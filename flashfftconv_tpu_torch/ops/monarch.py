@@ -306,6 +306,25 @@ def conv_with_spectrum(
     return y.to(u.dtype)
 
 
+def bwd_group(batch: int) -> int:
+    """Rows of one channel whose dk spectra ``monarch_conv_bwd`` sums into
+    one partial: the largest power of two <= 8 that divides ``batch`` (the
+    rows of a group run as one thread block cluster)."""
+    c = 1
+    while c < 8 and batch % (2 * c) == 0:
+        c *= 2
+    return c
+
+
+def group_rows(partials: torch.Tensor, group: int) -> torch.Tensor:
+    """(B, ...) -> (B / group, ...): consecutive rows added in order."""
+    x = partials.reshape(partials.shape[0] // group, group, *partials.shape[1:])
+    out = x[:, 0]
+    for j in range(1, group):
+        out = out + x[:, j]
+    return out.contiguous()
+
+
 def conv_bwd_plain(
     plan: FftPlan,
     u: torch.Tensor,
@@ -323,8 +342,11 @@ def conv_bwd_plain(
       du = du_inner * pre, dpre = du_inner * u, dpost = y_inner * dout.
 
     Returns (du, dpre, dpost, partials): the first three at u's dtype
-    (dpre, dpost None when ungated) and the per-row dk spectrum partials
-    G conj(U), complex64 (..., H, M+1), which ``dk_finish_plain`` reduces.
+    (dpre, dpost None when ungated) and the dk spectrum partials, complex64
+    (B / c, H, M+1) for u (B, H, L), c = ``bwd_group(B)``: partial g is the
+    sum of the rows' G conj(U) over b = g c ... g c + c - 1, added in b
+    order, as the kernel sums them in a thread block cluster; their sum over
+    dim 0, which ``dk_finish_plain`` takes, is dk's spectrum.
     """
     length = u.shape[-1]
     ug = u if pregate is None else u * pregate
@@ -332,7 +354,7 @@ def conv_bwd_plain(
     g_f = rfft_plain(plan, g)
     u_f = rfft_plain(plan, ug)
     du_inner = irfft_plain(plan, g_f * k_f.conj())[..., :length]
-    partials = g_f * u_f.conj()
+    partials = group_rows(g_f * u_f.conj(), bwd_group(u.shape[0]))
     if pregate is None:
         return du_inner.to(u.dtype), None, None, partials
     y_inner = irfft_plain(plan, u_f * k_f)[..., :length]
@@ -343,8 +365,8 @@ def conv_bwd_plain(
 
 
 def dk_finish_plain(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
-    """dk (H, k_len) f32 from the (B, H, M+1) partials of ``conv_bwd_plain``:
-    ``irfft(sum_b partials)[:k_len]``, the plain version of ``dk_finish``."""
+    """dk (H, k_len) f32 from the (G, H, M+1) partials of ``conv_bwd_plain``:
+    ``irfft(sum_g partials)[:k_len]``, the plain version of ``dk_finish``."""
     return irfft_plain(plan, partials.sum(0))[..., :k_len]
 
 

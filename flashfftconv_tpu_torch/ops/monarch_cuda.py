@@ -4,19 +4,22 @@
 ``monarch_conv`` (csrc/monarch_conv.cu) replaces ``_conv_fused_io_tiles``
 and ``monarch_conv_bwd`` (csrc/monarch_conv_bwd.cu) replaces
 ``_bwd_fused_io_tiles`` (flashfftconv_tpu/ops/monarch_pallas.py).
-``spectrum`` and ``monarch_conv`` are instantiated per FFT size on the
-in-register row FFT of csrc/row_fft.cuh, and their C entries
-(``ffc_spectrum``, ``ffc_monarch_conv(u, pre, post, k_f, out, split_tw,
-batch, channels, length, n, dtype, stream)``) take the FFT size and the
-plan's ``split_tw`` alone; ``monarch_conv`` moves u, the output and the f32
-spectrum once (bytes: about 45 us at B=4, H=768, L=8192, N=16384, bf16 on
-an H100) and does two FFTs a row (about 64 us of f32 operations there);
-``dk_finish``, in the same source, is the card's counterpart of the JAX
-package's ``_finish_dk``. On a CUDA tensor each wrapper checks its inputs,
-allocates its outputs with ``torch.empty``, launches its kernel on the
-current stream, raises if the launch failed, and adds one to its
-``launches`` count. On a CPU tensor it runs the plain version from
-``ops/monarch.py`` instead; on any other device it raises.
+``spectrum``, ``monarch_conv`` and ``monarch_conv_bwd`` are instantiated
+per FFT size on the in-register row FFT of csrc/row_fft.cuh, and their C
+entries (``ffc_spectrum``, ``ffc_monarch_conv(u, pre, post, k_f, out,
+split_tw, batch, channels, length, n, dtype, stream)``,
+``ffc_monarch_conv_bwd``) take the FFT size and the plan's ``split_tw``
+alone; ``monarch_conv`` moves u, the output and the f32 spectrum once
+(bytes: about 45 us at B=4, H=768, L=8192, N=16384, bf16 on an H100) and
+does two FFTs a row (about 64 us of f32 operations there);
+``monarch_conv_bwd`` does three and sums the dk spectra of ``bwd_group(B)``
+rows of a channel inside a thread block cluster, so that it leaves
+B / ``bwd_group(B)`` partials; ``dk_finish``, in the same source, is the
+card's counterpart of the JAX package's ``_finish_dk``. On a CUDA tensor
+each wrapper checks its inputs, allocates its outputs with ``torch.empty``,
+launches its kernel on the current stream, raises if the launch failed,
+and adds one to its ``launches`` count. On a CPU tensor it runs the plain
+version from ``ops/monarch.py`` instead; on any other device it raises.
 
 From FFT size 65536 up (a plan with an outer part) no block holds a row, and
 three more kernels take over: ``butterfly`` (csrc/butterfly.cu) replaces
@@ -67,6 +70,7 @@ from __future__ import annotations
 import torch
 
 from flashfftconv_tpu_torch.ops import _build, monarch
+from flashfftconv_tpu_torch.ops.monarch import bwd_group
 from flashfftconv_tpu_torch.ops.plan import (
     DIRECT_MAX,
     MAX_FACTOR,
@@ -234,8 +238,13 @@ def monarch_conv_bwd(
     """The backward of ``monarch_conv`` for u (B, H, L <= N) in f32 or bf16,
     k_f (H, M+1) complex64, optional gates and dout (B, H, L) at u's dtype.
     Returns (du, dpre, dpost, partials): du, dpre and dpost at u's dtype
-    (dpre, dpost None when ungated) and the dk spectrum partials
-    G conj(U), complex64 (B, H, M+1), for ``dk_finish``."""
+    (dpre, dpost None when ungated) and the dk spectrum partials, complex64
+    (B / c, H, M+1) with c = ``bwd_group(B)``, whose sum over dim 0, in
+    order, is dk's spectrum, for ``dk_finish``: partial g sums the rows'
+    G conj(U) over b = g c ... g c + c - 1 in b order, inside the thread
+    block cluster that runs them. The kernel is instantiated per FFT size
+    (16 ... 32768), dtype and gating and needs only the plan's ``split_tw``;
+    it parks one spectrum a row in a (B, H, M+1) scratch."""
     if (pregate is None) != (postgate is None):
         raise ValueError("pregate and postgate must both be given or both be None")
     if on_cpu(u, k_f, pregate, postgate, dout):
@@ -248,20 +257,27 @@ def monarch_conv_bwd(
     _check_gates(plan, u, pregate, postgate, dout)
     if not 1 <= length <= plan.seqlen:
         raise ValueError(f"input length {length} not in [1, {plan.seqlen}]")
+    if plan.n_outer:
+        raise ValueError(
+            f"a plan of seqlen {plan.seqlen} has an outer part: monarch_conv_bwd stops at "
+            f"{MAX_FUSED_SEQLEN}; use long_conv_bwd"
+        )
     gated = pregate is not None
+    group = bwd_group(b)
     du = torch.empty_like(u)
     dpre = torch.empty_like(u) if gated else None
     dpost = torch.empty_like(u) if gated else None
-    partials = torch.empty(b, h, plan.inner + 1, dtype=torch.complex64, device=u.device)
+    partials = torch.empty(b // group, h, plan.inner + 1, dtype=torch.complex64, device=u.device)
     if b * h == 0:
         return du, dpre, dpost, partials
+    park = torch.empty(b, h, plan.inner + 1, dtype=torch.complex64, device=u.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.load("monarch_conv_bwd")
     rc = lib.ffc_monarch_conv_bwd(
         u.data_ptr(), ptr(pregate), ptr(postgate), dout.data_ptr(), k_f.data_ptr(),
-        du.data_ptr(), ptr(dpre), ptr(dpost), partials.data_ptr(),
-        plan.tw_flat.data_ptr(), plan.split_tw.data_ptr(), plan.roots.data_ptr(),
-        b, h, length, *_factor_args(plan), _DTYPE_CODES[u.dtype], _stream(u.device),
+        du.data_ptr(), ptr(dpre), ptr(dpost), park.data_ptr(), partials.data_ptr(),
+        plan.split_tw.data_ptr(), b, h, length, plan.seqlen, group, _DTYPE_CODES[u.dtype],
+        _stream(u.device),
     )
     _build.check(lib, rc, "monarch_conv_bwd kernel")
     monarch_conv_bwd.launches += 1
@@ -272,14 +288,15 @@ monarch_conv_bwd.launches = 0
 
 
 def dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
-    """dk (H, k_len) f32 = irfft(sum_b partials)[:k_len] for the (B, H, M+1)
-    complex64 partials of ``monarch_conv_bwd``, summed over B in order."""
+    """dk (H, k_len) f32 = irfft(sum_g partials)[:k_len] for the (G, H, M+1)
+    complex64 partials of ``monarch_conv_bwd`` (G = B / ``bwd_group(B)``) or
+    ``direct_conv_bwd`` (G = 1), summed over G in order."""
     if on_cpu(partials):
         return monarch.dk_finish_plain(plan, partials, k_len)
     _check_cuda("partials", partials, plan.device, (torch.complex64,), 3)
     b, h, m1 = partials.shape
     if m1 != plan.inner + 1:
-        raise ValueError(f"partials shape {tuple(partials.shape)} != (B, H, {plan.inner + 1})")
+        raise ValueError(f"partials shape {tuple(partials.shape)} != (G, H, {plan.inner + 1})")
     if not 1 <= k_len <= plan.seqlen:
         raise ValueError(f"kernel length {k_len} not in [1, {plan.seqlen}]")
     dk = torch.empty(h, k_len, dtype=torch.float32, device=partials.device)

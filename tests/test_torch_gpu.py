@@ -220,16 +220,24 @@ def test_cuda_dk_finish_matches_plain_at_every_plan_size(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 4096, 16384, 32768])
+@pytest.mark.parametrize("n", [16 << i for i in range(12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_conv_backward_kernels_match_plain(n, dtype):
     """monarch_conv_bwd and dk_finish against conv_bwd_plain and
-    dk_finish_plain; dk and the partials are f32 at f32 tolerance."""
+    dk_finish_plain at every one-block plan size, B 1, 3, 4, 8 and 64, gated
+    and ungated, L = N/2 and N - 5; the partials, (B / bwd_group(B), H, M+1)
+    summed over thread block clusters, against the plain version's grouped
+    ones; dk and the partials are f32 at f32 tolerance; two calls give the
+    same bits."""
     _needs_card()
     dev = torch.device("cuda")
     p = tplan.make_plan(n, dtype, device=dev)
     g = torch.Generator().manual_seed(n + 1)
-    for b, h, length, gated in [(4, 16, n // 2, False), (3, 7, n - 5, True)]:
+    for b, h, length, gated in [(1, 5, n // 2, False), (1, 3, n - 5, True),
+                                (3, 7, n - 5, True), (3, 4, n // 2, False),
+                                (4, 16, n // 2, False), (4, 5, n - 5, True),
+                                (8, 6, n // 2, False), (8, 3, n - 5, True),
+                                (64, 2, n // 2, False), (64, 2, n - 5, True)]:
         u, d, *gates = (torch.randn(b, h, length, generator=g).to(dev, dtype)
                         for _ in range(2 + 2 * gated))
         k_f = monarch_cuda.spectrum(p, (torch.randn(h, length, generator=g) * 0.02).to(dev))
@@ -241,11 +249,15 @@ def test_cuda_conv_backward_kernels_match_plain(n, dtype):
         assert (monarch_cuda.monarch_conv_bwd.launches, monarch_cuda.dk_finish.launches) == \
             (n0[0] + 1, n0[1] + 1)
         ref = monarch.conv_bwd_plain(p, u, k_f, *gates, d)
+        assert got[3].shape == ref[3].shape == (b // monarch.bwd_group(b), h, n // 2 + 1)
         for a, r in zip(got[:3], ref[:3]):
             if r is not None:
                 _close(a, r, dtype)
         _close(torch.view_as_real(got[3]), torch.view_as_real(ref[3]), torch.float32)
         _close(dk, monarch.dk_finish_plain(p, ref[3], length), torch.float32)
+        again = monarch_cuda.monarch_conv_bwd(p, u, k_f, *gates, d)
+        assert all(a is None or torch.equal(a, r) for a, r in zip(got, again))
+        assert torch.equal(dk, monarch_cuda.dk_finish(p, again[3], length))
 
 
 @pytest.mark.gpu

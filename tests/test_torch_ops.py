@@ -325,18 +325,23 @@ def _assert_grads_close(got, ref, tol, names):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("gated", [False, True])
-@pytest.mark.parametrize("padded", [False, True])
-def test_conv_grads_match_jax_bwd_fused_f32(gated, padded):
+@pytest.mark.parametrize("gated,padded,b", [
+    *(pytest.param(g, p, 2, id=f"{p}-{g}") for g in (False, True) for p in (False, True)),
+    pytest.param(False, False, 8, id="B8-ungated"), pytest.param(True, True, 8, id="B8-gated"),
+    pytest.param(True, False, 3, id="B3-gated"), pytest.param(False, True, 3, id="B3-ungated"),
+])
+def test_conv_grads_match_jax_bwd_fused_f32(gated, padded, b):
     """jax.grad of fft_conv_pallas, whose backward runs _bwd_fused_io_tiles
     in interpret mode (H=64 fits its channel tile, L % n2 == 0), against the
-    port's FftConvFunction with the plain backward, f32."""
+    port's FftConvFunction with the plain backward, f32. B = 8 sums the dk
+    spectra of all 8 rows into one partial (bwd_group 8), B = 3 keeps one
+    partial a row (bwd_group 1)."""
     n = 2048
     jp = jff.make_plan(n, compute_dtype=jnp.float32)
     length = n - jp.factors[1] if padded else n
     assert monarch_pallas._h_tile(*jp.factors, 64) is not None and length % jp.factors[1] == 0
-    rng = np.random.default_rng(20 + 2 * gated + padded)
-    u, k, gates = _conv_data(rng, 2, 64, length, length, gated)
+    rng = np.random.default_rng(20 + 2 * gated + padded + 10 * (b != 2))
+    u, k, gates = _conv_data(rng, b, 64, length, length, gated)
     dout = rng.standard_normal(u.shape).astype(np.float32)
     args = [jnp.asarray(a) for a in (u, k, *gates)]
     ref = jax.grad(lambda *a: jnp.sum(monarch_pallas.fft_conv_pallas(jp, *a) * dout),
@@ -389,9 +394,48 @@ def test_conv_plain_backward_matches_autograd(b, h, length, k_len, gated):
     tu, tk, *tg = (t.detach() for t in ts)
     du, dpre, dpost, parts = monarch.conv_bwd_plain(p, tu, monarch.kernel_spectrum(p, tk),
                                                    *(tg or (None, None)), dout)
-    assert parts.shape == (b, h, n // 2 + 1) and parts.dtype == torch.complex64
+    assert parts.shape == (b // monarch.bwd_group(b), h, n // 2 + 1)
+    assert parts.dtype == torch.complex64
     got = [du, monarch.dk_finish_plain(p, parts, k_len), *([dpre, dpost] if gated else [])]
     _assert_grads_close(got, ref, 1e-4, "u k pre post".split())
+
+
+@pytest.mark.parametrize("b,want", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 2), (8, 8), (16, 8),
+                                    (64, 8), (96, 8)])
+def test_bwd_group(b, want):
+    """The rows of a channel summed into one dk partial: the largest power
+    of two <= 8 that divides B."""
+    assert monarch.bwd_group(b) == monarch_cuda.bwd_group(b) == want
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 64])
+@pytest.mark.parametrize("gated", [False, True])
+def test_conv_bwd_plain_groups_rows_in_order(b, gated):
+    """conv_bwd_plain's partials are the rows' G conj(U) added in b order in
+    consecutive groups of bwd_group(B), (B / c, H, M+1); dk_finish_plain of
+    them and of the ungrouped rows agree at f32 rounding (1e-5 of dk's
+    largest |value|)."""
+    n, h, length = 256, 3, 100
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    g = torch.Generator().manual_seed(b + 100 * gated)
+    u, d, pre, post = (torch.randn(b, h, length, generator=g) for _ in range(4))
+    k_f = monarch.kernel_spectrum(p, torch.randn(h, 60, generator=g) * 0.1)
+    gates = (pre, post) if gated else (None, None)
+    parts = monarch.conv_bwd_plain(p, u, k_f, *gates, d)[3]
+    ug, gg = (u * pre, d * post) if gated else (u, d)
+    rows = monarch.rfft_plain(p, gg) * monarch.rfft_plain(p, ug).conj()
+    c = monarch.bwd_group(b)
+    want = torch.stack([_in_order(rows[i * c:(i + 1) * c]) for i in range(b // c)])
+    assert parts.shape == (b // c, h, n // 2 + 1) and torch.equal(parts, want)
+    dk, ref = monarch.dk_finish_plain(p, parts, 80), monarch.dk_finish_plain(p, rows, 80)
+    assert float((dk - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def _in_order(rows):
+    out = rows[0]
+    for r in rows[1:]:
+        out = out + r
+    return out
 
 
 def test_conv_backward_wrappers_on_cpu():
