@@ -14,8 +14,9 @@ Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
             fails if an attention instance (forward, dK/dV or dQ, flash
-            or splash, every head_dim), a monarch_conv, a monarch_conv_bwd
-            or a dk_finish instance has a stack frame or spills;
+            or splash, every head_dim), a monarch_conv, a monarch_conv_bwd,
+            a dk_finish or a direct_conv (tensor-core forward) instance has
+            a stack frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -29,7 +30,12 @@ Phases, each of which fails the run by raising:
             the seq_train shape and N2 = 16, 256, 2048, the four-real-conv
             band route at N2 = 32768 and 131072, and the sequence-parallel
             conv at world size 1 (gated, padded, with grads) against the
-            torch.fft oracle;
+            torch.fft oracle; the long kernels at every FFT size of
+            LONG_SIZES in f32 and bf16, long_spectrum twice bit for bit,
+            also on two plans of an 8192-point band (F = 8 and 128); the
+            direct kernels at every FFT size of DIRECT_SIZES, f32 and bf16,
+            gated and not, B = 1, 3, 20 and 130 (two row blocks of the
+            tensor-core forward), direct_conv twice bit for bit;
             the three flash-attention kernels (forward, dK/dV, dQ) against
             their plain versions at the GPT-2 shape (B=8, H=12, L=1024, D=64,
             f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
@@ -230,7 +236,13 @@ Phases, each of which fails the run by raising:
             products' operations times 3 split-TF32 passes at 494.7
             TFLOP/s), and the dK/dV + dQ pair's sum beside SDPA's backward;
             smem_copy at three tiles beside torch.mul and smem_probe_touch,
-            with utils.benchmarking;
+            with utils.benchmarking; long_spectrum (the chain with the
+            butterfly on the taps) beside torch.fft.rfft with each one's
+            device time, and its two kernels alone on the butterfly's
+            bands; direct_conv at M2-BERT's shape and at N=512, L=256
+            (direct_conv@512) with tc_bound (its two dense products, 4 L N
+            operations a row) and each call's device time beside the
+            library's;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
@@ -278,9 +290,10 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA's H100 SXM data sheet)
 TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 # Kernel instances that must build with no stack frame (phase_build): every
-# attention kernel, monarch_conv, monarch_conv_bwd and dk_finish.
+# attention kernel, monarch_conv, monarch_conv_bwd, dk_finish and the
+# direct_conv forward on the tensor cores.
 STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "monarch_conv_bwd_kernel",
-             "dkf16dk_finish_kernel")
+             "dkf16dk_finish_kernel", "direct_conv_tc_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -596,8 +609,8 @@ def phase_build():
                     and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
                 spilled.append(f"{props}: {m.group(3)}")
     if spilled:
-        raise AssertionError(f"attention, monarch_conv, monarch_conv_bwd or dk_finish "
-                             f"instances with a stack frame: {spilled}")
+        raise AssertionError(f"attention, monarch_conv, monarch_conv_bwd, dk_finish or "
+                             f"direct_conv instances with a stack frame: {spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -1280,8 +1293,9 @@ def _long_inputs(torch, g, dev):
 
 def _check_long(torch, plan, what, u, k, pre=None, post=None):
     """butterfly (both directions), long_conv_inner and long_spectrum against
-    their plain versions on the same inputs, and the chain long_conv against
-    the torch.fft oracle. Returns {kernel: max abs err}."""
+    their plain versions on the same inputs (long_spectrum twice, bit for
+    bit), and the chain long_conv against the torch.fft oracle. Returns
+    {kernel: max abs err}."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
 
     real = torch.view_as_real
@@ -1291,6 +1305,8 @@ def _check_long(torch, plan, what, u, k, pre=None, post=None):
     ref = real(monarch.long_spectrum_plain(plan, k))
     errs = {"long_spectrum": compare(f"long_spectrum {what}", real(k_f), ref, f32_tol(ref))}
     del ref
+    if not torch.equal(real(k_f), real(monarch_cuda.long_spectrum(plan, k))):
+        raise AssertionError(f"long_spectrum {what}: two calls differ")
     zr = monarch.butterfly_plain(plan, u, pre)
     z = monarch_cuda.butterfly(plan, u, pre)
     fwd = compare(f"butterfly forward {what}", real(z), real(zr), f32_tol(real(zr)))
@@ -1367,8 +1383,10 @@ def _check_long_bwd(torch, plan, what, u, k, pre, post, g):
 def _check_long_kernels(torch, g):
     """The long kernels, forward and backward, at the dna path's shapes, then
     at every listed FFT size in f32 and bf16: B = 1 ungated at L = N/2, B = 3
-    and 4 gated at ragged lengths and channel counts; and the short depthwise
-    conv at 1,048,576 positions."""
+    and 4 gated at ragged lengths and channel counts; long_spectrum on two
+    plans of an 8192-point band; and the short depthwise conv at 1,048,576
+    positions."""
+    from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
     from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
@@ -1394,6 +1412,18 @@ def _check_long_kernels(torch, g):
                 _check_long(torch, p, what, uu, kk, *gates)
                 _check_long_bwd(torch, p, what, uu, kk, *gates, g)
         del p
+    # long_spectrum on plans of an 8192-point band (132 KB of shared memory a
+    # block): F = 8 and F = 128.
+    for n, factors in ((131072, (8, 32, 16, 16)), (DNA_N_FFT, (16, 8, 32, 16, 16))):
+        p = make_plan(n, torch.float32, device=dev, factors=factors)
+        kk = (torch.randn(3, n // 2 - 1, generator=g) * 0.05).to(dev)
+        what = f"N={n} F={p.outer} R={p.band}"
+        k_f = monarch_cuda.long_spectrum(p, kk)
+        ref = torch.view_as_real(monarch.long_spectrum_plain(p, kk))
+        compare(f"long_spectrum {what}", torch.view_as_real(k_f), ref, f32_tol(ref))
+        if not torch.equal(k_f, monarch_cuda.long_spectrum(p, kk)):
+            raise AssertionError(f"long_spectrum {what}: two calls differ")
+        del p, k_f, ref
     d = 3 * DNA_D_MODEL
     log(f"depthwise: B=1 D={d} L={DNA_L_MAX} K=3 padding=(2, 0) bias bf16 BHL")
     x = torch.randn(1, d, DNA_L_MAX, generator=g).to(dev, torch.bfloat16)
@@ -1465,8 +1495,9 @@ def _check_band_kernels(torch, g):
 
 def _check_direct(torch, plan, what, u, k, pre, post, dout):
     """spectrum, direct_conv, direct_conv_bwd and dk_finish against their
-    plain versions on the same inputs, and a second backward against the
-    first, bit for bit. Returns (direct_conv error, direct_conv_bwd error)."""
+    plain versions on the same inputs, and a second forward and backward
+    against the first, bit for bit. Returns (direct_conv error,
+    direct_conv_bwd error)."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
 
     real = torch.view_as_real
@@ -1476,8 +1507,10 @@ def _check_direct(torch, plan, what, u, k, pre, post, dout):
     ref = real(monarch.kernel_spectrum(plan, k))
     compare(f"spectrum {what}", real(k_f), ref, f32_tol(ref))
     ref = monarch.direct_conv_plain(plan, u, k_f, pre, post)
-    fwd = compare(f"direct_conv {what}", monarch_cuda.direct_conv(plan, u, k_f, pre, post), ref,
-                  lowp_tol(ref) if low else f32_tol(ref))
+    y = monarch_cuda.direct_conv(plan, u, k_f, pre, post)
+    fwd = compare(f"direct_conv {what}", y, ref, lowp_tol(ref) if low else f32_tol(ref))
+    if not torch.equal(y, monarch_cuda.direct_conv(plan, u, k_f, pre, post)):
+        raise AssertionError(f"direct_conv {what}: two calls differ")
     got = monarch_cuda.direct_conv_bwd(plan, u, k_f, pre, post, dout)
     ref = monarch.direct_conv_bwd_plain(plan, u, k_f, pre, post, dout)
     bwd = 0.0
@@ -1504,8 +1537,9 @@ def _check_direct(torch, plan, what, u, k, pre, post, dout):
 def _check_direct_kernels(torch, g):
     """The direct kernels at the M2-BERT path's shape (B=128, H=768, L=128,
     N=256, bf16, ungated), then at every FFT size from 16 to 512 in f32 and
-    bf16: gated and ungated, L = N/2 + 3 and L = N, B = 1, 3 and 20 (two
-    chunks of the backward's batch walk at N = 256), H = 7 and 3."""
+    bf16: gated and ungated, L = N/2 + 3, N/2 and N, B = 1, 3, 20 (two
+    chunks of the backward's batch walk at N = 256) and 130 (two row blocks
+    of the forward), H = 7, 3 and 5."""
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
     dev = torch.device("cuda")
@@ -1522,7 +1556,7 @@ def _check_direct_kernels(torch, g):
         p = make_plan(n, torch.float32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             for b, h, length, gated in ((1, 7, n // 2 + 3, True), (3, 7, n, False),
-                                        (20, 3, n, True)):
+                                        (20, 3, n, True), (130, 5, n // 2, False)):
                 uu, pre, post, dd = (torch.randn(b, h, length, generator=g).to(dev, dtype)
                                      for _ in "abcd")
                 kk = (torch.randn(h, n, generator=g) * 0.1).to(dev)
@@ -3068,7 +3102,7 @@ def _kind(name: str) -> str:
         ("long_conv_bwd", ("long_conv_bwd_kernel",)),
         ("long_dk_finish", ("long_dk_finish_kernel",)),
         ("long_conv", ("long_conv_kernel",)),
-        ("long_spectrum", ("long_spectrum_kernel",)),
+        ("long_spectrum", ("band_split_kernel", "bands_to_natural_kernel")),
         ("band_conv", ("band_conv_kernel",)),
         ("flash_attn_bwd_dkv", ("flash_attn_bwd_dkv_kernel",)),
         ("flash_attn_bwd_dq", ("flash_attn_bwd_dq_kernel",)),
@@ -3077,7 +3111,7 @@ def _kind(name: str) -> str:
         ("splash_attn_bwd_dq", ("splash_attn_bwd_dq_kernel",)),
         ("splash_attn_fwd", ("splash_attn_fwd_kernel",)),
         ("direct_conv_bwd", ("direct_conv_bwd_kernel",)),
-        ("direct_conv", ("direct_conv_kernel",)),
+        ("direct_conv", ("direct_conv_tc_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
         ("dk_finish", ("dk_finish_kernel",)),
         ("monarch_conv", ("monarch_conv_kernel",)),
@@ -3530,6 +3564,10 @@ def phase_timing(torch, g):
         if "device_ms" in r:
             extra += (f", device time a call {r['device_ms']:.4f} ms (library "
                       f"{r['library_device_ms']:.4f} ms)")
+        if "kernel_ms" in r:
+            extra += (f"; the band kernel alone {r['kernel_ms']:.4f} ms, device "
+                      f"{r['kernel_device_ms']:.4f} ms, bound {r['kernel_bound'][0]:.4f} ms "
+                      f"({r['kernel_bound'][1]})")
         if "c1_ms" in r:
             extra += (f"; group 1 (a partial a row) {r['c1_ms']:.4f} ms, device "
                       f"{r['c1_device_ms']:.4f} ms; whole (with dk_finish) {r['whole_ms']:.4f} "
@@ -3588,9 +3626,11 @@ def _time_direct(torch, g):
     N=256, bf16, ungated) and at N=512, L=256. The bound counts what the
     function needs: its inputs read once and its outputs written once,
     against the f32 operations of the same function with FFTs, counted as in
-    phase_timing. The direct kernels' dense transforms (M = N/2; 2 L M
-    operations a row a transform, the folded half-spectrum DFT and inverse)
-    are the design's own work, reported apart as design_ops_ms."""
+    phase_timing. The dense transforms are the design's own work: the
+    forward's two real DFT products (2 L N operations a row each) on the
+    tensor cores as tc_bound, with each call's device time beside the
+    library's; the backward's folded half-spectrum transforms (M = N/2; 2 L M
+    operations a row a transform) at the f32 peak as design_ops_ms."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
@@ -3621,13 +3661,17 @@ def _time_direct(torch, g):
                 return du, (g_f * u_f.conj()).sum(0)
 
             # direct_conv: u and k_f in, y out; the kernel runs two dense
-            # transforms a row and the pointwise product
+            # real DFT products a row on the tensor cores (L N multiply-adds
+            # each; tc_bound) and the pointwise product
+            conv = lambda: monarch_cuda.direct_conv(plan, u, k_f)
             res["direct_conv" + sfx] = dict(
-                ms=_time_ms(torch, lambda: monarch_cuda.direct_conv(plan, u, k_f)),
+                ms=_time_ms(torch, conv),
                 plain_ms=_time_ms(torch, lambda: monarch.direct_conv_plain(plan, u, k_f), iters=5),
                 library_ms=_time_ms(torch, fft_conv),
                 bound=_bound(2 * io + spec, fwd_ops),
-                design_ops_ms=rows * (4 * length * m + 16 * m) / F32_FLOPS * 1e3,
+                tc_bound=_tc_bound(rows * 4 * length * n),
+                device_ms=_graph_ms(torch, conv),
+                library_device_ms=_graph_ms(torch, fft_conv),
             )
             # direct_conv_bwd: u, dout and k_f in, du and one dk spectrum out;
             # the kernel runs three dense transforms a row and the dk products
@@ -3943,15 +3987,29 @@ def _time_long(torch, g):
             bound=_bound(u.numel() * 2 * 2 + k_f.numel() * 8, conv_flops),
             overhead_ms=4 * bands_bytes / HBM_BYTES_PER_S * 1e3,
         )
-        # long_spectrum: f32 taps in, half spectrum out; the bands cross twice
+        # long_spectrum, the chain forward butterfly + its band kernel: f32
+        # taps in, half spectrum out; the bands cross twice. Beside it the
+        # band kernel alone on the butterfly's bands (bands in, spectrum out:
+        # one band FFT and the split a point), and each one's device time.
+        zk = monarch_cuda.butterfly(plan, k[None])[0]
+        kf_out = torch.empty_like(k_f)
+        chain = lambda: monarch_cuda.long_spectrum(plan, k)
+        band_kernel = lambda: monarch_cuda._long_spectrum_bands(plan, zk, kf_out)
+        rfft = lambda: torch.fft.rfft(k, n=DNA_N_FFT)
         res["long_spectrum"] = dict(
-            ms=_time_ms(torch, lambda: monarch_cuda.long_spectrum(plan, k), iters=10),
+            ms=_time_ms(torch, chain, iters=10),
             plain_ms=_time_ms(torch, lambda: monarch.long_spectrum_plain(plan, k), iters=2,
                               warmup=1),
-            library_ms=_time_ms(torch, lambda: torch.fft.rfft(k, n=DNA_N_FFT), iters=5),
+            library_ms=_time_ms(torch, rfft, iters=5),
             bound=_bound(k.numel() * 4 + k_f.numel() * 8, outer_flops + band_flops + h * m * 10),
             overhead_ms=2 * bands_bytes / HBM_BYTES_PER_S * 1e3,
+            device_ms=_graph_ms(torch, chain, iters=5),
+            library_device_ms=_graph_ms(torch, rfft, iters=5),
+            kernel_ms=_time_ms(torch, band_kernel, iters=10),
+            kernel_device_ms=_graph_ms(torch, band_kernel, iters=5),
+            kernel_bound=_bound(bands_bytes + k_f.numel() * 8, band_flops + h * m * 10),
         )
+        del zk, kf_out
         # The band kernel of the long backward (ungated, as on the main
         # path): both band arrays and k_f in, du's bands and one dk spectrum
         # out (at B = 1 the partials are that spectrum); three band FFTs a

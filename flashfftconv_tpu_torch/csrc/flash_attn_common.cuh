@@ -411,27 +411,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// x as TF32 operands: hi = tf32(x), and with kSplit lo = x - hi; without it
-// x must be exact in TF32 (a bf16 or f16 value) and lo is 0. tf32() rounds
-// to nearest, ties away from zero, as cvt.rna.tf32.f32 does, by adding half
-// a TF32 ulp to the bits (sign and magnitude) and dropping the low 13; the
-// tensor cores ignore those 13 bits, so hi is passed before they are
-// cleared, and lo (exact in f32) as it is, which truncates it to TF32: an
-// error of at most 2^-11 of lo, 2^-22 of x, the size of the lo lo term the
-// split drops. Three operations a value, where cvt.rna.tf32.f32 compiles to
-// four (it also tests for inf and NaN) and a second cvt for lo to four more.
-template <bool kSplit>
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t bits = __float_as_uint(x);
-  if (kSplit) {
-    hi = bits + 0x1000u;
-    lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-  } else {
-    hi = bits;
-    lo = 0u;
-  }
-}
-
 // The A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a tile.
 template <int LD, bool kSplit>
 __device__ __forceinline__ void frag_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile,
@@ -474,17 +453,6 @@ __device__ __forceinline__ void frag_a_of_c(uint32_t (&hi)[4], uint32_t (&lo)[4]
   split_tf32<true>(c[2], hi[1], lo[1]);
   split_tf32<true>(c[1], hi[2], lo[2]);
   split_tf32<true>(c[3], hi[3], lo[3]);
-}
-
-// d += a b to f32 accuracy: the small terms lo hi and hi lo first, then
-// hi hi; an operand exact in TF32 has no lo term.
-template <bool kSplitA, bool kSplitB>
-__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                          const uint32_t (&bl)[2]) {
-  if (kSplitA) mma_tf32(d, al, bh);
-  if (kSplitB) mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
 }
 
 // s (the C fragments of the warp's rows r0 .. r0 + 15 and the columns c0 ..

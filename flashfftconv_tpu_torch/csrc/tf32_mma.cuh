@@ -1,6 +1,7 @@
-// Warp-level primitives of the attention backward (flash_attn_common.cuh):
-// the m16n8k8 TF32 tensor-core product and 16-byte asynchronous copies from
-// global to shared memory. sm_80 and later.
+// Warp-level primitives of the kernels on the tensor cores (the attention
+// kernels of flash_attn_common.cuh, direct_conv.cu): the m16n8k8 TF32
+// tensor-core product, the split of f32 operands into TF32 hi and lo, and
+// 16-byte asynchronous copies from global to shared memory. sm_80 and later.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +21,38 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x as TF32 operands: hi = tf32(x), and with kSplit lo = x - hi; without it
+// x must be exact in TF32 (a bf16 or f16 value) and lo is 0. tf32() rounds
+// to nearest, ties away from zero, as cvt.rna.tf32.f32 does, by adding half
+// a TF32 ulp to the bits (sign and magnitude) and dropping the low 13; the
+// tensor cores ignore those 13 bits, so hi is passed before they are
+// cleared, and lo (exact in f32) as it is, which truncates it to TF32: an
+// error of at most 2^-11 of lo, 2^-22 of x, the size of the lo lo term the
+// split drops. Three operations a value, where cvt.rna.tf32.f32 compiles to
+// four (it also tests for inf and NaN) and a second cvt for lo to four more.
+template <bool kSplit>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t bits = __float_as_uint(x);
+  if (kSplit) {
+    hi = bits + 0x1000u;
+    lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+  } else {
+    hi = bits;
+    lo = 0u;
+  }
+}
+
+// d += a b to f32 accuracy: the small terms lo hi and hi lo first, then
+// hi hi; an operand exact in TF32 has no lo term.
+template <bool kSplitA, bool kSplitB>
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  if (kSplitA) mma_tf32(d, al, bh);
+  if (kSplitB) mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
 }
 
 // 16 bytes from global memory at src to shared memory at dst without

@@ -25,7 +25,9 @@ From FFT size 65536 up (a plan with an outer part) no block holds a row, and
 three more kernels take over: ``butterfly`` (csrc/butterfly.cu) replaces
 ``_butterfly_tiles``, ``long_conv_inner`` (csrc/long_conv.cu) replaces
 ``_long_tiles`` in its complex-I/O contract, and ``long_spectrum``
-(csrc/long_spectrum.cu) replaces ``_fwd_dft_tiles``. ``long_conv`` is
+(csrc/long_spectrum.cu: the band FFTs and split, stored band by band, then
+a transpose to natural order; one launch count a call) replaces
+``_fwd_dft_tiles``. ``long_conv`` is
 ``_long_tiles``' real-I/O contract as the chain forward butterfly -> band
 conv -> inverse butterfly over complex64 bands in device memory; it owns no
 kernel and no count of its own.
@@ -356,7 +358,7 @@ def direct_conv(
     lib = _build.load("direct_conv")
     rc = lib.ffc_direct_conv(
         u.data_ptr(), ptr(pregate), ptr(postgate), k_f.data_ptr(), out.data_ptr(),
-        plan.direct_roots.data_ptr(), b, h, length, plan.seqlen, _DTYPE_CODES[u.dtype],
+        plan.direct_tf32.data_ptr(), b, h, length, plan.seqlen, _DTYPE_CODES[u.dtype],
         _stream(u.device),
     )
     _build.check(lib, rc, "direct_conv kernel")
@@ -550,12 +552,20 @@ def long_spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty(h, plan.inner + 1, dtype=torch.complex64, device=k.device)
     if h == 0:
         return out
-    z = butterfly(plan, k[None])
+    return _long_spectrum_bands(plan, butterfly(plan, k[None])[0], out)
+
+
+def _long_spectrum_bands(plan: FftPlan, z: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The ``long_spectrum`` kernels alone: the half spectrum of the bands z
+    (H, F, R) complex64 that the forward ``butterfly`` left, into ``out``;
+    z is overwritten (the split spectrum, band by band, on its way to
+    ``out``)."""
     sub = plan.sub
     lib = _build.load("long_spectrum")
     rc = lib.ffc_long_spectrum(
         z.data_ptr(), out.data_ptr(), sub.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
-        sub.roots.data_ptr(), h, plan.outer, *_factor_args(sub), _stream(k.device),
+        sub.split_tw.data_ptr(), sub.roots.data_ptr(), z.shape[0], plan.outer,
+        *_factor_args(sub), _stream(z.device),
     )
     _build.check(lib, rc, "long_spectrum kernel")
     long_spectrum.launches += 1

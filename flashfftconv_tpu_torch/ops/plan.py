@@ -29,8 +29,10 @@ up to N = 32768 have ``n_outer = 0`` and are unchanged.
 Up to ``DIRECT_MAX`` = 512 the conv itself runs as one dense DFT a row
 (the ``direct_conv`` kernels, as the JAX package's 1-factor plans do); such
 a plan also carries ``direct_roots``, the N roots of unity that the direct
-kernels index by the exact integer (f * t) mod N. Its Monarch factors still
-serve ``spectrum`` and ``dk_finish``.
+backward kernel indexes by the exact integer (f * t) mod N, and
+``direct_tf32``, the forward kernel's real DFT tables on the tensor cores,
+split into TF32 hi and lo (``direct_tf32_tables``). Its Monarch factors
+still serve ``spectrum`` and ``dk_finish``.
 
 All DFT and twiddle phases are computed with exact integer arithmetic mod n
 in float64 before the final exp, then stored as complex64.
@@ -148,6 +150,69 @@ def _roots(n: int) -> np.ndarray:
     return np.exp(-2j * np.pi * k.astype(np.float64) / n)
 
 
+def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """f32 x as x ~ hi + lo, both exact in TF32 (10 mantissa bits): each
+    rounded to nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds
+    (add half a TF32 ulp to the bits, clear the low 13); lo is x - hi, exact
+    in f32, rounded the same way. |x - hi - lo| <= 2^-22 |x|."""
+    x = np.ascontiguousarray(x, np.float32)
+
+    def rna(v: np.ndarray) -> np.ndarray:
+        return ((v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def direct_dft_columns(seqlen: int) -> tuple[np.ndarray, np.ndarray]:
+    """The real DFT the direct forward kernel computes, N = seqlen real
+    unknowns of the half spectrum: (C, I) in float64, C (N, N) with
+    C[t, c] the weight of sample t in spectrum column c, I (N, N) with
+    I[c, t] the weight of column c in output sample t (irfft's first N
+    samples). Column 0 is Re X[0] (C = 1), column 1 Re X[M] (C = (-1)^t),
+    columns 2f and 2f + 1 (f = 1 .. M-1) Re and Im X[f] (C = cos and -sin
+    of 2 pi f t / N, from the exact integer (f t) mod N); I[c, t] =
+    s_c C[t, c] with s_c = 1/N for c = 0, 1 and 2/N otherwise."""
+    n, m = seqlen, seqlen // 2
+    f = np.empty(n, np.int64)
+    f[0], f[1] = 0, m
+    f[2::2] = f[3::2] = np.arange(1, m)
+    phase = 2 * np.pi * ((np.arange(n)[:, None] * f[None, :]) % n) / n
+    c = np.cos(phase)
+    c[:, 3::2] = -np.sin(phase[:, 3::2])
+    scale = np.full(n, 2.0 / n)
+    scale[:2] = 1.0 / n
+    return c, (c * scale).T
+
+
+def direct_tf32_tables(seqlen: int) -> np.ndarray:
+    """The direct forward kernel's tables (csrc/direct_conv.cu): C and I of
+    ``direct_dft_columns`` rounded to f32 and split by ``tf32_split``, in
+    the order in which the lanes of a warp read mma.sync.m16n8k8 B
+    fragments, {hi b0, hi b1, lo b0, lo b1} a lane (g = lane // 4, q =
+    lane % 4):
+      [0, s, k, j, lane] = C[8 k + q + {0, 4}, 16 s + 8 j + g]  (16 columns
+          a step s, k-step k, n-tile j);
+      [1, s, j, h, lane] = I[16 s + 8 h + perm(q) + {0, 1}, 8 j + g]  (step
+          s, output n-tile j, k-step h of the step), where the k slot q
+          holds column 2 q and slot q + 4 column 2 q + 1 (perm(q) = 2 q),
+          the order in which a C fragment becomes an A fragment.
+    Returns float32 (2, N/16, N/8, 2, 32, 4)."""
+    n = seqlen
+    c, inv = (a.astype(np.float32) for a in direct_dft_columns(n))
+    s, k, j, lane = np.meshgrid(np.arange(n // 16), np.arange(n // 8), np.arange(2),
+                                np.arange(32), indexing="ij")
+    g, q = lane // 4, lane % 4
+    fwd = np.stack((c[8 * k + q, 16 * s + 8 * j + g], c[8 * k + q + 4, 16 * s + 8 * j + g]))
+    col = 16 * s + 8 * j + 2 * q  # here k is the output n-tile and j the k-step
+    bwd = np.stack((inv[col, 8 * k + g], inv[col + 1, 8 * k + g]))
+    out = np.empty((2, n // 16, n // 8, 2, 32, 4), np.float32)
+    for i, tab in enumerate((fwd, bwd)):
+        hi, lo = tf32_split(tab)
+        out[i] = np.stack((hi[0], hi[1], lo[0], lo[1]), axis=-1)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class FftPlan:
     """Tables for a length-``seqlen`` real FFT convolution on one device.
@@ -165,7 +230,11 @@ class FftPlan:
       roots:           (MAX_FACTOR,) exp(-2*pi*i*k/MAX_FACTOR), from which
                        the kernels build every in-register line DFT.
       direct_roots:    (N,) exp(-2*pi*i*k/N) for seqlen <= DIRECT_MAX (None
-                       above): the direct kernels' DFT entries.
+                       above): the direct backward kernel's DFT entries.
+      direct_tf32:     (2, N/16, N/8, 2, 32, 4) f32 for seqlen <= DIRECT_MAX
+                       (None above): the direct forward kernel's tables in
+                       TF32 hi and lo, fragment by fragment
+                       (``direct_tf32_tables``).
 
     From 65536 up the first ``n_outer`` (1 or 2) factors are the outer part,
     F = ``outer``, and the rest the band, R = ``band``:
@@ -197,6 +266,7 @@ class FftPlan:
     outer_tw: torch.Tensor | None = None
     sub: "FftPlan | None" = None
     direct_roots: torch.Tensor | None = None
+    direct_tf32: torch.Tensor | None = None
 
     @property
     def direct(self) -> bool:
@@ -241,6 +311,7 @@ class FftPlan:
             out.update({f"sub_{name}": t for name, t in self.sub.tensors().items()})
         if self.direct:
             out["direct_roots"] = self.direct_roots
+            out["direct_tf32"] = self.direct_tf32
         return out
 
     def with_tensors(self, tensors: dict[str, torch.Tensor]) -> "FftPlan":
@@ -261,6 +332,7 @@ class FftPlan:
             split_tw=tensors["split_tw"],
             roots=tensors["roots"],
             direct_roots=tensors.get("direct_roots"),
+            direct_tf32=tensors.get("direct_tf32"),
             **long,
         )
 
@@ -357,6 +429,8 @@ def make_plan(
         split_tw=split_tw,
         roots=roots,
         direct_roots=c64(_roots(seqlen)) if seqlen <= DIRECT_MAX else None,
+        direct_tf32=(torch.from_numpy(direct_tf32_tables(seqlen)).to(device)
+                     if seqlen <= DIRECT_MAX else None),
     )
 
 

@@ -153,6 +153,98 @@ def test_direct_conv_bwd_matches_jax_grad(monkeypatch, n, length, gated):
                                    err_msg=f"d{name}")
 
 
+def _unpack_direct_tf32(n, tab):
+    """(C, I) as f32 hi + lo from the fragment order of direct_tf32 (the
+    inverse of plan.direct_tf32_tables' gather), and each part's bits."""
+    s, k, j, lane = np.meshgrid(np.arange(n // 16), np.arange(n // 8), np.arange(2),
+                                np.arange(32), indexing="ij")
+    g, q = lane // 4, lane % 4
+    c, inv = np.zeros((n, n), np.float64), np.zeros((n, n), np.float64)
+    fwd, bwd = tab[0].astype(np.float64), tab[1].astype(np.float64)
+    c[8 * k + q, 16 * s + 8 * j + g] = fwd[..., 0] + fwd[..., 2]
+    c[8 * k + q + 4, 16 * s + 8 * j + g] = fwd[..., 1] + fwd[..., 3]
+    col = 16 * s + 8 * j + 2 * q
+    inv[col, 8 * k + g] = bwd[..., 0] + bwd[..., 2]
+    inv[col + 1, 8 * k + g] = bwd[..., 1] + bwd[..., 3]
+    return c, inv
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512])
+def test_direct_tf32_tables_match_the_jax_dft_tables(n):
+    """The direct forward kernel's tables (plan.direct_tf32): every entry of
+    C and I, rebuilt from the fragment order as hi + lo, against the JAX
+    package's 1-factor plan tables (dft_re, dft_im: the N-point DFT; idft_re,
+    idft_im: its inverse with 1/N) at the columns the kernel takes (0: Re
+    X[0], 1: Re X[M], 2f and 2f+1: Re and Im X[f]) within 1e-6; hi and lo
+    each exact in TF32 (low 13 bits clear), hi the nearest TF32 value of the
+    f32 entry, hi + lo within 2^-22 of it."""
+    m = n // 2
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    tab = p.direct_tf32.numpy()
+    assert tab.shape == (2, n // 16, n // 8, 2, 32, 4) and tab.dtype == np.float32
+    assert not (tab.view(np.uint32) & np.uint32(0x1FFF)).any()
+    jp = jff.make_plan(n, compute_dtype=jnp.float32)
+    dre, dim_ = _np(jp.dft_re[0]), _np(jp.dft_im[0])
+    ire, iim = _np(jp.idft_re[0]), _np(jp.idft_im[0])
+    f = np.arange(1, m)
+    want_c = np.empty((n, n))
+    want_c[:, 0], want_c[:, 1] = dre[:, 0], dre[:, m]
+    want_c[:, 2 * f], want_c[:, 2 * f + 1] = dre[:, f], dim_[:, f]
+    want_i = np.empty((n, n))
+    want_i[0], want_i[1] = ire[0], ire[m]
+    want_i[2 * f], want_i[2 * f + 1] = 2 * ire[f], -2 * iim[f]
+    c, inv = _unpack_direct_tf32(n, tab)
+    np.testing.assert_allclose(c, want_c, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(inv, want_i, rtol=0, atol=1e-6 / n)
+    exact_c, exact_i = (a.astype(np.float32).astype(np.float64)
+                        for a in tplan.direct_dft_columns(n))
+    assert np.abs(c - exact_c).max() <= 2.0**-22
+    assert np.abs(inv - exact_i).max() <= 2.0**-22 * 2 / n
+    hi_only = tab.copy()
+    hi_only[..., 2:] = 0.0
+    for got, exact in zip(_unpack_direct_tf32(n, hi_only), (exact_c, exact_i)):
+        np.testing.assert_array_equal(got, tplan.tf32_split(exact)[0])
+
+
+def test_tf32_split_rounds_as_the_tensor_cores_take_it():
+    """tf32_split: hi the nearest TF32 value (ties away from zero), lo = x -
+    hi rounded the same way, both with the low 13 bits clear, |x - hi - lo|
+    <= 2^-22 |x|, on random values of every magnitude and on the ties."""
+    rng = np.random.default_rng(16)
+    x = (rng.standard_normal(4096) * np.exp2(rng.integers(-60, 60, 4096))).astype(np.float32)
+    tie = (np.float32(1.0) + np.float32(2.0**-11)) * np.float32([1, -1])
+    hi, lo = tplan.tf32_split(np.concatenate((x, tie)))
+    assert not ((hi.view(np.uint32) | lo.view(np.uint32)) & np.uint32(0x1FFF)).any()
+    ref = np.concatenate((x, tie)).astype(np.float64)
+    assert np.all(np.abs(ref - hi) <= np.abs(ref) * 2.0**-11)
+    assert np.all(np.abs(ref - hi - lo) <= np.abs(ref) * 2.0**-22)
+    np.testing.assert_array_equal(hi[-2:], np.float32([1 + 2.0**-10, -1 - 2.0**-10]))
+
+
+@pytest.mark.parametrize("n,length", [(16, 16), (256, 128), (512, 259)])
+def test_direct_tf32_tables_give_the_conv(n, length):
+    """The kernel's arithmetic on its tables, in f64 numpy: U = x C over the
+    first L rows of C, Y = U K per column pair (columns 0 and 1 the real
+    parts of X[0] and X[M] times Re K[0] and Re K[M]), y = Y I over the
+    first L columns of I; against irfft(rfft(x, N) K)[:L] of torch.fft,
+    within 1e-5 of the largest |y|."""
+    m = n // 2
+    rng = np.random.default_rng(n + length)
+    x = rng.standard_normal((3, length))
+    k_f = rng.standard_normal(m + 1) + 1j * rng.standard_normal(m + 1)
+    c, inv = _unpack_direct_tf32(n, tplan.make_plan(n, torch.float32, device=CPU)
+                                 .direct_tf32.numpy())
+    u = x @ c[:length]
+    y = np.empty_like(u)
+    y[:, 0], y[:, 1] = u[:, 0] * k_f[0].real, u[:, 1] * k_f[m].real
+    z = (u[:, 2::2] + 1j * u[:, 3::2]) * k_f[1:m]
+    y[:, 2::2], y[:, 3::2] = z.real, z.imag
+    got = y @ inv[:, :length]
+    want = torch.fft.irfft(torch.fft.rfft(torch.from_numpy(x), n=n)
+                           * torch.from_numpy(k_f), n=n)[:, :length].numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("n", [16, 64, 128])
 def test_small_plans_match_jax_direct_path(n):
     """FFT sizes 16-128 run spectrum -> direct_conv in the port; the JAX

@@ -167,6 +167,41 @@ def test_long_spectrum_matches_jax_forward_long_dft(n):
     assert np.abs(got.numpy() - want).max() < 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("n,factors", [(n, None) for n in LONG_SIZES]
+                         + [(131072, (8, 32, 16, 16)), (2097152, (16, 8, 32, 16, 16))])
+def test_long_spectrum_band_split_stores_each_frequency_once(n, factors):
+    """The long_spectrum kernels' index maps, modelled in numpy from
+    csrc/long_spectrum.cu: the block of band pair {kp, F - kp} (kp = 0 ..
+    F/2) splits the pairs of for_each_pair and stores X[kp + F j] at band
+    kp, slot j, and X[M - kp - F j] at band F - kp, slot R - 1 - j (band 0:
+    slot R - j, and X[M] straight to the output); the transpose then stores
+    slot (k0, k1) at k0 + F k1. Every band slot holds the frequency k0 + F k1
+    and is stored once but slot (0, R/2) (twice, by one thread, with X[M/2]
+    both times). The split twiddle, split_tw[kp] of the plan times split_tw[j]
+    of the band's plan, is exp(-2 pi i (kp + F j) / N) within 4e-7."""
+    p = tplan.make_plan(n, torch.float32, device=CPU, factors=factors)
+    f, r, m = p.outer, p.band, p.inner
+    kp, j = np.meshgrid(np.arange(f // 2 + 1), np.arange(r), indexing="ij")
+    keep = np.where(kp == 0, j <= r // 2, np.where(2 * kp == f, j < r // 2, True))
+    kp, j = kp[keep], j[keep]
+    k = kp + f * j
+    m_band = np.where(kp == 0, 0, f - kp)
+    m_slot = np.where(kp == 0, r - j, r - 1 - j)
+    to_out = (kp == 0) & (j == 0)
+    bands = np.concatenate((kp, m_band[~to_out]))
+    slots = np.concatenate((j, m_slot[~to_out]))
+    freqs = np.concatenate((k, (m - k)[~to_out]))
+    np.testing.assert_array_equal(bands + f * slots, freqs)
+    counts = np.bincount(bands * r + slots, minlength=f * r)
+    want = np.ones(f * r, np.int64)
+    want[r // 2] = 2
+    np.testing.assert_array_equal(counts, want)
+    assert (m - k)[to_out].tolist() == [m]
+    w = p.split_tw.numpy()
+    got = w[kp].astype(np.complex128) * p.sub.split_tw.numpy()[j]
+    assert np.abs(got - np.exp(-2j * np.pi * k / n)).max() < 4e-7
+
+
 # --- fft_conv (kernels: _long_tiles, _butterfly_tiles) -----------------------
 
 F32_CASES = [("ungated", 2), ("gated", 1), ("padded", 3), ("gated_padded", 3), ("ungated", 1)]
