@@ -14,9 +14,10 @@ Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
             source, started together) and prints ptxas's register report;
             fails if an attention instance (forward, dK/dV or dQ, flash
-            or splash, every head_dim), a monarch_conv, a monarch_conv_bwd,
-            a dk_finish or a direct_conv (tensor-core forward) instance has
-            a stack frame or spills;
+            or splash, every head_dim), a monarch_conv, a monarch_conv_bwd
+            (the direct backward's too), a dk_finish, a direct_conv
+            (tensor-core forward) or a band_conv instance has a stack frame
+            or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -27,7 +28,8 @@ Phases, each of which fails the run by raising:
             one-block FFT size, k_len 1, N/2 and N, gated and not, f32 and
             bf16, L = N/2 and N - 5, rows on a 16-byte boundary and not, two
             calls bit for bit; band_conv (both conj) at
-            the seq_train shape and N2 = 16, 256, 2048, the four-real-conv
+            the seq_train shape and at every N2 = 16 ... 16384 (B = 3, two
+            calls bit for bit), the four-real-conv
             band route at N2 = 32768 and 131072, and the sequence-parallel
             conv at world size 1 (gated, padded, with grads) against the
             torch.fft oracle; the long kernels at every FFT size of
@@ -35,7 +37,8 @@ Phases, each of which fails the run by raising:
             also on two plans of an 8192-point band (F = 8 and 128); the
             direct kernels at every FFT size of DIRECT_SIZES, f32 and bf16,
             gated and not, B = 1, 3, 20 and 130 (two row blocks of the
-            tensor-core forward), direct_conv twice bit for bit;
+            tensor-core forward), the backward against conv_bwd_plain with
+            its dk partials grouped by bwd_group(B), both twice bit for bit;
             the three flash-attention kernels (forward, dK/dV, dQ) against
             their plain versions at the GPT-2 shape (B=8, H=12, L=1024, D=64,
             f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
@@ -74,7 +77,8 @@ Phases, each of which fails the run by raising:
             logits are finite and that every kernel launched 12 times a forward;
   train     trains the same model (B=4, L=8192, bf16 activations, f32 master
             weights, dropout on, torch seeded from --seed) on the byte ids of
-            the repo's Python sources: 2 warm-up and 5 timed steps of the
+            the JAX package's Python sources (examples/lm/train.py's default
+            corpus): 2 warm-up and 5 timed steps of the
             examples/lm recipe (AdamW lr 3e-4 with 2 warm-up steps, weight
             decay 0.1, clip 1.0); checks finite, falling loss and each
             kernel's launches a step; prints step time, tokens/s and peak memory;
@@ -124,7 +128,7 @@ Phases, each of which fails the run by raising:
             vocab 30522, dense MLP, tied MLM head, bf16, random weights from
             --seed; every long conv at FFT size 256 on the direct kernels)
             and answers 4 fill-mask requests of (B, L) = (1, 128), (8, 100),
-            (32, 128) and (128, 128) over the byte ids of the repo's Python
+            (32, 128) and (128, 128) over the byte ids of the JAX package's Python
             sources with 15% of positions masked, through models.bert.fill_mask,
             then 1 warm-up and 5 timed forwards at B=128, L=128; checks finite
             logits and the exact launches a forward (24 direct_conv, 24
@@ -155,7 +159,7 @@ Phases, each of which fails the run by raising:
             tokens/s and peak memory;
   gpt_train trains the same model (B=16, L=1024, bf16 activations, f32
             attention and master weights, embedding dropout 0.1) on the byte
-            ids of the repo's Python sources: 2 warm-up and 5 timed steps of
+            ids of the JAX package's Python sources: 2 warm-up and 5 timed steps of
             the examples/lm recipe (AdamW lr 3e-4 with 2 warm-up steps, weight
             decay 0.1, clip 1.0); checks finite, falling loss and exactly 12
             launches of each attention kernel a step; prints step time,
@@ -241,8 +245,14 @@ Phases, each of which fails the run by raising:
             device time, and its two kernels alone on the butterfly's
             bands; direct_conv at M2-BERT's shape and at N=512, L=256
             (direct_conv@512) with tc_bound (its two dense products, 4 L N
-            operations a row) and each call's device time beside the
-            library's;
+            operations a row), monarch_conv at both shapes (monarch_conv@256,
+            @512), direct_conv_bwd (the row-FFT backward) and the same
+            kernel through monarch_conv_bwd (monarch_conv_bwd@256, @512) with
+            the park and partials as overhead_ms, dk_finish on their 16
+            partials (dk_finish@256x16, @512x16) and the whole direct
+            backward (direct_bwd_chain: spectrum, direct_conv_bwd,
+            dk_finish), each call's device time beside the library's;
+            band_conv at the seq_train shape with its device time;
   profile   (only when named in --phases) traces one Hyena-125M forward
             and one train step with torch.profiler: device time by kernel
             and by kind, and the device's busy share of the wall time; then
@@ -290,10 +300,11 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA's H100 SXM data sheet)
 TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 # Kernel instances that must build with no stack frame (phase_build): every
-# attention kernel, monarch_conv, monarch_conv_bwd, dk_finish and the
-# direct_conv forward on the tensor cores.
+# attention kernel, monarch_conv, monarch_conv_bwd (which the direct backward
+# runs too), dk_finish, the direct_conv forward on the tensor cores and
+# band_conv.
 STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "monarch_conv_bwd_kernel",
-             "dkf16dk_finish_kernel", "direct_conv_tc_kernel")
+             "dkf16dk_finish_kernel", "direct_conv_tc_kernel", "band_conv_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -416,8 +427,10 @@ KERNELS = {
         source="flashfftconv_tpu_torch/csrc/direct_conv.cu",
         replaces="flashfftconv_tpu/ops/monarch_pallas.py:477",
     ),
+    # the row-FFT backward's instances for N <= 512, counted on its wrapper
+    # direct_conv_bwd
     "direct_conv_bwd": dict(
-        source="flashfftconv_tpu_torch/csrc/direct_conv.cu",
+        source="flashfftconv_tpu_torch/csrc/monarch_conv_bwd.cu",
         replaces="flashfftconv_tpu/ops/monarch_pallas.py:1460",
     ),
     # _conv_tiles in its complex contract, the sequence-parallel band conv
@@ -609,8 +622,8 @@ def phase_build():
                     and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
                 spilled.append(f"{props}: {m.group(3)}")
     if spilled:
-        raise AssertionError(f"attention, monarch_conv, monarch_conv_bwd, dk_finish or "
-                             f"direct_conv instances with a stack frame: {spilled}")
+        raise AssertionError(f"attention, monarch_conv, monarch_conv_bwd, dk_finish, "
+                             f"direct_conv or band_conv instances with a stack frame: {spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -1440,7 +1453,9 @@ def _check_long_kernels(torch, g):
 def _check_band_kernels(torch, g):
     """band_conv, both conj, against band_conv_plain on complex bands with a
     nonzero imaginary part: at the seq_train path's shape (B=4, H=768,
-    N2=16384) and at N2 = 16, 256, 2048; the four-real-conv route of bands
+    N2=16384) and at every N2 = 16 ... 16384 (one instance each) with B = 3,
+    so that a channel's rows run in a ragged group of the channel-major block
+    order, H = 7, two calls bit for bit; the four-real-conv route of bands
     from 32768 up (monarch_conv, then the long kernels) against
     band_conv_plain at N2 = 32768 and 131072; and the sequence-parallel conv
     at world size 1, gated and padded, output and grads against the
@@ -1455,15 +1470,18 @@ def _check_band_kernels(torch, g):
     gd = torch.Generator(device=dev).manual_seed(g.initial_seed())
     cplx = lambda *shape: torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gd)
     err = 0.0
-    for b, h, n2 in ((B, D_MODEL, SEQ_N2), (3, 7, 16), (3, 7, 256), (2, 5, 2048)):
+    for b, h, n2 in ((B, D_MODEL, SEQ_N2), *((3, 7, 16 << i) for i in range(11))):
         plan = make_plan(2 * n2, torch.float32, device=dev)
         x, k_f = cplx(b, h, n2), cplx(h, n2)
         for conj in (False, True):
             ref = monarch.band_conv_plain(plan, x, k_f, conj)
-            e = compare(f"band_conv B={b} H={h} N2={n2} conj={conj}",
-                        real(monarch_cuda.band_conv(plan, x, k_f, conj)), real(ref),
+            y = monarch_cuda.band_conv(plan, x, k_f, conj)
+            e = compare(f"band_conv B={b} H={h} N2={n2} conj={conj}", real(y), real(ref),
                         band_tol(ref))
-            err = max(err, e) if n2 == SEQ_N2 else err
+            if not torch.equal(y, monarch_cuda.band_conv(plan, x, k_f, conj)):
+                raise AssertionError(f"band_conv B={b} H={h} N2={n2} conj={conj}: two calls "
+                                     f"differ")
+            err = max(err, e) if b == B else err
         del x, k_f, ref
         torch.cuda.synchronize()
     for n2 in (32768, 131072):
@@ -1495,9 +1513,10 @@ def _check_band_kernels(torch, g):
 
 def _check_direct(torch, plan, what, u, k, pre, post, dout):
     """spectrum, direct_conv, direct_conv_bwd and dk_finish against their
-    plain versions on the same inputs, and a second forward and backward
-    against the first, bit for bit. Returns (direct_conv error,
-    direct_conv_bwd error)."""
+    plain versions on the same inputs (the backward's is conv_bwd_plain, the
+    row-FFT backward's, its dk partials grouped by bwd_group(B)), and a
+    second forward and backward against the first, bit for bit. Returns
+    (direct_conv error, direct_conv_bwd error)."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
 
     real = torch.view_as_real
@@ -1512,14 +1531,17 @@ def _check_direct(torch, plan, what, u, k, pre, post, dout):
     if not torch.equal(y, monarch_cuda.direct_conv(plan, u, k_f, pre, post)):
         raise AssertionError(f"direct_conv {what}: two calls differ")
     got = monarch_cuda.direct_conv_bwd(plan, u, k_f, pre, post, dout)
-    ref = monarch.direct_conv_bwd_plain(plan, u, k_f, pre, post, dout)
+    ref = monarch.conv_bwd_plain(plan, u, k_f, pre, post, dout)
+    if got[3].shape != ref[3].shape:
+        raise AssertionError(f"direct_conv_bwd {what}: partials shape {tuple(got[3].shape)} != "
+                             f"{tuple(ref[3].shape)}")
     bwd = 0.0
     for name, a, r in zip(("du", "dpre", "dpost"), got[:3], ref[:3]):
         if r is not None:
             bwd = max(bwd, compare(f"direct_conv_bwd {what}: {name}", a, r,
                                    lowp_tol(r) if low else f32_tol(r)))
     pr = real(ref[3])
-    bwd = max(bwd, compare(f"direct_conv_bwd {what}: dk spectrum", real(got[3]), pr,
+    bwd = max(bwd, compare(f"direct_conv_bwd {what}: dk partials", real(got[3]), pr,
                            f32_tol(pr)))
     dk = monarch_cuda.dk_finish(plan, got[3], k_len)
     dk_ref = monarch.dk_finish_plain(plan, ref[3], k_len)
@@ -1536,10 +1558,11 @@ def _check_direct(torch, plan, what, u, k, pre, post, dout):
 
 def _check_direct_kernels(torch, g):
     """The direct kernels at the M2-BERT path's shape (B=128, H=768, L=128,
-    N=256, bf16, ungated), then at every FFT size from 16 to 512 in f32 and
-    bf16: gated and ungated, L = N/2 + 3, N/2 and N, B = 1, 3, 20 (two
-    chunks of the backward's batch walk at N = 256) and 130 (two row blocks
-    of the forward), H = 7, 3 and 5."""
+    N=256, bf16, ungated; 16 dk partials), then at every FFT size from 16 to
+    512 in f32 and bf16: gated and ungated, L = N/2 + 3, N/2 and N, B = 1, 3,
+    20 (five groups of four rows) and
+    130 (two row blocks of the forward; 65 groups of two rows), H = 7, 3 and
+    5."""
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
     dev = torch.device("cuda")
@@ -1650,9 +1673,11 @@ def _hyena_125m(torch, seed, dev, mixer_kwargs=None, dtype=None, mixer="hyena"):
 
 
 def _corpus(np):
-    """Byte ids of the repo's own Python sources, as examples/lm/train.py
-    reads by default (ids < 256; the head stays sized at the GPT-2 vocab)."""
-    paths = sorted(HERE.glob("flashfftconv_tpu*/**/*.py"))
+    """Byte ids of the JAX package's Python sources, the corpus that
+    examples/lm/train.py reads by default (flashfftconv_tpu/**/*.py; ids <
+    256; the head stays sized at the GPT-2 vocab). The port's sources are
+    not in it, so an edit of the port leaves every phase's data as it was."""
+    paths = sorted(HERE.glob("flashfftconv_tpu/**/*.py"))
     data = np.concatenate([np.frombuffer(p.read_bytes(), np.uint8) for p in paths])
     if data.size < B * (L_MAX + 1):
         raise AssertionError(f"corpus of {data.size} bytes is too small")
@@ -3110,7 +3135,9 @@ def _kind(name: str) -> str:
         ("splash_attn_bwd_dkv", ("splash_attn_bwd_dkv_kernel",)),
         ("splash_attn_bwd_dq", ("splash_attn_bwd_dq_kernel",)),
         ("splash_attn_fwd", ("splash_attn_fwd_kernel",)),
-        ("direct_conv_bwd", ("direct_conv_bwd_kernel",)),
+        # the row-FFT backward's direct instances (N <= 512: log2 M <= 8)
+        ("direct_conv_bwd", tuple(f"monarch_conv_bwd_kernel{k}" for lm in range(3, 9)
+                                  for k in (f"<{lm},", f"ILi{lm}E"))),
         ("direct_conv", ("direct_conv_tc_kernel",)),
         ("monarch_conv_bwd", ("monarch_conv_bwd_kernel",)),
         ("dk_finish", ("dk_finish_kernel",)),
@@ -3557,8 +3584,6 @@ def phase_timing(torch, g):
     for name, r in res.items():
         extra = (f", the design's own traffic beyond the bound {r['overhead_ms']:.4f} ms"
                  if "overhead_ms" in r else "")
-        if "design_ops_ms" in r:
-            extra += f", the design's own operations at the f32 peak {r['design_ops_ms']:.4f} ms"
         if "library_fwd_bwd_ms" in r:
             extra += f", the library's forward + backward {r['library_fwd_bwd_ms']:.4f} ms"
         if "device_ms" in r:
@@ -3622,15 +3647,19 @@ def _time_smem(torch, g):
 
 
 def _time_direct(torch, g):
-    """The direct kernels at the M2-BERT path's shape (B=128, H=768, L=128,
-    N=256, bf16, ungated) and at N=512, L=256. The bound counts what the
-    function needs: its inputs read once and its outputs written once,
+    """The direct path's kernels at the M2-BERT path's shape (B=128, H=768,
+    L=128, N=256, bf16, ungated) and at N=512, L=256. The bound counts what
+    the function needs: its inputs read once and its outputs written once,
     against the f32 operations of the same function with FFTs, counted as in
-    phase_timing. The dense transforms are the design's own work: the
-    forward's two real DFT products (2 L N operations a row each) on the
-    tensor cores as tc_bound, with each call's device time beside the
-    library's; the backward's folded half-spectrum transforms (M = N/2; 2 L M
-    operations a row a transform) at the f32 peak as design_ops_ms."""
+    phase_timing. The forward's dense transforms are its design's own work:
+    its two real DFT products (2 L N operations a row each) on the tensor
+    cores as tc_bound. The backward is the row-FFT backward's instance for N
+    (three FFTs a row); its park ((B, H, M+1) written once) and the dk
+    partials beyond one spectrum are its design's own traffic (overhead_ms).
+    Beside each: monarch_conv and monarch_conv_bwd (the same backward
+    through the Monarch wrapper) at the same shape, dk_finish on the
+    backward's 16 partials (dk_finish@Nx16), each call's device time from a
+    CUDA graph and the library's."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
@@ -3673,16 +3702,44 @@ def _time_direct(torch, g):
                 device_ms=_graph_ms(torch, conv),
                 library_device_ms=_graph_ms(torch, fft_conv),
             )
-            # direct_conv_bwd: u, dout and k_f in, du and one dk spectrum out;
-            # the kernel runs three dense transforms a row and the dk products
-            res["direct_conv_bwd" + sfx] = dict(
-                ms=_time_ms(torch, lambda: monarch_cuda.direct_conv_bwd(plan, u, k_f, None, None,
-                                                                        dout)),
-                plain_ms=_time_ms(torch, lambda: monarch.direct_conv_bwd_plain(
-                    plan, u, k_f, None, None, dout), iters=5),
-                library_ms=_time_ms(torch, fft_bwd),
-                bound=_bound(3 * io + 2 * spec, bwd_ops),
-                design_ops_ms=rows * (6 * length * m + 30 * m) / F32_FLOPS * 1e3,
+            mconv = lambda: monarch_cuda.monarch_conv(plan, u, k_f)
+            res[f"monarch_conv@{n}"] = dict(
+                ms=_time_ms(torch, mconv),
+                plain_ms=_time_ms(torch, lambda: monarch.conv_with_spectrum(plan, u, k_f),
+                                  iters=5),
+                library_ms=_time_ms(torch, fft_conv),
+                bound=_bound(2 * io + spec, fwd_ops),
+                device_ms=_graph_ms(torch, mconv),
+                library_device_ms=_graph_ms(torch, fft_conv),
+            )
+            # direct_conv_bwd: u, dout and k_f in, du and one dk spectrum out
+            # (the function); the kernel leaves B / bwd_group(B) partials
+            bwd_plain = lambda: monarch.conv_bwd_plain(plan, u, k_f, None, None, dout)
+            parts = monarch_cuda.direct_conv_bwd(plan, u, k_f, None, None, dout)[3]
+            overhead = (parts.numel() * 8 - spec + rows * (m + 1) * 8) / HBM_BYTES_PER_S * 1e3
+            for name, fn in (("direct_conv_bwd" + sfx, monarch_cuda.direct_conv_bwd),
+                             (f"monarch_conv_bwd@{n}", monarch_cuda.monarch_conv_bwd)):
+                bwd = lambda fn=fn: fn(plan, u, k_f, None, None, dout)
+                res[name] = dict(
+                    ms=_time_ms(torch, bwd),
+                    plain_ms=_time_ms(torch, bwd_plain, iters=5),
+                    library_ms=_time_ms(torch, fft_bwd),
+                    bound=_bound(3 * io + 2 * spec, bwd_ops),
+                    overhead_ms=overhead,
+                    device_ms=_graph_ms(torch, bwd),
+                    library_device_ms=_graph_ms(torch, fft_bwd),
+                )
+            fin = lambda: monarch_cuda.dk_finish(plan, parts, n)
+            lib_fin = lambda: torch.fft.irfft(parts.sum(0), n=n)
+            res[f"dk_finish@{n}x{parts.shape[0]}"] = dict(
+                ms=_time_ms(torch, fin),
+                plain_ms=_time_ms(torch, lambda: monarch.dk_finish_plain(plan, parts, n),
+                                  iters=5),
+                library_ms=_time_ms(torch, lib_fin),
+                bound=_bound(spec + h * n * 4, h * (_fft_flops(m, ns) + 20 * (m // 2))),
+                overhead_ms=(parts.numel() * 8 - spec) / HBM_BYTES_PER_S * 1e3,
+                device_ms=_graph_ms(torch, fin),
+                library_device_ms=_graph_ms(torch, lib_fin),
             )
             if n == BERT_N_FFT:
                 # The whole direct backward of one conv as FftConvFunction runs
@@ -3696,7 +3753,7 @@ def _time_direct(torch, g):
 
                 def plain_bwd():
                     kf = monarch.kernel_spectrum(plan, k)
-                    du, _, _, parts = monarch.direct_conv_bwd_plain(plan, u, kf, None, None, dout)
+                    du, _, _, parts = monarch.conv_bwd_plain(plan, u, kf, None, None, dout)
                     return du, monarch.dk_finish_plain(plan, parts, n)
 
                 def fft_whole_bwd():
@@ -3712,9 +3769,11 @@ def _time_direct(torch, g):
                     library_ms=_time_ms(torch, fft_whole_bwd),
                     bound=_bound(3 * io + 2 * k.numel() * 4,
                                  bwd_ops + 2 * h * (_fft_flops(m, ns) + 20 * (m // 2))),
-                    design_ops_ms=rows * (6 * length * m + 30 * m) / F32_FLOPS * 1e3,
+                    overhead_ms=overhead + (parts.numel() * 8 - spec) / HBM_BYTES_PER_S * 1e3,
+                    device_ms=_graph_ms(torch, direct_bwd),
+                    library_device_ms=_graph_ms(torch, fft_whole_bwd),
                 )
-            del u, dout, k, k_f
+            del u, dout, k, k_f, parts
     torch.cuda.empty_cache()
     return res
 
@@ -3735,12 +3794,16 @@ def _time_band(torch, g):
     k_f = torch.randn(D_MODEL, SEQ_N2, dtype=torch.complex64, device=dev, generator=gd)
     nbytes = b.numel() * 8 * 2 + k_f.numel() * 8
     flops = B * D_MODEL * (2 * _fft_flops(SEQ_N2, plan.n_stages) + 6 * SEQ_N2)
+    conv = lambda: monarch_cuda.band_conv(plan, b, k_f)
+    lib = lambda: torch.fft.ifft(torch.fft.fft(b) * k_f)
     with torch.inference_mode():
         res = {"band_conv": dict(
-            ms=_time_ms(torch, lambda: monarch_cuda.band_conv(plan, b, k_f)),
+            ms=_time_ms(torch, conv),
             plain_ms=_time_ms(torch, lambda: monarch.band_conv_plain(plan, b, k_f), iters=5),
-            library_ms=_time_ms(torch, lambda: torch.fft.ifft(torch.fft.fft(b) * k_f)),
+            library_ms=_time_ms(torch, lib),
             bound=_bound(nbytes, flops),
+            device_ms=_graph_ms(torch, conv),
+            library_device_ms=_graph_ms(torch, lib),
         )}
     del b, k_f
     torch.cuda.empty_cache()

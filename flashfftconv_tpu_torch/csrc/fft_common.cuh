@@ -1,5 +1,5 @@
-// Device code shared by the FFT kernels (monarch_conv_bwd.cu, band_conv.cu
-// and the long kernels; spectrum.cu and monarch_conv.cu take their row FFT
+// Device code shared by the FFT kernels (the long kernels; spectrum.cu,
+// monarch_conv.cu, monarch_conv_bwd.cu and band_conv.cu take their row FFT
 // from row_fft.cuh and the pair splits and type conversions from here).
 //
 // One thread block owns one real row of length N = 2M. The row is packed as

@@ -8,7 +8,15 @@
 //   y_inner  = irfft(U K)[:L] (gated)  -> dpost = y_inner * dout
 //   P[b, h]  = G conj(U)               (the row's share of dk's spectrum)
 // and the sum of P over the batch, which the TPU kernel accumulates across
-// its sequential batch grid axis. dk_finish is the card's counterpart of
+// its sequential batch grid axis. Its instances for N <= 512 also replace
+// _direct_bwd_fused_io_tiles (def at l.1460, pallas_call at l.1572), the
+// same function as dense DFT products: the wrapper direct_conv_bwd
+// (ops/monarch_cuda.py) launches them through the same C entry. At
+// M2-BERT's shape (B=128, H=768, L=128, N=256, bf16) the function reads 25 MB
+// each of u and dout and writes 25 MB of du (22 us at 3.35 TB/s) against
+// about 2 GFLOP of f32 FFT operations (30 us at 67 TFLOP/s); the park (101
+// MB) and the 16 partials (13 MB) are the design's own traffic there.
+// dk_finish is the card's counterpart of
 // _finish_dk (l.2953, an XLA Monarch IDFT in the JAX package):
 // dk[h] = irfft(sum_g partials[g, h])[:k_len], in f32.
 //

@@ -1,6 +1,7 @@
-// The in-register row FFT of spectrum.cu, monarch_conv.cu and
-// monarch_conv_bwd.cu (the backward and dk_finish): an M-point
-// complex FFT of a packed real row (z[n] = x[2n] + i x[2n+1], M = N/2) with
+// The in-register row FFT of spectrum.cu, monarch_conv.cu,
+// monarch_conv_bwd.cu (the backward, which the direct plans' backward runs
+// too, and dk_finish) and band_conv.cu (a complex band of M points): an
+// M-point complex FFT of a packed real row (z[n] = x[2n] + i x[2n+1], M = N/2) with
 // every size, factor, stride and register index a compile-time constant, so
 // a thread's points never leave registers.
 //
@@ -8,8 +9,8 @@
 // 2048, 32 above); up to M = 1024 a block of 128 threads takes 128/T rows.
 // The FFT is Cooley-Tukey over stages of at most P points:
 //   - stage 0 gives each thread E lines of P/E points at stride E*T (the
-//     caller loads them: spectrum.cu, monarch_conv.cu and the backward
-//     straight from device memory, E packed points, 16 bytes, a load);
+//     caller loads them: spectrum.cu, monarch_conv.cu, the backward and
+//     band_conv.cu straight from device memory, E points, 16 bytes, a load);
 //   - each later stage reads its lines from shared memory, transforms them
 //     in registers and writes them back (mid_stages);
 //   - the last stage writes its outputs in natural frequency order

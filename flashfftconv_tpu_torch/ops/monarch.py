@@ -23,11 +23,12 @@ function below them is valid at every size. The long backward has the same
 stages over the same bands: ``long_conv_bwd_inner_plain``
 (``long_conv_bwd_inner``) and ``long_dk_finish_plain`` (``long_dk_finish``).
 
-Up to FFT size 512 (``plan.direct``) the conv runs as one dense DFT a row:
-``direct_conv_plain`` and ``direct_conv_bwd_plain`` are the plain versions
-of the ``direct_conv`` and ``direct_conv_bwd`` kernels, dense f32 products
-over the L input samples and the N/2+1 frequencies with entries taken from
-``plan.direct_roots`` at the exact index (f * t) mod N.
+Up to FFT size 512 (``plan.direct``) the forward runs as one dense DFT a
+row: ``direct_conv_plain`` is the plain version of the ``direct_conv``
+kernel, dense f32 products over the L input samples and the N/2+1
+frequencies with entries taken from ``plan.direct_roots`` at the exact index
+(f * t) mod N. The direct backward (``direct_conv_bwd``) runs the row-FFT
+backward, whose plain version is ``conv_bwd_plain``.
 
 ``cfft_plain`` and ``icfft_plain`` are the plan's complex M-point DFT and
 its inverse in natural order (the outer stage and the bands' stages for a
@@ -419,38 +420,6 @@ def direct_conv_plain(
     if postgate is not None:
         y = y * postgate.float()
     return y.to(u.dtype)
-
-
-def direct_conv_bwd_plain(
-    plan: FftPlan,
-    u: torch.Tensor,
-    k_f: torch.Tensor,
-    pregate: torch.Tensor | None,
-    postgate: torch.Tensor | None,
-    dout: torch.Tensor,
-):
-    """The plain version of the ``direct_conv_bwd`` kernel (the function of
-    ``_direct_bwd_fused_io_tiles``), with the formulas of ``conv_bwd_plain``
-    as dense DFT products: U and G the direct DFTs of ug = u * pre (rounded to
-    u's dtype) and g = dout * post (f32), du_inner from G conj(K), y_inner
-    from U K when gated. Returns (du, dpre, dpost, partials) as
-    ``conv_bwd_plain`` does, but with the dk spectrum G conj(U) already
-    summed over the batch: complex64 (1, H, M+1), which ``dk_finish_plain``
-    (and ``dk_finish``) turn into dk."""
-    length = u.shape[-1]
-    w, inv = _direct_tables(plan, length)
-    ug = u if pregate is None else u * pregate
-    g = dout.float() if postgate is None else dout.float() * postgate.float()
-    u_f, g_f = _direct_dft(w, ug.float()), _direct_dft(w, g)
-    du_inner = _direct_idft(inv, g_f * k_f.conj())
-    partials = (g_f * u_f.conj()).reshape(-1, *k_f.shape).sum(0, keepdim=True)
-    if pregate is None:
-        return du_inner.to(u.dtype), None, None, partials
-    y_inner = _direct_idft(inv, u_f * k_f)
-    du = (du_inner * pregate.float()).to(u.dtype)
-    dpre = (du_inner * u.float()).to(u.dtype)
-    dpost = (y_inner * dout.float()).to(u.dtype)
-    return du, dpre, dpost, partials
 
 
 def fft_conv_plain(

@@ -40,11 +40,14 @@ chain forward butterfly of u * pre and of dout * post -> band backward ->
 inverse butterfly of du (and of y when gated), with no kernel and no count
 of its own.
 
-Up to FFT size 512 (``plan.direct``) a conv is one dense DFT a row:
-``direct_conv`` (csrc/direct_conv.cu) replaces ``_direct_fused_io_tiles`` and
-``direct_conv_bwd``, in the same source, replaces
-``_direct_bwd_fused_io_tiles``; its dk spectrum comes summed over the batch,
-(1, H, M+1), for ``dk_finish``.
+Up to FFT size 512 (``plan.direct``) a conv's forward is one dense DFT a
+row: ``direct_conv`` (csrc/direct_conv.cu) replaces
+``_direct_fused_io_tiles``. ``direct_conv_bwd`` replaces
+``_direct_bwd_fused_io_tiles`` with the row-FFT backward of
+csrc/monarch_conv_bwd.cu (its instances for N = 16 ... 512, through the same
+C entry ``ffc_monarch_conv_bwd``), so that its dk spectrum comes in the same
+(B / ``bwd_group(B)``, H, M+1) partials for ``dk_finish``; the launches count
+on ``direct_conv_bwd``.
 
 A plan whose band exceeds ``MAX_BWD_BAND`` (a custom split with R = 8192)
 runs its long backward under ``bwd_plan(plan)``, the default plan of the
@@ -55,8 +58,10 @@ function is the same.
 ``band_conv`` (csrc/band_conv.cu) replaces ``_conv_tiles`` in its complex
 contract: the complex band conv ``ifft(fft(b) * k_f)`` of the
 sequence-parallel FFT conv (``parallel/seq_conv.py``) for bands of 16 to
-16384 points, with a ``conj`` flag for its backward; ``BandConvFunction`` is
-its autograd Function.
+16384 points, with a ``conj`` flag for its backward, instantiated per band
+length on the row FFT of csrc/row_fft.cuh (C entry ``ffc_band_conv(b, k_f,
+out, split_tw, batch, channels, n2, conj, stream)``, ``split_tw`` that of
+the plan of FFT size 2 N2); ``BandConvFunction`` is its autograd Function.
 
 ``FftConvFunction`` runs ``spectrum`` and then ``direct_conv`` up to 512,
 ``monarch_conv`` up to 32768, and ``long_spectrum`` and ``long_conv`` from
@@ -85,7 +90,7 @@ from flashfftconv_tpu_torch.ops.plan import (
 # signals, four rows, in one block's shared memory (132 KB at 4096).
 MAX_BWD_BAND = 4096
 # Longest band of the band_conv kernel: one row of N2 complex points in one
-# block's shared memory (kBandConvMax in csrc/band_conv.cu).
+# block's shared memory (its largest instance in csrc/band_conv.cu).
 BAND_CONV_MAX = 16384
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -264,6 +269,18 @@ def monarch_conv_bwd(
             f"a plan of seqlen {plan.seqlen} has an outer part: monarch_conv_bwd stops at "
             f"{MAX_FUSED_SEQLEN}; use long_conv_bwd"
         )
+    return _row_fft_bwd(plan, u, k_f, pregate, postgate, dout, monarch_conv_bwd)
+
+
+monarch_conv_bwd.launches = 0
+
+
+def _row_fft_bwd(plan, u, k_f, pregate, postgate, dout, wrapper):
+    """Launch the row-FFT backward (``ffc_monarch_conv_bwd``) on checked
+    inputs for ``wrapper`` (``monarch_conv_bwd`` or ``direct_conv_bwd``) and
+    add one to its count. Returns (du, dpre, dpost, partials), the partials
+    (B / ``bwd_group(B)``, H, M+1)."""
+    b, h, length = u.shape
     gated = pregate is not None
     group = bwd_group(b)
     du = torch.empty_like(u)
@@ -281,18 +298,15 @@ def monarch_conv_bwd(
         plan.split_tw.data_ptr(), b, h, length, plan.seqlen, group, _DTYPE_CODES[u.dtype],
         _stream(u.device),
     )
-    _build.check(lib, rc, "monarch_conv_bwd kernel")
-    monarch_conv_bwd.launches += 1
+    _build.check(lib, rc, f"{wrapper.__name__} kernel")
+    wrapper.launches += 1
     return du, dpre, dpost, partials
-
-
-monarch_conv_bwd.launches = 0
 
 
 def dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor:
     """dk (H, k_len) f32 = irfft(sum_g partials)[:k_len] for the (G, H, M+1)
-    complex64 partials of ``monarch_conv_bwd`` (G = B / ``bwd_group(B)``) or
-    ``direct_conv_bwd`` (G = 1), summed over G in order."""
+    complex64 partials of ``monarch_conv_bwd`` or ``direct_conv_bwd`` (G = B /
+    ``bwd_group(B)``), summed over G in order."""
     if on_cpu(partials):
         return monarch.dk_finish_plain(plan, partials, k_len)
     _check_cuda("partials", partials, plan.device, (torch.complex64,), 3)
@@ -319,12 +333,16 @@ def dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.Tensor
 dk_finish.launches = 0
 
 
-def _check_direct(plan: FftPlan, u: torch.Tensor, k_f: torch.Tensor, *gates) -> None:
+def _require_direct(plan: FftPlan) -> None:
     if not plan.direct:
         raise ValueError(
             f"a plan of seqlen {plan.seqlen} is no direct plan: the direct kernels take FFT "
             f"sizes up to {DIRECT_MAX}"
         )
+
+
+def _check_direct(plan: FftPlan, u: torch.Tensor, k_f: torch.Tensor, *gates) -> None:
+    _require_direct(plan)
     _check_cuda("u", u, plan.device, tuple(_DTYPE_CODES), 3)
     _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
     if k_f.shape != (u.shape[1], plan.inner + 1):
@@ -377,36 +395,19 @@ def direct_conv_bwd(
     postgate: torch.Tensor | None,
     dout: torch.Tensor,
 ):
-    """The backward of ``direct_conv``, same inputs as ``monarch_conv_bwd``.
-    Returns (du, dpre, dpost, partials): du, dpre and dpost at u's dtype
-    (dpre, dpost None when ungated) and dk's spectrum G conj(U) summed over
-    the batch in a fixed order, complex64 (1, H, M+1), for ``dk_finish``."""
+    """The backward of ``direct_conv``, same inputs and outputs as
+    ``monarch_conv_bwd``: (du, dpre, dpost, partials), the dk spectrum in
+    (B / ``bwd_group(B)``, H, M+1) partials for ``dk_finish``. On the card it
+    launches the row-FFT backward of csrc/monarch_conv_bwd.cu (its
+    instances for N = 16 ... 512) through the same C entry, counted here;
+    on the CPU it runs that kernel's plain version, ``conv_bwd_plain``."""
     if (pregate is None) != (postgate is None):
         raise ValueError("pregate and postgate must both be given or both be None")
+    _require_direct(plan)
     if on_cpu(u, k_f, pregate, postgate, dout):
-        return monarch.direct_conv_bwd_plain(plan, u, k_f, pregate, postgate, dout)
+        return monarch.conv_bwd_plain(plan, u, k_f, pregate, postgate, dout)
     _check_direct(plan, u, k_f, pregate, postgate, dout)
-    b, h, length = u.shape
-    gated = pregate is not None
-    du = torch.empty_like(u)
-    dpre = torch.empty_like(u) if gated else None
-    dpost = torch.empty_like(u) if gated else None
-    partials = torch.empty(1, h, plan.inner + 1, dtype=torch.complex64, device=u.device)
-    if h == 0:
-        return du, dpre, dpost, partials
-    if b == 0:
-        return du, dpre, dpost, partials.zero_()
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _build.load("direct_conv")
-    rc = lib.ffc_direct_conv_bwd(
-        u.data_ptr(), ptr(pregate), ptr(postgate), dout.data_ptr(), k_f.data_ptr(),
-        du.data_ptr(), ptr(dpre), ptr(dpost), partials.data_ptr(),
-        plan.direct_roots.data_ptr(), b, h, length, plan.seqlen, _DTYPE_CODES[u.dtype],
-        _stream(u.device),
-    )
-    _build.check(lib, rc, "direct_conv_bwd kernel")
-    direct_conv_bwd.launches += 1
-    return du, dpre, dpost, partials
+    return _row_fft_bwd(plan, u, k_f, pregate, postgate, dout, direct_conv_bwd)
 
 
 direct_conv_bwd.launches = 0
@@ -710,6 +711,11 @@ def long_conv_bwd(
     return du, dpre, dpost, partials
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its storage starts off a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def band_conv(
     plan: FftPlan, b: torch.Tensor, k_f: torch.Tensor, conj: bool = False
 ) -> torch.Tensor:
@@ -717,7 +723,9 @@ def band_conv(
     bands b (B, H, N2) and a full complex64 spectrum k_f (H, N2) in natural
     order, ``ifft(fft(b) * k_f)`` (``conj(k_f)`` with ``conj``), complex64
     (B, H, N2). ``plan`` is the plan of FFT size 2 * N2 (its inner complex
-    length is N2), N2 from 16 to ``BAND_CONV_MAX``."""
+    length is N2), N2 from 16 to ``BAND_CONV_MAX``; the kernel is
+    instantiated per N2 and needs only the plan's ``split_tw`` (its root
+    table)."""
     if on_cpu(b, k_f):
         return monarch.band_conv_plain(plan, b, k_f, conj)
     _check_cuda("b", b, plan.device, (torch.complex64,), 3)
@@ -728,14 +736,14 @@ def band_conv(
                          f"match (B, H, {plan.inner}) and (H, {plan.inner})")
     if not 16 <= n2 <= BAND_CONV_MAX:
         raise ValueError(f"band_conv takes bands of 16 to {BAND_CONV_MAX} points, got {n2}")
-    factors = _factor_args(plan)
     out = torch.empty_like(b)
     if bsz * h == 0:
         return out
+    b, k_f = _aligned16(b), _aligned16(k_f)
     lib = _build.load("band_conv")
     rc = lib.ffc_band_conv(
-        b.data_ptr(), k_f.data_ptr(), out.data_ptr(), plan.tw_flat.data_ptr(),
-        plan.roots.data_ptr(), bsz * h, h, int(conj), *factors, _stream(b.device),
+        b.data_ptr(), k_f.data_ptr(), out.data_ptr(), plan.split_tw.data_ptr(), bsz, h, n2,
+        int(conj), _stream(b.device),
     )
     _build.check(lib, rc, "band_conv kernel")
     band_conv.launches += 1

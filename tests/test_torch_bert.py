@@ -1,7 +1,8 @@
 """Parity of the port's M2-BERT slice with the JAX package.
 
 The direct-DFT conv of FFT sizes up to 512: the port's plain versions
-(``direct_conv_plain``, ``direct_conv_bwd_plain`` + ``dk_finish_plain``,
+(``direct_conv_plain``; the backward's ``conv_bwd_plain`` + ``dk_finish_plain``,
+the plain versions of the row-FFT backward that ``direct_conv_bwd`` runs;
 which the kernel wrappers run on CPU tensors) against the JAX package's
 ``_direct_fused_io_tiles`` and ``_direct_bwd_fused_io_tiles`` in interpret
 mode (a spy asserts that they ran), and against its XLA direct path below
@@ -130,8 +131,9 @@ def test_direct_conv_matches_jax_direct_kernel_bf16(monkeypatch, n, gated):
 
 @pytest.mark.parametrize("n,length,gated", DIRECT_CASES)
 def test_direct_conv_bwd_matches_jax_grad(monkeypatch, n, length, gated):
-    """direct_conv_bwd on CPU tensors (its plain version) and dk_finish
-    against jax.grad through _direct_bwd_fused_io_tiles."""
+    """direct_conv_bwd on CPU tensors (its plain version conv_bwd_plain,
+    with the dk spectrum in B / bwd_group(B) partials) and dk_finish against
+    jax.grad through _direct_bwd_fused_io_tiles."""
     calls = _spy(monkeypatch, "_direct_bwd_fused_io_tiles")
     jp = jff.make_plan(n, compute_dtype=jnp.float32)
     rng = np.random.default_rng(n + length + 1)
@@ -145,12 +147,38 @@ def test_direct_conv_bwd_matches_jax_grad(monkeypatch, n, length, gated):
     tu, tk, *tg = (torch.from_numpy(a) for a in (u, k, *gates))
     du, dpre, dpost, parts = monarch_cuda.direct_conv_bwd(
         p, tu, monarch_cuda.spectrum(p, tk), *(tg or (None, None)), torch.from_numpy(dout))
-    assert parts.shape == (1, 16, n // 2 + 1) and parts.dtype == torch.complex64
+    assert parts.shape == (4 // monarch.bwd_group(4), 16, n // 2 + 1)
+    assert parts.dtype == torch.complex64
     got = [du, monarch_cuda.dk_finish(p, parts, length), *([dpre, dpost] if gated else [])]
     for name, a, r in zip("u k pre post".split(), got, ref):
         r = _np(r)
         np.testing.assert_allclose(a.numpy(), r, atol=1e-4 * max(1.0, float(np.abs(r).max())),
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 20, 128])
+def test_direct_dk_from_grouped_partials_matches_one_batch_sum(b):
+    """At N = 256 the direct backward leaves dk's spectrum in B / bwd_group(B)
+    partials (one per group of 1, 2, 4 or 8 rows, summed in b order) where it
+    used to leave one sum over the whole batch: dk through dk_finish_plain
+    from either agrees within the card's f32_tol (2e-5 of the largest |dk|);
+    the single sum is taken here by the dense direct DFT of the direct
+    path's tables."""
+    n, h, length = 256, 4, 128
+    rng = np.random.default_rng(b)
+    u, gate, dout = (torch.from_numpy(rng.standard_normal((b, h, length)).astype(np.float32))
+                     for _ in "abc")
+    p = tplan.make_plan(n, torch.float32, device=CPU)
+    k_f = monarch_cuda.spectrum(p, torch.from_numpy(rng.standard_normal((h, n))
+                                                    .astype(np.float32) * 0.1))
+    parts = monarch.conv_bwd_plain(p, u, k_f, gate, gate, dout)[3]
+    assert parts.shape == (b // monarch.bwd_group(b), h, n // 2 + 1)
+    w, _ = monarch._direct_tables(p, length)
+    g_f, u_f = monarch._direct_dft(w, dout * gate), monarch._direct_dft(w, u * gate)
+    one = (g_f * u_f.conj()).sum(0, keepdim=True)
+    want = monarch.dk_finish_plain(p, one, n)
+    got = monarch.dk_finish_plain(p, parts, n)
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max()) + 1e-7
 
 
 def _unpack_direct_tf32(n, tab):
@@ -274,14 +302,18 @@ def test_small_plans_match_jax_direct_path(n):
 
 def test_fft_conv_function_takes_the_direct_path_on_cpu(monkeypatch):
     """FftConvFunction at N = 256 and 512 runs direct_conv forward and
-    direct_conv_bwd + dk_finish backward (their plain versions on the CPU);
-    the Monarch conv never runs there, and it does at N = 1024."""
+    direct_conv_bwd + dk_finish backward; on the CPU the wrappers run
+    direct_conv_plain and conv_bwd_plain (the plain version of the row-FFT
+    backward that direct_conv_bwd launches on the card). The Monarch conv's
+    wrappers never run there, and they do at N = 1024."""
     seen = []
-    for name in ("direct_conv_plain", "direct_conv_bwd_plain", "conv_with_spectrum",
-                 "conv_bwd_plain"):
-        orig = getattr(monarch, name)
-        monkeypatch.setattr(monarch, name,
-                            lambda *a, _o=orig, _n=name, **kw: (seen.append(_n), _o(*a, **kw))[1])
+    for mod, names in ((monarch, ("direct_conv_plain", "conv_with_spectrum", "conv_bwd_plain")),
+                       (monarch_cuda, ("direct_conv", "direct_conv_bwd", "monarch_conv",
+                                       "monarch_conv_bwd"))):
+        for name in names:
+            orig = getattr(mod, name)
+            monkeypatch.setattr(
+                mod, name, lambda *a, _o=orig, _n=name, **kw: (seen.append(_n), _o(*a, **kw))[1])
     g = torch.Generator().manual_seed(0)
     for n in (256, 512, 1024):
         seen.clear()
@@ -292,8 +324,9 @@ def test_fft_conv_function_takes_the_direct_path_on_cpu(monkeypatch):
         y.square().sum().backward()
         ref = monarch.fft_conv_reference(n, u.detach(), k.detach())
         torch.testing.assert_close(y.detach(), ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
-        want = (["direct_conv_plain", "direct_conv_bwd_plain"] if n <= tplan.DIRECT_MAX
-                else ["conv_with_spectrum", "conv_bwd_plain"])
+        want = (["direct_conv", "direct_conv_plain", "direct_conv_bwd", "conv_bwd_plain"]
+                if n <= tplan.DIRECT_MAX
+                else ["monarch_conv", "conv_with_spectrum", "monarch_conv_bwd", "conv_bwd_plain"])
         assert seen == want, (n, seen)
 
 

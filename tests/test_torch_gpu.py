@@ -439,10 +439,11 @@ def test_cuda_long_backward_kernels_match_plain(n, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_direct_kernels_match_plain(n, dtype):
     """spectrum -> direct_conv and direct_conv_bwd -> dk_finish against their
-    plain versions, one launch each; B = 4 ungated at L = N/2, B = 3 gated at
-    L = N/2 + 3 with H = 7, and B = 20 gated at L = N (two chunks of the
-    backward's batch walk at N = 256); a second backward gives the same
-    bits."""
+    plain versions (direct_conv_plain; conv_bwd_plain, whose dk partials are
+    grouped as the row-FFT backward groups them), one launch each; B = 4
+    ungated at L = N/2 (one partial), B = 3 gated at L = N/2 + 3 with H = 7
+    (three), and B = 20 gated at L = N (five groups of four rows); a second
+    backward gives the same bits."""
     _needs_card()
     dev = torch.device("cuda")
     p = tplan.make_plan(n, dtype, device=dev)
@@ -460,7 +461,8 @@ def test_cuda_direct_kernels_match_plain(n, dtype):
         assert (monarch_cuda.direct_conv.launches, monarch_cuda.direct_conv_bwd.launches) == \
             (n0[0] + 1, n0[1] + 1)
         _close(y, monarch.direct_conv_plain(p, u, k_f, *gates), dtype)
-        ref = monarch.direct_conv_bwd_plain(p, u, k_f, *gates, d)
+        ref = monarch.conv_bwd_plain(p, u, k_f, *gates, d)
+        assert got[3].shape == ref[3].shape == (b // monarch.bwd_group(b), h, n // 2 + 1)
         for a, r in zip(got[:3], ref[:3]):
             if r is not None:
                 _close(a, r, dtype)
@@ -475,8 +477,8 @@ def test_cuda_direct_kernels_match_plain(n, dtype):
 def test_cuda_direct_kernels_at_the_m2_bert_shape():
     """The M2-BERT path's shape (B=128, H=768, L=128, N=256, bf16, ungated,
     a bidirectional kernel of 256 taps): the forward, the backward's du and
-    dk spectrum, and dk, against the plain versions; eight chunks of the
-    backward's batch walk, summed in the same order twice."""
+    dk spectrum partials (16, summed over groups of 8 rows), and dk, against
+    the plain versions; two backwards give the same bits."""
     _needs_card()
     dev = torch.device("cuda")
     p = tplan.make_plan(256, torch.bfloat16, device=dev)
@@ -487,7 +489,8 @@ def test_cuda_direct_kernels_at_the_m2_bert_shape():
     _close(monarch_cuda.direct_conv(p, u, k_f), monarch.direct_conv_plain(p, u, k_f),
            torch.bfloat16)
     got = monarch_cuda.direct_conv_bwd(p, u, k_f, None, None, d)
-    ref = monarch.direct_conv_bwd_plain(p, u, k_f, None, None, d)
+    ref = monarch.conv_bwd_plain(p, u, k_f, None, None, d)
+    assert got[3].shape == ref[3].shape == (16, 768, 129)
     _close(got[0], ref[0], torch.bfloat16)
     _close(torch.view_as_real(got[3]), torch.view_as_real(ref[3]), torch.float32)
     _close(monarch_cuda.dk_finish(p, got[3], 256), monarch.dk_finish_plain(p, ref[3], 256),
@@ -536,11 +539,13 @@ def _band_close(got, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n2", [16, 256, 2048, 16384])
+@pytest.mark.parametrize("n2", [16 << i for i in range(11)])
 def test_cuda_band_conv_matches_plain(n2):
     """band_conv, both conj, against band_conv_plain on complex bands with a
-    nonzero imaginary part; one launch a call; BandConvFunction's grads
-    against the plain chain's autograd."""
+    nonzero imaginary part, at every band length its kernel is instantiated
+    for (N2 = 16 ... 16384), B = 3 so that a channel's rows run in a ragged
+    group of the block order; one launch a call, two calls bit for bit;
+    BandConvFunction's grads against the plain chain's autograd."""
     _needs_card()
     dev = torch.device("cuda")
     p = tplan.make_plan(2 * n2, torch.float32, device=dev)
@@ -553,6 +558,7 @@ def test_cuda_band_conv_matches_plain(n2):
         torch.cuda.synchronize()
         assert monarch_cuda.band_conv.launches == n0 + 1
         _band_close(y, monarch.band_conv_plain(p, b, k_f, conj))
+        assert torch.equal(y, monarch_cuda.band_conv(p, b, k_f, conj))
     dy = torch.randn(b.shape, dtype=torch.complex64, device=dev, generator=g)
     grads = []
     for fn in (monarch_cuda.BandConvFunction.apply, monarch.band_conv_plain):

@@ -347,6 +347,26 @@ def test_band_conv_matches_jax_band_conv_pallas(monkeypatch, n2):
     assert spy.calls == 3  # the forward and the conj-kernel backward
 
 
+@pytest.mark.parametrize("n2", [16 << i for i in range(11)])
+def test_band_conv_matches_torch_fft_at_every_band_length(n2):
+    """The band_conv wrapper on the CPU at every band length its kernel is
+    instantiated for (N2 = 16 ... 16384), both conj, against torch.fft's
+    ifft(fft(b) * K) at the card's band_tol, 1e-4 of the largest |y|."""
+    rng = np.random.default_rng(n2)
+    b, h = 2, 3
+    cplx = lambda *s: torch.complex(*(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                                      for _ in "ab"))
+    x, k_f = cplx(b, h, n2), cplx(h, n2)
+    tp = tplan.make_plan(2 * n2, torch.float32, device=CPU)
+    for conj in (False, True):
+        want = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))
+                              * (k_f.conj() if conj else k_f).to(torch.complex128))
+        got = monarch_cuda.band_conv(tp, x, k_f, conj)
+        assert got.dtype == torch.complex64 and got.shape == (b, h, n2)
+        tol = 1e-4 * float(want.abs().max()) + 1e-7
+        assert float((got.to(torch.complex128) - want).abs().max()) <= tol
+
+
 # --- seq_fft_conv --------------------------------------------------------------
 
 def _jax_seq_conv(world, args, dtype, fn="seq_fft_conv", **kw):
