@@ -16,8 +16,9 @@ Phases, each of which fails the run by raising:
             fails if an attention instance (forward, dK/dV or dQ, flash
             or splash, every head_dim), a monarch_conv, a monarch_conv_bwd
             (the direct backward's too), a dk_finish, a direct_conv
-            (tensor-core forward) or a band_conv instance has a stack frame
-            or spills;
+            (tensor-core forward), a band_conv, a butterfly (either
+            direction) or a long_conv_bwd instance has a stack frame or
+            spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -243,7 +244,9 @@ Phases, each of which fails the run by raising:
             with utils.benchmarking; long_spectrum (the chain with the
             butterfly on the taps) beside torch.fft.rfft with each one's
             device time, and its two kernels alone on the butterfly's
-            bands; direct_conv at M2-BERT's shape and at N=512, L=256
+            bands; the forward butterfly on those f32 taps (butterfly@f32);
+            long_conv_bwd gated (long_conv_bwd@gated) beside the ungated
+            row; direct_conv at M2-BERT's shape and at N=512, L=256
             (direct_conv@512) with tc_bound (its two dense products, 4 L N
             operations a row), monarch_conv at both shapes (monarch_conv@256,
             @512), direct_conv_bwd (the row-FFT backward) and the same
@@ -301,10 +304,11 @@ TF32_FLOPS = 494.7e12  # dense TF32 tensor-core rate (NVIDIA's H100 SXM data she
 TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 # Kernel instances that must build with no stack frame (phase_build): every
 # attention kernel, monarch_conv, monarch_conv_bwd (which the direct backward
-# runs too), dk_finish, the direct_conv forward on the tensor cores and
-# band_conv.
+# runs too), dk_finish, the direct_conv forward on the tensor cores,
+# band_conv, both butterflies and the long backward's band kernel.
 STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "monarch_conv_bwd_kernel",
-             "dkf16dk_finish_kernel", "direct_conv_tc_kernel", "band_conv_kernel")
+             "dkf16dk_finish_kernel", "direct_conv_tc_kernel", "band_conv_kernel",
+             "butterfly_fwd_kernel", "butterfly_inv_kernel", "long_conv_bwd_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -622,8 +626,7 @@ def phase_build():
                     and not m.group(3).startswith("0 bytes stack frame, 0 bytes spill stores")):
                 spilled.append(f"{props}: {m.group(3)}")
     if spilled:
-        raise AssertionError(f"attention, monarch_conv, monarch_conv_bwd, dk_finish, "
-                             f"direct_conv or band_conv instances with a stack frame: {spilled}")
+        raise AssertionError(f"instances of {STACKLESS} with a stack frame: {spilled}")
     return {"build_s": time.perf_counter() - t0}
 
 
@@ -3205,6 +3208,69 @@ def _trace(torch, what, fn):
             "top": [(name, t, n) for name, (t, n) in top]}
 
 
+def _copy_sources(torch, what, step, forward, top=3):
+    """The largest copies of one call of step (after a warm-up call) and the
+    lines that make them. torch.profiler (record_shapes) gives each
+    aten::copy_ shape's device time; the Python stack of every copy op
+    (clone, _to_copy, copy_) of that shape in one call of forward, which
+    runs on this thread (a backward's ops run on the autograd engine's
+    threads, where the profiler recorded no stack on the card), comes from a
+    TorchDispatchMode."""
+    import traceback
+
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    shapes = {}
+    for e in prof.events():
+        if e.name == "aten::copy_" and e.input_shapes and e.input_shapes[0]:
+            g = shapes.setdefault(tuple(e.input_shapes[0]), [0.0, 0])
+            g[0] += e.device_time_total / 1e3
+            g[1] += 1
+    biggest = sorted(shapes.items(), key=lambda kv: -kv[1][0])[:top]
+    copies = {torch.ops.aten.clone.default, torch.ops.aten._to_copy.default,
+              torch.ops.aten.copy_.default}
+    here = str(HERE)
+
+    class Lines(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.found = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in copies and isinstance(out, torch.Tensor) and tuple(out.shape) in shapes:
+                frames = tuple(f"{f.filename[len(here) + 1:]}:{f.lineno} {f.name}"
+                               for f in traceback.extract_stack()[:-1]
+                               if f.filename.startswith(here))
+                key = (tuple(out.shape), str(func), frames[-6:])
+                self.found[key] = self.found.get(key, 0) + 1
+            return out
+
+    lines = Lines()
+    with lines:
+        forward()
+    torch.cuda.synchronize()
+    log(f"copy sources: {what}")
+    out = []
+    for shape, (ms, n) in biggest:
+        log(f"  aten::copy_ {ms:.2f} ms of device time in {n} calls, output {list(shape)}")
+        made = [(k[1], k[2], c) for k, c in lines.found.items() if k[0] == shape]
+        for op, frames, c in made:
+            log(f"    {op} x{c} in one forward, from:")
+            for fr in frames:
+                log(f"      {fr}")
+        out.append({"ms": ms, "calls": n, "shape": list(shape),
+                    "forward_ops": [(op, list(fr), c) for op, fr, c in made]})
+    return out
+
+
 def phase_profile(torch, seed):
     """Device time by kernel over one Hyena-125M serving forward and one
     train step (dropout on, the examples/lm optimizer), one train step of the
@@ -3250,6 +3316,9 @@ def phase_profile(torch, seed):
     targets = torch.roll(bases, -1, dims=1)
     res["dna_train_step"] = _trace(torch, f"one HyenaDNA {DNA_MODEL} train step at {DNA_L_MAX} "
                                    "bases", lambda: step(bases, targets))
+    res["dna_train_copies"] = _copy_sources(
+        torch, f"one HyenaDNA {DNA_MODEL} train step", lambda: step(bases, targets),
+        lambda: dna_model(bases))
     del dna_model, step
     torch.cuda.empty_cache()
     import numpy as np
@@ -4025,6 +4094,14 @@ def _time_long(torch, g):
             library_ms=None,
             bound=_bound(u.numel() * 2 + bands_bytes, outer_flops),
         )
+        # the forward butterfly on the f32 taps, long_spectrum's first stage
+        res["butterfly@f32"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.butterfly(plan, k[None]), iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.butterfly_plain(plan, k[None]), iters=2,
+                              warmup=1),
+            library_ms=None,
+            bound=_bound(k.numel() * 4 + bands_bytes, outer_flops),
+        )
         # the band kernel: bands in and out, k_f in; two band FFTs a point
         res["long_conv"] = dict(
             ms=_time_ms(torch, lambda: monarch_cuda.long_conv_inner(plan, z, k_f), iters=10),
@@ -4088,6 +4165,17 @@ def _time_long(torch, g):
                               iters=1, warmup=1),
             library_ms=None,
             bound=_bound(3 * bands_bytes + 2 * spec_bytes, 3 * band_flops + h * m * 42),
+        )
+        # gated (y wanted): both band arrays and k_f in, du's and y's bands and
+        # the dk spectrum out; four band FFTs a point, one more unsplit and
+        # product a frequency
+        res["long_conv_bwd@gated"] = dict(
+            ms=_time_ms(torch, lambda: monarch_cuda.long_conv_bwd_inner(plan, zu, zg, k_f,
+                                                                         need_y=True), iters=10),
+            plain_ms=_time_ms(torch, lambda: monarch.long_conv_bwd_inner_plain(
+                plan, zu, zg, k_f, need_y=True), iters=1, warmup=1),
+            library_ms=None,
+            bound=_bound(4 * bands_bytes + 2 * spec_bytes, 4 * band_flops + h * m * 62),
         )
         parts = monarch_cuda.long_conv_bwd_inner(plan, zu, zg, k_f)[2]
         del zu, zg

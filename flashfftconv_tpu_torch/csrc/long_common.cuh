@@ -22,12 +22,11 @@
 
 namespace ffc {
 
-// Blocks an SM that the band kernels (long_conv, long_spectrum) and the
-// butterfly kernels are compiled for; it caps their registers at 128 and 80.
+// Blocks an SM that the band kernels (long_conv, long_spectrum,
+// long_dk_finish) are compiled for; it caps their registers at 128.
 // Measured on an H100 at B=1, H=256, N=2^21: the band conv takes 9.7, 6.7,
-// 8.2 ms at 1, 2, 3 blocks, the forward butterfly 4.6, 2.8, 2.3 ms.
+// 8.2 ms at 1, 2, 3 blocks.
 constexpr int kBandMinBlocks = 2;
-constexpr int kButterflyMinBlocks = 3;
 
 // Longest band: two padded rows of float2 must fit one block's shared memory.
 constexpr int kMaxBand = 8192;

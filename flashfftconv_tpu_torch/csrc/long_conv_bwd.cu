@@ -16,20 +16,46 @@
 // in device memory: the forward butterfly of u * pre and of dout * post
 // before, the inverse butterfly of du, y and dk after.
 //
-// Design of long_conv_bwd. The split of the real FFT pairs frequency k with
-// M - k, which lies in band F - k0 (long_common.cuh), and the three products
-// need U and G at the same frequency. One block therefore owns the band pair
-// {kp, F - kp} of both signals of one (b, h) row: four shared-memory rows,
-// 4 x 33 KB = 132 KB at R = 4096, so one block an SM; it runs 512 threads to
-// keep as many warps in flight as the forward's two blocks of 256. R = 8192
-// (264 KB) does not fit and is refused; the default plans all have R = 4096,
-// and a custom plan with R = 8192 runs its backward under the default plan
-// of its size (ops/monarch_cuda.bwd_plan).
-// The block runs the R-point FFTs of all four rows, then one pass over the
-// frequency pairs: split U and G, store P[k] = G conj(U) and P[M - k], unsplit
-// G conj(K) into G's rows and, when y is wanted, U K into U's rows; then the
-// inverse FFTs, and the bands go out scaled by 1/R. du may be zg's buffer and
-// y zu's: a block reads and writes only its own bands.
+// Design of long_conv_bwd (one instance per band R = 128 ... 4096 and
+// NEED_Y; the C entry dispatches on R). The split of the real FFT pairs
+// frequency k with M - k, which lies in band F - k0 (long_common.cuh), and
+// the three products need U and G at the same frequency, so the bands k0 and
+// F - k0 of one (b, h) row are handled together. A band is a unit: T = R / P
+// threads (P = 32 points a thread at R = 4096, 128 threads) and two rows of
+// R complex points in XOR-swizzled shared memory (U's and G's, 64 KB at
+// R = 4096). One block holds both units of a pair (128 KB at R = 4096, one
+// block an SM, up to 255 registers: no stack frame). A thread block cluster
+// of two CTAs, one unit each (64 KB, three CTAs an SM at 168 registers,
+// the partner's rows through distributed shared memory) ran 9.83 ms against
+// this layout's 8.08 on an H100 (PERF.md), and its gated instance
+// spilled. The parent design (four padded rows of 512 threads, band FFTs
+// stage by stage through shared memory with device-memory twiddles, the
+// split twiddle gathered at stride F) ran 14.24 ms.
+// A unit runs the R-point FFTs of its U band, then its G band, on the
+// in-register row FFT of row_fft.cuh (band_conv.cu's complex instance:
+// every index a compile-time constant, stage 0 loaded straight from device
+// memory at two complex points, 16 bytes, a load; natural order out). Then,
+// after a barrier, one pass over the frequency pairs: the unit of
+// band k0 takes its own slots j < R/2 (band 0: j <= R/2, and F/2: j < R/2,
+// are their own partners) and the partner's slot R - 1 - j: splits U and G,
+// stores P[k] = G conj(U) and P[M - k] (natural order, as long_dk_finish
+// and the plain version take them), and writes the conjugates of the
+// unsplit G conj(K) over G's slots and, when y is wanted, of U K over U's.
+// The split twiddle exp(-2 pi i (k0 + F j) / N) is split_tw[k0] of the plan
+// (one value a unit) times exp(-2 pi i j / 2R), an entry of the row FFT's
+// own root table (the band plan's split_tw): no gather. After a second
+// barrier each unit takes the inverse FFTs as forward FFTs of the
+// conjugates (stage 0 from shared memory) and stores the bands conjugated
+// and scaled by 1/R, 16 bytes a store. Blocks are channel-major (row h B +
+// b), so the B rows of a channel read k_f[h] from L2 after the first.
+// Every output has one writer: two calls give the same bits. du may be zg's
+// buffer and y zu's: a unit reads and writes only its own band. R = 8192
+// (256 KB a pair) is refused; the default plans all have R = 4096, and a
+// custom plan with R = 8192 runs its backward under the default plan of its
+// size (ops/monarch_cuda.bwd_plan). Each band's FFTs are one loop copy in
+// the code (#pragma unroll 1 over U and G): written out four times, the
+// gated kernel ran 2.5x slower. The natural-order k_f and partials, read
+// and written F points apart, are 36% of the kernel's time (PERF.md).
 //
 // The dk reduction over the batch. The TPU kernel accumulates dk_f across its
 // sequential batch grid axis. Blocks here run in no order, and float atomics
@@ -37,7 +63,7 @@
 // (8 (M+1) bytes a row: 2.1 GB a batch row at H = 256, M = 2^20) and
 // long_dk_finish adds the B partials of a frequency in a fixed order. At
 // B = 1 the partials are the spectrum and cost nothing extra.
-//
+
 // long_dk_finish: one block owns the band pair {kp, F - kp} of one channel in
 // two shared-memory rows, as the forward does: sums P over b, unsplits, runs
 // the inverse R-point FFTs and writes the bands (H, F, R) scaled by 1/R; the
@@ -49,94 +75,190 @@
 // band in f32 (about 67 GFLOP, 1.0 ms at 67 TFLOP/s): bytes. long_dk_finish
 // reads 2.1 GB and writes 2.1 GB, 1.3 ms, against one FFT a band: bytes.
 
-#include "long_common.cuh"
+#include "row_fft.cuh"
 
 namespace ffc {
 
-constexpr int kBwdThreads = 512;
-// Longest band of the backward: four padded rows must fit one block.
-constexpr int kBwdMaxBand = 4096;
+namespace lbwd {
 
-template <bool NEED_Y>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    long_conv_bwd_kernel(const float2* zu, const float2* zg, float2* du, float2* y,
-                         float2* __restrict__ partials, const float2* __restrict__ k_f,
-                         const float2* __restrict__ tw, const float2* __restrict__ split_tw,
-                         const float2* __restrict__ roots_g, int batch, int channels, int outer,
-                         Plan p) {
-  extern __shared__ float2 s[];
-  __shared__ float2 roots[kMaxFactor];
-  const int band = p.m;
-  const int m = outer * band;
-  const int pairs = outer / 2 + 1;
-  const int kp = blockIdx.x % pairs;
-  const int bh = blockIdx.x / pairs;
-  const int h = bh / batch;
-  const int b = bh - h * batch;
-  const size_t row = ((size_t)b * channels + h) * (size_t)m;
-  const size_t lo = row + (size_t)kp * band;
-  const size_t hi = row + (size_t)(outer - kp) * band;
-  const bool two = kp != 0 && 2 * kp != outer;
-  // U's rows first, G's rows at the same offsets plus goff.
-  const int goff = 2 * band_slots(band);
-  float2* ua = s;
-  float2* ub = s + band_slots(band);
-  k_f += (size_t)h * (m + 1);
-  float2* part = partials + ((size_t)b * channels + h) * (size_t)(m + 1);
-  load_roots(roots, roots_g);
-  load_band(ua, zu + lo, band);
-  load_band(ua + goff, zg + lo, band);
-  if (two) {
-    load_band(ub, zu + hi, band);
-    load_band(ub + goff, zg + hi, band);
-  }
-  __syncthreads();
-  band_fft<false>(ua, ub, two, p, tw, roots);
-  band_fft<false>(ua + goff, ub + goff, two, p, tw, roots);
+using namespace row;
 
-  for_each_pair(kp, outer, ua, ub, p, [&](int k, float2* pk, float2* pm, bool first) {
-    const float2 w = __ldg(split_tw + k);
-    const float2 kk = __ldg(k_f + k);
-    const float2 km = __ldg(k_f + m - k);
-    float2* qk = pk + goff;
-    float2* qm = pm + goff;
-    float2 uk, um, gk, gm, zk, zm;
-    split_pair(*pk, *pm, w, uk, um);
-    split_pair(*qk, *qm, w, gk, gm);
-    part[k] = cmul_conj(gk, uk);
-    part[m - k] = cmul_conj(gm, um);
-    unsplit_pair(cmul_conj(gk, kk), cmul_conj(gm, km), w, zk, zm);
-    *qk = zk;
-    if (!first) *qm = zm;
-    if (NEED_Y) {
-      unsplit_pair(cmul(uk, kk), cmul(um, km), w, zk, zm);
-      *pk = zk;
-      if (!first) *pm = zm;
-    }
-  });
-  __syncthreads();
-  band_fft<true>(ua + goff, ub + goff, two, p, tw, roots);
-  if (NEED_Y) band_fft<true>(ua, ub, two, p, tw, roots);
+// Longest band of the backward: a unit's two rows must fit a third of an SM.
+constexpr int kMaxLogBand = 12;
 
-  const float scale = 1.f / (float)band;
-  for (int n = threadIdx.x; n < band; n += blockDim.x) {
-    const int at = slot(n);
-    const float2 a = ua[goff + at];
-    du[lo + n] = make_float2(a.x * scale, a.y * scale);
-    if (two) {
-      const float2 c = ub[goff + at];
-      du[hi + n] = make_float2(c.x * scale, c.y * scale);
-    }
-    if (NEED_Y) {
-      const float2 e = ua[at];
-      y[lo + n] = make_float2(e.x * scale, e.y * scale);
-      if (two) {
-        const float2 f = ub[at];
-        y[hi + n] = make_float2(f.x * scale, f.y * scale);
-      }
+// Two complex points (16 bytes) a load and a store: stage 0's E = 2.
+template <int LOG_R>
+using CfgB = Cfg<LOG_R, 1>;
+
+// The row FFT's root table from the band plan's split_tw, by every thread of
+// the block (row::load_table strides by a whole row_fft block).
+template <class C>
+__device__ __forceinline__ void load_band_table(float2* tab, const float2* __restrict__ band_tw) {
+  for (int i = threadIdx.x; i < C::kLo + C::kHi; i += blockDim.x) {
+    if (i < C::kLo) {
+      tab[i] = band_tw[i];
+    } else {
+      const int m = (i - C::kLo) << C::kB;
+      const float2 w = band_tw[m <= C::kM ? m : m - C::kM];
+      tab[i] = m <= C::kM ? w : make_float2(-w.x, -w.y);
     }
   }
 }
+
+// The forward R-point FFT of the band at z (device memory) into s, natural
+// order; the caller synchronises before it reads s.
+template <class C>
+__device__ __forceinline__ void band_forward(const float2* __restrict__ z, float2* s,
+                                             const float2* tab, int tr) {
+  float2 v[C::kP];
+#pragma unroll
+  for (int j = 0; j < C::kF0; ++j) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(z) + j * C::kT + tr);
+    v[j] = make_float2(a.x, a.y);
+    v[C::kF0 + j] = make_float2(a.z, a.w);
+  }
+#pragma unroll
+  for (int e = 0; e < C::kE; ++e) first_stage_line<C>(v + e * C::kF0, s, tab, C::kE * tr + e);
+  mid_stages<C>(v, s, tab, tr);
+  last_stage<C>(v, s, tr);
+}
+
+// The forward FFT of the conjugated spectrum in s, in place (stage 0's lines
+// those of thread tr ^ 1, so that no slot address lives from it to the
+// store), then out[n] = conj(s[n]) / R, 16 bytes a store.
+template <class C>
+__device__ __forceinline__ void band_inverse_store(float2* s, float2* __restrict__ out,
+                                                   const float2* tab, int tr) {
+  float2 v[C::kP];
+  {
+    const int t0 = tr ^ (C::kT > 1 ? 1 : 0);
+#pragma unroll
+    for (int e = 0; e < C::kE; ++e)
+#pragma unroll
+      for (int j = 0; j < C::kF0; ++j) v[e * C::kF0 + j] = s[swz(j * C::kR0 + C::kE * t0 + e)];
+#pragma unroll
+    for (int e = 0; e < C::kE; ++e) first_stage_line<C>(v + e * C::kF0, s, tab, C::kE * t0 + e);
+  }
+  mid_stages<C>(v, s, tab, tr);
+  last_stage<C>(v, s, tr);
+  __syncthreads();
+  const int t = fresh_tid() % C::kT;
+  const float scale = 1.f / (float)C::kM;
+  float4* o = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int q = 0; q < C::kP / C::kE; ++q) {
+    const int n0 = C::kE * (t + C::kT * q);
+    const float2 a = s[swz(n0)], c = s[swz(n0 + 1)];
+    o[t + C::kT * q] = make_float4(a.x * scale, -a.y * scale, c.x * scale, -c.y * scale);
+  }
+}
+
+// Block c = 0 .. F/2 - 1 of row bh holds the units (rank 0 and 1, T threads
+// each) of bands 0 and F/2 (c = 0; each its own partner) or c and F - c.
+template <int LOG_R, bool NEED_Y>
+__global__ void __launch_bounds__(CfgB<LOG_R>::kT * 2, 1)
+    long_conv_bwd_kernel(const float2* zu, const float2* zg, float2* du, float2* y,
+                         float2* __restrict__ partials, const float2* __restrict__ k_f,
+                         const float2* __restrict__ split_tw, const float2* __restrict__ band_tw,
+                         int batch, int channels, int outer) {
+  using C = CfgB<LOG_R>;
+  constexpr int kR = C::kM, kT = C::kT;
+  extern __shared__ float4 smem_raw[];
+  float2* smem = reinterpret_cast<float2*>(smem_raw);
+  float2* tab = smem + 4 * kR;
+  const int rank = threadIdx.x / kT;
+  const int tr = threadIdx.x % kT;
+  const int pair = blockIdx.x;
+  const int half = outer / 2;
+  const int c = pair % half;
+  const int bh = pair / half;
+  const int h = bh / batch, b = bh - h * batch;
+  const int k0 = c == 0 ? rank * half : (rank == 0 ? c : outer - c);
+  const int m = outer * kR;
+  const size_t row = ((size_t)b * channels + h) * (size_t)m;
+  const size_t own = row + (size_t)k0 * kR;
+  float2* su = smem + 2 * rank * kR;
+  float2* sg = su + kR;
+  load_band_table<C>(tab, band_tw);
+  __syncthreads();
+  // One copy of each FFT in the code, run once a row (U's, then G's): the
+  // body written out twice runs far slower and takes more registers.
+#pragma unroll 1
+  for (int i = 0; i < 2; ++i) band_forward<C>((i ? zg : zu) + own, i ? sg : su, tab, tr);
+  __syncthreads();
+
+  // The pair pass.
+  {
+    float2* pu = c == 0 ? su : smem + 2 * (rank ^ 1) * kR;
+    float2* pg = pu + kR;
+    const float2* kh = k_f + (size_t)h * (m + 1);
+    float2* part = partials + ((size_t)b * channels + h) * (size_t)(m + 1);
+    const float2 w0 = split_tw[k0];
+    const bool zero = k0 == 0;
+    const int n = zero ? kR / 2 + 1 : kR / 2;
+#pragma unroll 4
+    for (int j = tr; j < n; j += kT) {
+      const int k = k0 + outer * j;
+      const int jm = zero ? (kR - j) & (kR - 1) : kR - 1 - j;
+      const bool first = zero && j == 0;
+      const float2 w = cmul(w0, root<C>(tab, j));
+      const float2 kk = __ldg(kh + k);
+      const float2 km = __ldg(kh + m - k);
+      float2* pk = su + swz(j);
+      float2* pm = pu + swz(jm);
+      float2* qk = sg + swz(j);
+      float2* qm = pg + swz(jm);
+      float2 uk, um, gk, gm, zk, zm;
+      split_pair(*pk, *pm, w, uk, um);
+      split_pair(*qk, *qm, w, gk, gm);
+      part[k] = cmul_conj(gk, uk);
+      part[m - k] = cmul_conj(gm, um);
+      unsplit_pair(cmul_conj(gk, kk), cmul_conj(gm, km), w, zk, zm);
+      *qk = make_float2(zk.x, -zk.y);
+      if (!first) *qm = make_float2(zm.x, -zm.y);
+      if (NEED_Y) {
+        unsplit_pair(cmul(uk, kk), cmul(um, km), w, zk, zm);
+        *pk = make_float2(zk.x, -zk.y);
+        if (!first) *pm = make_float2(zm.x, -zm.y);
+      }
+    }
+  }
+  __syncthreads();
+
+  // The inverse FFTs and the stores: G's (du), then U's (y) when wanted.
+#pragma unroll 1
+  for (int i = 0; i < (NEED_Y ? 2 : 1); ++i)
+    band_inverse_store<C>(i ? su : sg, (i ? y : du) + own, tab, fresh_tid() % kT);
+}
+
+template <int LOG_R, bool NEED_Y>
+cudaError_t launch_one(const void* zu, const void* zg, void* du, void* y, void* partials,
+                       const void* k_f, const void* split_tw, const void* band_tw, int batch,
+                       int channels, int outer, cudaStream_t stream) {
+  using C = CfgB<LOG_R>;
+  auto kernel = long_conv_bwd_kernel<LOG_R, NEED_Y>;
+  const size_t smem = (size_t(4) * C::kM + C::kLo + C::kHi) * sizeof(float2);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)((long long)batch * channels * (outer / 2)), C::kT * 2, smem, stream>>>(
+      (const float2*)zu, (const float2*)zg, (float2*)du, (float2*)y, (float2*)partials,
+      (const float2*)k_f, (const float2*)split_tw, (const float2*)band_tw, batch, channels,
+      outer);
+  return cudaGetLastError();
+}
+
+template <int LOG_R>
+cudaError_t launch(const void* zu, const void* zg, void* du, void* y, void* partials,
+                   const void* k_f, const void* split_tw, const void* band_tw, int batch,
+                   int channels, int outer, cudaStream_t st) {
+  return y != nullptr ? launch_one<LOG_R, true>(zu, zg, du, y, partials, k_f, split_tw, band_tw,
+                                                batch, channels, outer, st)
+                      : launch_one<LOG_R, false>(zu, zg, du, y, partials, k_f, split_tw,
+                                                 band_tw, batch, channels, outer, st);
+}
+
+}  // namespace lbwd
 
 __global__ void __launch_bounds__(kThreads, kBandMinBlocks)
     long_dk_finish_kernel(const float2* __restrict__ partials, float2* __restrict__ out,
@@ -185,24 +307,6 @@ __global__ void __launch_bounds__(kThreads, kBandMinBlocks)
   }
 }
 
-template <bool NEED_Y>
-cudaError_t launch_long_bwd(const void* zu, const void* zg, void* du, void* y, void* partials,
-                            const void* k_f, const void* tw, const void* split_tw,
-                            const void* roots, int batch, int channels, int outer, const Plan& p,
-                            cudaStream_t stream) {
-  const size_t smem = 2 * band_pair_smem_bytes(p.m);
-  auto kernel = long_conv_bwd_kernel<NEED_Y>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((long long)batch * channels * (outer / 2 + 1));
-  kernel<<<blocks, kBwdThreads, smem, stream>>>(
-      (const float2*)zu, (const float2*)zg, (float2*)du, (float2*)y, (float2*)partials,
-      (const float2*)k_f, (const float2*)tw, (const float2*)split_tw, (const float2*)roots,
-      batch, channels, outer, p);
-  return cudaGetLastError();
-}
-
 inline bool check_bands(const Plan& p, int max_band, long long rows, int outer) {
   return p.m <= max_band && rows >= 1 && outer >= 2 && !(outer & (outer - 1)) &&
          (long long)outer * p.m <= (1LL << 21) && rows * (outer / 2 + 1) <= 0x7fffffffLL;
@@ -210,26 +314,38 @@ inline bool check_bands(const Plan& p, int max_band, long long rows, int outer) 
 
 }  // namespace ffc
 
-// zu, zg, du and y: (batch, channels, outer, band) complex64; du may be zg's
-// buffer and y zu's; y is null when the forward's output is not wanted.
-// partials: (batch, channels, outer * band + 1) complex64; k_f: (channels,
-// outer * band + 1) complex64. The factors are the band's.
+// zu, zg, du and y: (batch, channels, outer, band) complex64 on 16-byte
+// boundaries; du may be zg's buffer and y zu's; y is null when the
+// forward's output is not wanted. partials: (batch, channels, outer * band +
+// 1) complex64; k_f: (channels, outer * band + 1) complex64. split_tw is the
+// plan's (exp(-2 pi i m / N), m = 0 .. M), band_tw the band plan's
+// (exp(-2 pi i j / 2R), j = 0 .. R).
 extern "C" int ffc_long_conv_bwd(const void* zu, const void* zg, void* du, void* y,
-                                 void* partials, const void* k_f, const void* tw,
-                                 const void* split_tw, const void* roots, int batch,
-                                 int channels, int outer, int n_stages, int f0, int f1, int f2,
-                                 int f3, void* stream) {
-  const int factors[4] = {f0, f1, f2, f3};
-  ffc::Plan p;
-  if (!ffc::make_plan(n_stages, factors, &p) || batch < 1 || channels < 1 ||
-      !ffc::check_bands(p, ffc::kBwdMaxBand, (long long)batch * channels, outer))
+                                 void* partials, const void* k_f, const void* split_tw,
+                                 const void* band_tw, int batch, int channels, int outer,
+                                 int band, void* stream) {
+  auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
+  if (batch < 1 || channels < 1 || !pow2(outer) || outer < 2 || !pow2(band) || band < 128 ||
+      band > (1 << ffc::lbwd::kMaxLogBand) || (long long)outer * band > (1LL << 21) ||
+      (long long)batch * channels * outer > 0x7fffffffLL ||
+      ((reinterpret_cast<uintptr_t>(zu) | reinterpret_cast<uintptr_t>(zg) |
+        reinterpret_cast<uintptr_t>(du) | reinterpret_cast<uintptr_t>(y)) & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (y != nullptr)
-    return (int)ffc::launch_long_bwd<true>(zu, zg, du, y, partials, k_f, tw, split_tw, roots,
-                                           batch, channels, outer, p, st);
-  return (int)ffc::launch_long_bwd<false>(zu, zg, du, y, partials, k_f, tw, split_tw, roots,
-                                          batch, channels, outer, p, st);
+#define FFC_BWD_CASE(LOG_R)                                                                   \
+  case 1 << LOG_R:                                                                            \
+    return (int)ffc::lbwd::launch<LOG_R>(zu, zg, du, y, partials, k_f, split_tw, band_tw,     \
+                                         batch, channels, outer, st);
+  switch (band) {
+    FFC_BWD_CASE(7)
+    FFC_BWD_CASE(8)
+    FFC_BWD_CASE(9)
+    FFC_BWD_CASE(10)
+    FFC_BWD_CASE(11)
+    FFC_BWD_CASE(12)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFC_BWD_CASE
 }
 
 // partials: (batch, channels, outer * band + 1) complex64; out: (channels,

@@ -87,7 +87,7 @@ from flashfftconv_tpu_torch.ops.plan import (
 )
 
 # Longest band of the long backward kernel: it holds the band pairs of two
-# signals, four rows, in one block's shared memory (132 KB at 4096).
+# signals, four rows, in one block's shared memory (128 KB at 4096).
 MAX_BWD_BAND = 4096
 # Longest band of the band_conv kernel: one row of N2 complex points in one
 # block's shared memory (its largest instance in csrc/band_conv.cu).
@@ -129,15 +129,13 @@ def _factor_args(plan: FftPlan) -> list[int]:
     return [len(plan.factors), *plan.factors, *([1] * (4 - len(plan.factors)))]
 
 
-def _outer_args(plan: FftPlan) -> list[int]:
-    """(fa, fb, band) of a long plan for the butterfly kernels."""
+def _require_long(plan: FftPlan) -> None:
+    """Raise unless ``plan`` has an outer part (the long kernels' plans)."""
     if not plan.n_outer:
         raise ValueError(
             f"a plan of seqlen {plan.seqlen} has no outer part: the long kernels start at "
             f"{2 * MAX_FUSED_SEQLEN}; use spectrum and monarch_conv"
         )
-    fs = plan.outer_factors
-    return [fs[0], fs[1] if len(fs) == 2 else 1, plan.band]
 
 
 def _stream(device: torch.device) -> int:
@@ -429,7 +427,7 @@ def butterfly(
     x (B, H, F, R) back through the conjugate twiddle and the inverse outer
     DFT (with 1/F) to the real samples [0, ``length``), times the optional
     postgate ``gate`` (B, H, length), at ``dtype`` (f32 or bf16)."""
-    fa, fb, band = _outer_args(plan)
+    _require_long(plan)
     if not inverse:
         length = x.shape[-1]
     if not 1 <= length <= plan.seqlen:
@@ -441,8 +439,8 @@ def butterfly(
     if inverse:
         _check_cuda("z", x, plan.device, (torch.complex64,), 4)
         b, h = x.shape[:2]
-        if x.shape[2:] != (plan.outer, band):
-            raise ValueError(f"z shape {tuple(x.shape)} != (B, H, {plan.outer}, {band})")
+        if x.shape[2:] != (plan.outer, plan.band):
+            raise ValueError(f"z shape {tuple(x.shape)} != (B, H, {plan.outer}, {plan.band})")
         if dtype not in _DTYPE_CODES:
             raise TypeError(f"output dtype {dtype} not in {sorted(map(str, _DTYPE_CODES))}")
         out = torch.empty(b, h, length, dtype=dtype, device=x.device)
@@ -450,7 +448,7 @@ def butterfly(
     else:
         _check_cuda("u", x, plan.device, tuple(_DTYPE_CODES), 3)
         b, h, _ = x.shape
-        out = torch.empty(b, h, plan.outer, band, dtype=torch.complex64, device=x.device)
+        out = torch.empty(b, h, plan.outer, plan.band, dtype=torch.complex64, device=x.device)
         reals = x
     if gate is not None:
         _check_cuda("gate", gate, plan.device, (reals.dtype,), 3)
@@ -458,12 +456,14 @@ def butterfly(
             raise ValueError(f"gate shape {tuple(gate.shape)} != {tuple(reals.shape)}")
     if b * h == 0:
         return out
+    if inverse:
+        x = _aligned16(x)
     lib = _build.load("butterfly")
     fn = lib.ffc_butterfly_inv if inverse else lib.ffc_butterfly_fwd
     rc = fn(
         x.data_ptr(), None if gate is None else gate.data_ptr(), out.data_ptr(),
-        plan.outer_tw.data_ptr(), plan.outer_roots.data_ptr(), plan.roots.data_ptr(),
-        b * h, length, fa, fb, band, _DTYPE_CODES[reals.dtype], _stream(x.device),
+        plan.split_tw.data_ptr(), b * h, length, plan.outer, plan.band,
+        _DTYPE_CODES[reals.dtype], _stream(x.device),
     )
     _build.check(lib, rc, "butterfly kernel")
     butterfly.launches += 1
@@ -487,7 +487,7 @@ def long_conv_inner(
     the split, the product with k_f, the unsplit and the inverse FFT (with
     1/R). Returns complex64 (B, H, F, R), written into ``out`` when given;
     ``out`` may be z itself."""
-    _outer_args(plan)
+    _require_long(plan)
     if on_cpu(z, k_f, out):
         res = monarch.long_conv_inner_plain(plan, z, k_f)
         return res if out is None else out.copy_(res)
@@ -543,7 +543,7 @@ def long_spectrum(plan: FftPlan, k: torch.Tensor) -> torch.Tensor:
     """``spectrum`` for a long plan (seqlen >= 65536): half spectrum (H, M+1)
     complex64, natural order, of real f32 taps k (H, k_len <= N). Runs the
     forward ``butterfly`` on the taps and then its own kernel over the bands."""
-    _outer_args(plan)
+    _require_long(plan)
     if on_cpu(k):
         return monarch.long_spectrum_plain(plan, k)
     _check_cuda("k", k, plan.device, (torch.float32,), 2)
@@ -593,7 +593,7 @@ def long_conv_bwd_inner(
     and (B, H, M+1), the partials one row a batch element for
     ``long_dk_finish``. With ``inplace`` the card writes the du bands over zg
     and the y bands over zu."""
-    _outer_args(plan)
+    _require_long(plan)
     if on_cpu(zu, zg, k_f):
         return monarch.long_conv_bwd_inner_plain(plan, zu, zg, k_f, need_y)
     if plan.band > MAX_BWD_BAND:
@@ -610,17 +610,17 @@ def long_conv_bwd_inner(
     _check_cuda("k_f", k_f, plan.device, (torch.complex64,), 2)
     if k_f.shape != (h, plan.inner + 1):
         raise ValueError(f"k_f shape {tuple(k_f.shape)} != {(h, plan.inner + 1)}")
+    zu, zg = _aligned16(zu), _aligned16(zg)
     du = zg if inplace else torch.empty_like(zg)
     y = (zu if inplace else torch.empty_like(zu)) if need_y else None
     partials = torch.empty(b, h, plan.inner + 1, dtype=torch.complex64, device=zu.device)
     if b * h == 0:
         return du, y, partials
-    sub = plan.sub
     lib = _build.load("long_conv_bwd")
     rc = lib.ffc_long_conv_bwd(
         zu.data_ptr(), zg.data_ptr(), du.data_ptr(), None if y is None else y.data_ptr(),
-        partials.data_ptr(), k_f.data_ptr(), sub.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
-        sub.roots.data_ptr(), b, h, plan.outer, *_factor_args(sub), _stream(zu.device),
+        partials.data_ptr(), k_f.data_ptr(), plan.split_tw.data_ptr(),
+        plan.sub.split_tw.data_ptr(), b, h, plan.outer, plan.band, _stream(zu.device),
     )
     _build.check(lib, rc, "long_conv_bwd kernel")
     long_conv_bwd_inner.launches += 1
@@ -635,7 +635,7 @@ def long_dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.T
     complex64 partials of ``long_conv_bwd_inner``. Its own kernel sums them
     over B in order, unsplits and runs the inverse R-point FFT of every band;
     the inverse ``butterfly`` then gives the real samples [0, k_len)."""
-    _outer_args(plan)
+    _require_long(plan)
     if on_cpu(partials):
         return monarch.long_dk_finish_plain(plan, partials, k_len)
     _check_cuda("partials", partials, plan.device, (torch.complex64,), 3)

@@ -434,6 +434,78 @@ def test_cuda_long_backward_kernels_match_plain(n, dtype):
                monarch.dk_finish_plain(p, want[3], k_len), torch.float32)
 
 
+LONG_SIZES = (65536, 131072, 524288, 2097152, 4194304)
+
+
+def _off16(b, h, length, dtype, dev, g):
+    """A contiguous (b, h, length) view whose storage starts one element in,
+    off a 16-byte boundary."""
+    flat = torch.randn(b * h * length + 1, generator=g).to(dev, dtype)
+    return flat[1:].view(b, h, length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", LONG_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_butterfly_matches_plain(n, dtype):
+    """Both butterfly directions against their plain versions: B = 1
+    ungated at L = N/2, B = 3 gated at L = N/2 + 3, B = 2 gated at L = N - 5
+    on row views that start off 16-byte alignment (the kernels' scalar
+    path); two calls give the same bits."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, dtype, device=dev)
+    g = torch.Generator().manual_seed(n + 18)
+    real = torch.view_as_real
+    for b, h, length, gated, off in [(1, 3, n // 2, False, False), (3, 2, n // 2 + 3, True, False),
+                                     (2, 2, n - 5, True, True)]:
+        make = (lambda: _off16(b, h, length, dtype, dev, g)) if off else (
+            lambda: torch.randn(b, h, length, generator=g).to(dev, dtype))
+        u, pre, post = make(), make(), make()
+        if off:
+            assert u.data_ptr() % 16 and u.is_contiguous()
+        if not gated:
+            pre = post = None
+        n0 = monarch_cuda.butterfly.launches
+        z = monarch_cuda.butterfly(p, u, pre)
+        zr = monarch.butterfly_plain(p, u, pre)
+        y = monarch_cuda.butterfly(p, zr, post, inverse=True, length=length, dtype=dtype)
+        torch.cuda.synchronize()
+        assert monarch_cuda.butterfly.launches == n0 + 2
+        _close(real(z), real(zr), torch.float32)
+        _close(y, monarch.butterfly_inverse_plain(p, zr, length, post, dtype), dtype)
+        assert torch.equal(real(z), real(monarch_cuda.butterfly(p, u, pre)))
+        assert torch.equal(y, monarch_cuda.butterfly(p, zr, post, inverse=True, length=length,
+                                                     dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,factors", [(n, None) for n in LONG_SIZES]
+                         + [(131072, (32, 16, 16, 8)), (131072, (4, 32, 8, 8, 8))])
+def test_cuda_long_conv_bwd_inner_matches_plain_bit_for_bit(n, factors):
+    """long_conv_bwd_inner against its plain version, with and without y, at
+    B = 1, 2 and 3, at every LONG_SIZES plan and at bands of 2048 and 512;
+    two calls give the same bits."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, torch.float32, device=dev, factors=factors)
+    g = torch.Generator(device=dev).manual_seed(n + 19)
+    real = torch.view_as_real
+    for b, h, need_y in [(1, 3, False), (3, 2, True), (2, 2, False)]:
+        zu, zg = (torch.randn(b, h, p.outer, p.band, dtype=torch.complex64, device=dev,
+                              generator=g) for _ in "ab")
+        k_f = torch.randn(h, p.inner + 1, dtype=torch.complex64, device=dev, generator=g)
+        got = monarch_cuda.long_conv_bwd_inner(p, zu, zg, k_f, need_y=need_y)
+        ref = monarch.long_conv_bwd_inner_plain(p, zu, zg, k_f, need_y=need_y)
+        again = monarch_cuda.long_conv_bwd_inner(p, zu, zg, k_f, need_y=need_y)
+        torch.cuda.synchronize()
+        for a, r, c in zip(got, ref, again):
+            assert (a is None) == (r is None)
+            if r is not None:
+                _close(real(a), real(r), torch.float32)
+                assert torch.equal(real(a), real(c))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [16, 64, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

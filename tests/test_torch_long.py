@@ -202,6 +202,227 @@ def test_long_spectrum_band_split_stores_each_frequency_once(n, factors):
     assert np.abs(got - np.exp(-2j * np.pi * k / n)).max() < 4e-7
 
 
+# --- the redesigned butterfly and long backward: index maps and twiddles ---
+
+def _bfly_tile_points(inv):
+    """Points of a butterfly tile of either direction, as csrc/butterfly.cu
+    sets them."""
+    src = (_build.SOURCE_DIR / "butterfly.cu").read_text()
+    logs = re.search(r"kLogPts = INV \? (\d+) : (\d+);", src).groups()
+    return 1 << int(logs[0] if inv else logs[1])
+
+
+class _BflyCfg:
+    """csrc/butterfly.cu's Cfg and St in Python: the F-point DFT's stages
+    (the real-facing stage of 32 / E points, E = 16 bytes / (2 sizeof T),
+    first forward and last inverse; the rest in the fewest stages of at most
+    32 points, as evenly as possible), 32 points a thread in each."""
+
+    def __init__(self, log_f, itemsize, inv):
+        self.log_f, self.inv = log_f, inv
+        self.pts = _bfly_tile_points(inv)
+        self.log_c = int(np.log2(self.pts)) - log_f
+        self.log_e = 1 if itemsize == 4 else 2
+        real = min(log_f, 5 - self.log_e)
+        rest = log_f - real
+        n = (rest + 4) // 5
+        band = [rest // n + (i < rest % n) for i in range(n)] if n else []
+        self.bits = band + [real] if inv else [real] + band
+        self.last = len(self.bits) - 1
+        self.threads = self.pts // 32
+
+    def real_side(self, j):
+        return j == (self.last if self.inv else 0)
+
+    def done(self, j):
+        return sum(self.bits[:j])
+
+    def log_stride(self, j):
+        return self.log_f - self.done(j + 1)
+
+    def geometry(self, j):
+        """Per thread and register: (tile row, column) of stage j's points,
+        (threads, 32) arrays; and the thread's line (p, r)."""
+        f, w = 1 << self.bits[j], 32 >> self.bits[j]
+        g_n = (1 << self.log_c) // w
+        tau = np.arange(self.threads)[:, None]
+        reg = np.arange(32)[None, :]
+        c, t = reg // f, reg % f
+        g, line = tau % g_n, tau // g_n
+        lr = self.log_stride(j)
+        r, p = line & ((1 << lr) - 1), line >> lr
+        row = (p << (self.bits[j] + lr)) + (t << lr) + r
+        col = g * w + c if self.real_side(j) else g + c * g_n
+        return row, col, p, r
+
+    def first_of_line(self, p):
+        out = 0
+        for j in range(self.last):
+            shift = self.log_stride(j) - self.bits[self.last]
+            out = out + (((p >> shift) & ((1 << self.bits[j]) - 1)) << self.done(j))
+        return out
+
+    def dft(self, x):
+        """The F-point DFT down the columns of the (F, C) tile x, stage by
+        stage as the kernel runs it; returns [frequency, column]."""
+        s = x.astype(np.complex128).copy()
+        f_all = 1 << self.log_f
+        for j in range(self.last + 1):
+            row, col, p, r = self.geometry(j)
+            f = 1 << self.bits[j]
+            v = s[row, col].reshape(self.threads, 32 // f, f)
+            v = np.fft.fft(v, axis=-1)
+            if j < self.last:
+                span = f << self.log_stride(j)
+                t = np.arange(f)[None, None, :]
+                v = v * np.exp(-2j * np.pi * (t * r[:, :, None] % span) / span)
+                s[row, col] = v.reshape(self.threads, 32)
+        k = self.first_of_line(p) + (np.arange(32)[None, :] % (1 << self.bits[self.last])
+                                     << self.done(self.last))
+        out = np.empty((f_all, 1 << self.log_c), np.complex128)
+        out[k, col] = v.reshape(self.threads, 32)
+        return out
+
+
+@pytest.mark.parametrize("log_f", range(2, 10))
+def test_butterfly_stages_compute_the_column_dft(log_f):
+    """csrc/butterfly.cu's stage split, line geometry and frequency of each
+    last-stage output (first_of_line), modelled in numpy for f32 and bf16,
+    forward and inverse: every stage's points are a permutation of the
+    (F, C) tile (no slot taken twice), and the stages compose to the F-point
+    DFT of every column within 1e-12."""
+    rng = np.random.default_rng(log_f)
+    for itemsize in (4, 2):
+        for inv in (False, True):
+            cfg = _BflyCfg(log_f, itemsize, inv)
+            assert all(1 <= b <= 5 for b in cfg.bits) and sum(cfg.bits) == log_f
+            assert cfg.bits[cfg.last if inv else 0] == min(log_f, 5 - cfg.log_e)
+            for j in range(cfg.last + 1):
+                row, col, _, _ = cfg.geometry(j)
+                slots = np.sort((row << cfg.log_c) + col, axis=None)
+                np.testing.assert_array_equal(slots, np.arange(cfg.pts))
+            x = rng.standard_normal((1 << log_f, 1 << cfg.log_c)) + 1j * rng.standard_normal(
+                (1 << log_f, 1 << cfg.log_c))
+            np.testing.assert_allclose(cfg.dft(x), np.fft.fft(x, axis=0), atol=1e-12 * x.size)
+
+
+@pytest.mark.parametrize("log_f,log_band", [(3, 12), (4, 12), (2, 13), (5, 11), (6, 12), (7, 13),
+                                            (8, 12), (8, 7), (9, 12), (9, 11), (9, 8)])
+def test_butterfly_reads_each_sample_and_writes_each_band_point_once(log_f, log_band):
+    """The butterfly kernels' device-memory maps over all tiles of a row
+    (tile r0 = C * tile): the forward reads sample 2 (n1 R + c) + {0, 1} of
+    its real-side stage, 2 E samples a load (one 16-byte vector, or a scalar
+    path at a ragged end), only below L, and writes band point (k, r) of its
+    last stage; the inverse reads every band point once and writes every
+    sample below L once. Aligned (L = N/2, N) and ragged (N/2 + 3, N - 5)."""
+    f, band = 1 << log_f, 1 << log_band
+    m = f * band
+    for itemsize in (4, 2):
+        for inv in (False, True):
+            cfg = _BflyCfg(log_f, itemsize, inv)
+            tiles = band >> cfg.log_c
+            real_j = cfg.last if inv else 0
+            band_j = 0 if inv else cfg.last
+            row, col, p, _ = cfg.geometry(real_j)
+            if inv:
+                row = cfg.first_of_line(p) + (np.arange(32)[None, :] % (1 << cfg.bits[real_j])
+                                              << cfg.done(real_j))
+            r0 = (np.arange(tiles) << cfg.log_c)[:, None, None]
+            point = (row << log_band)[None] + r0 + col[None]
+            for length in (m, 2 * m, m + 3, 2 * m - 5):
+                samples = np.concatenate([2 * point.ravel(), 2 * point.ravel() + 1])
+                got = np.bincount(samples[samples < length], minlength=2 * m)
+                np.testing.assert_array_equal(got, (np.arange(2 * m) < length).astype(int))
+            row, col, p, _ = cfg.geometry(band_j)
+            if not inv:
+                row = cfg.first_of_line(p) + (np.arange(32)[None, :] % (1 << cfg.bits[band_j])
+                                              << cfg.done(band_j))
+            got = np.bincount(((row << log_band)[None] + r0 + col[None]).ravel(), minlength=m)
+            np.testing.assert_array_equal(got, np.ones(m, int))
+
+
+@pytest.mark.parametrize("n,factors", [(65536, None), (2097152, None), (4194304, None),
+                                       (2097152, (16, 8, 32, 16, 16))])
+def test_butterfly_two_table_twiddles_match_outer_tw(n, factors):
+    """The butterfly's twiddles: root(e) = exp(-2 pi i e / M) = hi[e >> B]
+    lo[e mod 2^B], B = ceil(log2 M / 2), both tables cut from the plan's
+    split_tw (an entry past M/2 negated), multiplied in complex64. The outer
+    twiddle root(k0 r) against plan.outer_tw, every (k0, r), within 2e-7;
+    and as the kernels take a line's twiddles (line_twiddle: band k = k_p +
+    S t, t = 4a + u, as root(k_p r + 4a S r) root(u S r)) for every stride S
+    = F / f of a last stage, within 4e-7."""
+    p = tplan.make_plan(n, torch.float32, device=CPU, factors=factors)
+    m = p.inner
+    log_m = m.bit_length() - 1
+    b = (log_m + 1) // 2
+    w = p.split_tw.numpy()
+
+    def entry(e):
+        v = w[np.where(2 * e <= m, 2 * e, 2 * e - m)]
+        return np.where(2 * e <= m, v, -v).astype(np.complex64)
+
+    lo, hi = entry(np.arange(1 << b)), entry(np.arange(m >> b) << b)
+    root = lambda e: hi[e >> b] * lo[e & ((1 << b) - 1)]
+    k, r = np.arange(p.outer)[:, None], np.arange(p.band)[None, :]
+    want = p.outer_tw.numpy()
+    got = root(k * r)
+    assert got.dtype == np.complex64
+    assert np.abs(got - want).max() < 2e-7
+    for stride in 2 ** np.arange(int(np.log2(p.outer)) + 1):
+        t = k // stride
+        u = t % 4
+        step = stride * r
+        got = root((k % stride * r + (t - u) * step) & (m - 1)) * np.where(
+            u == 0, np.complex64(1), root((u * step) & (m - 1)))
+        assert np.abs(got - want).max() < 4e-7, stride
+
+
+@pytest.mark.parametrize("n,factors", [(65536, None), (131072, (32, 16, 16, 8)),
+                                       (2097152, None), (4194304, None)])
+def test_long_conv_bwd_units_take_each_pair_once(n, factors):
+    """csrc/long_conv_bwd.cu's map, modelled in numpy: pair c = 0 .. F/2 - 1
+    of a row holds the units (CTAs of a cluster, or halves of a block) of
+    bands 0 and F/2 (c = 0) or c and F - c; the unit of band k0 takes its
+    own slots j < R/2 (band 0: j <= R/2) and its partner's slot R - 1 - j
+    (band 0: (R - j) mod R, in itself). Every band slot is read and written
+    by one unit, it holds frequency k0 + F j, the partner slot frequency
+    M - k, and the partials P[k], P[M - k] are written once each but P[M/2]
+    (twice, by one thread, band 0 slot R/2) and P[M] (with P[0], from slot
+    0). The split twiddle split_tw[k0] times the row FFT's two-table root
+    exp(-2 pi i j / 2R) is exp(-2 pi i k / N) within 4e-7."""
+    p = tplan.make_plan(n, torch.float32, device=CPU, factors=factors)
+    f, r, m = p.outer, p.band, p.inner
+    c, rank = np.meshgrid(np.arange(f // 2), np.arange(2), indexing="ij")
+    k0 = np.where(c == 0, rank * (f // 2), np.where(rank == 0, c, f - c)).ravel()
+    np.testing.assert_array_equal(np.sort(k0), np.arange(f))
+    touched = np.zeros((f, r), int)
+    writes = []
+    for b in k0:
+        j = np.arange(r // 2 + 1 if b == 0 else r // 2)
+        jm = (r - j) % r if b == 0 else r - 1 - j
+        pb = 0 if b == 0 else (f // 2 if 2 * b == f else f - b)
+        k = b + f * j
+        np.testing.assert_array_equal(np.where((b == 0) & (j == 0), m, pb + f * jm), m - k)
+        touched[b, j] += 1
+        keep = ~((jm == j) & (pb == b))
+        touched[pb, jm[keep]] += 1
+        writes += [k, m - k]
+    np.testing.assert_array_equal(touched, np.ones((f, r), int))
+    counts = np.bincount(np.concatenate(writes), minlength=m + 1)
+    want = np.ones(m + 1, int)
+    want[m // 2] = 2
+    np.testing.assert_array_equal(counts, want)
+    # the split twiddle: split_tw[k0] (plan) x hi[j >> B] lo[j mod 2^B] of the
+    # band plan's table (row_fft.cuh, N' = 2R: B = ceil(log2(N') / 2))
+    ws = p.sub.split_tw.numpy()
+    bb = (int(np.log2(2 * r)) + 1) // 2
+    kk, jj = np.meshgrid(np.arange(f), np.arange(r // 2 + 1), indexing="ij")
+    hi_i = (jj >> bb) << bb
+    hi = np.where(hi_i <= r, ws[np.minimum(hi_i, r)], -ws[np.maximum(hi_i - r, 0)])
+    got = p.split_tw.numpy()[kk] * (hi.astype(np.complex64) * ws[jj & ((1 << bb) - 1)])
+    assert np.abs(got - np.exp(-2j * np.pi * (kk + f * jj) / n)).max() < 4e-7
+
+
 # --- fft_conv (kernels: _long_tiles, _butterfly_tiles) -----------------------
 
 F32_CASES = [("ungated", 2), ("gated", 1), ("padded", 3), ("gated_padded", 3), ("ungated", 1)]
