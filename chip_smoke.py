@@ -17,8 +17,8 @@ Phases, each of which fails the run by raising:
             or splash, every head_dim), a monarch_conv, a monarch_conv_bwd
             (the direct backward's too), a dk_finish, a direct_conv
             (tensor-core forward), a band_conv, a butterfly (either
-            direction) or a long_conv_bwd instance has a stack frame or
-            spills;
+            direction), a long_conv, a long_conv_bwd or a long_dk_finish
+            instance has a stack frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -34,7 +34,8 @@ Phases, each of which fails the run by raising:
             band route at N2 = 32768 and 131072, and the sequence-parallel
             conv at world size 1 (gated, padded, with grads) against the
             torch.fft oracle; the long kernels at every FFT size of
-            LONG_SIZES in f32 and bf16, long_spectrum twice bit for bit,
+            LONG_SIZES in f32 and bf16, long_spectrum, long_conv_inner (also
+            in place) and long_dk_finish twice bit for bit, long_spectrum
             also on two plans of an 8192-point band (F = 8 and 128); the
             direct kernels at every FFT size of DIRECT_SIZES, f32 and bf16,
             gated and not, B = 1, 3, 20 and 130 (two row blocks of the
@@ -246,7 +247,9 @@ Phases, each of which fails the run by raising:
             device time, and its two kernels alone on the butterfly's
             bands; the forward butterfly on those f32 taps (butterfly@f32);
             long_conv_bwd gated (long_conv_bwd@gated) beside the ungated
-            row; direct_conv at M2-BERT's shape and at N=512, L=256
+            row; long_dk_finish's kernel alone, partials to bands
+            (long_dk_finish@kernel), beside the whole call; direct_conv at
+            M2-BERT's shape and at N=512, L=256
             (direct_conv@512) with tc_bound (its two dense products, 4 L N
             operations a row), monarch_conv at both shapes (monarch_conv@256,
             @512), direct_conv_bwd (the row-FFT backward) and the same
@@ -305,10 +308,12 @@ TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 # Kernel instances that must build with no stack frame (phase_build): every
 # attention kernel, monarch_conv, monarch_conv_bwd (which the direct backward
 # runs too), dk_finish, the direct_conv forward on the tensor cores,
-# band_conv, both butterflies and the long backward's band kernel.
+# band_conv, both butterflies and the three band kernels of the long conv
+# (long_conv's, the long backward's and long_dk_finish's).
 STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "monarch_conv_bwd_kernel",
              "dkf16dk_finish_kernel", "direct_conv_tc_kernel", "band_conv_kernel",
-             "butterfly_fwd_kernel", "butterfly_inv_kernel", "long_conv_bwd_kernel")
+             "butterfly_fwd_kernel", "butterfly_inv_kernel", "long_conv_kernel",
+             "long_conv_bwd_kernel", "long_dk_finish_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -1309,7 +1314,8 @@ def _long_inputs(torch, g, dev):
 
 def _check_long(torch, plan, what, u, k, pre=None, post=None):
     """butterfly (both directions), long_conv_inner and long_spectrum against
-    their plain versions on the same inputs (long_spectrum twice, bit for
+    their plain versions on the same inputs (long_spectrum and
+    long_conv_inner twice, the second long_conv_inner in place, bit for
     bit), and the chain long_conv against the torch.fft oracle. Returns
     {kernel: max abs err}."""
     from flashfftconv_tpu_torch.ops import monarch, monarch_cuda
@@ -1330,6 +1336,8 @@ def _check_long(torch, plan, what, u, k, pre=None, post=None):
     z2r = monarch.long_conv_inner_plain(plan, zr, k_f)
     z2 = monarch_cuda.long_conv_inner(plan, zr, k_f)
     errs["long_conv"] = compare(f"long_conv_inner {what}", real(z2), real(z2r), f32_tol(real(z2r)))
+    if not torch.equal(real(z2), real(monarch_cuda.long_conv_inner(plan, zr, k_f, out=zr))):
+        raise AssertionError(f"long_conv_inner {what}: a second call, in place, differs")
     del z2, zr
     yr = monarch.butterfly_inverse_plain(plan, z2r, length, post, u.dtype)
     y = monarch_cuda.butterfly(plan, z2r, post, inverse=True, length=length, dtype=u.dtype)
@@ -1370,11 +1378,12 @@ def _check_long_bwd(torch, plan, what, u, k, pre, post, g):
     partials = ref[2]
     del got, ref
     dk_ref = monarch.long_dk_finish_plain(plan, partials, k_len)
+    dk = monarch_cuda.long_dk_finish(plan, partials, k_len)
     errs = {"long_conv_bwd": err,
-            "long_dk_finish": compare(f"long_dk_finish {what}: dk",
-                                      monarch_cuda.long_dk_finish(plan, partials, k_len), dk_ref,
-                                      f32_tol(dk_ref))}
-    del partials, dk_ref
+            "long_dk_finish": compare(f"long_dk_finish {what}: dk", dk, dk_ref, f32_tol(dk_ref))}
+    if not torch.equal(dk, monarch_cuda.long_dk_finish(plan, partials, k_len)):
+        raise AssertionError(f"long_dk_finish {what}: two calls differ")
+    del partials, dk_ref, dk
 
     def whole():
         du, dpre, dpost, parts = monarch_cuda.long_conv_bwd(plan, u, k_f, pre, post, dout)
@@ -4191,7 +4200,20 @@ def _time_long(torch, g):
             bound=_bound(spec_bytes + h * length * 4, outer_flops + band_flops + h * m * 10),
             overhead_ms=2 * bands_bytes / HBM_BYTES_PER_S * 1e3,
         )
-        del parts
+        # long_dk_finish's kernel alone: the dk spectrum in, its bands out
+        # (the unsplit and one band FFT a point); beside it the plain
+        # version of the same step
+        zk = torch.empty(h, plan.outer, plan.band, dtype=torch.complex64, device=dev)
+        dk_kernel = lambda: monarch_cuda._long_dk_finish_bands(plan, parts, zk)
+        dk_plain = lambda: monarch.monarch_idft(
+            plan.sub, monarch._natural_to_bands(plan, monarch._unsplit(plan, parts.sum(0))))
+        res["long_dk_finish@kernel"] = dict(
+            ms=_time_ms(torch, dk_kernel, iters=10),
+            plain_ms=_time_ms(torch, dk_plain, iters=1, warmup=1),
+            library_ms=None,
+            bound=_bound(spec_bytes + bands_bytes, band_flops + h * m * 10),
+        )
+        del parts, zk
         # The whole long backward of one conv as FftConvFunction runs it: u,
         # dout and the f32 taps in, du and f32 dk out; five M-point FFTs a
         # row. Bands, k_f and the dk spectrum cross device memory 14 times

@@ -1,7 +1,8 @@
-// Device code shared by the long-FFT kernels (butterfly.cu, long_conv.cu,
+// Device code shared by the long-FFT kernels (butterfly.cu,
 // long_spectrum.cu), for FFT sizes N from 65536 up, and the in-register line
 // transforms (line_fft, line_fft_const) that row_fft.cuh (spectrum.cu,
-// monarch_conv.cu) uses too.
+// monarch_conv.cu, and through long_band.cuh long_conv.cu and
+// long_conv_bwd.cu) uses too.
 //
 // The packed M = N/2 point complex signal is viewed as (F, R): the butterfly
 // kernels take the F-point DFT down the columns and multiply by the outer
@@ -12,19 +13,21 @@
 // The split step of the real FFT pairs frequency k with M - k, and
 //   M - (k0 + F*k1) = (F - k0) + F*(R - 1 - k1)     for 0 < k0 < F,
 //   M - F*k1        = F*((R - k1) mod R) (+ M at k1 = 0) for k0 = 0,
-// so the partner of band k0 is band F - k0. One block therefore owns the
-// band pair {kp, F - kp}, kp = 0..F/2, in two shared-memory rows; bands 0
-// and F/2 are their own partners and use one row. for_each_pair() walks
-// the frequency pairs of the block's bands.
+// so the partner of band k0 is band F - k0. One block of long_spectrum's
+// band kernel therefore owns the band pair {kp, F - kp}, kp = 0..F/2, in two
+// shared-memory rows, which band_fft() transforms stage by stage; bands 0
+// and F/2 are their own partners and use one row. for_each_pair() walks the
+// frequency pairs of the block's bands. (long_band.cuh holds the band unit
+// on the row FFT that the long conv's band kernels run on.)
 #pragma once
 
 #include "fft_common.cuh"
 
 namespace ffc {
 
-// Blocks an SM that the band kernels (long_conv, long_spectrum,
-// long_dk_finish) are compiled for; it caps their registers at 128.
-// Measured on an H100 at B=1, H=256, N=2^21: the band conv takes 9.7, 6.7,
+// Blocks an SM that long_spectrum's band kernel is compiled for; it caps its
+// registers at 128. Measured on an H100 at B=1, H=256, N=2^21 with the
+// long conv's band kernel of this design (before long_band.cuh): 9.7, 6.7,
 // 8.2 ms at 1, 2, 3 blocks.
 constexpr int kBandMinBlocks = 2;
 

@@ -17,39 +17,25 @@
 // before, the inverse butterfly of du, y and dk after.
 //
 // Design of long_conv_bwd (one instance per band R = 128 ... 4096 and
-// NEED_Y; the C entry dispatches on R). The split of the real FFT pairs
-// frequency k with M - k, which lies in band F - k0 (long_common.cuh), and
-// the three products need U and G at the same frequency, so the bands k0 and
-// F - k0 of one (b, h) row are handled together. A band is a unit: T = R / P
-// threads (P = 32 points a thread at R = 4096, 128 threads) and two rows of
-// R complex points in XOR-swizzled shared memory (U's and G's, 64 KB at
-// R = 4096). One block holds both units of a pair (128 KB at R = 4096, one
-// block an SM, up to 255 registers: no stack frame). A thread block cluster
-// of two CTAs, one unit each (64 KB, three CTAs an SM at 168 registers,
-// the partner's rows through distributed shared memory) ran 9.83 ms against
-// this layout's 8.08 on an H100 (PERF.md), and its gated instance
-// spilled. The parent design (four padded rows of 512 threads, band FFTs
-// stage by stage through shared memory with device-memory twiddles, the
-// split twiddle gathered at stride F) ran 14.24 ms.
-// A unit runs the R-point FFTs of its U band, then its G band, on the
-// in-register row FFT of row_fft.cuh (band_conv.cu's complex instance:
-// every index a compile-time constant, stage 0 loaded straight from device
-// memory at two complex points, 16 bytes, a load; natural order out). Then,
-// after a barrier, one pass over the frequency pairs: the unit of
-// band k0 takes its own slots j < R/2 (band 0: j <= R/2, and F/2: j < R/2,
-// are their own partners) and the partner's slot R - 1 - j: splits U and G,
-// stores P[k] = G conj(U) and P[M - k] (natural order, as long_dk_finish
-// and the plain version take them), and writes the conjugates of the
-// unsplit G conj(K) over G's slots and, when y is wanted, of U K over U's.
-// The split twiddle exp(-2 pi i (k0 + F j) / N) is split_tw[k0] of the plan
-// (one value a unit) times exp(-2 pi i j / 2R), an entry of the row FFT's
-// own root table (the band plan's split_tw): no gather. After a second
-// barrier each unit takes the inverse FFTs as forward FFTs of the
-// conjugates (stage 0 from shared memory) and stores the bands conjugated
-// and scaled by 1/R, 16 bytes a store. Blocks are channel-major (row h B +
-// b), so the B rows of a channel read k_f[h] from L2 after the first.
-// Every output has one writer: two calls give the same bits. du may be zg's
-// buffer and y zu's: a unit reads and writes only its own band. R = 8192
+// NEED_Y; the C entry dispatches on R), on the band unit of long_band.cuh.
+// The three products need U and G at the same frequency, so a unit holds two
+// rows of R complex points (U's and G's, 64 KB at R = 4096), and one block
+// holds both units of a pair (128 KB at R = 4096, one block an SM, up to 255
+// registers: no stack frame). A thread block cluster of two CTAs, one unit
+// each (64 KB, three CTAs an SM at 168 registers, the partner's rows through
+// distributed shared memory) ran 9.83 ms against this layout's 8.08 on an
+// H100 (PERF.md), and its gated instance spilled. The parent design (four
+// padded rows of 512 threads, band FFTs stage by stage through shared memory
+// with device-memory twiddles, the split twiddle gathered at stride F) ran
+// 14.24 ms.
+// A unit runs the R-point FFTs of its U band, then its G band. The pair pass
+// splits U and G, stores P[k] = G conj(U) and P[M - k] (natural order, as
+// long_dk_finish and the plain version take them), and writes the
+// conjugates of the unsplit G conj(K) over G's slots and, when y is wanted,
+// of U K over U's. Then each unit takes the inverse FFTs and stores du's band
+// and y's. Blocks are channel-major (row h B + b), so the B rows of a
+// channel read k_f[h] from L2 after the first. Every output has one writer:
+// two calls give the same bits. du may be zg's buffer and y zu's. R = 8192
 // (256 KB a pair) is refused; the default plans all have R = 4096, and a
 // custom plan with R = 8192 runs its backward under the default plan of its
 // size (ops/monarch_cuda.bwd_plan). Each band's FFTs are one loop copy in
@@ -64,10 +50,14 @@
 // long_dk_finish adds the B partials of a frequency in a fixed order. At
 // B = 1 the partials are the spectrum and cost nothing extra.
 
-// long_dk_finish: one block owns the band pair {kp, F - kp} of one channel in
-// two shared-memory rows, as the forward does: sums P over b, unsplits, runs
-// the inverse R-point FFTs and writes the bands (H, F, R) scaled by 1/R; the
-// inverse butterfly (f32 out, cut to k_len) finishes dk.
+// long_dk_finish (one instance per band R = 128 ... 8192: the backward runs
+// the finish under the forward's plan), on the same band unit with one row a
+// unit and the block of long_conv.cu. Its pair pass comes first and reads no
+// shared memory: the unit of band k0 sums the B partials of k and of M - k
+// in the order b = 0 .. B - 1, unsplits, and writes the conjugates into the
+// two rows; then each unit runs the inverse FFT of its band and stores it
+// scaled by 1/R into the (H, F, R) bands, which the inverse butterfly (f32
+// out, cut to k_len) takes to dk.
 //
 // Bounds on the H100 at B=1, H=256, N=2^21 (M=2^20). long_conv_bwd ungated
 // reads 4.3 GB of bands and 2.1 GB of k_f and writes 2.1 GB of du bands and
@@ -75,83 +65,16 @@
 // band in f32 (about 67 GFLOP, 1.0 ms at 67 TFLOP/s): bytes. long_dk_finish
 // reads 2.1 GB and writes 2.1 GB, 1.3 ms, against one FFT a band: bytes.
 
-#include "row_fft.cuh"
+#include "long_band.cuh"
 
 namespace ffc {
 
 namespace lbwd {
 
-using namespace row;
+using namespace lband;
 
 // Longest band of the backward: a unit's two rows must fit a third of an SM.
-constexpr int kMaxLogBand = 12;
-
-// Two complex points (16 bytes) a load and a store: stage 0's E = 2.
-template <int LOG_R>
-using CfgB = Cfg<LOG_R, 1>;
-
-// The row FFT's root table from the band plan's split_tw, by every thread of
-// the block (row::load_table strides by a whole row_fft block).
-template <class C>
-__device__ __forceinline__ void load_band_table(float2* tab, const float2* __restrict__ band_tw) {
-  for (int i = threadIdx.x; i < C::kLo + C::kHi; i += blockDim.x) {
-    if (i < C::kLo) {
-      tab[i] = band_tw[i];
-    } else {
-      const int m = (i - C::kLo) << C::kB;
-      const float2 w = band_tw[m <= C::kM ? m : m - C::kM];
-      tab[i] = m <= C::kM ? w : make_float2(-w.x, -w.y);
-    }
-  }
-}
-
-// The forward R-point FFT of the band at z (device memory) into s, natural
-// order; the caller synchronises before it reads s.
-template <class C>
-__device__ __forceinline__ void band_forward(const float2* __restrict__ z, float2* s,
-                                             const float2* tab, int tr) {
-  float2 v[C::kP];
-#pragma unroll
-  for (int j = 0; j < C::kF0; ++j) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(z) + j * C::kT + tr);
-    v[j] = make_float2(a.x, a.y);
-    v[C::kF0 + j] = make_float2(a.z, a.w);
-  }
-#pragma unroll
-  for (int e = 0; e < C::kE; ++e) first_stage_line<C>(v + e * C::kF0, s, tab, C::kE * tr + e);
-  mid_stages<C>(v, s, tab, tr);
-  last_stage<C>(v, s, tr);
-}
-
-// The forward FFT of the conjugated spectrum in s, in place (stage 0's lines
-// those of thread tr ^ 1, so that no slot address lives from it to the
-// store), then out[n] = conj(s[n]) / R, 16 bytes a store.
-template <class C>
-__device__ __forceinline__ void band_inverse_store(float2* s, float2* __restrict__ out,
-                                                   const float2* tab, int tr) {
-  float2 v[C::kP];
-  {
-    const int t0 = tr ^ (C::kT > 1 ? 1 : 0);
-#pragma unroll
-    for (int e = 0; e < C::kE; ++e)
-#pragma unroll
-      for (int j = 0; j < C::kF0; ++j) v[e * C::kF0 + j] = s[swz(j * C::kR0 + C::kE * t0 + e)];
-#pragma unroll
-    for (int e = 0; e < C::kE; ++e) first_stage_line<C>(v + e * C::kF0, s, tab, C::kE * t0 + e);
-  }
-  mid_stages<C>(v, s, tab, tr);
-  last_stage<C>(v, s, tr);
-  __syncthreads();
-  const int t = fresh_tid() % C::kT;
-  const float scale = 1.f / (float)C::kM;
-  float4* o = reinterpret_cast<float4*>(out);
-#pragma unroll
-  for (int q = 0; q < C::kP / C::kE; ++q) {
-    const int n0 = C::kE * (t + C::kT * q);
-    const float2 a = s[swz(n0)], c = s[swz(n0 + 1)];
-    o[t + C::kT * q] = make_float4(a.x * scale, -a.y * scale, c.x * scale, -c.y * scale);
-  }
-}
+constexpr int kMaxBwdLogBand = 12;
 
 // Block c = 0 .. F/2 - 1 of row bh holds the units (rank 0 and 1, T threads
 // each) of bands 0 and F/2 (c = 0; each its own partner) or c and F - c.
@@ -173,7 +96,7 @@ __global__ void __launch_bounds__(CfgB<LOG_R>::kT * 2, 1)
   const int c = pair % half;
   const int bh = pair / half;
   const int h = bh / batch, b = bh - h * batch;
-  const int k0 = c == 0 ? rank * half : (rank == 0 ? c : outer - c);
+  const int k0 = unit_band(c, rank, outer);
   const int m = outer * kR;
   const size_t row = ((size_t)b * channels + h) * (size_t)m;
   const size_t own = row + (size_t)k0 * kR;
@@ -194,13 +117,12 @@ __global__ void __launch_bounds__(CfgB<LOG_R>::kT * 2, 1)
     const float2* kh = k_f + (size_t)h * (m + 1);
     float2* part = partials + ((size_t)b * channels + h) * (size_t)(m + 1);
     const float2 w0 = split_tw[k0];
-    const bool zero = k0 == 0;
-    const int n = zero ? kR / 2 + 1 : kR / 2;
+    const int n = pass_slots(k0, kR);
 #pragma unroll 4
     for (int j = tr; j < n; j += kT) {
       const int k = k0 + outer * j;
-      const int jm = zero ? (kR - j) & (kR - 1) : kR - 1 - j;
-      const bool first = zero && j == 0;
+      const int jm = partner_slot(k0, j, kR);
+      const bool first = k0 == 0 && j == 0;
       const float2 w = cmul(w0, root<C>(tab, j));
       const float2 kk = __ldg(kh + k);
       const float2 km = __ldg(kh + m - k);
@@ -260,57 +182,77 @@ cudaError_t launch(const void* zu, const void* zg, void* du, void* y, void* part
 
 }  // namespace lbwd
 
-__global__ void __launch_bounds__(kThreads, kBandMinBlocks)
+namespace ldk {
+
+using namespace lband;
+
+// Block c = 0 .. F/2 - 1 of channel h holds the units rank = 0, 1 of bands
+// unit_band(c, rank, F).
+template <int LOG_R>
+__global__ void __launch_bounds__(PairBlock<LOG_R>::kThreads, PairBlock<LOG_R>::kMinBlocks)
     long_dk_finish_kernel(const float2* __restrict__ partials, float2* __restrict__ out,
-                          const float2* __restrict__ tw, const float2* __restrict__ split_tw,
-                          const float2* __restrict__ roots_g, int batch, int channels, int outer,
-                          Plan p) {
-  extern __shared__ float2 s[];
-  __shared__ float2 roots[kMaxFactor];
-  const int band = p.m;
-  const int m = outer * band;
-  const int pairs = outer / 2 + 1;
-  const int kp = blockIdx.x % pairs;
-  const size_t h = blockIdx.x / pairs;
-  const bool two = kp != 0 && 2 * kp != outer;
-  float2* sa = s;
-  float2* sb = s + band_slots(band);
-  const size_t row_stride = (size_t)channels * (size_t)(m + 1);
-  const float2* part = partials + h * (size_t)(m + 1);
-  out += h * (size_t)m;
-  load_roots(roots, roots_g);
-  for_each_pair(kp, outer, sa, sb, p, [&](int k, float2* pk, float2* pm, bool first) {
-    float2 yk = make_float2(0.f, 0.f), ym = make_float2(0.f, 0.f);
-    for (int b = 0; b < batch; ++b) {
-      const float2 a = part[b * row_stride + k];
-      const float2 c = part[b * row_stride + m - k];
-      yk = make_float2(yk.x + a.x, yk.y + a.y);
-      ym = make_float2(ym.x + c.x, ym.y + c.y);
-    }
-    float2 zk, zm;
-    unsplit_pair(yk, ym, __ldg(split_tw + k), zk, zm);
-    *pk = zk;
-    if (!first) *pm = zm;
-  });
+                          const float2* __restrict__ split_tw, const float2* __restrict__ band_tw,
+                          int batch, int channels, int outer) {
+  using C = CfgB<LOG_R>;
+  constexpr int kR = C::kM, kT = C::kT;
+  extern __shared__ float4 smem_raw[];
+  float2* smem = reinterpret_cast<float2*>(smem_raw);
+  float2* tab = smem + 2 * kR;
+  load_band_table<C>(tab, band_tw);
   __syncthreads();
-  band_fft<true>(sa, sb, two, p, tw, roots);
-  const float scale = 1.f / (float)band;
-  float2* oa = out + (size_t)kp * band;
-  float2* ob = out + (size_t)(outer - kp) * band;
-  for (int n = threadIdx.x; n < band; n += blockDim.x) {
-    const float2 a = sa[slot(n)];
-    oa[n] = make_float2(a.x * scale, a.y * scale);
-    if (two) {
-      const float2 c = sb[slot(n)];
-      ob[n] = make_float2(c.x * scale, c.y * scale);
+
+  // The pair pass: P summed over b = 0 .. B - 1 at k and M - k, unsplit.
+  {
+    const int rank = threadIdx.x / kT, tr = threadIdx.x % kT;
+    const int c = blockIdx.x % (outer / 2);
+    const int h = blockIdx.x / (outer / 2);
+    const int k0 = unit_band(c, rank, outer);
+    const int m = outer * kR;
+    float2* s = smem + rank * kR;
+    float2* ps = c == 0 ? s : smem + (rank ^ 1) * kR;
+    const size_t row_stride = (size_t)channels * (size_t)(m + 1);
+    const float2* part = partials + (size_t)h * (m + 1);
+    const float2 w0 = split_tw[k0];
+    const int n = pass_slots(k0, kR);
+    for (int j = tr; j < n; j += kT) {
+      const int k = k0 + outer * j;
+      const bool first = k0 == 0 && j == 0;
+      float2 yk = make_float2(0.f, 0.f), ym = make_float2(0.f, 0.f);
+      for (int b = 0; b < batch; ++b) {
+        const float2 a = __ldg(part + b * row_stride + k);
+        const float2 e = __ldg(part + b * row_stride + m - k);
+        yk = make_float2(yk.x + a.x, yk.y + a.y);
+        ym = make_float2(ym.x + e.x, ym.y + e.y);
+      }
+      float2 zk, zm;
+      unsplit_pair(yk, ym, cmul(w0, root<C>(tab, j)), zk, zm);
+      s[swz(j)] = make_float2(zk.x, -zk.y);
+      if (!first) ps[swz(partner_slot(k0, j, kR))] = make_float2(zm.x, -zm.y);
     }
+  }
+  __syncthreads();
+  {
+    const int tid = fresh_tid();
+    band_inverse_store<C>(smem + tid / kT * kR, out + unit_offset<C>(tid / kT, 1, channels, outer),
+                          tab, tid % kT);
   }
 }
 
-inline bool check_bands(const Plan& p, int max_band, long long rows, int outer) {
-  return p.m <= max_band && rows >= 1 && outer >= 2 && !(outer & (outer - 1)) &&
-         (long long)outer * p.m <= (1LL << 21) && rows * (outer / 2 + 1) <= 0x7fffffffLL;
+template <int LOG_R>
+cudaError_t launch(const void* partials, void* out, const void* split_tw, const void* band_tw,
+                   int batch, int channels, int outer, cudaStream_t stream) {
+  using PB = PairBlock<LOG_R>;
+  auto kernel = long_dk_finish_kernel<LOG_R>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PB::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)((long long)channels * (outer / 2)), PB::kThreads, PB::kSmem, stream>>>(
+      (const float2*)partials, (float2*)out, (const float2*)split_tw, (const float2*)band_tw,
+      batch, channels, outer);
+  return cudaGetLastError();
 }
+
+}  // namespace ldk
 
 }  // namespace ffc
 
@@ -326,7 +268,7 @@ extern "C" int ffc_long_conv_bwd(const void* zu, const void* zg, void* du, void*
                                  int band, void* stream) {
   auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
   if (batch < 1 || channels < 1 || !pow2(outer) || outer < 2 || !pow2(band) || band < 128 ||
-      band > (1 << ffc::lbwd::kMaxLogBand) || (long long)outer * band > (1LL << 21) ||
+      band > (1 << ffc::lbwd::kMaxBwdLogBand) || (long long)outer * band > (1LL << 21) ||
       (long long)batch * channels * outer > 0x7fffffffLL ||
       ((reinterpret_cast<uintptr_t>(zu) | reinterpret_cast<uintptr_t>(zg) |
         reinterpret_cast<uintptr_t>(du) | reinterpret_cast<uintptr_t>(y)) & 15))
@@ -349,25 +291,30 @@ extern "C" int ffc_long_conv_bwd(const void* zu, const void* zg, void* du, void*
 }
 
 // partials: (batch, channels, outer * band + 1) complex64; out: (channels,
-// outer, band) complex64 for the inverse butterfly.
-extern "C" int ffc_long_dk_finish(const void* partials, void* out, const void* tw,
-                                  const void* split_tw, const void* roots, int batch,
-                                  int channels, int outer, int n_stages, int f0, int f1, int f2,
-                                  int f3, void* stream) {
-  const int factors[4] = {f0, f1, f2, f3};
-  ffc::Plan p;
-  if (!ffc::make_plan(n_stages, factors, &p) || batch < 1 ||
-      !ffc::check_bands(p, ffc::kMaxBand, channels, outer))
+// outer, band) complex64 on a 16-byte boundary, for the inverse butterfly.
+// split_tw and band_tw as for ffc_long_conv_bwd.
+extern "C" int ffc_long_dk_finish(const void* partials, void* out, const void* split_tw,
+                                  const void* band_tw, int batch, int channels, int outer,
+                                  int band, void* stream) {
+  if (batch < 1 || channels < 1 || !ffc::lband::bands_ok(channels, outer, band) ||
+      !ffc::lband::aligned16(out))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ffc::band_pair_smem_bytes(p.m);
-  cudaError_t err = cudaFuncSetAttribute(ffc::long_dk_finish_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((long long)channels * (outer / 2 + 1));
-  ffc::long_dk_finish_kernel<<<blocks, ffc::kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)partials, (float2*)out, (const float2*)tw, (const float2*)split_tw,
-      (const float2*)roots, batch, channels, outer, p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define FFC_DK_CASE(LOG_R)                                                                    \
+  case 1 << LOG_R:                                                                            \
+    return (int)ffc::ldk::launch<LOG_R>(partials, out, split_tw, band_tw, batch, channels,    \
+                                        outer, st);
+  switch (band) {
+    FFC_DK_CASE(7)
+    FFC_DK_CASE(8)
+    FFC_DK_CASE(9)
+    FFC_DK_CASE(10)
+    FFC_DK_CASE(11)
+    FFC_DK_CASE(12)
+    FFC_DK_CASE(13)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFC_DK_CASE
 }
 
 FFC_EXPORT_ERROR_STRING()

@@ -41,10 +41,10 @@ SIGNATURES = {
                       "ffc_depthwise_bwd_tiles": [_I] * 3},
     "butterfly": {"ffc_butterfly_fwd": [_P] * 4 + [_I] * 5 + [_P],
                   "ffc_butterfly_inv": [_P] * 4 + [_I] * 5 + [_P]},
-    "long_conv": {"ffc_long_conv": [_P] * 6 + [_I] * 8 + [_P]},
+    "long_conv": {"ffc_long_conv": [_P] * 5 + [_I] * 4 + [_P]},
     "long_spectrum": {"ffc_long_spectrum": [_P] * 6 + [_I] * 7 + [_P]},
     "long_conv_bwd": {"ffc_long_conv_bwd": [_P] * 8 + [_I] * 4 + [_P],
-                      "ffc_long_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
+                      "ffc_long_dk_finish": [_P] * 4 + [_I] * 4 + [_P]},
     "direct_conv": {"ffc_direct_conv": [_P] * 6 + [_I] * 5 + [_P]},
     "band_conv": {"ffc_band_conv": [_P] * 4 + [_I] * 4 + [_P]},
     "flash_attn": {"ffc_flash_attn_fwd": [_P] * 7 + [_I] * 10 + [_P]},

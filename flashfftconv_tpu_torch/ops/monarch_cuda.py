@@ -504,16 +504,16 @@ def long_conv_inner(
             raise ValueError(f"out shape {tuple(out.shape)} != z shape {tuple(z.shape)}")
     if b * h == 0:
         return out
-    sub = plan.sub
+    z = _aligned16(z)
+    dst = out if out.data_ptr() % 16 == 0 else torch.empty_like(z)
     lib = _build.load("long_conv")
     rc = lib.ffc_long_conv(
-        z.data_ptr(), out.data_ptr(), k_f.data_ptr(), sub.tw_flat.data_ptr(),
-        plan.split_tw.data_ptr(), sub.roots.data_ptr(), b, h, plan.outer, *_factor_args(sub),
-        _stream(z.device),
+        z.data_ptr(), dst.data_ptr(), k_f.data_ptr(), plan.split_tw.data_ptr(),
+        plan.sub.split_tw.data_ptr(), b, h, plan.outer, plan.band, _stream(z.device),
     )
     _build.check(lib, rc, "long_conv kernel")
     long_conv_inner.launches += 1
-    return out
+    return out if dst is out else out.copy_(dst)
 
 
 long_conv_inner.launches = 0
@@ -649,15 +649,23 @@ def long_dk_finish(plan: FftPlan, partials: torch.Tensor, k_len: int) -> torch.T
     if b == 0:
         return torch.zeros(h, k_len, dtype=torch.float32, device=partials.device)
     z = torch.empty(1, h, plan.outer, plan.band, dtype=torch.complex64, device=partials.device)
-    sub = plan.sub
+    _long_dk_finish_bands(plan, partials, z[0])
+    return butterfly(plan, z, inverse=True, length=k_len, dtype=torch.float32)[0]
+
+
+def _long_dk_finish_bands(plan: FftPlan, partials: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The ``long_dk_finish`` kernel alone: the (H, F, R) bands of the dk
+    spectrum (the partials summed over B, unsplit, inverse R-point FFT with
+    1/R) into ``out``, 16-byte aligned, for the inverse ``butterfly``."""
+    b, h = partials.shape[:2]
     lib = _build.load("long_conv_bwd")
     rc = lib.ffc_long_dk_finish(
-        partials.data_ptr(), z.data_ptr(), sub.tw_flat.data_ptr(), plan.split_tw.data_ptr(),
-        sub.roots.data_ptr(), b, h, plan.outer, *_factor_args(sub), _stream(partials.device),
+        partials.data_ptr(), out.data_ptr(), plan.split_tw.data_ptr(),
+        plan.sub.split_tw.data_ptr(), b, h, plan.outer, plan.band, _stream(partials.device),
     )
     _build.check(lib, rc, "long_dk_finish kernel")
     long_dk_finish.launches += 1
-    return butterfly(plan, z, inverse=True, length=k_len, dtype=torch.float32)[0]
+    return out
 
 
 long_dk_finish.launches = 0

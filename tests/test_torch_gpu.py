@@ -507,6 +507,56 @@ def test_cuda_long_conv_bwd_inner_matches_plain_bit_for_bit(n, factors):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,factors", [(n, None) for n in LONG_SIZES]
+                         + [(131072, (8, 32, 16, 16)), (131072, (32, 16, 16, 8)),
+                            (131072, (4, 32, 8, 8, 8))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_long_conv_inner_and_dk_finish_match_plain_bit_for_bit(n, factors, dtype):
+    """long_conv_inner and long_dk_finish against their plain versions at B =
+    1, 2 and 3 (long_dk_finish also at 8 partials), at every LONG_SIZES plan
+    and at bands of 8192, 2048 and 512, in f32 and bf16 plans; long_conv_inner
+    in place (out = z) and on a z and an out off 16-byte alignment; two calls
+    give the same bits."""
+    _needs_card()
+    dev = torch.device("cuda")
+    p = tplan.make_plan(n, dtype, device=dev, factors=factors)
+    g = torch.Generator(device=dev).manual_seed(n + 20)
+    real = torch.view_as_real
+    for b, h in [(1, 3), (2, 2), (3, 1)]:
+        z = torch.randn(b, h, p.outer, p.band, dtype=torch.complex64, device=dev, generator=g)
+        k_f = torch.randn(h, p.inner + 1, dtype=torch.complex64, device=dev, generator=g)
+        n0 = monarch_cuda.long_conv_inner.launches
+        got = monarch_cuda.long_conv_inner(p, z, k_f)
+        again = monarch_cuda.long_conv_inner(p, z, k_f)
+        inplace = z.clone()
+        monarch_cuda.long_conv_inner(p, inplace, k_f, out=inplace)
+        flat = torch.empty(z.numel() + 1, dtype=torch.complex64, device=dev)
+        off = flat[1:].view(z.shape)
+        off.copy_(z)
+        monarch_cuda.long_conv_inner(p, off, k_f, out=off)
+        torch.cuda.synchronize()
+        assert monarch_cuda.long_conv_inner.launches == n0 + 4
+        _close(real(got), real(monarch.long_conv_inner_plain(p, z, k_f)), torch.float32)
+        for c in (again, inplace, off):
+            assert torch.equal(real(got), real(c))
+    for b in (1, 2, 3, 8):
+        parts = torch.randn(b, 2, p.inner + 1, dtype=torch.complex64, device=dev, generator=g)
+        k_len = n // 2 - 3
+        n0 = monarch_cuda.long_dk_finish.launches
+        dk = monarch_cuda.long_dk_finish(p, parts, k_len)
+        again = monarch_cuda.long_dk_finish(p, parts, k_len)
+        bands = monarch_cuda._long_dk_finish_bands(p, parts, torch.empty(
+            2, p.outer, p.band, dtype=torch.complex64, device=dev))
+        torch.cuda.synchronize()
+        assert monarch_cuda.long_dk_finish.launches == n0 + 3
+        _close(dk, monarch.long_dk_finish_plain(p, parts, k_len), torch.float32)
+        want = monarch.monarch_idft(p.sub, monarch._natural_to_bands(
+            p, monarch._unsplit(p, parts.sum(0))))
+        _close(real(bands), real(want), torch.float32)
+        assert torch.equal(dk, again)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [16, 64, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_direct_kernels_match_plain(n, dtype):

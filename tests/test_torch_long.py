@@ -377,26 +377,53 @@ def test_butterfly_two_table_twiddles_match_outer_tw(n, factors):
         assert np.abs(got - want).max() < 4e-7, stride
 
 
-@pytest.mark.parametrize("n,factors", [(65536, None), (131072, (32, 16, 16, 8)),
-                                       (2097152, None), (4194304, None)])
-def test_long_conv_bwd_units_take_each_pair_once(n, factors):
-    """csrc/long_conv_bwd.cu's map, modelled in numpy: pair c = 0 .. F/2 - 1
-    of a row holds the units (CTAs of a cluster, or halves of a block) of
-    bands 0 and F/2 (c = 0) or c and F - c; the unit of band k0 takes its
-    own slots j < R/2 (band 0: j <= R/2) and its partner's slot R - 1 - j
-    (band 0: (R - j) mod R, in itself). Every band slot is read and written
-    by one unit, it holds frequency k0 + F j, the partner slot frequency
-    M - k, and the partials P[k], P[M - k] are written once each but P[M/2]
-    (twice, by one thread, band 0 slot R/2) and P[M] (with P[0], from slot
-    0). The split twiddle split_tw[k0] times the row FFT's two-table root
+def _check_band_unit_source():
+    """csrc/long_band.cuh's unit map: its three functions are the expressions
+    the model below computes."""
+    src = (_build.SOURCE_DIR / "long_band.cuh").read_text()
+    body = lambda fn: " ".join(re.search(
+        r"constexpr int " + fn + r"\((.*?)\)\s*\{\s*return (.*?);\s*\}", src, re.S).groups())
+    assert body("unit_band") == (
+        "int c, int side, int outer c == 0 ? side * (outer / 2) : (side == 0 ? c : outer - c)")
+    assert body("pass_slots") == "int k0, int band k0 == 0 ? band / 2 + 1 : band / 2"
+    assert body("partner_slot") == (
+        "int k0, int j, int band k0 == 0 ? (band - j) & (band - 1) : band - 1 - j")
+
+
+# (kernel, FFT size, factors); the long backward's cases keep their ids
+_UNIT_CASES = [(kernel, n, factors) for kernel in ("long_conv_bwd", "long_conv", "long_dk_finish")
+               for n, factors in ((65536, None), (131072, (32, 16, 16, 8)), (2097152, None),
+                                  (4194304, None))]
+_UNIT_IDS = [("" if kernel == "long_conv_bwd" else kernel + "-")
+             + f"{n}-{'None' if factors is None else 'factors1'}"
+             for kernel, n, factors in _UNIT_CASES]
+
+
+@pytest.mark.parametrize("kernel,n,factors", _UNIT_CASES, ids=_UNIT_IDS)
+def test_long_conv_bwd_units_take_each_pair_once(kernel, n, factors):
+    """The band unit map of csrc/long_band.cuh that long_conv_bwd_kernel,
+    long_conv_kernel and long_dk_finish_kernel run on, modelled in numpy:
+    block c = 0 .. F/2 - 1 of a row holds the units (rank 0 and 1) of bands
+    0 and F/2 (c = 0) or c and F - c; every band is taken once. The unit of
+    band k0 takes its own slots j < R/2 (band 0: j <= R/2) and its partner's
+    slot R - 1 - j (band 0: (R - j) mod R, in itself). Every band slot is
+    read and written by one unit in the pair pass, it holds frequency k0 +
+    F j, the partner slot frequency M - k, and the frequencies k, M - k that
+    the pass reads (k_f in long_conv, the partials in long_dk_finish) or
+    writes (the backward's partials) are each taken once but M/2 (twice, by
+    one thread, band 0 slot R/2) and M (with 0, from slot 0). The split
+    twiddle split_tw[k0] times the row FFT's two-table root
     exp(-2 pi i j / 2R) is exp(-2 pi i k / N) within 4e-7."""
+    _check_band_unit_source()
+    src = (_build.SOURCE_DIR / f"{'long_conv' if kernel == 'long_conv' else 'long_conv_bwd'}.cu")
+    assert all(f in src.read_text() for f in ("unit_band(", "pass_slots(", "partner_slot("))
     p = tplan.make_plan(n, torch.float32, device=CPU, factors=factors)
     f, r, m = p.outer, p.band, p.inner
     c, rank = np.meshgrid(np.arange(f // 2), np.arange(2), indexing="ij")
     k0 = np.where(c == 0, rank * (f // 2), np.where(rank == 0, c, f - c)).ravel()
     np.testing.assert_array_equal(np.sort(k0), np.arange(f))
     touched = np.zeros((f, r), int)
-    writes = []
+    freqs = []
     for b in k0:
         j = np.arange(r // 2 + 1 if b == 0 else r // 2)
         jm = (r - j) % r if b == 0 else r - 1 - j
@@ -406,9 +433,9 @@ def test_long_conv_bwd_units_take_each_pair_once(n, factors):
         touched[b, j] += 1
         keep = ~((jm == j) & (pb == b))
         touched[pb, jm[keep]] += 1
-        writes += [k, m - k]
+        freqs += [k, m - k]
     np.testing.assert_array_equal(touched, np.ones((f, r), int))
-    counts = np.bincount(np.concatenate(writes), minlength=m + 1)
+    counts = np.bincount(np.concatenate(freqs), minlength=m + 1)
     want = np.ones(m + 1, int)
     want[m // 2] = 2
     np.testing.assert_array_equal(counts, want)
