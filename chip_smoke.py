@@ -17,8 +17,9 @@ Phases, each of which fails the run by raising:
             or splash, every head_dim), a monarch_conv, a monarch_conv_bwd
             (the direct backward's too), a dk_finish, a direct_conv
             (tensor-core forward), a band_conv, a butterfly (either
-            direction), a long_conv, a long_conv_bwd or a long_dk_finish
-            instance has a stack frame or spills;
+            direction), a long_conv, a long_conv_bwd, a long_dk_finish or
+            a depthwise lane-window instance (forward or backward) has a
+            stack frame or spills;
   identity  prints the card's name and power limit;
   kernels   holds each kernel, forward and backward, against its plain
             PyTorch version on the card, at the main paths' shapes and at
@@ -71,7 +72,11 @@ Phases, each of which fails the run by raising:
             H=128, L=2048, N=4096, f32), the forward against the torch.fft
             oracle; smem_probe_touch (16 KB and the largest working size) and
             smem_copy (256 MiB of f32 at 16 KB, 64 KB and the largest tile)
-            against their plain versions bit for bit;
+            against their plain versions bit for bit; both depthwise
+            kernels at M2-BERT's and HyenaDNA's shapes and at ragged ones
+            (L=100 at B=8 and 1, odd L, K=5, 7 and 9, out_len != L, BLH, f32,
+            bf16, f16, an input off a 16-byte boundary), the backward twice
+            bit for bit;
   serve     builds Hyena-125M (12 layers, d_model 768, l_max 8192, vocab
             50257, bf16, random weights from --seed) and answers 4 requests
             (prompts of 512..4096 tokens, 8 new tokens each, greedy) through
@@ -233,7 +238,11 @@ Phases, each of which fails the run by raising:
             whole dk path (monarch_conv_bwd + dk_finish against rfft x2,
             irfft, the batch sum and irfft); dk_finish on the partials
             monarch_conv_bwd leaves at the Hyena and ListOps shapes and at
-            M2-BERT's (rows dk_finish@256, dk_finish@4096); the splash kernels
+            M2-BERT's (rows dk_finish@256, dk_finish@4096); depthwise and
+            depthwise_bwd at M2-BERT's and HyenaDNA's shapes too (rows
+            depthwise@bert, depthwise@dna, depthwise_bwd@bert,
+            depthwise_bwd@dna), each with its device time from a CUDA graph
+            beside a grouped F.conv1d's or aten.convolution_backward's; the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, and the splash forward at
@@ -308,12 +317,14 @@ TF32_PASSES = 3  # split-TF32 products of f32 operands: lo hi + hi lo + hi hi
 # Kernel instances that must build with no stack frame (phase_build): every
 # attention kernel, monarch_conv, monarch_conv_bwd (which the direct backward
 # runs too), dk_finish, the direct_conv forward on the tensor cores,
-# band_conv, both butterflies and the three band kernels of the long conv
-# (long_conv's, the long backward's and long_dk_finish's).
+# band_conv, both butterflies, the three band kernels of the long conv
+# (long_conv's, the long backward's and long_dk_finish's) and the lane-window
+# bodies of the short depthwise conv, forward and backward.
 STACKLESS = ("attn_fwd", "attn_bwd", "monarch_conv_kernel", "monarch_conv_bwd_kernel",
              "dkf16dk_finish_kernel", "direct_conv_tc_kernel", "band_conv_kernel",
              "butterfly_fwd_kernel", "butterfly_inv_kernel", "long_conv_kernel",
-             "long_conv_bwd_kernel", "long_dk_finish_kernel")
+             "long_conv_bwd_kernel", "long_dk_finish_kernel", "depthwise_flat_kernel",
+             "depthwise_bwd_line_kernel")
 
 # Hyena-125M serving shapes (examples/lm/train.py preset): one forward runs
 # each kernel once per layer.
@@ -709,6 +720,7 @@ def phase_kernels(torch, g):
     compare("depthwise BLH B=2 L=1000 D=300 K=5 padding=(3, 1) f32",
             dw.depthwise(xb, wb, bb, (3, 1), False), ref, f32_tol(ref))
     torch.cuda.synchronize()
+    _check_dw_shapes(torch, g)
 
     log(f"monarch_conv_bwd + dk_finish: B={B} H={D_MODEL} L={L_MAX} N={N_FFT} bf16 ungated")
     dout = (torch.randn(B, D_MODEL, L_MAX, generator=g) * 0.02).to(dev, torch.bfloat16)
@@ -1641,8 +1653,62 @@ def _check_dw_bwd(torch, what, x, w, dout, pad, is_bhl):
                   f32_tol(rdu) if x.dtype == torch.float32 else lowp_tol(rdu))
     compare(f"depthwise_bwd {what}: dk", dk, rdk, sum_tol(adk))
     compare(f"depthwise_bwd {what}: dbias", db, rdb, sum_tol(adb))
+    again = dw.depthwise_bwd(x, w, dout, pad, is_bhl)
+    if not all(torch.equal(a, b) for a, b in zip((du, dk, db), again)):
+        raise AssertionError(f"depthwise_bwd {what}: two calls differ")
     torch.cuda.synchronize()
     return err
+
+
+def _poison(torch, like):
+    """Free a NaN-filled block of like's size, which the caching allocator
+    hands to the next allocation of that size: an output the kernel leaves
+    partly unwritten then shows as NaN, not as an older result's values."""
+    torch.full_like(like, math.nan)
+
+
+def _check_dw_shapes(torch, g):
+    """Both depthwise kernels against their plain versions at M2-BERT's
+    shape (B=128, D=2304, L=128, padding 1) and HyenaDNA's (B=1, D=768,
+    L=1,048,576, causal), and at ragged ones: L=100 (bf16 rows 200 bytes
+    apart, off 16 bytes) and odd L, K=5 and 7, out_len != L, BLH, f32, bf16
+    and f16, an input one element off a 16-byte boundary; the backward
+    twice, bit for bit (_check_dw_bwd)."""
+    from flashfftconv_tpu_torch.ops import depthwise as dw
+
+    dev = torch.device("cuda")
+    for (b, d, length), k, pad, is_bhl, dtype, skew in (
+        ((BERT_B, 3 * BERT_D_MODEL, BERT_L), 3, (1, 1), True, torch.bfloat16, 0),
+        ((1, 3 * DNA_D_MODEL, DNA_L_MAX), 3, (2, 0), True, torch.bfloat16, 0),
+        ((8, 3 * BERT_D_MODEL, 100), 3, (1, 1), True, torch.bfloat16, 0),
+        ((1, 3 * BERT_D_MODEL, 100), 3, (1, 1), True, torch.bfloat16, 0),
+        ((3, 37, 4097), 3, (2, 0), True, torch.float16, 0),
+        ((5, 64, 1024), 5, (2, 2), True, torch.float16, 0),
+        ((5, 64, 1024), 7, (6, 0), True, torch.float32, 0),
+        ((4, 300, 512), 7, (3, 3), True, torch.bfloat16, 1),
+        ((3, 37, 1031), 5, (1, 3), True, torch.bfloat16, 0),
+        ((2, 300, 1000), 7, (0, 9), False, torch.bfloat16, 0),
+        ((2, 64, 256), 9, (4, 4), True, torch.float32, 0),
+    ):
+        xs = (b, d, length) if is_bhl else (b, length, d)
+        n = b * d * length
+        x = torch.randn(n + skew, generator=g).to(dev, dtype)[skew:].view(xs)
+        w = (torch.randn((d, k) if is_bhl else (k, d), generator=g) * 0.3).to(dev)
+        bias = torch.randn(d, generator=g).to(dev)
+        out_len = length + sum(pad) - k + 1
+        what = (f"{'BHL' if is_bhl else 'BLH'} B={b} D={d} L={length} K={k} padding={pad} "
+                f"{dtype}{' off 16 bytes' if skew else ''}")
+        ref = dw.depthwise_plain(x, w, bias, pad, is_bhl)
+        _poison(torch, ref)
+        compare(f"depthwise {what}", dw.depthwise(x, w, bias, pad, is_bhl), ref,
+                f32_tol(ref) if dtype == torch.float32 else lowp_tol(ref))
+        del ref
+        dd = torch.randn(b * d * out_len + skew, generator=g).to(dev, dtype)[skew:].view(
+            (b, d, out_len) if is_bhl else (b, out_len, d))
+        _poison(torch, x)
+        _check_dw_bwd(torch, what, x, w, dd, pad, is_bhl)
+        del x, dd
+        torch.cuda.empty_cache()
 
 
 def _counters(names=("spectrum", "monarch_conv", "depthwise")):
@@ -3442,10 +3508,7 @@ def _fft_flops(m: int, n_stages: int) -> float:
 
 
 def phase_timing(torch, g):
-    import torch.nn.functional as F
-
     from flashfftconv_tpu_torch.ops import _build, monarch, monarch_cuda
-    from flashfftconv_tpu_torch.ops import depthwise as dw
     from flashfftconv_tpu_torch.ops.plan import make_plan
 
     dev = torch.device("cuda")
@@ -3509,18 +3572,6 @@ def phase_timing(torch, g):
                 device_ms=_graph_ms(torch, lambda: monarch_cuda.monarch_conv(p, uu, kf)),
                 library_device_ms=_graph_ms(torch, fft_conv),
             )
-        # depthwise: read x, write out; 2K operations an output
-        nbytes = x.numel() * 2 * 2
-        flops = x.numel() * (2 * 3 + 1)
-        wb = w[:, None, :].to(x.dtype)
-        res["depthwise"] = dict(
-            ms=_time_ms(torch, lambda: dw.depthwise(x, w, bias, (2, 0), True)),
-            plain_ms=_time_ms(torch, lambda: dw.depthwise_plain(x, w, bias, (2, 0), True),
-                              iters=5),
-            library_ms=_time_ms(torch, lambda: F.conv1d(
-                x, wb, bias.to(x.dtype), padding=2, groups=x.shape[1])[..., :L_MAX]),
-            bound=_bound(nbytes, flops),
-        )
         # monarch_conv_bwd (ungated, as on the main paths): the function reads
         # u, dout and k_f and writes du and one (H, M+1) dk spectrum, summed
         # over B as the TPU kernel does on chip; three FFTs a row, about 60
@@ -3633,29 +3684,11 @@ def phase_timing(torch, g):
                 whole_bound=_bound(3 * io + spec + hh * k_len * 4, flops + dk_flops),
             )
         del u_lo, kf_lo, d_lo, bwd_parts
-        # depthwise_bwd: read x and dout, write du; 2K operations a position
-        # for du, 2K for dk and 1 for dbias
-        dy = torch.randn(x.shape, generator=g).to(dev, x.dtype)
-        nbytes = x.numel() * 2 * 3
-        flops = x.numel() * (4 * 3 + 1)
-        dy_full = F.pad(dy, (0, 2))  # the grouped conv with padding 2 outputs L + 2
-
-        def conv_bwd():
-            return torch.ops.aten.convolution_backward(
-                dy_full, x, wb, [x.shape[1]], [1], [2], [1], False, [0], x.shape[1],
-                [True, True, True])
-
-        res["depthwise_bwd"] = dict(
-            ms=_time_ms(torch, lambda: dw.depthwise_bwd(x, w, dy, (2, 0), True)),
-            plain_ms=_time_ms(torch, lambda: dw.depthwise_bwd_plain(x, w, dy, (2, 0), True),
-                              iters=5),
-            library_ms=_time_ms(torch, conv_bwd),
-            bound=_bound(nbytes, flops),
-        )
-    del k, u, x, k_f, dout, dy, dy_full
+    del k, u, x, k_f, dout
     torch.cuda.empty_cache()
-    for rows in (_time_direct(torch, g), _time_long(torch, g), _time_band(torch, g),
-                 _time_attention(torch, g), _time_splash(torch, g), _time_smem(torch, g)):
+    for rows in (_time_depthwise(torch, g), _time_direct(torch, g), _time_long(torch, g),
+                 _time_band(torch, g), _time_attention(torch, g), _time_splash(torch, g),
+                 _time_smem(torch, g)):
         if set(rows) & set(res):
             raise AssertionError(f"timing rows named twice: {sorted(set(rows) & set(res))}")
         res.update(rows)
@@ -3690,6 +3723,85 @@ def phase_timing(torch, g):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"timing {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){extra}")
+    return res
+
+# The short depthwise conv's shapes on the main paths (BHL, K=3, bf16): name
+# suffix, (B, D, L) and padding. Hyena-125M's (models/hyena.py:65, causal),
+# M2-BERT's (models/m2_bert.py:89, "same") and HyenaDNA large-1m's.
+DW_SHAPES = (("", (B, 3 * D_MODEL, L_MAX), (2, 0)),
+             ("@bert", (BERT_B, 3 * BERT_D_MODEL, BERT_L), (1, 1)),
+             ("@dna", (1, 3 * DNA_D_MODEL, DNA_L_MAX), (2, 0)))
+
+
+def _time_depthwise(torch, g):
+    """depthwise and depthwise_bwd at each DW_SHAPES shape: back-to-back
+    calls (ms), a CUDA graph's device time a call (device_ms), the plain
+    versions, and the library: a grouped F.conv1d (forward) and
+    aten.convolution_backward (du, dk and dbias) with their device times.
+    Bounds: the forward reads x and writes out, 2K + 1 operations an output;
+    the backward reads x and dout and writes du, dk and dbias, 4K + 1
+    operations a position. The (D, tiles, K + 1) f32 partials that the
+    backward writes and reads back are its design's own traffic
+    (overhead_ms), in neither bound."""
+    import torch.nn.functional as F
+
+    from flashfftconv_tpu_torch.ops import _build
+    from flashfftconv_tpu_torch.ops import depthwise as dw
+
+    dev = torch.device("cuda")
+    res = {}
+    for suffix, (b, d, length), pad in DW_SHAPES:
+        k = 3
+        x = torch.randn(b, d, length, generator=g).to(dev, torch.bfloat16)
+        w = (torch.rand(d, k, generator=g) * 2 / math.sqrt(d)).to(dev)
+        bias = (torch.randn(d, generator=g) * 0.1).to(dev)
+        dy = torch.randn(b, d, length, generator=g).to(dev, torch.bfloat16)
+        wb, bb = w[:, None, :].to(x.dtype), bias.to(x.dtype)
+        # the grouped conv pads both ends by the larger pad; a causal conv
+        # keeps its first L outputs, and its backward takes dout zero after
+        p = max(pad)
+        dy_full = F.pad(dy, (0, 2 * p - sum(pad)))
+        tiles = _build.load("depthwise_bwd").ffc_depthwise_bwd_tiles(b, length)
+        parts = d * tiles * (k + 1) * 4
+        big = x.numel() > 1 << 28  # the plain versions' f32 temporaries
+        reps = dict(iters=2, warmup=1) if big else dict(iters=5)
+
+        def fwd(x=x, w=w, bias=bias, pad=pad):
+            return dw.depthwise(x, w, bias, pad, True)
+
+        def lib_fwd(x=x, wb=wb, bb=bb, p=p, length=length):
+            return F.conv1d(x, wb, bb, padding=p, groups=x.shape[1])[..., :length]
+
+        def bwd(x=x, w=w, dy=dy, pad=pad):
+            return dw.depthwise_bwd(x, w, dy, pad, True)
+
+        def lib_bwd(x=x, wb=wb, dy_full=dy_full, p=p):
+            return torch.ops.aten.convolution_backward(
+                dy_full, x, wb, [x.shape[1]], [1], [p], [1], False, [0], x.shape[1],
+                [True, True, True])
+
+        with torch.inference_mode():
+            res["depthwise" + suffix] = dict(
+                ms=_time_ms(torch, fwd),
+                device_ms=_graph_ms(torch, fwd),
+                plain_ms=_time_ms(torch, lambda: dw.depthwise_plain(x, w, bias, pad, True),
+                                  **reps),
+                library_ms=_time_ms(torch, lib_fwd),
+                library_device_ms=_graph_ms(torch, lib_fwd),
+                bound=_bound(x.numel() * 2 * 2, x.numel() * (2 * k + 1)),
+            )
+            res["depthwise_bwd" + suffix] = dict(
+                ms=_time_ms(torch, bwd),
+                device_ms=_graph_ms(torch, bwd),
+                plain_ms=_time_ms(torch, lambda: dw.depthwise_bwd_plain(x, w, dy, pad, True),
+                                  **reps),
+                library_ms=_time_ms(torch, lib_bwd),
+                library_device_ms=_graph_ms(torch, lib_bwd),
+                bound=_bound(x.numel() * 2 * 3 + d * (k + 1) * 4, x.numel() * (4 * k + 1)),
+                overhead_ms=2 * parts / HBM_BYTES_PER_S * 1e3,
+            )
+        del x, dy, dy_full
+        torch.cuda.empty_cache()
     return res
 
 

@@ -38,7 +38,7 @@ SIGNATURES = {
                          "ffc_dk_finish": [_P] * 5 + [_I] * 8 + [_P]},
     "depthwise": {"ffc_depthwise": [_P] * 4 + [_I] * 8 + [_P]},
     "depthwise_bwd": {"ffc_depthwise_bwd": [_P] * 7 + [_I] * 8 + [_P],
-                      "ffc_depthwise_bwd_tiles": [_I] * 3},
+                      "ffc_depthwise_bwd_tiles": [_I] * 2},
     "butterfly": {"ffc_butterfly_fwd": [_P] * 4 + [_I] * 5 + [_P],
                   "ffc_butterfly_inv": [_P] * 4 + [_I] * 5 + [_P]},
     "long_conv": {"ffc_long_conv": [_P] * 5 + [_I] * 4 + [_P]},

@@ -157,8 +157,8 @@ def depthwise_bwd(x, weights, dout, padding, is_bhl: bool):
     if b * d == 0:
         return du, dk.zero_(), dbias.zero_()
     lib = _build.load("depthwise_bwd")
-    tiles = lib.ffc_depthwise_bwd_tiles(length, out_len, int(is_bhl))
-    partials = torch.empty(b * tiles, d, k + 1, dtype=torch.float32, device=x.device)
+    tiles = lib.ffc_depthwise_bwd_tiles(b, out_len)
+    partials = torch.empty(d, tiles, k + 1, dtype=torch.float32, device=x.device)
     rc = lib.ffc_depthwise_bwd(
         x.data_ptr(), dout.data_ptr(), w.data_ptr(), du.data_ptr(), partials.data_ptr(),
         dk.data_ptr(), dbias.data_ptr(), b, d, length, k, left, out_len, int(is_bhl),

@@ -286,6 +286,55 @@ def test_cuda_depthwise_bwd_matches_plain(is_bhl, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_depthwise_kernels_at_model_and_ragged_shapes(is_bhl, dtype):
+    """Both depthwise kernels against their plain versions at M2-BERT's rows
+    (B=16 of its 128, D=2304, L=128, padding 1), a long causal row (L=65536,
+    32 tiles a channel), L=100 and odd L (bf16 rows 200 bytes apart, off 16
+    bytes), K=5 and 7, out_len != L ((0, 9) and (1, 3)), and an input and
+    dout one element off a 16-byte boundary; dk and dbias the same bits from
+    two calls."""
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(20)
+    for (b, d, length), k, pad, skew in [((16, 2304, 128), 3, (1, 1), 0),
+                                         ((1, 768, 65536), 3, (2, 0), 0),
+                                         ((8, 768, 100), 3, (1, 1), 0),
+                                         ((1, 64, 100), 3, (2, 0), 0),
+                                         ((3, 37, 1031), 3, (2, 0), 0),
+                                         ((4, 64, 1024), 5, (2, 2), 0),
+                                         ((4, 64, 1024), 7, (6, 0), 0),
+                                         ((2, 300, 1000), 7, (0, 9), 0),
+                                         ((3, 37, 1031), 5, (1, 3), 0),
+                                         ((2, 128, 512), 3, (2, 0), 1)]:
+        out_len = length + sum(pad) - k + 1
+        x = torch.randn(b * d * length + skew, generator=g).to(dev, dtype)[skew:].view(
+            (b, d, length) if is_bhl else (b, length, d))
+        dy = torch.randn(b * d * out_len + skew, generator=g).to(dev, dtype)[skew:].view(
+            (b, d, out_len) if is_bhl else (b, out_len, d))
+        w = torch.randn((d, k) if is_bhl else (k, d), generator=g).to(dev) * 0.3
+        bias = torch.randn(d, generator=g).to(dev)
+        n0, m0 = tdw.depthwise.launches, tdw.depthwise_bwd.launches
+        # NaN blocks of the outputs' sizes, freed: the caching allocator hands
+        # them to the outputs, so a part left unwritten shows
+        torch.full_like(dy, float("nan"))
+        y = tdw.depthwise(x, w, bias, pad, is_bhl)
+        torch.full_like(x, float("nan"))
+        du, dk, db = tdw.depthwise_bwd(x, w, dy, pad, is_bhl)
+        again = tdw.depthwise_bwd(x, w, dy, pad, is_bhl)
+        torch.cuda.synchronize()
+        assert (tdw.depthwise.launches, tdw.depthwise_bwd.launches) == (n0 + 1, m0 + 2)
+        assert all(torch.equal(a, r) for a, r in zip((du, dk, db), again))
+        _close(y, tdw.depthwise_plain(x, w, bias, pad, is_bhl), dtype)
+        rdu, rdk, rdb = tdw.depthwise_bwd_plain(x, w, dy, pad, is_bhl)
+        _, adk, adb = tdw.depthwise_bwd_plain(x.abs(), w, dy.abs(), pad, is_bhl)
+        _close(du, rdu, dtype)
+        for a, r, mag in ((dk, rdk, adk), (db, rdb, adb)):
+            assert float((a - r).abs().max()) <= 1e-5 * float(mag.abs().max()) + 1e-7
+
+
+@pytest.mark.gpu
 def test_cuda_lm_grads_match_cpu():
     """A tiny f32 LM with the same weights: every parameter's grad on the
     card (backward kernels) within 1e-4 of its largest |grad| on the CPU."""

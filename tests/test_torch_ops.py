@@ -572,6 +572,45 @@ def test_depthwise_errors():
         tff.depthwise_conv1d(x, w3, impl="cuda")
 
 
+@pytest.mark.parametrize("is_bhl", [True, False])
+@pytest.mark.parametrize("b,length,pad", [(8, 128, (1, 1)), (1, 8192, (2, 0))],
+                         ids=["m2bert_rows", "causal_8192"])
+def test_depthwise_model_rows_match_jax_pallas(is_bhl, b, length, pad):
+    """The main paths' row shapes, cut to 128 channels: M2-BERT's short rows
+    (L=128, padding 1, B=8) and a causal row of 8192 (two L tiles of the
+    JAX kernels). depthwise_plain and DepthwiseFunction against
+    _pallas_depthwise; depthwise_bwd_plain and DepthwiseFunction's backward
+    against _pallas_depthwise_bwd (interpret mode), f32. The output and du
+    at atol 1e-4; dk and dbias, sums over B*L in another order, within 1e-5
+    of the sum of their terms' magnitudes."""
+    d, k = 128, 3
+    x, w, bias, dout = _dw_data(np.random.default_rng(length + b), is_bhl, b, d, length, k, pad)
+    w_kd = jnp.asarray(w.T if is_bhl else w)
+    ref = _np(jdw._pallas_depthwise(jnp.asarray(x), w_kd, jnp.asarray(bias), pad, is_bhl,
+                                    jnp.float32))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, w, bias)]
+    y = tff.depthwise_conv1d(*ts, padding=pad, is_bhl=is_bhl)
+    assert type(y.grad_fn).__name__ == "DepthwiseFunctionBackward"
+    np.testing.assert_allclose(y.detach().numpy(), ref, atol=1e-4)
+    np.testing.assert_allclose(tdw.depthwise_plain(*(t.detach() for t in ts), pad, is_bhl).numpy(),
+                               ref, atol=1e-4)
+    rdu, rdk, rdb = (_np(a) for a in jdw._pallas_depthwise_bwd(
+        jnp.asarray(x), jnp.asarray(dout), w_kd, pad, is_bhl))
+    if is_bhl:
+        rdk = rdk.T
+    plain = tdw.depthwise_bwd_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                    torch.from_numpy(dout), pad, is_bhl)
+    grads = torch.autograd.grad(y, ts, torch.from_numpy(dout))
+    _, mag_k, mag_b = tdw.depthwise_bwd_plain(torch.from_numpy(np.abs(x)), torch.from_numpy(w),
+                                              torch.from_numpy(np.abs(dout)), pad, is_bhl)
+    for got in (plain, grads):
+        np.testing.assert_allclose(got[0].numpy(), rdu, atol=1e-4, err_msg="du")
+        np.testing.assert_allclose(got[1].numpy(), rdk, atol=1e-5 * float(mag_k.max()),
+                                   err_msg="dk")
+        np.testing.assert_allclose(got[2].numpy(), rdb, atol=1e-5 * float(mag_b.max()),
+                                   err_msg="dbias")
+
+
 def test_depthwise_module_matches_jax_module():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 16, 40)).astype(np.float32)
