@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with an H100:
                                     grad_parity,dna,dna_train,long_parity,bert,bert_train,
                                     bert_parity,gpt_serve,gpt_train,gpt_parity,window_serve,
                                     window_train,window_parity,h3_serve,h3_train,
-                                    listops_train,mixers_parity,smem_probe,timing[,profile]]
+                                    listops_train,mixers_parity,vit_serve,vit_train,
+                                    vit_parity,attn_bert,attn_bert_train,attn_bert_parity,
+                                    moe_train,moe_parity,sparse_parity,smem_probe,
+                                    timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -46,7 +49,10 @@ Phases, each of which fails the run by raising:
             their plain versions at the GPT-2 shape (B=8, H=12, L=1024, D=64,
             f32, causal), at D=128, at ragged L (1, 63, 65, 1000), in bf16,
             non-causal, with an ALiBi bias (and its grad), with segment ids
-            from pack_sequences, and two backwards bit for bit; the three
+            from pack_sequences, and two backwards bit for bit; the same
+            three non-causal at ViT-B/16's shape (B=8, H=12, L=197, D=64,
+            bf16 and f32) and at BERT-base's (B=16, H=12, L=128, D=64, f32,
+            segment ids of a padding mask, rows of 64-128 tokens); the three
             flash and the three splash kernels at B*H = 65792 (B=257, H=256,
             L=64, D=64, f32, causal and a window of 16), past one grid
             dimension's 65535; the six attention kernels at head_dim 256,
@@ -219,6 +225,50 @@ Phases, each of which fails the run by raising:
             mixer, and a 2-layer f32 ListOps LongConvModel (L=2048, k_len =
             N = 4096), on the card and the CPU: logits within 2e-3, grads
             within 1e-3 of each parameter's largest |grad|;
+  vit_serve ViT-B/16 at google/vit-base-patch16-224's sizes (224 x 224
+            images, patch 16: L = 197 with the cls token, d_model 768, 12
+            layers, 12 heads of 64, 1000 classes, bf16 with f32 attention,
+            random weights from --seed) classifies B=64 seeded images, 1
+            warm-up and 5 timed forwards; checks finite logits and exactly 12
+            flash forward launches a forward; prints forward time, images/s
+            and peak memory;
+  vit_train trains it at B=128 (DeiT-B's per-GPU batch) on one seeded batch:
+            cross entropy, clip 1.0, AdamW lr 1.25e-4 (DeiT's 5e-4 x B / 512),
+            weight decay 0.05, 2 warm-up and 5 timed steps; checks finite,
+            falling loss and exactly 36 flash launches a step (12 forward,
+            12 dK/dV, 12 dQ); prints step time, images/s and peak memory;
+  vit_parity  a 2-layer f32 ViT at L=197 (d_model 256, 4 heads of 64) on
+            the card and the CPU: logits within 2e-3, grads within 1e-3 of
+            each parameter's largest |grad|;
+  attn_bert the attention BertForMaskedLM at bert-base-uncased's sizes
+            (vocab 30522, 12 layers, d_model 768, 12 heads of 64, d_inner
+            3072, l_max 512, f32, random weights) takes 1 warm-up and 5 timed
+            forwards at B=128, L=128 (M2-BERT's bert shape) of corpus bytes,
+            row lengths drawn in 64-128 and the tails masked by
+            attention_mask (segment ids), 15% masked; checks finite logits
+            and 12 flash forward launches a forward; prints forward time,
+            tokens/ms, seqs/s and peak memory;
+  attn_bert_train  trains it with bert_train's recipe (clip 1.0, AdamW lr
+            8e-4, wd 1e-5, the MLM loss, labels -100 on pads, dropout 0.1)
+            for 2 warm-up and 5 timed steps; checks finite, falling loss and
+            36 flash launches a step; prints step time, tokens/s and peak
+            memory;
+  attn_bert_parity  a 2-layer f32 attention BERT (d_model 256, 4 heads of
+            64) at L=128, B=4 with padded rows on the card and the CPU:
+            logits at the valid positions within 2e-3, MLM grads within 1e-3
+            of each parameter's largest |grad|;
+  moe_train Hyena-125M (the train phase's model) with MoE MLPs (8 experts,
+            top-2, capacity 1.25; 0.52G parameters) takes the train phase's
+            2 + 5 steps at B=4, L=8192; checks finite, falling loss and the
+            train phase's Monarch and depthwise launches a step; prints step
+            time, tokens/s, peak memory, the share of token choices dropped
+            and the load-balancing loss by layer;
+  moe_parity  a 2-layer f32 Hyena MoE LM (d_model 128, l_max 1024, 8
+            experts, top-2) at B=2, L=128 on the card and the CPU: logits
+            within 2e-3, grads within 1e-3 of each largest |grad|;
+  sparse_parity  partial_fft_conv through a direct plan (N=512) and a
+            Monarch plan (N=16384), and frequency_sparse_fft_conv, on the
+            card against the CPU (2e-5 of the largest |y|);
   smem_probe  the shared-memory probe (utils/smem_probe.py, the counterpart
             of benchmarks/tpu_vmem_probe.py): dynamic shared memory sizes of
             16-228 KB until the first refusal, each launched size returning
@@ -231,7 +281,11 @@ Phases, each of which fails the run by raising:
             ListOps', rows monarch_conv@f32 and monarch_conv@4096, each with
             a CUDA graph's device time beside the library's); the flash
             kernels also at head_dim 256, 640 and 1024 (rows
-            flash_attn_*@256, @640, @1024, B=4, H=8, L=2048, f32, causal);
+            flash_attn_*@256, @640, @1024, B=4, H=8, L=2048, f32, causal)
+            and at the encoders' training shapes (rows flash_attn_*@vit,
+            B=128, H=12, L=197, D=64, f32, non-causal; flash_attn_*@bert,
+            B=128, H=12, L=128, D=64, f32, padding segment ids, SDPA with the
+            boolean mask);
             monarch_conv_bwd also at H3's f32-I/O shape and ListOps' (rows
             monarch_conv_bwd@f32, monarch_conv_bwd@4096), each beside the
             same kernel with one partial a row (group 1, c1_ms) and the
@@ -275,7 +329,9 @@ Phases, each of which fails the run by raising:
             forward and one HyenaDNA train step, then one M2-BERT forward and
             one M2-BERT train step, then one GPT-2 124M forward and train
             step, then one windowed GPT forward and train step, then one
-            H3-125M forward and train step and one ListOps train step.
+            H3-125M forward and train step and one ListOps train step, then
+            one ViT-B/16 and one BERT-base forward and train step and one
+            Hyena-125M MoE train step.
 
 Prints one JSON line of kernels (launches counted in the train phase, those
 of the three long forward kernels in the dna phase, those of the two long
@@ -306,7 +362,9 @@ HERE = Path(__file__).resolve().parent
 PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity",
           "grad_parity", "dna", "dna_train", "long_parity", "bert", "bert_train", "bert_parity",
           "gpt_serve", "gpt_train", "gpt_parity", "window_serve", "window_train", "window_parity",
-          "h3_serve", "h3_train", "listops_train", "mixers_parity", "smem_probe", "timing")
+          "h3_serve", "h3_train", "listops_train", "mixers_parity", "vit_serve", "vit_train",
+          "vit_parity", "attn_bert", "attn_bert_train", "attn_bert_parity", "moe_train",
+          "moe_parity", "sparse_parity", "smem_probe", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -392,6 +450,26 @@ WIN_TRAIN_B, WIN_TRAIN_WARMUP, WIN_TRAIN_TIMED = 8, 2, 5
 LISTOPS_B, LISTOPS_LAYERS, LISTOPS_D, LISTOPS_L = 64, 6, 128, 2048
 LISTOPS_VOCAB, LISTOPS_CLASSES, LISTOPS_MIN_LEN = 16, 10, 500
 LISTOPS_WARMUP, LISTOPS_TIMED = 2, 5
+
+# ViT-B/16 at google/vit-base-patch16-224's published sizes (config.json:
+# image_size 224, patch_size 16, hidden 768, 12 layers, 12 heads of 64,
+# intermediate 3072, 1000 classes), a cls-token classifier: L = 197 tokens,
+# one flash forward a layer (its q, k, v are f32: the attention's Dense
+# layers have no dtype and promote, as in flax). vit_train's B = 128 is
+# DeiT-B's per-GPU batch.
+VIT_IMG, VIT_PATCH, VIT_D_MODEL, VIT_N_LAYER, VIT_HEADS, VIT_CLASSES = 224, 16, 768, 12, 12, 1000
+VIT_L = (VIT_IMG // VIT_PATCH) ** 2 + 1
+VIT_SERVE_B, VIT_WARMUP, VIT_TIMED = 64, 1, 5
+VIT_TRAIN_B, VIT_TRAIN_WARMUP, VIT_TRAIN_TIMED = 128, 2, 5
+# The attention BERT at bert-base-uncased's published sizes (config.json:
+# vocab 30522, hidden 768, 12 layers, 12 heads of 64, intermediate 3072,
+# max_position_embeddings 512, type_vocab_size 2), f32 as the JAX default, at
+# M2-BERT's shape (B = 128, L = 128) with rows of 64-128 tokens padded.
+ABERT_VOCAB, ABERT_HEADS, ABERT_L_MAX, ABERT_MIN_LEN = 30522, 12, 512, 64
+ABERT_WARMUP, ABERT_TIMED = 1, 5
+ABERT_TRAIN_WARMUP, ABERT_TRAIN_TIMED = 2, 5
+# Hyena-125M with MoE MLPs: 8 experts, top-2, the default capacity 1.25.
+MOE_KWARGS = {"n_experts": 8, "top_k": 2}
 
 KERNELS = {
     "spectrum": dict(
@@ -568,6 +646,11 @@ WIN_LAUNCHES = {"splash_attn_fwd": GPT_N_LAYER, "flash_attn_fwd": 0}
 WIN_TRAIN_LAUNCHES = {"splash_attn_fwd": GPT_N_LAYER, "splash_attn_bwd_dkv": GPT_N_LAYER,
                       "splash_attn_bwd_dq": GPT_N_LAYER, "flash_attn_fwd": 0,
                       "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+# Launches in one ViT-B/16 or attention-BERT forward (one flash forward a
+# layer) and in one train step (and the dK/dV and dQ kernels once a layer).
+VIT_LAUNCHES = ABERT_LAUNCHES = {"flash_attn_fwd": VIT_N_LAYER, "flash_attn_bwd_dkv": 0,
+                                 "flash_attn_bwd_dq": 0}
+VIT_TRAIN_LAUNCHES = ABERT_TRAIN_LAUNCHES = {name: VIT_N_LAYER for name in VIT_LAUNCHES}
 # Launches in one H3-125M forward (two long convs a layer, each its kernel's
 # spectrum and one monarch_conv; no short conv) and in one train step (the
 # backward recomputes each spectrum, then monarch_conv_bwd and dk_finish).
@@ -1027,6 +1110,13 @@ def _check_attention(torch, what, q, k, v, do, causal, bias=None, seg=None):
     return e_fwd, e_dkv, e_dq
 
 
+def _padding_segments(torch, g, b, l, dev):
+    """int32 (b, l) segment ids of a padding mask: 1 on a row's first n
+    positions (n drawn in [ABERT_MIN_LEN, l]), 0 on its padded tail."""
+    n = torch.randint(ABERT_MIN_LEN, l + 1, (b, 1), generator=g)
+    return (torch.arange(l)[None] < n).int().to(dev)
+
+
 def _check_attention_kernels(torch, g):
     """The attention kernels at the GPT-2 shapes of the main path (H=12,
     L=1024, D=64, f32, causal; B=8 as gpt_serve's forwards give it, B=16 as
@@ -1081,6 +1171,18 @@ def _check_attention_kernels(torch, g):
     args = _attn_inputs(torch, g, dev, seg.shape[0], 4, 1024, 64, torch.float32)
     _check_attention(torch, f"segment ids of {len(lengths)} sequences packed in "
                      f"{seg.shape[0]} rows of 1024", *args, True, seg=seg)
+
+    # The encoders' shapes, non-causal: ViT-B/16's (L = 197, the last 64-row
+    # tile 5 rows; bf16, and f32, the dtype its path runs) and BERT-base's
+    # (L = 128, segment ids from a padding mask: pads attend only to pads).
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_attention(torch, f"ViT-B/16 shape B=8 H=12 L={VIT_L} D=64 {dtype} non-causal",
+                         *_attn_inputs(torch, g, dev, 8, VIT_HEADS, VIT_L, 64, dtype), False)
+    seg = _padding_segments(torch, g, 16, BERT_L, dev)
+    _check_attention(torch, f"BERT-base shape B=16 H=12 L={BERT_L} D=64 f32 non-causal, segment "
+                     f"ids of rows of {seg.sum(1).tolist()} tokens and their padding",
+                     *_attn_inputs(torch, g, dev, 16, ABERT_HEADS, BERT_L, 64, torch.float32),
+                     False, seg=seg)
 
     b, h, l, d = 257, 256, 64, 64
     log(f"flash attention: B={b} H={h} (B*H = {b * h}, past one grid dimension's 65535) "
@@ -1739,14 +1841,15 @@ def _counters(names=("spectrum", "monarch_conv", "depthwise")):
     return {name: wrappers[name] for name in names}
 
 
-def _hyena_125m(torch, seed, dev, mixer_kwargs=None, dtype=None, mixer="hyena"):
-    """The hyena-125M preset's LM (mixer="h3": H3-125M)."""
+def _hyena_125m(torch, seed, dev, mixer_kwargs=None, dtype=None, mixer="hyena", **kw):
+    """The hyena-125M preset's LM (mixer="h3": H3-125M); ``kw`` go to the
+    model (``moe_kwargs``)."""
     from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
 
     return ConvLMHeadModel(
         d_model=D_MODEL, n_layer=N_LAYER, d_inner=4 * D_MODEL, vocab_size=VOCAB, l_max=L_MAX,
         mixer=mixer, mixer_kwargs=mixer_kwargs, dtype=dtype or torch.bfloat16, device=dev,
-        generator=torch.Generator().manual_seed(seed),
+        generator=torch.Generator().manual_seed(seed), **kw,
     )
 
 
@@ -2789,30 +2892,8 @@ def _lm_train(torch, seed, np, what, model, b, length, warmup, timed, want):
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=n_steps)
     step = make_train_step(model, opt, sched, clip=1.0)
     batches = _train_batches(torch, np, seed, "cuda", n_steps, b, length)
-    counters = _counters(want)
-    torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    losses, step_ms, per_step = [], [], []
-    for x, y in batches:
-        before = {name: fn.launches for name, fn in counters.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = float(step(x, y)["loss"])
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
-    launches = {name: fn.launches for name, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite train loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train loss did not fall: {losses}")
-    for i, counts in enumerate(per_step):
-        if counts != want:
-            raise AssertionError(f"step {i} launched {counts}, expected {want}")
+    losses, step_ms, launches, peak = _train_loop(torch, what, step, batches, want)
     timed_ms = step_ms[warmup:]
     med = float(np.median(timed_ms))
     res = {"steps": n_steps, "losses": losses, "step_ms": step_ms, "step_ms_median": med,
@@ -2822,7 +2903,7 @@ def _lm_train(torch, seed, np, what, model, b, length, warmup, timed, want):
         f"losses {' '.join(f'{v:.4f}' for v in losses)}")
     log(f"{what}: step median {med:.2f} ms max {max(timed_ms):.2f} ms over {timed} timed steps "
         f"({res['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.2f} GiB, launches a "
-        f"step {per_step[-1]}")
+        f"step {want}")
     return res
 
 
@@ -3120,7 +3201,7 @@ def _check_card_vs_cpu(what, out, grads):
     if set(grads["cuda"]) != set(grads["cpu"]):
         raise AssertionError(f"{what}: card and CPU grads cover other parameters")
     ratio, worst = _worst_grad(grads["cuda"], grads["cpu"])
-    log(f"mixers_parity: {what}, card (kernels) vs CPU (plain): logits max_abs_err={err:.3e} "
+    log(f"{what}, card (kernels) vs CPU (plain): logits max_abs_err={err:.3e} "
         f"tol=2e-3 (|logits| <= {float(out['cpu'].abs().max()):.2f}); grads max |dgrad| / max "
         f"|grad| = {ratio:.3e} ({worst}) over {len(grads['cpu'])} params, tol 1e-3")
     if not err <= 2e-3:
@@ -3165,7 +3246,8 @@ def phase_mixers_parity(torch, seed, np):
         want = {fwd: 2 * 2 * convs, bwd: 2 * convs}
         if counts != want:
             raise AssertionError(f"{what}: launched {counts}, expected {want}")
-        res[what] = _check_card_vs_cpu(f"2-layer f32 {what} LM at l_max {l_max}", out, grads)
+        res[what] = _check_card_vs_cpu(f"mixers_parity: 2-layer f32 {what} LM at l_max {l_max}",
+                                       out, grads)
     x, y = _listops_batch(torch, np, seed + 4, 2, LISTOPS_L)
     out, grads = {}, {}
     for dev in ("cpu", "cuda"):
@@ -3175,8 +3257,408 @@ def phase_mixers_parity(torch, seed, np):
         cross_entropy(out[dev], y.to(dev)).backward()
         out[dev] = out[dev].detach()
         grads[dev] = {n: p.grad.detach() for n, p in model.named_parameters()}
-    res["listops"] = _check_card_vs_cpu(f"2-layer f32 ListOps LongConvModel at L={LISTOPS_L}",
+    res["listops"] = _check_card_vs_cpu(f"mixers_parity: 2-layer f32 ListOps LongConvModel at "
+                                        f"L={LISTOPS_L}",
                                         out, grads)
+    return res
+
+
+# --- the attention encoders, the MoE LM and the sparse convs --------------------
+
+def _vit_b16(torch, seed, dev, **kw):
+    """ViT-B/16 at google/vit-base-patch16-224's sizes (bf16; random weights)."""
+    from flashfftconv_tpu_torch.models.vit import VisionTransformer
+
+    cfg = dict(num_classes=VIT_CLASSES, img_size=VIT_IMG, patch_size=VIT_PATCH,
+               d_model=VIT_D_MODEL, n_layer=VIT_N_LAYER, num_heads=VIT_HEADS, mlp_ratio=4,
+               global_pool="token", dtype=torch.bfloat16)
+    return VisionTransformer(**{**cfg, **kw}, device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+
+
+def _images(torch, seed, b, dev, classes=VIT_CLASSES):
+    """b seeded (B, 224, 224, 3) f32 images and their labels, made on dev."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn(b, VIT_IMG, VIT_IMG, 3, device=dev, generator=g)
+    return images, torch.randint(0, classes, (b,), device=dev, generator=g)
+
+
+def _timed_forwards(torch, what, fn, per_fwd, n_fwd, check):
+    """n_fwd forwards of fn() under inference_mode, each timed on the host
+    clock between two synchronizes; check(out) on the last; exactly per_fwd
+    launches a forward. Returns (per-forward ms, launches)."""
+    counters = _counters(per_fwd)
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    fwd_ms = []
+    with torch.inference_mode():
+        for _ in range(n_fwd):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        check(out)
+    launches = {name: f.launches for name, f in counters.items()}
+    if launches != {name: n * n_fwd for name, n in per_fwd.items()}:
+        raise AssertionError(f"{what}: {n_fwd} forwards launched {launches}, expected "
+                             f"{per_fwd} each")
+    return fwd_ms, launches
+
+
+def phase_vit_serve(torch, seed, np):
+    """ViT-B/16 classifies VIT_SERVE_B seeded images, VIT_WARMUP + VIT_TIMED
+    forwards through the flash-attention forward kernel (L = 197)."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = _vit_b16(torch, seed, dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"vit_serve: ViT-B/16 {n_params / 1e6:.2f}M params, {VIT_L} tokens, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    images, _ = _images(torch, seed, VIT_SERVE_B, dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    def check(logits):
+        if logits.shape != (VIT_SERVE_B, VIT_CLASSES) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)} or non-finite")
+
+    n_fwd = VIT_WARMUP + VIT_TIMED
+    fwd_ms, launches = _timed_forwards(torch, "vit_serve", lambda: model(images), VIT_LAUNCHES,
+                                       n_fwd, check)
+    peak = torch.cuda.max_memory_allocated()
+    timed = fwd_ms[VIT_WARMUP:]
+    med = float(np.median(timed))
+    res = {"forwards": n_fwd, "launches": launches, "forward_ms": fwd_ms,
+           "forward_ms_median": med, "forward_ms_max": max(timed),
+           "images_per_s": VIT_SERVE_B / (med / 1e3), "peak_memory_bytes": peak}
+    log(f"vit_serve: B={VIT_SERVE_B} 224x224 bf16 (f32 attention): forward median {med:.2f} ms "
+        f"max {max(timed):.2f} ms over {VIT_TIMED} timed forwards, "
+        f"{res['images_per_s']:.1f} images/s, peak memory {peak / 2**30:.2f} GiB, launches a "
+        f"forward {VIT_LAUNCHES}")
+    del model, images
+    torch.cuda.empty_cache()
+    return res
+
+
+def _train_loop(torch, what, step, batches, want):
+    """One step a batch: a finite, falling loss and exactly the launches of
+    want every step. Returns (losses, per-step ms, launches over all steps,
+    peak memory)."""
+    counters = _counters(want)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    losses, step_ms = [], []
+    for batch in batches:
+        before = {name: f.launches for name, f in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(*batch)["loss"])  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        counts = {name: f.launches - before[name] for name, f in counters.items()}
+        if counts != want:
+            raise AssertionError(f"{what}: step {len(losses) - 1} launched {counts}, expected "
+                                 f"{want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+    launches = {name: f.launches for name, f in counters.items()}
+    return losses, step_ms, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_vit_train(torch, seed, np):
+    """ViT-B/16 takes VIT_TRAIN_WARMUP + VIT_TRAIN_TIMED steps at B=128
+    (DeiT-B's per-GPU batch) on one seeded batch: cross entropy, clip 1.0,
+    AdamW at DeiT's lr 5e-4 x B / 512 and weight decay 0.05."""
+    from flashfftconv_tpu_torch.utils.train import make_train_step
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    model = _vit_b16(torch, seed, dev).train()
+    lr = 5e-4 * VIT_TRAIN_B / 512
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=0.05)
+    step = make_train_step(model, opt, None, clip=1.0)
+    batch = _images(torch, seed + 1, VIT_TRAIN_B, dev)
+    n_steps = VIT_TRAIN_WARMUP + VIT_TRAIN_TIMED
+    losses, step_ms, launches, peak = _train_loop(torch, "vit_train", step, [batch] * n_steps,
+                                                  VIT_TRAIN_LAUNCHES)
+    timed = step_ms[VIT_TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    res = {"steps": n_steps, "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "step_ms_max": max(timed), "images_per_s": VIT_TRAIN_B / (med / 1e3),
+           "launches": launches, "peak_memory_bytes": peak}
+    log(f"vit_train: ViT-B/16 B={VIT_TRAIN_B} bf16 (f32 attention), {n_steps} steps on one "
+        f"batch (AdamW lr {lr:.3g}, wd 0.05, clip 1.0), losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"vit_train: step median {med:.2f} ms max {max(timed):.2f} ms over {VIT_TRAIN_TIMED} "
+        f"timed steps ({res['images_per_s']:.1f} images/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches a step {VIT_TRAIN_LAUNCHES}")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _parity(torch, what, build, inputs, loss_fn, want, select=None):
+    """A model built on the CPU and on the card from one seed, through
+    _check_card_vs_cpu: its output (``select`` picks the positions to
+    compare) and every parameter's grad of loss_fn; the card's forward and
+    backward launch exactly ``want``."""
+    counters = _counters(want)
+    out, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build(dev).eval()
+        before = {name: f.launches for name, f in counters.items()}
+        y = model(*(t.to(dev) if torch.is_tensor(t) else t for t in inputs))
+        loss_fn(y, dev).backward()
+        out[dev] = (y if select is None else select(y)).detach().float()
+        grads[dev] = {n: p.grad.detach() for n, p in model.named_parameters()
+                      if p.grad is not None}
+        counts = {name: f.launches - before[name] for name, f in counters.items()}
+    if counts != want:
+        raise AssertionError(f"{what}: the card's forward and backward launched {counts}, "
+                             f"expected {want}")
+    return {**_check_card_vs_cpu(what, out, grads), "launches": counts}
+
+
+# The flash launches of a 2-layer attention model's forward and backward.
+_FLASH_2_LAYERS = {"flash_attn_fwd": 2, "flash_attn_bwd_dkv": 2, "flash_attn_bwd_dq": 2}
+
+
+def phase_vit_parity(torch, seed, np):
+    """A 2-layer f32 ViT (224 x 224 images, patch 16: L = 197; d_model 256,
+    4 heads of 64, 10 classes) on the card (flash kernels) and the CPU."""
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    images, labels = _images(torch, seed + 2, 2, "cpu", classes=10)
+    return _parity(
+        torch, "vit_parity: 2-layer f32 ViT at L=197, B=2",
+        lambda dev: _vit_b16(torch, seed, dev, num_classes=10, d_model=256, n_layer=2,
+                             num_heads=4, dtype=torch.float32),
+        (images,), lambda y, dev: cross_entropy(y, labels.to(dev)), _FLASH_2_LAYERS)
+
+
+def _padded_mlm_batch(torch, np, rng, b, length, tokens):
+    """(ids, attention_mask, labels), each (b, length) int64 on the CPU:
+    windows of the corpus whose row lengths are drawn in [ABERT_MIN_LEN,
+    length] and whose tails are padding (id 0, mask 0); 15% of the
+    positions masked (utils.data.mlm_batches), labels -100 elsewhere and on
+    the pads."""
+    from flashfftconv_tpu_torch.utils.data import mlm_batches
+
+    x, y = next(mlm_batches(tokens, b, length, rng))
+    valid = np.arange(length)[None] < rng.integers(ABERT_MIN_LEN, length + 1, (b, 1))
+    ids, labels = np.where(valid, x, 0), np.where(valid, y, -100)
+    return tuple(torch.from_numpy(a.astype(np.int64)) for a in (ids, valid, labels))
+
+
+def _attn_bert(torch, seed, dev, **kw):
+    """BertForMaskedLM at bert-base-uncased's sizes (f32; random weights)."""
+    from flashfftconv_tpu_torch.models.bert import BertForMaskedLM
+
+    cfg = dict(vocab_size=ABERT_VOCAB, d_model=BERT_D_MODEL, n_layer=BERT_N_LAYER,
+               d_inner=4 * BERT_D_MODEL, num_heads=ABERT_HEADS, l_max=ABERT_L_MAX,
+               type_vocab_size=2, dropout=0.1, dtype=torch.float32)
+    return BertForMaskedLM(**{**cfg, **kw}, device=dev,
+                           generator=torch.Generator().manual_seed(seed))
+
+
+def phase_attn_bert(torch, seed, np):
+    """The attention BertForMaskedLM at bert-base-uncased's sizes takes
+    ABERT_WARMUP + ABERT_TIMED forwards of B=128, L=128 padded rows (lengths
+    64-128, the tails masked by attention_mask) through the flash forward."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = _attn_bert(torch, seed, dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"attn_bert: BERT-base {n_params / 1e6:.2f}M params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids, mask, labels = (t.to(dev) for t in _padded_mlm_batch(
+        torch, np, np.random.default_rng(seed), BERT_B, BERT_L, _corpus(np)))
+    torch.cuda.reset_peak_memory_stats()
+    acc = []
+
+    def check(logits):
+        if logits.shape != (BERT_B, BERT_L, ABERT_VOCAB) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)} or non-finite")
+        sel = labels >= 0
+        acc.append(float((logits.argmax(-1)[sel] == labels[sel]).float().mean()))
+
+    n_fwd = ABERT_WARMUP + ABERT_TIMED
+    fwd_ms, launches = _timed_forwards(torch, "attn_bert", lambda: model(ids, attention_mask=mask),
+                                       ABERT_LAUNCHES, n_fwd, check)
+    peak = torch.cuda.max_memory_allocated()
+    timed = fwd_ms[ABERT_WARMUP:]
+    med = float(np.median(timed))
+    n_valid = int(mask.sum())
+    res = {"forwards": n_fwd, "launches": launches, "forward_ms": fwd_ms,
+           "forward_ms_median": med, "forward_ms_max": max(timed),
+           "tokens_per_ms": BERT_B * BERT_L / med, "valid_tokens": n_valid,
+           "seqs_per_s": BERT_B / (med / 1e3), "masked_accuracy": acc[0],
+           "peak_memory_bytes": peak}
+    log(f"attn_bert: forward at B={BERT_B} L={BERT_L} f32 ({n_valid} valid tokens, the rest "
+        f"padding): median {med:.2f} ms max {max(timed):.2f} ms over {ABERT_TIMED} timed "
+        f"forwards, {res['tokens_per_ms']:.1f} tokens/ms, {res['seqs_per_s']:.1f} seqs/s, "
+        f"masked top-1 accuracy {acc[0]:.4f}, peak memory {peak / 2**30:.2f} GiB, launches a "
+        f"forward {ABERT_LAUNCHES}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _attn_bert_step(torch, model):
+    """bert_train's step over a padded batch: step(ids, mask, labels) runs
+    the MLM loss with the attention mask, clip 1.0 and AdamW (lr 8e-4,
+    weight decay 1e-5)."""
+    from flashfftconv_tpu_torch.utils.train import bert_optimizer, mlm_loss
+
+    opt = bert_optimizer(model)
+
+    def step(ids, mask, labels):
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = mlm_loss(model(ids, attention_mask=mask), labels)
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(model.parameters(), 1.0)
+        opt.step()
+        return {"loss": loss.detach(), **metrics}
+
+    return step
+
+
+def phase_attn_bert_train(torch, seed, np):
+    """The same model takes ABERT_TRAIN_WARMUP + ABERT_TRAIN_TIMED steps of
+    bert_train's recipe (clip 1.0, AdamW lr 8e-4, weight decay 1e-5, the MLM
+    loss over the masked positions) at B=128, L=128 on padded rows, dropout
+    0.1 (none on the attention probabilities, so the flash kernels run)."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.manual_seed(seed)  # the dropout masks repeat from run to run
+    model = _attn_bert(torch, seed, dev).train()
+    step = _attn_bert_step(torch, model)
+    rng, tokens = np.random.default_rng(seed), _corpus(np)
+    n_steps = ABERT_TRAIN_WARMUP + ABERT_TRAIN_TIMED
+    batches = [tuple(t.to(dev) for t in _padded_mlm_batch(torch, np, rng, BERT_B, BERT_L,
+                                                           tokens)) for _ in range(n_steps)]
+    losses, step_ms, launches, peak = _train_loop(torch, "attn_bert_train", step, batches,
+                                                  ABERT_TRAIN_LAUNCHES)
+    timed = step_ms[ABERT_TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    res = {"steps": n_steps, "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "step_ms_max": max(timed), "tokens_per_s": BERT_B * BERT_L / (med / 1e3),
+           "launches": launches, "peak_memory_bytes": peak}
+    log(f"attn_bert_train: BERT-base B={BERT_B} L={BERT_L} f32, dropout 0.1, {n_steps} steps "
+        f"(lr 8e-4, wd 1e-5, clip 1.0), MLM losses {' '.join(f'{v:.4f}' for v in losses)}")
+    log(f"attn_bert_train: step median {med:.2f} ms max {max(timed):.2f} ms over "
+        f"{ABERT_TRAIN_TIMED} timed steps ({res['tokens_per_s']:.0f} tokens/s), peak memory "
+        f"{peak / 2**30:.2f} GiB, launches a step {ABERT_TRAIN_LAUNCHES}")
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_attn_bert_parity(torch, seed, np):
+    """A 2-layer f32 attention BertForMaskedLM (d_model 256, 4 heads of 64,
+    vocab 300) at L=128, B=4 with padded rows, on the card (flash kernels
+    with segment ids) and the CPU: logits at the valid positions, the MLM
+    grads."""
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids, mask, labels = _padded_mlm_batch(torch, np, np.random.default_rng(seed + 3), 4, BERT_L,
+                                          _corpus(np))
+    if bool(mask.all()):
+        raise AssertionError("the parity batch has no padded row")
+    return _parity(
+        torch, "attn_bert_parity: 2-layer f32 BERT at L=128, B=4, padded",
+        lambda dev: _attn_bert(torch, seed, dev, vocab_size=300, d_model=256, n_layer=2,
+                               d_inner=1024, num_heads=4, dropout=0.0),
+        (ids, None, mask), lambda y, dev: cross_entropy(y, labels.to(dev), -100),
+        _FLASH_2_LAYERS, select=lambda y: y[mask.to(y.device)])
+
+
+def phase_moe_train(torch, seed, np):
+    """Hyena-125M with MoE MLPs (MOE_KWARGS: 8 experts, top-2, capacity
+    1.25) takes TRAIN_WARMUP + TRAIN_TIMED steps of the train phase's recipe
+    at B=4, L=8192; reports the share of token choices dropped and the
+    load-balancing loss of the last step, layer by layer."""
+    from flashfftconv_tpu_torch.models.moe import MoEMlp
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = _hyena_125m(torch, seed, dev, moe_kwargs=MOE_KWARGS).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe_train: Hyena-125M with {MOE_KWARGS}: {n_params / 1e9:.3f}G params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = _lm_train(torch, seed, np, "moe_train: Hyena-125M MoE", model, B, L_MAX,
+                    TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LAUNCHES)
+    moes = [m for m in model.modules() if isinstance(m, MoEMlp)]
+    dropped = [1.0 - float(m.kept_fraction.sum()) / m.top_k for m in moes]
+    aux = [float(m.aux_loss.detach()) for m in moes]
+    if len(moes) != N_LAYER or not all(math.isfinite(a) for a in aux):
+        raise AssertionError(f"{len(moes)} MoE layers, aux losses {aux}")
+    res.update(params=n_params, dropped_share=dropped, aux_loss=aux,
+               capacity=moes[0].capacity(B * L_MAX))
+    log(f"moe_train: capacity {res['capacity']} slots an expert; the last step's share of token "
+        f"choices dropped by layer {' '.join(f'{v:.4f}' for v in dropped)}; aux loss by layer "
+        f"{' '.join(f'{v:.4f}' for v in aux)}")
+    del model, moes
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_parity(torch, seed, np):
+    """A 2-layer f32 Hyena LM with MoE MLPs (8 experts, top-2, capacity
+    1.25; d_model 128, l_max 1024: the Monarch kernels at FFT size 2048) at
+    B=2, L=128 (256 tokens; some drop) on the card and the CPU."""
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids = torch.randint(0, 256, (2, 129), generator=torch.Generator().manual_seed(seed + 5))
+    want = {"monarch_conv": 2, "monarch_conv_bwd": 2, "depthwise": 2, "depthwise_bwd": 2}
+    return _parity(
+        torch, "moe_parity: 2-layer f32 Hyena MoE LM at L=128, B=2",
+        lambda dev: ConvLMHeadModel(d_model=128, n_layer=2, d_inner=512, vocab_size=256,
+                                    l_max=1024, mixer_kwargs={"conv_dtype": torch.float32},
+                                    moe_kwargs=MOE_KWARGS, dtype=torch.float32, device=dev,
+                                    generator=torch.Generator().manual_seed(seed)),
+        (ids[:, :-1],), lambda y, dev: cross_entropy(y, ids[:, 1:].to(dev)), want)
+
+
+def phase_sparse_parity(torch, seed, np):
+    """partial_fft_conv on the card (a direct plan at N = 512: spectrum and
+    direct_conv; a Monarch plan at N = 16384: spectrum and monarch_conv) and
+    frequency_sparse_fft_conv (torch.fft, as jnp.fft in the JAX package)
+    against the same calls on the CPU, f32."""
+    import flashfftconv_tpu_torch as tff
+
+    g = torch.Generator().manual_seed(seed + 6)
+    res = {}
+    for n, n_partial, fwd in ((512, 64, "direct_conv"), (16384, 1000, "monarch_conv")):
+        x = torch.randn(4, 64, n // 2, generator=g)
+        k = torch.randn(64, n // 2, generator=g) * 0.02
+        counters = _counters(("spectrum", fwd))
+        before = {name: f.launches for name, f in counters.items()}
+        got = tff.partial_fft_conv(x.cuda(), k.cuda(), n_partial,
+                                   plan=tff.make_plan(n, torch.float32, device="cuda")).cpu()
+        counts = {name: f.launches - before[name] for name, f in counters.items()}
+        if counts != {"spectrum": 1, fwd: 1}:
+            raise AssertionError(f"partial_fft_conv at N={n} launched {counts}")
+        ref = tff.partial_fft_conv(x, k, n_partial,
+                                   plan=tff.make_plan(n, torch.float32, device="cpu"))
+        res[f"partial@{n}"] = compare(f"sparse_parity: partial_fft_conv N={n} n_partial="
+                                      f"{n_partial} ({fwd}) card vs CPU", got, ref, f32_tol(ref))
+    x, k = torch.randn(4, 64, 2048, generator=g), torch.randn(64, 2048, generator=g) * 0.02
+    ref = tff.frequency_sparse_fft_conv(x, k, 512)
+    res["frequency_sparse"] = compare(
+        "sparse_parity: frequency_sparse_fft_conv L=2048 n_partial=512 card vs CPU",
+        tff.frequency_sparse_fft_conv(x.cuda(), k.cuda(), 512).cpu(), ref, f32_tol(ref))
     return res
 
 
@@ -3351,8 +3833,9 @@ def phase_profile(torch, seed):
     train step (dropout on, the examples/lm optimizer), one train step of the
     same model on a 1-rank sequence mesh, then one HyenaDNA forward and
     train step, one M2-BERT forward and train step, one GPT-2 124M and one
-    windowed GPT forward and train step, one H3-125M forward and train step
-    and one ListOps train step."""
+    windowed GPT forward and train step, one H3-125M forward and train step,
+    one ListOps train step, one ViT-B/16 and one BERT-base forward and train
+    step, and one train step of Hyena-125M with MoE MLPs."""
     from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
 
     model = _hyena_125m(torch, seed, "cuda")
@@ -3452,6 +3935,37 @@ def phase_profile(torch, seed):
     x, y = (t.cuda() for t in _listops_batch(torch, np, seed, LISTOPS_B, LISTOPS_L))
     res["listops_train_step"] = _trace(torch, f"one ListOps train step at B={LISTOPS_B} "
                                        f"L={LISTOPS_L}", lambda: step(x, y))
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    model = _vit_b16(torch, seed, "cuda")
+    images, labels = _images(torch, seed, VIT_TRAIN_B, "cuda")
+    with torch.inference_mode():
+        res["vit_forward"] = _trace(torch, f"one ViT-B/16 forward at B={VIT_SERVE_B}",
+                                    lambda: model.eval()(images[:VIT_SERVE_B]))
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-4 * VIT_TRAIN_B / 512, weight_decay=0.05)
+    step = make_train_step(model.train(), opt, None, clip=1.0)
+    res["vit_train_step"] = _trace(torch, f"one ViT-B/16 train step at B={VIT_TRAIN_B}",
+                                   lambda: step(images, labels))
+    del model, opt, step, images
+    torch.cuda.empty_cache()
+    model = _attn_bert(torch, seed, "cuda")
+    batch = [t.cuda() for t in _padded_mlm_batch(torch, np, np.random.default_rng(seed), BERT_B,
+                                                  BERT_L, _corpus(np))]
+    with torch.inference_mode():
+        res["attn_bert_forward"] = _trace(
+            torch, f"one BERT-base forward at B={BERT_B} L={BERT_L}",
+            lambda: model.eval()(batch[0], attention_mask=batch[1]))
+    step = _attn_bert_step(torch, model.train())
+    res["attn_bert_train_step"] = _trace(torch, f"one BERT-base train step at B={BERT_B} "
+                                         f"L={BERT_L}", lambda: step(*batch))
+    del model, step
+    torch.cuda.empty_cache()
+    model = _hyena_125m(torch, seed, "cuda", moe_kwargs=MOE_KWARGS)
+    x, y = _train_batches(torch, np, seed, "cuda", 1)[0]
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
+    step = make_train_step(model.train(), opt, sched, clip=1.0)
+    res["moe_train_step"] = _trace(torch, f"one Hyena-125M MoE train step at B={B} L={L_MAX}",
+                                   lambda: step(x, y))
     return res
 
 
@@ -4002,12 +4516,17 @@ def _time_band(torch, g):
 
 def _time_attention(torch, g):
     """The attention kernels at the gpt_train path's shape (B=16, H=12,
-    L=1024, D=64, f32, causal), then at head_dim 256, 640 and 1024 (rows
-    flash_attn_*@256, @640, @1024: B=4, H=8, L=2048, f32, causal; the wide
-    bodies, above 512 in D slices of 256 columns).
-    Bytes: each input read once, each output written once. Operations: the
-    causal half of each function's products, 2 a multiply-add: the forward
-    q k^T and p v (4 B H L^2 D in all, half of it causal); dK/dV q k^T,
+    L=1024, D=64, f32, causal), at vit_train's (rows flash_attn_*@vit:
+    B=128, H=12, L=197, D=64, f32, non-causal) and attn_bert_train's (rows
+    @bert: B=128, H=12, L=128, D=64, f32, non-causal, segment ids of a
+    padding mask with rows of 64-128 tokens), then at head_dim 256, 640 and
+    1024 (rows flash_attn_*@256, @640, @1024: B=4, H=8, L=2048, f32, causal;
+    the wide bodies, above 512 in D slices of 256 columns).
+    Bytes: each input read once, each output written once. Operations: each
+    function's products over the score elements the mask keeps (the causal
+    half; all of them non-causal; with segment ids the pairs within a
+    segment), 2 a multiply-add: the forward q k^T and p v (4 B H L^2 D in
+    all unmasked); dK/dV q k^T,
     do v^T, p^T do and ds^T q (8); dQ q k^T, do v^T and ds k (6); the two
     backward kernels recompute q k^T and do v^T each, which the fused
     backward (10) would not. tc_bound: a row's operations on the tensor
@@ -4018,6 +4537,9 @@ def _time_attention(torch, g):
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
 
     res = _flash_rows(torch, g, GPT_TRAIN_B, GPT_HEADS, GPT_L_MAX, GPT_HEAD_DIM, "")
+    res.update(_flash_rows(torch, g, VIT_TRAIN_B, VIT_HEADS, VIT_L, 64, "@vit", causal=False))
+    res.update(_flash_rows(torch, g, BERT_B, ABERT_HEADS, BERT_L, 64, "@bert", causal=False,
+                           seg=_padding_segments(torch, g, BERT_B, BERT_L, "cuda")))
     for d in (256, 640, 1024):
         # only where the checkout's kernels take d, so that this phase also
         # times a commit from before head_dim 640 was taken (an A/B)
@@ -4026,9 +4548,12 @@ def _time_attention(torch, g):
     return res
 
 
-def _flash_rows(torch, g, b, h, l, d, suffix):
-    """The three flash rows of _time_attention at (B, H, L, D), f32, causal,
-    each name with suffix."""
+def _flash_rows(torch, g, b, h, l, d, suffix, causal=True, seg=None):
+    """The three flash rows of _time_attention at (B, H, L, D), f32, each
+    name with suffix; ``seg`` (B, L) int32 segment ids, which SDPA gets as a
+    boolean (B, 1, L, L) mask. One product's operations count the score
+    elements the mask keeps: the causal half, or with segment ids each row's
+    n^2 + (L - n)^2."""
     import torch.nn.functional as F
 
     from flashfftconv_tpu_torch.ops import attention as plain
@@ -4037,45 +4562,54 @@ def _flash_rows(torch, g, b, h, l, d, suffix):
     dev = torch.device("cuda")
     q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
     n, stats = q.numel() * 4, b * h * l * 4
-    causal_ops = b * h * l * l * d  # a quarter of 4 B H L^2 D: one causal product
-    o, lse = ac.flash_attn_fwd(q, k, v)
+    if seg is None:
+        kept = b * l * l / 2 if causal else b * l * l
+        mask, seg_bytes = None, 0
+    else:
+        n_valid = seg.sum(1).double()
+        kept = float((n_valid**2 + (l - n_valid) ** 2).sum())
+        mask, seg_bytes = (seg[:, None, :, None] == seg[:, None, None, :]), seg.numel() * 4
+    prod_ops = 2 * h * d * kept  # one product over the kept scores, 2 a multiply-add
+    sdpa = dict(attn_mask=mask, is_causal=causal)
+    args = (causal, None, None, seg)
+    o, lse = ac.flash_attn_fwd(q, k, v, *args)
     delta = plain.attention_delta(o, do)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
     sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                            retain_graph=True), iters=10)
-    plain_bwd = _time_ms(torch, lambda: plain.flash_attn_bwd_plain(q, k, v, o, lse, do),
+    plain_bwd = _time_ms(torch, lambda: plain.flash_attn_bwd_plain(q, k, v, o, lse, do, *args),
                          iters=3, warmup=1)
     with torch.inference_mode():
         fwd, dkv, dq = (f"flash_attn_fwd{suffix}", f"flash_attn_bwd_dkv{suffix}",
                         f"flash_attn_bwd_dq{suffix}")
         res = {
             fwd: dict(
-                ms=_time_ms(torch, lambda: ac.flash_attn_fwd(q, k, v), iters=10),
-                plain_ms=_time_ms(torch, lambda: plain.flash_attn_fwd_plain(q, k, v), iters=3,
-                                  warmup=1),
+                ms=_time_ms(torch, lambda: ac.flash_attn_fwd(q, k, v, *args), iters=10),
+                plain_ms=_time_ms(torch, lambda: plain.flash_attn_fwd_plain(q, k, v, *args),
+                                  iters=3, warmup=1),
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), iters=10),
-                bound=_bound(3 * n + n + stats, 2 * causal_ops),
-                tc_bound=_tc_bound(2 * causal_ops),
+                    q, k, v, **sdpa), iters=10),
+                bound=_bound(3 * n + seg_bytes + n + stats, 2 * prod_ops),
+                tc_bound=_tc_bound(2 * prod_ops),
             ),
             dkv: dict(
-                ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
+                ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, *args),
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd,
-                bound=_bound(4 * n + 2 * stats + 2 * n, 4 * causal_ops),
-                tc_bound=_tc_bound(4 * causal_ops),
+                bound=_bound(4 * n + seg_bytes + 2 * stats + 2 * n, 4 * prod_ops),
+                tc_bound=_tc_bound(4 * prod_ops),
             ),
             dq: dict(
-                ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dq(q, k, v, do, lse, delta),
+                ms=_time_ms(torch, lambda: ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, *args),
                             iters=10),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd,
-                bound=_bound(4 * n + 2 * stats + n, 3 * causal_ops),
-                tc_bound=_tc_bound(3 * causal_ops),
+                bound=_bound(4 * n + seg_bytes + 2 * stats + n, 3 * prod_ops),
+                tc_bound=_tc_bound(3 * prod_ops),
             ),
         }
         res[dq]["pair_ms"] = res[dkv]["ms"] + res[dq]["ms"]
-    del q, k, v, do, o, lse, delta, qs, ks, vs, out
+    del q, k, v, do, o, lse, delta, qs, ks, vs, out, mask
     torch.cuda.empty_cache()
     return res
 
@@ -4443,6 +4977,10 @@ def main() -> int:
         results["listops_train"] = phase_listops_train(torch, args.seed, np)
     if "mixers_parity" in phases:
         results["mixers_parity"] = phase_mixers_parity(torch, args.seed, np)
+    for name in ("vit_serve", "vit_train", "vit_parity", "attn_bert", "attn_bert_train",
+                 "attn_bert_parity", "moe_train", "moe_parity", "sparse_parity"):
+        if name in phases:
+            results[name] = globals()[f"phase_{name}"](torch, args.seed, np)
     if "smem_probe" in phases:
         results["smem_probe"] = phase_smem_probe(torch, args.seed)
     if "timing" in phases:

@@ -20,7 +20,12 @@ masked tiles. ``models.h3`` (H3 with long-conv, shift and S4D kernels),
 ``models.long_conv`` (the Long Conv layer and sequence classifier) and
 ``models.sequence`` (encoders, pools, decoders, ``SequenceModel``) run on the
 same FFT conv kernels; ``utils.smem_probe`` probes the card's shared memory a
-block with a kernel of its own. Public API
+block with a kernel of its own. ``models.vit`` (ViT) and the attention BERT
+classes of ``models.bert`` run the flash-attention kernels non-causally
+(BERT with padding masks as segment ids); ``models.moe.MoEMlp`` (top-k
+routing with capacity) is a block's MLP under ``moe_kwargs``;
+``ops.sparse`` holds the partial and frequency-sparse convs and
+``ops.fused`` the fused norm, softmax, dense and cross-entropy ops. Public API
 parity with the JAX package for what this port covers; entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 """
@@ -37,13 +42,41 @@ from flashfftconv_tpu_torch.ops.attention import (
 from flashfftconv_tpu_torch.ops.attention_cuda import FlashAttnFunction
 from flashfftconv_tpu_torch.ops.depthwise import DepthwiseFunction, depthwise_conv1d
 from flashfftconv_tpu_torch.ops.dispatch import fft_conv
+from flashfftconv_tpu_torch.ops.fused import (
+    apply_rotary_emb,
+    cross_entropy_loss,
+    dense_bias_gelu,
+    dropout_add_layer_norm,
+    dropout_add_rms_norm,
+    rms_norm,
+    scaled_masked_softmax,
+)
 from flashfftconv_tpu_torch.ops.monarch import fft_conv_plain, fft_conv_reference
 from flashfftconv_tpu_torch.ops.monarch_cuda import FftConvFunction
 from flashfftconv_tpu_torch.ops.plan import FftPlan, default_factors, make_plan
+from flashfftconv_tpu_torch.ops.sparse import (
+    FrequencySparseFFTConv,
+    PartialFFTConv,
+    frequency_sparse_fft_conv,
+    partial_fft_conv,
+)
 from flashfftconv_tpu_torch.models.attention import MHAOperator
-from flashfftconv_tpu_torch.models.bert import M2BertForMaskedLM
+from flashfftconv_tpu_torch.models.bert import (
+    BertForMaskedLM,
+    BertForPreTraining,
+    BertForSequenceClassification,
+    BertModel,
+    M2BertForMaskedLM,
+)
 from flashfftconv_tpu_torch.models.gpt import GPTLMHeadModel, opt_lm
 from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerSequenceMixing
+from flashfftconv_tpu_torch.models.moe import MoEMlp
+from flashfftconv_tpu_torch.models.vit import VisionTransformer
+from flashfftconv_tpu_torch.utils.checkpoint_import import (
+    import_bert_state_dict,
+    import_vit_state_dict,
+    interpolate_pos_embedding,
+)
 from flashfftconv_tpu_torch.utils.data import lm_batches, mlm_batches
 from flashfftconv_tpu_torch.utils.generation import generate_kv
 from flashfftconv_tpu_torch.utils.metrics import cross_entropy
@@ -69,6 +102,17 @@ __all__ = [
     "fft_conv_plain",
     "fft_conv_reference",
     "depthwise_conv1d",
+    "partial_fft_conv",
+    "frequency_sparse_fft_conv",
+    "PartialFFTConv",
+    "FrequencySparseFFTConv",
+    "dense_bias_gelu",
+    "dropout_add_layer_norm",
+    "rms_norm",
+    "dropout_add_rms_norm",
+    "scaled_masked_softmax",
+    "apply_rotary_emb",
+    "cross_entropy_loss",
     "FftConvFunction",
     "DepthwiseFunction",
     "cross_entropy",
@@ -79,6 +123,15 @@ __all__ = [
     "lm_batches",
     "mlm_batches",
     "M2BertForMaskedLM",
+    "BertModel",
+    "BertForMaskedLM",
+    "BertForSequenceClassification",
+    "BertForPreTraining",
+    "VisionTransformer",
+    "MoEMlp",
+    "import_vit_state_dict",
+    "import_bert_state_dict",
+    "interpolate_pos_embedding",
     "MonarchMixerSequenceMixing",
     "BlockdiagLinear",
     "make_train_step",

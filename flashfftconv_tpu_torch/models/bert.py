@@ -10,8 +10,18 @@ f32, the MLM head in f32. ``PRESETS`` holds the example's configuration
 ``utils.train.make_train_step`` over ``utils.train.bert_optimizer`` with
 ``loss_fn=utils.train.mlm_loss`` on batches from ``utils.data.mlm_batches``.
 
-The attention BERT classes of the JAX module wait for the port's attention
-kernel.
+The attention BERT classes of the same JAX module follow the M2 ones:
+``BertLayer`` (post-norm: LN(x + MHA(x)), LN(x + MLP(x)), exact-erf GELU,
+no attention dropout, so training runs the flash-attention kernels),
+``BertModel`` (word, position and token-type embeddings; ``alibi=True``
+drops the position table for an ALiBi bias in every layer; the 0/1
+``attention_mask`` becomes int segment ids, so padded positions attend only
+to padded ones and valid ones only to valid ones; an optional tanh pooler
+over the first token), ``BertForMaskedLM`` (the MLM decoder tied to the word
+embeddings, with a bias of its own), ``BertForSequenceClassification`` and
+``BertForPreTraining`` (MLM and next-sentence logits). The word embeddings
+live in ``bert.word_embeddings`` (the flax tree keeps a tied table at its
+top; ``utils.jax_weights.bert_state_dict`` moves it).
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flashfftconv_tpu_torch.models.attention import MHAOperator
 from flashfftconv_tpu_torch.models.layers import Dense, Embed, LayerNorm, zeros
 from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerSequenceMixing
 from flashfftconv_tpu_torch.ops.plan import resolve_device
@@ -195,3 +206,154 @@ def fill_mask(model: M2BertForMaskedLM, ids: torch.Tensor, labels: torch.Tensor,
                     "finite": torch.isfinite(logits).all()}
     finally:
         model.train(was_training)
+
+
+# --- the attention BERT ------------------------------------------------------
+
+def _gelu_exact(x):
+    return F.gelu(x.float())
+
+
+class BertLayer(nn.Module):
+    """Post-norm encoder layer: LN(x + dropout(MHA(x))); LN(x +
+    dropout(fc2(gelu(fc1(x))))). The non-causal ``MHAOperator`` gets no
+    attention dropout, so it runs the flash kernels in training too."""
+
+    def __init__(self, d_model, d_inner, num_heads, dropout=0.1, impl="auto", alibi=False,
+                 device="cuda", generator=None):
+        super().__init__()
+        mk = dict(device=device, generator=generator)
+        self.mixer = MHAOperator(d_model, num_heads=num_heads, causal=False, impl=impl,
+                                 alibi=alibi, **mk)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.fc1 = Dense(d_model, d_inner, **mk)
+        self.fc2 = Dense(d_inner, d_model, **mk)
+        self.norm2 = LayerNorm(d_model, device=device)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x, segment_ids=None):
+        h = self.drop(self.mixer(x, segment_ids=segment_ids))
+        x = self.norm1((x + h).float()).to(x.dtype)
+        m = _gelu_exact(self.fc1(x, dtype=x.dtype)).to(x.dtype)
+        m = self.drop(self.fc2(m, dtype=x.dtype))
+        return self.norm2((x + m).float()).to(x.dtype)
+
+
+class BertModel(nn.Module):
+    """Embeddings, their LayerNorm (f32) and dropout, n_layer ``BertLayer``s.
+    forward(input_ids, token_type_ids=None, attention_mask=None) -> (x (B, L,
+    d_model) in ``dtype``, pooled (B, d_model) f32 or None): token types
+    default to 0; ``attention_mask`` (B, L) of 1/0 is passed to every layer
+    as segment ids; the pooler is tanh(Dense(x[:, 0])) in f32."""
+
+    def __init__(self, vocab_size, d_model=768, n_layer=12, d_inner=3072, num_heads=12,
+                 l_max=512, type_vocab_size=2, dropout=0.1, with_pooler=True, impl="auto",
+                 alibi=False, dtype=torch.float32, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        mk = dict(device=device, generator=generator)
+        self.word_embeddings = Embed(vocab_size, d_model, dtype=dtype, **mk)
+        self.position_embeddings = None if alibi else Embed(l_max, d_model, dtype=dtype, **mk)
+        self.token_type_embeddings = Embed(type_vocab_size, d_model, dtype=dtype, **mk)
+        self.embed_norm = LayerNorm(d_model, device=device)
+        self.drop = nn.Dropout(dropout)
+        self.layer = nn.ModuleList(
+            BertLayer(d_model, d_inner, num_heads, dropout=dropout, impl=impl, alibi=alibi, **mk)
+            for _ in range(n_layer))
+        self.pooler = Dense(d_model, d_model, dtype=torch.float32, **mk) if with_pooler else None
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        x = self.word_embeddings(input_ids)
+        if self.position_embeddings is not None:
+            x = x + self.position_embeddings(torch.arange(input_ids.shape[1],
+                                                          device=input_ids.device))[None]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = x + self.token_type_embeddings(token_type_ids)
+        x = self.drop(self.embed_norm(x.float()).to(self.dtype))
+        seg = None if attention_mask is None else attention_mask.to(torch.int32)
+        for layer in self.layer:
+            x = layer(x, segment_ids=seg)
+        pooled = None if self.pooler is None else torch.tanh(self.pooler(x[:, 0].float()))
+        return x, pooled
+
+
+class _MlmHead(nn.Module):
+    """Dense (f32) -> exact GELU -> LayerNorm -> the word-embedding table
+    (in its dtype) plus a bias: the tied MLM decoder, f32 logits."""
+
+    def __init__(self, d_model, vocab_size, device, generator):
+        super().__init__()
+        self.mlm_transform = Dense(d_model, d_model, dtype=torch.float32, device=device,
+                                   generator=generator)
+        self.mlm_norm = LayerNorm(d_model, device=device)
+        self.mlm_bias = zeros((vocab_size,), device)
+
+    def mlm_logits(self, h, embed):
+        h = self.mlm_norm(_gelu_exact(self.mlm_transform(h.float())))
+        return embed.attend(h).float() + self.mlm_bias
+
+
+class BertForMaskedLM(_MlmHead):
+    """``BertModel`` (no pooler) and the tied MLM head: forward -> (B, L,
+    vocab) f32 logits."""
+
+    def __init__(self, vocab_size, d_model=768, n_layer=12, d_inner=3072, num_heads=12,
+                 l_max=512, type_vocab_size=2, dropout=0.1, impl="auto", dtype=torch.float32,
+                 device="cuda", generator=None):
+        device = resolve_device(device)
+        super().__init__(d_model, vocab_size, device, generator)
+        self.vocab_size = vocab_size
+        self.bert = BertModel(vocab_size, d_model=d_model, n_layer=n_layer, d_inner=d_inner,
+                              num_heads=num_heads, l_max=l_max, type_vocab_size=type_vocab_size,
+                              dropout=dropout, with_pooler=False, impl=impl, dtype=dtype,
+                              device=device, generator=generator)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        h, _ = self.bert(input_ids, token_type_ids, attention_mask)
+        return self.mlm_logits(h, self.bert.word_embeddings)
+
+
+class BertForSequenceClassification(nn.Module):
+    """``BertModel`` with its pooler, dropout and a Dense classifier (f32):
+    forward -> (B, num_labels) logits."""
+
+    def __init__(self, num_labels, vocab_size, d_model=768, n_layer=12, d_inner=3072,
+                 num_heads=12, l_max=512, type_vocab_size=2, dropout=0.1, alibi=False,
+                 impl="auto", dtype=torch.float32, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.bert = BertModel(vocab_size, d_model=d_model, n_layer=n_layer, d_inner=d_inner,
+                              num_heads=num_heads, l_max=l_max, type_vocab_size=type_vocab_size,
+                              dropout=dropout, with_pooler=True, impl=impl, alibi=alibi,
+                              dtype=dtype, device=device, generator=generator)
+        self.drop = nn.Dropout(dropout)
+        self.classifier = Dense(d_model, num_labels, dtype=torch.float32, device=device,
+                                generator=generator)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        return self.classifier(self.drop(pooled))
+
+
+class BertForPreTraining(_MlmHead):
+    """``BertModel`` with its pooler, the tied MLM head and a next-sentence
+    head (Dense to 2, f32): forward -> (mlm logits (B, L, vocab), nsp
+    logits (B, 2))."""
+
+    def __init__(self, vocab_size, d_model=768, n_layer=12, d_inner=3072, num_heads=12,
+                 l_max=512, type_vocab_size=2, dropout=0.1, impl="auto", dtype=torch.float32,
+                 device="cuda", generator=None):
+        device = resolve_device(device)
+        super().__init__(d_model, vocab_size, device, generator)
+        self.vocab_size = vocab_size
+        self.bert = BertModel(vocab_size, d_model=d_model, n_layer=n_layer, d_inner=d_inner,
+                              num_heads=num_heads, l_max=l_max, type_vocab_size=type_vocab_size,
+                              dropout=dropout, with_pooler=True, impl=impl, dtype=dtype,
+                              device=device, generator=generator)
+        self.nsp_head = Dense(d_model, 2, dtype=torch.float32, device=device, generator=generator)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        h, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        return self.mlm_logits(h, self.bert.word_embeddings), self.nsp_head(pooled)

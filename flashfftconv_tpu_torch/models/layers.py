@@ -7,7 +7,7 @@ rows and attends in bf16. These modules do the same, so a model's numbers
 follow the JAX package step by step. Weights are (out, in) as in
 ``nn.Linear``. Every init draws on the CPU from the caller's
 ``torch.Generator`` and then moves to the device, so one seed gives the same
-weights on every device.
+weights on every device. ``ACTIVATIONS`` names the MLP activations.
 """
 
 from __future__ import annotations
@@ -17,6 +17,14 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+ACTIVATIONS = {
+    # flax's nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    # nn.gelu(approximate=False), which ViT and the attention BERT use
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+}
 
 
 def normal(shape, std: float, generator, device) -> nn.Parameter:

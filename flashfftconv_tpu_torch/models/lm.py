@@ -19,7 +19,8 @@ input and replays the block, dropout's random state included, in the
 backward), ``inner_remat`` (mixer and MLP as separate checkpoint regions
 inside the block), ``mlp_l_chunks`` (``ChunkedMlp``: the MLP in L-chunks
 with a backward of its own that keeps only its input) and ``scan_blocks``.
-MoE (``moe_kwargs``) is not ported: setting it raises NotImplementedError.
+``moe_kwargs`` replaces a block's MLP by ``models.moe.MoEMlp`` (the
+keywords go to it; ``mlp_activation`` then plays no part).
 """
 
 from __future__ import annotations
@@ -32,17 +33,11 @@ from torch.utils.checkpoint import checkpoint
 from flashfftconv_tpu_torch.models.attention import MHAOperator
 from flashfftconv_tpu_torch.models.h3 import H3Operator
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator
-from flashfftconv_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from flashfftconv_tpu_torch.models.layers import ACTIVATIONS, Dense, Embed, LayerNorm
 from flashfftconv_tpu_torch.models.long_conv import LongConvOperator
 from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerSequenceMixing
+from flashfftconv_tpu_torch.models.moe import MoEMlp
 from flashfftconv_tpu_torch.ops.plan import resolve_device
-
-_ACTIVATIONS = {
-    # flax's nn.gelu defaults to the tanh approximation
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "relu": F.relu,
-}
-
 
 # The mixer registry of the JAX package's get_mixer_cls.
 MIXERS = {"hyena": HyenaOperator, "m2": MonarchMixerSequenceMixing, "h3": H3Operator,
@@ -57,7 +52,7 @@ class Mlp(nn.Module):
     def __init__(self, d_inner, d_model, nblocks=0, activation="gelu", device="cuda",
                  generator=None):
         super().__init__()
-        self.activation = _ACTIVATIONS[activation]
+        self.activation = ACTIVATIONS[activation]
         self.nblocks = nblocks
         mk = dict(device=device, generator=generator)
         if nblocks:
@@ -150,15 +145,15 @@ class Block(nn.Module):
         super().__init__()
         if mixer not in MIXERS:
             raise ValueError(f"unknown mixer {mixer!r}; have {sorted(MIXERS)}")
-        if moe_kwargs:
-            raise NotImplementedError("moe_kwargs is not ported yet")
         self.residual_f32 = residual_f32
         self.inner_remat = inner_remat
         self.norm1 = LayerNorm(d_model, device=device)
         self.mixer = MIXERS[mixer](d_model=d_model, **(mixer_kwargs or {}), device=device,
                                    generator=generator)
         self.norm2 = LayerNorm(d_model, device=device)
-        if mlp_l_chunks > 1 and not mlp_nblocks:
+        if moe_kwargs:
+            self.mlp = MoEMlp(d_model, d_inner, **moe_kwargs, device=device, generator=generator)
+        elif mlp_l_chunks > 1 and not mlp_nblocks:
             self.mlp = ChunkedMlp(d_inner, d_model, l_chunks=mlp_l_chunks,
                                   activation=mlp_activation, device=device, generator=generator)
         else:

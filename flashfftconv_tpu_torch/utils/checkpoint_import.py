@@ -1,4 +1,4 @@
-"""Pretrained-checkpoint import: HyenaDNA, M2-BERT, GPT-2 and OPT state dicts -> the port's models.
+"""Pretrained-checkpoint import: HyenaDNA, M2-BERT, GPT-2, OPT, ViT and BERT state dicts -> the port's models.
 
 The port's counterpart of the JAX package's ``utils/checkpoint_import.py``
 (``normalize_state_dict``, ``hyenadna_to_flax``, ``merge_params``,
@@ -25,6 +25,15 @@ are transposed to (out, in); OPT's q, k and v projections are concatenated
 (q; k; v) into ``qkv_proj``, and its position table drops the two offset
 rows. The embedding table is zero-padded to the padded vocabulary.
 
+``import_vit_state_dict`` and ``import_bert_state_dict`` map HuggingFace's
+``ViTForImageClassification`` and ``BertForMaskedLM`` keys onto
+``models.vit.VisionTransformer`` and ``models.bert.BertForMaskedLM``: the
+separate query, key and value Linears are concatenated (q; k; v) into
+``qkv_proj``; the ViT patch projection keeps its Conv2d (d, C, p, p) layout
+and its position table its cls row; BERT's tied decoder weight is skipped
+for the word embeddings and ``cls.predictions.bias`` is the MLM bias.
+``interpolate_pos_embedding`` lengthens a position table.
+
 No network access is assumed: callers pass a state-dict-like mapping (for
 example from ``torch.load(path, map_location="cpu", weights_only=True)``).
 
@@ -42,6 +51,7 @@ Deliberate differences, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Mapping
 
@@ -293,6 +303,23 @@ def blockdiag_to_dense_mlp(tensors: Mapping[str, torch.Tensor]) -> dict[str, tor
 
 # --- GPT-2 and OPT (HuggingFace transformers) --------------------------------
 
+def _hf_copier(state, report, out):
+    """take(key) and copy(src, dst) over ``state``, recording what they use:
+    take returns one tensor; copy moves src's weight and bias, where present,
+    to dst in ``out``."""
+
+    def take(key: str) -> torch.Tensor:
+        report.used.append(key)
+        return _t(state[key])
+
+    def copy(src: str, dst: str) -> None:
+        for leaf in ("weight", "bias"):
+            if f"{src}.{leaf}" in state:
+                out[f"{dst}.{leaf}"] = take(f"{src}.{leaf}")
+
+    return take, copy
+
+
 def _pad_rows(table: torch.Tensor, multiple: int) -> torch.Tensor:
     pad = (-table.shape[0]) % multiple
     return torch.cat([table, table.new_zeros(pad, table.shape[1])]) if pad else table
@@ -307,10 +334,7 @@ def import_gpt2_state_dict(
     report = ImportReport()
     state = {k.removeprefix("transformer."): v for k, v in normalize_state_dict(state).items()}
     out: dict[str, torch.Tensor] = {}
-
-    def take(key: str) -> torch.Tensor:
-        report.used.append(key)
-        return _t(state[key])
+    take, _ = _hf_copier(state, report, out)
 
     def copy(src: str, dst: str, conv1d: bool = False) -> None:
         for leaf in ("weight", "bias"):
@@ -343,15 +367,7 @@ def import_opt_state_dict(
     report = ImportReport()
     state = {k.removeprefix("decoder."): v for k, v in normalize_state_dict(state).items()}
     out: dict[str, torch.Tensor] = {}
-
-    def take(key: str) -> torch.Tensor:
-        report.used.append(key)
-        return _t(state[key])
-
-    def copy(src: str, dst: str) -> None:
-        for leaf in ("weight", "bias"):
-            if f"{src}.{leaf}" in state:
-                out[f"{dst}.{leaf}"] = take(f"{src}.{leaf}")
+    take, copy = _hf_copier(state, report, out)
 
     out["embeddings.weight"] = _pad_rows(take("embed_tokens.weight"), pad_vocab_size_multiple)
     # OPTLearnedPositionalEmbedding's offset: rows 0 and 1 are never addressed
@@ -372,3 +388,92 @@ def import_opt_state_dict(
     used = set(report.used)
     report.skipped = [k for k in state if k not in used]
     return out, report
+
+
+# --- ViT and BERT (HuggingFace transformers) ---------------------------------
+
+def _qkv(take, prefix: str, leaf: str) -> torch.Tensor:
+    """The query, key and value Linears under ``prefix`` fused (q; k; v)."""
+    return torch.cat([take(f"{prefix}.{n}.{leaf}") for n in ("query", "key", "value")])
+
+
+def import_vit_state_dict(
+    state: Mapping[str, Any], n_layer: int
+) -> tuple[dict[str, torch.Tensor], ImportReport]:
+    """Map a ``ViTForImageClassification`` state dict onto
+    ``VisionTransformer``'s parameter names (a cls-token model). The pooler
+    and any other unused key are reported as skipped. Returns (tensors,
+    report); load with :func:`load_into`."""
+    report = ImportReport()
+    state = {k.removeprefix("vit."): v for k, v in normalize_state_dict(state).items()}
+    out: dict[str, torch.Tensor] = {}
+    take, copy = _hf_copier(state, report, out)
+    out["cls_token"] = take("embeddings.cls_token")
+    out["pos_embeddings"] = take("embeddings.position_embeddings")[0]
+    copy("embeddings.patch_embeddings.projection", "patch_embed")
+    copy("layernorm", "ln_f")
+    copy("classifier", "head")
+    for i in range(n_layer):
+        src, dst = f"encoder.layer.{i}.", f"blocks.{i}."
+        copy(src + "layernorm_before", dst + "norm1")
+        copy(src + "layernorm_after", dst + "norm2")
+        for leaf in ("weight", "bias"):
+            out[f"{dst}mixer.qkv_proj.{leaf}"] = _qkv(take, src + "attention.attention", leaf)
+        copy(src + "attention.output.dense", dst + "mixer.out_proj")
+        copy(src + "intermediate.dense", dst + "mlp.fc1")
+        copy(src + "output.dense", dst + "mlp.fc2")
+    used = set(report.used)
+    report.skipped = [k for k in state if k not in used]
+    return out, report
+
+
+def import_bert_state_dict(
+    state: Mapping[str, Any], n_layer: int
+) -> tuple[dict[str, torch.Tensor], ImportReport]:
+    """Map a ``BertForMaskedLM`` state dict onto the attention
+    ``BertForMaskedLM``'s parameter names. The tied decoder
+    (``cls.predictions.decoder.*``), the ``position_ids`` buffer and the
+    pooler are reported as skipped. Returns (tensors, report); load with
+    :func:`load_into`."""
+    report = ImportReport()
+    state = normalize_state_dict(state)
+    out: dict[str, torch.Tensor] = {}
+    take, copy = _hf_copier(state, report, out)
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        out[f"bert.{name}.weight"] = take(f"bert.embeddings.{name}.weight")
+    copy("bert.embeddings.LayerNorm", "bert.embed_norm")
+    for i in range(n_layer):
+        src, dst = f"bert.encoder.layer.{i}.", f"bert.layer.{i}."
+        for leaf in ("weight", "bias"):
+            out[f"{dst}mixer.qkv_proj.{leaf}"] = _qkv(take, src + "attention.self", leaf)
+        copy(src + "attention.output.dense", dst + "mixer.out_proj")
+        copy(src + "attention.output.LayerNorm", dst + "norm1")
+        copy(src + "intermediate.dense", dst + "fc1")
+        copy(src + "output.dense", dst + "fc2")
+        copy(src + "output.LayerNorm", dst + "norm2")
+    copy("cls.predictions.transform.dense", "mlm_transform")
+    copy("cls.predictions.transform.LayerNorm", "mlm_norm")
+    out["mlm_bias"] = take("cls.predictions.bias")
+    used = set(report.used)
+    report.skipped = [k for k in state if k not in used]
+    return out, report
+
+
+def interpolate_pos_embedding(emb, out_seqlen: int, interleave: bool = False) -> torch.Tensor:
+    """A position table (..., L, D) lengthened to (..., out_seqlen, D): whole
+    copies tiled along the sequence axis, or with ``interleave`` (square
+    lengths and a square ratio) each entry of the (sqrt L, sqrt L) grid
+    repeated over an r x r block (nearest-neighbour upsampling). f32."""
+    e = _t(emb)
+    length, d = e.shape[-2:]
+    if out_seqlen % length:
+        raise ValueError(f"out_seqlen {out_seqlen} must be a multiple of {length}")
+    reps = out_seqlen // length
+    if not interleave:
+        return e.repeat(*[1] * (e.ndim - 2), reps, 1)
+    side, out_side, r = math.isqrt(length), math.isqrt(out_seqlen), math.isqrt(reps)
+    if side * side != length or out_side * out_side != out_seqlen or r * r != reps:
+        raise ValueError("interleave requires square seqlens and a square ratio")
+    grid = e.reshape(*e.shape[:-2], side, side, d)
+    grid = grid.repeat_interleave(r, dim=-3).repeat_interleave(r, dim=-2)
+    return grid.reshape(*e.shape[:-2], out_seqlen, d)

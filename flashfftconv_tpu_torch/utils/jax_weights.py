@@ -31,6 +31,12 @@ the registry (``hyena``, ``m2``, ``h3``, ``long-conv``, ``mha``) and a
 dense or block-diagonal MLP; ``long_conv_model_state_dict`` takes a
 ``LongConvModel`` and ``sequence_model_state_dict`` a ``SequenceModel``.
 
+``vit_state_dict`` carries the JAX package's ``VisionTransformer`` (its
+patch kernel from flax's HWIO layout to (d_model, C, p, p)),
+``bert_state_dict`` its attention ``BertModel`` and the three heads over
+it, and ``moe_state_dict`` one ``MoEMlp`` (a ``ConvLMHeadModel`` block with
+``moe_kwargs`` goes through ``from_jax_params``).
+
 ``gpt_state_dict`` does the same for the JAX package's ``GPTLMHeadModel``
 (``embeddings``, ``pos_embeddings``, ``block_i/{norm1, norm2, mixer/{qkv_proj,
 out_proj}, mlp/{fc1, fc2}}``, ``ln_f`` and OPT's ``project_in`` and
@@ -160,13 +166,24 @@ def _mixer_state_dict(tree, prefix: str) -> dict[str, torch.Tensor]:
     return hyena_operator_state_dict(tree, prefix)
 
 
+def moe_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """flax MoEMlp params -> port MoEMlp state dict: the gate Dense
+    transposed, the expert stacks w1, b1, w2, b2 in their (E, ...) layout."""
+    return {**_dense(tree["gate"], prefix + "gate"),
+            **{f"{prefix}{name}": _t(tree[name]) for name in ("w1", "b1", "w2", "b2")}}
+
+
 def _block_state_dict(block, prefix: str) -> dict[str, torch.Tensor]:
-    """One flax lm.Block (any mixer of the registry, a dense or
-    block-diagonal MLP) -> port state dict."""
+    """One flax lm.Block (any mixer of the registry; a dense, block-diagonal
+    or MoE MLP) -> port state dict."""
+    mlp = block["mlp"]
+    if "gate" in mlp:
+        mlp_sd = moe_state_dict(mlp, prefix + "mlp.")
+    else:
+        mlp_sd = {**_m2_linear(mlp["fc1"], prefix + "mlp.fc1"),
+                  **_m2_linear(mlp["fc2"], prefix + "mlp.fc2")}
     return {**_norm(block["norm1"], prefix + "norm1"), **_norm(block["norm2"], prefix + "norm2"),
-            **_mixer_state_dict(block["mixer"], prefix + "mixer."),
-            **_m2_linear(block["mlp"]["fc1"], prefix + "mlp.fc1"),
-            **_m2_linear(block["mlp"]["fc2"], prefix + "mlp.fc2")}
+            **_mixer_state_dict(block["mixer"], prefix + "mixer."), **mlp_sd}
 
 
 def gpt_state_dict(params) -> dict[str, torch.Tensor]:
@@ -253,6 +270,62 @@ def m2_bert_state_dict(params) -> dict[str, torch.Tensor]:
     out.update(_norm(params["mlm_norm"], "mlm_norm"))
     if "mlm_head" in params:
         out.update(_dense(params["mlm_head"], "mlm_head"))
+    if "mlm_bias" in params:
+        out["mlm_bias"] = _t(params["mlm_bias"])
+    return out
+
+
+def vit_state_dict(params) -> dict[str, torch.Tensor]:
+    """flax VisionTransformer params -> port ``models.vit.VisionTransformer``
+    state dict: the patch kernel from flax's HWIO (p, p, C, d) to (d, C, p,
+    p), ``block_i`` -> ``blocks.i`` (each an lm.Block-shaped tree)."""
+    out = {"patch_embed.weight": _t(params["patch_embed"]["kernel"]).permute(3, 2, 0, 1)
+           .contiguous(),
+           "patch_embed.bias": _t(params["patch_embed"]["bias"]),
+           "pos_embeddings": _t(params["pos_embeddings"]),
+           **_norm(params["ln_f"], "ln_f"), **_dense(params["head"], "head")}
+    if "cls_token" in params:
+        out["cls_token"] = _t(params["cls_token"])
+    for name, block in params.items():
+        if name.startswith("block_"):
+            out.update(_block_state_dict(block, f"blocks.{name.split('_')[1]}."))
+    return out
+
+
+def _bert_model_state_dict(tree, prefix: str) -> dict[str, torch.Tensor]:
+    """flax BertModel params -> port BertModel state dict under ``prefix``."""
+    out = _norm(tree["embed_norm"], prefix + "embed_norm")
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        if name in tree:
+            out[f"{prefix}{name}.weight"] = _t(tree[name]["embedding"])
+    if "pooler" in tree:
+        out.update(_dense(tree["pooler"], prefix + "pooler"))
+    for name, layer in tree.items():
+        if name.startswith("layer_"):
+            p = f"{prefix}layer.{name.split('_')[1]}."
+            out.update(mha_state_dict(layer["mixer"], p + "mixer."))
+            for sub in ("norm1", "norm2"):
+                out.update(_norm(layer[sub], p + sub))
+            out.update(_dense(layer["fc1"], p + "fc1"))
+            out.update(_dense(layer["fc2"], p + "fc2"))
+    return out
+
+
+def bert_state_dict(params) -> dict[str, torch.Tensor]:
+    """flax attention-BERT params -> port state dict, for ``BertModel``,
+    ``BertForMaskedLM``, ``BertForSequenceClassification`` and
+    ``BertForPreTraining``: a word-embedding table at the top of the tree
+    (the tied heads') goes to ``bert.word_embeddings``."""
+    if "bert" not in params:
+        return _bert_model_state_dict(params, "")
+    out = _bert_model_state_dict(params["bert"], "bert.")
+    if "word_embeddings" in params:
+        out["bert.word_embeddings.weight"] = _t(params["word_embeddings"]["embedding"])
+    for name in ("mlm_transform", "classifier", "nsp_head"):
+        if name in params:
+            out.update(_dense(params[name], name))
+    if "mlm_norm" in params:
+        out.update(_norm(params["mlm_norm"], "mlm_norm"))
     if "mlm_bias" in params:
         out["mlm_bias"] = _t(params["mlm_bias"])
     return out

@@ -1423,3 +1423,122 @@ def test_cuda_h3_and_long_conv_models_match_cpu(kind):
     for name, r in grads["cpu"].items():
         err = float((grads["cuda"][name] - r).abs().max())
         assert err <= 1e-4 * float(r.abs().max()) + 1e-8, (name, err)
+
+
+# --- the attention encoders and the MoE LM -------------------------------------
+
+def _padding_segments(b, l, lo, g, dev):
+    """int32 (B, L) segment ids of a padding mask: 1 on each row's first n
+    positions (n drawn in [lo, L]), 0 on the padded tail."""
+    n = torch.randint(lo, l + 1, (b, 1), generator=g)
+    return (torch.arange(l)[None] < n).int().to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["vit_bf16", "vit_f32", "bert"])
+def test_cuda_attention_kernels_at_the_encoder_shapes(shape):
+    """The three flash kernels, non-causal, against their plain versions at
+    ViT-B/16's shape (B=8, H=12, L=197 = 196 patches and a cls token, D=64:
+    the last 64-row tile holds 5 rows), in bf16 and in f32 (the ViT's path
+    promotes q, k, v to f32), and at BERT-base's (B=16, H=12, L=128, D=64,
+    f32, segment ids from a padding mask: pads attend only to pads); then
+    FlashAttnFunction's grads against autograd through mha_reference."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(197)
+    b, l, dtype = {"vit_bf16": (8, 197, torch.bfloat16), "vit_f32": (8, 197, torch.float32),
+                   "bert": (16, 128, torch.float32)}[shape]
+    q, k, v, do = (torch.randn(b, 12, l, 64, generator=g).to(dev, dtype) for _ in "qkvd")
+    seg = _padding_segments(b, l, 64, g, dev) if shape == "bert" else None
+    counts = [f.launches for f in (ac.flash_attn_fwd, ac.flash_attn_bwd_dkv, ac.flash_attn_bwd_dq)]
+    o, lse = ac.flash_attn_fwd(q, k, v, False, None, None, seg)
+    delta = plain.attention_delta(o, do)
+    dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, False, None, None, seg)
+    dq, _ = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, False, None, None, seg)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (ac.flash_attn_fwd, ac.flash_attn_bwd_dkv,
+                                 ac.flash_attn_bwd_dq)] == [c + 1 for c in counts]
+    ro, rlse = plain.flash_attn_fwd_plain(q, k, v, False, None, None, seg)
+    rq, rk, rv, _ = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, False, None, None, seg)
+    for got, ref in ((o, ro), (lse, rlse), (dq, rq), (dk, rk), (dv, rv)):
+        _attn_close(got, ref)
+    qs, ks, vs = (t.float().requires_grad_() for t in (q, k, v))
+    grads = [torch.autograd.grad((fn(qs, ks, vs, causal=False, segment_ids=seg) * do.float())
+                                 .sum(), (qs, ks, vs))
+             for fn in (tff.flash_mha, tff.mha_reference)]
+    for got, ref in zip(*grads):
+        _attn_close(got, ref)
+
+
+def _model_vs_cpu(build, inputs, loss_of, rel=1e-4):
+    """The model built on the card and on the CPU from one seed: outputs
+    within ``rel`` of the largest |output|, every parameter's grad within
+    ``rel`` of its largest |grad|."""
+    out, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = build(dev).eval()
+        out[dev] = m(*(t.to(dev) if torch.is_tensor(t) else t for t in inputs))
+        loss_of(out[dev], dev).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+    ref = out["cpu"].detach()
+    err = float((out["cuda"].detach().cpu() - ref).abs().max())
+    assert err <= rel * float(ref.abs().max()), err
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for name, r in grads["cpu"].items():
+        err = float((grads["cuda"][name] - r).abs().max())
+        assert err <= rel * float(r.abs().max()) + 1e-8, (name, err)
+
+
+@pytest.mark.gpu
+def test_cuda_encoders_match_cpu():
+    """A 2-layer f32 ViT (token pool, 17 tokens) and a 2-layer f32 attention
+    BertForMaskedLM with a padded row, both with 2 heads of 64, on the card (flash kernels, one
+    forward and one backward a layer) and on the CPU (plain versions)."""
+    _needs_card()
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    g = torch.Generator().manual_seed(6)
+    imgs = torch.randn(2, 32, 32, 3, generator=g)
+    labels = torch.tensor([1, 7])
+    n0 = ac.flash_attn_fwd.launches, ac.flash_attn_bwd_dq.launches
+    _model_vs_cpu(
+        lambda dev: tff.VisionTransformer(10, img_size=32, patch_size=8, d_model=128, n_layer=2,
+                                          num_heads=2, dtype=torch.float32, device=dev,
+                                          generator=torch.Generator().manual_seed(7)),
+        (imgs,), lambda y, dev: cross_entropy(y, labels.to(dev)))
+    ids = torch.randint(0, 50, (2, 40), generator=g)
+    mask = torch.ones(2, 40, dtype=torch.int64)
+    mask[1, 25:] = 0
+    mlm = torch.where(torch.rand(2, 40, generator=g) < 0.3, ids, -100).masked_fill(mask == 0, -100)
+    _model_vs_cpu(
+        lambda dev: tff.BertForMaskedLM(50, d_model=128, n_layer=2, d_inner=96, num_heads=2,
+                                        l_max=64, device=dev,
+                                        generator=torch.Generator().manual_seed(8)),
+        (ids, None, mask), lambda y, dev: cross_entropy(y, mlm.to(dev), -100))
+    assert (ac.flash_attn_fwd.launches - n0[0], ac.flash_attn_bwd_dq.launches - n0[1]) == (4, 4)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_lm_matches_cpu():
+    """A 2-layer f32 Hyena LM with MoE MLPs (4 experts, top-2, capacity
+    1.25, so some tokens drop; l_max 1024, 256 tokens) on the card (Monarch
+    and depthwise kernels) and on the CPU: logits and every parameter's
+    grad, routing included."""
+    _needs_card()
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids = torch.randint(0, 64, (2, 129), generator=torch.Generator().manual_seed(9))
+    n0 = monarch_cuda.monarch_conv.launches
+    _model_vs_cpu(
+        lambda dev: ConvLMHeadModel(d_model=32, n_layer=2, d_inner=48, vocab_size=64, l_max=1024,
+                                    mixer_kwargs={"conv_dtype": torch.float32},
+                                    moe_kwargs={"n_experts": 4, "top_k": 2},
+                                    dtype=torch.float32, device=dev,
+                                    generator=torch.Generator().manual_seed(10)),
+        (ids[:, :-1],), lambda y, dev: cross_entropy(y, ids[:, 1:].to(dev)))
+    assert monarch_cuda.monarch_conv.launches == n0 + 2

@@ -48,6 +48,7 @@ from flashfftconv_tpu_torch import FlashFFTConv
 from flashfftconv_tpu_torch.models import filters as tfilters
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator, ShortDepthwiseConv
 from flashfftconv_tpu_torch.models.lm import Block, ConvLMHeadModel, LMBackbone
+from flashfftconv_tpu_torch.models.moe import MoEMlp
 from flashfftconv_tpu_torch.utils import data, jax_weights, metrics, optim, train
 from flashfftconv_tpu_torch.utils.generation import generate, sample_logits
 
@@ -219,11 +220,23 @@ _MOE = {"n_experts": 2}
                             mixer="long-conv", moe_kwargs=_MOE, device=CPU),
 ])
 def test_unported_options_raise(make):
-    """MoE is the one option of the JAX LM not ported: it raises with every
-    mixer and MLP (the h3, m2 and long-conv mixers and block-diagonal MLPs
-    are ported and tested in test_torch_h3.py and test_torch_longconv.py)."""
-    with pytest.raises(NotImplementedError, match="moe_kwargs"):
-        make()
+    """MoE, the last option of the JAX LM that raised here, now builds with
+    every mixer and MLP option: the block's MLP is a ``MoEMlp`` (held to
+    flax in test_torch_moe.py), and a forward gives finite outputs of the
+    input's shape. The h3, m2 and long-conv mixers and block-diagonal MLPs
+    are tested in test_torch_h3.py and test_torch_longconv.py."""
+    model = make()
+    block = model.backbone.blocks[0] if isinstance(model, ConvLMHeadModel) else model
+    assert isinstance(block.mlp, MoEMlp)
+    with torch.no_grad():
+        if isinstance(model, ConvLMHeadModel):
+            y = model(torch.randint(0, 32, (2, 64), generator=torch.Generator().manual_seed(0)))
+            assert y.shape == (2, 64, 32)
+        else:
+            x = torch.randn(2, 64, 8, generator=torch.Generator().manual_seed(0))
+            y = model(x)
+            assert y.shape == x.shape
+    assert torch.isfinite(y).all()
 
 
 # --- the memory levers of the 1M-base recipe -------------------------------
