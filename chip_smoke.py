@@ -10,8 +10,8 @@ Run from the root of a checkout on a machine with an H100:
                                     window_train,window_parity,h3_serve,h3_train,
                                     listops_train,mixers_parity,vit_serve,vit_train,
                                     vit_parity,attn_bert,attn_bert_train,attn_bert_parity,
-                                    moe_train,moe_parity,sparse_parity,smem_probe,
-                                    timing[,profile]]
+                                    moe_train,moe_parity,sparse_parity,harness,lm_cli,
+                                    cli_smoke,smem_probe,timing[,profile]]
 
 Phases, each of which fails the run by raising:
   build     builds every CUDA kernel from csrc/ with nvcc (one nvcc per
@@ -269,6 +269,32 @@ Phases, each of which fails the run by raising:
   sparse_parity  partial_fft_conv through a direct plan (N=512) and a
             Monarch plan (N=16384), and frequency_sparse_fft_conv, on the
             card against the CPU (2e-5 of the largest |y|);
+  harness   the training harness at Hyena-125M's full width, in process: the
+            model from utils.registry ("lm", d_model 768, 12 layers, l_max
+            8192, bf16) takes 4 steps of the train phase's recipe at B=4 with
+            a checkpoint (save_checkpoint) after the second; a fresh model of
+            other initial weights, restored from it, takes the last two: the
+            losses and every parameter must be bit-identical (each step's
+            dropout masks seeded from the step); then auto_save_on_exception
+            under a raised error and latest_checkpoint picking it, debug_nans
+            raising on a NaN made on the card, evaluate on the ListOps
+            LongConvModel over 1000 rows at B=64 (a ragged last batch)
+            against a row-by-row count, and the native loader's
+            restore(counter); prints the checkpoint's size and its save and
+            restore seconds;
+  lm_cli    examples/lm/train_torch.py --preset hyena-125M --data pystdlib
+            (the corpus built from this machine's Python standard library
+            into examples/lm/data/) in a subprocess, as a user runs it: 6
+            steps with an eval every 3 and a checkpoint, then --resume to
+            step 8; requires rc 0, the native C++ loader, "resumed at step
+            6", finite val bits/byte, a sample, one JSONL record a step and
+            each step's kernel launches (counted in the CLI's process);
+            prints the median step time, tokens/s and peak memory beside the
+            train phase's;
+  cli_smoke the other five torch CLIs (hyena_dna, bert, lra listops and
+            retrieval, forecasting) on the card at their JAX scripts' smoke
+            test arguments, started together: each exits 0, prints its
+            marker and launches its conv kernel; each timed;
   smem_probe  the shared-memory probe (utils/smem_probe.py, the counterpart
             of benchmarks/tpu_vmem_probe.py): dynamic shared memory sizes of
             16-228 KB until the first refusal, each launched size returning
@@ -364,7 +390,8 @@ PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity
           "gpt_serve", "gpt_train", "gpt_parity", "window_serve", "window_train", "window_parity",
           "h3_serve", "h3_train", "listops_train", "mixers_parity", "vit_serve", "vit_train",
           "vit_parity", "attn_bert", "attn_bert_train", "attn_bert_parity", "moe_train",
-          "moe_parity", "sparse_parity", "smem_probe", "timing")
+          "moe_parity", "sparse_parity", "harness", "lm_cli", "cli_smoke", "smem_probe",
+          "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -3662,6 +3689,345 @@ def phase_sparse_parity(torch, seed, np):
     return res
 
 
+# The one-block conv kernels the torch CLIs' paths launch, counted in the CLI's
+# own process (_COUNTED_RUN).
+CLI_KERNELS = ("spectrum", "monarch_conv", "monarch_conv_bwd", "dk_finish", "depthwise",
+               "depthwise_bwd", "direct_conv", "direct_conv_bwd")
+# Runs ``python <script> <args>`` as its user would, with the launch counters
+# of CLI_KERNELS set to 0 first, and prints their counts on a line of its own
+# when the script ends.
+_COUNTED_RUN = """import json, runpy, sys
+sys.path.insert(0, {here!r})
+import chip_smoke
+fns = chip_smoke._counters(chip_smoke.CLI_KERNELS)
+for fn in fns.values():
+    fn.launches = 0
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    print("LAUNCHES " + json.dumps({{n: fn.launches for n, fn in fns.items()}}), flush=True)
+"""
+HARNESS_STEPS = 4
+HARNESS_EVAL_ROWS, HARNESS_EVAL_B = 1000, 64
+LM_CLI_STEPS, LM_CLI_RESUMED = 6, 8
+# The other five torch CLIs at the arguments of their JAX scripts' smoke tests
+# (tests/test_examples.py; ListOps with --min-len 16, since its default of 500
+# is above --l-max 256), with the marker each must print and a kernel each
+# must launch: FFT size 1024 for HyenaDNA (Monarch), 256 and 512 for the rest
+# (direct).
+CLI_SMOKE = {
+    "hyena_dna": ("examples/hyena_dna/train_torch.py",
+                  ["--steps", "2", "--d_model", "32", "--n_layer", "1", "--l_max", "512"],
+                  "bits/base", "monarch_conv_bwd"),
+    "bert": ("examples/bert/train_torch.py",
+             ["--steps", "3", "--d_model", "32", "--n_layer", "1", "--batch_size", "4"],
+             "mlm loss", "direct_conv_bwd"),
+    "listops": ("examples/lra/train_listops_torch.py",
+                ["--epochs", "1", "--n-train", "64", "--n-val", "32", "--batch_size", "32",
+                 "--l-max", "256", "--min-len", "16", "--d_model", "32", "--n_layers", "1",
+                 "--data-cache", "{tmp}/listops.npz", "--ckpt-dir", "{tmp}/listops_ckpt"],
+                "val acc", "direct_conv_bwd"),
+    "retrieval": ("examples/lra/train_retrieval_torch.py",
+                  ["--epochs", "1", "--n-train", "64", "--n-val", "32", "--batch_size", "16",
+                   "--l-max", "256", "--d_model", "32", "--n_layers", "1",
+                   "--data-cache", "{tmp}/retrieval.npz", "--ckpt-dir", "{tmp}/retrieval_ckpt"],
+                  "val acc", "direct_conv_bwd"),
+    "forecasting": ("examples/forecasting/train_ett_torch.py",
+                    ["--epochs", "1", "--n-steps", "2000", "--l-max", "256", "--horizon", "24",
+                     "--batch_size", "16", "--d_model", "32", "--n_layers", "1",
+                     "--ckpt-dir", "{tmp}/ett_ckpt"],
+                    "val mse", "direct_conv_bwd"),
+}
+
+
+def _dir_gib(path) -> float:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file()) / 2**30
+
+
+def phase_harness(torch, seed, np):
+    """The training harness at Hyena-125M's full width, in process: the model
+    from the registry, HARNESS_STEPS steps of the train recipe with a
+    checkpoint after the first two, then a fresh model (other initial
+    weights) restored from it takes the last two: the losses and every
+    parameter must be bit-identical. Then an auto-save under a raised error
+    and latest_checkpoint, debug_nans on a NaN made on the card, evaluate on
+    the ListOps LongConvModel over 1000 rows at B=64 against a row-by-row
+    count, and the native loader's restore."""
+    import tempfile
+
+    from flashfftconv_tpu_torch.utils import debugging, native_loader, registry
+    from flashfftconv_tpu_torch.utils.train import (
+        auto_save_on_exception,
+        create_train_state,
+        evaluate,
+        latest_checkpoint,
+        lm_optimizer,
+        make_eval_step,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = {"_name_": "lm", "d_model": D_MODEL, "n_layer": N_LAYER, "d_inner": 4 * D_MODEL,
+           "vocab_size": VOCAB, "mixer": "hyena"}
+
+    def build(init_seed):
+        model = registry.instantiate("model", cfg, l_max=L_MAX, dtype=torch.bfloat16,
+                                     device=dev,
+                                     generator=torch.Generator().manual_seed(init_seed)).train()
+        opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2,
+                                  steps=HARNESS_STEPS)
+        return create_train_state(model, opt, sched), make_train_step(model, opt, sched,
+                                                                      clip=1.0)
+
+    def run(state, step, batches):
+        losses = []
+        for x, y in batches:
+            torch.manual_seed((seed << 32) + state.step)  # dropout masks of this step
+            losses.append(float(step(x, y)["loss"]))
+            state.step += 1
+        return losses
+
+    batches = _train_batches(torch, np, seed, dev, HARNESS_STEPS)
+    half = HARNESS_STEPS // 2
+    counters = _counters(TRAIN_LAUNCHES)
+    for fn in counters.values():
+        fn.launches = 0
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        last = Path(tmp) / "last"
+        state, step = build(seed)
+        first = run(state, step, batches[:half])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(last), state, {"step": state.step})
+        res["save_s"] = time.perf_counter() - t0
+        res["checkpoint_gib"] = _dir_gib(last)
+        want = run(state, step, batches[half:])
+        params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        del state, step
+        torch.cuda.empty_cache()
+
+        fresh, fresh_step = build(seed + 1)
+        t0 = time.perf_counter()
+        fresh, extra = restore_checkpoint(str(last), fresh, {"step": 0})
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t0
+        if extra != {"step": half} or fresh.step != half:
+            raise AssertionError(f"harness: restored extra {extra}, step {fresh.step}")
+        got = run(fresh, fresh_step, batches[half:])
+        if got != want:
+            raise AssertionError(f"harness: resumed losses {got} != uninterrupted {want}")
+        differ = [n for n, p in fresh.model.named_parameters() if not torch.equal(p, params[n])]
+        if differ:
+            raise AssertionError(f"harness: parameters differ after the resumed steps: {differ}")
+        res["losses"] = first + want
+        res["params_checked"] = len(params)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        expected = {name: n * (HARNESS_STEPS + half) for name, n in TRAIN_LAUNCHES.items()}
+        if launches != expected:
+            raise AssertionError(f"harness: launched {launches}, expected {expected}")
+        res["launches"] = launches
+
+        guard = auto_save_on_exception(tmp)
+        t0 = time.perf_counter()
+        try:
+            with guard:
+                guard.track(fresh, extra={"step": fresh.step})
+                raise RuntimeError("a deliberate failure")
+        except RuntimeError as e:
+            if str(e) != "a deliberate failure":
+                raise
+        res["auto_save_s"] = time.perf_counter() - t0
+        if latest_checkpoint(tmp) != guard.path:
+            raise AssertionError(f"harness: latest_checkpoint {latest_checkpoint(tmp)}, "
+                                 f"not the auto-save {guard.path}")
+        del fresh, fresh_step, params
+        torch.cuda.empty_cache()
+
+    try:
+        with debugging.debug_nans():
+            torch.log(torch.full((4,), -1.0, device=dev))
+        raise AssertionError("harness: debug_nans let a NaN made on the card through")
+    except FloatingPointError as e:
+        res["debug_nans"] = str(e)
+
+    model = _listops_model(torch, seed, dev)
+    ids, labels = (t.numpy() for t in _listops_batch(torch, np, seed + 1, HARNESS_EVAL_ROWS,
+                                                    LISTOPS_L))
+    correct, total = evaluate(make_eval_step(model), (ids, labels), HARNESS_EVAL_B, dev)
+    model.eval()
+    ref = 0
+    with torch.no_grad():
+        for i in range(0, len(ids), HARNESS_EVAL_B):
+            rows = torch.zeros((HARNESS_EVAL_B, LISTOPS_L), dtype=torch.long, device=dev)
+            chunk = torch.from_numpy(ids[i : i + HARNESS_EVAL_B]).to(dev)
+            rows[: len(chunk)] = chunk  # pad rows are all PAD here, copies in evaluate
+            pred = model(rows)[: len(chunk)].argmax(-1).cpu().numpy()
+            ref += int((pred == labels[i : i + HARNESS_EVAL_B]).sum())
+    if total != HARNESS_EVAL_ROWS or correct != ref:
+        raise AssertionError(f"harness: evaluate gave ({correct}, {total}), the rows count "
+                             f"({ref}, {HARNESS_EVAL_ROWS})")
+    res["evaluate"] = {"correct": correct, "total": total}
+    del model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tokens.bin"
+        _corpus(np).astype(np.uint8).tofile(path)
+        loader = native_loader.NativeLMLoader(str(path), B, L_MAX, seed=seed)
+        try:
+            for _ in range(3):
+                loader.next()
+            counter = loader.state()
+            ahead = [loader.next() for _ in range(2)]
+            loader.restore(counter)
+            again = [loader.next() for _ in range(2)]
+        finally:
+            loader.close()
+        if counter != 3 or not all((a == b).all() for pa, pb in zip(ahead, again)
+                                   for a, b in zip(pa, pb)):
+            raise AssertionError(f"harness: the native loader did not resume at {counter}")
+    log(f"harness: Hyena-125M from the registry, {HARNESS_STEPS} steps, losses "
+        f"{' '.join(f'{v:.6f}' for v in res['losses'])}; resumed from the checkpoint of step "
+        f"{half}: losses and {res['params_checked']} parameters bit-identical")
+    log(f"harness: checkpoint {res['checkpoint_gib']:.3f} GiB, save {res['save_s']:.2f} s, "
+        f"restore {res['restore_s']:.2f} s, auto-save {res['auto_save_s']:.2f} s; "
+        f"debug_nans: {res['debug_nans']}; evaluate ListOps {correct:.0f}/{total:.0f} at "
+        f"B={HARNESS_EVAL_B} (rows count {ref}); native loader resumed at batch {counter}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"harness: {res['seconds']:.1f} s")
+    return res
+
+
+def _run_cli(script, args, timeout):
+    """Run a torch CLI in a subprocess through _COUNTED_RUN: (rc, stdout,
+    stderr, seconds, launches of CLI_KERNELS)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _COUNTED_RUN.format(here=str(HERE)), script,
+                           *args], cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    launches = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("LAUNCHES "):
+            launches = json.loads(line[len("LAUNCHES "):])
+    return proc.returncode, proc.stdout, proc.stderr, seconds, launches
+
+
+def _cli_failed(what, rc, out, err, why):
+    return AssertionError(f"{what}: {why} (rc {rc})\n--- stdout\n{out[-3000:]}\n"
+                          f"--- stderr\n{err[-3000:]}")
+
+
+def phase_lm_cli(torch, np, train=None):
+    """examples/lm/train_torch.py --preset hyena-125M on the pystdlib corpus
+    (built from this machine's Python standard library), as a user runs it:
+    LM_CLI_STEPS steps with an eval every 3, a checkpoint at the end, then
+    --resume to LM_CLI_RESUMED. Requires the native loader, the resume at
+    step 6, finite val bits/byte, a sample, one JSONL record per step and
+    each step's kernel launches; prints the median step time, tokens/s and
+    peak memory beside the train phase's (``train``) for the same model, B
+    and L."""
+    import gc
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"runs": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        log_file = Path(tmp) / "lm.jsonl"
+        common = ["--preset", "hyena-125M", "--data", "pystdlib", "--eval-every", "3",
+                  "--log-every", "1", "--time-steps", "--ckpt-dir", f"{tmp}/ckpt",
+                  "--log-file", str(log_file)]
+        for steps, extra, done in ((LM_CLI_STEPS, [], 0),
+                                   (LM_CLI_RESUMED, ["--resume"], LM_CLI_STEPS)):
+            rc, out, err, seconds, launches = _run_cli("examples/lm/train_torch.py",
+                                                       common + ["--steps", str(steps), *extra],
+                                                       timeout=600)
+            what = f"lm_cli run to step {steps}"
+            if rc != 0:
+                raise _cli_failed(what, rc, out, err, "failed")
+            for marker in ("using native C++ dataloader", "sample:", "bits/byte",
+                           *([f"resumed at step {done}"] if done else [])):
+                if marker not in out:
+                    raise _cli_failed(what, rc, out, err, f"no {marker!r} in its output")
+            n = steps - done
+            for name, per_step in TRAIN_LAUNCHES.items():
+                backward = name in ("monarch_conv_bwd", "dk_finish", "depthwise_bwd")
+                # backward kernels run in the steps alone; forward ones also in
+                # the evals and the 32 forwards of the sample
+                if launches.get(name, 0) < n * per_step or (backward and
+                                                            launches[name] != n * per_step):
+                    raise _cli_failed(what, rc, out, err, f"launched {launches}, {n} steps "
+                                      f"need {TRAIN_LAUNCHES} a step")
+            peak = re.search(r"train-step peak memory: (\d+) MB", out)
+            res["runs"].append({"steps": steps, "seconds": seconds, "launches": launches,
+                                "peak_memory_mb": int(peak.group(1)) if peak else None,
+                                "sample": out.split("sample:", 1)[1].splitlines()[0].strip()})
+        records = [json.loads(line) for line in log_file.read_text().splitlines()]
+    steps = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val_bits_per_byte" in r]
+    if [r["step"] for r in steps] != list(range(LM_CLI_RESUMED)):
+        raise AssertionError(f"lm_cli: step records {[r['step'] for r in steps]}")
+    if not vals or not all(math.isfinite(r["val_bits_per_byte"]) for r in vals):
+        raise AssertionError(f"lm_cli: val records {vals}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        raise AssertionError(f"lm_cli: losses {[r['loss'] for r in steps]}")
+    # the first step of each process builds and warms up; the rest are timed
+    timed = [r["step_ms"] for r in steps if r["step"] not in (0, LM_CLI_STEPS)]
+    med = float(np.median(timed))
+    peak_gib = max(r["peak_memory_mb"] for r in res["runs"]) / 1024
+    res.update(losses=[r["loss"] for r in steps], step_ms=[r["step_ms"] for r in steps],
+               step_ms_median=med, tokens_per_s=B * L_MAX / (med / 1e3),
+               peak_memory_gib=peak_gib,
+               val_bits_per_byte=[(r["step"], r["val_bits_per_byte"]) for r in vals])
+    vals_txt = " ".join(f"{s}:{v:.4f}" for s, v in res["val_bits_per_byte"])
+    secs = " + ".join(f"{r['seconds']:.1f}" for r in res["runs"])
+    log(f"lm_cli: examples/lm/train_torch.py --preset hyena-125M --data pystdlib, "
+        f"{LM_CLI_STEPS} steps then --resume to {LM_CLI_RESUMED}: losses "
+        f"{' '.join(f'{v:.4f}' for v in res['losses'])}, val bits/byte "
+        f"{vals_txt}, {secs} s of command")
+    beside = (f"train phase {train['step_ms_median']:.2f} ms, {train['tokens_per_s']:.0f} "
+              f"tokens/s, peak {train['peak_memory_bytes'] / 2**30:.2f} GiB" if train
+              else "train phase not run")
+    log(f"lm_cli: step median {med:.2f} ms over {len(timed)} timed steps "
+        f"({res['tokens_per_s']:.0f} tokens/s), peak memory {peak_gib:.2f} GiB; {beside}; "
+        f"sample {res['runs'][-1]['sample']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"lm_cli: {res['seconds']:.1f} s")
+    return res
+
+
+def phase_cli_smoke(torch):
+    """The other five torch CLIs on the card at their JAX smoke tests'
+    arguments (CLI_SMOKE), all started together: each must exit 0, print its
+    marker and launch its kernel."""
+    import gc
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(CLI_SMOKE)) as pool:
+        futures = {name: pool.submit(_run_cli, script, [a.format(tmp=tmp) for a in args], 600)
+                   for name, (script, args, _, _) in CLI_SMOKE.items()}
+        for name, (script, _, marker, kernel) in CLI_SMOKE.items():
+            rc, out, err, seconds, launches = futures[name].result()
+            if rc != 0 or marker not in out or not launches.get(kernel):
+                raise _cli_failed(f"cli_smoke {script}", rc, out, err,
+                                  f"marker {marker!r}, launches {launches}")
+            res[name] = {"seconds": seconds, "launches": launches}
+            launched = {k: v for k, v in launches.items() if v}
+            log(f"cli_smoke: {script} {seconds:.1f} s, {marker!r} printed, launches {launched}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"cli_smoke: {res['seconds']:.1f} s for the five together")
+    return res
+
 def phase_smem_probe(torch, seed):
     """The shared-memory probe (utils.smem_probe.run_probe): the sweep of
     KB_GRID with smem_probe_touch, 4.0 at every size that launched, the
@@ -4981,6 +5347,12 @@ def main() -> int:
                  "attn_bert_parity", "moe_train", "moe_parity", "sparse_parity"):
         if name in phases:
             results[name] = globals()[f"phase_{name}"](torch, args.seed, np)
+    if "harness" in phases:
+        results["harness"] = phase_harness(torch, args.seed, np)
+    if "lm_cli" in phases:
+        results["lm_cli"] = phase_lm_cli(torch, np, results.get("train"))
+    if "cli_smoke" in phases:
+        results["cli_smoke"] = phase_cli_smoke(torch)
     if "smem_probe" in phases:
         results["smem_probe"] = phase_smem_probe(torch, args.seed)
     if "timing" in phases:

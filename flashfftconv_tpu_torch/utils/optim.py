@@ -12,6 +12,12 @@ first update); ``lr_lambda`` turns one into a ``LambdaLR`` factor, so the
 first ``optimizer.step()`` runs at ``schedule(0)``, as optax's does.
 ``torch.optim.AdamW`` with betas (0.9, 0.999) and eps 1e-8 is optax's
 ``adamw``: the decay is decoupled and scaled by the learning rate.
+
+Every schedule the JAX registry names (constant, linear, cosine,
+warmup-cosine, exponential, warmup-exponential, sgdr, piecewise) is here
+with optax's arguments and values, and so are optax's ``adamw``, ``adam``,
+``sgd`` and ``lamb`` by their optax keywords and defaults (``Lamb`` is the
+torch optimizer of the last), for ``utils.registry``.
 """
 
 from __future__ import annotations
@@ -25,38 +31,122 @@ from torch import nn
 from flashfftconv_tpu_torch.utils import jax_weights
 
 
-def linear_schedule(init_value: float, end_value: float, transition_steps: int):
-    """optax.linear_schedule: init -> end over transition_steps, then end."""
+def constant_schedule(value: float):
+    """optax.constant_schedule."""
+    return lambda step: value
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int,
+                    transition_begin: int = 0):
+    """optax.linear_schedule: init before transition_begin, then linearly to
+    end over transition_steps, then end; init throughout when
+    transition_steps <= 0."""
+    if transition_steps <= 0:
+        return lambda step: init_value
+    begin = max(transition_begin, 0)
 
     def f(step: int) -> float:
-        if transition_steps <= 0:
-            return end_value
-        frac = 1.0 - min(max(step, 0), transition_steps) / transition_steps
+        frac = 1.0 - min(max(step - begin, 0), transition_steps) / transition_steps
         return (init_value - end_value) * frac + end_value
 
     return f
 
 
-def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
-    """optax.cosine_decay_schedule: init * ((1 - alpha) * cosine + alpha)."""
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0):
+    """optax.cosine_decay_schedule: init * ((1 - alpha) * cosine**exponent + alpha)."""
     if decay_steps <= 0:
         raise ValueError(f"decay_steps must be positive, got {decay_steps}")
 
     def f(step: int) -> float:
         cosine = 0.5 * (1 + math.cos(math.pi * min(step, decay_steps) / decay_steps))
-        return init_value * ((1 - alpha) * cosine + alpha)
+        return init_value * ((1 - alpha) * cosine**exponent + alpha)
+
+    return f
+
+
+def _join(schedules, boundaries):
+    """optax.join_schedules: schedule i + 1 from boundary i on, counted from it."""
+
+    def f(step: int) -> float:
+        for boundary, schedule in zip(boundaries[::-1], schedules[:0:-1]):
+            if step >= boundary:
+                return schedule(step - boundary)
+        return schedules[0](step)
 
     return f
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
-                                 decay_steps: int, end_value: float = 0.0):
+                                 decay_steps: int, end_value: float = 0.0,
+                                 exponent: float = 1.0):
     """optax.warmup_cosine_decay_schedule: linear warmup to the peak, then a
     cosine decay over the remaining decay_steps - warmup_steps."""
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    warm = linear_schedule(init_value, peak_value, warmup_steps)
-    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha)
-    return lambda step: warm(step) if step < warmup_steps else decay(step - warmup_steps)
+    return _join([linear_schedule(init_value, peak_value, warmup_steps),
+                  cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha,
+                                        exponent)], [warmup_steps])
+
+
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float,
+                      transition_begin: int = 0, staircase: bool = False,
+                      end_value: float | None = None):
+    """optax.exponential_decay: init * decay_rate ** ((step - begin) /
+    transition_steps) from transition_begin on (the exponent floored when
+    ``staircase``), bounded by ``end_value`` (below when decay_rate < 1)."""
+    if transition_steps <= 0 or decay_rate == 0:
+        return lambda step: init_value
+    begin = max(transition_begin, 0)
+    clip = max if decay_rate < 1.0 else min
+
+    def f(step: int) -> float:
+        if step - begin <= 0:
+            value = init_value
+        else:
+            p = (step - begin) / transition_steps
+            value = init_value * decay_rate ** (math.floor(p) if staircase else p)
+        return value if end_value is None else clip(value, end_value)
+
+    return f
+
+
+def warmup_exponential_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                      transition_steps: int, decay_rate: float,
+                                      transition_begin: int = 0, staircase: bool = False,
+                                      end_value: float | None = None):
+    """optax.warmup_exponential_decay_schedule: linear warmup to the peak,
+    then ``exponential_decay`` from it."""
+    return _join([linear_schedule(init_value, peak_value, warmup_steps),
+                  exponential_decay(peak_value, transition_steps, decay_rate, transition_begin,
+                                    staircase, end_value)], [warmup_steps])
+
+
+def sgdr_schedule(cosine_kwargs):
+    """optax.sgdr_schedule: warmup-cosine cycles one after another, each
+    ``decay_steps`` long, from the keyword dicts of ``cosine_kwargs``."""
+    schedules, boundaries, step = [], [], 0
+    for kwargs in cosine_kwargs:
+        schedules.append(warmup_cosine_decay_schedule(**kwargs))
+        step += kwargs["decay_steps"]
+        boundaries.append(step)
+    return _join(schedules, boundaries[:-1])
+
+
+def piecewise_constant_schedule(init_value: float, boundaries_and_scales: dict | None = None):
+    """optax.piecewise_constant_schedule: init times the scales of every
+    boundary the step has reached."""
+    items = sorted((boundaries_and_scales or {}).items())
+    if any(scale < 0.0 for _, scale in items):
+        raise ValueError("piecewise_constant_schedule expects non-negative scale factors")
+
+    def f(step: int) -> float:
+        value = init_value
+        for boundary, scale in items:
+            if step >= boundary:
+                value *= scale
+        return value
+
+    return f
 
 
 def lr_lambda(schedule, base_lr: float):
@@ -136,3 +226,108 @@ def ema_swap(ema: dict[str, torch.Tensor], model: nn.Module) -> dict[str, torch.
     """The shadow params at the live params' dtypes, for
     ``model.load_state_dict(..., strict=False)`` before an eval."""
     return {n: ema[n].to(p.dtype) for n, p in model.named_parameters()}
+
+
+# optax's optimizers by their keyword names, for configs that carry over from
+# the JAX package (utils.registry kind "optimizer"). Each takes the parameters
+# and returns (optimizer, scheduler): a ``learning_rate`` that is a schedule
+# (a step -> value callable) becomes a LambdaLR over a base lr of 1, so the
+# k-th update runs at schedule(k); a number gives scheduler None. The
+# defaults are optax's, not torch's (optax.adamw decays by 1e-4, torch's
+# AdamW by 1e-2). Options optax has and torch does not are refused.
+
+
+def _lr_and_scheduler(learning_rate):
+    if callable(learning_rate):
+        return 1.0, learning_rate
+    return float(learning_rate), None
+
+
+def _with_schedule(opt: torch.optim.Optimizer, schedule):
+    if schedule is None:
+        return opt, None
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda(schedule, 1.0))
+
+
+def _refuse(name: str, **options) -> None:
+    for key, value in options.items():
+        if value:
+            raise NotImplementedError(f"{name}: {key}={value!r} is not ported")
+
+
+def adamw(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          eps_root: float = 0.0, mu_dtype=None, weight_decay: float = 1e-4, mask=None, *,
+          nesterov: bool = False):
+    """optax.adamw: Adam with the decay decoupled and scaled by the lr."""
+    _refuse("adamw", eps_root=eps_root, mu_dtype=mu_dtype, mask=mask, nesterov=nesterov)
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
+                                            weight_decay=weight_decay), schedule)
+
+
+def adam(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         eps_root: float = 0.0, mu_dtype=None, *, nesterov: bool = False):
+    """optax.adam."""
+    _refuse("adam", eps_root=eps_root, mu_dtype=mu_dtype, nesterov=nesterov)
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps), schedule)
+
+
+def sgd(params, learning_rate, momentum: float | None = None, nesterov: bool = False,
+        accumulator_dtype=None):
+    """optax.sgd: plain, or with a momentum trace (nesterov or not)."""
+    _refuse("sgd", accumulator_dtype=accumulator_dtype)
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(torch.optim.SGD(params, lr=lr, momentum=momentum or 0.0,
+                                          nesterov=nesterov), schedule)
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb: the Adam direction (bias-corrected moments, eps outside
+    the root and eps_root inside), plus weight_decay * param, scaled by each
+    parameter's trust ratio ||param|| / ||update|| (1 where either norm is
+    0), times -lr."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
+                 eps_root: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, eps_root=eps_root,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+                t = state["step"]
+                mu, nu = state["mu"], state["nu"]
+                mu.mul_(b1).add_(p.grad, alpha=1.0 - b1)
+                nu.mul_(b2).addcmul_(p.grad, p.grad, value=1.0 - b2)
+                update = (mu / (1.0 - b1**t)) / (
+                    (nu / (1.0 - b2**t) + group["eps_root"]).sqrt() + group["eps"])
+                if group["weight_decay"]:
+                    update.add_(p, alpha=group["weight_decay"])
+                p_norm, u_norm = p.norm(), update.norm()
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+                p.add_(update * ratio, alpha=-group["lr"])
+        return loss
+
+
+def lamb(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+         eps_root: float = 0.0, weight_decay: float = 0.0, mask=None):
+    """optax.lamb (``Lamb``)."""
+    _refuse("lamb", mask=mask)
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(Lamb(params, lr=lr, betas=(b1, b2), eps=eps, eps_root=eps_root,
+                               weight_decay=weight_decay), schedule)

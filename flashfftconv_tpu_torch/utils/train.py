@@ -25,14 +25,25 @@ chunk of the sequence: ``parallel.seq_conv.seq_backward`` runs the backward
 of the global mean loss and sums the replicated parameters' grads over the
 mesh before the clip, so every rank takes the same optimizer step.
 
-The orbax checkpoints, ``auto_save_on_exception`` and ``ProgressiveResizing``
-of the JAX module are not ported yet.
+``TrainState`` holds what a run resumes from (the step, the module, the
+optimizer and its scheduler). ``save_checkpoint`` writes their state dicts
+with ``torch.save`` into a directory (the JAX package's orbax checkpoints
+are directories too, which ``latest_checkpoint`` compares by mtime), and
+``restore_checkpoint`` loads them back in place, bit for bit.
+``auto_save_on_exception`` writes an emergency checkpoint when a training
+loop dies; ``evaluate`` counts a classifier's correct rows over a split in
+padded batches; ``ProgressiveResizing`` is the sequence-length curriculum.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import shutil
+import tempfile
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -131,3 +142,210 @@ def make_eval_step(model: nn.Module):
         }
 
     return step
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training run resumes from: the update count, the module, its
+    optimizer and the optimizer's scheduler (None for a constant lr)."""
+
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
+
+
+def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       scheduler=None) -> TrainState:
+    return TrainState(step=0, model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array on ``device``; integer arrays as int64, torch's index
+    dtype (a gather or a one-hot takes no other)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if not (t.is_floating_point() or t.is_complex() or t.dtype == torch.bool):
+        t = t.long()
+    return t.to(device)
+
+
+def evaluate(eval_step, arrays, batch_size: int, device="cuda"):
+    """Run ``eval_step`` (``make_eval_step``'s, or one of the same contract)
+    over every row of ``arrays`` (a tuple of numpy arrays sharing their
+    leading axis, e.g. ``(val_x, val_y)``), returning ``(correct, total)`` as
+    Python floats.
+
+    Every batch has ``batch_size`` rows, on ``device`` (integer arrays as
+    int64): the last partial one is padded with copies of its first row,
+    which the step's 0/1 weight masks out of the counts. Raises on an empty
+    split, where a loop over whole batches alone would count nothing and
+    report 0% as a measurement."""
+    n = len(arrays[-1])
+    if n == 0:
+        raise ValueError("evaluate(): empty eval split")
+    correct = total = 0.0
+    for i in range(0, n, batch_size):
+        rows = [np.asarray(a[i : i + batch_size]) for a in arrays]
+        w = np.ones(len(rows[-1]), np.float32)
+        if len(w) < batch_size:
+            pad = batch_size - len(w)
+            rows = [np.concatenate([r, np.repeat(r[:1], pad, axis=0)]) for r in rows]
+            w = np.concatenate([w, np.zeros(pad, np.float32)])
+        batch = tuple(_to_device(r, device) for r in rows + [w])
+        m = eval_step(batch)
+        correct += float(m["correct"])
+        total += float(m["total"])
+    if total <= 0:
+        raise AssertionError("evaluate(): zero rows counted")
+    return correct, total
+
+
+CHECKPOINT_FILE = "state.pt"
+
+
+def save_checkpoint(path: str, state: TrainState, extra: dict | None = None) -> None:
+    """Write ``state`` (module, optimizer and scheduler state dicts, and the
+    step) and ``extra`` into the directory ``path``, replacing a checkpoint
+    that is there. The directory is written under a temporary name beside
+    it and renamed into place, so ``path`` holds either the old checkpoint
+    or the whole new one."""
+    path = os.path.abspath(path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=os.path.basename(path) + ".tmp-", dir=parent)
+    try:
+        torch.save({
+            "step": state.step,
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
+            "extra": extra,
+        }, os.path.join(tmp, CHECKPOINT_FILE))
+        old = None
+        if os.path.exists(path):
+            old = tempfile.mkdtemp(prefix=os.path.basename(path) + ".old-", dir=parent)
+            os.replace(path, os.path.join(old, "ckpt"))
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def restore_checkpoint(path: str, state: TrainState, extra: dict | None = None):
+    """Load the checkpoint at ``path`` into ``state`` in place (tensors onto
+    the device of the module's first parameter) and return ``(state,
+    extra)``: the saved ``extra``, or None when the caller passes none."""
+    device = next(state.model.parameters()).device
+    ckpt = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=device,
+                      weights_only=True)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    if state.scheduler is not None:
+        state.scheduler.load_state_dict(ckpt["scheduler"])
+    state.step = int(ckpt["step"])
+    return state, (ckpt["extra"] if extra is not None else None)
+
+
+AUTO_SAVE_NAME = "auto_save"
+
+
+class auto_save_on_exception:
+    """Save an emergency checkpoint when the training loop dies.
+
+    Usage::
+
+        guard = auto_save_on_exception(ckpt_dir)
+        with guard:
+            for batch in loader:
+                metrics = train_step(*batch)
+                guard.track(state, extra={"epoch": epoch})
+
+    On an exception (KeyboardInterrupt included) the last tracked state, as
+    it stands then, is written to <ckpt_dir>/auto_save and the exception
+    propagates; a failure to save is printed and does not hide it. Pair with
+    ``latest_checkpoint`` on resume, which prefers the newer of the regular
+    and the auto-saved checkpoint."""
+
+    def __init__(self, ckpt_dir: str):
+        self.path = os.path.abspath(os.path.join(ckpt_dir, AUTO_SAVE_NAME))
+        self._state = None
+        self._extra = None
+
+    def track(self, state: TrainState, extra: dict | None = None) -> None:
+        self._state = state
+        self._extra = extra
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None and self._state is not None:
+            try:
+                save_checkpoint(self.path, self._state, self._extra)
+                print(f"auto-saved checkpoint to {self.path}", flush=True)
+            except Exception as save_err:  # don't mask the original exception
+                print(f"auto-save failed: {save_err!r}", flush=True)
+        return False
+
+
+def latest_checkpoint(ckpt_dir: str, name: str = "last") -> str | None:
+    """Path of the newest checkpoint in ckpt_dir, preferring the auto-save
+    when it is more recent than the regular one."""
+    candidates = []
+    for n in (name, AUTO_SAVE_NAME):
+        p = os.path.abspath(os.path.join(ckpt_dir, n))
+        if os.path.isdir(p):
+            candidates.append((os.path.getmtime(p), p))
+    return max(candidates)[1] if candidates else None
+
+
+class ProgressiveResizing:
+    """Sequence-resolution curriculum over training epochs.
+
+    ``stage_params`` is a list like ``[{"resolution": 4, "epochs": 50},
+    {"resolution": 2, "epochs": 30}, {"resolution": 1, "epochs": 20}]``, each
+    stage optionally with ``"bandlimit"`` and ``"lr_scale"``. The train loop
+    asks ``stage_of(epoch)`` each epoch, subsamples its batches with
+    ``downsample(x, epoch)`` and rebuilds what depends on the length when
+    ``boundary(epoch)`` is True. ``stage_of`` is a function of the epoch
+    alone, so a resumed run lands in the right stage."""
+
+    def __init__(self, stage_params: list[dict]):
+        if not stage_params:
+            raise ValueError("No stages specified")
+        if not all({"resolution", "epochs"} <= set(s) for s in stage_params):
+            raise ValueError("stage_params must contain keys: resolution and epochs")
+        self.stage_params = list(stage_params)
+        self._cume = []
+        tot = 0
+        for s in stage_params:
+            tot += s["epochs"]
+            self._cume.append(tot)
+        self.total_epochs = tot
+
+    def stage_of(self, epoch: int) -> int:
+        for i, hi in enumerate(self._cume):
+            if epoch < hi:
+                return i
+        return len(self.stage_params) - 1
+
+    def boundary(self, epoch: int) -> bool:
+        """True when ``epoch`` starts a new stage."""
+        return epoch == 0 or any(epoch == hi for hi in self._cume[:-1])
+
+    def params_at(self, epoch: int) -> dict:
+        return self.stage_params[self.stage_of(epoch)]
+
+    def downsample(self, x, epoch: int):
+        """Subsample the sequence axis (axis 1 of (B, L, ...) or (B, L)) by
+        the stage's resolution."""
+        r = int(self.params_at(epoch)["resolution"])
+        return x if r == 1 else x[:, ::r]
+
+    def lr_scale(self, epoch: int) -> float:
+        return float(self.params_at(epoch).get("lr_scale", 1.0))
+
+    def bandlimit(self, epoch: int):
+        return self.params_at(epoch).get("bandlimit")

@@ -33,7 +33,12 @@ def test_import_pulls_in_no_jax():
         "flashfftconv_tpu_torch.ops.attention_cuda, flashfftconv_tpu_torch.ops.fused, "
         "flashfftconv_tpu_torch.models.attention, flashfftconv_tpu_torch.models.gpt, "
         "flashfftconv_tpu_torch.models.vit, flashfftconv_tpu_torch.models.moe, "
-        "flashfftconv_tpu_torch.ops.sparse\n"
+        "flashfftconv_tpu_torch.ops.sparse, flashfftconv_tpu_torch.utils.data, "
+        "flashfftconv_tpu_torch.utils.tasks, flashfftconv_tpu_torch.utils.registry, "
+        "flashfftconv_tpu_torch.utils.logging, flashfftconv_tpu_torch.utils.debugging, "
+        "flashfftconv_tpu_torch.utils.native_loader\n"
+        "from flashfftconv_tpu_torch.utils.registry import _REGISTRIES, lookup\n"
+        "[lookup(k, n) for k in _REGISTRIES for n in _REGISTRIES[k]]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'flashfftconv_tpu'))\n"
         "assert not bad, bad\n"
