@@ -390,8 +390,8 @@ PHASES = ("build", "identity", "kernels", "serve", "train", "seq_train", "parity
           "gpt_serve", "gpt_train", "gpt_parity", "window_serve", "window_train", "window_parity",
           "h3_serve", "h3_train", "listops_train", "mixers_parity", "vit_serve", "vit_train",
           "vit_parity", "attn_bert", "attn_bert_train", "attn_bert_parity", "moe_train",
-          "moe_parity", "sparse_parity", "harness", "lm_cli", "cli_smoke", "smem_probe",
-          "timing")
+          "moe_parity", "sparse_parity", "harness", "lm_cli", "cli_smoke", "parallel_train",
+          "ultra_long_cli", "smem_probe", "timing")
 OPT_IN_PHASES = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
@@ -3692,7 +3692,8 @@ def phase_sparse_parity(torch, seed, np):
 # The one-block conv kernels the torch CLIs' paths launch, counted in the CLI's
 # own process (_COUNTED_RUN).
 CLI_KERNELS = ("spectrum", "monarch_conv", "monarch_conv_bwd", "dk_finish", "depthwise",
-               "depthwise_bwd", "direct_conv", "direct_conv_bwd")
+               "depthwise_bwd", "direct_conv", "direct_conv_bwd", "butterfly", "long_conv",
+               "long_spectrum", "long_conv_bwd", "long_dk_finish")
 # Runs ``python <script> <args>`` as its user would, with the launch counters
 # of CLI_KERNELS set to 0 first, and prints their counts on a line of its own
 # when the script ends.
@@ -3711,11 +3712,13 @@ finally:
 HARNESS_STEPS = 4
 HARNESS_EVAL_ROWS, HARNESS_EVAL_B = 1000, 64
 LM_CLI_STEPS, LM_CLI_RESUMED = 6, 8
-# The other five torch CLIs at the arguments of their JAX scripts' smoke tests
+# The other eight torch CLIs at the arguments of their JAX scripts' smoke tests
 # (tests/test_examples.py; ListOps with --min-len 16, since its default of 500
-# is above --l-max 256), with the marker each must print and a kernel each
-# must launch: FFT size 1024 for HyenaDNA (Monarch), 256 and 512 for the rest
-# (direct).
+# is above --l-max 256; seqcls, which has none, at one epoch of 2 batches over
+# 64 fragments a class), with the marker each must print and a kernel each
+# must launch: FFT size 1024 for HyenaDNA (Monarch), 256 and 512 for
+# BERT, ListOps, retrieval and ETT (direct), 2048 for Pathfinder, seqcls and
+# CIFAR (L = 1024, Monarch).
 CLI_SMOKE = {
     "hyena_dna": ("examples/hyena_dna/train_torch.py",
                   ["--steps", "2", "--d_model", "32", "--n_layer", "1", "--l_max", "512"],
@@ -3738,7 +3741,28 @@ CLI_SMOKE = {
                      "--batch_size", "16", "--d_model", "32", "--n_layers", "1",
                      "--ckpt-dir", "{tmp}/ett_ckpt"],
                     "val mse", "direct_conv_bwd"),
+    "pathfinder": ("examples/lra/train_pathfinder_torch.py",
+                   ["--epochs", "1", "--n-train", "64", "--n-val", "32", "--batch_size", "32",
+                    "--d_model", "32", "--n_layers", "1",
+                    "--data-cache", "{tmp}/pathfinder.npz", "--ckpt-dir", "{tmp}/pf_ckpt"],
+                   "val acc", "monarch_conv_bwd"),
+    "seqcls": ("examples/seqcls/train_torch.py",
+               ["--epochs", "1", "--per-class", "64", "--limit-batches", "2", "--d_model", "32",
+                "--n_layers", "1", "--data-cache", "{tmp}/seqcls.npz",
+                "--ckpt-dir", "{tmp}/seqcls_ckpt"],
+               "val acc", "monarch_conv_bwd"),
+    "cifar": ("examples/cifar/train_torch.py",
+              ["--epochs", "1", "--synthetic", "--d_model", "32", "--n_layers", "1",
+               "--batch_size", "32", "--limit-batches", "2", "--ckpt-dir", "{tmp}/cifar_ckpt"],
+              "val acc", "monarch_conv_bwd"),
 }
+# The ultra-long CLI's 2M-token context: N = 4,194,304 on a 1-rank sp mesh,
+# each long conv four real convs through the long ladder.
+ULTRA_L, ULTRA_STEPS = 2_097_152, 3
+ULTRA_KERNELS = ("butterfly", "long_conv", "long_spectrum", "long_conv_bwd")
+# parallel_train's pipeline: the first PIPE_LAYERS Hyena-125M blocks, in
+# f32, as one stage of a 1-rank pp mesh, over PIPE_M microbatches.
+PIPE_LAYERS, PIPE_M = 2, 4
 
 
 def _dir_gib(path) -> float:
@@ -4025,7 +4049,263 @@ def phase_cli_smoke(torch):
             launched = {k: v for k, v in launches.items() if v}
             log(f"cli_smoke: {script} {seconds:.1f} s, {marker!r} printed, launches {launched}")
     res["seconds"] = time.perf_counter() - t_phase
-    log(f"cli_smoke: {res['seconds']:.1f} s for the five together")
+    log(f"cli_smoke: {res['seconds']:.1f} s for the {len(CLI_SMOKE)} together")
+    return res
+
+
+def _parallel_mesh(torch, names):
+    """A 1 x 1 mesh of the named dimensions over the card's 1-rank NCCL group."""
+    from flashfftconv_tpu_torch.parallel.mesh import make_mesh
+
+    _seq_mesh(torch)  # the process group
+    if names not in _MESH:
+        _MESH[names] = make_mesh((1,) * len(names), names, device="cuda")
+    return _MESH[names]
+
+
+def _parallel_lm(torch, seed, dev, mesh, dtype=None):
+    """Hyena-125M with its parameters placed by param_shardings on ``mesh``,
+    and its train step: vocab_parallel_cross_entropy over tp, ZeRO-1 moments
+    and ZeRO-2 grads over dp, the train phase's recipe."""
+    from flashfftconv_tpu_torch.ops.fused import vocab_parallel_cross_entropy
+    from flashfftconv_tpu_torch.parallel.comm import scatter_to
+    from flashfftconv_tpu_torch.parallel.mesh import (
+        param_shardings,
+        shard_parameters,
+        zero1_shardings,
+        zero2_shardings,
+    )
+    from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
+
+    model = _hyena_125m(torch, seed, dev, dtype=dtype).train()
+    shard_parameters(model, param_shardings(mesh, model))
+    tp = mesh.get_group("tp")
+    opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2,
+                              steps=TRAIN_WARMUP + TRAIN_TIMED)
+    step = make_train_step(
+        model, opt, sched, clip=1.0,
+        loss_fn=lambda logits, y: vocab_parallel_cross_entropy(scatter_to(logits, -1, tp), y,
+                                                               mesh, "tp"),
+        opt_shardings=zero1_shardings(mesh, model), grad_shardings=zero2_shardings(mesh, model))
+    return model, step
+
+
+def _parallel_route_f32(torch, seed, dev, mesh, x, y):
+    """Hyena-125M in f32 activations, dropout on, one step of the parallel
+    train step on (x, y) against one backward of the plain model on the same
+    weights and dropout mask: (loss relative error, (worst grad error over
+    max |grad|, parameter)); the parallel grads read before the clip."""
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    model = _hyena_125m(torch, seed, dev, dtype=torch.float32).train()
+    torch.manual_seed(seed)
+    ref_loss = cross_entropy(model(x), y)
+    ref_loss.backward()
+    ref = {n: p.grad for n, p in model.named_parameters()}
+    ref_loss = float(ref_loss.detach())
+    del model
+    torch.cuda.empty_cache()
+    model, step = _parallel_lm(torch, seed, dev, mesh, dtype=torch.float32)
+    torch.manual_seed(seed)
+    out = step(x, y)
+    unclip = max(1.0, float(out["grad_norm"]) + 1e-6)  # grad * min(1, 1 / (norm + 1e-6))
+    worst = _worst_rel({n: p.grad * unclip for n, p in model.named_parameters()}, ref)
+    loss_err = abs(float(out["loss"]) - ref_loss) / abs(ref_loss)
+    del model, step, ref
+    torch.cuda.empty_cache()
+    return loss_err, worst
+
+
+def _pipeline_check(torch, seed, dev, mesh, g):
+    """pipeline_apply on a 1-rank pp mesh, PIPE_M microbatches, over the
+    first PIPE_LAYERS Hyena-125M blocks in f32 (one stage) against the plain
+    blocks on the same input: the output at 1e-5 of its largest |value|, the
+    grads of a random projection of it at 1e-3 of each one's largest |grad|."""
+    from torch.func import functional_call
+
+    from flashfftconv_tpu_torch.models.lm import Block
+    from flashfftconv_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        stack_stage_params,
+        stage_param_shardings,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    stage = torch.nn.Sequential(*(Block(D_MODEL, 4 * D_MODEL, mixer="hyena",
+                                        mixer_kwargs={"l_max": L_MAX}, device=dev,
+                                        generator=gen) for _ in range(PIPE_LAYERS))).eval()
+    x = torch.randn(B, L_MAX, D_MODEL, generator=g).to(dev)
+    dy = torch.randn(B, L_MAX, D_MODEL, generator=g).to(dev)
+    y_ref = stage(x)
+    (y_ref * dy).sum().backward()
+    ref = {n: p.grad.clone() for n, p in stage.named_parameters()}
+    stacked = stack_stage_params([{n: p.detach() for n, p in stage.named_parameters()}])
+    local = {n: sh.local(stacked[n]).requires_grad_()
+             for n, sh in stage_param_shardings(mesh, stacked).items()}
+    y = pipeline_apply(lambda p, h: functional_call(stage, p, (h,)), local, x, mesh,
+                       num_microbatches=PIPE_M)
+    (y * dy).sum().backward()
+    y_err = float((y - y_ref).detach().abs().max() / y_ref.detach().abs().max())
+    grad_err = _worst_rel({n: t.grad[0] for n, t in local.items()}, ref)
+    log(f"parallel_train: pipeline_apply, {PIPE_LAYERS} Hyena-125M blocks f32 on a 1-rank pp "
+        f"mesh, M={PIPE_M}, B={B}, L={L_MAX}: max |dy| / max |y| {y_err:.3e} (tol 1e-5), max "
+        f"|dgrad| / max |grad| {grad_err[0]:.3e} ({grad_err[1]}, tol 1e-3)")
+    if not (y_err <= 1e-5 and grad_err[0] <= 1e-3):
+        raise AssertionError(f"pipelined blocks disagree: {y_err}, {grad_err}")
+    del stage, local, y, y_ref, ref
+    torch.cuda.empty_cache()
+    return {"y_rel_err": y_err, "grad_rel_err": grad_err[0], "grad_worst_param": grad_err[1]}
+
+
+def _moe_ep_check(torch, seed, dev, mesh):
+    """moe_parity's 2-layer f32 Hyena MoE LM (8 experts, top-2) with its
+    experts on a 1 x 1 (dp, ep) mesh (moe_param_shardings) against the same
+    LM without a mesh, on the card: logits and every grad at 1e-5 of their
+    largest |value|."""
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.models.moe import moe_param_shardings
+    from flashfftconv_tpu_torch.parallel.mesh import shard_parameters
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    ids = torch.randint(0, 256, (2, 129), generator=torch.Generator().manual_seed(seed + 5))
+    ids = ids.to(dev)
+    out = []
+    for kw in ({}, {"ep_axis": "ep", "mesh": mesh}):
+        model = ConvLMHeadModel(d_model=128, n_layer=2, d_inner=512, vocab_size=256,
+                                l_max=1024, mixer_kwargs={"conv_dtype": torch.float32},
+                                moe_kwargs={**MOE_KWARGS, **kw}, dtype=torch.float32,
+                                device=dev, generator=torch.Generator().manual_seed(seed)).eval()
+        if kw:
+            shard_parameters(model, moe_param_shardings(mesh, model))
+        y = model(ids[:, :-1])
+        cross_entropy(y, ids[:, 1:]).backward()
+        out.append((y.detach(), {n: p.grad for n, p in model.named_parameters()}))
+    (y_ref, ref), (y, grads) = out
+    y_err = float((y - y_ref).abs().max() / y_ref.abs().max())
+    grad_err = _worst_rel(grads, ref)
+    log(f"parallel_train: MoEMlp(ep_axis='ep') on a 1 x 1 (dp, ep) mesh vs the one-device "
+        f"MoE LM of moe_parity: max |dlogits| / max |logits| {y_err:.3e}, max |dgrad| / max "
+        f"|grad| {grad_err[0]:.3e} ({grad_err[1]}), tol 1e-5")
+    if not (y_err <= 1e-5 and grad_err[0] <= 1e-5):
+        raise AssertionError(f"MoE on the ep mesh disagrees: {y_err}, {grad_err}")
+    return {"logits_rel_err": y_err, "grad_rel_err": grad_err[0]}
+
+
+def phase_parallel_train(torch, seed, np, train=None):
+    """The parallel layer at Hyena-125M's full width and the train phase's
+    recipe, on 1 x 1 meshes of the card's 1-rank NCCL group: parameters by
+    param_shardings on (dp, tp), ZeRO-1 moments and ZeRO-2 grads over dp
+    through make_train_step, the loss by vocab_parallel_cross_entropy over
+    tp. In f32 activations, dropout on, the first batch: loss within 1e-3
+    relative and grads (before the clip) within 1e-3 of each parameter's
+    largest |grad| of the plain model's. Then pipeline_apply (_pipeline_check)
+    and the MoE experts on an ep mesh (_moe_ep_check). Then the bf16 model
+    takes TRAIN_WARMUP + TRAIN_TIMED steps of the train phase's batches: its
+    first loss within 1e-3 of the plain model's on the same batch, weights
+    and dropout mask, each step launching TRAIN_LAUNCHES; the median step
+    and peak memory beside the train phase's."""
+    from flashfftconv_tpu_torch.utils.metrics import cross_entropy
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    mesh = _parallel_mesh(torch, ("dp", "tp"))
+    batches = _train_batches(torch, np, seed, dev, TRAIN_WARMUP + TRAIN_TIMED)
+    x0, y0 = batches[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss_err, grad_err = _parallel_route_f32(torch, seed, dev, mesh, x0, y0)
+    log(f"parallel_train: f32, B={B}, dropout on, (dp, tp) = (1, 1) step vs the plain model: "
+        f"loss rel err {loss_err:.3e} (tol 1e-3), max |dgrad| / max |grad| {grad_err[0]:.3e} "
+        f"({grad_err[1]}), tol 1e-3; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (loss_err <= 1e-3 and grad_err[0] <= 1e-3):
+        raise AssertionError(f"f32 parallel step disagrees: {loss_err}, {grad_err}")
+    g = torch.Generator().manual_seed(seed + 7)
+    pipe = _pipeline_check(torch, seed, dev, _parallel_mesh(torch, ("pp",)), g)
+    moe = _moe_ep_check(torch, seed, dev, _parallel_mesh(torch, ("dp", "ep")))
+
+    ref = _hyena_125m(torch, seed, dev).train()
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        ref_loss = float(cross_entropy(ref(x0), y0))
+    del ref
+    torch.cuda.empty_cache()
+    model, step = _parallel_lm(torch, seed, dev, mesh)
+    counters = _counters(TRAIN_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.manual_seed(seed)
+    losses, step_ms, per_step = [], [], []
+    for x, y in batches:
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(x, y)["loss"])  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append({name: fn.launches - before[name] for name, fn in counters.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    first_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    timed = step_ms[TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    log(f"parallel_train: Hyena-125M B={B} L={L_MAX} bf16 on (dp, tp) = (1, 1), ZeRO-2, "
+        f"vocab-parallel loss: losses {' '.join(f'{v:.4f}' for v in losses)}; first vs the "
+        f"plain model {ref_loss:.6f} (rel err {first_err:.3e}, tol 1e-3)")
+    beside = (f"train phase {train['step_ms_median']:.2f} ms, peak "
+              f"{train['peak_memory_bytes'] / 2**30:.2f} GiB" if train else "train phase not run")
+    log(f"parallel_train: step median {med:.2f} ms max {max(timed):.2f} ms over {TRAIN_TIMED} "
+        f"timed steps ({B * L_MAX / (med / 1e3):.0f} tokens/s), peak memory "
+        f"{peak / 2**30:.2f} GiB; {beside}; launches a step {per_step[-1]}")
+    if not first_err <= 1e-3:
+        raise AssertionError(f"parallel_train first loss {losses[0]} != plain {ref_loss}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"parallel_train losses {losses}")
+    for i, counts in enumerate(per_step):
+        if counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i} launched {counts}, expected {TRAIN_LAUNCHES}")
+    del model, step
+    torch.cuda.empty_cache()
+    res = {"f32_loss_rel_err": loss_err, "f32_grad_max_rel_err": grad_err[0],
+           "f32_grad_worst_param": grad_err[1], "pipeline": pipe, "moe_ep": moe,
+           "losses": losses, "first_loss_rel_err": first_err, "step_ms": step_ms,
+           "step_ms_median": med, "step_ms_max": max(timed),
+           "tokens_per_s": B * L_MAX / (med / 1e3), "launches": launches,
+           "peak_memory_bytes": peak, "seconds": time.perf_counter() - t_phase}
+    log(f"parallel_train: {res['seconds']:.1f} s")
+    return res
+
+
+def phase_ultra_long_cli(torch, np):
+    """examples/seq_parallel/train_ultra_long_torch.py --l-max ULTRA_L --steps
+    ULTRA_STEPS as its user runs it (its defaults: d_model 32, 2 layers,
+    order 2, filter_order 16, f32 conv, vocab 64, B=1) on a 1-rank sp mesh:
+    a 2,097,152-token context at FFT size 4,194,304. It must exit 0, print
+    its final loss and launch each of ULTRA_KERNELS; reports its steps'
+    times and peak memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    script = "examples/seq_parallel/train_ultra_long_torch.py"
+    rc, out, err, seconds, launches = _run_cli(
+        script, ["--l-max", str(ULTRA_L), "--steps", str(ULTRA_STEPS)], timeout=600)
+    if rc != 0 or "final loss" not in out or not all(launches.get(k) for k in ULTRA_KERNELS):
+        raise _cli_failed(f"ultra_long_cli {script}", rc, out, err,
+                          f"launches {launches}, need {ULTRA_KERNELS}")
+    step_s = [float(v) for v in re.findall(r"step \d+: loss [\d.]+ \(([\d.]+)s", out)]
+    losses = [float(v) for v in re.findall(r"step \d+: loss ([\d.]+)", out)]
+    peak = re.search(r"peak memory: ([\d.]+) GiB", out)
+    res = {"seconds": seconds, "launches": launches, "step_s": step_s, "losses": losses,
+           "step_s_median_after_first": float(np.median(step_s[1:])),
+           "peak_memory_gib": float(peak.group(1)) if peak else None}
+    launched = {k: v for k, v in launches.items() if v}
+    log(f"ultra_long_cli: {script} --l-max {ULTRA_L} --steps {ULTRA_STEPS}: losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}, steps {' '.join(f'{v:.2f}' for v in step_s)} s "
+        f"(median after the first {res['step_s_median_after_first']:.3f} s), peak memory "
+        f"{res['peak_memory_gib']} GiB, {seconds:.1f} s of command, launches {launched}")
     return res
 
 def phase_smem_probe(torch, seed):
@@ -4197,7 +4477,8 @@ def _copy_sources(torch, what, step, forward, top=3):
 def phase_profile(torch, seed):
     """Device time by kernel over one Hyena-125M serving forward and one
     train step (dropout on, the examples/lm optimizer), one train step of the
-    same model on a 1-rank sequence mesh, then one HyenaDNA forward and
+    same model in parallel_train's recipe on a (dp, tp) = (1, 1) mesh, one on
+    a 1-rank sequence mesh, then one HyenaDNA forward and
     train step, one M2-BERT forward and train step, one GPT-2 124M and one
     windowed GPT forward and train step, one H3-125M forward and train step,
     one ListOps train step, one ViT-B/16 and one BERT-base forward and train
@@ -4215,6 +4496,12 @@ def phase_profile(torch, seed):
     step = make_train_step(model.train(), opt, sched, clip=1.0)
     res["train_step"] = _trace(torch, "one train step", lambda: step(x, y))
     del model, opt, sched, step
+    torch.cuda.empty_cache()
+    model, step = _parallel_lm(torch, seed, "cuda", _parallel_mesh(torch, ("dp", "tp")))
+    res["parallel_train_step"] = _trace(
+        torch, "one train step on a (dp, tp) = (1, 1) mesh (parallel_train's recipe)",
+        lambda: step(x, y))
+    del model, step
     torch.cuda.empty_cache()
     model = _hyena_125m(torch, seed, "cuda", {"seq_mesh": _seq_mesh(torch), "seq_axis": "sp"})
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2, steps=10)
@@ -5353,6 +5640,11 @@ def main() -> int:
         results["lm_cli"] = phase_lm_cli(torch, np, results.get("train"))
     if "cli_smoke" in phases:
         results["cli_smoke"] = phase_cli_smoke(torch)
+    if "parallel_train" in phases:
+        results["parallel_train"] = phase_parallel_train(torch, args.seed, np,
+                                                         results.get("train"))
+    if "ultra_long_cli" in phases:
+        results["ultra_long_cli"] = phase_ultra_long_cli(torch, np)
     if "smem_probe" in phases:
         results["smem_probe"] = phase_smem_probe(torch, args.seed)
     if "timing" in phases:

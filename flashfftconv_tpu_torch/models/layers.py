@@ -53,10 +53,15 @@ class Dense(nn.Module):
         self.weight = normal((out_features, in_features), 1.0 / math.sqrt(in_features),
                              generator, device)
         self.bias = zeros((out_features,), device) if bias else None
+        # parallel.mesh.shard_parameters sets a TensorParallelLinear here when
+        # it splits the weight
+        self.tp = None
 
     def forward(self, x, dtype=None):
         dt = dtype or self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
+        if self.tp is not None:
+            return self.tp(x.to(dt), self.weight.to(dt), b)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 

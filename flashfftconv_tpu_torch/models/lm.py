@@ -206,8 +206,9 @@ class LMBackbone(nn.Module):
                  moe_kwargs=None, remat=False, scan_blocks=False, dtype=torch.bfloat16,
                  device="cuda", generator=None):
         super().__init__()
-        del vocab_size, scan_blocks
+        del vocab_size
         self.dtype = dtype
+        self.scan_blocks = scan_blocks  # the flax tree's layout (parallel.mesh.param_shardings)
         self.remat = remat
         mixer_kwargs = dict(mixer_kwargs or {})
         mixer_kwargs.setdefault("l_max", l_max)

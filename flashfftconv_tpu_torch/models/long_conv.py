@@ -33,6 +33,7 @@ from torch import nn
 from flashfftconv_tpu_torch.models.layers import Dense, LayerNorm, normal
 from flashfftconv_tpu_torch.ops import dispatch
 from flashfftconv_tpu_torch.ops.plan import get_plan, resolve_device
+from flashfftconv_tpu_torch.parallel.comm import gather_from, scatter_to
 from flashfftconv_tpu_torch.parallel.seq_conv import seq_fft_conv_padded
 
 
@@ -53,18 +54,25 @@ class LongConv(nn.Module):
         self.kernel_drop = nn.Dropout(kernel_dropout)
         self.drop = nn.Dropout(dropout)
         self.output_linear = Dense(channels * h, 2 * h, device=device, generator=generator)
+        # the process group over which parallel.mesh.shard_parameters split
+        # kernel and D on their channels, or None
+        self.tp = None
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         b, _, length = u.shape
         seqlen = 2 * self.l_max
         k = F.relu(torch.abs(self.kernel) - self.kernel_lam) * torch.sign(self.kernel)
         k = self.kernel_drop(k)
+        if self.tp is not None:  # this rank's channels of u, as those of kernel and D
+            u = scatter_to(u, 1, self.tp)
         if self.seq_mesh is not None:
             y = seq_fft_conv_padded(u, k[0], self.seq_mesh, seqlen=seqlen, axis=self.seq_axis)
         else:
             plan = get_plan(seqlen, self.conv_dtype, u.device)
             y = dispatch.fft_conv(plan, u, k[0], impl=self.impl)  # channel 0, as the flax layer
         y = y[:, None] + torch.einsum("bhl,ch->bchl", u.float(), self.D).to(y.dtype)
+        if self.tp is not None:
+            y = gather_from(y, 2, self.tp)
         y = y.reshape(b, self.channels * self.h, length)
         y = self.drop(F.gelu(y.float(), approximate="tanh").to(u.dtype))
         y = self.output_linear(y.transpose(-1, -2), dtype=u.dtype)  # (B, L, 2H)

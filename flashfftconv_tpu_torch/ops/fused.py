@@ -7,12 +7,15 @@ Pallas kernels; here they are plain torch with the same semantics: f32
 inside, the result in the input's dtype. The dropout ops take a
 ``torch.Generator`` where the JAX ones take an ``rng`` key, so their masks
 are another draw of the same distribution. ``vocab_parallel_cross_entropy``
-needs a tensor-parallel mesh and is not ported.
+is the cross entropy over logits split on the vocabulary over a mesh
+dimension, with explicit collectives where the JAX one runs under
+``shard_map``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -95,3 +98,71 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index:
         nll = (1 - label_smoothing) * nll + label_smoothing * -logp.mean(-1)
     mask = (labels != ignore_index).float()
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                                 axis: str = "tp", ignore_index: int = -100,
+                                 label_smoothing: float = 0.0) -> torch.Tensor:
+    """``cross_entropy_loss`` over logits split on the vocabulary, without
+    gathering it: ``logits`` (..., V/P) is this rank's slice (rank r of the P
+    ranks of ``axis`` holds columns [r V/P, (r+1) V/P)), ``labels`` (...) the
+    same on every rank. Each rank takes the log-sum-exp of its slice; the
+    shift is the maximum of the ranks' maxima (an all-gather), and the sum of
+    exponentials and the target logit each take one all-reduce, label
+    smoothing one more for the mean logit. Returns the loss, the same on
+    every rank; the gradient of each rank's slice is its slice of the whole
+    logits' gradient, computed with no collective. As ``utils.metrics.
+    cross_entropy`` does, the backward rebuilds softmax(logits) from the
+    saved logits in one f32 buffer, so no f32 copy of the logits outlives
+    the forward."""
+    return _VocabParallelCE.apply(logits, labels, mesh.get_group(axis), ignore_index,
+                                  label_smoothing)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, group, ignore_index, smoothing):
+        p, r = dist.get_world_size(group), dist.get_rank(group)
+        vloc = logits.shape[-1]
+        lg = logits.float()
+        lse_loc = torch.logsumexp(lg, -1)
+        lse = lse_loc
+        if p > 1:
+            maxima = [torch.empty_like(lse) for _ in range(p)]
+            dist.all_gather(maxima, logits.amax(-1).float().contiguous(), group=group)
+            gmax = torch.stack(maxima).amax(0)
+            se = torch.exp(lse_loc - gmax)
+            dist.all_reduce(se, group=group)
+            lse = se.log() + gmax
+        tgt = labels.clamp(min=0) - r * vloc
+        in_range = (tgt >= 0) & (tgt < vloc)
+        tgt = torch.where(in_range, tgt, 0)
+        tl = torch.where(in_range, lg.gather(-1, tgt[..., None])[..., 0], 0.0)
+        if p > 1:
+            dist.all_reduce(tl, group=group)
+        nll = lse - tl
+        if smoothing > 0:
+            total = lg.sum(-1)
+            if p > 1:
+                dist.all_reduce(total, group=group)
+            nll = (1 - smoothing) * nll + smoothing * (lse - total / (p * vloc))
+        del lg
+        mask = (labels != ignore_index).float()
+        count = mask.sum().clamp(min=1.0)
+        ctx.smoothing, ctx.vocab, ctx.split = smoothing, p * vloc, p > 1
+        ctx.save_for_backward(logits, tgt, in_range, mask, count, lse_loc, lse)
+        return (nll * mask).sum() / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, tgt, in_range, mask, count, lse_loc, lse = ctx.saved_tensors
+        s = ctx.smoothing
+        # d nll / d logits = softmax - (1 - s) onehot - s / V, this rank's columns
+        d = torch.softmax(logits.float(), dim=-1)
+        if ctx.split:  # the local softmax, rescaled to the whole vocabulary's
+            d.mul_(torch.exp(lse_loc - lse)[..., None])
+        d.scatter_add_(-1, tgt[..., None], -(1 - s) * in_range.float()[..., None])
+        if s > 0:
+            d.sub_(s / ctx.vocab)
+        d.mul_((g * mask / count)[..., None])
+        return d.to(logits.dtype), None, None, None, None

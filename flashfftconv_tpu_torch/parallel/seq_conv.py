@@ -42,6 +42,8 @@ rank passes and receives its own chunk.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -121,9 +123,13 @@ def _outer_mm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mn,...nq->...mq", w, x.to(torch.complex64))
 
 
+@functools.lru_cache(maxsize=16)
 def _twiddle(p: int, q: int, n: int, e: int, conj: bool, device) -> torch.Tensor:
     """W_N^{m1 * n2} for m1 in [0, P), n2 = e*Q + j, j in [0, Q): (P, Q)
-    complex64, phases exact integer products reduced mod N."""
+    complex64, phases exact integer products reduced mod N. Kept per
+    (shape, rank, direction, device), as a constant of a jitted JAX step is:
+    each table is a host pass over N2 points (4M in the ultra-long CLI) and
+    a layer's conv reads three a step."""
     m1 = np.arange(p, dtype=np.int64)[:, None]
     n2 = e * q + np.arange(q, dtype=np.int64)[None, :]
     tw = np.exp((2j if conj else -2j) * np.pi * ((m1 * n2) % n) / n)

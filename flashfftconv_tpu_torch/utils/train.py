@@ -45,6 +45,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from flashfftconv_tpu_torch.parallel.seq_conv import seq_backward, seq_group
@@ -89,15 +90,31 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -10
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler=None,
-                    clip: float = 1.0, loss_fn: Callable = cross_entropy):
+                    clip: float = 1.0, loss_fn: Callable = cross_entropy,
+                    grad_shardings=None, opt_shardings=None, mesh=None):
     """Returns step(x, y) -> {"loss", "grad_norm"} (device tensors, not
     synchronised): forward, ``loss_fn(logits, y)``, backward, clip the
-    gradients' global norm to ``clip``, optimizer step, schedule step. The
-    caller picks ``model.train()`` (dropout on) or ``eval()``. A ``loss_fn``
-    that returns (loss, metrics), as ``mlm_loss`` does, adds its metrics to
-    the result. Under a sequence mesh x and y are the rank's chunks and
-    "loss" is the global mean over every rank's tokens."""
+    gradients' global norm to ``clip`` (``math.inf``: no clip), optimizer
+    step, schedule step. The caller picks ``model.train()`` (dropout on) or
+    ``eval()``. A ``loss_fn`` that returns (loss, metrics), as ``mlm_loss``
+    does, adds its metrics to the result. Under a sequence mesh x and y are
+    the rank's chunks and "loss" is the global mean over every rank's tokens.
+
+    Data parallelism: on a ``mesh`` with a ``"dp"`` dimension (taken from
+    the shardings when they are given) x and y are this rank's shard of the
+    batch; the gradients are averaged over dp and "loss" is the mean of the
+    dp ranks' losses (the global mean when the shards are of one size).
+    ``grad_shardings`` (``parallel.mesh.zero2_shardings``, {parameter name:
+    Sharding}) makes it ZeRO-2: a gradient it splits is reduce-scattered over
+    dp, and the rank keeps only its shard. ``opt_shardings``
+    (``zero1_shardings``; ``grad_shardings`` when not given) is ZeRO-1: the
+    optimizer steps this rank's shard of each parameter it splits, so its
+    moments take the shard's shape, and the updated shards are all-gathered
+    back into the parameter. Parameters split by ``shard_parameters`` (tensor
+    or expert parallelism) count once in the clip's norm, summed over the
+    ranks that hold their shards."""
     group = seq_group(model)
+    dp = _DataParallel.build(model, optimizer, mesh, grad_shardings, opt_shardings)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -107,14 +124,193 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
             loss.backward()
         else:
             loss = seq_backward(model, loss, y.numel(), group)
-        grad_norm = torch.nn.utils.clip_grad_norm_(
-            [p for p in model.parameters() if p.grad is not None], clip)
+        if dp is None:
+            grad_norm = clip_grad_norm([([p for p in model.parameters() if p.grad is not None],
+                                         ())], clip)
+        else:
+            loss = dp.average(loss.detach())
+            grad_norm = dp.reduce_and_clip(clip)
         optimizer.step()
+        if dp is not None:
+            dp.gather_params()
         if scheduler is not None:
             scheduler.step()
         return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
 
     return step
+
+
+def clip_grad_norm(parts, clip: float) -> torch.Tensor:
+    """``torch.nn.utils.clip_grad_norm_`` over parameters some of whose
+    gradients are shards. ``parts``: [(parameters, the process groups over
+    which their gradients are split)]; each part's norm is summed in squares
+    over its groups, the parts' norms combine as ``clip_grad_norm_`` combines
+    its tensors', and every gradient is scaled by min(1, clip / (norm +
+    1e-6)). A single part split over nothing is ``clip_grad_norm_`` itself.
+    Returns the norm before the clip."""
+    norms = []
+    for params, split in parts:
+        norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        if split:
+            sq = norm.float().square()
+            for grp in split:
+                dist.all_reduce(sq, group=grp)
+            norm = sq.sqrt()
+        norms.append(norm)
+    norm = norms[0] if len(norms) == 1 else torch.linalg.vector_norm(
+        torch.stack([n.float() for n in norms]))
+    torch.nn.utils.clip_grads_with_norm_([p for params, _ in parts for p in params], clip, norm)
+    return norm
+
+
+DP_AXIS = "dp"  # the mesh dimension that splits the batch
+BUCKET_BYTES = 1 << 28  # the most one gradient collective carries
+
+
+class _DataParallel:
+    """The dp side of a train step: gradient averaging or reduce-scattering
+    over the dp group, ZeRO shards of the parameters in the optimizer, the
+    clip over sharded gradients, and the all-gather of updated shards. The
+    gradients travel in flat buckets of at most BUCKET_BYTES, one collective
+    a bucket; a dp group of one rank calls none."""
+
+    def __init__(self, model, optimizer, mesh, grad_dims, opt_dims):
+        self.group = mesh.get_group(DP_AXIS) if DP_AXIS in mesh.mesh_dim_names else None
+        self.size = dist.get_world_size(self.group) if self.group is not None else 1
+        self.rank = dist.get_rank(self.group) if self.group is not None else 0
+        self.params = dict(model.named_parameters())
+        self.grad_dims, self.opt_dims = grad_dims, opt_dims
+        # ZeRO-1: the optimizer steps a leaf holding this rank's shard
+        self.shards = {}
+        for name, d in opt_dims.items():
+            if self.size > 1:
+                p = self.params[name]
+                self.shards[name] = self._cut(p.detach(), d).clone().requires_grad_()
+        swap = {id(self.params[n]): s for n, s in self.shards.items()}
+        for g in optimizer.param_groups:
+            g["params"] = [swap.get(id(p), p) for p in g["params"]]
+        for name, shard in self.shards.items():
+            state = optimizer.state.pop(self.params[name], None)
+            if state:
+                optimizer.state[shard] = {
+                    k: self._cut(v, opt_dims[name]).clone()
+                    if torch.is_tensor(v) and v.shape == self.params[name].shape else v
+                    for k, v in state.items()}
+        # the groups of more than one rank over which each parameter's
+        # tensor- or expert-parallel shards lie
+        self.split_over = {name: [g for g in (p.sharding.mesh.get_group(a) for _, a in
+                                              p.sharding.sharded_dims())
+                                  if dist.get_world_size(g) > 1]
+                           for name, p in self.params.items()
+                           if getattr(p, "sharding", None) is not None}
+
+    @classmethod
+    def build(cls, model, optimizer, mesh, grad_shardings, opt_shardings):
+        if opt_shardings is None:
+            opt_shardings = grad_shardings
+        for shardings in (grad_shardings, opt_shardings):
+            if mesh is None and shardings:
+                mesh = next(iter(shardings.values())).mesh
+        if mesh is None:
+            return None
+
+        def dims(shardings):
+            out = {}
+            for name, s in (shardings or {}).items():
+                d = [d for d, a in s.sharded_dims() if a == DP_AXIS]
+                if d:
+                    out[name] = d[0]
+            return out
+
+        grad_dims, opt_dims = dims(grad_shardings), dims(opt_shardings)
+        if any(opt_dims.get(n) != d for n, d in grad_dims.items()):
+            raise ValueError("a gradient is split over dp on another dim than its moments")
+        return cls(model, optimizer, mesh, grad_dims, opt_dims)
+
+    def _cut(self, t, d):
+        return t.chunk(self.size, dim=d)[self.rank]
+
+    def average(self, loss):
+        if self.size == 1:
+            return loss
+        loss = loss.clone()
+        dist.all_reduce(loss, group=self.group)
+        return loss / self.size
+
+    @staticmethod
+    def _buckets(grads):
+        """Runs of indices into ``grads``, each of one dtype and at most
+        BUCKET_BYTES (a larger tensor alone)."""
+        runs, size = [], 0
+        for i, g in enumerate(grads):
+            if not runs or grads[runs[-1][0]].dtype != g.dtype or size + g.nbytes > BUCKET_BYTES:
+                runs.append([])
+                size = 0
+            runs[-1].append(i)
+            size += g.nbytes
+        return runs
+
+    def _all_reduce_mean(self, grads):
+        """Each gradient replaced in place by its mean over dp."""
+        for run in self._buckets(grads):
+            flat = torch.cat([grads[i].reshape(-1) for i in run])
+            dist.all_reduce(flat, group=self.group)
+            flat.div_(self.size)
+            for i, part in zip(run, flat.split([grads[i].numel() for i in run])):
+                grads[i].copy_(part.view_as(grads[i]))
+
+    def _reduce_scatter_mean(self, grads, dims):
+        """This rank's shard (chunk ``rank`` of dim ``dims[i]``) of each
+        gradient's mean over dp. A bucket is laid out (P, the shards' sizes
+        summed), its row r the r-th chunk of every gradient, and one
+        reduce-scatter leaves row ``rank`` here."""
+        out = [None] * len(grads)
+        for run in self._buckets(grads):
+            moved = [grads[i].movedim(dims[i], 0) for i in run]
+            rows = [g.reshape(self.size, -1) for g in moved]
+            flat = torch.cat(rows, dim=1).reshape(-1)
+            mine = flat.new_empty(flat.numel() // self.size)
+            dist.reduce_scatter_tensor(mine, flat, group=self.group)
+            mine.div_(self.size)
+            for i, g, part in zip(run, moved, mine.split([r.shape[1] for r in rows])):
+                out[i] = part.view(g.shape[0] // self.size, *g.shape[1:]).movedim(0, dims[i])
+        return out
+
+    def reduce_and_clip(self, clip):
+        """Average the gradients over dp into the tensors the optimizer steps,
+        then scale them to a global norm of at most ``clip``; returns the
+        norm before the clip."""
+        names = [n for n, p in self.params.items() if p.grad is not None]
+        if self.size > 1:
+            scatter = [n for n in names if n in self.grad_dims]
+            shards = self._reduce_scatter_mean([self.params[n].grad for n in scatter],
+                                               [self.grad_dims[n] for n in scatter])
+            for name, g in zip(scatter, shards):
+                self.shards[name].grad, self.params[name].grad = g, None
+            self._all_reduce_mean([self.params[n].grad for n in names if n not in self.grad_dims])
+            for name in names:
+                if name in self.shards and name not in self.grad_dims:
+                    p = self.params[name]
+                    self.shards[name].grad = self._cut(p.grad, self.opt_dims[name]).contiguous()
+                    p.grad = None
+        parts = {}  # the groups a gradient is split over -> the tensors the optimizer steps
+        for name in names:
+            split = list(self.split_over.get(name, []))
+            target = self.params[name]
+            if name in self.shards:
+                target = self.shards[name]
+                split.append(self.group)
+            parts.setdefault(tuple(id(g) for g in split), ([], split))[0].append(target)
+        return clip_grad_norm(list(parts.values()), clip)
+
+    def gather_params(self):
+        """Every dp rank's updated shard, back into the whole parameter."""
+        with torch.no_grad():
+            for name, shard in self.shards.items():
+                d = self.opt_dims[name]
+                parts = [torch.empty_like(shard) for _ in range(self.size)]
+                dist.all_gather(parts, shard.detach().contiguous(), group=self.group)
+                self.params[name].copy_(torch.cat(parts, dim=d))
 
 
 def make_eval_step(model: nn.Module):

@@ -1,4 +1,4 @@
-"""The six torch example CLIs (``examples/*/*_torch.py``) on the CPU.
+"""The ten torch example CLIs (``examples/*/*_torch.py``) on the CPU.
 
 Each runs in process through ``main(argv)`` with ``--device cpu`` at the
 arguments of its JAX script's smoke test (``tests/test_examples.py``; the
@@ -28,6 +28,10 @@ CLIS = {
     "listops": "examples/lra/train_listops_torch.py",
     "retrieval": "examples/lra/train_retrieval_torch.py",
     "ett": "examples/forecasting/train_ett_torch.py",
+    "pathfinder": "examples/lra/train_pathfinder_torch.py",
+    "seqcls": "examples/seqcls/train_torch.py",
+    "cifar": "examples/cifar/train_torch.py",
+    "ultra_long": "examples/seq_parallel/train_ultra_long_torch.py",
 }
 _MODULES = {}
 
@@ -166,6 +170,44 @@ def test_forecasting_cli(tmp_path, capsys):
     assert "val mse" in capsys.readouterr().out
 
 
+def test_pathfinder_cli(tmp_path, capsys):
+    cli("pathfinder").main(["--device", "cpu", "--epochs", "1", "--n-train", "64", "--n-val",
+                            "32", "--batch_size", "32", "--d_model", "32", "--n_layers", "1",
+                            "--data-cache", str(tmp_path / "pathfinder.npz"),
+                            "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert "val acc" in capsys.readouterr().out
+    assert (tmp_path / "ckpt" / "state.pt").exists()
+
+
+def test_seqcls_cli(tmp_path, capsys):
+    """The JAX script has no smoke test; these are the arguments chip_smoke
+    gives it."""
+    cli("seqcls").main(["--device", "cpu", "--epochs", "1", "--per-class", "64",
+                        "--limit-batches", "2", "--d_model", "32", "--n_layers", "1",
+                        "--data-cache", str(tmp_path / "seqcls.npz"),
+                        "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert "val acc" in capsys.readouterr().out
+
+
+def test_cifar_cli(tmp_path, capsys):
+    cli("cifar").main(["--device", "cpu", "--epochs", "1", "--synthetic", "--d_model", "32",
+                       "--n_layers", "1", "--batch_size", "32", "--limit-batches", "2",
+                       "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert "val acc" in capsys.readouterr().out
+    cli("cifar").main(["--device", "cpu", "--epochs", "2", "--synthetic", "--d_model", "32",
+                       "--n_layers", "1", "--batch_size", "32", "--limit-batches", "1",
+                       "--ckpt-dir", str(tmp_path / "ckpt"), "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed" in out and "from epoch 0" in out and "epoch 1:" in out
+
+
+def test_ultra_long_cli(capsys):
+    cli("ultra_long").main(["--device", "cpu", "--l-max", "2048", "--steps", "2",
+                            "--d_model", "16", "--n_layers", "1"])
+    out = capsys.readouterr().out
+    assert "mesh: {'dp': 1, 'sp': 1}" in out and "final loss" in out
+
+
 # --- the copied generators against the JAX scripts -----------------------------------
 
 
@@ -233,3 +275,109 @@ def test_lm_corpora_match_jax(tmp_path):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(ours.build_pystdlib_corpus(str(tmp_path / "a" / "pystdlib.bin")),
                                   want)  # from the cache
+
+
+def test_pathfinder_dataset_matches_jax():
+    for n, seed in ((16, 0), (6, 3)):
+        x, y = cli("pathfinder").build_dataset(n, seed)
+        jx, jy = jax_script("pathfinder").build_dataset(n, seed)
+        np.testing.assert_array_equal(x, jx)
+        np.testing.assert_array_equal(y, jy)
+
+
+def test_pathfinder_generator_properties():
+    """tests/test_examples.py's properties, on the port's copy."""
+    ours = cli("pathfinder")
+    x, y = ours.build_dataset(16, seed=0)
+    assert x.shape == (16, ours.SIDE * ours.SIDE) and set(np.unique(y)) == {0, 1}
+    for img in x:
+        assert (img == ours.MARK_VAL).sum() >= 4
+        assert ((img > 0) & (img < ours.MARK_VAL)).sum() > 20
+    m0, m1 = x[y == 0].mean(), x[y == 1].mean()
+    assert abs(m0 - m1) / max(m0, m1) < 0.2
+
+
+def test_seqcls_dataset_matches_jax(tmp_path, monkeypatch):
+    ours, ref = cli("seqcls"), jax_script("seqcls")
+    assert ours.CLASSES == ref.CLASSES and ours.SEQ_LEN == ref.SEQ_LEN
+    got = ours.build_dataset(str(tmp_path / "a.npz"), 8, 1)
+    want = ref.build_dataset(str(tmp_path / "b.npz"), 8, 1)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    # a class whose roots hold no file: the JAX script fails in np.stack([])
+    monkeypatch.setattr(ours, "CLASSES", [("empty", [str(tmp_path / "none")], (".py",))])
+    with pytest.raises(ValueError, match="class empty"):
+        ours.build_dataset(str(tmp_path / "c.npz"), 8, 1)
+
+
+def test_cifar_synthetic_set_matches_jax():
+    for gray in (False, True):
+        args = argparse.Namespace(synthetic=True, grayscale=gray, seed=2)
+        for a, b in zip(cli("cifar").load_cifar(args), jax_script("cifar").load_cifar(args),
+                        strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+def _fake_cifar(root, n_batches=2, rows=20, seed=0):
+    """Two small data_batch pickles in CIFAR-10's python format."""
+    import pickle
+
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(1, n_batches + 1):
+        data = rng.integers(0, 256, (rows, 3072), dtype=np.uint8)
+        labels = rng.integers(0, 10, rows).tolist()
+        with open(d / f"data_batch_{i}", "wb") as f:
+            pickle.dump({"data": data, "labels": labels, "batch_label": f"batch {i}"}, f)
+        out.append((data, labels))
+    return out
+
+
+def test_cifar_loader_reads_the_pickles(tmp_path):
+    """The pickles through the loader against the JAX script's numpy steps on
+    what torchvision's CIFAR10 + ToTensor would give: the images as HWC
+    bytes, PIL's grayscale, /255, (d, 1024).T, the per-channel
+    standardisation and the last-tenth split."""
+    from PIL import Image
+
+    batches = _fake_cifar(tmp_path)
+    data = np.concatenate([b[0] for b in batches])
+    ys = np.concatenate([b[1] for b in batches])
+    hwc = data.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    for gray in (False, True):
+        if gray:
+            imgs = [np.asarray(Image.fromarray(im).convert("L"))[None] for im in hwc]
+        else:
+            imgs = [im.transpose(2, 0, 1) for im in hwc]
+        d_input = 1 if gray else 3
+        xs = np.stack([(im.astype(np.float32) / 255).reshape(d_input, 1024).T for im in imgs])
+        mean = xs.mean((0, 1), keepdims=True)
+        std = xs.std((0, 1), keepdims=True) + 1e-6
+        xs = (xs - mean) / std
+        n_val = len(xs) // 10
+        want = xs[:-n_val], ys[:-n_val], xs[-n_val:], ys[-n_val:]
+        args = argparse.Namespace(synthetic=False, grayscale=gray, seed=0,
+                                  data_dir=str(tmp_path))
+        got = cli("cifar").load_cifar(args)
+        assert got[0].shape == (36, 1024, d_input) and got[2].shape == (4, 1024, d_input)
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cifar_without_files_uses_synthetic(tmp_path, capsys):
+    args = argparse.Namespace(synthetic=False, grayscale=False, seed=2, data_dir=str(tmp_path))
+    got = cli("cifar").load_cifar(args)
+    assert "using synthetic data" in capsys.readouterr().out
+    want = cli("cifar").load_cifar(argparse.Namespace(synthetic=True, grayscale=False, seed=2))
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_ultra_long_batch_matches_jax():
+    for b, l, vocab, seed in ((1, 2048, 64, 0), (3, 100, 17, 5)):
+        got = cli("ultra_long").make_batch(np.random.default_rng(seed), b, l, vocab)
+        want = jax_script("ultra_long").make_batch(np.random.default_rng(seed), b, l, vocab)
+        for a, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a, w)

@@ -35,6 +35,8 @@ def test_import_pulls_in_no_jax():
         "flashfftconv_tpu_torch.models.vit, flashfftconv_tpu_torch.models.moe, "
         "flashfftconv_tpu_torch.ops.sparse, flashfftconv_tpu_torch.utils.data, "
         "flashfftconv_tpu_torch.utils.tasks, flashfftconv_tpu_torch.utils.registry, "
+        "flashfftconv_tpu_torch.parallel.mesh, flashfftconv_tpu_torch.parallel.pipeline, "
+        "flashfftconv_tpu_torch.parallel.comm, "
         "flashfftconv_tpu_torch.utils.logging, flashfftconv_tpu_torch.utils.debugging, "
         "flashfftconv_tpu_torch.utils.native_loader\n"
         "from flashfftconv_tpu_torch.utils.registry import _REGISTRIES, lookup\n"
@@ -81,6 +83,31 @@ def test_port_exports_every_name_of_the_jax_package():
     assert not missing, missing
     for name in tff.__all__:
         assert hasattr(tff, name), name
+
+
+def _jax_all(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+
+
+def test_parallel_exports_every_name_of_the_jax_parallel_package():
+    """``flashfftconv_tpu_torch.parallel.__all__`` holds every name of
+    ``flashfftconv_tpu/parallel/__init__.py``'s (read with ast), and each
+    resolves; so do ``ops.fused.vocab_parallel_cross_entropy`` and
+    ``models.moe.moe_param_shardings``."""
+    from flashfftconv_tpu_torch import parallel
+    from flashfftconv_tpu_torch.models import moe
+    from flashfftconv_tpu_torch.ops import fused
+
+    missing = set(_jax_all(ROOT / "flashfftconv_tpu" / "parallel" / "__init__.py")) - set(
+        parallel.__all__)
+    assert not missing, missing
+    for name in parallel.__all__:
+        assert callable(getattr(parallel, name)), name
+    assert callable(fused.vocab_parallel_cross_entropy)
+    assert callable(moe.moe_param_shardings)
 
 
 def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
