@@ -57,9 +57,12 @@ Phases, each of which fails the run by raising:
             L=64, D=64, f32, causal and a window of 16), past one grid
             dimension's 65535; the six attention kernels at head_dim 256,
             384, 512, 640, 768 and 1024 (f32, bf16 with ALiBi, f16 with
-            segment ids, L = 1; windows and block masks; above 512 the D
-            slices, whose outputs must agree bit for bit where the inputs'
-            slices are equal); monarch_conv_bwd and dk_finish at every
+            segment ids, L = 1 and 65, f32 with ALiBi at 640; windows and
+            block masks; the backward in clusters of D / 128 blocks up to
+            1024, two of them bit for bit at 256 and 640, flash and splash;
+            above 512 the forward's D slices, whose outputs must agree bit
+            for bit where the inputs' slices are equal; a key block no query
+            sees at 256, whose dk and dv must be zeros); monarch_conv_bwd and dk_finish at every
             one-block FFT size (N = 16 ... 32768, B 1, 3, 4, 8 and 64, the dk
             spectra summed over groups of bwd_group(B) rows in thread block
             clusters, gated and not, f32 and bf16, L = N/2 and N - 5, two
@@ -325,8 +328,10 @@ Phases, each of which fails the run by raising:
             beside a grouped F.conv1d's or aten.convolution_backward's; the splash kernels
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
-            with the dense boolean mask, and the splash forward at
-            tpu_attention.py's block-sparse case; beside each attention
+            with the dense boolean mask, the splash forward at
+            tpu_attention.py's block-sparse case, and the splash backward at
+            head_dim 256 (rows splash_attn_bwd_*@256, B=4, H=8, L=2048, f32,
+            window 256); beside each attention
             row's f32 bound its tensor-core bound tc_bound (its
             products' operations times 3 split-TF32 passes at 494.7
             TFLOP/s), and the dK/dV + dQ pair's sum beside SDPA's backward;
@@ -1219,11 +1224,13 @@ def _check_attention_kernels(torch, g):
     torch.cuda.empty_cache()
 
     for d in WIDE_HEAD_DIMS:
-        log(f"flash attention at head_dim {d} (the wide bodies; above 512 in D slices)")
+        log(f"flash attention at head_dim {d} (the wide bodies: the forward above 512 in D "
+            f"slices, the backward in clusters of D / 128 blocks)")
         for (b, h, l, dtype, causal, extra) in (
             (2, 3, 1000, torch.float32, True, None), (2, 3, 257, torch.bfloat16, True, "alibi"),
             (2, 3, 130, torch.float16, False, "segments"), (1, 2, 1, torch.float32, True, None),
-        ):
+            (1, 2, 65, torch.float32, True, None),
+        ) + (((2, 3, 300, torch.float32, True, "alibi"),) if d == 640 else ()):
             bias = plain.alibi_bias(h, l, l, device=dev) if extra == "alibi" else None
             seg = None
             if extra == "segments":
@@ -1234,6 +1241,8 @@ def _check_attention_kernels(torch, g):
 
     for d in (768, 1024):
         _check_slices_agree(torch, g, d)
+    for d in (256, 640):
+        _check_wide_backward_bits(torch, g, d)
 
     q, k, v = (t.requires_grad_() for t in _attn_inputs(torch, g, dev, 2, 4, 200, 64,
                                                          torch.float32)[:3])
@@ -1252,12 +1261,13 @@ def _check_attention_kernels(torch, g):
 
 
 def _check_slices_agree(torch, g, d):
-    """Above head_dim 512 every D slice of a tile is a block that computes
-    the scores over all of D, in the same order, and slice 0 alone writes
-    the logsumexp (and ds): so the slices' p, running max and row sums must
-    agree bit for bit. With q, k, v and do made of one 256-column block
-    repeated, o, dk, dv and dq must then be that too, slice for slice; in
-    f32, bf16 and f16 (B=2, H=3, L=300, causal, ALiBi)."""
+    """Above head_dim 512 every D slice of a tile is a forward block that
+    computes the scores over all of D, in the same order, and slice 0 alone
+    writes the logsumexp: so the slices' p, running max and row sums must
+    agree bit for bit. The backward's cluster computes p and ds once and
+    hands every block the same bits. With q, k, v and do made of one
+    256-column block repeated, o, dk, dv and dq must then be that too, slice
+    for slice; in f32, bf16 and f16 (B=2, H=3, L=300, causal, ALiBi)."""
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
 
@@ -1276,6 +1286,28 @@ def _check_slices_agree(torch, g, d):
                 raise AssertionError(f"head_dim {d} {dtype}: the D slices of {name} differ")
         log(f"  head_dim {d} {dtype}: the {d // ac.SLICE_DIM} D slices of o, dk, dv and dq "
             f"agree bit for bit")
+
+
+def _check_wide_backward_bits(torch, g, d):
+    """Two flash backwards at head_dim d (B=2, H=3, L=300, f32, causal,
+    ALiBi, with the bias grad) bit for bit: the clustered backward sums the
+    slices' partial scores in a fixed order and every output element has one
+    writer."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    q, k, v, do = _attn_inputs(torch, g, dev, 2, 3, 300, d, torch.float32)
+    bias = plain.alibi_bias(3, 300, 300, device=dev)
+    o, lse = ac.flash_attn_fwd(q, k, v, True, None, bias)
+    delta = plain.attention_delta(o, do)
+    runs = [(*ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, True, None, bias),
+             *ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, True, None, bias, bias_grad=True))
+            for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    log(f"  two backwards at head_dim {d} (dk, dv, dq and the bias grad) bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"two attention backwards on the card differ at head_dim {d}")
 
 
 def _tpu_attention_blockmask(np, l, block):
@@ -1390,8 +1422,17 @@ def _check_splash_kernels(torch, g):
     for dd in WIDE_HEAD_DIMS:
         log(f"splash attention at head_dim {dd}")
         args = _attn_inputs(torch, g, dev, 2, 3, 1000, dd, torch.float32)
-        _check_splash(torch, f"B=2 H=3 L=1000 D={dd} f32 window 300", *args,
-                      SplashMask.local(1000, 300))
+        mask = SplashMask.local(1000, 300)
+        _, (o, lse, dk, dv, dq) = _check_splash(torch, f"B=2 H=3 L=1000 D={dd} f32 window 300",
+                                                *args, mask)
+        if dd in (256, 640):
+            delta = plain.attention_delta(o, args[3])
+            again = (*ac.splash_attn_bwd_dkv(*args, lse, delta, mask),
+                     ac.splash_attn_bwd_dq(*args, lse, delta, mask))
+            same = all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+            log(f"  two splash backwards at head_dim {dd} bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"two splash backwards on the card differ at D={dd}")
         args = _attn_inputs(torch, g, dev, 2, 3, 400, dd, torch.bfloat16)
         _check_splash(torch, f"B=2 H=3 L=400 D={dd} bf16 100-wide blocks, causal", *args,
                       SplashMask.blocks(_tpu_attention_blockmask(np, 400, 100), 100, causal=True))
@@ -1413,6 +1454,15 @@ def _check_splash_kernels(torch, g):
     log(f"  the empty row block: exact zeros {zero}, every grad finite {finite}")
     if not (zero and finite):
         raise AssertionError("a row block that sees no key must give zeros and finite grads")
+    # a key block that no query sees, at head_dim 256: the dK/dV cluster of its
+    # tile walks nothing
+    args = _attn_inputs(torch, g, dev, 2, 3, 400, 256, torch.float32)
+    _, (o, lse, dk, dv, dq) = _check_splash(torch, "D=256 100-wide blocks, an empty key block",
+                                            *args, SplashMask.blocks(empty.T.copy(), 100))
+    zero = not dk[:, :, 100:200].any() and not dv[:, :, 100:200].any()
+    log(f"  the empty key block at head_dim 256: exact zeros in dk and dv {zero}")
+    if not zero:
+        raise AssertionError("a key block that no query sees must give zero dk and dv")
     return errs
 
 
@@ -5366,6 +5416,42 @@ def _time_splash(torch, g):
             bound=_bound(4 * n + 2 * 4 * 1024 * 4, 4 * 2 * 4 * int(keep.sum()) * 128),
         )
     del q, k, v, keep
+    torch.cuda.empty_cache()
+
+    # The backward at head_dim 256, the clustered wide body (rows @256): B=4,
+    # H=8, L=2048, f32, window 256, against SDPA's backward with the dense mask.
+    b, h, l, d = 4, 8, 2048, 256
+    mask = SplashMask.local(l, WIN_W)
+    keep = mask.dense(dev)
+    q, k, v, do = _attn_inputs(torch, g, dev, b, h, l, d, torch.float32)
+    n, stats = q.numel() * 4, b * h * l * 4
+    kept_ops = b * h * int(keep.sum()) * d
+    o, lse = ac.splash_attn_fwd(q, k, v, mask)
+    delta = plain.attention_delta(o, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                           retain_graph=True), iters=10)
+    plain_bwd = _time_ms(torch, lambda: plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep),
+                         iters=3, warmup=1)
+    with torch.inference_mode():
+        res["splash_attn_bwd_dkv@256"] = dict(
+            ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
+                        iters=10),
+            plain_ms=plain_bwd, library_ms=sdpa_bwd,
+            bound=_bound(4 * n + 2 * stats + 2 * n, 8 * kept_ops),
+            tc_bound=_tc_bound(8 * kept_ops),
+        )
+        res["splash_attn_bwd_dq@256"] = dict(
+            ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask),
+                        iters=10),
+            plain_ms=plain_bwd, library_ms=sdpa_bwd,
+            bound=_bound(4 * n + 2 * stats + n, 6 * kept_ops),
+            tc_bound=_tc_bound(6 * kept_ops),
+        )
+        res["splash_attn_bwd_dq@256"]["pair_ms"] = (res["splash_attn_bwd_dkv@256"]["ms"]
+                                                    + res["splash_attn_bwd_dq@256"]["ms"])
+    del q, k, v, do, o, lse, delta, qs, ks, vs, out, keep
     torch.cuda.empty_cache()
     return res
 

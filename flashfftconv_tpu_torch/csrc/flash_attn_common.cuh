@@ -38,9 +38,11 @@
 // quad shuffle, 2^x by fast_exp2), o += p v. The backward (attn_bwd_dkv,
 // attn_bwd_dq) keeps K and V, or Q and dO, walks the other pair, and keeps
 // the next tile's row statistics in registers.
-// Above D = 128 the wide bodies (attn_fwd_wide, attn_bwd_dkv_wide,
-// attn_bwd_dq_wide) keep 16 rows and split D over D / 64 warps instead, and
-// above D = 512 they split D across blocks; see their section below.
+// Above D = 128 the forward's wide body (attn_fwd_wide) keeps 16 or 32
+// rows and splits D over D / 64 warps instead, and above D = 512 across
+// blocks; the backward from 256 to 1024 is flash_attn_bwd_wide.cuh's, on
+// wgmma in thread block clusters, and above 1024 split across blocks; see
+// "above D = 128" below.
 
 // The three kernel bodies are written once over a mask policy, the kernel's
 // parameter, which says which tiles a block visits and which scores of a
@@ -956,50 +958,49 @@ __device__ __forceinline__ void attn_bwd_dq(const T* __restrict__ q, const T* __
 
 // --- above D = 128 -----------------------------------------------------------
 //
-// At D = 128 a warp's dk and dv accumulators over its 16 rows take 128
-// registers a thread, and the tiles 202,752 B of shared memory; both grow
-// with D. Above D = 128 the backward therefore keeps kWideRows = 16 rows of
-// its 64-row tile (K and V, or Q and dO: the tile's four parts in turn),
-// walks the other side wide_walk rows a step (64 at D = 256, 32 at 384 and
-// 512), each walked tile of the mask's list in parts, with one load stage,
-// and has D / 64 warps: the warps split D into 64-column chunks of the
-// accumulators (dk, dv, dq: 32 registers a thread each at any D). The
-// forward at D = 256 keeps 32 rows in two row groups of D / 64 warps
-// (FwdWide), so that each walked K and V tile is loaded twice a tile
-// instead of four times; at 384 and 512, 16 rows like the backward. The
-// score tiles s and dp need all of D: each warp computes whole
+// At D = 128 a warp's (16, D) accumulators take 64 registers a thread for
+// each output, and the tiles 202,752 B of shared memory; both grow with D.
+// The forward above D = 128 (attn_fwd_wide) therefore keeps R rows of its
+// 64-row tile (32 at D = 256, 16 at 384 and 512; FwdWide), walks the keys
+// wide_walk rows a step with one load stage, and has D / 64 warps a row
+// group: the warps split D into 64-column chunks of o (32 registers a
+// thread at any D). The score tiles need all of D: each warp computes whole
 // 16 x 8 score tiles over D (its row group's W / 8 of them shared out over
-// the group's warps), turns them into p and ds in registers and leaves them
-// in shared memory as A fragments (float4 a lane: the C fragment in
-// frag_a_of_c's order); every warp of the group then reads all of them for
-// its chunk of o += p v, dv += p^T do and dk += ds^T q, or dq += ds k. The
-// forward's online softmax needs each row's max over the step's score tiles
-// first: each warp leaves its tiles' row maxima in shared memory, and every
+// the group's warps), leaves their row maxima in shared memory (every
 // thread takes the max of them for its rows, so every warp of a row group
-// rescales by the same factor. Shared memory: forward 175,616 B at D = 256,
-// 126,464 at 384, 167,424 at 512; backward 174,592 B at D = 256, 153,088 at
-// 384, 202,240 at 512.
+// rescales by the same factor), turns them into p and leaves p in shared
+// memory as A fragments (float4 a lane: the C fragment in frag_a_of_c's
+// order); every warp of the group then reads all of them for its chunk of
+// o += p v. Shared memory: 175,616 B at D = 256, 126,464 at 384, 167,424 at
+// 512.
 //
-// Above D = 512 (the bodies with SL = true) no block holds a row's D
-// columns: 16 kept rows and 32 walked ones at a stride of D + 4 floats pass
-// a block's 232,448 B at D = 590 (D = 640 would need 251,392 B). D is cut
-// into slices of kSliceDim = 256 columns (the last one zero-padded when
-// kSliceDim does not divide D), and each (tile, slice) pair is a block of
-// its own (blockIdx.x = tile * n_slices + slice; one template at D = 256
-// serves every D, the slice count a runtime value). Each block computes its
-// score tiles over all of D, slice by slice in order (each slice's q, k, v
-// or do columns loaded in turn into the step's tiles; the kept rows are
-// loaded again with them), then accumulates and writes only its own slice
-// of o, dk and dv, or dq, reloading that slice of the walked rows first
-// where the last slice loaded was another. Every block of a tile computes
-// the same scores in the same order, so their p, and in the forward their
-// running max and row sums, agree bit for bit: slice 0 alone writes the
-// logsumexp and the bias's grad ds, and each output element still has one
-// writer. The cost: every block does the score products over all of D, so
-// with S = ceil(D / 256) slices the forward does (S + 1) / 2 times the
-// products of an unsliced one, dK/dV (2 S + 2) / 4 and dQ (2 S + 1) / 3 (at
-// D = 640, S = 3: 2x, 2x and 2.3x; at D = 2048, S = 8: 4.5x, 4.5x, 5.7x),
-// and loads of q and k, or of all four, grow the same way.
+// The backward above D = 128 up to 1024 is flash_attn_bwd_wide.cuh's
+// (wgmma, the D slices of a tile in a thread block cluster). Above 1024,
+// where such a cluster would pass the portable 8 blocks, it is the sliced
+// bodies below (attn_bwd_dkv_wide, attn_bwd_dq_wide), as is the forward
+// above 512.
+//
+// Above D = 512 the forward (and above 1024 the backward) holds no row's D
+// columns in a block: 16 kept rows and 32 walked ones at a stride of D + 4
+// floats pass a block's 232,448 B at D = 590. D is cut into slices of
+// kSliceDim = 256 columns (the last one zero-padded when kSliceDim does
+// not divide D), and each (tile, slice) pair is a block of its own
+// (blockIdx.x = tile * n_slices + slice; one template at D = 256 serves
+// every D, the slice count a runtime value). Each block computes its score
+// tiles over all of D, slice by slice in order (each slice's q, k, v or do
+// columns loaded in turn into the step's tiles; the kept rows are loaded
+// again with them), then accumulates and writes only its own slice of o,
+// dk and dv, or dq, reloading that slice of the walked rows first where the
+// last slice loaded was another. Every block of a tile computes the same
+// scores in the same order, so their p, and in the forward their running
+// max and row sums, agree bit for bit: slice 0 alone writes the logsumexp
+// and the bias's grad ds, and each output element still has one writer. The
+// cost: every block does the score products over all of D, so with
+// S = ceil(D / 256) slices the forward does (S + 1) / 2 times the products
+// of an unsliced one, dK/dV (2 S + 2) / 4 and dQ (2 S + 1) / 3 (at D = 2048,
+// S = 8: 4.5x, 4.5x and 5.7x), and loads of q and k, or of all four, grow
+// the same way. The backward keeps kWideRows = 16 rows of its tile at a
+// time (the tile's four parts in turn) with D / 64 warps of 64 columns.
 
 // A score tile's C fragment c (p or ds) as the A fragment its consumer reads.
 __device__ __forceinline__ float4 frag_of_c(const float (&c)[4]) {
@@ -1011,11 +1012,10 @@ __device__ __forceinline__ float4 frag_of_c(const float (&c)[4]) {
 // 8-row step j (frag_of_c), B rows 0 .. W - 1 of a row-major (W, tile_ld)
 // tile. Each step's terms are summed apart and added in f32, as in
 // accumulate.
-// The steps unroll by kUnroll: 2 by default, 1 at D = 512, where a second
-// step's fragments took the dQ body 8 bytes of stack in bf16 and f16 at 255
-// registers (and in the forward, which took the D = 256 bf16 and f16
-// instances 8 bytes).
-template <int D, int W, bool kSplitB, int kUnroll = (D == 512 ? 1 : 2)>
+// The steps unroll by kUnroll: 2 in the sliced backward, 1 in the forward,
+// where a second step's fragments took the D = 256 bf16 and f16 instances 8
+// bytes of stack at 255 registers.
+template <int D, int W, bool kSplitB, int kUnroll = 2>
 __device__ __forceinline__ void accumulate_wide(float (&acc)[8][4], const float4* frags,
                                                 const float* B, int c0) {
   constexpr int LD = tile_ld<D>(), G = 4;
@@ -1262,10 +1262,10 @@ __device__ __forceinline__ void wide_scores(float (&s)[TPW][4], float (&dp)[TPW]
   }
 }
 
-// dK/dV above D = 128: one block owns (b, h, a tile of 64 keys; above
-// D = 512 one D slice of it) and takes its four parts of 16 keys in turn,
-// each over every query tile its mask names.
-template <int D, typename T, typename Mask, bool SL = false>
+// dK/dV above D = 1024: one block owns (b, h, a tile of 64 keys, one D
+// slice of it) and takes its four parts of 16 keys in turn, each over every
+// query tile its mask names.
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void attn_bwd_dkv_wide(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1285,7 +1285,7 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const WidePlace at = wide_place<D, SL>(m);
+  const WidePlace at = wide_place<D, true>(m);
   const int len = m.len, kt = at.tile, b = bh / m.heads, h = bh % m.heads;
   const size_t base = (size_t)bh * len * at.ld, row_base = (size_t)bh * len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -1296,10 +1296,6 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
   for (int part = 0; part < kTile / R; ++part) {
     const int k0 = kt * kTile + part * R;
     __syncthreads();  // the previous part's Ks, Vs and seg_k are read
-    if (!SL) {
-      load_tile<D, T, R, NTH>(Ks, k + base, k0, len);
-      load_tile<D, T, R, NTH>(Vs, v + base, k0, len);
-    }
     m.load_seg(seg_k, b, k0, -2);
     float acc_dk[8][4] = {}, acc_dv[8][4] = {};
     for (int n = 0; n < n_q; ++n) {
@@ -1308,10 +1304,6 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
       for (int wp = 0; wp < kTile / W; ++wp) {
         const int q0 = qt0 + wp * W;
         __syncthreads();  // the previous step's Qs, dOs, fragments and statistics are read
-        if (!SL) {
-          load_tile<D, T, W, NTH>(Qs, q + base, q0, len);
-          load_tile<D, T, W, NTH>(dOs, dout + base, q0, len);
-        }
         if (threadIdx.x < W) {
           const RowStats st = row_stats(m, lse, delta, b, row_base, q0 + threadIdx.x);
           lse_s[threadIdx.x] = st.lse;
@@ -1331,48 +1323,35 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
           Pf[jt * 32 + lane] = frag_of_c(s);
           DSf[jt * 32 + lane] = frag_of_c(dp);
         };
-        if constexpr (!SL) {
+        float s[TPW][4], dp[TPW][4];
+        wide_scores<D, T, TPW, kSplit>(s, dp, Ks, Qs, Vs, dOs, k + base, q + base, v + base,
+                                       dout + base, k0, q0, len, at);
+        if (at.slice != at.n_slices - 1) {  // this slice's q and do for the products
+          __syncthreads();
+          load_part<D, true, T, W, NTH>(Qs, q + base, q0, len, at, at.slice);
+          load_part<D, true, T, W, NTH>(dOs, dout + base, q0, len, at, at.slice);
           cp_async_commit();
           cp_async_wait<0>();
-          __syncthreads();
-#pragma unroll 1
-          for (int jt = warp; jt < NS; jt += NW) {
-            float s[1][4], dp[1][4];
-            asm volatile("" ::: "memory");
-            score_tiles<D, 1, kSplit>(s, dp, Ks, Qs, Vs, dOs, 0, 8 * jt);
-            grads(s[0], dp[0], jt);
-          }
-        } else {
-          float s[TPW][4], dp[TPW][4];
-          wide_scores<D, T, TPW, kSplit>(s, dp, Ks, Qs, Vs, dOs, k + base, q + base, v + base,
-                                         dout + base, k0, q0, len, at);
-          if (at.slice != at.n_slices - 1) {  // this slice's q and do for the products
-            __syncthreads();
-            load_part<D, SL, T, W, NTH>(Qs, q + base, q0, len, at, at.slice);
-            load_part<D, SL, T, W, NTH>(dOs, dout + base, q0, len, at, at.slice);
-            cp_async_commit();
-            cp_async_wait<0>();
-          }
-#pragma unroll
-          for (int i = 0; i < TPW; ++i)
-            if (warp + NW * i < NS) grads(s[i], dp[i], warp + NW * i);
         }
+#pragma unroll
+        for (int i = 0; i < TPW; ++i)
+          if (warp + NW * i < NS) grads(s[i], dp[i], warp + NW * i);
         __syncthreads();
         accumulate_wide<D, W, kSplit>(acc_dv, Pf, dOs, 64 * warp);   // dv += p^T do
         accumulate_wide<D, W, kSplit>(acc_dk, DSf, Qs, 64 * warp);   // dk += ds^T q
       }
     }
-    if (!SL || c_out < at.ld) {
+    if (c_out < at.ld) {
       store_rows<D>(dk + base, acc_dk, k0, len, m.scale, c_out, at.ld);
       store_rows<D>(dv + base, acc_dv, k0, len, 1.f, c_out, at.ld);
     }
   }
 }
 
-// dQ above D = 128: one block owns (b, h, a tile of 64 queries; above
-// D = 512 one D slice of it) and takes its four parts of 16 queries in
-// turn, each over every key tile its mask names.
-template <int D, typename T, typename Mask, bool SL = false>
+// dQ above D = 1024: one block owns (b, h, a tile of 64 queries, one D
+// slice of it) and takes its four parts of 16 queries in turn, each over
+// every key tile its mask names.
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void attn_bwd_dq_wide(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1391,7 +1370,7 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const WidePlace at = wide_place<D, SL>(m);
+  const WidePlace at = wide_place<D, true>(m);
   const int len = m.len, qt = m.n_tiles - 1 - at.tile, b = bh / m.heads, h = bh % m.heads;
   const size_t base = (size_t)bh * len * at.ld, row_base = (size_t)bh * len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -1403,10 +1382,6 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
   for (int part = 0; part < kTile / R; ++part) {
     const int q0 = qt * kTile + part * R;
     __syncthreads();  // the previous part's Qs, dOs and statistics are read
-    if (!SL) {
-      load_tile<D, T, R, NTH>(Qs, q + base, q0, len);
-      load_tile<D, T, R, NTH>(dOs, dout + base, q0, len);
-    }
     if (threadIdx.x < R) {
       const RowStats st = row_stats(m, lse, delta, b, row_base, q0 + threadIdx.x);
       lse_s[threadIdx.x] = st.lse;
@@ -1420,10 +1395,6 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
       for (int wp = 0; wp < kTile / W; ++wp) {
         const int k0 = kt0 + wp * W;
         __syncthreads();  // the previous step's Ks, Vs, fragments and seg_k are read
-        if (!SL) {
-          load_tile<D, T, W, NTH>(Ks, k + base, k0, len);
-          load_tile<D, T, W, NTH>(Vs, v + base, k0, len);
-        }
         if (threadIdx.x < W) seg_k[threadIdx.x] = m.seg_at(b, k0 + threadIdx.x, -2);
         // s, dp of the 16 queries, keys 8 jt .., to ds fragments (and ds_out)
         auto grads = [&](const float (&s)[4], float (&dp)[4], int jt) {
@@ -1438,41 +1409,30 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
           }
           DSf[jt * 32 + lane] = frag_of_c(dp);
         };
-        if constexpr (!SL) {
+        float s[TPW][4], dp[TPW][4];
+        wide_scores<D, T, TPW, kSplit>(s, dp, Qs, Ks, dOs, Vs, q + base, k + base,
+                                       dout + base, v + base, q0, k0, len, at);
+        if (at.slice != at.n_slices - 1) {  // this slice's k for the product
+          __syncthreads();
+          load_part<D, true, T, W, NTH>(Ks, k + base, k0, len, at, at.slice);
           cp_async_commit();
           cp_async_wait<0>();
-          __syncthreads();
-#pragma unroll 1
-          for (int jt = warp; jt < NS; jt += NW) {
-            float s[1][4], dp[1][4];
-            asm volatile("" ::: "memory");
-            score_tiles<D, 1, kSplit>(s, dp, Qs, Ks, dOs, Vs, 0, 8 * jt);
-            grads(s[0], dp[0], jt);
-          }
-        } else {
-          float s[TPW][4], dp[TPW][4];
-          wide_scores<D, T, TPW, kSplit>(s, dp, Qs, Ks, dOs, Vs, q + base, k + base,
-                                         dout + base, v + base, q0, k0, len, at);
-          if (at.slice != at.n_slices - 1) {  // this slice's k for the product
-            __syncthreads();
-            load_part<D, SL, T, W, NTH>(Ks, k + base, k0, len, at, at.slice);
-            cp_async_commit();
-            cp_async_wait<0>();
-          }
-#pragma unroll
-          for (int i = 0; i < TPW; ++i)
-            if (warp + NW * i < NS) grads(s[i], dp[i], warp + NW * i);
         }
+#pragma unroll
+        for (int i = 0; i < TPW; ++i)
+          if (warp + NW * i < NS) grads(s[i], dp[i], warp + NW * i);
         __syncthreads();
         accumulate_wide<D, W, kSplit>(acc, DSf, Ks, 64 * warp);  // dq += ds k
       }
     }
-    if (!SL || c_out < at.ld) store_rows<D>(dq + base, acc, q0, len, m.scale, c_out, at.ld);
+    if (c_out < at.ld) store_rows<D>(dq + base, acc, q0, len, m.scale, c_out, at.ld);
   }
 }
 
-// The bodies for every head_dim the kernels take: D = 64 and 128 narrow,
-// 256 to 512 wide, above 512 (SL) wide in slices of D = kSliceDim columns.
+// The bodies for the head_dims these kernels take: D = 64 and 128 narrow;
+// the forward 256 to 512 wide, above 512 (SL) wide in slices of
+// D = kSliceDim columns; the backward above 1024 (SL) in slices (from 256
+// to 1024 it is flash_attn_bwd_wide.cuh's).
 template <int D, bool SL, typename T, typename Mask>
 __device__ __forceinline__ void fwd(const T* __restrict__ q, const T* __restrict__ k,
                                     const T* __restrict__ v, T* __restrict__ o,
@@ -1489,10 +1449,11 @@ __device__ __forceinline__ void bwd_dkv(const T* __restrict__ q, const T* __rest
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta, T* __restrict__ dk,
                                         T* __restrict__ dv, const Mask& m) {
+  static_assert(D <= 128 || SL, "the unsliced wide backward is flash_attn_bwd_wide.cuh's");
   if constexpr (D <= 128)
     attn_bwd_dkv<D, T>(q, k, v, dout, lse, delta, dk, dv, m);
   else
-    attn_bwd_dkv_wide<D, T, Mask, SL>(q, k, v, dout, lse, delta, dk, dv, m);
+    attn_bwd_dkv_wide<D, T, Mask>(q, k, v, dout, lse, delta, dk, dv, m);
 }
 
 template <int D, bool SL, typename T, typename Mask>
@@ -1501,10 +1462,11 @@ __device__ __forceinline__ void bwd_dq(const T* __restrict__ q, const T* __restr
                                        const float* __restrict__ lse,
                                        const float* __restrict__ delta, T* __restrict__ dq,
                                        float* __restrict__ ds_out, const Mask& m) {
+  static_assert(D <= 128 || SL, "the unsliced wide backward is flash_attn_bwd_wide.cuh's");
   if constexpr (D <= 128)
     attn_bwd_dq<D, T>(q, k, v, dout, lse, delta, dq, ds_out, m);
   else
-    attn_bwd_dq_wide<D, T, Mask, SL>(q, k, v, dout, lse, delta, dq, ds_out, m);
+    attn_bwd_dq_wide<D, T, Mask>(q, k, v, dout, lse, delta, dq, ds_out, m);
 }
 
 // --- launching ---------------------------------------------------------------
@@ -1539,6 +1501,17 @@ cudaError_t dispatch(int head_dim, int dtype, F f) {
   if (head_dim == 384) return dispatch_dtype(dtype, HeadDim<384>{}, f);
   if (head_dim == 512) return dispatch_dtype(dtype, HeadDim<512>{}, f);
   if (head_dim > kMaxUnsliced && head_dim % 128 == 0)
+    return dispatch_dtype(dtype, HeadDim<kSliceDim, true>{}, f);
+  return cudaErrorInvalidValue;
+}
+
+// The same for the backward's kernels of this file: head_dim 64, 128, or
+// above 1024 in slices (256 to 1024 launch flash_attn_bwd_wide.cuh's).
+template <typename F>
+cudaError_t dispatch_bwd(int head_dim, int dtype, F f) {
+  if (head_dim == 64) return dispatch_dtype(dtype, HeadDim<64>{}, f);
+  if (head_dim == 128) return dispatch_dtype(dtype, HeadDim<128>{}, f);
+  if (head_dim > 1024 && head_dim % 128 == 0)
     return dispatch_dtype(dtype, HeadDim<kSliceDim, true>{}, f);
   return cudaErrorInvalidValue;
 }

@@ -12,9 +12,11 @@
 // bits from run to run. The separate dq kernel of that file (l.1635) is not
 // reached by the package; splash_attn_bwd_dq computes its function.
 //
-// Design: the bodies attn_bwd_dkv and attn_bwd_dq (flash_attn_common.cuh)
-// under SplashMask, on the tensor cores as in flash_attn_bwd.cu (split-TF32
-// mma.sync, p and ds in registers, a cp.async ring). They recompute
+// Design: the bodies of flash_attn_bwd.cu under SplashMask: up to D = 128
+// attn_bwd_dkv and attn_bwd_dq (flash_attn_common.cuh; split-TF32 mma.sync,
+// p and ds in registers, a cp.async ring), from 256 to 1024 attn_bwd_wg
+// (flash_attn_bwd_wide.cuh; wgmma in clusters of D / 128 blocks), above
+// 1024 the D-sliced bodies. They recompute
 // p = exp(s - lse) from the forward's row logsumexp and take
 // delta = rowsum(do * o) from the wrapper.
 // splash_attn_bwd_dkv: one block owns (b, h, a tile of 64 keys) and walks
@@ -33,7 +35,7 @@
 // (q k^T, do v^T, ds k; 0.29 ms in f32, 0.12 ms on the tensor cores):
 // operations, both.
 
-#include "flash_attn_common.cuh"
+#include "flash_attn_bwd_wide.cuh"
 
 namespace ffc {
 namespace attn {
@@ -56,6 +58,30 @@ __global__ void __launch_bounds__(body_threads<D>(), 1)
   bwd_dq<D, SL, T>(q, k, v, dout, lse, delta, dq, nullptr, m);
 }
 
+// Above head_dim 128 up to 1024: flash_attn_bwd_wide.cuh's clustered body.
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    splash_attn_bwd_dkv_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, const T* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  T* __restrict__ dk, T* __restrict__ dv, SplashMask m,
+                                  const __grid_constant__ CUtensorMap map1,
+                                  const __grid_constant__ CUtensorMap map2) {
+  attn_bwd_wg<T, SplashMask, true>(q, k, v, dout, lse, delta, dk, dv, nullptr, m, &map1, &map2);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    splash_attn_bwd_dq_wg_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v, const T* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 T* __restrict__ dq, SplashMask m,
+                                 const __grid_constant__ CUtensorMap map1,
+                                 const __grid_constant__ CUtensorMap map2) {
+  attn_bwd_wg<T, SplashMask, false>(q, k, v, dout, lse, delta, dq, nullptr, nullptr, m, &map1,
+                                    &map2);
+}
+
 }  // namespace attn
 }  // namespace ffc
 
@@ -71,7 +97,19 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
                                         block_size, n_blocks, n_entries, causal, scale_bits);
-  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
+  if (clustered_bwd(head_dim))
+    return (int)dispatch_dtype(dtype, 0, [&](auto, auto t) {
+      using T = decltype(t);
+      CUtensorMap map1, map2;
+      const cudaError_t err =
+          walked_maps<T>(map1, map2, q, dout, batch * heads, len, head_dim);
+      if (err != cudaSuccess) return err;
+      return launch_clustered(splash_attn_bwd_dkv_wg_kernel<T>,
+                              wg_bwd_smem_bytes<std::is_same<T, float>::value>(), len,
+                              batch * heads, head_dim, (cudaStream_t)stream, q, k, v, dout, lse,
+                              delta, dk, dv, m, map1, map2);
+    });
+  return (int)dispatch_bwd(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
@@ -92,7 +130,19 @@ extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
                                         block_size, n_blocks, n_entries, causal, scale_bits);
-  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
+  if (clustered_bwd(head_dim))
+    return (int)dispatch_dtype(dtype, 0, [&](auto, auto t) {
+      using T = decltype(t);
+      CUtensorMap map1, map2;
+      const cudaError_t err =
+          walked_maps<T>(map1, map2, k, v, batch * heads, len, head_dim);
+      if (err != cudaSuccess) return err;
+      return launch_clustered(splash_attn_bwd_dq_wg_kernel<T>,
+                              wg_bwd_smem_bytes<std::is_same<T, float>::value>(), len,
+                              batch * heads, head_dim, (cudaStream_t)stream, q, k, v, dout, lse,
+                              delta, dq, m, map1, map2);
+    });
+  return (int)dispatch_bwd(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);

@@ -19,8 +19,11 @@ its ``launches`` count. On CPU tensors it runs the plain version from
 ``ops/attention.py``.
 
 The kernels take q, k, v (B, H, L, D) contiguous, of one shape and dtype
-(f32, bf16 or f16), head_dim 64 or any multiple of 128 (above 512 in D
-slices of 256 columns across blocks), any B * H, any L >= 1
+(f32, bf16 or f16), head_dim 64 or any multiple of 128 (the forward above
+512 in D slices of 256 columns across blocks; the backward from 256 to 1024
+in thread block clusters of D / 128 blocks on ``wgmma``
+(``csrc/flash_attn_bwd_wide.cuh``), above 1024 in slices of 256), any B * H,
+any L >= 1
 (``kernels_take`` asks this of shapes and dtypes; the wrappers raise
 otherwise). The flash kernels also take an
 optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
@@ -52,7 +55,9 @@ from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 
 # The head_dims with kernel instances of their own; above MAX_UNSLICED any
 # multiple of 128, in D slices of SLICE_DIM columns, one block a slice
-# (kMaxUnsliced and kSliceDim in csrc/flash_attn_common.cuh): no largest.
+# (kMaxUnsliced and kSliceDim in csrc/flash_attn_common.cuh): no largest. The
+# backward from 256 to 1024 holds 128 columns a block instead, the blocks of
+# a tile in one thread block cluster (kWgDim in csrc/flash_attn_bwd_wide.cuh).
 HEAD_DIMS = (64, 128, 256, 384, 512)
 MAX_UNSLICED = HEAD_DIMS[-1]
 SLICE_DIM = 256

@@ -32,6 +32,9 @@ from flashfftconv_tpu.utils import checkpoint_import as jci
 from flashfftconv_tpu_torch.utils import checkpoint_import as tci
 from flashfftconv_tpu_torch.utils import jax_weights
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 VIT = dict(num_classes=10, patch_size=8, d_model=48, n_layer=2, num_heads=4, mlp_ratio=2)
 BERT = dict(vocab_size=40, d_model=32, n_layer=2, d_inner=48, num_heads=4, l_max=32)
 

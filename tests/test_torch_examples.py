@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 CLIS = {
     "lm": "examples/lm/train_torch.py",

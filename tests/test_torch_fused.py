@@ -18,6 +18,9 @@ import torch
 import flashfftconv_tpu_torch as tff
 from flashfftconv_tpu.ops import fused as jfused
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 
 def _rand(seed, *shape, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)

@@ -964,8 +964,9 @@ def test_cuda_attention_auto_runs_the_kernels_in_f16():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("impl", ["auto", "flash"])
 def test_cuda_attention_runs_the_kernels_at_wide_head_dims(d, dtype, impl):
-    """head_dim 256, 384 and 512, and above 512 (D slices) 640, 768, 1024
-    and 2048, at L = 256 (a call the JAX package's TPU
+    """head_dim 256, 384 and 512, and above 512 640, 768, 1024 and 2048 (the
+    forward in D slices; the backward in thread block clusters up to 1024,
+    in D slices above), at L = 256 (a call the JAX package's TPU
     kernels take): flash_mha causal, non-causal, with ALiBi and with segment
     ids, a window and blocksparse_mha under impl='auto' and impl='flash'
     launch the kernels (one forward, one dK/dV, one dQ each) and match the
@@ -1020,13 +1021,78 @@ def test_cuda_attention_runs_the_kernels_at_wide_head_dims(d, dtype, impl):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 640, 2048])
+@pytest.mark.parametrize("l", [1, 65, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_attention_wide_backward_at_ragged_lengths(d, l, causal):
+    """The wide backward (clusters of d / 128 blocks at 256 and 640, D
+    slices at 2048) at L = 1, 65 and 1000, f32, causal and not: plain, with
+    ALiBi (and its grad) and with segment ids, against the plain backward,
+    and two backwards bit for bit."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d + l)
+    q, k, v, do = (torch.randn(2, 3, l, d, device=dev, generator=g) for _ in "qkvd")
+    bias = plain.alibi_bias(3, l, l, device=dev)
+    seg = (torch.arange(l, device=dev) * 3 // l).int()[None].repeat(2, 1)
+    for b_, s_ in ((None, None), (bias, None), (None, seg)):
+        o, lse = ac.flash_attn_fwd(q, k, v, causal, None, b_, s_)
+        delta = plain.attention_delta(o, do)
+        runs = [(*ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, causal, None, b_, s_),
+                 *ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, causal, None, b_, s_,
+                                       bias_grad=b_ is not None)) for _ in range(2)]
+        assert all(x is None or torch.equal(x, y) for x, y in zip(*runs))
+        dk, dv, dq, ds = runs[0]
+        rq, rk, rv, rds = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, causal, None, b_, s_,
+                                                     b_ is not None)
+        for got, ref in ((dk, rk), (dv, rv), (dq, rq)) + (((ds, rds),) if b_ is not None else ()):
+            _attn_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 640])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_splash_wide_backward_matches_plain(d, dtype):
+    """splash_attn_bwd_dkv and splash_attn_bwd_dq at head_dim 256 and 640
+    (the clustered body under a SplashMask): a window of 300 at L = 1000,
+    and 100-wide blocks at L = 400 with a key block no query sees (its dk
+    and dv exact zeros); against the plain backward, two backwards bit for
+    bit."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    blocks = [[1, 0, 1, 0], [0, 0, 1, 1], [0, 0, 0, 1], [1, 0, 0, 1]]
+    for l, mask in ((1000, SplashMask.local(1000, 300)), (400, SplashMask.blocks(blocks, 100))):
+        q, k, v, do = (torch.randn(2, 3, l, d, device=dev, generator=g).to(dtype)
+                       for _ in "qkvd")
+        o, lse = ac.splash_attn_fwd(q, k, v, mask)
+        delta = plain.attention_delta(o, do)
+        runs = [(*ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
+                 ac.splash_attn_bwd_dq(q, k, v, do, lse, delta, mask)) for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        rq, rk, rv = plain.splash_attn_bwd_plain(q, k, v, o, lse, do, mask.dense(dev))
+        for got, ref in zip(runs[0], (rk, rv, rq)):
+            _attn_close(got, ref)
+        if l == 400:
+            assert not runs[0][0][:, :, 100:200].any() and not runs[0][1][:, :, 100:200].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [768, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_cuda_attention_d_slices_agree_bit_for_bit(d, dtype):
-    """Above head_dim 512 each D slice of a tile is a block of its own that
-    computes the scores over all of D in the same order, and slice 0 alone
-    writes the logsumexp: the slices' p, running max and row sums agree bit
-    for bit. With q, k, v and do one 256-column block repeated, o, dk, dv
+    """Above head_dim 512 each D slice of a tile is a forward block of its
+    own that computes the scores over all of D in the same order, and slice
+    0 alone writes the logsumexp: the slices' p, running max and row sums
+    agree bit for bit; the backward's cluster computes p and ds once for all
+    its blocks. With q, k, v and do one 256-column block repeated, o, dk, dv
     and dq are that too, slice for slice, and match the plain versions."""
     _needs_card()
     from flashfftconv_tpu_torch.ops import attention as plain

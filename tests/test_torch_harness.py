@@ -40,6 +40,9 @@ from flashfftconv_tpu_torch.utils import data, debugging, jax_weights, native_lo
 from flashfftconv_tpu_torch.utils import logging as tlogging
 from flashfftconv_tpu_torch.utils import registry, tasks, train
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -12,6 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "flashfftconv_tpu_torch"
 
@@ -19,6 +22,7 @@ PORT = ROOT / "flashfftconv_tpu_torch"
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"  # the test workers share the machine's cores
     return env
 
 
@@ -118,6 +122,6 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
         if cwd == tmp_path:
             script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
         proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
-                              cwd=cwd, timeout=120)
+                              cwd=cwd, timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout

@@ -23,6 +23,9 @@ from flashfftconv_tpu_torch.models.lm import Block, ConvLMHeadModel
 from flashfftconv_tpu_torch.models.moe import MoEMlp, route
 from flashfftconv_tpu_torch.utils import jax_weights
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 D, F, E = 32, 48, 4
 
 

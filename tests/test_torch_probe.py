@@ -21,6 +21,9 @@ from flashfftconv_tpu.utils import benchmarking as jbench
 from flashfftconv_tpu_torch.utils import benchmarking as bench
 from flashfftconv_tpu_torch.utils import smem_probe as sp
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -19,6 +19,9 @@ import flashfftconv_tpu as jff
 import flashfftconv_tpu_torch as tff
 from flashfftconv_tpu.ops import sparse as jsparse
 
+# The test workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 
 def _inputs(seed, h, length, k_len):
     rng = np.random.default_rng(seed)
