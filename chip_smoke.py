@@ -58,10 +58,14 @@ Phases, each of which fails the run by raising:
             dimension's 65535; the six attention kernels at head_dim 256,
             384, 512, 640, 768 and 1024 (f32, bf16 with ALiBi, f16 with
             segment ids, L = 1 and 65, f32 with ALiBi at 640; windows and
-            block masks; the backward in clusters of D / 128 blocks up to
-            1024, two of them bit for bit at 256 and 640, flash and splash;
-            above 512 the forward's D slices, whose outputs must agree bit
-            for bit where the inputs' slices are equal; a key block no query
+            block masks; forward and backward in thread block clusters of
+            D / 128 blocks up to 1024, two backwards bit for bit at 256 and
+            640, flash and splash, two forwards at 256, 640 and 1024; with
+            the inputs one 128-column block repeated at 768 and 1024, the
+            clusters' 128-column parts of o, dk, dv and dq must agree bit
+            for bit, and above 1024, at 2048, the D slices' 256-column parts;
+            a row block no key is seen by at 256 and 640, whose o must be
+            zeros and lse +inf; a key block no query
             sees at 256, whose dk and dv must be zeros); monarch_conv_bwd and dk_finish at every
             one-block FFT size (N = 16 ... 32768, B 1, 3, 4, 8 and 64, the dk
             spectra summed over groups of bwd_group(B) rows in thread block
@@ -329,9 +333,10 @@ Phases, each of which fails the run by raising:
             at the window_train shape beside the causal flash kernel there
             (the splash forward must take at most half its time) and SDPA
             with the dense boolean mask, the splash forward at
-            tpu_attention.py's block-sparse case, and the splash backward at
-            head_dim 256 (rows splash_attn_bwd_*@256, B=4, H=8, L=2048, f32,
-            window 256); beside each attention
+            tpu_attention.py's block-sparse case, and the splash forward and
+            backward at head_dim 256 (rows splash_attn_fwd@256,
+            splash_attn_bwd_*@256, B=4, H=8, L=2048, f32, window 256, beside
+            SDPA's forward or backward with the dense mask); beside each attention
             row's f32 bound its tensor-core bound tc_bound (its
             products' operations times 3 split-TF32 passes at 494.7
             TFLOP/s), and the dK/dV + dQ pair's sum beside SDPA's backward;
@@ -453,7 +458,8 @@ DIRECT_SIZES = (16, 32, 64, 128, 256, 512)
 GPT_D_MODEL, GPT_N_LAYER, GPT_HEADS, GPT_L_MAX, GPT_VOCAB = 768, 12, 12, 1024, 50257
 GPT_HEAD_DIM = GPT_D_MODEL // GPT_HEADS
 # The head_dims above 128 that the kernels phase holds the attention kernels
-# to their plain versions at: the wide bodies, and above 512 the D slices.
+# to their plain versions at: the clustered bodies (the D slices above 1024
+# are checked at 2048 by _check_slices_agree).
 WIDE_HEAD_DIMS = (256, 384, 512, 640, 768, 1024)
 GPT_PROMPTS = (128, 256, 512, 1000)
 GPT_SERVE_B, GPT_WARMUP, GPT_TIMED = 8, 1, 5
@@ -1224,8 +1230,8 @@ def _check_attention_kernels(torch, g):
     torch.cuda.empty_cache()
 
     for d in WIDE_HEAD_DIMS:
-        log(f"flash attention at head_dim {d} (the wide bodies: the forward above 512 in D "
-            f"slices, the backward in clusters of D / 128 blocks)")
+        log(f"flash attention at head_dim {d} (forward and backward in thread block clusters "
+            f"of D / 128 blocks)")
         for (b, h, l, dtype, causal, extra) in (
             (2, 3, 1000, torch.float32, True, None), (2, 3, 257, torch.bfloat16, True, "alibi"),
             (2, 3, 130, torch.float16, False, "segments"), (1, 2, 1, torch.float32, True, None),
@@ -1239,10 +1245,12 @@ def _check_attention_kernels(torch, g):
                              *_attn_inputs(torch, g, dev, b, h, l, d, dtype), causal, bias=bias,
                              seg=seg)
 
-    for d in (768, 1024):
+    for d in (768, 1024, 2048):
         _check_slices_agree(torch, g, d)
     for d in (256, 640):
         _check_wide_backward_bits(torch, g, d)
+    for d in (256, 640, 1024):
+        _check_wide_forward_bits(torch, g, d)
 
     q, k, v = (t.requires_grad_() for t in _attn_inputs(torch, g, dev, 2, 4, 200, 64,
                                                          torch.float32)[:3])
@@ -1261,31 +1269,57 @@ def _check_attention_kernels(torch, g):
 
 
 def _check_slices_agree(torch, g, d):
-    """Above head_dim 512 every D slice of a tile is a forward block that
-    computes the scores over all of D, in the same order, and slice 0 alone
-    writes the logsumexp: so the slices' p, running max and row sums must
-    agree bit for bit. The backward's cluster computes p and ds once and
-    hands every block the same bits. With q, k, v and do made of one
-    256-column block repeated, o, dk, dv and dq must then be that too, slice
-    for slice; in f32, bf16 and f16 (B=2, H=3, L=300, causal, ALiBi)."""
+    """Up to head_dim 1024 a tile's cluster computes the scores once and
+    hands every block, 128 columns each, the same p (and in the forward the
+    same rescale factors and row sums); above it every 256-column D slice is
+    a block of its own that computes the scores over all of D in the same
+    order, and slice 0 alone writes the logsumexp. With q, k, v and do made
+    of one 128-column block repeated (256 above 1024), o, dk, dv and dq must
+    then be that too, part for part, bit for bit, and o and lse must match
+    the plain forward; in f32, bf16 and f16 (B=2, H=3, L=300, causal,
+    ALiBi)."""
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
 
     dev = torch.device("cuda")
+    part = ac.CLUSTER_DIM if d <= ac.MAX_CLUSTERED else ac.SLICE_DIM
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        q, k, v, do = (t.repeat(1, 1, 1, d // ac.SLICE_DIM).contiguous()
-                       for t in _attn_inputs(torch, g, dev, 2, 3, 300, ac.SLICE_DIM, dtype))
+        q, k, v, do = (t.repeat(1, 1, 1, d // part).contiguous()
+                       for t in _attn_inputs(torch, g, dev, 2, 3, 300, part, dtype))
         bias = plain.alibi_bias(3, 300, 300, device=dev)
         o, lse = ac.flash_attn_fwd(q, k, v, True, None, bias)
+        ro, rlse = plain.flash_attn_fwd_plain(q, k, v, True, None, bias)
+        compare(f"flash_attn_fwd head_dim {d} {dtype}, {part}-column parts repeated", o, ro,
+                attn_tol(ro))
+        compare(f"flash_attn_fwd lse head_dim {d} {dtype}", lse, rlse, f32_tol(rlse))
         delta = plain.attention_delta(o, do)
         dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, True, None, bias)
         dq, _ = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, True, None, bias, bias_grad=True)
         for name, t in (("o", o), ("dk", dk), ("dv", dv), ("dq", dq)):
-            parts = t.split(ac.SLICE_DIM, -1)
+            parts = t.split(part, -1)
             if not all(torch.equal(parts[0], x) for x in parts[1:]):
-                raise AssertionError(f"head_dim {d} {dtype}: the D slices of {name} differ")
-        log(f"  head_dim {d} {dtype}: the {d // ac.SLICE_DIM} D slices of o, dk, dv and dq "
-            f"agree bit for bit")
+                raise AssertionError(f"head_dim {d} {dtype}: the {part}-column parts of {name} "
+                                     f"differ")
+        log(f"  head_dim {d} {dtype}: the {d // part} parts of {part} columns of o, dk, dv and "
+            f"dq agree bit for bit")
+
+
+def _check_wide_forward_bits(torch, g, d):
+    """Two flash forwards at head_dim d (B=2, H=3, L=300, f32, causal,
+    ALiBi) bit for bit, o and lse: the clustered forward sums the slices'
+    partial scores in a fixed order, and every output element has one
+    writer."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    q, k, v = _attn_inputs(torch, g, dev, 2, 3, 300, d, torch.float32)[:3]
+    bias = plain.alibi_bias(3, 300, 300, device=dev)
+    runs = [ac.flash_attn_fwd(q, k, v, True, None, bias) for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    log(f"  two forwards at head_dim {d} (o and lse) bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"two attention forwards on the card differ at head_dim {d}")
 
 
 def _check_wide_backward_bits(torch, g, d):
@@ -1454,6 +1488,20 @@ def _check_splash_kernels(torch, g):
     log(f"  the empty row block: exact zeros {zero}, every grad finite {finite}")
     if not (zero and finite):
         raise AssertionError("a row block that sees no key must give zeros and finite grads")
+    # the same at head_dim 256 and 640: the clustered forward's rows that see
+    # no key (o 0, lse +inf)
+    for dd in (256, 640):
+        args = _attn_inputs(torch, g, dev, 2, 3, 400, dd, torch.float32)
+        _, (o, lse, dk, dv, dq) = _check_splash(torch, f"D={dd} 100-wide blocks, an empty row "
+                                                f"block", *args, SplashMask.blocks(empty, 100))
+        zero = not o[:, :, 100:200].any() and not dq[:, :, 100:200].any()
+        inf = bool((lse[:, :, 100:200] == float("inf")).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, dk, dv, dq))
+        log(f"  the empty row block at head_dim {dd}: exact zeros {zero}, lse +inf {inf}, every "
+            f"grad finite {finite}")
+        if not (zero and inf and finite):
+            raise AssertionError(f"a row block that sees no key must give zeros, lse +inf and "
+                                 f"finite grads at head_dim {dd}")
     # a key block that no query sees, at head_dim 256: the dK/dV cluster of its
     # tile walks nothing
     args = _attn_inputs(torch, g, dev, 2, 3, 400, 256, torch.float32)
@@ -5418,8 +5466,9 @@ def _time_splash(torch, g):
     del q, k, v, keep
     torch.cuda.empty_cache()
 
-    # The backward at head_dim 256, the clustered wide body (rows @256): B=4,
-    # H=8, L=2048, f32, window 256, against SDPA's backward with the dense mask.
+    # The forward and the backward at head_dim 256, the clustered wide bodies
+    # (rows @256): B=4, H=8, L=2048, f32, window 256, against SDPA's forward
+    # and backward with the dense mask.
     b, h, l, d = 4, 8, 2048, 256
     mask = SplashMask.local(l, WIN_W)
     keep = mask.dense(dev)
@@ -5435,6 +5484,15 @@ def _time_splash(torch, g):
     plain_bwd = _time_ms(torch, lambda: plain.splash_attn_bwd_plain(q, k, v, o, lse, do, keep),
                          iters=3, warmup=1)
     with torch.inference_mode():
+        res["splash_attn_fwd@256"] = dict(
+            ms=_time_ms(torch, lambda: ac.splash_attn_fwd(q, k, v, mask), iters=10),
+            plain_ms=_time_ms(torch, lambda: plain.splash_attn_fwd_plain(q, k, v, keep),
+                              iters=3, warmup=1),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep), iters=10),
+            bound=_bound(3 * n + n + stats, 4 * kept_ops),
+            tc_bound=_tc_bound(4 * kept_ops),
+        )
         res["splash_attn_bwd_dkv@256"] = dict(
             ms=_time_ms(torch, lambda: ac.splash_attn_bwd_dkv(q, k, v, do, lse, delta, mask),
                         iters=10),

@@ -106,7 +106,7 @@ extern "C" int ffc_flash_attn_bwd_dkv(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const FlashMask m = make_flash_mask(batch, heads, len, head_dim, causal, bias, bias_sb,
                                       bias_sh, bias_sq, seg, scale_bits);
-  if (clustered_bwd(head_dim))
+  if (clustered(head_dim))
     return (int)dispatch_dtype(dtype, 0, [&](auto, auto t) {
       using T = decltype(t);
       CUtensorMap map1, map2;
@@ -118,7 +118,7 @@ extern "C" int ffc_flash_attn_bwd_dkv(const void* q, const void* k, const void* 
                               batch * heads, head_dim, (cudaStream_t)stream, q, k, v, dout, lse,
                               delta, dk, dv, m, map1, map2);
     });
-  return (int)dispatch_bwd(head_dim, dtype, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
@@ -138,7 +138,7 @@ extern "C" int ffc_flash_attn_bwd_dq(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   const FlashMask m = make_flash_mask(batch, heads, len, head_dim, causal, bias, bias_sb,
                                       bias_sh, bias_sq, seg, scale_bits);
-  if (clustered_bwd(head_dim))
+  if (clustered(head_dim))
     return (int)dispatch_dtype(dtype, 0, [&](auto, auto t) {
       using T = decltype(t);
       CUtensorMap map1, map2;
@@ -150,7 +150,7 @@ extern "C" int ffc_flash_attn_bwd_dq(const void* q, const void* k, const void* v
                               batch * heads, head_dim, (cudaStream_t)stream, q, k, v, dout, lse,
                               delta, dq, ds, m, map1, map2);
     });
-  return (int)dispatch_bwd(head_dim, dtype, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);

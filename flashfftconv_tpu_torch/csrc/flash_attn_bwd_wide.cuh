@@ -78,9 +78,11 @@ constexpr int kWalkedFloats = kWgWalk * kWgDim;        // a walked tile
 constexpr int kGradFloats = kTile * kWgWalk;           // a p or ds tile
 constexpr int kScoreGroups = kTile * kWgWalk / 4;      // float4 groups of a step's scores
 constexpr int kRecvFloats = (kScoreGroups + kMaxCluster) * 4;
+static_assert(kMaxCluster * kWgDim == kMaxClustered, "the clustered head_dims");
 
-// The head_dims this body takes: above 128 up to 1024.
-inline bool clustered_bwd(int head_dim) {
+// The head_dims the clustered bodies take (this backward, and the forward of
+// flash_attn_fwd_wide.cuh): above 128 up to 1024.
+inline bool clustered(int head_dim) {
   return head_dim > 128 && head_dim <= kMaxCluster * kWgDim && head_dim % kWgDim == 0;
 }
 
@@ -91,13 +93,14 @@ constexpr size_t wg_bwd_smem_bytes() {
          sizeof(float);
 }
 
-// Offset of (row r, column c) of a walked tile (32 rows, 128 columns,
-// K = the columns): the 32 rows' 16 bytes of each 4 columns in turn, so
-// that a core matrix (8 rows by 4 columns) is 128 contiguous bytes, 512
+// Offset of (row r, column c) of a walked tile (ROWS rows, 128 columns,
+// K = the columns): the ROWS rows' 16 bytes of each 4 columns in turn, so
+// that a core matrix (8 rows by 4 columns) is 128 contiguous bytes, 16 ROWS
 // bytes along K apart and 128 along the rows. It is the order in which TMA
-// writes a (4 columns, 32 rows, 32 column groups) box (walked_map).
+// writes a (4 columns, ROWS rows, 32 column groups) box (walked_map).
+template <int ROWS = kWgWalk>
 __device__ __forceinline__ int walked_at(int r, int c) {
-  return (c >> 2) * (kWgWalk * 4) + r * 4 + (c & 3);
+  return (c >> 2) * (ROWS * 4) + r * 4 + (c & 3);
 }
 // Offset of (kept row r, walked column c) of a p or ds tile (64 x 32,
 // K = the walked columns): 128 bytes along K apart, 1024 along the rows.
@@ -113,19 +116,27 @@ __device__ __forceinline__ float4 tf32_lo(float4 x) {
   return make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
 }
 
-// Rows row0 .. row0 + 31, columns col0 .. col0 + 127 of an (L, ld) bf16 or
-// f16 slab into a walked tile, zeros past L, by the 128 threads of a
-// warpgroup, in two halves: walked_fetch loads a thread's 16-byte pieces (8
-// columns) into registers, walked_put converts them to f32 and stores them.
-// Each 8 lanes take 8 rows of one piece: their stores are 128 contiguous
-// bytes. (f32 tiles come by TMA.)
-template <typename T>
+// Rows row0 .. row0 + ROWS - 1, columns col0 .. col0 + 4096 / ROWS - 1 (128
+// at 32 rows; 64 at 64, the forward's pieces of a key or value tile) of an
+// (L, ld) bf16 or f16 slab, zeros past L, by the 128 threads of a warpgroup,
+// in two halves: walked_fetch loads a thread's 16-byte pieces (8 columns,
+// walked_piece's) into registers, walked_put converts them to f32 and stores
+// them into a walked tile. Each 8 lanes take 8 rows of one piece: their
+// stores are 128 contiguous bytes. (f32 tiles come by TMA.)
+template <int ROWS>
+__device__ __forceinline__ void walked_piece(int i, int& r, int& c) {
+  const int lane = threadIdx.x & 31, u = ((threadIdx.x >> 5) & 3) * 4 + i;
+  r = (u % (ROWS / 8)) * 8 + (lane & 7);
+  c = ((u / (ROWS / 8)) * 4 + (lane >> 3)) * 8;
+}
+
+template <typename T, int ROWS = kWgWalk>
 __device__ __forceinline__ void walked_fetch(uint4 (&raw)[4], const T* __restrict__ src,
                                              int row0, int len, int ld, int col0) {
-  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int u = wq * 4 + i, r = (u & 3) * 8 + (lane & 7), c = ((u >> 2) * 4 + (lane >> 3)) * 8;
+    int r, c;
+    walked_piece<ROWS>(i, r, c);
     raw[i] = row0 + r < len
                  ? *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col0 + c)
                  : make_uint4(0u, 0u, 0u, 0u);
@@ -134,10 +145,10 @@ __device__ __forceinline__ void walked_fetch(uint4 (&raw)[4], const T* __restric
 
 template <typename T>
 __device__ __forceinline__ void walked_put(float* dst, const uint4 (&raw)[4]) {
-  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int u = wq * 4 + i, r = (u & 3) * 8 + (lane & 7), c = ((u >> 2) * 4 + (lane >> 3)) * 8;
+    int r, c;
+    walked_piece<kWgWalk>(i, r, c);
     const T* h = reinterpret_cast<const T*>(&raw[i]);
     *reinterpret_cast<float4*>(dst + walked_at(r, c)) =
         make_float4(to_f(h[0]), to_f(h[1]), to_f(h[2]), to_f(h[3]));
@@ -526,22 +537,34 @@ __device__ __forceinline__ void attn_bwd_wg(const T* __restrict__ q, const T* __
 // 4-D, (4 columns, L rows, head_dim / 4 column groups, B * H), a box of
 // (4, 32, 32, 1) being one step's walked tile in walked_at's order; rows
 // past L read as zeros.
-inline cudaError_t walked_map(CUtensorMap* map, const void* base, int batch_heads, int len,
-                              int head_dim) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (so that
+// nothing links libcuda), into encode.
+inline cudaError_t tensor_map_encoder(TensorMapEncode& encode) {
+  static TensorMapEncode found_fn = nullptr;
+  if (found_fn == nullptr) {
     cudaDriverEntryPointQueryResult found;
     void* fn = nullptr;
     const cudaError_t err =
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    found_fn = reinterpret_cast<TensorMapEncode>(fn);
   }
+  encode = found_fn;
+  return cudaSuccess;
+}
+
+inline cudaError_t walked_map(CUtensorMap* map, const void* base, int batch_heads, int len,
+                              int head_dim) {
+  TensorMapEncode encode;
+  const cudaError_t err = tensor_map_encoder(encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {4, (cuuint64_t)len, (cuuint64_t)head_dim / 4,
                               (cuuint64_t)batch_heads};
   const cuuint64_t strides[3] = {(cuuint64_t)head_dim * 4, 16, (cuuint64_t)len * head_dim * 4};

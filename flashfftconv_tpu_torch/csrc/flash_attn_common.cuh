@@ -7,7 +7,7 @@
 // bias where the mask has one, and -inf where the mask hides (i, j).
 //
 // Every kernel works on 64 x 64 tiles of the score matrix. A block owns one
-// tile of 64 rows of one (b, h): blockIdx.x is the tile (above D = 512 the
+// tile of 64 rows of one (b, h): blockIdx.x is the tile (above D = 1024 the
 // tile and a D slice, see "above D = 128" below) and (b, h) is
 // blockIdx.y + gridDim.y * blockIdx.z (block_bh), so that B * H may exceed
 // the 65535 of one grid dimension. Shared memory holds f32 whatever the
@@ -38,11 +38,10 @@
 // quad shuffle, 2^x by fast_exp2), o += p v. The backward (attn_bwd_dkv,
 // attn_bwd_dq) keeps K and V, or Q and dO, walks the other pair, and keeps
 // the next tile's row statistics in registers.
-// Above D = 128 the forward's wide body (attn_fwd_wide) keeps 16 or 32
-// rows and splits D over D / 64 warps instead, and above D = 512 across
-// blocks; the backward from 256 to 1024 is flash_attn_bwd_wide.cuh's, on
-// wgmma in thread block clusters, and above 1024 split across blocks; see
-// "above D = 128" below.
+// From D = 256 to 1024 the forward and the backward are
+// flash_attn_fwd_wide.cuh's and flash_attn_bwd_wide.cuh's, on wgmma in
+// thread block clusters; above 1024 both split D across blocks (the wide
+// bodies here); see "above D = 128" below.
 
 // The three kernel bodies are written once over a mask policy, the kernel's
 // parameter, which says which tiles a block visits and which scores of a
@@ -78,12 +77,12 @@ namespace attn {
 
 constexpr int kTile = 64;            // queries and keys a tile
 constexpr int kNarrowThreads = 128;  // up to D = 128: 4 warps, 16 rows of a tile each
-constexpr int kMaxUnsliced = 512;    // the largest head_dim a block holds whole
+constexpr int kMaxClustered = 1024;  // the widest head_dim of the clustered bodies
 constexpr int kSliceDim = 256;       // the columns of a slice above it
 
-// D slices a block of the head_dim: 1 up to kMaxUnsliced.
+// D slices a block of the head_dim: 1 up to kMaxClustered.
 inline int slices_of(int head_dim) {
-  return head_dim > kMaxUnsliced ? (head_dim + kSliceDim - 1) / kSliceDim : 1;
+  return head_dim > kMaxClustered ? (head_dim + kSliceDim - 1) / kSliceDim : 1;
 }
 
 // sm_scale arrives as the bits of an f32 (the ctypes interface passes ints)
@@ -305,9 +304,9 @@ __host__ __device__ constexpr int tile_ld() {
   return D + 4;
 }
 
-// Above D = 128 (the wide bodies below) a block keeps kWideRows rows of its
-// tile and walks wide_walk rows of the other side a step, one stage, with
-// one warp for every 64 columns of D.
+// The sliced bodies below (above D = 1024, kSliceDim columns a block): the
+// backward keeps kWideRows rows of its tile, and both walk wide_walk rows
+// of the other side a step, one stage, with one warp for every 64 columns.
 constexpr int kWideRows = 16;
 
 template <int D>
@@ -321,16 +320,15 @@ __host__ __device__ constexpr int body_threads() {
   return D <= 128 ? kNarrowThreads : 32 * (D / 64);
 }
 
-// The forward above D = 128 (attn_fwd_wide): R kept queries (32 at D = 256,
-// and so in the slices above 512; 16 at 384 and 512), W walked keys a step,
-// and warps of 16 rows by 64 columns of o: NRG row groups of NWC warps each.
-// A row group's NS score tiles a step are shared out over its warps, TPW
-// each at most. (Warps of 128 columns, which let the whole 64-row tile stay
-// at D = 256, spilled 600-900 bytes at 255 registers in f32; 32 rows at 384
-// and 512 would need 192 and 256 threads' registers for 12 and 16 warps.)
+// The sliced forward above D = 1024 (attn_fwd_wide, D = kSliceDim columns
+// a block): R = 32 kept queries, W walked keys a step, and warps of 16 rows
+// by 64 columns of o: NRG row groups of NWC warps each. A row group's NS
+// score tiles a step are shared out over its warps, TPW each at most.
+// (Warps of 128 columns, which let the whole 64-row tile stay, spilled
+// 600-900 bytes at 255 registers in f32.)
 template <int D>
 struct FwdWide {
-  static constexpr int kR = D == 256 ? kTile / 2 : kWideRows;
+  static constexpr int kR = kTile / 2;
   static constexpr int kW = wide_walk<D>();
   static constexpr int kNRG = kR / 16, kNWC = D / 64;
   static constexpr int kThreads = 32 * kNRG * kNWC;
@@ -346,9 +344,9 @@ __host__ __device__ constexpr int fwd_threads() {
 }
 
 // The forward up to D = 128: the kept query tile and two stages of K and V.
-// Above: the kept queries, the walked K and V, and for each row group the A
-// fragments of p (float4 a lane and 8-key step) and each score tile's row
-// maxima: 175,616 B at D = 256, 126,464 at 384, 167,424 at 512.
+// The sliced one: the kept queries, the walked K and V, and for each row
+// group the A fragments of p (float4 a lane and 8-key step) and each score
+// tile's row maxima: 175,616 B.
 template <int D>
 constexpr size_t fwd_smem_bytes() {
   if constexpr (D <= 128) {
@@ -960,47 +958,40 @@ __device__ __forceinline__ void attn_bwd_dq(const T* __restrict__ q, const T* __
 //
 // At D = 128 a warp's (16, D) accumulators take 64 registers a thread for
 // each output, and the tiles 202,752 B of shared memory; both grow with D.
-// The forward above D = 128 (attn_fwd_wide) therefore keeps R rows of its
-// 64-row tile (32 at D = 256, 16 at 384 and 512; FwdWide), walks the keys
-// wide_walk rows a step with one load stage, and has D / 64 warps a row
-// group: the warps split D into 64-column chunks of o (32 registers a
-// thread at any D). The score tiles need all of D: each warp computes whole
-// 16 x 8 score tiles over D (its row group's W / 8 of them shared out over
-// the group's warps), leaves their row maxima in shared memory (every
-// thread takes the max of them for its rows, so every warp of a row group
-// rescales by the same factor), turns them into p and leaves p in shared
-// memory as A fragments (float4 a lane: the C fragment in frag_a_of_c's
-// order); every warp of the group then reads all of them for its chunk of
-// o += p v. Shared memory: 175,616 B at D = 256, 126,464 at 384, 167,424 at
-// 512.
+// From D = 256 to 1024 the forward and the backward are
+// flash_attn_fwd_wide.cuh's and flash_attn_bwd_wide.cuh's: the D slices of
+// a tile, 128 columns each, in one thread block cluster, the partial scores
+// summed over distributed shared memory. Above 1024, where such a cluster
+// would pass the portable 8 blocks, they are the sliced bodies below
+// (attn_fwd_wide, attn_bwd_dkv_wide, attn_bwd_dq_wide).
 //
-// The backward above D = 128 up to 1024 is flash_attn_bwd_wide.cuh's
-// (wgmma, the D slices of a tile in a thread block cluster). Above 1024,
-// where such a cluster would pass the portable 8 blocks, it is the sliced
-// bodies below (attn_bwd_dkv_wide, attn_bwd_dq_wide), as is the forward
-// above 512.
-//
-// Above D = 512 the forward (and above 1024 the backward) holds no row's D
-// columns in a block: 16 kept rows and 32 walked ones at a stride of D + 4
-// floats pass a block's 232,448 B at D = 590. D is cut into slices of
-// kSliceDim = 256 columns (the last one zero-padded when kSliceDim does
-// not divide D), and each (tile, slice) pair is a block of its own
-// (blockIdx.x = tile * n_slices + slice; one template at D = 256 serves
-// every D, the slice count a runtime value). Each block computes its score
-// tiles over all of D, slice by slice in order (each slice's q, k, v or do
-// columns loaded in turn into the step's tiles; the kept rows are loaded
-// again with them), then accumulates and writes only its own slice of o,
-// dk and dv, or dq, reloading that slice of the walked rows first where the
-// last slice loaded was another. Every block of a tile computes the same
-// scores in the same order, so their p, and in the forward their running
-// max and row sums, agree bit for bit: slice 0 alone writes the logsumexp
-// and the bias's grad ds, and each output element still has one writer. The
-// cost: every block does the score products over all of D, so with
-// S = ceil(D / 256) slices the forward does (S + 1) / 2 times the products
-// of an unsliced one, dK/dV (2 S + 2) / 4 and dQ (2 S + 1) / 3 (at D = 2048,
-// S = 8: 4.5x, 4.5x and 5.7x), and loads of q and k, or of all four, grow
-// the same way. The backward keeps kWideRows = 16 rows of its tile at a
-// time (the tile's four parts in turn) with D / 64 warps of 64 columns.
+// There no block holds a row's D columns: 16 kept rows and 32 walked ones
+// at a stride of D + 4 floats pass a block's 232,448 B at D = 590. D is cut
+// into slices of kSliceDim = 256 columns (the last one zero-padded when
+// kSliceDim does not divide D), and each (tile, slice) pair is a block of
+// its own (blockIdx.x = tile * n_slices + slice; one template at D = 256
+// serves every D, the slice count a runtime value). Each block computes its
+// score tiles over all of D, slice by slice in order (each slice's q, k, v
+// or do columns loaded in turn into the step's tiles; the kept rows are
+// loaded again with them), then accumulates and writes only its own slice
+// of o, dk and dv, or dq, reloading that slice of the walked rows first
+// where the last slice loaded was another. Every block of a tile computes
+// the same scores in the same order, so their p, and in the forward their
+// running max and row sums, agree bit for bit: slice 0 alone writes the
+// logsumexp and the bias's grad ds, and each output element still has one
+// writer. The cost: every block does the score products over all of D, so
+// with S = ceil(D / 256) slices the forward does (S + 1) / 2 times the
+// products of an unsliced one, dK/dV (2 S + 2) / 4 and dQ (2 S + 1) / 3 (at
+// D = 2048, S = 8: 4.5x, 4.5x and 5.7x), and loads of q and k, or of all
+// four, grow the same way. The forward keeps R = 32 rows of its tile at a
+// time (its two parts in turn) and the backward kWideRows = 16 (four
+// parts), with D / 64 warps of 64 columns: each warp computes whole 16 x 8
+// score tiles over D (its row group's W / 8 of them shared out over the
+// group's warps), and p (and ds) pass through shared memory as A fragments
+// (float4 a lane: the C fragment in frag_a_of_c's order) that every warp of
+// the group reads for its chunk of the output. The forward's row maxima go
+// through shared memory too, so that every warp of a row group rescales by
+// the same factor.
 
 // A score tile's C fragment c (p or ds) as the A fragment its consumer reads.
 __device__ __forceinline__ float4 frag_of_c(const float (&c)[4]) {
@@ -1045,45 +1036,34 @@ __device__ __forceinline__ void accumulate_wide(float (&acc)[8][4], const float4
   }
 }
 
-// Where the wide bodies are: the tile (query or key) and the D slice of
-// this block, the slices, and the row stride of q, k, v. Not SL, n_slices
-// is 1 but read from the mask: a loop over slices the compiler sees run
-// once took the D = 256 forward from 206 registers past 255 in f32 (it
-// interleaved the step's score tiles).
+// Where the sliced bodies are: the tile (query or key) and the D slice of
+// this block, the slices, and the row stride of q, k, v.
 struct WidePlace {
   int tile, slice, n_slices, ld;
 };
 
-template <int D, bool SL, typename Mask>
+template <typename Mask>
 __device__ __forceinline__ WidePlace wide_place(const Mask& m) {
-  if constexpr (SL) {
-    const int tile = blockIdx.x / m.n_slices;
-    return {tile, (int)blockIdx.x - tile * m.n_slices, m.n_slices, m.head_dim};
-  } else {
-    return {(int)blockIdx.x, 0, m.n_slices, D};
-  }
+  const int tile = blockIdx.x / m.n_slices;
+  return {tile, (int)blockIdx.x - tile * m.n_slices, m.n_slices, m.head_dim};
 }
 
-// Rows row0 .. of slice j (columns kSliceDim j ..) of an (L, ld) slab into
-// a (ROWS, tile_ld) tile, or the whole rows when not SL.
-template <int D, bool SL, typename T, int ROWS, int THREADS>
+// Rows row0 .. of slice j (columns D j ..) of an (L, ld) slab into a
+// (ROWS, tile_ld) tile, zeros past column ld.
+template <int D, typename T, int ROWS, int THREADS>
 __device__ __forceinline__ void load_part(float* dst, const T* __restrict__ src, int row0,
                                           int len, const WidePlace& at, int j) {
-  if constexpr (SL)
-    load_tile<D, T, ROWS, THREADS, true>(dst, src, row0, len, at.ld, j * D);
-  else
-    load_tile<D, T, ROWS, THREADS>(dst, src, row0, len);
+  load_tile<D, T, ROWS, THREADS, true>(dst, src, row0, len, at.ld, j * D);
 }
 
-// The forward above D = 128: one block owns (b, h, a tile of 64 queries;
-// above D = 512 one D slice of it) and takes it in parts of R = FwdWide::kR
-// queries, each over every key tile its mask names. Warp (rg, cg) keeps o's
-// rows 16 rg .. and columns 64 cg .. of the part.
-// Each walked step: the row group's score tiles over D (slice by slice in
-// order above 512), their row maxima through shared memory, the online
-// softmax, p as A fragments through shared memory, o += p v. V's copies fly
-// while the scores are computed.
-template <int D, typename T, typename Mask, bool SL = false>
+// The forward above D = 1024: one block owns (b, h, a tile of 64 queries,
+// one D slice of it) and takes it in parts of R = FwdWide::kR queries, each
+// over every key tile its mask names. Warp (rg, cg) keeps o's rows 16 rg ..
+// and columns 64 cg .. of the part's slice. Each walked step: the row
+// group's score tiles over D, slice by slice in order, their row maxima
+// through shared memory, the online softmax, p as A fragments through
+// shared memory, o += p v.
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
                                               const T* __restrict__ v, T* __restrict__ o,
                                               float* __restrict__ lse, const Mask& m) {
@@ -1102,7 +1082,7 @@ __device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* 
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const WidePlace at = wide_place<D, SL>(m);
+  const WidePlace at = wide_place(m);
   const int len = m.len, qt = m.n_tiles - 1 - at.tile, b = bh / m.heads, h = bh % m.heads;
   const size_t base = (size_t)bh * len * at.ld;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -1117,7 +1097,6 @@ __device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* 
   for (int part = 0; part < kTile / R; ++part) {
     const int q0 = qt * kTile + part * R;
     __syncthreads();  // the previous part's Qs and seg_q are read
-    if constexpr (!SL) load_tile<D, T, R, NTH>(Qs, q + base, q0, len);
     if (threadIdx.x < R) seg_q[threadIdx.x] = m.seg_at(b, q0 + threadIdx.x, -1);
     float acc[8][4] = {};
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -1128,24 +1107,15 @@ __device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* 
         const int k0 = kt0 + wp * W;
         __syncthreads();  // the previous step's tiles, fragments and maxima are read
         if (threadIdx.x < W) seg_k[threadIdx.x] = m.seg_at(b, k0 + threadIdx.x, -2);
-        // f32 V by cp.async flies while the scores are computed (unsliced: a
-        // copy group of its own after K's); bf16 and f16 V (loads converted
-        // in registers), and sliced V, come first.
-        constexpr bool kLateV = !SL && kSplit;
-        if (!kLateV) load_part<D, SL, T, W, NTH>(Vs, v + base, k0, len, at, at.slice);
+        // this slice of V comes with the first slice's Q and K
+        load_part<D, T, W, NTH>(Vs, v + base, k0, len, at, at.slice);
         float s[TPW][4] = {};
         for (int j = 0; j < at.n_slices; ++j) {  // s = q k^T over D, slice by slice
           if (j > 0) __syncthreads();  // slice j - 1's Qs and Ks are read
-          if (SL) load_part<D, SL, T, R, NTH>(Qs, q + base, q0, len, at, j);
-          load_part<D, SL, T, W, NTH>(Ks, k + base, k0, len, at, j);
+          load_part<D, T, R, NTH>(Qs, q + base, q0, len, at, j);
+          load_part<D, T, W, NTH>(Ks, k + base, k0, len, at, j);
           cp_async_commit();
-          if constexpr (kLateV) {
-            load_tile<D, T, W, NTH>(Vs, v + base, k0, len);
-            cp_async_commit();
-            cp_async_wait<1>();  // Q and K; V flies on
-          } else {
-            cp_async_wait<0>();
-          }
+          cp_async_wait<0>();
           __syncthreads();
 #pragma unroll
           for (int i = 0; i < TPW; ++i) {
@@ -1178,8 +1148,7 @@ __device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* 
             }
           }
         }
-        cp_async_wait<0>();
-        __syncthreads();  // the maxima, and V
+        __syncthreads();  // the maxima
         float mx[2] = {-INFINITY, -INFINITY}, alpha[2], m_use[2];
 #pragma unroll
         for (int jt = 0; jt < NS; ++jt) {
@@ -1212,7 +1181,7 @@ __device__ __forceinline__ void attn_fwd_wide(const T* __restrict__ q, const T* 
         accumulate_wide<D, W, kSplit, 1>(acc, Pr, Vs, 64 * cg);  // o += p v
       }
     }
-    if (!SL || c_out < at.ld)
+    if (c_out < at.ld)
       store_fwd<D>(o + base, lse + (size_t)bh * len, acc, m_run, l_run, q0 + r0, len,
                    at.slice == 0 && cg == 0, c_out, at.ld);
   }
@@ -1238,10 +1207,10 @@ __device__ __forceinline__ void wide_scores(float (&s)[TPW][4], float (&dp)[TPW]
     for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
   for (int j = 0; j < at.n_slices; ++j) {
     if (j > 0) __syncthreads();  // slice j - 1's tiles are read
-    load_part<D, true, T, R, NTH>(A1, a1, a0, len, at, j);
-    load_part<D, true, T, R, NTH>(A2, a2, a0, len, at, j);
-    load_part<D, true, T, W, NTH>(B1, b1, b0, len, at, j);
-    load_part<D, true, T, W, NTH>(B2, b2, b0, len, at, j);
+    load_part<D, T, R, NTH>(A1, a1, a0, len, at, j);
+    load_part<D, T, R, NTH>(A2, a2, a0, len, at, j);
+    load_part<D, T, W, NTH>(B1, b1, b0, len, at, j);
+    load_part<D, T, W, NTH>(B2, b2, b0, len, at, j);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -1285,7 +1254,7 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const WidePlace at = wide_place<D, true>(m);
+  const WidePlace at = wide_place(m);
   const int len = m.len, kt = at.tile, b = bh / m.heads, h = bh % m.heads;
   const size_t base = (size_t)bh * len * at.ld, row_base = (size_t)bh * len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -1328,8 +1297,8 @@ __device__ __forceinline__ void attn_bwd_dkv_wide(
                                        dout + base, k0, q0, len, at);
         if (at.slice != at.n_slices - 1) {  // this slice's q and do for the products
           __syncthreads();
-          load_part<D, true, T, W, NTH>(Qs, q + base, q0, len, at, at.slice);
-          load_part<D, true, T, W, NTH>(dOs, dout + base, q0, len, at, at.slice);
+          load_part<D, T, W, NTH>(Qs, q + base, q0, len, at, at.slice);
+          load_part<D, T, W, NTH>(dOs, dout + base, q0, len, at, at.slice);
           cp_async_commit();
           cp_async_wait<0>();
         }
@@ -1370,7 +1339,7 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
 
   const int bh = block_bh();
   if (bh >= m.batch * m.heads) return;
-  const WidePlace at = wide_place<D, true>(m);
+  const WidePlace at = wide_place(m);
   const int len = m.len, qt = m.n_tiles - 1 - at.tile, b = bh / m.heads, h = bh % m.heads;
   const size_t base = (size_t)bh * len * at.ld, row_base = (size_t)bh * len;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -1414,7 +1383,7 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
                                        dout + base, v + base, q0, k0, len, at);
         if (at.slice != at.n_slices - 1) {  // this slice's k for the product
           __syncthreads();
-          load_part<D, true, T, W, NTH>(Ks, k + base, k0, len, at, at.slice);
+          load_part<D, T, W, NTH>(Ks, k + base, k0, len, at, at.slice);
           cp_async_commit();
           cp_async_wait<0>();
         }
@@ -1429,18 +1398,18 @@ __device__ __forceinline__ void attn_bwd_dq_wide(
   }
 }
 
-// The bodies for the head_dims these kernels take: D = 64 and 128 narrow;
-// the forward 256 to 512 wide, above 512 (SL) wide in slices of
-// D = kSliceDim columns; the backward above 1024 (SL) in slices (from 256
-// to 1024 it is flash_attn_bwd_wide.cuh's).
+// The bodies for the head_dims of this file: D = 64 and 128 narrow, above
+// 1024 (SL) in slices of D = kSliceDim columns (from 256 to 1024 the
+// clustered bodies of flash_attn_fwd_wide.cuh and flash_attn_bwd_wide.cuh).
 template <int D, bool SL, typename T, typename Mask>
 __device__ __forceinline__ void fwd(const T* __restrict__ q, const T* __restrict__ k,
                                     const T* __restrict__ v, T* __restrict__ o,
                                     float* __restrict__ lse, const Mask& m) {
+  static_assert(D <= 128 || SL, "the unsliced wide forward is flash_attn_fwd_wide.cuh's");
   if constexpr (D <= 128)
     attn_fwd<D, T>(q, k, v, o, lse, m);
   else
-    attn_fwd_wide<D, T, Mask, SL>(q, k, v, o, lse, m);
+    attn_fwd_wide<D, T, Mask>(q, k, v, o, lse, m);
 }
 
 template <int D, bool SL, typename T, typename Mask>
@@ -1490,28 +1459,15 @@ cudaError_t dispatch_dtype(int dtype, Dim dim, F f) {
   return cudaErrorInvalidValue;
 }
 
-// f(HeadDim{}, T{}) for the operands' head_dim (64, 128, 256, 384, 512, or
-// any multiple of 128 above, in slices of kSliceDim) and dtype (DType: f32,
+// f(HeadDim{}, T{}) for the head_dims of this file's bodies (64, 128, or
+// any multiple of 128 above kMaxClustered, in slices of kSliceDim; 256 to
+// 1024 launch the clustered bodies) and the operands' dtype (DType: f32,
 // bf16 or f16); an invalid value for any other.
 template <typename F>
 cudaError_t dispatch(int head_dim, int dtype, F f) {
   if (head_dim == 64) return dispatch_dtype(dtype, HeadDim<64>{}, f);
   if (head_dim == 128) return dispatch_dtype(dtype, HeadDim<128>{}, f);
-  if (head_dim == 256) return dispatch_dtype(dtype, HeadDim<256>{}, f);
-  if (head_dim == 384) return dispatch_dtype(dtype, HeadDim<384>{}, f);
-  if (head_dim == 512) return dispatch_dtype(dtype, HeadDim<512>{}, f);
-  if (head_dim > kMaxUnsliced && head_dim % 128 == 0)
-    return dispatch_dtype(dtype, HeadDim<kSliceDim, true>{}, f);
-  return cudaErrorInvalidValue;
-}
-
-// The same for the backward's kernels of this file: head_dim 64, 128, or
-// above 1024 in slices (256 to 1024 launch flash_attn_bwd_wide.cuh's).
-template <typename F>
-cudaError_t dispatch_bwd(int head_dim, int dtype, F f) {
-  if (head_dim == 64) return dispatch_dtype(dtype, HeadDim<64>{}, f);
-  if (head_dim == 128) return dispatch_dtype(dtype, HeadDim<128>{}, f);
-  if (head_dim > 1024 && head_dim % 128 == 0)
+  if (head_dim > kMaxClustered && head_dim % 128 == 0)
     return dispatch_dtype(dtype, HeadDim<kSliceDim, true>{}, f);
   return cudaErrorInvalidValue;
 }

@@ -97,7 +97,7 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
                                         block_size, n_blocks, n_entries, causal, scale_bits);
-  if (clustered_bwd(head_dim))
+  if (clustered(head_dim))
     return (int)dispatch_dtype(dtype, 0, [&](auto, auto t) {
       using T = decltype(t);
       CUtensorMap map1, map2;
@@ -109,7 +109,7 @@ extern "C" int ffc_splash_attn_bwd_dkv(const void* q, const void* k, const void*
                               batch * heads, head_dim, (cudaStream_t)stream, q, k, v, dout, lse,
                               delta, dk, dv, m, map1, map2);
     });
-  return (int)dispatch_bwd(head_dim, dtype, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);
@@ -130,7 +130,7 @@ extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const SplashMask m = make_splash_mask(batch, heads, len, head_dim, window, table, blocks,
                                         block_size, n_blocks, n_entries, causal, scale_bits);
-  if (clustered_bwd(head_dim))
+  if (clustered(head_dim))
     return (int)dispatch_dtype(dtype, 0, [&](auto, auto t) {
       using T = decltype(t);
       CUtensorMap map1, map2;
@@ -142,7 +142,7 @@ extern "C" int ffc_splash_attn_bwd_dq(const void* q, const void* k, const void* 
                               batch * heads, head_dim, (cudaStream_t)stream, q, k, v, dout, lse,
                               delta, dq, m, map1, map2);
     });
-  return (int)dispatch_bwd(head_dim, dtype, [&](auto dim, auto t) {
+  return (int)dispatch(head_dim, dtype, [&](auto dim, auto t) {
     constexpr int D = decltype(dim)::value;
     constexpr bool SL = decltype(dim)::sliced;
     using T = decltype(t);

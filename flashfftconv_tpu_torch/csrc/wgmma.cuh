@@ -1,8 +1,9 @@
-// Hopper (sm_90a) primitives of the wide attention backward
-// (flash_attn_bwd_wide.cuh): warpgroup TF32 products (wgmma.mma_async with A
-// in registers and B in shared memory), their shared-memory descriptors,
-// tensor-memory-accelerator (TMA) loads with their mbarriers, and the thread
-// block cluster's barrier and distributed shared memory.
+// Hopper (sm_90a) primitives of the wide attention bodies
+// (flash_attn_bwd_wide.cuh, flash_attn_fwd_wide.cuh): warpgroup TF32
+// products (wgmma.mma_async with A in registers and B in shared memory),
+// their shared-memory descriptors, tensor-memory-accelerator (TMA) loads
+// with their mbarriers, and the thread block cluster's barrier and
+// distributed shared memory.
 #pragma once
 
 #include <cuda.h>
@@ -154,6 +155,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// The box of a 3-D tensor map at coordinates (c0, c1, c2) into shared memory
+// at dst, completing on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // --- the thread block cluster ------------------------------------------------
 
 // Every thread of every block of the cluster arrives and waits: writes
@@ -184,10 +196,28 @@ __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) 
       : "memory");
 }
 
+// bytes (a multiple of 16) from this block's shared memory at src to block
+// `rank`'s at dst (map_rank, 16-byte aligned), counted on that block's
+// mbarrier bar (map_rank). The writes of src must be fenced to the async
+// proxy (fence_smem_for_mma) before a barrier that precedes the copy.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A plain store into block `rank`'s shared memory at addr (map_rank),
+// visible there after a cluster barrier.
 __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(v.x),
                "f"(v.y), "f"(v.z), "f"(v.w)
                : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
 }
 
 }  // namespace wg

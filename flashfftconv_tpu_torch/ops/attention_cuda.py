@@ -19,13 +19,14 @@ its ``launches`` count. On CPU tensors it runs the plain version from
 ``ops/attention.py``.
 
 The kernels take q, k, v (B, H, L, D) contiguous, of one shape and dtype
-(f32, bf16 or f16), head_dim 64 or any multiple of 128 (the forward above
-512 in D slices of 256 columns across blocks; the backward from 256 to 1024
-in thread block clusters of D / 128 blocks on ``wgmma``
-(``csrc/flash_attn_bwd_wide.cuh``), above 1024 in slices of 256), any B * H,
-any L >= 1
-(``kernels_take`` asks this of shapes and dtypes; the wrappers raise
-otherwise). The flash kernels also take an
+(f32, bf16 or f16), head_dim 64 or any multiple of 128, any B * H, any
+L >= 1 (``kernels_take`` asks this of shapes and dtypes; the wrappers raise
+otherwise). At 64 and 128 one block holds a tile's whole rows; from 256 to
+1024 the forward and the backward run in thread block clusters of D / 128
+blocks on ``wgmma`` (``csrc/flash_attn_fwd_wide.cuh``,
+``csrc/flash_attn_bwd_wide.cuh``), whose launch raises if no such cluster
+fits the card; above 1024 every kernel runs in D slices of 256 columns
+across blocks, each computing the scores over all of D. The flash kernels also take an
 optional f32 bias whose expansion to (B, H, L, L) has a unit last stride (a
 (1, H, L, L) ALiBi table is read in place for every batch row, not copied)
 and optional int32 segment ids (B, L). Softmax statistics and every
@@ -53,13 +54,12 @@ from flashfftconv_tpu_torch.ops import _build
 from flashfftconv_tpu_torch.ops import attention as plain
 from flashfftconv_tpu_torch.ops.monarch_cuda import _stream, on_cpu
 
-# The head_dims with kernel instances of their own; above MAX_UNSLICED any
-# multiple of 128, in D slices of SLICE_DIM columns, one block a slice
-# (kMaxUnsliced and kSliceDim in csrc/flash_attn_common.cuh): no largest. The
-# backward from 256 to 1024 holds 128 columns a block instead, the blocks of
-# a tile in one thread block cluster (kWgDim in csrc/flash_attn_bwd_wide.cuh).
-HEAD_DIMS = (64, 128, 256, 384, 512)
-MAX_UNSLICED = HEAD_DIMS[-1]
+# The head_dims the kernels take: 64, and any multiple of 128. From 256 up to
+# MAX_CLUSTERED a block holds CLUSTER_DIM columns, the blocks of a tile in
+# one thread block cluster (kWgDim and kMaxClustered in csrc/); above, D
+# slices of SLICE_DIM columns, one block a slice (kSliceDim): no largest.
+CLUSTER_DIM = 128
+MAX_CLUSTERED = 1024
 SLICE_DIM = 256
 # The operands' dtypes, each with its code in the C interface (DType in
 # csrc/flash_attn_common.cuh).
@@ -83,9 +83,8 @@ def _refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
     if q.dtype not in DTYPES:
         return f"the attention kernels take f32, bf16 or f16, got {q.dtype}"
     d = q.shape[-1]
-    if d not in HEAD_DIMS and not (d > MAX_UNSLICED and d % 128 == 0):
-        return (f"the attention kernels take head_dim in {HEAD_DIMS} or a multiple of 128 "
-                f"above {MAX_UNSLICED}, got {d}")
+    if d != 64 and (d < 128 or d % 128 != 0):
+        return f"the attention kernels take head_dim 64 or a multiple of 128, got {d}"
     return None
 
 

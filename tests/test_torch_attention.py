@@ -4,8 +4,9 @@ The attention op (``flash_mha`` through ``FlashAttnFunction``, whose CPU
 forward and backward are ``flash_attn_fwd_plain`` and ``flash_attn_bwd_plain``,
 the plain versions of the three CUDA kernels) against JAX's Pallas
 ``flash_attention`` itself, run by the JAX package's ``flash_mha(impl="flash")``
-inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64, 128, 256 and
-640, the last above 512, where the CUDA kernels split D across blocks),
+inside ``pltpu.force_tpu_interpret_mode()`` at L = 256 (head_dim 64, 128, 256,
+384, 640 and 1024; from 256 to 1024 the CUDA kernels run in thread block
+clusters of head_dim / 128 blocks, 3 to 8 at 384 to 1024),
 and against the JAX ``mha_reference`` at ragged L (1, 7, 129, 300), where the
 Pallas kernel cannot tile: forward and grads (dq, dk, dv, d bias), causal,
 non-causal, ALiBi and segment ids, f32 and bf16. Then the helpers (ALiBi,
@@ -58,11 +59,14 @@ KERNEL_CASES = [
     (256, 64, "f32", "segments"), (256, 128, "f32", "causal"), (256, 128, "f32", "alibi"),
     (256, 64, "bf16", "causal"), (256, 64, "bf16", "alibi"),
     (256, 256, "f32", "causal"), (256, 256, "bf16", "alibi"),
-    # head_dim 640, above 512: the CUDA kernels' D slices. In bf16 it is
+    # head_dim 640, a cluster of 5 blocks in the CUDA kernels. In bf16 it is
     # non-causal: causal and ALiBi put one of 655,360 outputs (|o| = 2.0234,
     # 5e-8 from a bf16 rounding midpoint) one bf16 ulp, 0.015625, from JAX's,
     # both within half an ulp of the f64 value, past the absolute 1e-2.
     (256, 640, "f32", "causal"), (256, 640, "bf16", "noncausal"),
+    # head_dim 384 and 1024: clusters of 3 and 8 blocks, the two ends of the
+    # clustered bodies' range
+    (256, 384, "f32", "causal"), (256, 1024, "f32", "causal"),
 ]
 
 

@@ -964,10 +964,9 @@ def test_cuda_attention_auto_runs_the_kernels_in_f16():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("impl", ["auto", "flash"])
 def test_cuda_attention_runs_the_kernels_at_wide_head_dims(d, dtype, impl):
-    """head_dim 256, 384 and 512, and above 512 640, 768, 1024 and 2048 (the
-    forward in D slices; the backward in thread block clusters up to 1024,
-    in D slices above), at L = 256 (a call the JAX package's TPU
-    kernels take): flash_mha causal, non-causal, with ALiBi and with segment
+    """head_dim 256, 384, 512, 640, 768 and 1024 (forward and backward in
+    thread block clusters of head_dim / 128 blocks) and 2048 (in D slices),
+    at L = 256 (a call the JAX package's TPU kernels take): flash_mha causal, non-causal, with ALiBi and with segment
     ids, a window and blocksparse_mha under impl='auto' and impl='flash'
     launch the kernels (one forward, one dK/dV, one dQ each) and match the
     plain versions, forward and grads (the bias's too)."""
@@ -1085,34 +1084,125 @@ def test_cuda_splash_wide_backward_matches_plain(d, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("d", [768, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_cuda_attention_d_slices_agree_bit_for_bit(d, dtype):
-    """Above head_dim 512 each D slice of a tile is a forward block of its
-    own that computes the scores over all of D in the same order, and slice
-    0 alone writes the logsumexp: the slices' p, running max and row sums
-    agree bit for bit; the backward's cluster computes p and ds once for all
-    its blocks. With q, k, v and do one 256-column block repeated, o, dk, dv
-    and dq are that too, slice for slice, and match the plain versions."""
+    """Up to head_dim 1024 a tile's cluster computes the scores once and
+    hands every block (128 columns each) the same p, rescale factors and row
+    sums; above it each 256-column D slice is a block of its own that
+    computes the scores over all of D in the same order, and slice 0 alone
+    writes the logsumexp. With q, k, v and do one 128-column block repeated
+    (256 at 2048), o, dk, dv and dq are that too, part for part, and match
+    the plain versions."""
     _needs_card()
     from flashfftconv_tpu_torch.ops import attention as plain
     from flashfftconv_tpu_torch.ops import attention_cuda as ac
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(d)
-    q, k, v, do = (torch.randn(2, 3, 300, ac.SLICE_DIM, device=dev, generator=g).to(dtype)
-                   .repeat(1, 1, 1, d // ac.SLICE_DIM).contiguous() for _ in "qkvd")
+    part = ac.CLUSTER_DIM if d <= ac.MAX_CLUSTERED else ac.SLICE_DIM
+    q, k, v, do = (torch.randn(2, 3, 300, part, device=dev, generator=g).to(dtype)
+                   .repeat(1, 1, 1, d // part).contiguous() for _ in "qkvd")
     o, lse = ac.flash_attn_fwd(q, k, v, True)
     delta = plain.attention_delta(o, do)
     dk, dv = ac.flash_attn_bwd_dkv(q, k, v, do, lse, delta, True)
     dq, _ = ac.flash_attn_bwd_dq(q, k, v, do, lse, delta, True)
     for t in (o, dk, dv, dq):
-        parts = t.split(ac.SLICE_DIM, -1)
+        parts = t.split(part, -1)
         assert all(torch.equal(parts[0], x) for x in parts[1:])
     ro, rlse = plain.flash_attn_fwd_plain(q, k, v, True)
     rq, rk, rv, _ = plain.flash_attn_bwd_plain(q, k, v, o, lse, do, True)
     for got, ref in ((o, ro), (lse, rlse), (dq, rq), (dk, rk), (dv, rv)):
         _attn_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 640, 1024])
+@pytest.mark.parametrize("l", [1, 65, 300, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_wide_forward_at_ragged_lengths(d, l, causal):
+    """The clustered forward (clusters of d / 128 blocks) at L = 1, 65, 300
+    and 1000, f32, causal and not: plain, with ALiBi and with segment ids,
+    against the plain forward (o, and lse where a row sees a key; the rows
+    that see none agree too), and two forwards bit for bit."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d + l)
+    q, k, v = (torch.randn(2, 3, l, d, device=dev, generator=g) for _ in "qkv")
+    bias = plain.alibi_bias(3, l, l, device=dev)
+    seg = (torch.arange(l, device=dev) * 3 // l).int()[None].repeat(2, 1)
+    for b_, s_ in ((None, None), (bias, None), (None, seg)):
+        n0 = ac.flash_attn_fwd.launches
+        runs = [ac.flash_attn_fwd(q, k, v, causal, None, b_, s_) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert ac.flash_attn_fwd.launches == n0 + 2
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        o, lse = runs[0]
+        ro, rlse = plain.flash_attn_fwd_plain(q, k, v, causal, None, b_, s_)
+        seen = torch.isfinite(rlse)
+        assert torch.equal(torch.isfinite(lse), seen)
+        _attn_close(o, ro)
+        _attn_close(lse[seen], rlse[seen])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 640, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_wide_forward_with_alibi_and_segments(d, dtype):
+    """The clustered forward with an ALiBi bias and with segment ids (B=2,
+    H=3, L=300, causal), in f32, bf16 and f16, flash and under a window of
+    100 (the splash forward), against the plain forward; two calls give the
+    same bits."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 3, 300, d, device=dev, generator=g).to(dtype) for _ in "qkv")
+    bias = plain.alibi_bias(3, 300, 300, device=dev)
+    seg = (torch.arange(300, device=dev) * 3 // 300).int()[None].repeat(2, 1)
+    for b_, s_ in ((bias, None), (None, seg)):
+        runs = [ac.flash_attn_fwd(q, k, v, True, None, b_, s_) for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        ro, rlse = plain.flash_attn_fwd_plain(q, k, v, True, None, b_, s_)
+        _attn_close(runs[0][0], ro)
+        _attn_close(runs[0][1], rlse)
+    mask = SplashMask.local(300, 100)
+    runs = [ac.splash_attn_fwd(q, k, v, mask) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    ro, rlse = plain.splash_attn_fwd_plain(q, k, v, mask.dense(dev))
+    _attn_close(runs[0][0], ro)
+    _attn_close(runs[0][1], rlse)
+
+
+@pytest.mark.gpu
+def test_cuda_wide_forward_past_one_grid_dimension():
+    """B * H = 65792 (B=257, H=256), past one grid dimension's 65535, at
+    head_dim 256 and L = 16, f32: the clustered flash forward (causal) and
+    splash forward (a window of 8) fold B * H over two grid dimensions and
+    match the plain forward."""
+    from flashfftconv_tpu_torch.ops import attention as plain
+    from flashfftconv_tpu_torch.ops import attention_cuda as ac
+    from flashfftconv_tpu_torch.ops.splash_mask import SplashMask
+
+    _needs_card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(257, 256, 16, 256, device=dev, generator=g) for _ in "qkv")
+    o, lse = ac.flash_attn_fwd(q, k, v)
+    ro, rlse = plain.flash_attn_fwd_plain(q, k, v, True)
+    _attn_close(o, ro)
+    _attn_close(lse, rlse)
+    mask = SplashMask.local(16, 8)
+    o, lse = ac.splash_attn_fwd(q, k, v, mask)
+    ro, rlse = plain.splash_attn_fwd_plain(q, k, v, mask.dense(dev))
+    _attn_close(o, ro)
+    _attn_close(lse, rlse)
 
 
 @pytest.mark.gpu
