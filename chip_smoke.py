@@ -84,8 +84,10 @@ Phases, each of which fails the run by raising:
             kernel as long as the FFT (k_len = N) at the ListOps shape (B=64,
             H=128, L=2048, N=4096, f32), the forward against the torch.fft
             oracle; smem_probe_touch (16 KB and the largest working size) and
-            smem_copy (256 MiB of f32 at 16 KB, 64 KB and the largest tile)
-            against their plain versions bit for bit; both depthwise
+            smem_copy (256 MiB of f32 at 16 KB, 64 KB and the largest tile,
+            and at each tile sizes below, at and just past one stage of its
+            ring, also through a view 16 bytes in) against their plain
+            versions bit for bit; both depthwise
             kernels at M2-BERT's and HyenaDNA's shapes and at ragged ones
             (L=100 at B=8 and 1, odd L, K=5, 7 and 9, out_len != L, BLH, f32,
             bf16, f16, an input off a 16-byte boundary), the backward twice
@@ -306,7 +308,9 @@ Phases, each of which fails the run by raising:
             of benchmarks/tpu_vmem_probe.py): dynamic shared memory sizes of
             16-228 KB until the first refusal, each launched size returning
             4.0, the largest equal to the opt-in attribute on the grid, then
-            smem_copy at three tiles bit for bit with x * 1.0001 and timed;
+            smem_copy at three tiles (each a ring of stages that bulk copies
+            fill and drain; the log names the stages) bit for bit with
+            x * 1.0001 and timed;
   timing    times each kernel, its plain version and a PyTorch yardstick
             with CUDA events at the main paths' shapes (spectrum also at
             M2-BERT's and ListOps' shapes, rows spectrum@256 and
@@ -1089,7 +1093,10 @@ def _check_smem_kernels(torch, g):
     """smem_probe_touch at 16 KB and the largest working size, and smem_copy
     over 256 MiB of f32 at 16 KB, 64 KB and the largest tile, against their
     plain versions bit for bit (the touch adds x*2 and x+1, the copy is one
-    f32 multiply: both exact in the same order)."""
+    f32 multiply: both exact in the same order); at each tile smem_copy also
+    at sizes below one stage, of one stage and of a stage and a float4 (a
+    last chunk of 16 bytes), each at a view 16 bytes into its buffer too, on
+    NaN-filled outputs (_poison)."""
     from flashfftconv_tpu_torch.utils import smem_probe as sp
 
     best = sp.grid_floor(sp.device_attrs("cuda")["max_shared_per_block_optin"])
@@ -1098,10 +1105,19 @@ def _check_smem_kernels(torch, g):
     for nbytes in (16 * 1024, best):
         errs["smem_probe_touch"] = compare(f"smem_probe_touch {nbytes} B", sp.smem_probe_touch(
             x, nbytes), sp.touch_plain(x), 0.0)
-    src = torch.randn(sp.COPY_BYTES // 4, generator=g).cuda()
+    src = torch.randn(sp.COPY_BYTES // 4 + 4, generator=g).cuda()
     for tile in (16 * 1024, 64 * 1024, best):
+        whole = src[: sp.COPY_BYTES // 4]
         errs["smem_copy"] = compare(f"smem_copy {tile} B tiles over 256 MiB f32",
-                                    sp.smem_copy(src, tile), sp.copy_plain(src), 0.0)
+                                    sp.smem_copy(whole, tile), sp.copy_plain(whole), 0.0)
+        stage = sp.copy_stages(tile)[1] // 4
+        for n in (4, 1000, stage - 4, stage, stage + 4):
+            for off in (0, 4):
+                x = src[off:off + n]
+                _poison(torch, x)
+                errs["smem_copy"] = max(errs["smem_copy"], compare(
+                    f"smem_copy {tile} B tiles, {n} f32 at offset {4 * off} B",
+                    sp.smem_copy(x, tile), sp.copy_plain(x), 0.0))
     torch.cuda.synchronize()
     return errs
 
@@ -3858,6 +3874,8 @@ CLI_SMOKE = {
 # each long conv four real convs through the long ladder.
 ULTRA_L, ULTRA_STEPS = 2_097_152, 3
 ULTRA_KERNELS = ("butterfly", "long_conv", "long_spectrum", "long_conv_bwd")
+# parallel_train's ChunkedMlp check: HyenaDNA's memory lever (mlp_l_chunks=4)
+PARALLEL_L_CHUNKS = 4
 # parallel_train's pipeline: the first PIPE_LAYERS Hyena-125M blocks, in
 # f32, as one stage of a 1-rank pp mesh, over PIPE_M microbatches.
 PIPE_LAYERS, PIPE_M = 2, 4
@@ -4161,10 +4179,11 @@ def _parallel_mesh(torch, names):
     return _MESH[names]
 
 
-def _parallel_lm(torch, seed, dev, mesh, dtype=None):
-    """Hyena-125M with its parameters placed by param_shardings on ``mesh``,
-    and its train step: vocab_parallel_cross_entropy over tp, ZeRO-1 moments
-    and ZeRO-2 grads over dp, the train phase's recipe."""
+def _parallel_lm(torch, seed, dev, mesh, dtype=None, **kw):
+    """Hyena-125M (``kw`` to the model) with its parameters placed by
+    param_shardings on ``mesh``, and its train step:
+    vocab_parallel_cross_entropy over tp, ZeRO-1 moments and ZeRO-2 grads
+    over dp, the train phase's recipe."""
     from flashfftconv_tpu_torch.ops.fused import vocab_parallel_cross_entropy
     from flashfftconv_tpu_torch.parallel.comm import scatter_to
     from flashfftconv_tpu_torch.parallel.mesh import (
@@ -4175,7 +4194,7 @@ def _parallel_lm(torch, seed, dev, mesh, dtype=None):
     )
     from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
 
-    model = _hyena_125m(torch, seed, dev, dtype=dtype).train()
+    model = _hyena_125m(torch, seed, dev, dtype=dtype, **kw).train()
     shard_parameters(model, param_shardings(mesh, model))
     tp = mesh.get_group("tp")
     opt, sched = lm_optimizer(model, lr=3e-4, weight_decay=0.1, warmup=2,
@@ -4188,14 +4207,16 @@ def _parallel_lm(torch, seed, dev, mesh, dtype=None):
     return model, step
 
 
-def _parallel_route_f32(torch, seed, dev, mesh, x, y):
-    """Hyena-125M in f32 activations, dropout on, one step of the parallel
-    train step on (x, y) against one backward of the plain model on the same
-    weights and dropout mask: (loss relative error, (worst grad error over
-    max |grad|, parameter)); the parallel grads read before the clip."""
+def _parallel_route_f32(torch, seed, dev, mesh, x, y, **kw):
+    """Hyena-125M in f32 activations (``kw`` to the model), dropout on, one
+    step of the parallel train step on (x, y) against one backward of the
+    plain model on the same weights and dropout mask: (loss relative error,
+    (worst grad error over max |grad|, parameter), the number of MLPs whose
+    fc1 runs tensor-parallel); the parallel grads read before the clip."""
+    from flashfftconv_tpu_torch.models.lm import Mlp
     from flashfftconv_tpu_torch.utils.metrics import cross_entropy
 
-    model = _hyena_125m(torch, seed, dev, dtype=torch.float32).train()
+    model = _hyena_125m(torch, seed, dev, dtype=torch.float32, **kw).train()
     torch.manual_seed(seed)
     ref_loss = cross_entropy(model(x), y)
     ref_loss.backward()
@@ -4203,7 +4224,8 @@ def _parallel_route_f32(torch, seed, dev, mesh, x, y):
     ref_loss = float(ref_loss.detach())
     del model
     torch.cuda.empty_cache()
-    model, step = _parallel_lm(torch, seed, dev, mesh, dtype=torch.float32)
+    model, step = _parallel_lm(torch, seed, dev, mesh, dtype=torch.float32, **kw)
+    tp_mlps = sum(isinstance(m, Mlp) and m.fc1.tp is not None for m in model.modules())
     torch.manual_seed(seed)
     out = step(x, y)
     unclip = max(1.0, float(out["grad_norm"]) + 1e-6)  # grad * min(1, 1 / (norm + 1e-6))
@@ -4211,7 +4233,7 @@ def _parallel_route_f32(torch, seed, dev, mesh, x, y):
     loss_err = abs(float(out["loss"]) - ref_loss) / abs(ref_loss)
     del model, step, ref
     torch.cuda.empty_cache()
-    return loss_err, worst
+    return loss_err, worst, tp_mlps
 
 
 def _pipeline_check(torch, seed, dev, mesh, g):
@@ -4296,7 +4318,10 @@ def phase_parallel_train(torch, seed, np, train=None):
     through make_train_step, the loss by vocab_parallel_cross_entropy over
     tp. In f32 activations, dropout on, the first batch: loss within 1e-3
     relative and grads (before the clip) within 1e-3 of each parameter's
-    largest |grad| of the plain model's. Then pipeline_apply (_pipeline_check)
+    largest |grad| of the plain model's; the same for the model with
+    mlp_l_chunks=PARALLEL_L_CHUNKS, whose ChunkedMlp runs its
+    tensor-parallel form in every layer, against the plain chunked model
+    (the Hyena kernels under both). Then pipeline_apply (_pipeline_check)
     and the MoE experts on an ep mesh (_moe_ep_check). Then the bf16 model
     takes TRAIN_WARMUP + TRAIN_TIMED steps of the train phase's batches: its
     first loss within 1e-3 of the plain model's on the same batch, weights
@@ -4311,13 +4336,24 @@ def phase_parallel_train(torch, seed, np, train=None):
     x0, y0 = batches[0]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    loss_err, grad_err = _parallel_route_f32(torch, seed, dev, mesh, x0, y0)
+    loss_err, grad_err, _ = _parallel_route_f32(torch, seed, dev, mesh, x0, y0)
     log(f"parallel_train: f32, B={B}, dropout on, (dp, tp) = (1, 1) step vs the plain model: "
         f"loss rel err {loss_err:.3e} (tol 1e-3), max |dgrad| / max |grad| {grad_err[0]:.3e} "
         f"({grad_err[1]}), tol 1e-3; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (loss_err <= 1e-3 and grad_err[0] <= 1e-3):
         raise AssertionError(f"f32 parallel step disagrees: {loss_err}, {grad_err}")
+    torch.cuda.reset_peak_memory_stats()
+    chunk_loss, chunk_grad, tp_mlps = _parallel_route_f32(torch, seed, dev, mesh, x0, y0,
+                                                          mlp_l_chunks=PARALLEL_L_CHUNKS)
+    log(f"parallel_train: f32, mlp_l_chunks={PARALLEL_L_CHUNKS}, ChunkedMlp tensor-parallel in "
+        f"{tp_mlps} of {N_LAYER} layers, (dp, tp) = (1, 1) step vs the plain chunked model: "
+        f"loss rel err {chunk_loss:.3e} (tol 1e-3), max |dgrad| / max |grad| "
+        f"{chunk_grad[0]:.3e} ({chunk_grad[1]}), tol 1e-3; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (chunk_loss <= 1e-3 and chunk_grad[0] <= 1e-3 and tp_mlps == N_LAYER):
+        raise AssertionError(f"chunked tp step disagrees: {chunk_loss}, {chunk_grad}, "
+                             f"{tp_mlps} tp MLPs")
     g = torch.Generator().manual_seed(seed + 7)
     pipe = _pipeline_check(torch, seed, dev, _parallel_mesh(torch, ("pp",)), g)
     moe = _moe_ep_check(torch, seed, dev, _parallel_mesh(torch, ("dp", "ep")))
@@ -4367,7 +4403,10 @@ def phase_parallel_train(torch, seed, np, train=None):
     del model, step
     torch.cuda.empty_cache()
     res = {"f32_loss_rel_err": loss_err, "f32_grad_max_rel_err": grad_err[0],
-           "f32_grad_worst_param": grad_err[1], "pipeline": pipe, "moe_ep": moe,
+           "f32_grad_worst_param": grad_err[1],
+           "chunked_tp": {"loss_rel_err": chunk_loss, "grad_max_rel_err": chunk_grad[0],
+                          "grad_worst_param": chunk_grad[1], "tp_mlps": tp_mlps},
+           "pipeline": pipe, "moe_ep": moe,
            "losses": losses, "first_loss_rel_err": first_err, "step_ms": step_ms,
            "step_ms_median": med, "step_ms_max": max(timed),
            "tokens_per_s": B * L_MAX / (med / 1e3), "launches": launches,

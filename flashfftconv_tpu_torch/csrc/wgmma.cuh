@@ -2,7 +2,8 @@
 // (flash_attn_bwd_wide.cuh, flash_attn_fwd_wide.cuh): warpgroup TF32
 // products (wgmma.mma_async with A in registers and B in shared memory),
 // their shared-memory descriptors, tensor-memory-accelerator (TMA) loads
-// with their mbarriers, and the thread block cluster's barrier and
+// with their mbarriers, 1-D bulk copies between global and shared memory
+// (smem_probe.cu's smem_copy), and the thread block cluster's barrier and
 // distributed shared memory.
 #pragma once
 
@@ -142,6 +143,47 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// --- 1-D bulk copies between global and shared memory ------------------------
+// Addresses 16-byte aligned, sizes multiples of 16 bytes.
+
+// bytes from global src into this block's shared memory at dst, counted on
+// bar (after mbar_expect of them).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// bytes of this block's shared memory at src to global dst, in the bulk group
+// that the next bulk_commit closes. The writes of src must be fenced to the
+// async proxy (fence_smem_for_mma) before a barrier that precedes the copy.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed bulk groups still read
+// their shared memory (which may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's committed bulk groups are still
+// running (their writes to global memory done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The box of a 4-D tensor map at coordinates (c0, c1, c2, c3) into shared

@@ -38,6 +38,7 @@ from flashfftconv_tpu_torch.models.long_conv import LongConvOperator
 from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerSequenceMixing
 from flashfftconv_tpu_torch.models.moe import MoEMlp
 from flashfftconv_tpu_torch.ops.plan import resolve_device
+from flashfftconv_tpu_torch.parallel.comm import copy_to, reduce_from
 
 # The mixer registry of the JAX package's get_mixer_cls.
 MIXERS = {"hyena": HyenaOperator, "m2": MonarchMixerSequenceMixing, "h3": H3Operator,
@@ -76,16 +77,20 @@ class _MlpChunked(torch.autograd.Function):
     ``_mlp_chunked``): the forward keeps one chunk's fc1 output at a time and
     saves only x and the weights; the backward recomputes fc1 per chunk and
     accumulates the weight grads in f32. Weights are (out, in) and come at
-    x's dtype, so their grads leave at that dtype, as in the JAX function."""
+    x's dtype, so their grads leave at that dtype, as in the JAX function.
+    b2 may be None (the tensor-parallel form adds it after the sum)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, c, act):
         ctx.save_for_backward(x, w1, b1, w2)
-        ctx.c, ctx.act = c, act
+        ctx.c, ctx.act, ctx.has_b2 = c, act, b2 is not None
         y = x.new_empty(x.shape[0], w2.shape[0])
         for xc, yc in zip(x.chunk(c), y.chunk(c)):
             hc = act(F.linear(xc, w1, b1).float()).to(x.dtype)
-            torch.addmm(b2, hc, w2.T, out=yc)
+            if b2 is None:
+                torch.mm(hc, w2.T, out=yc)
+            else:
+                torch.addmm(b2, hc, w2.T, out=yc)
         return y
 
     @staticmethod
@@ -107,13 +112,22 @@ class _MlpChunked(torch.autograd.Function):
             db1 += dpre.float().sum(0)
             dw2 += (dyc.T @ hc).float()
             db2 += dyc.float().sum(0)
-        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b1.dtype),
-                None, None)
+        db2 = db2.to(b1.dtype) if ctx.has_b2 else None
+        return dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2, None, None
 
 
 class ChunkedMlp(Mlp):
     """``Mlp`` with the L-chunked body and backward of ``_MlpChunked``; same
-    parameters. B * L must be a multiple of ``l_chunks``."""
+    parameters. B * L must be a multiple of ``l_chunks``.
+
+    Under tensor parallelism (``parallel.mesh.shard_parameters`` makes fc1
+    column- and fc2 row-parallel over one group, Megatron's pair) each rank
+    holds fc1's (d_inner / P, d) weight and bias and fc2's (d, d_inner / P)
+    weight, and fc2's whole bias: x enters through ``copy_to`` (its grad
+    summed over the group), ``_MlpChunked`` runs on the shards without fc2's
+    bias, so the split hidden activation never leaves the rank and the
+    Function still saves only x and the weights, and its (B * L, d) output
+    is summed once by ``reduce_from`` before the bias is added once."""
 
     def __init__(self, d_inner, d_model, l_chunks=4, activation="gelu", device="cuda",
                  generator=None):
@@ -125,10 +139,15 @@ class ChunkedMlp(Mlp):
         b, l, d = x.shape
         if (b * l) % self.l_chunks:
             raise ValueError(f"B * L = {b * l} is no multiple of l_chunks = {self.l_chunks}")
-        dt = x.dtype
-        y = _MlpChunked.apply(
-            x.reshape(b * l, d), self.fc1.weight.to(dt), self.fc1.bias.to(dt),
-            self.fc2.weight.to(dt), self.fc2.bias.to(dt), self.l_chunks, self.activation)
+        dt, tp = x.dtype, self.fc1.tp
+        x, b2 = x.reshape(b * l, d), self.fc2.bias.to(dt)
+        if tp is not None:
+            x = copy_to(x, tp.group)
+        y = _MlpChunked.apply(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+                              self.fc2.weight.to(dt), None if tp else b2, self.l_chunks,
+                              self.activation)
+        if tp is not None:
+            y = reduce_from(y, tp.group) + b2
         return y.reshape(b, l, -1)
 
 

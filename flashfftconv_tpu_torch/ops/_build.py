@@ -55,7 +55,7 @@ SIGNATURES = {
                         "ffc_splash_attn_bwd_dq": [_P] * 9 + [_I] * 11 + [_P]},
     "smem_probe": {"ffc_smem_device_attrs": [_P, _I], "ffc_smem_set_limit": [_I],
                    "ffc_smem_probe_touch": [_P, _P, _I, _P],
-                   "ffc_smem_copy": [_P, _P, _I, _I, _P]},
+                   "ffc_smem_copy": [_P, _P, _P, _I, _I, _I, _I, _P]},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -23,7 +23,9 @@ splits, and the collectives are explicit:
     one split on ``in`` is row-parallel (its input is scattered, its output
     summed by ``reduce_from``), an MLP whose fc1 is column- and fc2
     row-parallel keeps its hidden activation split between the two (one
-    collective each way, as Megatron's pair), and a ``LongConv`` whose kernel
+    collective each way, as Megatron's pair; a ``ChunkedMlp`` runs its
+    L-chunked Function on the shards inside the same pair, with fc2's bias
+    added after the sum), and a ``LongConv`` whose kernel
     and skip are split on the channels convolves this rank's channels alone
     (the long conv is independent per channel) and gathers them after the
     skip. Every other part of the model runs replicated, on every rank.
@@ -267,9 +269,11 @@ def shard_parameters(model: nn.Module, shardings: Mapping[str, Sharding]) -> nn.
     stays on the parameter as ``param.sharding``. Returns the model.
 
     Supported owners of split parameters: Dense (column- or row-parallel),
-    ``LongConv`` (kernel and skip split on the channels) and ``MoEMlp``
-    (experts split over the ``ep_axis`` of its mesh); any other raises
-    NotImplementedError."""
+    ``LongConv`` (kernel and skip split on the channels), ``MoEMlp``
+    (experts split over the ``ep_axis`` of its mesh) and ``ChunkedMlp``
+    (fc1's weight and bias column- and fc2 row-parallel over one group, as
+    ``DEFAULT_TP_RULES`` make them; any other split of the two raises);
+    any other raises NotImplementedError."""
     from flashfftconv_tpu_torch.models.layers import Dense
     from flashfftconv_tpu_torch.models.lm import ChunkedMlp, Mlp
     from flashfftconv_tpu_torch.models.long_conv import LongConv
@@ -306,12 +310,14 @@ def shard_parameters(model: nn.Module, shardings: Mapping[str, Sharding]) -> nn.
             raise NotImplementedError(f"{mname}: no sharded forward for "
                                       f"{type(module).__name__} ({sorted(own & split.keys())})")
     for mname, module in model.named_modules():
-        if isinstance(module, ChunkedMlp) and (module.fc1.tp or module.fc2.tp):
-            raise NotImplementedError(f"{mname}: ChunkedMlp has no tensor-parallel form")
         if isinstance(module, Mlp) and not module.nblocks:
             fc1, fc2 = module.fc1.tp, module.fc2.tp
-            if fc1 and fc2 and fc1.column and not fc2.column and fc1.group == fc2.group:
+            pair = fc1 and fc2 and fc1.column and not fc2.column and fc1.group == fc2.group
+            if pair:
                 fc1.gather_output, fc2.input_split = False, True
+            if isinstance(module, ChunkedMlp) and (fc1 or fc2) and not (pair and fc1.bias_split):
+                raise NotImplementedError(f"{mname}: ChunkedMlp splits fc1 (weight and bias) "
+                                          f"column- and fc2 row-parallel over one group only")
     with torch.no_grad():
         for name, s in split.items():
             p = params[name]

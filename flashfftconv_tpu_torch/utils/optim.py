@@ -16,8 +16,9 @@ first ``optimizer.step()`` runs at ``schedule(0)``, as optax's does.
 Every schedule the JAX registry names (constant, linear, cosine,
 warmup-cosine, exponential, warmup-exponential, sgdr, piecewise) is here
 with optax's arguments and values, and so are optax's ``adamw``, ``adam``,
-``sgd`` and ``lamb`` by their optax keywords and defaults (``Lamb`` is the
-torch optimizer of the last), for ``utils.registry``.
+``sgd`` and ``lamb`` by their optax keywords, defaults and options, each on
+a torch optimizer of the port's own with optax's update rule (``Adam``,
+``Sgd``, ``Lamb``), for ``utils.registry``.
 """
 
 from __future__ import annotations
@@ -234,7 +235,15 @@ def ema_swap(ema: dict[str, torch.Tensor], model: nn.Module) -> dict[str, torch.
 # (a step -> value callable) becomes a LambdaLR over a base lr of 1, so the
 # k-th update runs at schedule(k); a number gives scheduler None. The
 # defaults are optax's, not torch's (optax.adamw decays by 1e-4, torch's
-# AdamW by 1e-2). Options optax has and torch does not are refused.
+# AdamW by 1e-2), and so is every option optax 0.2.6 takes, with optax's
+# update rules (``Adam``, ``Lamb``, ``Sgd``):
+#   - a dtype (``mu_dtype``, ``accumulator_dtype``) is a torch dtype or its
+#     name ("bfloat16", as a registry config carries it);
+#   - a ``mask`` (adamw, lamb) says which parameters decay, as optax's tree
+#     of booleans does: here a sequence of bools aligned with the parameters
+#     in the order given (across param groups), or a callable that takes
+#     that list of tensors and returns one. The parameters it leaves out go
+#     to param groups of their own with weight_decay 0.
 
 
 def _lr_and_scheduler(learning_rate):
@@ -249,49 +258,70 @@ def _with_schedule(opt: torch.optim.Optimizer, schedule):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda(schedule, 1.0))
 
 
-def _refuse(name: str, **options) -> None:
-    for key, value in options.items():
-        if value:
-            raise NotImplementedError(f"{name}: {key}={value!r} is not ported")
+def _dtype(value) -> torch.dtype | None:
+    """None, a torch dtype, or a torch dtype's name."""
+    if value is None or isinstance(value, torch.dtype):
+        return value
+    dt = getattr(torch, str(value), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"{value!r} names no torch dtype")
+    return dt
 
 
-def adamw(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          eps_root: float = 0.0, mu_dtype=None, weight_decay: float = 1e-4, mask=None, *,
-          nesterov: bool = False):
-    """optax.adamw: Adam with the decay decoupled and scaled by the lr."""
-    _refuse("adamw", eps_root=eps_root, mu_dtype=mu_dtype, mask=mask, nesterov=nesterov)
-    lr, schedule = _lr_and_scheduler(learning_rate)
-    return _with_schedule(torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
-                                            weight_decay=weight_decay), schedule)
+def _masked_groups(params, mask) -> list[dict]:
+    """``params`` (tensors or param groups) as param groups, each split into
+    the parameters ``mask`` decays and those it does not (weight_decay 0)."""
+    params = list(params)
+    groups = params if params and isinstance(params[0], dict) else [{"params": params}]
+    groups = [{**g, "params": list(g["params"])} for g in groups]
+    if mask is None:
+        return groups
+    flat = [p for g in groups for p in g["params"]]
+    keep = mask(flat) if callable(mask) else mask
+    if isinstance(keep, (dict, str)) or len(keep) != len(flat):
+        raise ValueError(f"mask must give one bool for each of the {len(flat)} parameters, "
+                         f"in order")
+    keep, out = iter(keep), []
+    for g in groups:
+        flags = [bool(next(keep)) for _ in g["params"]]
+        decayed = [p for p, k in zip(g["params"], flags) if k]
+        kept = [p for p, k in zip(g["params"], flags) if not k]
+        if decayed:
+            out.append({**g, "params": decayed})
+        if kept:
+            out.append({**g, "params": kept, "weight_decay": 0.0})
+    return out
 
 
-def adam(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-         eps_root: float = 0.0, mu_dtype=None, *, nesterov: bool = False):
-    """optax.adam."""
-    _refuse("adam", eps_root=eps_root, mu_dtype=mu_dtype, nesterov=nesterov)
-    lr, schedule = _lr_and_scheduler(learning_rate)
-    return _with_schedule(torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps), schedule)
+def _times(t: torch.Tensor, decay: float) -> torch.Tensor:
+    """decay * t with decay rounded to t's dtype first, as JAX's weakly typed
+    scalar is (a bf16 moment: bf16(0.9) * t, rounded to bf16)."""
+    return t * float(torch.tensor(decay, dtype=t.dtype))
 
 
-def sgd(params, learning_rate, momentum: float | None = None, nesterov: bool = False,
-        accumulator_dtype=None):
-    """optax.sgd: plain, or with a momentum trace (nesterov or not)."""
-    _refuse("sgd", accumulator_dtype=accumulator_dtype)
-    lr, schedule = _lr_and_scheduler(learning_rate)
-    return _with_schedule(torch.optim.SGD(params, lr=lr, momentum=momentum or 0.0,
-                                          nesterov=nesterov), schedule)
+def _debias(t: torch.Tensor, decay: float, count: int) -> torch.Tensor:
+    """optax's bias_correction: t / (1 - decay**count), the divisor in f32."""
+    return t / (1 - torch.tensor(decay, dtype=torch.float32) ** count).to(t.dtype)
 
 
-class Lamb(torch.optim.Optimizer):
-    """optax.lamb: the Adam direction (bias-corrected moments, eps outside
-    the root and eps_root inside), plus weight_decay * param, scaled by each
-    parameter's trust ratio ||param|| / ||update|| (1 where either norm is
-    0), times -lr."""
+class Adam(torch.optim.Optimizer):
+    """optax's ``scale_by_adam``, then ``add_decayed_weights``, then the lr:
+    mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu; mu_hat = mu /
+    (1 - b1^t) (with ``nesterov``, b1 mu / (1 - b1^(t+1)) + (1 - b1) g /
+    (1 - b1^t)), nu_hat = nu / (1 - b2^t); u = mu_hat / (sqrt(nu_hat +
+    eps_root) + eps) + weight_decay * param; param -= lr u. mu is kept at
+    ``mu_dtype`` between steps (computed at the gradient's dtype), nu at the
+    parameter's. Each group's weight_decay applies to its parameters alone
+    (``_masked_groups``)."""
 
-    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
-                 eps_root: float = 0.0, weight_decay: float = 0.0):
+    trust_ratio = False
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 eps_root: float = 0.0, weight_decay: float = 0.0, mu_dtype=None,
+                 nesterov: bool = False):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, eps_root=eps_root,
-                                      weight_decay=weight_decay))
+                                      weight_decay=weight_decay, mu_dtype=_dtype(mu_dtype),
+                                      nesterov=nesterov))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -304,30 +334,110 @@ class Lamb(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                state = self.state[p]
+                g, state = p.grad, self.state[p]
                 if not state:
                     state["step"] = 0
-                    state["mu"] = torch.zeros_like(p)
+                    state["mu"] = torch.zeros_like(p, dtype=group["mu_dtype"] or p.dtype)
                     state["nu"] = torch.zeros_like(p)
                 state["step"] += 1
                 t = state["step"]
-                mu, nu = state["mu"], state["nu"]
-                mu.mul_(b1).add_(p.grad, alpha=1.0 - b1)
-                nu.mul_(b2).addcmul_(p.grad, p.grad, value=1.0 - b2)
-                update = (mu / (1.0 - b1**t)) / (
-                    (nu / (1.0 - b2**t) + group["eps_root"]).sqrt() + group["eps"])
+                mu = g * (1.0 - b1) + _times(state["mu"], b1)
+                nu = g * g * (1.0 - b2) + _times(state["nu"], b2)
+                if group["nesterov"]:
+                    mu_hat = _debias(mu, b1, t + 1) * b1 + _debias(g, b1, t) * (1.0 - b1)
+                else:
+                    mu_hat = _debias(mu, b1, t)
+                update = mu_hat / ((_debias(nu, b2, t) + group["eps_root"]).sqrt() + group["eps"])
+                state["mu"], state["nu"] = mu.to(state["mu"].dtype), nu
                 if group["weight_decay"]:
-                    update.add_(p, alpha=group["weight_decay"])
-                p_norm, u_norm = p.norm(), update.norm()
-                ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
-                p.add_(update * ratio, alpha=-group["lr"])
+                    update += p * group["weight_decay"]
+                if self.trust_ratio:
+                    p_norm, u_norm = p.norm(), update.norm()
+                    update *= torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+                p.add_(update, alpha=-group["lr"])
         return loss
+
+
+class Lamb(Adam):
+    """optax.lamb: ``Adam``'s update (without mu_dtype or nesterov) scaled by
+    each parameter's trust ratio ||param|| / ||update|| (1 where either norm
+    is 0), times -lr."""
+
+    trust_ratio = True
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
+                 eps_root: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, lr, betas=betas, eps=eps, eps_root=eps_root,
+                         weight_decay=weight_decay)
+
+
+class Sgd(torch.optim.Optimizer):
+    """optax.sgd: param -= lr g; with a ``momentum``, optax's trace t = g +
+    momentum t (kept at ``accumulator_dtype`` between steps, the product at
+    its dtype as in ``Adam``) and param -= lr t, or lr (g + momentum t) with
+    ``nesterov``."""
+
+    def __init__(self, params, lr: float, momentum: float | None = None,
+                 nesterov: bool = False, accumulator_dtype=None):
+        super().__init__(params, dict(lr=lr, momentum=momentum, nesterov=nesterov,
+                                      accumulator_dtype=_dtype(accumulator_dtype)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            m = group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if m is None:
+                    p.add_(g, alpha=-group["lr"])
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["trace"] = torch.zeros_like(
+                        p, dtype=group["accumulator_dtype"] or p.dtype)
+                trace = g + _times(state["trace"], m)
+                update = g + trace * m if group["nesterov"] else trace
+                state["trace"] = trace.to(state["trace"].dtype)
+                p.add_(update, alpha=-group["lr"])
+        return loss
+
+
+def adamw(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          eps_root: float = 0.0, mu_dtype=None, weight_decay: float = 1e-4, mask=None, *,
+          nesterov: bool = False):
+    """optax.adamw: ``Adam`` with the decay decoupled and scaled by the lr,
+    on the parameters ``mask`` selects (all by default)."""
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(Adam(_masked_groups(params, mask), lr=lr, betas=(b1, b2), eps=eps,
+                               eps_root=eps_root, weight_decay=weight_decay,
+                               mu_dtype=mu_dtype, nesterov=nesterov), schedule)
+
+
+def adam(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         eps_root: float = 0.0, mu_dtype=None, *, nesterov: bool = False):
+    """optax.adam (``Adam`` without decay)."""
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(Adam(params, lr=lr, betas=(b1, b2), eps=eps, eps_root=eps_root,
+                               mu_dtype=mu_dtype, nesterov=nesterov), schedule)
+
+
+def sgd(params, learning_rate, momentum: float | None = None, nesterov: bool = False,
+        accumulator_dtype=None):
+    """optax.sgd (``Sgd``): plain, or with a momentum trace (nesterov or not)."""
+    lr, schedule = _lr_and_scheduler(learning_rate)
+    return _with_schedule(Sgd(params, lr=lr, momentum=momentum, nesterov=nesterov,
+                              accumulator_dtype=accumulator_dtype), schedule)
 
 
 def lamb(params, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
          eps_root: float = 0.0, weight_decay: float = 0.0, mask=None):
-    """optax.lamb (``Lamb``)."""
-    _refuse("lamb", mask=mask)
+    """optax.lamb (``Lamb``), the decay on the parameters ``mask`` selects."""
     lr, schedule = _lr_and_scheduler(learning_rate)
-    return _with_schedule(Lamb(params, lr=lr, betas=(b1, b2), eps=eps, eps_root=eps_root,
-                               weight_decay=weight_decay), schedule)
+    return _with_schedule(Lamb(_masked_groups(params, mask), lr=lr, betas=(b1, b2), eps=eps,
+                               eps_root=eps_root, weight_decay=weight_decay), schedule)

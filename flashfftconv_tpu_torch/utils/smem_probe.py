@@ -10,9 +10,12 @@ the two kernels of ``csrc/smem_probe.cu`` probe that:
     shared memory writes x*2 to its first and x+1 to its last 8x128 floats
     and returns their sum (4 for ones). ``sweep`` tries the sizes of
     ``KB_GRID`` in order and stops at the first that the card refuses;
-  - ``smem_copy(x, tile_bytes)``: o = x * 1.0001 through shared-memory
-    tiles, timed with CUDA events at 16 KB, 64 KB and the largest working
-    tile over 256 MiB of f32.
+  - ``smem_copy(x, tile_bytes)``: o = x * 1.0001 through ``tile_bytes``
+    of shared memory a block, a ring of ``copy_stages(tile_bytes)`` stages
+    that bulk asynchronous copies fill and drain while the threads
+    multiply (one block an SM at the largest tile; the blocks take chunks
+    from a counter in device memory), timed with CUDA events at 16 KB,
+    64 KB and the largest working tile over 256 MiB of f32.
 
 A refused size is a measurement, not a fault, when the error is the
 expected one: the opt-in attribute call's ``cudaErrorInvalidValue``, or a
@@ -44,6 +47,8 @@ KB_GRID = (16, 32, 48, 64, 96, 128, 160, 192, 224, 227, 228)
 PROBE_SHAPE = (8, 128)
 COPY_BYTES = 256 * 2**20
 COPY_TILES_KB = (16, 64)  # and the largest working size
+COPY_BARRIER_BYTES = 128  # csrc/smem_probe.cu kBarBytes: the ring's mbarriers
+COPY_MIN_TILE = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # cudaError_t of a refused size: cudaErrorInvalidValue at the attribute call;
 # cudaErrorInvalidConfiguration or cudaErrorLaunchOutOfResources at the launch.
@@ -118,19 +123,47 @@ def smem_probe_touch(x: torch.Tensor, nbytes: int) -> torch.Tensor:
 smem_probe_touch.launches = 0
 
 
+def copy_stages(tile_bytes: int) -> tuple[int, int]:
+    """(stages, bytes a stage) of ``smem_copy``'s ring in ``tile_bytes`` of
+    shared memory: 4 stages from 32 KB, else 2, after ``COPY_BARRIER_BYTES``
+    of mbarriers, each the whole KB that fit."""
+    if tile_bytes < COPY_MIN_TILE or tile_bytes % 16:
+        raise ValueError(f"tile_bytes must be a multiple of 16 of at least {COPY_MIN_TILE}, "
+                         f"got {tile_bytes}")
+    stages = 4 if tile_bytes >= 32 * 1024 else 2
+    return stages, (tile_bytes - COPY_BARRIER_BYTES) // stages // 1024 * 1024
+
+
+_COPY_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _copy_counter(device: torch.device, stream: int) -> int:
+    """The address of ``smem_copy``'s two chunk counters for this stream:
+    zeros, made once, which every launch leaves at zero (its last block
+    resets them), so that launches on one stream, which run in turn, share
+    them and no launch pays for a memset."""
+    key = (device.index, stream)
+    if key not in _COPY_COUNTERS:
+        _COPY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _COPY_COUNTERS[key].data_ptr()
+
+
 def smem_copy(x: torch.Tensor, tile_bytes: int) -> torch.Tensor:
-    """x * 1.0001 for f32 x (numel a multiple of 4), through shared-memory
-    tiles of ``tile_bytes`` (the plain version on the CPU)."""
+    """x * 1.0001 for f32 x (numel a multiple of 4), through ``tile_bytes``
+    of shared memory a block in ``copy_stages(tile_bytes)`` (the plain
+    version on the CPU)."""
     if on_cpu(x):
         return copy_plain(x)
     _check("x", x)
     if x.numel() % 4 or x.data_ptr() % 16 or x.numel() >= 2**31:
         raise ValueError("x needs a numel that is a multiple of 4 (below 2^31) and 16-byte "
                          "alignment")
+    stages, stage_bytes = copy_stages(int(tile_bytes))
     out = torch.empty_like(x)
     lib = _build.load("smem_probe")
-    rc = lib.ffc_smem_copy(x.data_ptr(), out.data_ptr(), x.numel(), int(tile_bytes),
-                           _stream(x.device))
+    stream = _stream(x.device)
+    rc = lib.ffc_smem_copy(x.data_ptr(), out.data_ptr(), _copy_counter(x.device, stream),
+                           x.numel(), int(tile_bytes), stages, stage_bytes, stream)
     _build.check(lib, rc, "smem_copy kernel")
     smem_copy.launches += 1
     return out
@@ -205,9 +238,12 @@ def run_probe(device="cuda", seed: int = 0, copy_bytes: int = COPY_BYTES, log=pr
         ms = benchmark_forward(smem_copy, src, tile, repeats=10, warmup=3, device=device)
         copies[tile] = {"tile_bytes": tile, "ms": ms, "gb_per_s": 2 * copy_bytes / ms / 1e6,
                         "bound_ms": bound_ms, "library_ms": library_ms, "max_abs_err": 0.0}
-        log(f"smem_probe: smem_copy {copy_bytes >> 20} MiB f32 through {tile // 1024} KB tiles: "
-            f"{ms:.4f} ms, {copies[tile]['gb_per_s']:.1f} GB/s (bound {bound_ms:.4f} ms, "
-            f"torch.mul {library_ms:.4f} ms), equal to x * 1.0001 bit for bit")
+        stages, stage_bytes = copy_stages(tile)
+        copies[tile].update(stages=stages, stage_bytes=stage_bytes)
+        log(f"smem_probe: smem_copy {copy_bytes >> 20} MiB f32 through {tile // 1024} KB tiles "
+            f"({stages} stages of {stage_bytes} B): {ms:.4f} ms, "
+            f"{copies[tile]['gb_per_s']:.1f} GB/s (bound {bound_ms:.4f} ms, torch.mul "
+            f"{library_ms:.4f} ms), equal to x * 1.0001 bit for bit")
     return {"device": torch.cuda.get_device_name(device), "attrs": attrs, "trials": records,
             "max_working_bytes": best, "expected_bytes": expected, "copy": copies}
 

@@ -12,6 +12,8 @@ over B*L (the depthwise dk and dbias) within 1e-5 of the sum of their
 terms' magnitudes.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -1501,18 +1503,29 @@ def test_cuda_smem_probe_touch_sweep():
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile_kb", [16, 64, 227])
 def test_cuda_smem_copy_matches_plain_bit_for_bit(tile_kb):
-    """x * 1.0001 through shared-memory tiles, over a ragged last tile."""
+    """x * 1.0001 through the staged ring of shared memory, over a ragged
+    last chunk; sizes below one stage, one stage and a float4 more (a last
+    chunk of 16 bytes), and each through a view 16 bytes into its buffer,
+    on outputs the allocator hands over NaN-filled."""
     _needs_card()
     from flashfftconv_tpu_torch.utils import smem_probe as sp
 
-    x = torch.randn(3_000_004, generator=torch.Generator().manual_seed(tile_kb)).cuda()
+    tile = tile_kb * 1024
+    stage = sp.copy_stages(tile)[1] // 4
+    buf = torch.randn(3_000_008, generator=torch.Generator().manual_seed(tile_kb)).cuda()
     n0 = sp.smem_copy.launches
-    y = sp.smem_copy(x, tile_kb * 1024)
-    torch.cuda.synchronize()
-    assert sp.smem_copy.launches == n0 + 1
-    assert torch.equal(y, torch.mul(x, 1.0001))
+    for n in (3_000_004, 4, 1000, stage - 4, stage, stage + 4):
+        for off in (0, 4):
+            x = buf[off:off + n]
+            torch.full_like(x, math.nan)  # freed: the next block of its size
+            y = sp.smem_copy(x, tile)
+            torch.cuda.synchronize()
+            assert torch.equal(y, torch.mul(x, 1.0001)), (n, off)
+    assert sp.smem_copy.launches == n0 + 12
     with pytest.raises(ValueError):
-        sp.smem_copy(x[:3], 16 * 1024)
+        sp.smem_copy(buf[:3], tile)
+    with pytest.raises(ValueError):
+        sp.smem_copy(buf[1:5], tile)  # off 16 bytes
 
 
 @pytest.mark.gpu

@@ -48,6 +48,7 @@ WORLDS = (1, 2, 4)
 # __graft_entry__._build_model's LongConvModel, dropout 0, f32 conv
 DRYRUN = dict(d_input=3, d_output=10, d_model=64, n_layers=2, l_max=128)
 HYENA_LM = dict(d_model=16, n_layer=2, d_inner=32, vocab_size=32, l_max=64)
+HYENA_CHUNKS = 4  # mlp_l_chunks of the ChunkedMlp case
 MOE_LM = dict(d_model=16, n_layer=2, d_inner=32, vocab_size=32, l_max=32)
 MOE = {"n_experts": 4, "top_k": 1, "ep_axis": "ep"}
 BLOCK = dict(d_model=16, d_inner=32)
@@ -116,6 +117,7 @@ def _cases(world):
                               b=(g.standard_normal((world, 16)) * 0.1).astype(np.float32),
                               x=g.standard_normal((8, 16)).astype(np.float32), m=4)
     if world == 1:
+        cases["chunked_splits"] = dict(kind="chunked_splits")
         return cases
     cases["h_conv"] = dict(kind="h_conv", u=(g.standard_normal((2, 16, 1024)) * 0.02
                                              ).astype(np.float32),
@@ -152,6 +154,10 @@ def _cases(world):
         cases["block_pipe"] = dict(
             kind="block_pipe", states=[_state("block", p) for p in jx["block"][1]],
             x=g.standard_normal((BLOCK_B, BLOCK_L, BLOCK["d_model"])).astype(np.float32))
+    # the Hyena LM with a ChunkedMlp on (dp, tp) = (world / 2, 2), a generator of its own
+    cases["hyena_chunked"] = dict(kind="hyena_tp", mesh=(world // 2, 2), chunks=HYENA_CHUNKS,
+                                  state=_state("hyena_lm", _jax_models()["hyena_lm"][1]),
+                                  ids=_rng(100 + world).integers(0, 32, (4, 65)))
     return cases
 
 
@@ -421,9 +427,10 @@ def _run_dryrun(case, world, rank):
 
 
 def _run_hyena_tp(case, world, rank):
-    """A 2-layer Hyena LM on (dp, tp) = (2, 2): parameters by
-    param_shardings, ZeRO-1 moments and ZeRO-2 grads over dp, the loss by
-    vocab_parallel_cross_entropy over tp, AdamW (lr 1e-3, decay 0.1), clip 1."""
+    """A 2-layer Hyena LM on (dp, tp) = (2, 2), or the case's mesh and
+    mlp_l_chunks: parameters by param_shardings, ZeRO-1 moments and ZeRO-2
+    grads over dp, the loss by vocab_parallel_cross_entropy over tp, AdamW
+    (lr 1e-3, decay 0.1), clip 1."""
     from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
     from flashfftconv_tpu_torch.ops.fused import vocab_parallel_cross_entropy
     from flashfftconv_tpu_torch.parallel.comm import scatter_to
@@ -437,10 +444,11 @@ def _run_hyena_tp(case, world, rank):
     )
     from flashfftconv_tpu_torch.utils.train import make_train_step
 
-    mesh = make_mesh((2, 2), ("dp", "tp"), device=CPU)
+    mesh = make_mesh(case.get("mesh", (2, 2)), ("dp", "tp"), device=CPU)
     model = ConvLMHeadModel(**HYENA_LM, mixer_kwargs={"filter_order": 16,
                                                       "conv_dtype": torch.float32},
-                            embed_dropout=0.0, dtype=torch.float32, device=CPU)
+                            embed_dropout=0.0, dtype=torch.float32,
+                            mlp_l_chunks=case.get("chunks", 0), device=CPU)
     model.load_state_dict({n: _t(a) for n, a in case["state"].items()})
     shardings = param_shardings(mesh, model)
     shard_parameters(model, shardings)
@@ -459,6 +467,35 @@ def _run_hyena_tp(case, world, rank):
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "params": _gathered_params(model), "grads": _full_grads(model, seen, mesh),
             "local": {n: tuple(p.shape) for n, p in model.named_parameters()}}
+
+
+def _run_chunked_splits(case, world, rank):
+    """shard_parameters on a Hyena LM with a ChunkedMlp on a 1 x 1 (dp, tp)
+    mesh: the DEFAULT_TP_RULES pair takes the tp form; fc1's kernel split
+    without its bias, or fc2 split column-wise, raises."""
+    from flashfftconv_tpu_torch.models.lm import ChunkedMlp, ConvLMHeadModel
+    from flashfftconv_tpu_torch.parallel.mesh import (
+        DEFAULT_TP_RULES,
+        make_mesh,
+        param_shardings,
+        shard_parameters,
+    )
+
+    mesh = make_mesh((1, 1), ("dp", "tp"), device=CPU)
+    out = {}
+    for name, rules in (
+            ("default", DEFAULT_TP_RULES),
+            ("fc1 bias whole", [r for r in DEFAULT_TP_RULES if "fc1/bias" not in r[0]]),
+            ("fc2 column", [r for r in DEFAULT_TP_RULES if "fc2" not in r[0]]
+             + [(r".*mlp/fc2/kernel$", (None, "tp"))])):
+        model = ConvLMHeadModel(**HYENA_LM, mlp_l_chunks=HYENA_CHUNKS, device=CPU)
+        try:
+            shard_parameters(model, param_shardings(mesh, model, rules))
+            out[name] = sum(isinstance(m, ChunkedMlp) and m.fc1.tp is not None
+                            for m in model.modules())
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
 
 
 def _run_moe(case, world, rank):

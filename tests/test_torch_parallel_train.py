@@ -210,6 +210,66 @@ def test_hyena_lm_tp_zero_step_matches_jax():
         assert h["local"]["backbone.blocks.0.mixer.out_proj.weight"] == (16, 8)
 
 
+@pytest.mark.parametrize("world", WORLDS[1:])
+def test_chunked_mlp_tp_zero_step_matches_jax(world):
+    """The recipe of test_hyena_lm_tp_zero_step_matches_jax with the MLP a
+    ChunkedMlp (mlp_l_chunks=4) on (dp, tp) = (world / 2, 2): fc1 column-
+    and fc2 row-parallel inside the L-chunked Function, against the JAX
+    package's jitted step with its parameters placed by param_shardings and
+    the batch over dp on a mesh of the same shape (GSPMD partitions it), at
+    the same tolerances."""
+    import jax
+    import optax
+
+    from flashfftconv_tpu.ops.fused import cross_entropy_loss
+    from flashfftconv_tpu.parallel.mesh import batch_sharding, param_shardings
+
+    cases, res = _ranks(world)
+    case = cases["hyena_chunked"]
+    lm, params = _jax_models()["hyena_lm"]
+    model = lm.clone(mlp_l_chunks=case["chunks"])
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(1e-3, weight_decay=0.1))
+
+    def step(p, o, ids):
+        loss, g = jax.value_and_grad(
+            lambda p: cross_entropy_loss(model.apply({"params": p}, ids[:, :-1]), ids[:, 1:]))(p)
+        up, o = tx.update(g, o, p)
+        return optax.apply_updates(p, up), loss, g
+
+    mesh = _jax_mesh(case["mesh"], ("dp", "tp"))
+    p = jax.device_put(params, param_shardings(mesh, params))
+    ids = jax.device_put(case["ids"].astype(np.int32), batch_sharding(mesh, 2))
+    with mesh:
+        new, loss, g = jax.jit(step)(p, tx.init(p), ids)
+    want = _state("hyena_lm", jax.tree_util.tree_map(np.asarray, new))
+    grads = _state("hyena_lm", jax.tree_util.tree_map(np.asarray, g))
+    norm = float(optax.global_norm(g))
+    assert norm > 1.0  # the clip scales every gradient
+    for r in res:
+        h = r["hyena_chunked"]
+        _close(h["loss"], loss, 1e-5)
+        _close(h["grad_norm"], norm, 1e-5)
+        _check_step(h["params"], want, grads, 1e-3)
+        _check_grads(h["grads"], {n: v * min(1.0, 1.0 / (norm + 1e-6))
+                                  for n, v in grads.items()}, "hyena_chunked")
+        # fc1 split on out and fc2 on in over tp: 32 -> 16
+        assert h["local"]["backbone.blocks.0.mlp.fc1.weight"] == (16, 16)
+        assert h["local"]["backbone.blocks.0.mlp.fc1.bias"] == (16,)
+        assert h["local"]["backbone.blocks.0.mlp.fc2.weight"] == (16, 16)
+        assert h["local"]["backbone.blocks.0.mlp.fc2.bias"] == (16,)
+
+
+def test_chunked_mlp_takes_only_the_megatron_pair():
+    """ChunkedMlp under shard_parameters: DEFAULT_TP_RULES' pair gives both
+    layers the tp form (on a 1 x 1 mesh too); fc1's kernel split without
+    its bias, or fc2 split on its output, raises NotImplementedError."""
+    _, res = _ranks(1)
+    got = res[0]["chunked_splits"]
+    assert got["default"] == 2
+    assert "ChunkedMlp splits fc1" in got["fc1 bias whole"]
+    assert "ChunkedMlp splits fc1" in got["fc2 column"]
+
+
 def test_moe_lm_train_step_dp_ep():
     """The MoE LM step of TestExpertParallel on (dp, ep) = (1, 4) and (2, 2):
     one expert or two on each rank, the routing and capacity over the whole

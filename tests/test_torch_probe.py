@@ -12,6 +12,8 @@ package's formulas for the same arguments, exactly; the timers run with
 ``device="cpu"`` (host clock) and the memory probe reports NaN there.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,6 +63,118 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     y = torch.randn(1000)
     assert torch.equal(sp.smem_copy(y, 16 * 1024), sp.copy_plain(y))
     assert (sp.smem_probe_touch.launches, sp.smem_copy.launches) == (n0, c0)
+
+
+SMEM_PROBE_CU = (Path(sp.__file__).resolve().parent.parent / "csrc" / "smem_probe.cu").read_text()
+
+
+def _copy_walk(n: int, tile_bytes: int, slots: int, seed: int):
+    """csrc/smem_probe.cu's smem_copy in Python: ffc_smem_copy's chunk size
+    and grid for ``slots`` resident blocks, then the blocks' leaders run
+    their walks one action at a time in an order drawn from ``seed``, all
+    taking chunks from one counter as the kernel's atomicAdd does. Returns
+    (chunk4, stage4, counter after the launch, {block: the leader's events
+    ("load", chunk, stage), ("wait", ...), ("store", ...), ("read", ...)})."""
+    stages, stage_bytes = sp.copy_stages(tile_bytes)
+    n4, stage4 = n // 4, stage_bytes // 16
+    rounds = -(-n4 // (slots * stage4))
+    chunk4 = -(-n4 // (slots * rounds))
+    chunk4 = -(-chunk4 // 64) * 64
+    chunks = -(-n4 // chunk4)
+    grid = min(chunks, slots)
+    lag = 1 if stages > 2 else 0
+    counter = [0, 0]
+    events = {b: [] for b in range(grid)}
+
+    def block(b):
+        ids = {}
+
+        def fetch(s):
+            c = counter[0]
+            counter[0] += 1
+            ids[s] = c
+            events[b].append(("load", c, s))
+
+        for s in range(stages):
+            fetch(s)
+            yield
+        j = 0
+        while True:
+            s = j % stages
+            if ids[s] >= chunks:
+                break
+            events[b].append(("wait", ids[s], s))
+            events[b].append(("store", ids[s], s))
+            if j >= lag:
+                r = (j - lag) % stages
+                events[b].append(("read", ids[r], r))
+                fetch(r)
+            j += 1
+            yield
+        counter[1] += 1
+        if counter[1] == grid:
+            counter[0] = counter[1] = 0
+
+    rng = np.random.default_rng(seed)
+    live = {b: block(b) for b in range(grid)}
+    while live:
+        b = list(live)[rng.integers(len(live))]
+        try:
+            next(live[b])
+        except StopIteration:
+            del live[b]
+    return chunk4, stage4, chunks, counter, events
+
+
+@pytest.mark.parametrize("n,tile_kb,slots", [
+    (256 * 2**18, 227, 132), (256 * 2**18, 64, 396), (256 * 2**18, 16, 1056),
+    (3_000_004, 227, 132), (3_000_004, 16, 1056), (4, 227, 132), (14_332, 227, 132),
+    (14_340, 16, 8), (1_000_000, 64, 3)])
+def test_copy_walk_takes_each_float_once_through_a_free_stage(n, tile_kb, slots):
+    """Whatever order the blocks ask in, the chunks taken cover x once, whole
+    KB each but the last of x, at most a stage; a stage is loaded only when
+    free (never loaded, or its last chunk waited on, multiplied, stored and
+    read by its store), every block ends, and the counters are back at 0."""
+    for seed in range(3):
+        chunk4, stage4, chunks, counter, walks = _copy_walk(n, tile_kb * 1024, slots, seed)
+        assert chunk4 % 64 == 0 and 0 < chunk4 <= stage4
+        assert counter == [0, 0]
+        covered = np.zeros(n // 4, np.int8)
+        for events in walks.values():
+            state = {}
+            for kind, c, s in events:
+                if kind == "load":
+                    assert state.get(s, "read") == "read", (kind, c, s, state)
+                    state[s] = "loaded" if c < chunks else "past the end"
+                elif kind == "wait":
+                    assert state[s] == "loaded"
+                    covered[c * chunk4:(c + 1) * chunk4] += 1
+                    state[s] = "multiplied"
+                elif kind == "store":
+                    assert state[s] == "multiplied"
+                    state[s] = "stored"
+                else:
+                    assert state[s] == "stored"
+                    state[s] = "read"
+        assert (covered == 1).all()
+
+
+def test_copy_constants_match_the_c_source():
+    """copy_stages and _copy_walk restate csrc/smem_probe.cu: its kBarBytes,
+    the stage count's choice, the whole-KB chunk, the refill lag and the
+    counters' reset."""
+    assert f"constexpr int kBarBytes = {sp.COPY_BARRIER_BYTES};" in SMEM_PROBE_CU
+    assert "fetch((j - kLag) % S);" in SMEM_PROBE_CU
+    assert "if (atomicAdd(&counter[1], 1u) == gridDim.x - 1) {" in SMEM_PROBE_CU
+    assert "chunk4 = (chunk4 + 63) / 64 * 64;" in SMEM_PROBE_CU
+    assert "constexpr int kLag = S > 2 ? 1 : 0;" in SMEM_PROBE_CU
+    assert "stage_bytes % 1024" in SMEM_PROBE_CU
+    assert sp.copy_stages(232448) == (4, 57344)
+    assert sp.copy_stages(64 * 1024) == (4, 15360)
+    assert sp.copy_stages(16 * 1024) == (2, 7168)
+    for bad in (sp.COPY_MIN_TILE - 16, 16 * 1024 + 8):
+        with pytest.raises(ValueError):
+            sp.copy_stages(bad)
 
 
 def test_grid_floor():
