@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+from flashfftconv_tpu_torch.utils.tracing import span
 
 DNA_VOCAB = {c: i for i, c in enumerate("ACGTN")}
 
@@ -91,14 +92,15 @@ def score(model: ConvLMHeadModel, ids: torch.Tensor) -> dict[str, torch.Tensor]:
     was_training = model.training
     model.eval()
     try:
-        with torch.inference_mode():
+        with span("score"), torch.inference_mode():
             logits = model(ids)
-            logp = torch.log_softmax(logits[:, :-1], dim=-1)
-            nll = -logp.gather(-1, ids[:, 1:, None].long())[..., 0]
-            return {
-                "bits_per_base": nll.mean(dim=1) / math.log(2.0),
-                "next_base": logits[:, -1, : len(DNA_VOCAB)].argmax(dim=-1),
-                "finite": torch.isfinite(logits).all(),
-            }
+            with span("score.answer"):
+                logp = torch.log_softmax(logits[:, :-1], dim=-1)
+                nll = -logp.gather(-1, ids[:, 1:, None].long())[..., 0]
+                return {
+                    "bits_per_base": nll.mean(dim=1) / math.log(2.0),
+                    "next_base": logits[:, -1, : len(DNA_VOCAB)].argmax(dim=-1),
+                    "finite": torch.isfinite(logits).all(),
+                }
     finally:
         model.train(was_training)

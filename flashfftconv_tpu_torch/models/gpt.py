@@ -53,8 +53,8 @@ class GPTLMHeadModel(nn.Module):
         mk = {"num_heads": num_heads, "causal": True, **(mixer_kwargs or {})}
         self.blocks = nn.ModuleList(
             Block(d_model, d_inner, mixer="mha", mixer_kwargs=mk, resid_dropout=resid_dropout,
-                  mlp_activation=mlp_activation, device=device, generator=generator)
-            for _ in range(n_layer)
+                  mlp_activation=mlp_activation, layer=i, device=device, generator=generator)
+            for i in range(n_layer)
         )
         self.ln_f = LayerNorm(d_model, device=device)
         self.embed_drop = nn.Dropout(embed_dropout)

@@ -39,6 +39,7 @@ from flashfftconv_tpu_torch.ops import dispatch
 from flashfftconv_tpu_torch.ops.depthwise import depthwise_conv1d
 from flashfftconv_tpu_torch.ops.plan import get_plan, resolve_device
 from flashfftconv_tpu_torch.parallel.seq_conv import seq_fft_conv_padded, seq_halo
+from flashfftconv_tpu_torch.utils.tracing import span
 
 
 class ShortDepthwiseConv(nn.Module):
@@ -145,17 +146,23 @@ class HyenaOperator(nn.Module):
     def _seg_a(self, carry, u_c):
         """One L-chunk of in-projection -> short filter: the new carry (the
         chunk's last K-1 in-projection columns) and the order+1 streams."""
-        x_c = self._in_proj(u_c)
-        y_c = self.short_filter(x_c, history=carry.to(x_c.dtype))
-        k1 = self.short_filter.weights.shape[1] - 1
-        return (x_c[..., x_c.shape[-1] - k1:], *y_c.split(self.d_model, dim=1))
+        with span("mixer.in_proj") as s:
+            x_c = s.outputs(self._in_proj(s.inputs(u_c)))
+        with span("mixer.short_conv") as s:
+            x_c = s.inputs(x_c)
+            y_c = s.outputs(self.short_filter(x_c, history=carry.to(x_c.dtype)))
+            k1 = self.short_filter.weights.shape[1] - 1
+            return (x_c[..., x_c.shape[-1] - k1:], *y_c.split(self.d_model, dim=1))
 
     def _seg_b(self, v_c, gate_c):
         """One L-chunk of gate-multiply -> out-projection, in the product's
         dtype (f32 with ``proj_out_f32``)."""
-        y_c = (v_c * gate_c).transpose(1, 2)
-        out_c = self.out_proj(y_c, dtype=y_c.dtype)
-        return out_c.float() if self.proj_out_f32 else out_c
+        with span("mixer.gate") as s:
+            y_c = s.outputs(s.inputs(v_c) * gate_c)
+        with span("mixer.out_proj") as s:
+            y_c = s.inputs(y_c).transpose(1, 2)
+            out_c = self.out_proj(y_c, dtype=y_c.dtype)
+            return s.outputs(out_c.float() if self.proj_out_f32 else out_c)
 
     def forward(self, u):
         b, l, d = u.shape
@@ -166,9 +173,9 @@ class HyenaOperator(nn.Module):
         plan = None if seq else get_plan(2 * self.l_max, self.conv_dtype, u.device)
         c = self.proj_l_chunks
         chunked = c > 1 and l % c == 0
-        ut = u.transpose(1, 2)  # (B, D, L)
         k1 = self.short_filter.weights.shape[1] - 1
         if chunked:
+            ut = u.transpose(1, 2)  # (B, D, L)
             # The carry makes the causal conv over [carry, chunk] equal the
             # unchunked padding=(K-1, 0) conv (zero carry = the left zero pad).
             if seq:  # the previous rank's last K-1 in-projection columns
@@ -181,28 +188,38 @@ class HyenaOperator(nn.Module):
                 parts.append(streams)
             *gates, v = (torch.cat(stream, dim=2) for stream in zip(*parts))
         else:
-            # causal: padding (K-1, 0) then cut to l
-            x = self._in_proj(ut)
-            if seq:
-                x = self.short_filter(
-                    x, history=seq_halo(x[..., l - k1:], self.seq_mesh, self.seq_axis))
-            else:
-                x = self.short_filter(x)[..., :l]
-            *gates, v = x.split(d, dim=1)
+            with span("mixer.in_proj") as s:
+                x = s.outputs(self._in_proj(s.inputs(u).transpose(1, 2)))  # (B, inner, L)
+            with span("mixer.short_conv") as s:
+                x = s.inputs(x)
+                # causal: padding (K-1, 0) then cut to l
+                if seq:
+                    x = self.short_filter(
+                        x, history=seq_halo(x[..., l - k1:], self.seq_mesh, self.seq_axis))
+                else:
+                    x = self.short_filter(x)[..., :l]
+                *gates, v = s.outputs(*x.split(d, dim=1))
 
-        k = self.filter(l_filter)  # (1, L, (order-1)*D), f32
-        bias = self.filter.bias
-        if self.filter_output_dtype is not None:
-            # an f32 bias would promote bias * v to f32
-            k, bias = k.to(self.filter_output_dtype), bias.to(self.filter_output_dtype)
-        k = k[0].T.reshape(self.order - 1, d, l_filter)
-        bias = bias.reshape(self.order - 1, d)
+        with span("mixer.filter") as s:
+            k = self.filter(l_filter)  # (1, L, (order-1)*D), f32
+            bias = self.filter.bias
+            if self.filter_output_dtype is not None:
+                # an f32 bias would promote bias * v to f32
+                k, bias = k.to(self.filter_output_dtype), bias.to(self.filter_output_dtype)
+            k = k[0].T.reshape(self.order - 1, d, l_filter)
+            k, bias = s.outputs(k, bias.reshape(self.order - 1, d))
         for o, gate in enumerate(reversed(gates[1:])):
-            v = self.drop(v * gate)
-            v = self._conv(plan, v, k[o]) + bias[o][None, :, None] * v
+            with span("mixer.gate") as s:
+                v = s.outputs(self.drop(s.inputs(v) * gate))
+            with span("mixer.long_conv") as s:
+                y = s.outputs(self._conv(plan, *s.inputs(v, k[o])))
+            with span("mixer.gate") as s:
+                v = s.outputs(s.inputs(y) + bias[o][None, :, None] * v)
         if chunked:
             return torch.cat([checkpoint(self._seg_b, v_c, g_c, use_reentrant=False)
                               for v_c, g_c in zip(v.chunk(c, dim=2), gates[0].chunk(c, dim=2))],
                              dim=1)
-        y = v * gates[0]
-        return self.out_proj(y.transpose(1, 2), dtype=u.dtype)
+        with span("mixer.gate") as s:
+            y = s.outputs(s.inputs(v) * gates[0])
+        with span("mixer.out_proj") as s:
+            return s.outputs(self.out_proj(s.inputs(y).transpose(1, 2), dtype=u.dtype))

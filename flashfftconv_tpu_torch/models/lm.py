@@ -39,6 +39,7 @@ from flashfftconv_tpu_torch.models.m2_bert import BlockdiagLinear, MonarchMixerS
 from flashfftconv_tpu_torch.models.moe import MoEMlp
 from flashfftconv_tpu_torch.ops.plan import resolve_device
 from flashfftconv_tpu_torch.parallel.comm import copy_to, reduce_from
+from flashfftconv_tpu_torch.utils.tracing import span
 
 # The mixer registry of the JAX package's get_mixer_cls.
 MIXERS = {"hyena": HyenaOperator, "m2": MonarchMixerSequenceMixing, "h3": H3Operator,
@@ -160,10 +161,11 @@ class Block(nn.Module):
 
     def __init__(self, d_model, d_inner, mixer="hyena", mixer_kwargs=None, resid_dropout=0.0,
                  mlp_nblocks=0, moe_kwargs=None, mlp_activation="gelu", mlp_l_chunks=0,
-                 residual_f32=True, inner_remat=False, device="cuda", generator=None):
+                 residual_f32=True, inner_remat=False, layer=0, device="cuda", generator=None):
         super().__init__()
         if mixer not in MIXERS:
             raise ValueError(f"unknown mixer {mixer!r}; have {sorted(MIXERS)}")
+        self.layer = layer  # the block's index in its stack, for the traced spans
         self.residual_f32 = residual_f32
         self.inner_remat = inner_remat
         self.norm1 = LayerNorm(d_model, device=device)
@@ -186,13 +188,23 @@ class Block(nn.Module):
         return module(h)
 
     def forward(self, x):
-        dtype = x.dtype
-        res = x.float() if self.residual_f32 else x
-        h = self.drop(self._part(self.mixer, self.norm1(res).to(dtype)))
-        res = res + h.to(res.dtype)
-        h = self.drop(self._part(self.mlp, self.norm2(res).to(dtype)))
-        res = res + h.to(res.dtype)
-        return res.to(dtype)
+        with span("block", layer=self.layer):
+            dtype = x.dtype
+            with span("block.residual"):
+                res = x.float() if self.residual_f32 else x
+            with span("block.norm"):
+                h = self.norm1(res).to(dtype)
+            with span("mixer") as s:
+                h = s.outputs(self._part(self.mixer, s.inputs(h)))
+            with span("block.residual"):
+                res = res + self.drop(h).to(res.dtype)
+            with span("block.norm"):
+                h = self.norm2(res).to(dtype)
+            with span("block.mlp") as s:
+                h = s.outputs(self._part(self.mlp, s.inputs(h)))
+            with span("block.residual"):
+                res = res + self.drop(h).to(res.dtype)
+                return res.to(dtype)
 
     def step(self, x_t, cache, pos: int):
         """One KV-cached decode step through the mixer's ``step`` (residual in
@@ -236,17 +248,20 @@ class LMBackbone(nn.Module):
             Block(d_model, d_inner, mixer=mixer, mixer_kwargs=mixer_kwargs,
                   resid_dropout=resid_dropout, mlp_nblocks=mlp_nblocks, moe_kwargs=moe_kwargs,
                   mlp_l_chunks=mlp_l_chunks, residual_f32=residual_f32,
-                  inner_remat=inner_remat, device=device, generator=generator)
-            for _ in range(n_layer)
+                  inner_remat=inner_remat, layer=i, device=device, generator=generator)
+            for i in range(n_layer)
         )
         self.ln_f = LayerNorm(d_model, dtype=torch.float32 if ln_f_f32 else dtype, device=device)
 
-    def forward(self, x):
-        x = self.embed_drop(x)
+    def run_blocks(self, x):
+        """The blocks over x, without the embedding dropout or ``ln_f``."""
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return self.ln_f(x)
+        return x
+
+    def forward(self, x):
+        return self.ln_f(self.run_blocks(self.embed_drop(x)))
 
 
 class ConvLMHeadModel(nn.Module):
@@ -274,5 +289,10 @@ class ConvLMHeadModel(nn.Module):
         )
 
     def forward(self, input_ids):
-        h = self.backbone(self.embeddings(input_ids))
-        return self.embeddings.attend(h).float()
+        with span("model"):
+            with span("embed"):
+                h = self.backbone.embed_drop(self.embeddings(input_ids))
+            h = self.backbone.run_blocks(h)
+            with span("head") as s:
+                h = self.backbone.ln_f(s.inputs(h))
+                return s.outputs(self.embeddings.attend(h).float())

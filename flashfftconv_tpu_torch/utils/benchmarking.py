@@ -20,13 +20,17 @@ card by its name.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+import os
 import tempfile
 import time
 from pathlib import Path
 from typing import Callable
 
 import torch
+
+from flashfftconv_tpu_torch.utils import tracing
 
 
 def _device(device) -> torch.device:
@@ -163,7 +167,12 @@ def profile_trace(logdir: str | None = None, device="cuda"):
     """torch.profiler over the block (the card's kernels too on CUDA),
     exported as a Chrome trace to ``logdir/trace.json`` (a new temporary
     directory when none is given). Yields the profiler; ``key_averages()``
-    gives device time by kernel."""
+    gives device time by kernel.
+
+    The program's own tracing (``utils.tracing``) is on for the block: its
+    spans join the trace as complete events of category ``program_span`` on
+    the threads that ran them, and each unit's ``device_allocs`` as a
+    counter event at the end of its root span, on the profiler's clock."""
     from torch.profiler import ProfilerActivity, profile
 
     device = _device(device)
@@ -173,10 +182,39 @@ def profile_trace(logdir: str | None = None, device="cuda"):
     logdir = Path(logdir or tempfile.mkdtemp(prefix="torch-trace-"))
     logdir.mkdir(parents=True, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield prof
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    prof.export_chrome_trace(str(logdir / "trace.json"))
+        tracing.enable()
+        try:
+            yield prof
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        finally:
+            tracing.disable()
+    path = logdir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    _add_program_spans(path, tracing.collect())
+
+
+def _add_program_spans(path: Path, rec: dict) -> None:
+    """Write ``tracing.collect()``'s spans and counters into the Chrome trace
+    at ``path``; its times are microseconds after ``baseTimeNanoseconds``."""
+    trace = json.loads(path.read_text())
+    base, pid = trace.get("baseTimeNanoseconds", 0), os.getpid()
+    events = trace.setdefault("traceEvents", [])
+    ends = {}
+    for s in rec["spans"]:
+        if s["end_ns"] is None:
+            continue
+        ends[s["id"]] = s["end_ns"]
+        events.append({"ph": "X", "cat": "program_span", "name": s["name"], "pid": pid,
+                       "tid": s["thread"], "ts": (s["start_ns"] - base) / 1e3,
+                       "dur": (s["end_ns"] - s["start_ns"]) / 1e3,
+                       "args": {"id": s["id"], "parent": s["parent"], "unit": s["unit"],
+                                **s.get("attrs", {})}})
+    for unit, counters in rec["counters"].items():
+        if unit in ends:
+            events.append({"ph": "C", "cat": "program_counter", "name": "program counters",
+                           "pid": pid, "ts": (ends[unit] - base) / 1e3, "args": counters})
+    path.write_text(json.dumps(trace))
 
 
 # --- FLOP models --------------------------------------------------------------

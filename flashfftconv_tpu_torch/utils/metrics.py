@@ -12,6 +12,8 @@ import time
 import torch
 from torch import nn
 
+from flashfftconv_tpu_torch.utils.tracing import span
+
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-token NLL in f32; targets outside [0, V) (ignored tokens) read
@@ -63,7 +65,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     activation that exists anyway, and rebuilds softmax(logits) - onehot in
     one buffer inside its own backward. The gradient is exact.
     """
-    return _CrossEntropy.apply(logits, targets, ignore_index)
+    with span("loss"):
+        return _CrossEntropy.apply(logits, targets, ignore_index)
 
 
 def perplexity(logits, targets, ignore_index: int | None = None) -> torch.Tensor:

@@ -51,6 +51,7 @@ from torch import nn
 from flashfftconv_tpu_torch.parallel.seq_conv import seq_backward, seq_group
 from flashfftconv_tpu_torch.utils.metrics import accuracy, cross_entropy
 from flashfftconv_tpu_torch.utils.optim import lr_lambda, warmup_cosine_decay_schedule
+from flashfftconv_tpu_torch.utils.tracing import span
 
 
 def lm_optimizer(model: nn.Module, lr: float = 3e-4, weight_decay: float = 0.1,
@@ -117,25 +118,33 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     dp = _DataParallel.build(model, optimizer, mesh, grad_shardings, opt_shardings)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict[str, torch.Tensor]:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(x), y)
-        loss, metrics = loss if isinstance(loss, tuple) else (loss, {})
-        if group is None:
-            loss.backward()
-        else:
-            loss = seq_backward(model, loss, y.numel(), group)
-        if dp is None:
-            grad_norm = clip_grad_norm([([p for p in model.parameters() if p.grad is not None],
-                                         ())], clip)
-        else:
-            loss = dp.average(loss.detach())
-            grad_norm = dp.reduce_and_clip(clip)
-        optimizer.step()
-        if dp is not None:
-            dp.gather_params()
-        if scheduler is not None:
-            scheduler.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
+        with span("step"):
+            with span("step.update"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("step.forward"):
+                loss = loss_fn(model(x), y)
+                loss, metrics = loss if isinstance(loss, tuple) else (loss, {})
+            with span("step.backward"):
+                if group is None:
+                    loss.backward()
+                else:
+                    loss = seq_backward(model, loss, y.numel(), group)
+            with span("step.update"):
+                with span("step.clip"):
+                    if dp is None:
+                        grad_norm = clip_grad_norm(
+                            [([p for p in model.parameters() if p.grad is not None], ())], clip)
+                    else:
+                        loss = dp.average(loss.detach())
+                        grad_norm = dp.reduce_and_clip(clip)
+                with span("step.optimizer"):
+                    optimizer.step()
+                    if dp is not None:
+                        dp.gather_params()
+                with span("step.schedule"):
+                    if scheduler is not None:
+                        scheduler.step()
+            return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
 
     return step
 

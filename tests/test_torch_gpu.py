@@ -1711,3 +1711,52 @@ def test_cuda_moe_lm_matches_cpu():
                                     generator=torch.Generator().manual_seed(10)),
         (ids[:, :-1],), lambda y, dev: cross_entropy(y, ids[:, 1:].to(dev)))
     assert monarch_cuda.monarch_conv.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_traced_step_ties_device_time_to_program_spans(remat):
+    """One bf16 Hyena LM train step (l_max 1024, B=2) under torch.profiler's
+    CUDA activity alone with the program's tracing on: at least 99% of its
+    device time was launched inside a program span of the step, by the
+    launch event's time on the profiler's clock; the backward's spans ran
+    on autograd's device thread, and with ``remat`` the recomputed ones
+    carry ``recompute``. The caching allocator's counter is a count."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashfftconv_tpu_torch.models.lm import ConvLMHeadModel
+    from flashfftconv_tpu_torch.utils import tracing
+    from flashfftconv_tpu_torch.utils.train import lm_optimizer, make_train_step
+
+    model = ConvLMHeadModel(d_model=64, n_layer=2, d_inner=128, vocab_size=64, l_max=1024,
+                            remat=remat, device="cuda",
+                            generator=torch.Generator().manual_seed(11))
+    step = make_train_step(model, *lm_optimizer(model, warmup=2, steps=10))
+    ids = torch.randint(0, 64, (2, 1025), device="cuda")
+    step(ids[:, :-1], ids[:, 1:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracing.enable()
+        try:
+            step(ids[:, :-1], ids[:, 1:])
+            torch.cuda.synchronize()
+        finally:
+            tracing.disable()
+    rec = tracing.collect()
+    (root,) = [s for s in rec["spans"] if s["parent"] is None]
+    launches, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            kernels.append(e)
+        elif e.name().startswith("cu"):
+            launches[e.correlation_id()] = e.start_ns()
+    total = sum(e.duration_ns() for e in kernels)
+    inside = sum(e.duration_ns() for e in kernels
+                 if root["start_ns"] <= launches.get(e.correlation_id(), -1) <= root["end_ns"])
+    assert total > 0 and inside >= 0.99 * total, (inside, total)
+    bwd = [s for s in rec["spans"] if s["name"].endswith(".bwd")]
+    assert bwd and all(s["thread"] != root["thread"] for s in bwd)
+    again = [s for s in rec["spans"] if s.get("attrs", {}).get("recompute")]
+    assert (len(again) > 0) == remat
+    assert isinstance(rec["counters"][root["id"]]["device_allocs"], int)

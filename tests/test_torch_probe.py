@@ -9,9 +9,12 @@ and read back; one multiply by 1.0001) and hold the port's plain versions
 to them, bit for bit. The sweep's logic runs against a stub launcher that
 refuses sizes above a set limit. The FLOP models are held to the JAX
 package's formulas for the same arguments, exactly; the timers run with
-``device="cpu"`` (host clock) and the memory probe reports NaN there.
+``device="cpu"`` (host clock) and the memory probe reports NaN there;
+``profile_trace`` writes the program's spans into its Chrome trace.
 """
 
+import json
+import threading
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ import torch
 from flashfftconv_tpu.utils import benchmarking as jbench
 from flashfftconv_tpu_torch.utils import benchmarking as bench
 from flashfftconv_tpu_torch.utils import smem_probe as sp
+from flashfftconv_tpu_torch.utils import tracing
 
 # The test workers share the machine's cores: one torch thread each.
 torch.set_num_threads(1)
@@ -268,9 +272,19 @@ def test_timers_and_memory_on_the_cpu(tmp_path):
     assert bench.flops_estimate(lambda a, b: a @ b, torch.randn(8, 16), torch.randn(16, 4)) == \
         2 * 8 * 16 * 4
     with bench.profile_trace(str(tmp_path / "trace"), device=CPU) as prof:
-        f(x, w)
+        with tracing.span("model"):
+            f(x, w)
     assert (tmp_path / "trace" / "trace.json").exists()
     assert len(prof.key_averages()) > 0
+    # the program's span over the kernels, on the trace's own clock
+    with tracing.span("after"):  # tracing is off again after the block
+        pass
+    assert tracing.collect() == {"spans": [], "counters": {}}
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert [e["name"] for e in spans] == ["model"] and spans[0]["tid"] == threading.get_native_id()
+    assert spans[0]["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= spans[0]["ts"] + spans[0]["dur"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.benchmark_forward(f, x, w)
