@@ -72,6 +72,56 @@ class ShortDepthwiseConv(nn.Module):
         return y + F.pad(corr.to(y.dtype), (0, y.shape[-1] - (k - 1)))
 
 
+def _bmm_f32(a, b):
+    """``a @ b`` batched, accumulated and returned in f32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _InProjection(torch.autograd.Function):
+    """``x[b] = w @ u[b].T`` from a (B, L, D) ``u`` with unit stride along D,
+    as a contiguous (B, inner, L) ``x``. cuBLAS reads ``u`` transposed by its
+    flags, so neither direction copies an operand or a result: ``du`` comes
+    back as a contiguous (B, L, D) and ``dw`` as one sum in f32, rounded once
+    to ``w``'s dtype. (``torch.matmul`` of a weight that needs a gradient
+    against the (B, D, L) view folds into one (B*L, inner) ``mm`` and clones
+    its transpose; its backward copies the gradient again at B > 1.)"""
+
+    @staticmethod
+    def forward(ctx, u, w):
+        ctx.save_for_backward(u, w)
+        return torch.bmm(w.expand(len(u), *w.shape), u.mT)
+
+    @staticmethod
+    def backward(ctx, dx):
+        u, w = ctx.saved_tensors
+        du = dw = None
+        if ctx.needs_input_grad[0]:
+            du = torch.bmm(dx.mT, w.expand(len(dx), *w.shape))
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(dx[0], u[0]) if len(dx) == 1 else _bmm_f32(dx, u).sum(0).to(w.dtype)
+        return du, dw
+
+
+def in_projection(u, w, bias=None):
+    """(B, D, L) -> (B, inner, L): ``w @ u[b]`` (plus ``bias``), written
+    straight from the GEMM. ``u`` is the transposed view of a (B, L, D)
+    activation (or an L-slice of it); where D is not its unit-stride axis,
+    one copy of ``u`` makes it so, counted by ``in_projection.fallbacks``."""
+    u = u.mT
+    if u.stride(-1) != 1:
+        in_projection.fallbacks += 1
+        u = u.contiguous()
+    x = _InProjection.apply(u, w)
+    if bias is not None:
+        x = x + bias.to(x.dtype)[None, :, None]
+    return x
+
+
+in_projection.fallbacks = 0
+
+
 class HyenaOperator(nn.Module):
     """Hyena recurrence of depth ``order``; forward maps (B, L, D) -> (B, L, D).
 
@@ -138,10 +188,7 @@ class HyenaOperator(nn.Module):
                          dim=1)
 
     def _in_proj(self, u):  # (B, D, L) -> (B, inner, L)
-        x = torch.matmul(self.in_proj.to(u.dtype), u)
-        if self.in_proj_b is not None:
-            x = x + self.in_proj_b.to(x.dtype)[None, :, None]
-        return x
+        return in_projection(u, self.in_proj.to(u.dtype), self.in_proj_b)
 
     def _seg_a(self, carry, u_c):
         """One L-chunk of in-projection -> short filter: the new carry (the

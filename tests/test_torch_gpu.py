@@ -162,6 +162,84 @@ def test_cuda_hyena_operator_matches_cpu():
     assert err <= ULP[torch.float32] * float(ref.abs().max()) + 16 * 2.0**-23 * x_max, err
 
 
+def _in_proj_copies(b, dev):
+    """The copy ops (name, input shapes) that start inside ``mixer.in_proj``
+    or its ``.bwd`` in one bf16 ``HyenaOperator`` forward and backward at
+    batch ``b``, under torch.profiler with the program's tracing on; the
+    operator's in-projection weight shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashfftconv_tpu_torch.utils import tracing
+
+    op = HyenaOperator(64, 512, device=dev, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    u = torch.randn(b, 500, 64, generator=g).to(dev, torch.bfloat16).requires_grad_()
+    dy = torch.randn(b, 500, 64, generator=g).to(dev, torch.bfloat16)
+    op(u).backward(dy)  # builds the kernels
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        tracing.enable()
+        try:
+            op(u).backward(dy)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            tracing.disable()
+    sites = [s for s in tracing.collect()["spans"]
+             if s["name"] in ("mixer.in_proj", "mixer.in_proj.bwd")]
+    assert sorted(s["name"] for s in sites) == ["mixer.in_proj", "mixer.in_proj.bwd"]
+    copies = [(e.name(), e.shapes()) for e in prof.profiler.kineto_results.events()
+              if e.name() in ("aten::clone", "aten::contiguous", "aten::copy_")
+              and any(s["start_ns"] <= e.start_ns() <= s["end_ns"] for s in sites)]
+    return copies, list(op.in_proj.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+def test_cuda_in_projection_copies_nothing_of_its_size(b):
+    """HyenaOperator's in-projection in training, on the card. In bf16,
+    inside the ``mixer.in_proj`` span and its ``.bwd``, no ``aten::clone``
+    or ``aten::contiguous`` runs, and every ``aten::copy_`` is of the
+    weight's shape: its cast to bf16, its gradient's cast back to f32 and,
+    at B > 1, dw's one rounding from f32. The cast's presence shows that the
+    profile and the spans line up. No ``in_projection`` fallback copy. In
+    f32 with grads on (the autograd path, not ``inference_mode``'s), the
+    output is within test_cuda_hyena_operator_matches_cpu's tolerance of the
+    CPU's, and the input's and the weight's gradients within 1e-4 of their
+    largest |value| (the output's tolerance there is about 1e-4 of it)."""
+    _needs_card()
+    from flashfftconv_tpu_torch.models import hyena
+
+    n0 = hyena.in_projection.fallbacks
+    copies, w_shape = _in_proj_copies(b, "cuda")
+    assert hyena.in_projection.fallbacks == n0
+    assert copies and all(n == "aten::copy_" and all(s in ([], w_shape) for s in shapes)
+                          for n, shapes in copies), copies
+
+    ops = {dev: HyenaOperator(64, 512, conv_dtype=torch.float32, device=dev,
+                              generator=torch.Generator().manual_seed(0)) for dev in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(2)
+    u = torch.randn(b, 500, 64, generator=g)
+    dy = torch.randn(b, 500, 64, generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        for dev, op in ops.items():
+            x = u.to(dev, copy=True).requires_grad_()
+            y = op(x)
+            y.backward(dy.to(dev))
+            res[dev] = [t.detach().cpu() for t in (y, x.grad, op.in_proj.grad)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (y, du, dw), (y_ref, du_ref, dw_ref) = res["cuda"], res["cpu"]
+    x_max = float(torch.matmul(ops["cpu"].in_proj.detach(), u.transpose(1, 2)).abs().max())
+    err = float((y - y_ref).abs().max())
+    assert err <= ULP[torch.float32] * float(y_ref.abs().max()) + 16 * 2.0**-23 * x_max, err
+    for name, got, ref in (("du", du, du_ref), ("dw", dw, dw_ref)):
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (name, err, float(ref.abs().max()))
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_grad_and_bad_inputs():
     """Bad inputs still raise; grads now flow through the kernels (the

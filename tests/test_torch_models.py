@@ -37,6 +37,7 @@ from flashfftconv_tpu.models.lm import ConvLMHeadModel as JLM
 from flashfftconv_tpu.utils import metrics as jmetrics
 from flashfftconv_tpu.utils.generation import generate as jgenerate
 from flashfftconv_tpu_torch.models import filters as tfilters
+from flashfftconv_tpu_torch.models import hyena
 from flashfftconv_tpu_torch.models.hyena import HyenaOperator
 from flashfftconv_tpu_torch.models.lm import Block, ConvLMHeadModel
 from flashfftconv_tpu_torch.models.moe import MoEMlp
@@ -266,6 +267,52 @@ def test_hyena_operator_grads_match_flax():
     gp = jax.tree_util.tree_map(np.asarray, gp)
     _assert_grads_match(jax_weights.hyena_operator_state_dict(gp), tm)
     np.testing.assert_allclose(tu.grad.numpy(), _np(gu), atol=1e-4 * float(np.abs(_np(gu)).max()))
+
+
+_LAYOUTS = {  # the (B, D, L) operand each caller of the in-projection hands it
+    "main": lambda ut: ut,  # the transposed view of the (B, L, D) activation
+    "chunk": lambda ut: ut.chunk(4, dim=2)[1],  # a proj_l_chunks segment
+    "halo": lambda ut: ut[..., -2:],  # the sequence-parallel halo's columns
+    "strided": lambda ut: ut.contiguous(),  # D not unit-stride: the counted copy
+}
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+def test_in_projection_matches_matmul(b, dtype, bias, layout):
+    """``hyena.in_projection`` against ``torch.matmul(w, u)`` (plus the
+    bias) on each caller's layout: the output, du, dw (through the f32
+    master weight's ``.to``) and db within one ulp of the largest |value|
+    (bf16 2^-7, f32 2e-5: both sides accumulate in f32 and round once, in
+    their own orders); the output a contiguous (B, inner, L), du a
+    contiguous (B, L, D); ``fallbacks`` counts the one copy of a ``u``
+    whose D is not unit-stride, and nothing else."""
+    g = torch.Generator().manual_seed(b)
+    w = torch.randn(24, 8, generator=g).requires_grad_()
+    bvec = torch.randn(24, generator=g).requires_grad_() if bias else None
+    u = torch.randn(b, 64, 8, generator=g).to(dtype).requires_grad_()
+    ut = _LAYOUTS[layout](u.transpose(1, 2))
+    n0 = hyena.in_projection.fallbacks
+    x = hyena.in_projection(ut, w.to(dtype), bvec)
+    assert hyena.in_projection.fallbacks - n0 == (layout == "strided")
+    ref = torch.matmul(w.to(dtype), ut)
+    if bias:
+        ref = ref + bvec.to(dtype)[None, :, None]
+    assert x.shape == ref.shape == (b, 24, ut.shape[-1]) and x.dtype == dtype
+    assert x.is_contiguous()
+    dx = torch.randn(x.shape, generator=g).to(dtype)
+    leaves = [ut, w] + ([bvec] if bias else [])
+    got = torch.autograd.grad(x, leaves, dx, retain_graph=True)
+    want = torch.autograd.grad(ref, leaves, dx)
+    assert got[0].mT.is_contiguous()
+    ulp = {torch.float32: 2e-5, torch.bfloat16: 2.0**-7}[dtype]
+    for name, a, r in zip(("x", "du", "dw", "db"), (x, *got), (ref, *want)):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        a, r = a.detach().float(), r.detach().float()
+        err = float((a - r).abs().max())
+        assert err <= ulp * float(r.abs().max()), (name, err)
 
 
 def test_lm_grads_match_flax():
